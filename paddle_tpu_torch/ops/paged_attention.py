@@ -1,0 +1,168 @@
+"""Paged decode attention (K3): the wrapper of the hand-written CUDA
+kernel ``csrc/paged_decode.cu`` and its plain PyTorch version.
+
+It replaces ``paddle_tpu/ops/pallas_paged_attention.py::
+paged_flash_decode`` (the Pallas TPU kernel) for full-precision pools:
+single-token attention per slot over the live positions
+``< max(len, 1)`` of its pages, GQA (``H % KVH == 0``), online softmax
+with fp32 statistics, output ``acc / max(l, 1e-30)`` in q's dtype. What
+bounds it on the H100 (device-memory bytes) and how the kernel is laid
+out is written at the top of the CUDA source.
+
+:func:`paged_decode_attention` takes the plain version only for tensors
+that lie on the CPU. For CUDA tensors it checks what the kernel takes
+and launches it on the current stream, or raises: there is no fallback.
+``launches`` counts kernel launches (and nothing else), so a run can
+show that its decode steps went through the kernel.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
+           "launches", "MAX_HEAD_DIM", "NEG_INF"]
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+_SMEM_LIMIT = 232448        # bytes of shared memory one H100 block may use
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+
+def _check_shapes(q, k_pool, v_pool, page_table, lengths):
+    if q.dim() != 3 or k_pool.dim() != 4 or page_table.dim() != 2:
+        raise ValueError(
+            "paged decode attention takes q [S, H, D], pools [P+1, page, "
+            "KVH, D] and page_table [S, MP] (got %s, %s, %s)"
+            % (tuple(q.shape), tuple(k_pool.shape), tuple(page_table.shape)))
+    if tuple(v_pool.shape) != tuple(k_pool.shape):
+        raise ValueError("k_pool %s and v_pool %s differ in shape"
+                         % (tuple(k_pool.shape), tuple(v_pool.shape)))
+    S, H, D = q.shape
+    if k_pool.shape[3] != D:
+        raise ValueError("pool head_dim %d != q head_dim %d"
+                         % (k_pool.shape[3], D))
+    if H % k_pool.shape[2]:
+        raise ValueError("heads %d not divisible by kv_heads %d"
+                         % (H, k_pool.shape[2]))
+    if page_table.shape[0] != S or lengths.numel() != S:
+        raise ValueError("page_table %s / lengths %s do not match %d slots"
+                         % (tuple(page_table.shape), tuple(lengths.shape),
+                            S))
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                                 scale=None):
+    """The kernel's function in plain PyTorch: gather each slot's pages,
+    mask positions ``>= max(len, 1)``, softmax and weighted sum in fp32,
+    cast to q's dtype. Used for CPU tensors and as the reference the
+    kernel is held against on the card."""
+    S, H, D = q.shape
+    _, page, KVH, _ = k_pool.shape
+    MP = page_table.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / float(np.sqrt(D))
+    n = lengths.reshape(-1).long().clamp(min=1, max=MP * page)
+    idx = page_table.long()
+    kc = k_pool[idx].reshape(S, MP * page, KVH, D).float()
+    vc = v_pool[idx].reshape(S, MP * page, KVH, D).float()
+    qg = q.float().reshape(S, KVH, H // KVH, D)
+    logits = torch.einsum("skgd,stkd->skgt", qg, kc) * scale
+    valid = torch.arange(MP * page, device=q.device)[None, :] < n[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("skgt,stkd->skgd", probs, vc)
+    return out.reshape(S, H, D).to(q.dtype)
+
+
+def _bind():
+    from .. import _build
+    lib = _build.load("paged_decode")
+    if not getattr(lib, "_bound", False):
+        lib.paddle_paged_decode.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
+            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.paddle_paged_decode.restype = ctypes.c_int
+        lib.paddle_paged_decode_smem_bytes.argtypes = [ctypes.c_int,
+                                                       ctypes.c_int]
+        lib.paddle_paged_decode_smem_bytes.restype = ctypes.c_size_t
+        lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+        lib._bound = True
+    return lib
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
+                           scale=None):
+    """Single-token attention against a paged KV pool (K3).
+
+      q:          [slots, heads, head_dim]  (this step's token)
+      k/v pools:  [num_pages + 1, page_size, kv_heads, head_dim]
+      page_table: [slots, max_pages] int32 page ids in sequence order
+      lengths:    [slots] int32; positions < max(length, 1) are live and
+                  the current token's K/V is already written
+
+    CPU tensors take :func:`paged_decode_attention_plain`. CUDA tensors
+    launch the kernel; anything it does not take (other dtypes,
+    quantized pools, head_dim > 256, non-contiguous inputs, mixed
+    devices) raises."""
+    global launches
+    _check_shapes(q, k_pool, v_pool, page_table, lengths)
+    devices = {t.device for t in (q, k_pool, v_pool, page_table, lengths)}
+    if len(devices) != 1:
+        raise ValueError("paged decode attention inputs span devices %s"
+                         % sorted(str(d) for d in devices))
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
+                                            lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError("paged decode attention runs on cpu or cuda "
+                         "tensors (got %s)" % q.device)
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or \
+            v_pool.dtype != q.dtype:
+        raise TypeError(
+            "the paged decode kernel takes float32 or bfloat16 q and pools "
+            "of q's dtype (got q %s, pools %s/%s); quantized pools are not "
+            "ported yet" % (q.dtype, k_pool.dtype, v_pool.dtype))
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_table and lengths must be int32 (got %s, %s)"
+                        % (page_table.dtype, lengths.dtype))
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    S, H, D = q.shape
+    _, page, KVH, _ = k_pool.shape
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError("the paged decode kernel supports head_dim <= %d "
+                         "and a multiple of 8 (got %d)" % (MAX_HEAD_DIM, D))
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError("%s must be 16-byte aligned (vector loads)"
+                             % name)
+    lib = _bind()
+    smem = lib.paddle_paged_decode_smem_bytes(H // KVH, D)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            "group %d x head_dim %d needs %d bytes of shared memory per "
+            "block (limit %d)" % (H // KVH, D, smem, _SMEM_LIMIT))
+    out = torch.empty_like(q)
+    if S == 0:
+        return out
+    scale = float(scale) if scale is not None else 1.0 / float(np.sqrt(D))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paddle_paged_decode(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            S, H, KVH, D, page, page_table.shape[1], k_pool.shape[0],
+            scale, _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError("paged decode kernel launch failed: CUDA error "
+                           "%d (%s)" % (err, lib.paddle_cuda_error_string(
+                               err).decode()))
+    launches += 1
+    return out

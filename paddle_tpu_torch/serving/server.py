@@ -1,0 +1,208 @@
+"""Stdlib HTTP frontend of the port's generation serving — the
+``/v1/generate`` half of ``paddle_tpu/serving/server.py``:
+
+  POST /v1/generate {"prompt": [ids], "max_new_tokens": n,
+                   "temperature": t} →
+                   {"tokens": [...], "finish_reason": "eos"|"length",
+                   "n_prompt": n, "latency_ms": t, "request_id": id,
+                   "slo": {ttft_ms, tpot_ms, decode_steps, ...}}
+                   400 bad body, or a request that can never fit the pool
+                   503 + Retry-After when the admission queue is full
+                   504 when the request's X-Deadline-Ms budget expires
+  GET  /healthz    200 {"status": "ok"} while serving, 503 "draining"
+                   after shutdown began
+  GET  /metrics    Prometheus text (counters, live slot / page gauges,
+                   p50/p95/p99)
+
+Every POST ingests ``X-Trace-Id`` / ``X-Request-Id`` (minting a context
+when absent) and echoes the ids on every response, errors included,
+plus ``X-Trace-Summary`` (the per-request summary) on success.
+``/v1/infer``, ``/v1/prefill`` and ``/trace`` are not ported yet.
+"""
+
+import json
+import math
+import sys
+import time
+
+import numpy as np
+
+from ..observability import tracing
+from ..observability.http import BackgroundHTTPServer, JsonHTTPHandler
+from .batcher import DeadlineExceededError, OverloadedError, \
+    ServingClosedError
+from .metrics import render_prometheus
+
+__all__ = ["ServingServer", "make_server", "summary_header",
+           "parse_deadline_header"]
+
+
+def summary_header(summary):
+    """Compact ``k=v;k2=v2`` form of a summary for ``X-Trace-Summary``."""
+    if not summary:
+        return None
+    return ";".join("%s=%s" % (k, summary[k]) for k in sorted(summary))
+
+
+def parse_deadline_header(raw):
+    """``X-Deadline-Ms`` value → remaining-budget milliseconds (>= 0), or
+    None when absent, malformed or non-finite (a broken client gets
+    service, not a parse error)."""
+    if raw is None:
+        return None
+    try:
+        v = float(raw)
+    except (TypeError, ValueError):
+        return None
+    if not math.isfinite(v):
+        return None
+    return max(0.0, v)
+
+
+class _Handler(JsonHTTPHandler):
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            if self.server.draining:
+                self._send_json(503, {"status": "draining", "ready": False})
+            else:
+                self._send_json(200, {"status": "ok", "ready": True})
+        elif self.path == "/metrics":
+            gen = self.server.generator
+            gauges = {"generation_active_slots": gen.active_slots(),
+                      "generation_held_requests": gen.held_depth()}
+            st = gen.engine.page_stats()
+            for k in ("kv_pages_in_use", "kv_pages_total",
+                      "kv_pool_effective_capacity"):
+                gauges[k] = st[k]
+            self._send(200, render_prometheus(gauges=gauges),
+                       content_type="text/plain; version=0.0.4")
+        else:
+            self._send_json(404, {"error": "unknown path %s" % self.path})
+
+    def do_POST(self):
+        ctx = tracing.from_headers(self.headers) or tracing.make_context()
+        if self.path != "/v1/generate":
+            self._reply(ctx, 404, {"error": "unknown path %s" % self.path})
+            return
+        t0 = time.perf_counter()
+        status = 500
+        try:
+            status = self._handle_generate(ctx, t0)
+        finally:
+            tracing.span_from(t0, "http.request", ctx=ctx, path=self.path,
+                              status=status)
+
+    def _reply(self, ctx, code, obj, extra_headers=None):
+        """JSON reply with the trace ids echoed (errors too)."""
+        headers = dict(ctx.headers())
+        if extra_headers:
+            headers.update(extra_headers)
+        if code >= 400 and isinstance(obj, dict):
+            obj.setdefault("request_id", ctx.request_id)
+        self._send_json(code, obj, extra_headers=headers)
+        return code
+
+    def _handle_generate(self, ctx, t0):
+        deadline_ms = parse_deadline_header(
+            self.headers.get("X-Deadline-Ms"))
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            prompt = payload["prompt"]
+            # bool is an int subclass: [true, false] must be a 400
+            if not isinstance(prompt, list) or not prompt or \
+                    not all(isinstance(t, int) and not isinstance(t, bool)
+                            for t in prompt):
+                raise ValueError(
+                    "'prompt' must be a non-empty list of token ids")
+            max_new = payload.get("max_new_tokens")
+            if max_new is not None:
+                max_new = int(max_new)
+            temperature = float(payload.get("temperature", 0.0))
+        except (ValueError, KeyError, TypeError) as e:
+            return self._reply(ctx, 400, {"error": "bad request body: %s"
+                                          % e})
+        wait_s = self.server.request_timeout
+        if deadline_ms is not None:
+            wait_s = min(wait_s, deadline_ms / 1e3 + 0.5)
+        try:
+            pending = self.server.generator.submit(
+                np.asarray(prompt, np.int32), max_new_tokens=max_new,
+                temperature=temperature, trace=ctx, deadline_ms=deadline_ms)
+            result = pending.wait(wait_s)
+        except OverloadedError as e:
+            # RFC 9110 delta-seconds is a non-negative integer: round the
+            # drain-rate hint up, never below 1 s
+            ra = getattr(e, "retry_after", None)
+            return self._reply(ctx, 503, {"error": str(e)}, extra_headers={
+                "Retry-After": "1" if ra is None
+                else "%d" % max(1, math.ceil(ra))})
+        except ServingClosedError as e:
+            return self._reply(ctx, 503, {"error": str(e)})
+        except DeadlineExceededError as e:
+            tracing.record("http.error", ctx=ctx, path=self.path,
+                           status=504, error="DeadlineExceededError: %s" % e)
+            return self._reply(ctx, 504, {"error": str(e),
+                                          "deadline_exceeded": True})
+        except ValueError as e:
+            return self._reply(ctx, 400, {"error": str(e)})
+        except TimeoutError as e:
+            tracing.record("http.error", ctx=ctx, path=self.path,
+                           status=504, error="TimeoutError: %s" % e)
+            return self._reply(ctx, 504, {"error": str(e)})
+        except Exception as e:
+            tracing.record("http.error", ctx=ctx, path=self.path,
+                           status=500,
+                           error="%s: %s" % (type(e).__name__, e))
+            return self._reply(ctx, 500, {"error": "%s: %s"
+                                          % (type(e).__name__, e)})
+        extra = {}
+        hdr = summary_header(pending.summary)
+        if hdr:
+            extra["X-Trace-Summary"] = hdr
+        result = dict(result)
+        result["request_id"] = ctx.request_id
+        result["latency_ms"] = (time.perf_counter() - t0) * 1e3
+        return self._reply(ctx, 200, result, extra_headers=extra)
+
+
+class ServingServer(BackgroundHTTPServer):
+    """BackgroundHTTPServer + the generation wiring (scheduler handle,
+    drain flag, per-request timeout)."""
+
+    def __init__(self, addr, generator, request_timeout=60.0,
+                 verbose=False):
+        if generator is None:
+            raise ValueError("ServingServer needs a generation scheduler")
+        BackgroundHTTPServer.__init__(self, addr, _Handler, verbose=verbose)
+        self.generator = generator
+        self.request_timeout = request_timeout
+        self.draining = False
+
+    def start_background(self, name="serving-http"):
+        return BackgroundHTTPServer.start_background(self, name=name)
+
+    def shutdown_gracefully(self, timeout=None):
+        """Flip /healthz to draining, drain the scheduler (queued and
+        in-flight requests still complete), stop the listener. Returns
+        ``{"drained": bool, "residue": {...}}``."""
+        self.draining = True
+        result = {"drained": True, "residue": {}}
+        if not self.generator.close(timeout):
+            result["drained"] = False
+            result["residue"]["generator"] = self.generator.residue()
+        self.stop(timeout)
+        if not result["drained"]:
+            sys.stderr.write("serving: drain timed out with work in "
+                             "flight: %s\n" % json.dumps(result["residue"]))
+        return result
+
+
+def make_server(generator, host="127.0.0.1", port=0, request_timeout=60.0,
+                verbose=False):
+    """Bind a :class:`ServingServer` for ``generator`` (a
+    ``GenerationScheduler``); ``port=0`` picks a free port
+    (``server.server_address`` has the final one)."""
+    return ServingServer((host, port), generator,
+                         request_timeout=request_timeout, verbose=verbose)
