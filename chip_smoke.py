@@ -22,8 +22,10 @@ raises on failure (the script then exits non-zero and prints no result):
    ``full_recompute_generate`` on the card; bf16 responses must be well
    formed and the bf16 first-step logits must match the fp32 twin's.
    The K3 launch count must equal decode steps × layers. Prints TTFT
-   p50/p99 and decode tokens/s, then K3's time at the main path's
-   heaviest captured step beside its bound, the plain version and
+   p50/p99 and decode tokens/s. Then, outside the served window, a
+   decode-step profile with all 32 slots busy, and K3 at that step's
+   layer-0 inputs: held against the plain version (it fails past the
+   stated tolerance) and timed beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` over the same tokens (a yardstick
    only: the port never calls it).
 
@@ -58,8 +60,12 @@ DEVICE = "cuda"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-FP32_TOL = dict(atol=1e-5, rtol=1e-5)   # summation order only
-BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # one bf16 rounding of the output
+# Kernel and plain version both compute in fp32 and round once to q's
+# dtype, so they differ by summation order only: ~1e-7 relative in fp32,
+# and in bf16 at most one unit in the last place of the output (<= 2^-7
+# relative) where the fp32 values straddle a rounding boundary.
+FP32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 BF16_LOGIT_REL_L2 = 5e-2       # bf16 vs fp32 twin, first-step logits
 
 K3 = {"name": "paged_decode_attention", "route": "cuda",
@@ -107,6 +113,8 @@ def build():
 # -- phase 3 ---------------------------------------------------------------
 
 def _pool_case(rng, S, MP, page, H, KVH, D, dtype, lengths):
+    """Pools of S * MP pages plus the scratch row: at S=SLOTS and
+    MP=MAX_LEN/PAGE that is the engine's auto-sized pool."""
     import torch
     P = S * MP
     kp = torch.from_numpy(rng.randn(P + 1, page, KVH, D).astype(np.float32))
@@ -118,35 +126,45 @@ def _pool_case(rng, S, MP, page, H, KVH, D, dtype, lengths):
                                pt, ln)]
 
 
+def _against_plain(got, ref):
+    """(max |err|, ok) of a kernel result against its plain version,
+    elementwise within the tolerance of the result's dtype."""
+    import torch
+    tol = BF16_TOL if got.dtype == torch.bfloat16 else FP32_TOL
+    err = (got.float() - ref.float()).abs()
+    lim = tol["atol"] + tol["rtol"] * ref.float().abs()
+    ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
+    return float(err.max()), ok
+
+
 def kernel_checks():
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
     rng = np.random.RandomState(SEED)
-    # (H, KVH, D, page, MP): the serving geometry, then the tuning grid
-    # of tests/serving/test_paged_generation.py
-    geoms = [(HEADS, HEADS, DIM // HEADS, PAGE, MAX_LEN // PAGE),
-             (4, 4, 32, 8, 6), (4, 2, 64, 16, 6), (8, 2, 128, 16, 6),
-             (4, 2, 192, 8, 6), (4, 1, 256, 8, 6)]
+    # (S, H, KVH, D, page, MP): the serving geometry at the engine's slot
+    # count and pool size, then the tuning grid of
+    # tests/serving/test_paged_generation.py
+    geoms = [(SLOTS, HEADS, HEADS, DIM // HEADS, PAGE, MAX_LEN // PAGE),
+             (4, 4, 4, 32, 8, 6), (4, 4, 2, 64, 16, 6), (4, 8, 2, 128, 16, 6),
+             (4, 4, 2, 192, 8, 6), (4, 4, 1, 256, 8, 6)]
     rows = []
-    for H, KVH, D, page, MP in geoms:
-        lengths = [0, 1, 2 * page + 3, MP * page]
-        for dtype, tol in ((torch.float32, FP32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
-            args = _pool_case(rng, len(lengths), MP, page, H, KVH, D, dtype,
-                              lengths)
+    for S, H, KVH, D, page, MP in geoms:
+        # 0 (one live position), 1, a mid-page frontier, the full window,
+        # then seeded lengths for the remaining slots
+        lengths = [0, 1, 2 * page + 3, MP * page] + [
+            int(n) for n in rng.randint(1, MP * page + 1, size=S - 4)]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _pool_case(rng, S, MP, page, H, KVH, D, dtype, lengths)
             got = pa.paged_decode_attention(*args)
             _sync()
-            ref = pa.paged_decode_attention_plain(*args)
-            err = (got.float() - ref.float()).abs()
-            lim = tol["atol"] + tol["rtol"] * ref.float().abs()
-            ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
-            rows.append({"geometry": [H, KVH, D, page, MP],
+            err, ok = _against_plain(got,
+                                     pa.paged_decode_attention_plain(*args))
+            rows.append({"geometry": [S, H, KVH, D, page, MP],
                          "dtype": str(dtype).split(".")[-1],
-                         "lengths": lengths,
-                         "max_abs_err": float(err.max()), "ok": ok})
-            log("  K3 H=%d KVH=%d D=%d page=%d %s: max|err| %.3g %s"
-                % (H, KVH, D, page, rows[-1]["dtype"], err.max(),
-                   "ok" if ok else "FAIL"))
+                         "lengths": lengths, "max_abs_err": err, "ok": ok})
+            log("  K3 S=%d H=%d KVH=%d D=%d page=%d pool=%d %s: max|err| "
+                "%.3g %s" % (S, H, KVH, D, page, S * MP + 1,
+                             rows[-1]["dtype"], err, "ok" if ok else "FAIL"))
     # what the kernel does not take must raise, never fall back
     q, kp, vp, pt, ln = _pool_case(rng, 2, 2, 8, 2, 2, 8, torch.float32,
                                    [3, 5])
@@ -186,18 +204,16 @@ def _post(url, body):
         return json.loads(r.read())
 
 
-def serve_run(model_dir, prompts, budgets, capture=None):
+def serve_run(model_dir, prompts, budgets):
     """Serve ``model_dir`` through the port's entry points and send every
     request concurrently; returns the responses, wall seconds, decode
     steps and K3 launches of this run."""
-    import torch
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.observability import catalog
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.serving import (GenerationScheduler,
                                           PagedDecodeEngine, load_decoder,
                                           make_server)
-    from paddle_tpu_torch.serving import generation as gen_mod
 
     model, params = load_decoder(model_dir, device=DEVICE)
     engine = PagedDecodeEngine(model, params, max_slots=SLOTS,
@@ -207,16 +223,6 @@ def serve_run(model_dir, prompts, budgets, capture=None):
     server = make_server(sched, host="127.0.0.1", port=0,
                          request_timeout=300.0).start_background()
     url = server.url + "/v1/generate"
-    real = gen_mod.decode_paged_attention
-    if capture is not None:
-        calls = [0]
-
-        def recording(q, kp, vp, pt, lengths, **kw):
-            if calls[0] % model.n_layers == 0:   # layer 0 of each step
-                capture.append((q, kp, vp, pt, lengths))
-            calls[0] += 1
-            return real(q, kp, vp, pt, lengths, **kw)
-        gen_mod.decode_paged_attention = recording
     try:
         profiler.reset_counters()
         profiler.reset_histograms()
@@ -239,7 +245,6 @@ def serve_run(model_dir, prompts, budgets, capture=None):
                                          timeout=60).read().decode()
         health = _get_status(server.url + "/healthz")
     finally:
-        gen_mod.decode_paged_attention = real
         status = server.shutdown_gracefully(60.0)
     if not status["drained"]:
         raise RuntimeError("server did not drain: %s" % status)
@@ -295,14 +300,15 @@ def _timed(fn, args, reps, flush):
     return total / reps
 
 
-def k3_timing(capture, launches):
-    """K3 at the main path's heaviest captured decode step: time, bound,
-    plain version and the SDPA yardstick on the same tokens."""
+def k3_timing(step_args, launches):
+    """K3 at the layer-0 inputs of a decode step with every slot busy
+    (``step_profile``): checked against the plain version, then timed
+    beside its bound, the plain version and the SDPA yardstick on the
+    same tokens."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import paged_attention as pa
-    live = [int(c[4].clamp(min=1).sum()) for c in capture]
-    q, kp, vp, pt, lengths = capture[int(np.argmax(live))]
+    q, kp, vp, pt, lengths = step_args
     S, H, D = q.shape
     _, page, KVH, _ = kp.shape
     n = lengths.clamp(min=1).long()
@@ -315,9 +321,12 @@ def k3_timing(capture, launches):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     saved = pa.launches
     got = pa.paged_decode_attention(q, kp, vp, pt, lengths)
-    ref = pa.paged_decode_attention_plain(q, kp, vp, pt, lengths)
     _sync()
-    err = float((got.float() - ref.float()).abs().max())
+    err, ok = _against_plain(
+        got, pa.paged_decode_attention_plain(q, kp, vp, pt, lengths))
+    if not ok:
+        raise AssertionError("K3 disagrees with its plain version at the "
+                             "decode step's inputs: max|err| %.3g" % err)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
     ms = _timed(pa.paged_decode_attention, (q, kp, vp, pt, lengths), 200,
                 flush)
@@ -343,8 +352,8 @@ def k3_timing(capture, launches):
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms})
-    log("K3 at the heaviest step: S=%d H=%d KVH=%d D=%d page=%d %s, "
-        "%d live tokens, %.1f MB: %.4f ms (bound %.4f ms, %.1f%% of it; "
+    log("K3 at a decode step with every slot busy: S=%d H=%d KVH=%d D=%d "
+        "page=%d %s, %d live tokens, %.1f MB: %.4f ms (bound %.4f ms, %.1f%% of it; "
         "plain %.4f ms; sdpa %.4f ms); max|err| vs plain %.3g"
         % (S, H, KVH, D, page, str(q.dtype).split(".")[-1], tokens,
            nbytes / 1e6, ms, row["bound_ms"], 100 * row["bound_ms"] / ms,
@@ -355,9 +364,11 @@ def k3_timing(capture, launches):
 def step_profile(engine, prompts, steps=20):
     """Where a decode step's time goes at 32 busy slots: host wall per
     step (unprofiled), device-busy time per step and K3's share of it
-    (``torch.profiler``), and the device kernels taking the most time."""
-    import torch
+    (``torch.profiler``), and the device kernels taking the most time.
+    Also returns copies of the K3 inputs of layer 0 of one more step,
+    for ``k3_timing``."""
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import paged_attention as pa
     for i, p in enumerate(prompts[:engine.max_slots]):
         engine.prefill(i, p, max_new_tokens=2 * steps + 8)
         engine.set_input_token(i, 1)
@@ -376,6 +387,17 @@ def step_profile(engine, prompts, steps=20):
         for _ in range(steps):
             engine.decode_step()
         _sync()
+    real, captured = pa.paged_decode_attention, []
+
+    def capture(*args, **kw):
+        if not captured:
+            captured.extend(t.clone() for t in args)
+        return real(*args, **kw)
+    pa.paged_decode_attention = capture
+    try:
+        engine.decode_step()
+    finally:
+        pa.paged_decode_attention = real
     for i in range(engine.max_slots):
         if engine.active[i]:
             engine.release(i)
@@ -400,7 +422,7 @@ def step_profile(engine, prompts, steps=20):
         % (out["slots"], wall_ms, busy, 100 * (out["device_idle_share"]
                                                 or 0), k3,
            json.dumps(out["top_kernels_ms"])))
-    return out
+    return out, tuple(captured)
 
 
 def main_path(workdir):
@@ -429,8 +451,7 @@ def main_path(workdir):
     run32 = serve_run(d32, prompts, budgets)
     s32 = _serving_stats(run32)
     log("fp32 serving: %s" % json.dumps(s32))
-    capture = []
-    run16 = serve_run(d16, prompts, budgets, capture=capture)
+    run16 = serve_run(d16, prompts, budgets)
     s16 = _serving_stats(run16)
     log("bf16 serving: %s" % json.dumps(s16))
     launches = run32["launches"] + run16["launches"]
@@ -479,8 +500,8 @@ def main_path(workdir):
     if not (rel <= BF16_LOGIT_REL_L2 and torch.isfinite(l16).all()):
         raise AssertionError("bf16 logits off the fp32 twin: rel L2 %.4g"
                              % rel)
-    row, shape = k3_timing(capture, launches)
-    prof = step_profile(run16["engine"], prompts)
+    prof, step_args = step_profile(run16["engine"], prompts)
+    row, shape = k3_timing(step_args, launches)
     return {"fp32": s32, "bf16": s16, "k3": row, "k3_step": shape,
             "bf16_step_profile": prof,
             "bf16_logit_rel_l2": rel, "bf16_argmax_agree": agree}

@@ -12,10 +12,8 @@ switch that routes the card around it.
 # Serving admission (serving.batcher.resolve_serving_knobs):
 # ``serving_queue_depth`` bounds the admission queue — a full queue
 # rejects with an explicit overload error (HTTP 503) instead of letting
-# latency climb unbounded. The batch-size/wait knobs belong to the
-# micro-batcher, which is not ported yet; they are validated for parity.
-serving_max_batch_size = 8
-serving_max_wait_ms = 5.0
+# latency climb unbounded. The micro-batcher's batch-size and wait knobs
+# come with the micro-batcher, which is not ported yet.
 serving_queue_depth = 128
 
 # Generation (serving.generation.resolve_generation_knobs):

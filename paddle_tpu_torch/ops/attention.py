@@ -1,12 +1,12 @@
 """Attention ops of the serving slice — ports of
 ``paddle_tpu/ops/attention_ops.py``: ``dot_product_attention`` (causal,
-bshd/bhsd, GQA), ``paged_chunk_attention`` (the paged prefill) and
-``decode_paged_attention`` (the paged decode step).
+bshd/bhsd, GQA) and ``paged_chunk_attention`` (the paged prefill).
 
-The first two stay plain PyTorch, as the JAX package computes them
-outside any Pallas kernel. ``decode_paged_attention`` goes through the
-K3 wrapper (``ops.paged_attention``): the hand-written kernel on CUDA
-tensors, its plain version on CPU tensors.
+Both stay plain PyTorch, as the JAX package computes them outside any
+Pallas kernel. The reference's third op, ``decode_paged_attention``
+(the paged decode step), is the K3 wrapper itself:
+``ops.paged_attention.paged_decode_attention`` runs the hand-written
+kernel on CUDA tensors and its plain version on CPU tensors.
 
 Numerics follow the reference: logits in fp32 (the reference's
 ``preferred_element_type=float32``), masked with -1e9, softmax in fp32,
@@ -16,10 +16,7 @@ probabilities cast to q's dtype before the product with V.
 import numpy as np
 import torch
 
-from . import paged_attention
-
-__all__ = ["dot_product_attention", "paged_chunk_attention",
-           "decode_paged_attention", "NEG_INF"]
+__all__ = ["dot_product_attention", "paged_chunk_attention", "NEG_INF"]
 
 NEG_INF = -1e9
 
@@ -88,15 +85,3 @@ def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("shjt,sthd->sjhd", probs, vc)
 
-
-def decode_paged_attention(q, k_pool, v_pool, page_table, cache_lengths, *,
-                           scale=None):
-    """Single-token attention against a paged per-slot KV cache — the
-    paged decode hot path: ``q`` [slots, heads, head_dim], pools as in
-    :func:`paged_chunk_attention`, ``page_table`` [slots, max_pages]
-    int32, ``cache_lengths`` [slots] int32 (positions < length are valid;
-    the current token's K/V is already written at length - 1). Runs K3:
-    the CUDA kernel on the card, its plain version on the CPU."""
-    return paged_attention.paged_decode_attention(
-        q, k_pool, v_pool, page_table, cache_lengths.reshape(-1),
-        scale=scale)

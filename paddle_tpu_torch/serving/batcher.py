@@ -12,42 +12,23 @@ __all__ = ["OverloadedError", "ServingClosedError", "DeadlineExceededError",
            "DrainRateEstimator", "PendingResult", "resolve_serving_knobs"]
 
 
-def resolve_serving_knobs(max_batch_size=None, max_wait_ms=None,
-                          queue_depth=None, which=None):
-    """Resolve (max_batch_size, max_wait_ms, queue_depth) from explicit
-    values or the ``FLAGS_serving_*`` defaults, validating each resolved
-    knob. ``which`` limits resolution to the named knobs; unresolved
-    slots come back None. Errors name the flag when the value came from
-    the flag, the constructor argument when it was passed explicitly."""
-
-    def _num(value, flag_value, flag, lo, cast=int):
-        explicit = value is not None
-        label = flag[len("serving_"):] if explicit else "FLAGS_" + flag
-        if not explicit:
-            value = flag_value
-        try:
-            v = cast(value)
-        except (TypeError, ValueError):
-            raise ValueError(
-                "%s must be a number (got %r)" % (label, value)) from None
-        if v < lo:
-            raise ValueError("%s must be >= %s (got %s)" % (label, lo, v))
-        return v
-
+def resolve_serving_knobs(queue_depth=None):
+    """Resolve the admission queue depth from the explicit value or
+    ``FLAGS_serving_queue_depth`` and validate it (an int >= 1). Errors
+    name the flag when the value came from the flag, the constructor
+    argument when it was passed explicitly."""
     from .. import flags
-    which = frozenset(which) if which is not None else frozenset(
-        ("max_batch_size", "max_wait_ms", "queue_depth"))
-    return (
-        _num(max_batch_size, flags.serving_max_batch_size,
-             "serving_max_batch_size", 1)
-        if "max_batch_size" in which else None,
-        _num(max_wait_ms, flags.serving_max_wait_ms,
-             "serving_max_wait_ms", 0.0, float)
-        if "max_wait_ms" in which else None,
-        _num(queue_depth, flags.serving_queue_depth,
-             "serving_queue_depth", 1)
-        if "queue_depth" in which else None,
-    )
+    explicit = queue_depth is not None
+    label = "queue_depth" if explicit else "FLAGS_serving_queue_depth"
+    value = queue_depth if explicit else flags.serving_queue_depth
+    try:
+        depth = int(value)
+    except (TypeError, ValueError):
+        raise ValueError(
+            "%s must be a number (got %r)" % (label, value)) from None
+    if depth < 1:
+        raise ValueError("%s must be >= 1 (got %s)" % (label, depth))
+    return depth
 
 
 class OverloadedError(RuntimeError):

@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..convert import array_to_tensor
 from ..observability import catalog, tracing
-from ..ops.attention import (decode_paged_attention, dot_product_attention,
-                             paged_chunk_attention)
+from ..ops import paged_attention
+from ..ops.attention import dot_product_attention, paged_chunk_attention
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
                       OverloadedError, PendingResult, ServingClosedError,
                       resolve_serving_knobs)
@@ -304,7 +304,8 @@ class TransformerDecoderModel:
             q, k, v = self._qkv(blk, h)
             kp.index_put_((write_pids, write_offs), k)
             vp.index_put_((write_pids, write_offs), v)
-            a = decode_paged_attention(q, kp, vp, page_tables, att_len)
+            a = paged_attention.paged_decode_attention(q, kp, vp,
+                                                       page_tables, att_len)
             x = x + a.reshape(x.shape) @ blk["wo"]
             x = self._ffn(blk, x)
         x = _layer_norm(x, params["lnf_s"], params["lnf_b"])
@@ -590,8 +591,7 @@ class GenerationScheduler:
 
     def __init__(self, engine, *, eos_id=None, queue_depth=None,
                  default_max_new_tokens=64, seed=0):
-        _, _, depth = resolve_serving_knobs(queue_depth=queue_depth,
-                                            which=("queue_depth",))
+        depth = resolve_serving_knobs(queue_depth=queue_depth)
         knobs = _resolve_deadline_knobs()
         self._deadline_default_s = knobs["deadline_default_ms"] / 1e3
         self._admit_min_s = knobs["deadline_admit_min_ms"] / 1e3

@@ -18,7 +18,7 @@ port's generation engine; a port of ``paddle_tpu/serving/paged_kv.py``
                  construction: nobody writes below its own frontier).
 
 The decode step runs the paged-decode kernel (K3) through
-``ops.attention.decode_paged_attention``. Pools are updated in place
+``ops.paged_attention.paged_decode_attention``. Pools are updated in place
 (``index_put_``) where the reference donated them to XLA.
 
 Not ported yet: speculative verify, megastep decoding, quantized pages,

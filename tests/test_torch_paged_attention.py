@@ -83,7 +83,7 @@ def test_decode_paged_attention_bf16_is_cast_once_from_fp32():
     the output is rounded once — the kernel's arithmetic."""
     q, k_pool, v_pool, pt, lengths = _pool_case((4, 2, 64, 16))
     qb, kb, vb = (_t(a).to(torch.bfloat16) for a in (q, k_pool, v_pool))
-    got = port_att.decode_paged_attention(qb, kb, vb, _t(pt), _t(lengths))
+    got = port_k3.paged_decode_attention(qb, kb, vb, _t(pt), _t(lengths))
     assert got.dtype == torch.bfloat16
     ref = port_k3.paged_decode_attention_plain(
         qb.float(), kb.float(), vb.float(), _t(pt), _t(lengths))

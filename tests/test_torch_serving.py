@@ -176,6 +176,20 @@ def test_submit_validates_and_full_queue_overloads():
     assert len(second.wait(1)["tokens"]) == 2
 
 
+def test_queue_depth_knob_is_validated_naming_its_source(monkeypatch):
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.serving import resolve_serving_knobs
+    assert resolve_serving_knobs(queue_depth=3) == 3
+    monkeypatch.setattr(flags, "serving_queue_depth", 7)
+    assert resolve_serving_knobs() == 7
+    with pytest.raises(ValueError, match="^queue_depth must be >= 1"):
+        GenerationScheduler(engine(), queue_depth=0)
+    monkeypatch.setattr(flags, "serving_queue_depth", "many")
+    with pytest.raises(ValueError, match="FLAGS_serving_queue_depth must "
+                                         "be a number"):
+        resolve_serving_knobs()
+
+
 def test_server_generate_health_metrics_and_errors():
     eng = gated_engine(slots=2)
     eng.gate.set()
