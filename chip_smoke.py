@@ -8,12 +8,17 @@ for the H100: the kernels compile for sm_90a). Phases, each of which
 raises on failure (the script then exits non-zero and prints no result):
 
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
-2. Build: compile every kernel of the serving path from
+2. Build: compile every kernel of both slices from
    ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel).
-3. Kernels against their plain versions on the card, fp32 and bf16, at
-   the serving geometry and the reference's tuning grid, lengths 0, 1,
-   a mid-page frontier and the full window.
-4. Main path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
+3. Kernels against their plain versions on the card. K3 in fp32 and
+   bf16, at the serving geometry and the reference's tuning grid,
+   lengths 0, 1, a mid-page frontier and the full window. K1, K2-dQ and
+   K2-dKV (flash attention) in fp32 and bf16, causal and not, h = hkv
+   and h = 2 hkv, without a mask and with a factored padding mask (a
+   padded tail and a fully padded row), s in {256, 1024, 300}, d in
+   {64, 128}, and at the training step's shape (b16 s1024 h8 d64 bf16
+   causal): o, lse, dq, dk and dv elementwise.
+4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
    fp32 and in bf16 with the same random weights, written with
    ``save_decoder`` and served by ``load_decoder`` → ``PagedDecodeEngine``
    → ``GenerationScheduler`` → ``make_server`` on 127.0.0.1. Eight
@@ -28,6 +33,23 @@ raises on failure (the script then exits non-zero and prints no result):
    stated tolerance) and timed beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` over the same tokens (a yardstick
    only: the port never calls it).
+5. Training gate, fp32 with TF32 off: a 2-layer transformer LM at full
+   width (512d, 8 heads, vocab 32000), batch 2, seq 512, from one
+   initial state, 3 Adam steps through ``Executor.run`` on the card
+   (kernels) and on the CPU (plain versions); losses and the first
+   attention projection's weights must agree.
+6. Training path: ``bench_lm.py``'s step at full size — ``transformer_lm``
+   12 layers, 512d, 8 heads, vocab 32000, batch 16, seq 1024, bf16 mixed
+   precision, ``Adam(1e-4)`` — built with the layers DSL, startup on the
+   card, then 10 steps through ``Executor.run``: the loss must be finite
+   and lower at the last step than the first, and K1, K2-dQ and K2-dKV
+   must each launch steps x 12 times. Prints step ms p50, tokens/s and a
+   ``torch.profiler`` breakdown (device-busy ms per step, idle share,
+   the shares of K1, K2 and the GEMMs). Then K1, K2-dQ and K2-dKV at the
+   step's attention shape, L2 flushed before each call: each kernel
+   beside its bound, its plain version and the library yardstick
+   (``F.scaled_dot_product_attention`` forward for K1, its autograd
+   backward for K2).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -58,10 +80,27 @@ PROMPT_LEN, NEW_TOKENS = (16, 480), (32, 128)   # seeded, inclusive
 SEED = 0
 DEVICE = "cuda"
 
+# the training slice: bench_lm.py's transformer LM step
+LM_VOCAB, LM_DIM, LM_HEADS, LM_LAYERS = 32000, 512, 8, 12
+LM_BATCH, LM_SEQ, LM_LR, LM_STEPS, LM_PROFILE_STEPS = 16, 1024, 1e-4, 10, 2
+GATE_LAYERS, GATE_BATCH, GATE_SEQ, GATE_STEPS = 2, 2, 512, 3
+# (b, s, h, hkv, d) of the flash checks; b = 3 rows: full, padded tail,
+# fully padded under the mask
+FLASH_GEOMS = [(3, 256, 4, 4, 64), (3, 256, 4, 2, 128),
+               (3, 1024, 8, 8, 128), (3, 1024, 8, 4, 64),
+               (3, 300, 4, 2, 64), (3, 300, 2, 2, 128)]
+# fp32 training gate, card (kernels, cuBLAS) vs CPU (plain versions):
+# the same arithmetic in fp32 in another summation order
+GATE_LOSS_RTOL = 1e-5
+GATE_UPDATE_REL_L2 = 1e-3      # of the weight's 3-step update
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-# Kernel and plain version both compute in fp32 and round once to q's
-# dtype, so they differ by summation order only: ~1e-7 relative in fp32,
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+# Kernel and plain version both compute in fp32 and round once to the
+# output's dtype (K3 and K1/K2 alike), so they differ by summation order
+# only: ~1e-7 relative in fp32 (the flash grid read <= 1.5e-5 on dv,
+# whose sums over 2048 query rows reach tens),
 # and in bf16 at most one unit in the last place of the output (<= 2^-7
 # relative) where the fp32 values straddle a rounding boundary.
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -71,6 +110,15 @@ BF16_LOGIT_REL_L2 = 5e-2       # bf16 vs fp32 twin, first-step logits
 K3 = {"name": "paged_decode_attention", "route": "cuda",
       "source": "paddle_tpu_torch/csrc/paged_decode.cu",
       "replaces": "paddle_tpu/ops/pallas_paged_attention.py:239"}
+
+
+_FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
+K1 = {"name": "flash_fwd", "route": "cuda", "source": _FLASH_SRC,
+      "replaces": "paddle_tpu/ops/pallas_attention.py:616"}
+K2_DQ = {"name": "flash_bwd_dq", "route": "cuda", "source": _FLASH_SRC,
+         "replaces": "paddle_tpu/ops/pallas_attention.py:959"}
+K2_DKV = {"name": "flash_bwd_dkv", "route": "cuda", "source": _FLASH_SRC,
+          "replaces": "paddle_tpu/ops/pallas_attention.py:977"}
 
 
 def log(msg):
@@ -182,6 +230,83 @@ def kernel_checks():
     if not all(r["ok"] for r in rows):
         raise AssertionError("K3 disagrees with its plain version: %s"
                              % [r for r in rows if not r["ok"]])
+    return rows
+
+
+def _flash_case(rng, b, s, h, hkv, d, dtype, masked):
+    """Inputs of one flash check on the card: q, k, v, dO, k_valid. Under
+    the mask, row 1 has a padded tail and row 2 no valid key at all; dO
+    is zero on padded query rows, as the op hands K2 its cotangent."""
+    import torch
+    t = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(DEVICE)
+         .to(dtype) for shape in ((b, s, h, d), (b, s, hkv, d),
+                                  (b, s, hkv, d), (b, s, h, d))]
+    valid = None
+    if masked:
+        valid = torch.ones((b, s), dtype=torch.bool, device=DEVICE)
+        valid[1, s - s // 4:] = False
+        valid[2:] = False
+        t[3] = t[3] * valid[:, :, None, None].to(dtype)
+    return t + [valid]
+
+
+def _flash_check(q, k, v, do, valid, causal):
+    """K1, then K2-dQ and K2-dKV on the plain forward's (o, lse), each held
+    against its plain version elementwise; (max |err| per output, ok)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    o, lse = fa.flash_fwd(q, k, v, None, causal, valid)
+    po, plse = fa.flash_fwd_plain(q, k, v, None, causal, valid)
+    delta = (do.float() * po.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, plse, delta, None, causal, valid)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, plse, delta, None, causal, valid)
+    _sync()
+    ref = fa.flash_bwd_plain(q, k, v, po, plse, do, None, causal, valid)
+    errs, ok = {}, True
+    for name, got, want in zip(("o", "lse", "dq", "dk", "dv"),
+                               (o, lse, dq, dk, dv), (po, plse) + ref):
+        err, good = _against_plain(got, want)
+        errs[name] = err
+        ok = ok and good
+    return errs, ok
+
+
+def flash_checks():
+    """K1, K2-dQ and K2-dKV against their plain versions on the card over
+    the grid of FLASH_GEOMS x dtype x causal x mask, then at the training
+    step's shape. Comparison launches do not count as the main path's."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 2)
+    saved = dict(fa.launches)
+    rows = []
+    cases = [(g, dt, c, m) for g in FLASH_GEOMS
+             for dt in (torch.float32, torch.bfloat16)
+             for c in (False, True) for m in (False, True)]
+    cases.append(((LM_BATCH, LM_SEQ, LM_HEADS, LM_HEADS, LM_DIM // LM_HEADS),
+                  torch.bfloat16, True, False))
+    for (b, s, h, hkv, d), dtype, causal, masked in cases:
+        q, k, v, do, valid = _flash_case(rng, b, s, h, hkv, d, dtype, masked)
+        errs, ok = _flash_check(q, k, v, do, valid, causal)
+        rows.append({"shape": [b, s, h, hkv, d],
+                     "dtype": str(dtype).split(".")[-1], "causal": causal,
+                     "masked": masked, "max_abs_err": errs, "ok": ok})
+        if not ok or len(rows) == len(cases):
+            log("  flash b=%d s=%d h=%d hkv=%d d=%d %s causal=%s mask=%s: "
+                "max|err| %s %s" % (b, s, h, hkv, d, rows[-1]["dtype"],
+                                   causal, masked, json.dumps(
+                                       {n: float("%.3g" % e)
+                                        for n, e in errs.items()}),
+                                   "ok" if ok else "FAIL"))
+    fa.launches.update(saved)
+    worst = {n: max(r["max_abs_err"][n] for r in rows)
+             for n in ("o", "lse", "dq", "dk", "dv")}
+    log(json.dumps({"flash_checks": {"cases": len(rows),
+                                     "ok": all(r["ok"] for r in rows),
+                                     "max_abs_err": worst}}))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("flash kernels disagree with their plain "
+                             "versions: %s" % [r for r in rows
+                                               if not r["ok"]])
     return rows
 
 
@@ -507,6 +632,267 @@ def main_path(workdir):
             "bf16_logit_rel_l2": rel, "bf16_argmax_agree": agree}
 
 
+# -- phases 5-6: training -------------------------------------------------
+
+def build_lm(fluid, layers, batch, seq, amp):
+    """bench_lm.py's program: transformer_lm, softmax cross-entropy on the
+    next token, mean, Adam(LM_LR); bf16 mixed precision when ``amp``."""
+    from paddle_tpu_torch import models, unique_name
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        prog.random_seed = startup.random_seed = SEED
+        with fluid.program_guard(prog, startup):
+            ids = fluid.layers.data(name="ids", shape=[batch, seq],
+                                    dtype="int64", append_batch_size=False)
+            labels = fluid.layers.data(name="labels", shape=[batch, seq],
+                                       dtype="int64",
+                                       append_batch_size=False)
+            logits = models.transformer_lm(
+                ids, vocab_size=LM_VOCAB, num_layers=layers,
+                d_model=LM_DIM, num_heads=LM_HEADS, max_len=seq)
+            flat = fluid.layers.reshape(logits, [batch * seq, LM_VOCAB])
+            flat_lbl = fluid.layers.reshape(labels, [batch * seq, 1])
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(flat, flat_lbl))
+            fluid.optimizer.Adam(learning_rate=LM_LR).minimize(loss)
+        fluid.enable_mixed_precision(prog, amp)
+    return prog, startup, loss
+
+
+def lm_feed(batch, seq):
+    """bench_lm.py's feed: ids from seed 0, labels the ids rolled by one."""
+    rng = np.random.RandomState(SEED)
+    x = rng.randint(0, LM_VOCAB, (batch, seq))
+    return {"ids": x.astype(np.int32),
+            "labels": np.roll(x, -1, 1).astype(np.int32)}
+
+
+def train_gate():
+    """fp32 card-vs-CPU gate: the 2-layer full-width LM from one initial
+    state (the CPU startup's, copied to the card), 3 Adam steps on each;
+    losses within GATE_LOSS_RTOL, the first attention projection's
+    3-step update within GATE_UPDATE_REL_L2."""
+    import torch
+    import paddle_tpu_torch as fluid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("training gate: fp32, TF32 off for matmuls and cuDNN")
+    prog, startup, loss = build_lm(fluid, GATE_LAYERS, GATE_BATCH,
+                                   GATE_SEQ, amp=False)
+    feed = lm_feed(GATE_BATCH, GATE_SEQ)
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    card_scope = fluid.Scope()
+    for n in cpu.local_var_names():
+        card_scope.set_var(n, cpu.find_var(n).to(DEVICE))
+    weight = "fc_0.w_0"          # layer 0's query projection
+    start = cpu.find_var(weight).clone()
+    out = {}
+    for tag, scope, place in (("card", card_scope, fluid.CUDAPlace(0)),
+                              ("cpu", cpu, fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        t0 = time.perf_counter()
+        losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(GATE_STEPS)]
+        out[tag] = {"losses": losses, "s": time.perf_counter() - t0,
+                    "w": scope.find_var(weight).float().cpu()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["card"]["losses"],
+                                                out["cpu"]["losses"])]
+    upd_card = out["card"]["w"] - start
+    upd_cpu = out["cpu"]["w"] - start
+    upd_rel = float((upd_card - upd_cpu).norm() / upd_cpu.norm())
+    wmax = float((out["card"]["w"] - out["cpu"]["w"]).abs().max())
+    res = {"losses_card": out["card"]["losses"],
+           "losses_cpu": out["cpu"]["losses"], "loss_rel_err": max(rel),
+           "weight": weight, "update_rel_l2": upd_rel,
+           "weight_max_abs_diff": wmax, "card_s": out["card"]["s"],
+           "cpu_s": out["cpu"]["s"]}
+    log("training gate: %s" % json.dumps(res))
+    if not (max(rel) <= GATE_LOSS_RTOL and upd_rel <= GATE_UPDATE_REL_L2
+            and all(np.isfinite(out["card"]["losses"]))):
+        raise AssertionError("card and CPU training disagree: loss rel err "
+                             "%.3g (limit %g), %s update rel L2 %.3g "
+                             "(limit %g)" % (max(rel), GATE_LOSS_RTOL,
+                                             weight, upd_rel,
+                                             GATE_UPDATE_REL_L2))
+    return res
+
+
+def _profile_steps(exe, prog, feed, loss, steps):
+    """Over ``steps`` profiled training steps (``torch.profiler``):
+    device-busy ms per step and kernel time by class (kernel rows only),
+    and per op type the host ms and device ms of its lowering (the
+    executor's per-op ranges). The generic-vjp recompute estimate is the
+    device time of the forwards whose grad ops re-run them."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.registry import OP_REGISTRY
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        for _ in range(steps):
+            exe.run(prog, feed=feed, fetch_list=[loss])
+        _sync()
+    averages = prof.key_averages()
+    # kernel rows only: the per-op ranges also show on the device
+    # timeline as user annotations, which would count their kernels twice
+    events = [e for e in averages
+              if str(e.device_type) == "DeviceType.CUDA"
+              and not getattr(e, "is_user_annotation", False)
+              and e.key not in OP_REGISTRY
+              and e.self_device_time_total > 0]
+
+    def ms(pred):
+        return sum(e.self_device_time_total for e in events
+                   if pred(e.key)) / steps / 1e3
+    busy = ms(lambda k: True)
+    k1 = ms(lambda k: "flash_fwd_kernel" in k)
+    k2 = ms(lambda k: "flash_bwd_" in k)
+    gemm = ms(lambda k: any(t in k.lower() for t in
+                            ("gemm", "nvjet", "xmma", "cutlass")))
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    ops = {e.key: {"host_ms": e.cpu_time_total / steps / 1e3,
+                   "device_ms": e.device_time_total / steps / 1e3,
+                   "calls": e.count // steps}
+           for e in averages if e.key in OP_REGISTRY
+           and str(e.device_type) == "DeviceType.CPU"}
+    generic = [t[:-len("_grad")] for t, info in OP_REGISTRY.items()
+               if info.generic_grad and t in ops]
+    return {"device_busy_ms": busy, "k1_ms": k1, "k2_ms": k2,
+            "gemm_ms": gemm, "other_ms": busy - k1 - k2 - gemm,
+            "top_kernels_ms": {e.key[:70]: e.self_device_time_total
+                               / steps / 1e3 for e in top},
+            "ops_host_ms": sum(o["host_ms"] for o in ops.values()),
+            "ops": dict(sorted(ops.items(),
+                               key=lambda kv: -kv[1]["host_ms"])),
+            "generic_vjp_recompute_ms": sum(ops[t]["device_ms"]
+                                            for t in generic if t in ops)}
+
+
+def train_path():
+    """The training slice at full size on the card: startup, LM_STEPS
+    steps through Executor.run with the flash launch counts set to 0
+    just before and read just after, then a profiled window."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+    prog, startup, loss = build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ,
+                                   amp=True)
+    feed = lm_feed(LM_BATCH, LM_SEQ)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in prog.global_block().all_parameters())
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        for name in fa.launches:
+            fa.launches[name] = 0      # counts from here are the main path's
+        losses, step_ms = [], []
+        for _ in range(LM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(prog, feed=feed,
+                                        fetch_list=[loss])[0]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(fa.launches)
+        prof = _profile_steps(exe, prog, feed, loss, LM_PROFILE_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEVICE == "cuda" else None
+    want = LM_STEPS * LM_LAYERS
+    p50 = float(np.percentile(step_ms[1:], 50))
+    res = {"params": n_params, "losses": losses, "step_ms": step_ms,
+           "step_ms_p50": p50,
+           "tokens_per_s": LM_BATCH * LM_SEQ / (p50 / 1e3),
+           "launches": launches, "peak_memory_gb": peak_gb}
+    res.update(prof)
+    res["device_idle_share"] = 1.0 - prof["device_busy_ms"] / p50
+    busy = prof["device_busy_ms"] or float("nan")
+    res["shares_of_busy"] = {k: prof[k + "_ms"] / busy
+                             for k in ("k1", "k2", "gemm", "other")}
+    log("training %dL-%dd b%d s%d bf16, %d params: %s"
+        % (LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, n_params, json.dumps(res)))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("training loss not finite and falling: %s"
+                             % losses)
+    if any(launches[n] != want for n in launches):
+        raise AssertionError("flash launches %s != steps %d x layers %d"
+                             % (launches, LM_STEPS, LM_LAYERS))
+    return res
+
+
+def flash_timing(launches):
+    """K1, K2-dQ and K2-dKV at the training step's attention shape (b16
+    s1024 h8 d64 bf16 causal), each call timed alone with L2 flushed,
+    beside its bound, its plain version and the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = LM_BATCH, LM_SEQ, LM_HEADS, LM_DIM // LM_HEADS
+    rng = np.random.RandomState(SEED + 3)
+    q, k, v, do, _ = _flash_case(rng, b, s, h, h, d, torch.bfloat16, False)
+    saved = dict(fa.launches)
+    errs, ok = _flash_check(q, k, v, do, None, True)
+    if not ok:
+        raise AssertionError("flash kernels disagree with their plain "
+                             "versions at the step's shape: %s" % errs)
+    o, lse = fa.flash_fwd(q, k, v, None, True)
+    delta = (do.float() * o.float()).sum(-1)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    ms = {"K1": _timed(fa.flash_fwd, (q, k, v, None, True), 20, flush),
+          "dq": _timed(fa.flash_bwd_dq, (q, k, v, do, lse, delta, None,
+                                         True), 20, flush),
+          "dkv": _timed(fa.flash_bwd_dkv, (q, k, v, do, lse, delta, None,
+                                           True), 20, flush)}
+    plain = {"K1": _timed(fa.flash_fwd_plain, (q, k, v, None, True), 5,
+                          flush),
+             "bwd": _timed(fa.flash_bwd_plain, (q, k, v, o, lse, do, None,
+                                                True), 5, flush)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = _timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), (), 20, flush)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    g = do.transpose(1, 2)
+    lib_bwd = _timed(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                                 retain_graph=True),
+                     (), 20, flush)
+    fa.launches.update(saved)   # comparison launches are not the path's
+    # bound: the larger of the causal work at the bf16 tensor-core rate
+    # and each input read once plus each output written once
+    pairs = b * h * s * (s + 1) // 2
+    act = b * s * h * d * 2                   # one bf16 [b, s, h, d]
+    lse_b, delta_b = b * h * s * 8 * 4, b * s * h * 4
+    work = {"K1": (4 * d * pairs, 4 * act + lse_b),
+            "dq": (6 * d * pairs, 5 * act + lse_b + delta_b),
+            "dkv": (8 * d * pairs, 6 * act + lse_b + delta_b)}
+    rows = []
+    for key, base, err, plain_ms, lib in (
+            ("K1", K1, errs["o"], plain["K1"], lib_fwd),
+            ("dq", K2_DQ, errs["dq"], plain["bwd"], lib_bwd),
+            ("dkv", K2_DKV, max(errs["dk"], errs["dv"]), plain["bwd"],
+             lib_bwd)):
+        flops, nbytes = work[key]
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        row = dict(base)
+        row.update({"launches": launches[base["name"]], "max_abs_err": err,
+                    "ms": ms[key], "plain_ms": plain_ms,
+                    "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations", "library_ms": lib,
+                    "gflop": flops / 1e9, "mb": nbytes / 1e6})
+        rows.append(row)
+        log("%s at b%d s%d h%d d%d bf16 causal: %.4f ms (bound %.4f ms by "
+            "%s, %.1f%% of it; plain %.4f ms; library %.4f ms); %.1f GFLOP "
+            "%.1f MB; max|err| vs plain %.3g"
+            % (base["name"], b, s, h, d, row["ms"], row["bound_ms"],
+               row["bound_by"], 100 * row["bound_ms"] / row["ms"],
+               plain_ms, lib, flops / 1e9, nbytes / 1e6, err))
+    log("flash K1+K2 %.4f ms vs SDPA fwd+bwd %.4f ms"
+        % (ms["K1"] + ms["dq"] + ms["dkv"], lib_fwd + lib_bwd))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -526,8 +912,13 @@ def main(argv=None):
         t0 = time.perf_counter()
         report["build_s"] = build()
         report["kernel_checks"] = kernel_checks()
+        report["flash_checks"] = flash_checks()
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
+            report["train_gate"] = train_gate()
+            report["train_path"] = train_path()
+            report["flash_timing"] = flash_timing(
+                report["train_path"]["launches"])
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()
@@ -540,7 +931,8 @@ def main(argv=None):
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1, default=str)
     if not args.kernels_only:
-        print(json.dumps({"kernels": [report["main_path"]["k3"]]}))
+        print(json.dumps({"kernels": [report["main_path"]["k3"]] +
+                          report["flash_timing"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": report["card"]["name"],
         "count": report["card"]["count"]}}))

@@ -6,21 +6,34 @@ numpy and the standard library only — never jax and never a module of
 ``paddle_tpu`` — and keeps its own trimmed copies of the backend-neutral
 pieces it needs (flags, profiler counters, metric catalogue, tracing).
 
-The first slice ported is paged-KV generation serving: the decoder model,
-the paged decode engine, the continuous-batching scheduler and the HTTP
-server, with the paged-decode attention kernel written by hand in CUDA
-C++ for ``sm_90a`` (``csrc/paged_decode.cu``).
+Two slices are ported:
 
-Device rule: every entry point (engine, scheduler, server CLI) takes
-``device=``. The default is ``"cuda"``, which raises when no GPU is
-present; the CPU runs only when the caller asks for ``"cpu"``, as the
-tests do. On a CUDA tensor a kernel wrapper launches its kernel or
-raises — it never falls back to the plain PyTorch version.
+- paged-KV generation serving (``serving``): the decoder model, the paged
+  decode engine, the continuous-batching scheduler and the HTTP server,
+  with the paged-decode kernel written by hand in CUDA C++ for
+  ``sm_90a`` (``csrc/paged_decode.cu``);
+- Fluid training of the transformer LM: the Program IR and ``layers``
+  DSL, ``append_backward``, the ``SGD``/``Adam`` optimizers, the eager
+  ``Executor`` and ``models.transformer_lm``, whose ``fused_attention``
+  runs the flash-attention kernels (``csrc/flash_attention.cu``).
+  ``import paddle_tpu_torch as fluid`` reads like the reference.
+
+Device rule: every entry point takes a device (``device=``, or a place
+for the ``Executor``). The default is CUDA, which raises when no GPU is
+present; the CPU runs only when the caller asks for it (``"cpu"``,
+``CPUPlace()``), as the tests do. On a CUDA tensor a kernel wrapper
+launches its kernel or raises — it never falls back to the plain
+PyTorch version.
 """
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "CPUPlace", "CUDAPlace",
+           "Program", "Variable", "Parameter", "program_guard",
+           "default_main_program", "default_startup_program", "layers",
+           "optimizer", "models", "Executor", "Scope", "global_scope",
+           "scope_guard", "append_backward", "ParamAttr", "unique_name",
+           "enable_mixed_precision"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -44,3 +57,23 @@ def resolve_device(device=None):
             # their current device (torch.cuda.set_device needs the index)
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def enable_mixed_precision(program=None, enable=True):
+    """bf16 compute on the matmul and attention ops, fp32 master weights
+    and optimizer state, fp32 softmax/normalization statistics."""
+    p = program or default_main_program()
+    p._amp = bool(enable)
+
+
+# the training path (imported after resolve_device, which core needs)
+from . import unique_name                                   # noqa: E402
+from .core import CPUPlace, CUDAPlace                       # noqa: E402
+from .framework import (Parameter, Program, Variable,       # noqa: E402
+                        default_main_program, default_startup_program,
+                        program_guard)
+from . import ops as _ops       # noqa: E402,F401  registers the lowerings
+from . import layers, models, optimizer                     # noqa: E402
+from .backward import append_backward                       # noqa: E402
+from .executor import Executor, Scope, global_scope, scope_guard  # noqa
+from .param_attr import ParamAttr                           # noqa: E402

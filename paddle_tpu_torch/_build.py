@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 # kernel name -> its source under csrc/ (one library per source, so the
 # sources build in parallel, one nvcc each)
-SOURCES = {"paged_decode": "paged_decode.cu"}
+SOURCES = {"paged_decode": "paged_decode.cu",
+           "flash_attention": "flash_attention.cu"}
 
 # sm_90a, not sm_90: wgmma/setmaxnreg exist only for the "a" target
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

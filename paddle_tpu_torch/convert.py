@@ -1,10 +1,15 @@
-"""Weights carried across from the JAX package.
+"""Weights and training state carried across from the JAX package.
 
 ``params_from_jax(tree)`` takes the reference decoder's parameter pytree
 as numpy arrays (``TransformerDecoderModel.init_params`` output passed
 through ``np.asarray`` leaf by leaf) and returns the port's parameter
 dict: the same tree of names, each leaf a tensor. The on-disk route is
 ``serving.load_decoder`` on a directory the JAX ``save_decoder`` wrote.
+
+``scope_from_jax(persistables)`` takes a reference training scope's
+persistables (parameters, Adam moments, beta powers, learning rate) as a
+name → numpy dict and returns the port's ``Scope`` holding them as
+tensors, so a program built in both packages starts from one state.
 """
 
 import numpy as np
@@ -12,7 +17,7 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["params_from_jax", "array_to_tensor"]
+__all__ = ["params_from_jax", "array_to_tensor", "scope_from_jax"]
 
 
 def array_to_tensor(arr, dtype=None, device="cpu"):
@@ -50,3 +55,16 @@ def params_from_jax(tree, device=None):
         else:
             out[key] = leaf(key, value)
     return out
+
+
+def scope_from_jax(persistables, device=None):
+    """A port ``Scope`` holding each name → numpy array of
+    ``persistables`` as a tensor on ``device`` (None → cuda).
+    Float arrays keep their width (bf16 arrives as exact fp32); integer
+    arrays keep their type."""
+    from .executor import Scope
+    dev = resolve_device(device)
+    scope = Scope()
+    for name, arr in persistables.items():
+        scope.set_var(name, array_to_tensor(arr, device=dev))
+    return scope

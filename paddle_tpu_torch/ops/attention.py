@@ -1,12 +1,20 @@
-"""Attention ops of the serving slice — ports of
-``paddle_tpu/ops/attention_ops.py``: ``dot_product_attention`` (causal,
-bshd/bhsd, GQA) and ``paged_chunk_attention`` (the paged prefill).
+"""Attention ops — ports of ``paddle_tpu/ops/attention_ops.py``.
 
-Both stay plain PyTorch, as the JAX package computes them outside any
-Pallas kernel. The reference's third op, ``decode_paged_attention``
-(the paged decode step), is the K3 wrapper itself:
-``ops.paged_attention.paged_decode_attention`` runs the hand-written
-kernel on CUDA tensors and its plain version on CPU tensors.
+Serving: ``dot_product_attention`` (causal, bshd/bhsd, GQA) and
+``paged_chunk_attention`` (the paged prefill) stay plain PyTorch, as the
+JAX package computes them outside any Pallas kernel. The reference's
+``decode_paged_attention`` (the paged decode step) is the K3 wrapper
+itself: ``ops.paged_attention.paged_decode_attention``.
+
+Training: the IR ops ``fused_attention`` and ``fused_attention_grad``.
+On every device they take the reference's ``pallas_saved`` path: the
+forward runs K1 (``ops.flash_attention``) and stores its logsumexp as
+the op's ``Lse`` output, and the grad op runs K2 on the saved (Q, K, V,
+Out, Lse) without re-running the forward. The reference picks that path
+from a TPU-measured threshold (seq >= 512 for bshd); the port takes it
+at every length, and CPU tensors take the kernels' plain versions.
+Unported: segment ids (K5), dense masks and the bhsd layout (K1's dense
+variant and K6) raise ``NotImplementedError``.
 
 Numerics follow the reference: logits in fp32 (the reference's
 ``preferred_element_type=float32``), masked with -1e9, softmax in fp32,
@@ -15,6 +23,10 @@ probabilities cast to q's dtype before the product with V.
 
 import numpy as np
 import torch
+
+from ..framework import in_var, set_out
+from ..registry import register_op
+from . import flash_attention
 
 __all__ = ["dot_product_attention", "paged_chunk_attention", "NEG_INF"]
 
@@ -85,3 +97,79 @@ def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("shjt,sthd->sjhd", probs, vc)
 
+
+# -- fused_attention (training) ----------------------------------------------
+
+def _resolve_mask(ins):
+    """The op's mask inputs → None or the factored ``(q_valid, k_valid)``
+    pair ([b|1, s] bool each) from "QValid"/"KValid"."""
+    if ins.get("Mask", [None])[0] is not None:
+        raise NotImplementedError(
+            "fused_attention with a dense Mask is not ported yet (K1's "
+            "dense-mask variant and K6)")
+    if ins.get("QSegIds", [None])[0] is not None or \
+            ins.get("KSegIds", [None])[0] is not None:
+        raise NotImplementedError("fused_attention with segment ids "
+                                  "(packed-segment kernels, K5) is not "
+                                  "ported yet")
+    qv = ins.get("QValid", [None])[0]
+    kv = ins.get("KValid", [None])[0]
+    if qv is None and kv is None:
+        return None
+    if qv is None or kv is None:
+        raise ValueError("factored masks need BOTH QValid and KValid")
+    return qv.bool(), kv.bool().contiguous()
+
+
+def _mask_padded_q_rows(x, mask):
+    """Zero padded query rows of a bshd output or cotangent (the
+    reference's op-boundary rule: the kernels stream only the key
+    factor)."""
+    if mask is None:
+        return x
+    return x * mask[0].to(x.dtype)[:, :, None, None]
+
+
+def _qkv(ctx, ins):
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    if ctx.attr("layout", "bhsd") != "bshd":
+        raise NotImplementedError(
+            "fused_attention with layout %r is not ported yet (the per-head "
+            "kernels, K6); the port takes bshd" % ctx.attr("layout", "bhsd"))
+    if ctx.amp:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _fused_attention_rule(block, op):
+    q = in_var(block, op, "Q")
+    b, s, h = q.shape[0], q.shape[1], q.shape[2]
+    set_out(block, op, "Out", q.shape, dtype=q.dtype)
+    set_out(block, op, "Lse", [b * h, s, flash_attention.LSE_LANES],
+            dtype="float32")
+
+
+@register_op("fused_attention", infer_shape=_fused_attention_rule)
+def _fused_attention(ctx, ins):
+    q, k, v = _qkv(ctx, ins)
+    mask = _resolve_mask(ins)
+    out, lse = flash_attention.flash_fwd_saving_lse(
+        q, k, v, ctx.attr("scale", None), ctx.attr("causal", False), mask)
+    return {"Out": [_mask_padded_q_rows(out, mask)], "Lse": [lse]}
+
+
+@register_op("fused_attention_grad", no_grad=True)
+def _fused_attention_grad(ctx, ins):
+    """K2 on the saved (Q, K, V, Out, Lse): the forward never runs again.
+    Padded query rows get a zeroed cotangent, so their dq rows and dk/dv
+    contributions vanish inside the kernels."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    qb, kb, vb = _qkv(ctx, ins)
+    mask = _resolve_mask(ins)
+    o = ins["Out"][0].to(qb.dtype).contiguous()
+    g = _mask_padded_q_rows(ins["Out@GRAD"][0].to(qb.dtype), mask)
+    dq, dk, dv = flash_attention.flash_bwd_from_saved(
+        qb, kb, vb, o, ins["Lse"][0], g.contiguous(), ctx.attr("scale", None),
+        ctx.attr("causal", False), mask)
+    return {"Q@GRAD": [dq.to(q.dtype)], "K@GRAD": [dk.to(k.dtype)],
+            "V@GRAD": [dv.to(v.dtype)]}

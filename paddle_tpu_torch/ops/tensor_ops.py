@@ -1,0 +1,137 @@
+"""Tensor ops of the training slice — ports of
+``paddle_tpu/ops/tensor_ops.py``: ``reshape``, ``split``, ``cast``,
+``fill_constant``, ``uniform_random``, ``gaussian_random``, ``slice``.
+
+The random ops draw from the op's ``torch.Generator`` (``ctx.rng()``, or
+one seeded from the op's ``seed`` attr), on the executor's device.
+"""
+
+import numpy as np
+import torch
+
+from ..core import torch_dtype
+from ..framework import in_var, set_out
+from ..registry import register_op
+
+
+def _reshape_target(in_shape, target):
+    """0 copies the input dim; one -1 is inferred."""
+    out = [in_shape[i] if d == 0 else int(d) for i, d in enumerate(target)]
+    if out.count(-1) == 1 and -1 not in in_shape:
+        known = int(np.prod([d for d in out if d != -1]))
+        out[out.index(-1)] = int(np.prod(in_shape)) // max(known, 1)
+    return out
+
+
+def _reshape_rule(block, op):
+    x = in_var(block, op, "X")
+    set_out(block, op, "Out", _reshape_target(list(x.shape),
+                                              op.attr("shape")),
+            dtype=x.dtype)
+
+
+@register_op("reshape", infer_shape=_reshape_rule)
+def _reshape(ctx, ins):
+    x = ins["X"][0]
+    return {"Out": [x.reshape(_reshape_target(list(x.shape),
+                                              ctx.attr("shape")))]}
+
+
+def _sections(op_or_ctx, dim_size, n_outputs):
+    sections = op_or_ctx.attr("sections", None)
+    if sections:
+        return list(sections)
+    n = op_or_ctx.attr("num", 0) or n_outputs
+    return [dim_size // n] * n
+
+
+def _split_rule(block, op):
+    x = in_var(block, op, "X")
+    axis = op.attr("axis", 0)
+    axis = axis if axis >= 0 else axis + len(x.shape)
+    names = op.output("Out")
+    for i, sec in enumerate(_sections(op, x.shape[axis], len(names))):
+        shape = list(x.shape)
+        shape[axis] = sec
+        set_out(block, op, "Out", shape, dtype=x.dtype, i=i)
+
+
+@register_op("split", infer_shape=_split_rule)
+def _split(ctx, ins):
+    x = ins["X"][0]
+    axis = ctx.attr("axis", 0)
+    secs = _sections(ctx, x.shape[axis], len(ctx.op.outputs.get("Out", [1])))
+    return {"Out": list(torch.split(x, secs, dim=axis))}
+
+
+def _cast_rule(block, op):
+    x = in_var(block, op, "X")
+    set_out(block, op, "Out", x.shape, dtype=op.attr("out_dtype"))
+
+
+@register_op("cast", infer_shape=_cast_rule)
+def _cast(ctx, ins):
+    return {"Out": [ins["X"][0].to(torch_dtype(ctx.attr("out_dtype")))]}
+
+
+def _fill_rule(block, op):
+    set_out(block, op, "Out", list(op.attr("shape")),
+            dtype=op.attr("dtype", "float32"))
+
+
+@register_op("fill_constant", no_grad=True, infer_shape=_fill_rule)
+def _fill_constant(ctx, ins):
+    return {"Out": [torch.full(tuple(ctx.attr("shape")),
+                               ctx.attr("value", 0.0),
+                               dtype=torch_dtype(ctx.attr("dtype",
+                                                          "float32")),
+                               device=ctx.device)]}
+
+
+def _generator(ctx):
+    seed = ctx.attr("seed", 0)
+    if not seed:
+        return ctx.rng()
+    gen = torch.Generator(device=ctx.device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+@register_op("uniform_random", no_grad=True, infer_shape=_fill_rule)
+def _uniform_random(ctx, ins):
+    lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
+    u = torch.rand(tuple(ctx.attr("shape")), generator=_generator(ctx),
+                   dtype=torch.float32, device=ctx.device)
+    out = u * (hi - lo) + lo
+    return {"Out": [out.to(torch_dtype(ctx.attr("dtype", "float32")))]}
+
+
+@register_op("gaussian_random", no_grad=True, infer_shape=_fill_rule)
+def _gaussian_random(ctx, ins):
+    n = torch.randn(tuple(ctx.attr("shape")), generator=_generator(ctx),
+                    dtype=torch.float32, device=ctx.device)
+    out = n * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0)
+    return {"Out": [out.to(torch_dtype(ctx.attr("dtype", "float32")))]}
+
+
+def _slice_index(ndim, axes, starts, ends):
+    idx = [slice(None)] * ndim
+    for ax, s, e in zip(axes, starts, ends):
+        idx[ax] = slice(s, e)
+    return tuple(idx)
+
+
+def _slice_rule(block, op):
+    x = in_var(block, op, "Input")
+    idx = _slice_index(len(x.shape), op.attr("axes"), op.attr("starts"),
+                       op.attr("ends"))
+    shape = [len(range(*sl.indices(d))) if d >= 0 else -1
+             for sl, d in zip(idx, x.shape)]
+    set_out(block, op, "Out", shape, dtype=x.dtype)
+
+
+@register_op("slice", infer_shape=_slice_rule)
+def _slice(ctx, ins):
+    x = ins["Input"][0]
+    return {"Out": [x[_slice_index(x.dim(), ctx.attr("axes"),
+                                   ctx.attr("starts"), ctx.attr("ends"))]]}

@@ -208,10 +208,14 @@ def test_server_generate_health_metrics_and_errors():
         assert body["request_id"] == "req-1" and hdrs["X-Request-Id"] == \
             "req-1"
         assert "ttft_ms=" in hdrs["X-Trace-Summary"]
-        spans = {e["name"] for e in tracing.trace_events()
-                 if e["args"].get("request_id") == "req-1"}
-        assert {"gen.request", "gen.queue_wait", "engine.prefill",
-                "http.request"} <= spans
+
+        def req1_spans():
+            return {e["name"] for e in tracing.trace_events()
+                    if e["args"].get("request_id") == "req-1"}
+        # the server thread records http.request once the reply is out,
+        # so the client can read the trace before it lands: wait for it
+        wait_for(lambda: {"gen.request", "gen.queue_wait", "engine.prefill",
+                          "http.request"} <= req1_spans())
         with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
             assert r.status == 200 and json.loads(r.read())["ready"]
         with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
