@@ -8,7 +8,7 @@ for the H100: the kernels compile for sm_90a). Phases, each of which
 raises on failure (the script then exits non-zero and prints no result):
 
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
-2. Build: compile every kernel of both slices from
+2. Build: compile every kernel of every slice from
    ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel).
 3. Kernels against their plain versions on the card. K3 in fp32 and
    bf16, at the serving geometry and the reference's tuning grid,
@@ -18,6 +18,13 @@ raises on failure (the script then exits non-zero and prints no result):
    padded tail and a fully padded row), s in {256, 1024, 300}, d in
    {64, 128}, and at the training step's shape (b16 s1024 h8 d64 bf16
    causal): o, lse, dq, dk and dv elementwise.
+   Then K5-fwd, K5-dQ and K5-dKV (packed-segment flash attention) over
+   the same geometries, dtypes and causal settings under four segment
+   maps (random documents, one segment — which must also equal K1/K2 —,
+   many 1-8-token segments, boundaries on and one off the kernels' 64-wide
+   tiles), and at the packed step's own shape and map. K4 (fused Adam)
+   on tensors of 1, 1023 and 71,153,920 elements in one call, with and
+   without global-norm clipping and a loss scale: within 2 ulp.
 4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
    fp32 and in bf16 with the same random weights, written with
    ``save_decoder`` and served by ``load_decoder`` → ``PagedDecodeEngine``
@@ -50,6 +57,24 @@ raises on failure (the script then exits non-zero and prints no result):
    beside its bound, its plain version and the library yardstick
    (``F.scaled_dot_product_attention`` forward for K1, its autograd
    backward for K2).
+7. Packed path: ``bench_lm.py BENCH_PACKED=1``'s step — the same model
+   on 16 rows x 1024 packed with ``data.decorator.pack_segments`` from
+   its seeded documents (labels from ``packed_next_token_labels``, ids
+   from ``transformer_lm(segment_ids=...)``) — 10 steps: loss finite and
+   falling, K5-fwd, K5-dQ and K5-dKV each steps x 12 launches and K1/K2
+   none. Then the padded baseline (the same documents one per row under
+   a ``valid`` mask, through K1/K2) for a few steps. Prints real tokens/s
+   both ways, ``speedup_vs_padded_ragged``, ``pack_occupancy``,
+   ``pad_waste_baseline`` and a profile (device-busy ms, idle share, the
+   K5 share). Then K5 x3 at the packed step's shape beside their bounds
+   (visible pairs only), plain versions and SDPA under the dense mask.
+8. ``FusedAdamOptimizer``: the packed program with one ``fused_adam`` op.
+   One step from phase 7's state and feed must match one ``Adam`` step
+   within 2 ulp in every parameter and moment; then 10 steps with K4
+   launched once each. Prints step ms p50 beside phase 7's and the host
+   ms of the ``adam`` ops against the ``fused_adam`` op. Then K4 at the
+   LM's 71,153,920 parameters beside its bound, its plain version and
+   ``torch._fused_adam_``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -119,6 +144,29 @@ K2_DQ = {"name": "flash_bwd_dq", "route": "cuda", "source": _FLASH_SRC,
          "replaces": "paddle_tpu/ops/pallas_attention.py:959"}
 K2_DKV = {"name": "flash_bwd_dkv", "route": "cuda", "source": _FLASH_SRC,
           "replaces": "paddle_tpu/ops/pallas_attention.py:977"}
+_SEG_SRC = "paddle_tpu_torch/csrc/flash_segment.cu"
+K5_FWD = {"name": "flash_segment_fwd", "route": "cuda", "source": _SEG_SRC,
+          "replaces": "paddle_tpu/ops/pallas_attention.py:1115"}
+K5_DQ = {"name": "flash_segment_bwd_dq", "route": "cuda",
+         "source": _SEG_SRC,
+         "replaces": "paddle_tpu/ops/pallas_attention.py:1258"}
+K5_DKV = {"name": "flash_segment_bwd_dkv", "route": "cuda",
+          "source": _SEG_SRC,
+          "replaces": "paddle_tpu/ops/pallas_attention.py:1289"}
+K4 = {"name": "fused_adam", "route": "cuda",
+      "source": "paddle_tpu_torch/csrc/fused_adam.cu",
+      "replaces": "paddle_tpu/ops/pallas_optimizer.py:85"}
+K1K2 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+K5 = ("flash_segment_fwd", "flash_segment_bwd_dq", "flash_segment_bwd_dkv")
+
+# the packed slice: segment maps of the K5 checks, the padded baseline's
+# steps (each ~2.6x the packed step's work), the fused-Adam contract
+SEG_MAPS = ("random", "one", "short", "edges")
+BASE_STEPS = 4
+ADAM_MAX_ULPS = 2              # kernel vs plain: the reference's contract
+K4_SIZES = (1, 1023, 71153920)
+K4_ODD_SIZES = (5, 10001, 333333)   # offsets off the 16-byte grain
+ALTERNATE_ROUNDS = 5           # Adam / FusedAdam steps taken in turns
 
 
 def log(msg):
@@ -250,24 +298,40 @@ def _flash_case(rng, b, s, h, hkv, d, dtype, masked):
     return t + [valid]
 
 
-def _flash_check(q, k, v, do, valid, causal):
-    """K1, then K2-dQ and K2-dKV on the plain forward's (o, lse), each held
-    against its plain version elementwise; (max |err| per output, ok)."""
+def _flash_api(causal, valid=None, seg=None):
+    """The wrappers (fwd, dq, dkv) and plain versions (fwd, bwd) of K1/K2,
+    or of K5 under segment ids ``seg``, and the arguments each takes
+    after its tensors."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    o, lse = fa.flash_fwd(q, k, v, None, causal, valid)
-    po, plse = fa.flash_fwd_plain(q, k, v, None, causal, valid)
+    if seg is None:
+        return (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                fa.flash_fwd_plain, fa.flash_bwd_plain), (None, causal, valid)
+    return (fa.flash_fwd_segment, fa.flash_bwd_segment_dq,
+            fa.flash_bwd_segment_dkv, fa.flash_fwd_segment_plain,
+            fa.flash_bwd_segment_plain), (seg, None, causal)
+
+
+def _flash_check(q, k, v, do, valid, causal, seg=None):
+    """K1 (K5-fwd under segment ids ``seg``), then K2-dQ and K2-dKV
+    (K5-dQ, K5-dKV) on the plain forward's (o, lse), each held against its
+    plain version elementwise; (max |err| per output, ok, the kernels'
+    (o, lse, dq, dk, dv))."""
+    (fwd, dq_fn, dkv_fn, fwd_plain, bwd_plain), tail = \
+        _flash_api(causal, valid, seg)
+    o, lse = fwd(q, k, v, *tail)
+    po, plse = fwd_plain(q, k, v, *tail)
     delta = (do.float() * po.float()).sum(-1)
-    dq = fa.flash_bwd_dq(q, k, v, do, plse, delta, None, causal, valid)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, plse, delta, None, causal, valid)
+    dq = dq_fn(q, k, v, do, plse, delta, *tail)
+    dk, dv = dkv_fn(q, k, v, do, plse, delta, *tail)
     _sync()
-    ref = fa.flash_bwd_plain(q, k, v, po, plse, do, None, causal, valid)
+    ref = bwd_plain(q, k, v, po, plse, do, *tail)
     errs, ok = {}, True
     for name, got, want in zip(("o", "lse", "dq", "dk", "dv"),
                                (o, lse, dq, dk, dv), (po, plse) + ref):
         err, good = _against_plain(got, want)
         errs[name] = err
         ok = ok and good
-    return errs, ok
+    return errs, ok, (o, lse, dq, dk, dv)
 
 
 def flash_checks():
@@ -286,7 +350,7 @@ def flash_checks():
                   torch.bfloat16, True, False))
     for (b, s, h, hkv, d), dtype, causal, masked in cases:
         q, k, v, do, valid = _flash_case(rng, b, s, h, hkv, d, dtype, masked)
-        errs, ok = _flash_check(q, k, v, do, valid, causal)
+        errs, ok, _ = _flash_check(q, k, v, do, valid, causal)
         rows.append({"shape": [b, s, h, hkv, d],
                      "dtype": str(dtype).split(".")[-1], "causal": causal,
                      "masked": masked, "max_abs_err": errs, "ok": ok})
@@ -307,6 +371,168 @@ def flash_checks():
         raise AssertionError("flash kernels disagree with their plain "
                              "versions: %s" % [r for r in rows
                                                if not r["ok"]])
+    return rows
+
+
+def _seg_map(rng, kind, b, s):
+    """[b, s] int32 segment ids, non-decreasing along each row: "random"
+    2-5 documents at random cuts, "one" a single segment, "short"
+    segments of 1-8 tokens, "edges" boundaries every 64 positions, on the
+    kernels' tile edges in row 1 and one off either side in rows 0, 2."""
+    out = np.zeros((b, s), np.int32)
+    for i in range(b):
+        if kind == "random":
+            n = rng.randint(2, 6)
+            cuts = np.sort(rng.choice(np.arange(1, s), n - 1, replace=False))
+        elif kind == "short":
+            cuts = np.cumsum(rng.randint(1, 9, size=s))
+            cuts = cuts[cuts < s]
+        elif kind == "edges":
+            cuts = np.arange(64, s, 64) + (i % 3) - 1
+        else:
+            cuts = np.zeros(0, np.int64)
+        bounds = np.concatenate([[0], cuts, [s]]).astype(np.int64)
+        for si in range(len(bounds) - 1):
+            out[i, bounds[si]:bounds[si + 1]] = si
+    return out
+
+
+def _segments(ids):
+    import torch
+    from paddle_tpu_torch.ops.segment_mask import SegmentIds
+    t = torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(DEVICE)
+    return SegmentIds(t, t)
+
+
+def segment_checks(packed_ids):
+    """K5-fwd, K5-dQ and K5-dKV against their plain versions on the card
+    over FLASH_GEOMS x dtype x causal x SEG_MAPS, then at the packed
+    step's shape and map (``packed_ids`` [16, 1024]). Under one segment
+    the K5 results must also match K1/K2's. Comparison launches do not
+    count as the main path's."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 4)
+    saved = dict(fa.launches)
+    cases = [(g, dt, c, m) for g in FLASH_GEOMS
+             for dt in (torch.float32, torch.bfloat16)
+             for c in (False, True) for m in SEG_MAPS]
+    cases.append(((LM_BATCH, LM_SEQ, LM_HEADS, LM_HEADS, LM_DIM // LM_HEADS),
+                  torch.bfloat16, True, "packed"))
+    rows = []
+    for (b, s, h, hkv, d), dtype, causal, kind in cases:
+        q, k, v, do, _ = _flash_case(rng, b, s, h, hkv, d, dtype, False)
+        ids = packed_ids if kind == "packed" else _seg_map(rng, kind, b, s)
+        errs, ok, outs = _flash_check(q, k, v, do, None, causal,
+                                      _segments(ids))
+        row = {"shape": [b, s, h, hkv, d], "dtype": str(dtype).split(".")[-1],
+               "causal": causal, "map": kind, "max_abs_err": errs, "ok": ok}
+        if kind == "one":      # one segment: K5 must match K1/K2
+            _, _, k12 = _flash_check(q, k, v, do, None, causal)
+            same = [_against_plain(a, b_) for a, b_ in zip(outs, k12)]
+            row["k1k2_max_abs_err"] = max(e for e, _ in same)
+            row["ok"] = ok = ok and all(good for _, good in same)
+        rows.append(row)
+        if not ok or len(rows) == len(cases):
+            log("  K5 b=%d s=%d h=%d hkv=%d d=%d %s causal=%s map=%s: "
+                "max|err| %s %s" % (b, s, h, hkv, d, row["dtype"], causal,
+                                   kind, json.dumps(
+                                       {n: float("%.3g" % e)
+                                        for n, e in errs.items()}),
+                                   "ok" if ok else "FAIL"))
+    fa.launches.update(saved)
+    worst = {n: max(r["max_abs_err"][n] for r in rows)
+             for n in ("o", "lse", "dq", "dk", "dv")}
+    one = max(r["k1k2_max_abs_err"] for r in rows if "k1k2_max_abs_err" in r)
+    log(json.dumps({"segment_checks": {
+        "cases": len(rows), "ok": all(r["ok"] for r in rows),
+        "max_abs_err": worst, "one_segment_vs_k1k2_max_abs_err": one}}))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("segment kernels disagree with their plain "
+                             "versions: %s" % [r for r in rows
+                                               if not r["ok"]])
+    return rows
+
+
+def _max_ulps(got, want):
+    """The largest distance, in units in the last place of ``want``,
+    between two fp32 tensors."""
+    import torch
+    w = want.abs()
+    ulp = torch.nextafter(w, torch.full_like(w, float("inf"))) - w
+    return float(((got - want).abs() / ulp).max())
+
+
+def _adam_state(sizes, seed, device):
+    """Seeded fp32 Adam inputs, one tensor of each size per role; the
+    scalars as the op reads them (step 3, lr 1e-4)."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def randn(n, scale=1.0):
+        return torch.randn(n, generator=g, device=device) * scale
+    ins = {"Param": [randn(n) for n in sizes],
+           "Grad": [randn(n, 3.0) for n in sizes],
+           "Moment1": [randn(n, 0.1) for n in sizes],
+           "Moment2": [randn(n, 0.01).abs() for n in sizes]}
+    for name, value in (("LearningRate", 1e-4), ("Beta1Pow", 0.9 ** 3),
+                        ("Beta2Pow", 0.999 ** 3)):
+        ins[name] = [torch.full((1,), value, device=device)]
+    return ins
+
+
+def _k4_args(ins, clip):
+    """fused_adam_update's arguments for the op inputs ``ins``, the
+    scalars computed as the op computes them."""
+    from paddle_tpu_torch.ops.optimizer_ops import fused_adam_scalars
+    lr_t, gscale = fused_adam_scalars(ins, clip)
+    return (ins["Param"], ins["Grad"], ins["Moment1"], ins["Moment2"], lr_t,
+            gscale, 0.9, 0.999, 1e-8)
+
+
+def _k4_against_plain(ins, clip):
+    """(max ulps, max |err|) of K4 against its plain version over every
+    output element."""
+    from paddle_tpu_torch.ops import fused_adam as pfa
+    args = _k4_args(ins, clip)
+    got = pfa.fused_adam_update(*args)
+    _sync()
+    want = pfa.fused_adam_update_plain(*args)
+    pairs = [(a, b) for gs, ws in zip(got, want) for a, b in zip(gs, ws)]
+    return (max(_max_ulps(a, b) for a, b in pairs),
+            max(float((a - b).abs().max()) for a, b in pairs))
+
+
+def fused_adam_checks():
+    """K4 against its plain version on the card: one call over tensors of
+    K4_SIZES elements, with and without global-norm clipping and a loss
+    scale, the scalars computed as the op computes them, and one over
+    K4_ODD_SIZES (a tensor starting off the 16-byte grain); within
+    ADAM_MAX_ULPS in every output element."""
+    import torch
+    from paddle_tpu_torch.ops import fused_adam as pfa
+    saved = dict(pfa.launches)
+    rows = []
+    for sizes, clip, loss_scale in ((K4_SIZES, 0.0, None),
+                                    (K4_SIZES, 1.0, None),
+                                    (K4_SIZES, 0.0, 1024.0),
+                                    (K4_SIZES, 1.0, 1024.0),
+                                    (K4_ODD_SIZES, 0.0, None)):
+        ins = _adam_state(sizes, SEED + 5, DEVICE)
+        if loss_scale:
+            ins["Grad"] = [g * loss_scale for g in ins["Grad"]]
+            ins["LossScale"] = [torch.full((1,), loss_scale, device=DEVICE)]
+        ulps, err = _k4_against_plain(ins, clip)
+        rows.append({"sizes": list(sizes), "clip_norm": clip,
+                     "loss_scale": loss_scale, "max_ulps": ulps,
+                     "max_abs_err": err, "ok": ulps <= ADAM_MAX_ULPS})
+        del ins
+    pfa.launches.update(saved)
+    log(json.dumps({"fused_adam_checks": rows}))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("K4 disagrees with its plain version by more "
+                             "than %d ulp: %s" % (ADAM_MAX_ULPS, rows))
     return rows
 
 
@@ -405,10 +631,20 @@ def _serving_stats(run):
             "k3_launches": run["launches"]}
 
 
+# cycles of the device sleep ahead of each timed call (~10 ms at the
+# H100's 1.98 GHz boost clock): longer than any wrapper's host work, so
+# the events time the device alone
+SLEEP_CYCLES = 20_000_000
+
+
 def _timed(fn, args, reps, flush):
     """Mean ms of ``fn(*args)`` over ``reps`` launches, each timed alone
     with CUDA events after the L2 cache was flushed (the serving loop
-    touches 12 layers' pools between two calls of one layer)."""
+    touches 12 layers' pools between two calls of one layer). Each call
+    is queued behind a device sleep, so the wrapper's host work (argument
+    checks, allocations, K4's pointer table) overlaps the sleep and the
+    events measure the device's time; a call whose host work outlasts
+    the sleep (the eager plain versions) shows it in the time."""
     import torch
     for _ in range(3):
         fn(*args)
@@ -417,6 +653,7 @@ def _timed(fn, args, reps, flush):
         flush.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         e0.record()
         fn(*args)
         e1.record()
@@ -634,9 +871,12 @@ def main_path(workdir):
 
 # -- phases 5-6: training -------------------------------------------------
 
-def build_lm(fluid, layers, batch, seq, amp):
+def build_lm(fluid, layers, batch, seq, amp, mask=None, opt="Adam"):
     """bench_lm.py's program: transformer_lm, softmax cross-entropy on the
-    next token, mean, Adam(LM_LR); bf16 mixed precision when ``amp``."""
+    next token, mean, ``opt``(LM_LR); bf16 mixed precision when ``amp``.
+    ``mask``: None, "packed" (a ``seg`` feed of segment ids, its
+    ``_build_lm(packed_rows=True)``) or "valid" (a ``valid`` padding
+    feed, its padded baseline)."""
     from paddle_tpu_torch import models, unique_name
     with unique_name.guard():
         prog, startup = fluid.Program(), fluid.Program()
@@ -647,14 +887,23 @@ def build_lm(fluid, layers, batch, seq, amp):
             labels = fluid.layers.data(name="labels", shape=[batch, seq],
                                        dtype="int64",
                                        append_batch_size=False)
+            kw = {}
+            if mask == "packed":
+                kw["segment_ids"] = fluid.layers.data(
+                    name="seg", shape=[batch, seq], dtype="int32",
+                    append_batch_size=False)
+            elif mask == "valid":
+                kw["valid"] = fluid.layers.data(
+                    name="valid", shape=[batch, seq], dtype="int32",
+                    append_batch_size=False)
             logits = models.transformer_lm(
                 ids, vocab_size=LM_VOCAB, num_layers=layers,
-                d_model=LM_DIM, num_heads=LM_HEADS, max_len=seq)
+                d_model=LM_DIM, num_heads=LM_HEADS, max_len=seq, **kw)
             flat = fluid.layers.reshape(logits, [batch * seq, LM_VOCAB])
             flat_lbl = fluid.layers.reshape(labels, [batch * seq, 1])
             loss = fluid.layers.mean(
                 fluid.layers.softmax_with_cross_entropy(flat, flat_lbl))
-            fluid.optimizer.Adam(learning_rate=LM_LR).minimize(loss)
+            getattr(fluid.optimizer, opt)(learning_rate=LM_LR).minimize(loss)
         fluid.enable_mixed_precision(prog, amp)
     return prog, startup, loss
 
@@ -745,9 +994,14 @@ def _profile_steps(exe, prog, feed, loss, steps):
     def ms(pred):
         return sum(e.self_device_time_total for e in events
                    if pred(e.key)) / steps / 1e3
+    def flash(k, seg):
+        # K1/K2 and K5 share kernel bodies; kSeg is the last template
+        # argument of the kernel's name
+        return "flash_" in k and "_kernel" in k and ("true>" in k) == seg
     busy = ms(lambda k: True)
-    k1 = ms(lambda k: "flash_fwd_kernel" in k)
-    k2 = ms(lambda k: "flash_bwd_" in k)
+    k1 = ms(lambda k: flash(k, False) and "fwd_kernel" in k)
+    k2 = ms(lambda k: flash(k, False) and "bwd_" in k)
+    k5 = ms(lambda k: flash(k, True))
     gemm = ms(lambda k: any(t in k.lower() for t in
                             ("gemm", "nvjet", "xmma", "cutlass")))
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -759,8 +1013,8 @@ def _profile_steps(exe, prog, feed, loss, steps):
            and str(e.device_type) == "DeviceType.CPU"}
     generic = [t[:-len("_grad")] for t, info in OP_REGISTRY.items()
                if info.generic_grad and t in ops]
-    return {"device_busy_ms": busy, "k1_ms": k1, "k2_ms": k2,
-            "gemm_ms": gemm, "other_ms": busy - k1 - k2 - gemm,
+    return {"device_busy_ms": busy, "k1_ms": k1, "k2_ms": k2, "k5_ms": k5,
+            "gemm_ms": gemm, "other_ms": busy - k1 - k2 - k5 - gemm,
             "top_kernels_ms": {e.key[:70]: e.self_device_time_total
                                / steps / 1e3 for e in top},
             "ops_host_ms": sum(o["host_ms"] for o in ops.values()),
@@ -768,6 +1022,17 @@ def _profile_steps(exe, prog, feed, loss, steps):
                                key=lambda kv: -kv[1]["host_ms"])),
             "generic_vjp_recompute_ms": sum(ops[t]["device_ms"]
                                             for t in generic if t in ops)}
+
+
+def _train_steps(exe, prog, feed, loss, steps):
+    """``steps`` steps through Executor.run (each ends in the loss fetch,
+    a sync); the losses and the host ms of each step."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss])[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms
 
 
 def train_path():
@@ -789,12 +1054,7 @@ def train_path():
         exe.run(startup)
         for name in fa.launches:
             fa.launches[name] = 0      # counts from here are the main path's
-        losses, step_ms = [], []
-        for _ in range(LM_STEPS):
-            t0 = time.perf_counter()
-            losses.append(float(exe.run(prog, feed=feed,
-                                        fetch_list=[loss])[0]))
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses, step_ms = _train_steps(exe, prog, feed, loss, LM_STEPS)
         launches = dict(fa.launches)
         prof = _profile_steps(exe, prog, feed, loss, LM_PROFILE_STEPS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
@@ -809,88 +1069,409 @@ def train_path():
     res["device_idle_share"] = 1.0 - prof["device_busy_ms"] / p50
     busy = prof["device_busy_ms"] or float("nan")
     res["shares_of_busy"] = {k: prof[k + "_ms"] / busy
-                             for k in ("k1", "k2", "gemm", "other")}
+                             for k in ("k1", "k2", "k5", "gemm", "other")}
     log("training %dL-%dd b%d s%d bf16, %d params: %s"
         % (LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, n_params, json.dumps(res)))
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError("training loss not finite and falling: %s"
                              % losses)
-    if any(launches[n] != want for n in launches):
-        raise AssertionError("flash launches %s != steps %d x layers %d"
+    if any(launches[n] != want for n in K1K2) or \
+            any(launches[n] for n in K5):
+        raise AssertionError("flash launches %s: K1/K2 != steps %d x "
+                             "layers %d or K5 launched"
                              % (launches, LM_STEPS, LM_LAYERS))
     return res
 
 
-def flash_timing(launches):
+def flash_timing(launches, seg_ids=None):
     """K1, K2-dQ and K2-dKV at the training step's attention shape (b16
-    s1024 h8 d64 bf16 causal), each call timed alone with L2 flushed,
-    beside its bound, its plain version and the library yardstick."""
+    s1024 h8 d64 bf16 causal) — or, given the packed step's segment map
+    ``seg_ids``, K5-fwd, K5-dQ and K5-dKV at that shape and map — each
+    call timed alone with L2 flushed, beside its bound (the work of the
+    visible pairs only), its plain version and SDPA, the library
+    yardstick (causal, or under the dense [b, 1, s, s] segment mask;
+    forward, and its autograd backward)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     b, s, h, d = LM_BATCH, LM_SEQ, LM_HEADS, LM_DIM // LM_HEADS
-    rng = np.random.RandomState(SEED + 3)
+    packed = seg_ids is not None
+    rng = np.random.RandomState(SEED + (6 if packed else 3))
     q, k, v, do, _ = _flash_case(rng, b, s, h, h, d, torch.bfloat16, False)
+    seg = _segments(seg_ids) if packed else None
     saved = dict(fa.launches)
-    errs, ok = _flash_check(q, k, v, do, None, True)
+    errs, ok, _ = _flash_check(q, k, v, do, None, True, seg)
     if not ok:
-        raise AssertionError("flash kernels disagree with their plain "
-                             "versions at the step's shape: %s" % errs)
-    o, lse = fa.flash_fwd(q, k, v, None, True)
+        raise AssertionError("%s kernels disagree with their plain versions "
+                             "at the step's shape: %s"
+                             % ("segment" if packed else "flash", errs))
+    (fwd, dq_fn, dkv_fn, fwd_plain, bwd_plain), tail = \
+        _flash_api(True, seg=seg)
+    o, lse = fwd(q, k, v, *tail)
     delta = (do.float() * o.float()).sum(-1)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
-    ms = {"K1": _timed(fa.flash_fwd, (q, k, v, None, True), 20, flush),
-          "dq": _timed(fa.flash_bwd_dq, (q, k, v, do, lse, delta, None,
-                                         True), 20, flush),
-          "dkv": _timed(fa.flash_bwd_dkv, (q, k, v, do, lse, delta, None,
-                                           True), 20, flush)}
-    plain = {"K1": _timed(fa.flash_fwd_plain, (q, k, v, None, True), 5,
-                          flush),
-             "bwd": _timed(fa.flash_bwd_plain, (q, k, v, o, lse, do, None,
-                                                True), 5, flush)}
+    ms = {"fwd": _timed(fwd, (q, k, v) + tail, 20, flush),
+          "dq": _timed(dq_fn, (q, k, v, do, lse, delta) + tail, 20, flush),
+          "dkv": _timed(dkv_fn, (q, k, v, do, lse, delta) + tail, 20,
+                        flush)}
+    plain = {"fwd": _timed(fwd_plain, (q, k, v) + tail, 5, flush),
+             "bwd": _timed(bwd_plain, (q, k, v, o, lse, do) + tail, 5,
+                           flush)}
+    sdpa = {"is_causal": True}
+    if packed:
+        sdpa = {"attn_mask": ((seg.q[:, :, None] == seg.kv[:, None, :]) &
+                              torch.ones(s, s, dtype=torch.bool,
+                                         device=DEVICE).tril())[:, None]}
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     lib_fwd = _timed(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), (), 20, flush)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        qt, kt, vt, **sdpa), (), 20, flush)
+    out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
     g = do.transpose(1, 2)
     lib_bwd = _timed(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
                                                  retain_graph=True),
                      (), 20, flush)
     fa.launches.update(saved)   # comparison launches are not the path's
-    # bound: the larger of the causal work at the bf16 tensor-core rate
-    # and each input read once plus each output written once
-    pairs = b * h * s * (s + 1) // 2
+    # bound: the larger of the visible pairs' work at the bf16 tensor-core
+    # rate and each input read once plus each output written once
+    pairs = h * visible_pairs(seg_ids if packed else np.zeros((b, s)))
     act = b * s * h * d * 2                   # one bf16 [b, s, h, d]
     lse_b, delta_b = b * h * s * 8 * 4, b * s * h * 4
-    work = {"K1": (4 * d * pairs, 4 * act + lse_b),
-            "dq": (6 * d * pairs, 5 * act + lse_b + delta_b),
-            "dkv": (8 * d * pairs, 6 * act + lse_b + delta_b)}
-    rows = []
-    for key, base, err, plain_ms, lib in (
-            ("K1", K1, errs["o"], plain["K1"], lib_fwd),
-            ("dq", K2_DQ, errs["dq"], plain["bwd"], lib_bwd),
-            ("dkv", K2_DKV, max(errs["dk"], errs["dv"]), plain["bwd"],
-             lib_bwd)):
-        flops, nbytes = work[key]
-        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
-        row = dict(base)
-        row.update({"launches": launches[base["name"]], "max_abs_err": err,
-                    "ms": ms[key], "plain_ms": plain_ms,
-                    "bound_ms": max(t_ops, t_bytes) * 1e3,
-                    "bound_by": "bytes" if t_bytes >= t_ops
-                    else "operations", "library_ms": lib,
-                    "gflop": flops / 1e9, "mb": nbytes / 1e6})
-        rows.append(row)
-        log("%s at b%d s%d h%d d%d bf16 causal: %.4f ms (bound %.4f ms by "
-            "%s, %.1f%% of it; plain %.4f ms; library %.4f ms); %.1f GFLOP "
-            "%.1f MB; max|err| vs plain %.3g"
-            % (base["name"], b, s, h, d, row["ms"], row["bound_ms"],
-               row["bound_by"], 100 * row["bound_ms"] / row["ms"],
-               plain_ms, lib, flops / 1e9, nbytes / 1e6, err))
-    log("flash K1+K2 %.4f ms vs SDPA fwd+bwd %.4f ms"
-        % (ms["K1"] + ms["dq"] + ms["dkv"], lib_fwd + lib_bwd))
+    seg_b = 2 * b * s * 4 if packed else 0
+    work = {"fwd": (4 * d * pairs, 4 * act + lse_b + seg_b),
+            "dq": (6 * d * pairs, 5 * act + lse_b + delta_b + seg_b),
+            "dkv": (8 * d * pairs, 6 * act + lse_b + delta_b + seg_b)}
+    shape = "b%d s%d h%d d%d bf16 causal" % (b, s, h, d)
+    if packed:
+        shape += ", %d visible pairs" % pairs
+    rows = [_timing_row(base, launches[base["name"]], err, ms[key],
+                        plain[key if key == "fwd" else "bwd"], lib,
+                        *work[key], BF16_FLOPS, shape)
+            for key, base, err, lib in (
+                ("fwd", K5_FWD if packed else K1, errs["o"], lib_fwd),
+                ("dq", K5_DQ if packed else K2_DQ, errs["dq"], lib_bwd),
+                ("dkv", K5_DKV if packed else K2_DKV,
+                 max(errs["dk"], errs["dv"]), lib_bwd))]
+    log("%s %.4f ms vs SDPA%s fwd+bwd %.4f ms"
+        % ("K5 fwd+bwd" if packed else "flash K1+K2",
+           ms["fwd"] + ms["dq"] + ms["dkv"],
+           " (dense mask)" if packed else "", lib_fwd + lib_bwd))
     return rows
+
+
+def _timing_row(base, launches, err, ms, plain_ms, library_ms, flops,
+                nbytes, peak_flops, shape):
+    """One kernel's line of the report: its time beside its bound (the
+    larger of ``flops`` at ``peak_flops`` and ``nbytes`` at the memory
+    rate), its plain version's and the library call's."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / HBM_BYTES_PER_S
+    row = dict(base)
+    row.update({"launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms, "gflop": flops / 1e9,
+                "mb": nbytes / 1e6})
+    log("%s at %s: %.4f ms (bound %.4f ms by %s, %.1f%% of it; plain %.4f "
+        "ms; library %s ms); %.2f GFLOP %.1f MB; max|err| vs plain %.3g"
+        % (base["name"], shape, ms, row["bound_ms"], row["bound_by"],
+           100 * row["bound_ms"] / ms, plain_ms,
+           "%.4f" % library_ms if library_ms is not None else "-",
+           flops / 1e9, nbytes / 1e6, err))
+    return row
+
+
+# -- phases 7-8: packed documents, fused Adam -----------------------------
+
+def packed_data(batch, seq):
+    """bench_lm.py packed_main's data through the port's packer: seeded
+    ragged documents of seq/8 .. seq/2 tokens, first-fit packed into
+    ``batch`` rows with segment ids, next-token labels with ignore_id 0;
+    and its padded baseline, the documents of those rows one per row
+    under a ``valid`` mask. Real tokens: positions outside each row's
+    padding tail."""
+    from paddle_tpu_torch.data import decorator as D
+    rng = np.random.RandomState(SEED)
+    docs = []
+    while sum(len(d) for d in docs) < int(batch * seq * 1.05):
+        docs.append(rng.randint(1, LM_VOCAB, size=int(
+            rng.randint(seq // 8, seq // 2))).astype(np.int32))
+    rows = D.pack_segments(docs, seq)[:batch]
+    ids = np.stack([t for t, _ in rows]).astype(np.int32)
+    seg = np.stack([s for _, s in rows]).astype(np.int32)
+    lab = D.packed_next_token_labels(ids, seg, ignore_id=0)
+    pad = np.zeros_like(seg, bool)
+    for r in range(batch):
+        tail = seg[r] == seg[r, -1]
+        if ids[r][tail].max(initial=0) == 0 and seg[r, -1] > 0:
+            pad[r] = tail
+    base_docs = [t[s == si] for t, s in rows for si in range(int(s.max()) + 1)
+                 if (t[s == si] != 0).any()]
+    nb = len(base_docs)
+    base_ids = np.zeros((nb, seq), np.int32)
+    base_valid = np.zeros((nb, seq), np.int32)
+    for i, d in enumerate(base_docs):
+        base_ids[i, :len(d)] = d
+        base_valid[i, :len(d)] = 1
+    base_lab = np.zeros((nb, seq), np.int32)
+    base_lab[:, :-1] = base_ids[:, 1:]
+    return {"packed": {"ids": ids, "seg": seg,
+                       "labels": lab.astype(np.int32)},
+            "baseline": {"ids": base_ids, "valid": base_valid,
+                         "labels": base_lab},
+            "real_packed": int((~pad).sum()),
+            "real_baseline": int(base_valid.sum()), "docs": nb,
+            "doc_lengths": [len(d) for d in base_docs],
+            "segments_per_row": [int(r.max()) + 1 for r in seg]}
+
+
+def visible_pairs(seg, causal=True):
+    """(q, k) pairs one head can see under segment ids ``seg`` [b, s]."""
+    total = 0
+    for row in np.asarray(seg):
+        n = np.unique(row, return_counts=True)[1].astype(np.int64)
+        total += int((n * (n + 1) // 2).sum() if causal else (n * n).sum())
+    return total
+
+
+def _p50(step_ms):
+    return float(np.percentile(step_ms[1:], 50))
+
+
+def packed_path(data):
+    """Phase 7: bench_lm.py's packed step at full size — LM_STEPS steps
+    with the launch counts set to 0 just before and read just after (K5
+    x steps x layers, no K1/K2), a profiled window, then the padded
+    baseline through K1/K2 for BASE_STEPS steps, then ALTERNATE_ROUNDS
+    packed and baseline steps in turns, whose p50s give
+    ``speedup_vs_padded_ragged``. Returns the report and the packed run's
+    scope (phase 8 starts from it)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+    prog, startup, loss = build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ,
+                                   amp=True, mask="packed")
+    feed = data["packed"]
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for name in fa.launches:
+            fa.launches[name] = 0      # counts from here are the main path's
+        losses, step_ms = _train_steps(exe, prog, feed, loss, LM_STEPS)
+        launches = dict(fa.launches)
+        prof = _profile_steps(exe, prog, feed, loss, LM_PROFILE_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEVICE == "cuda" else None
+    want = LM_STEPS * LM_LAYERS
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("packed training loss not finite and falling: "
+                             "%s" % losses)
+    if any(launches[n] != want for n in K5) or \
+            any(launches[n] for n in K1K2):
+        raise AssertionError("packed path launches %s: K5 != steps %d x "
+                             "layers %d or K1/K2 launched"
+                             % (launches, LM_STEPS, LM_LAYERS))
+
+    # the padded baseline: the same documents one per row, K1/K2
+    nb = data["baseline"]["ids"].shape[0]
+    bprog, bstartup, bloss = build_lm(fluid, LM_LAYERS, nb, LM_SEQ,
+                                      amp=True, mask="valid")
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    base_scope = fluid.Scope()
+    with fluid.scope_guard(base_scope):
+        exe.run(bstartup)
+        for name in fa.launches:
+            fa.launches[name] = 0
+        base_losses, base_ms = _train_steps(exe, bprog, data["baseline"],
+                                            bloss, BASE_STEPS)
+        base_launches = dict(fa.launches)
+    base_peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEVICE == "cuda" else None
+    turns = {"packed": [], "baseline": []}
+    for _ in range(ALTERNATE_ROUNDS):
+        for tag, sc, args in (("packed", scope, (prog, feed, loss)),
+                              ("baseline", base_scope,
+                               (bprog, data["baseline"], bloss))):
+            with fluid.scope_guard(sc):
+                turns[tag] += _train_steps(exe, *args, 1)[1]
+    del base_scope
+    if not all(np.isfinite(base_losses)) or \
+            any(base_launches[n] != BASE_STEPS * LM_LAYERS for n in K1K2) \
+            or any(base_launches[n] for n in K5):
+        raise AssertionError("padded baseline: losses %s, launches %s"
+                             % (base_losses, base_launches))
+    p50, base_p50 = _p50(step_ms), _p50(base_ms)
+    tok_s = data["real_packed"] / (p50 / 1e3)
+    base_tok_s = data["real_baseline"] / (base_p50 / 1e3)
+    turns_p50 = {tag: float(np.percentile(ms, 50))
+                 for tag, ms in turns.items()}
+    turns_tok_s = {"packed": data["real_packed"] / turns_p50["packed"],
+                   "baseline": data["real_baseline"] /
+                   turns_p50["baseline"]}
+    res = {"losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+           "real_tokens_packed": data["real_packed"],
+           "real_tokens_per_s": tok_s, "launches": launches,
+           "peak_memory_gb": peak_gb,
+           "pack_occupancy": data["real_packed"] / float(LM_BATCH * LM_SEQ),
+           "docs": data["docs"],
+           "segments_per_row": data["segments_per_row"],
+           "visible_pairs_per_head": visible_pairs(data["packed"]["seg"]),
+           "baseline": {"rows": nb, "losses": base_losses,
+                        "step_ms": base_ms, "step_ms_p50": base_p50,
+                        "real_tokens": data["real_baseline"],
+                        "real_tokens_per_s": base_tok_s,
+                        "launches": base_launches,
+                        "peak_memory_gb": base_peak_gb},
+           "pad_waste_baseline": 1.0 - data["real_baseline"] /
+           float(nb * LM_SEQ),
+           "alternating_step_ms": turns,
+           "alternating_step_ms_p50": turns_p50,
+           "speedup_vs_padded_ragged": turns_tok_s["packed"] /
+           turns_tok_s["baseline"]}
+    res.update(prof)
+    res["device_idle_share"] = 1.0 - prof["device_busy_ms"] / p50
+    busy = prof["device_busy_ms"] or float("nan")
+    res["shares_of_busy"] = {k: prof[k + "_ms"] / busy
+                             for k in ("k5", "gemm", "other")}
+    log("packed training %dL-%dd %d rows x %d bf16: %s"
+        % (LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, json.dumps(res)))
+    log("packed vs padded, steps in turns: %s" % json.dumps({
+        "real_tokens_per_s": {k: v * 1e3 for k, v in turns_tok_s.items()},
+        "speedup_vs_padded_ragged": res["speedup_vs_padded_ragged"],
+        "pack_occupancy": res["pack_occupancy"],
+        "pad_waste_baseline": res["pad_waste_baseline"],
+        "device_busy_ms": res["device_busy_ms"],
+        "device_idle_share": res["device_idle_share"],
+        "k5_share_of_busy": res["shares_of_busy"]["k5"]}))
+    return res, scope
+
+
+def _persistable_ulps(names, a, b):
+    """name -> max ulp distance of scope ``a``'s value from ``b``'s."""
+    return {n: _max_ulps(a.find_var(n).float(), b.find_var(n).float())
+            for n in names}
+
+
+def fused_adam_path(data, packed_scope, packed_res):
+    """Phase 8: the packed program under FusedAdamOptimizer. One step
+    from phase 7's state against one Adam step (deterministic kernels, so
+    both compute the same gradients): every parameter and moment within
+    ADAM_MAX_ULPS. Then LM_STEPS steps with the K4 count set to 0 just
+    before (one launch per step), and a profiled window."""
+    import warnings
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import fused_adam as pfa
+    feed = data["packed"]
+    adam = build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ, amp=True,
+                    mask="packed")
+    fused = build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ, amp=True,
+                     mask="packed", opt="FusedAdam")
+    types = [op.type for op in fused[0].global_block().ops]
+    if types.count("fused_adam") != 1 or "adam" in types:
+        raise AssertionError("FusedAdam built %d fused_adam and %d adam ops"
+                             % (types.count("fused_adam"),
+                                types.count("adam")))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scopes = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for tag, (prog, _, loss) in (("adam", adam), ("fused", fused)):
+                sc = fluid.Scope()
+                for n in packed_scope.local_var_names():
+                    sc.set_var(n, packed_scope.find_var(n).clone())
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=sc)
+                scopes[tag] = sc
+        finally:
+            torch.use_deterministic_algorithms(False)
+    names = sorted(v.name for v in fused[0].list_vars()
+                   if v.persistable and "_moment" in v.name) + \
+        sorted(p.name for p in fused[0].global_block().all_parameters())
+    ulps = _persistable_ulps(names, scopes["fused"], scopes["adam"])
+    worst = max(ulps, key=ulps.get)
+    one_step = {"tensors": len(names), "max_ulps": ulps[worst],
+                "worst": worst,
+                "bitwise": sum(1 for u in ulps.values() if u == 0)}
+    log("FusedAdam vs Adam, one step from the packed state: %s"
+        % json.dumps(one_step))
+    if ulps[worst] > ADAM_MAX_ULPS:
+        raise AssertionError("FusedAdam step off the Adam step by %g ulp "
+                             "in %s" % (ulps[worst], worst))
+    prog, _, loss = fused
+    with fluid.scope_guard(scopes["fused"]):
+        pfa.launches["fused_adam"] = 0  # counts from here are the path's
+        losses, step_ms = _train_steps(exe, prog, feed, loss, LM_STEPS)
+        launches = pfa.launches["fused_adam"]
+        prof = _profile_steps(exe, prog, feed, loss, LM_PROFILE_STEPS)
+    # the two optimizers' steps in turns, each on its own state
+    turns = {"adam": [], "fused": []}
+    for _ in range(ALTERNATE_ROUNDS):
+        for tag, (tprog, _, tloss) in (("adam", adam), ("fused", fused)):
+            with fluid.scope_guard(scopes[tag]):
+                turns[tag] += _train_steps(exe, tprog, feed, tloss, 1)[1]
+    del scopes
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("FusedAdam loss not finite and falling: %s"
+                             % losses)
+    if launches != LM_STEPS:
+        raise AssertionError("K4 launches %d != steps %d"
+                             % (launches, LM_STEPS))
+    adam_ops = packed_res["ops"].get("adam", {})
+    res = {"one_step_vs_adam": one_step, "losses": losses,
+           "step_ms": step_ms, "step_ms_p50": _p50(step_ms),
+           "adam_step_ms_p50": packed_res["step_ms_p50"],
+           "alternating_step_ms": turns,
+           "alternating_step_ms_p50": {
+               tag: float(np.percentile(ms, 50)) for tag, ms in turns.items()},
+           "launches": launches,
+           "adam_ops_host_ms": adam_ops.get("host_ms"),
+           "adam_ops_calls": adam_ops.get("calls"),
+           "fused_adam_op_host_ms": prof["ops"]["fused_adam"]["host_ms"],
+           "fused_adam_op_device_ms": prof["ops"]["fused_adam"]["device_ms"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "ops_host_ms": prof["ops_host_ms"],
+           "param_shapes": [list(p.shape) for p in
+                            fused[0].global_block().all_parameters()]}
+    log("FusedAdam packed training: %s" % json.dumps(
+        {k: v for k, v in res.items() if k != "param_shapes"}))
+    return res
+
+
+def fused_adam_timing(shapes, launches):
+    """K4 over tensors of the LM's parameter shapes (fp32), timed with
+    L2 flushed, beside its bound (28 bytes per element), its plain version
+    and ``torch._fused_adam_`` over the same tensors (a yardstick for
+    time only: it places epsilon differently)."""
+    import torch
+    from paddle_tpu_torch.ops import fused_adam as pfa
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    ins = _adam_state(sizes, SEED + 7, DEVICE)
+    saved = dict(pfa.launches)
+    ulps, err = _k4_against_plain(ins, 0.0)
+    if ulps > ADAM_MAX_ULPS:
+        raise AssertionError("K4 off its plain version by %g ulp" % ulps)
+    args = _k4_args(ins, 0.0)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    ms = _timed(pfa.fused_adam_update, args, 20, flush)
+    plain_ms = _timed(pfa.fused_adam_update_plain, args, 5, flush)
+    lib = [[t.clone() for t in ins[k]]
+           for k in ("Param", "Grad", "Moment1", "Moment2")]
+    steps = [torch.tensor(3.0, device=DEVICE) for _ in sizes]
+    lib_ms = _timed(lambda: torch._fused_adam_(
+        *lib, [], steps, lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.0,
+        eps=1e-8, amsgrad=False, maximize=False), (), 20, flush)
+    pfa.launches.update(saved)
+    n = sum(sizes)
+    row = _timing_row(K4, launches, err, ms, plain_ms, lib_ms, 13 * n,
+                      28 * n, FP32_FLOPS,
+                      "%d fp32 parameters in %d tensors" % (n, len(sizes)))
+    row["max_ulps"] = ulps
+    return row
 
 
 def main(argv=None):
@@ -911,14 +1492,26 @@ def main(argv=None):
     try:
         t0 = time.perf_counter()
         report["build_s"] = build()
+        data = packed_data(LM_BATCH, LM_SEQ)
         report["kernel_checks"] = kernel_checks()
         report["flash_checks"] = flash_checks()
+        report["segment_checks"] = segment_checks(data["packed"]["seg"])
+        report["fused_adam_checks"] = fused_adam_checks()
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
             report["train_gate"] = train_gate()
             report["train_path"] = train_path()
             report["flash_timing"] = flash_timing(
                 report["train_path"]["launches"])
+            report["packed_path"], scope = packed_path(data)
+            report["segment_timing"] = flash_timing(
+                report["packed_path"]["launches"], data["packed"]["seg"])
+            report["fused_adam_path"] = fused_adam_path(
+                data, scope, report["packed_path"])
+            del scope
+            report["fused_adam_timing"] = fused_adam_timing(
+                report["fused_adam_path"]["param_shapes"],
+                report["fused_adam_path"]["launches"])
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()
@@ -932,7 +1525,9 @@ def main(argv=None):
                 json.dump(report, f, indent=1, default=str)
     if not args.kernels_only:
         print(json.dumps({"kernels": [report["main_path"]["k3"]] +
-                          report["flash_timing"]}))
+                          report["flash_timing"] +
+                          report["segment_timing"] +
+                          [report["fused_adam_timing"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": report["card"]["name"],
         "count": report["card"]["count"]}}))

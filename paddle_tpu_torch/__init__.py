@@ -6,7 +6,7 @@ numpy and the standard library only — never jax and never a module of
 ``paddle_tpu`` — and keeps its own trimmed copies of the backend-neutral
 pieces it needs (flags, profiler counters, metric catalogue, tracing).
 
-Two slices are ported:
+Three slices are ported:
 
 - paged-KV generation serving (``serving``): the decoder model, the paged
   decode engine, the continuous-batching scheduler and the HTTP server,
@@ -16,7 +16,13 @@ Two slices are ported:
   DSL, ``append_backward``, the ``SGD``/``Adam`` optimizers, the eager
   ``Executor`` and ``models.transformer_lm``, whose ``fused_attention``
   runs the flash-attention kernels (``csrc/flash_attention.cu``).
-  ``import paddle_tpu_torch as fluid`` reads like the reference.
+  ``import paddle_tpu_torch as fluid`` reads like the reference;
+- packed-document LM training: ``data.decorator.pack_segments`` packs
+  documents into rows with segment ids, ``transformer_lm(segment_ids=)``
+  attends through the packed-segment flash kernels
+  (``csrc/flash_segment.cu``), and ``optimizer.FusedAdam`` updates every
+  parameter in one launch of the fused Adam kernel
+  (``csrc/fused_adam.cu``).
 
 Device rule: every entry point takes a device (``device=``, or a place
 for the ``Executor``). The default is CUDA, which raises when no GPU is
@@ -31,9 +37,9 @@ import torch
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "CPUPlace", "CUDAPlace",
            "Program", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program", "layers",
-           "optimizer", "models", "Executor", "Scope", "global_scope",
-           "scope_guard", "append_backward", "ParamAttr", "unique_name",
-           "enable_mixed_precision"]
+           "optimizer", "models", "data", "Executor", "Scope",
+           "global_scope", "scope_guard", "append_backward", "ParamAttr",
+           "unique_name", "enable_mixed_precision"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -73,7 +79,7 @@ from .framework import (Parameter, Program, Variable,       # noqa: E402
                         default_main_program, default_startup_program,
                         program_guard)
 from . import ops as _ops       # noqa: E402,F401  registers the lowerings
-from . import layers, models, optimizer                     # noqa: E402
+from . import data, layers, models, optimizer               # noqa: E402
 from .backward import append_backward                       # noqa: E402
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa
 from .param_attr import ParamAttr                           # noqa: E402

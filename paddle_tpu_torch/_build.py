@@ -27,7 +27,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # kernel name -> its source under csrc/ (one library per source, so the
 # sources build in parallel, one nvcc each)
 SOURCES = {"paged_decode": "paged_decode.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_segment": "flash_segment.cu",
+           "fused_adam": "fused_adam.cu"}
 
 # sm_90a, not sm_90: wgmma/setmaxnreg exist only for the "a" target
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,11 +66,15 @@ def _source(name):
 
 
 def library_path(name):
-    """Where ``name``'s library lives: keyed by a hash of its source and
-    the compiler flags, so an edited source never loads a stale build."""
+    """Where ``name``'s library lives: keyed by a hash of its source, the
+    headers under csrc/ and the compiler flags, so an edited source never
+    loads a stale build."""
     h = hashlib.sha1()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC_DIR, f)
+                                   for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 

@@ -4,7 +4,7 @@
 ops in the same order, so both packages name every variable alike.
 
 Not ported yet (each raises ``NotImplementedError``): MoE FFNs, pipeline
-stages, recompute, and packed-segment masks (``segment_ids``, K5).
+stages and recompute.
 """
 
 import numpy as np
@@ -16,12 +16,16 @@ __all__ = ["transformer_lm", "multi_head_attention", "transformer_layer"]
 
 
 def multi_head_attention(x, num_heads, causal=True, name=None,
-                         num_kv_heads=None, valid=None):
+                         num_kv_heads=None, valid=None, segment_ids=None):
     """x: [N, T, D] → [N, T, D] self-attention via the fused_attention op.
     ``num_kv_heads`` < num_heads enables grouped-query attention (one
     fused projection split into q/k/v; the flash kernels fold each kv
     head's query group). ``valid``: optional [N, T] 0/1 padding mask,
-    wired as the factored QValid/KValid inputs."""
+    wired as the factored QValid/KValid inputs. ``segment_ids``: optional
+    [N, T] int32 packed-batch segment map, wired as QSegIds/KSegIds (the
+    segment flash kernels, K5). Mutually exclusive with ``valid``."""
+    assert valid is None or segment_ids is None, \
+        "multi_head_attention: pass valid= OR segment_ids=, not both"
     n, t, d = x.shape
     assert d % num_heads == 0
     head_dim = d // num_heads
@@ -57,6 +61,9 @@ def multi_head_attention(x, num_heads, causal=True, name=None,
     if valid is not None:
         inputs["QValid"] = [valid]
         inputs["KValid"] = [valid]
+    if segment_ids is not None:
+        inputs["QSegIds"] = [segment_ids]
+        inputs["KSegIds"] = [segment_ids]
     helper.append_op(type="fused_attention",
                      inputs=inputs,
                      outputs={"Out": [out], "Lse": [lse]},
@@ -67,12 +74,13 @@ def multi_head_attention(x, num_heads, causal=True, name=None,
 
 
 def transformer_layer(x, num_heads, ffn_mult=4, causal=True,
-                      num_kv_heads=None, valid=None):
+                      num_kv_heads=None, valid=None, segment_ids=None):
     """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x))."""
     n, t, d = x.shape
     ln1 = layers.layer_norm(x, begin_norm_axis=2)
     attn = multi_head_attention(ln1, num_heads, causal=causal,
-                                num_kv_heads=num_kv_heads, valid=valid)
+                                num_kv_heads=num_kv_heads, valid=valid,
+                                segment_ids=segment_ids)
     x = layers.elementwise_add(x=x, y=attn)
     ln2 = layers.layer_norm(x, begin_norm_axis=2)
     # tanh-approximate gelu, as the reference model uses
@@ -90,12 +98,14 @@ def transformer_lm(ids, vocab_size, num_layers=4, d_model=256, num_heads=8,
     """ids: [N, T] int — returns logits [N, T, vocab_size]. ``valid``:
     optional [N, T] 0/1 padding mask threaded to every attention as a
     factored mask (the flash kernels and the saved-lse backward keep
-    running). ``num_kv_heads`` < num_heads: grouped-query attention."""
-    if recompute or moe_experts or pipeline_stages or \
-            segment_ids is not None:
+    running). ``segment_ids``: optional [N, T] int32 packed-batch map
+    threaded to every attention as QSegIds/KSegIds (the packed path;
+    ``data.decorator.pack_segments`` feeds it). ``num_kv_heads`` <
+    num_heads: grouped-query attention."""
+    if recompute or moe_experts or pipeline_stages:
         raise NotImplementedError(
-            "transformer_lm: recompute, moe_experts, pipeline_stages and "
-            "segment_ids are not ported yet")
+            "transformer_lm: recompute, moe_experts and pipeline_stages "
+            "are not ported yet")
     n, t = ids.shape
     tok = layers.embedding(input=ids, size=[vocab_size, d_model])
     # learned positional table, sliced to the first T positions
@@ -106,7 +116,8 @@ def transformer_lm(ids, vocab_size, num_layers=4, d_model=256, num_heads=8,
 
     for _ in range(num_layers):
         x = transformer_layer(x, num_heads, ffn_mult=ffn_mult, causal=True,
-                              num_kv_heads=num_kv_heads, valid=valid)
+                              num_kv_heads=num_kv_heads, valid=valid,
+                              segment_ids=segment_ids)
     x = layers.layer_norm(x, begin_norm_axis=2)
     logits = layers.fc(input=x, size=vocab_size, num_flatten_dims=2)
     return logits

@@ -8,13 +8,14 @@ itself: ``ops.paged_attention.paged_decode_attention``.
 
 Training: the IR ops ``fused_attention`` and ``fused_attention_grad``.
 On every device they take the reference's ``pallas_saved`` path: the
-forward runs K1 (``ops.flash_attention``) and stores its logsumexp as
-the op's ``Lse`` output, and the grad op runs K2 on the saved (Q, K, V,
-Out, Lse) without re-running the forward. The reference picks that path
-from a TPU-measured threshold (seq >= 512 for bshd); the port takes it
-at every length, and CPU tensors take the kernels' plain versions.
-Unported: segment ids (K5), dense masks and the bhsd layout (K1's dense
-variant and K6) raise ``NotImplementedError``.
+forward runs K1 (no mask, factored padding mask) or K5 (segment ids,
+``QSegIds``/``KSegIds``) from ``ops.flash_attention`` and stores its
+logsumexp as the op's ``Lse`` output, and the grad op runs K2 or K5's
+backward on the saved (Q, K, V, Out, Lse) without re-running the
+forward. The reference picks that path from a TPU-measured threshold
+(seq >= 512 for bshd); the port takes it at every length, and CPU
+tensors take the kernels' plain versions. Unported: dense masks and the
+bhsd layout (K1's dense variant and K6) raise ``NotImplementedError``.
 
 Numerics follow the reference: logits in fp32 (the reference's
 ``preferred_element_type=float32``), masked with -1e9, softmax in fp32,
@@ -27,6 +28,7 @@ import torch
 from ..framework import in_var, set_out
 from ..registry import register_op
 from . import flash_attention
+from .segment_mask import SegmentIds
 
 __all__ = ["dot_product_attention", "paged_chunk_attention", "NEG_INF"]
 
@@ -101,17 +103,21 @@ def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,
 # -- fused_attention (training) ----------------------------------------------
 
 def _resolve_mask(ins):
-    """The op's mask inputs → None or the factored ``(q_valid, k_valid)``
+    """The op's mask inputs, with the reference's precedence Mask > SegIds
+    > Valid: a :class:`SegmentIds` of int32 [b, s] ids from
+    "QSegIds"/"KSegIds", else None or the factored ``(q_valid, k_valid)``
     pair ([b|1, s] bool each) from "QValid"/"KValid"."""
     if ins.get("Mask", [None])[0] is not None:
         raise NotImplementedError(
             "fused_attention with a dense Mask is not ported yet (K1's "
             "dense-mask variant and K6)")
-    if ins.get("QSegIds", [None])[0] is not None or \
-            ins.get("KSegIds", [None])[0] is not None:
-        raise NotImplementedError("fused_attention with segment ids "
-                                  "(packed-segment kernels, K5) is not "
-                                  "ported yet")
+    qs = ins.get("QSegIds", [None])[0]
+    ks = ins.get("KSegIds", [None])[0]
+    if qs is not None or ks is not None:
+        if qs is None or ks is None:
+            raise ValueError("segment masks need BOTH QSegIds and KSegIds")
+        return SegmentIds(qs.to(torch.int32).contiguous(),
+                          ks.to(torch.int32).contiguous())
     qv = ins.get("QValid", [None])[0]
     kv = ins.get("KValid", [None])[0]
     if qv is None and kv is None:
@@ -124,8 +130,9 @@ def _resolve_mask(ins):
 def _mask_padded_q_rows(x, mask):
     """Zero padded query rows of a bshd output or cotangent (the
     reference's op-boundary rule: the kernels stream only the key
-    factor)."""
-    if mask is None:
+    factor). Segment-masked outputs stay as they are: a row's padding
+    segment attends itself, as in the reference."""
+    if not isinstance(mask, tuple):
         return x
     return x * mask[0].to(x.dtype)[:, :, None, None]
 
@@ -160,9 +167,9 @@ def _fused_attention(ctx, ins):
 
 @register_op("fused_attention_grad", no_grad=True)
 def _fused_attention_grad(ctx, ins):
-    """K2 on the saved (Q, K, V, Out, Lse): the forward never runs again.
-    Padded query rows get a zeroed cotangent, so their dq rows and dk/dv
-    contributions vanish inside the kernels."""
+    """K2 (or K5's backward) on the saved (Q, K, V, Out, Lse): the forward
+    never runs again. Padded query rows get a zeroed cotangent, so their
+    dq rows and dk/dv contributions vanish inside the kernels."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     qb, kb, vb = _qkv(ctx, ins)
     mask = _resolve_mask(ins)

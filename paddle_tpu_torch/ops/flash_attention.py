@@ -1,18 +1,27 @@
-"""Flash attention on ``[b, s, h, d]`` (K1 forward, K2 backward): the
-wrappers of the hand-written CUDA kernels ``csrc/flash_attention.cu``,
-their plain PyTorch versions, and the ``torch.autograd.Function`` that
-ties K1 to K2.
+"""Flash attention on ``[b, s, h, d]``: the wrappers of the hand-written
+CUDA kernels, their plain PyTorch versions, and the
+``torch.autograd.Function``s that tie each forward to its backward.
 
-They replace ``paddle_tpu/ops/pallas_attention.py``'s bshd pair, the
+They replace ``paddle_tpu/ops/pallas_attention.py``'s bshd kernels, the
 ``pallas_saved`` path of ``fused_attention``:
 
-- :func:`flash_fwd` (K1, ``_flash_fwd_bshd``) returns ``(o, lse)``: O in
-  q's dtype, Lse fp32 ``[b*h, s, 8]`` (row ``bi*h + head``, value
-  repeated over the 8 lanes, the TPU kernel's layout);
-- :func:`flash_bwd_dq` (K2-dQ) and :func:`flash_bwd_dkv` (K2-dKV) compute
-  the gradients from the saved (q, k, v, lse) and Δ = rowsum(dO∘O), which
-  :func:`flash_bwd` reduces in torch first, as the reference leaves Δ to
-  XLA; dk/dv come out at the kv heads (GQA group summed).
+- K1/K2 (``csrc/flash_attention.cu``), no mask or a factored padding
+  mask: :func:`flash_fwd` (K1, ``_flash_fwd_bshd``) returns ``(o,
+  lse)``: O in q's dtype, Lse fp32 ``[b*h, s, 8]`` (row ``bi*h + head``,
+  value repeated over the 8 lanes, the TPU kernel's layout);
+  :func:`flash_bwd_dq` (K2-dQ) and :func:`flash_bwd_dkv` (K2-dKV)
+  compute the gradients from the saved (q, k, v, lse) and Δ =
+  rowsum(dO∘O), which :func:`flash_bwd` reduces in torch first, as the
+  reference leaves Δ to XLA; dk/dv come out at the kv heads (GQA group
+  summed).
+- K5 (``csrc/flash_segment.cu``), packed segment ids
+  (``segment_mask.SegmentIds``, ``_flash_fwd_segment`` /
+  ``_flash_bwd_segment``): :func:`flash_fwd_segment` (K5-fwd),
+  :func:`flash_bwd_segment_dq` (K5-dQ), :func:`flash_bwd_segment_dkv`
+  (K5-dKV) and :func:`flash_bwd_segment`, the same contract with
+  visibility ``q_seg[b, i] == kv_seg[b, j]``. The kernels walk only the
+  key (for dK/dV the query) tiles that a block can see, found inside the
+  kernel from the non-decreasing ids.
 
 Semantics shared with the TPU kernels: masked logits are ``NEG_INF =
 -1e30`` (finite, so a row with no visible key is the uniform average of
@@ -20,7 +29,8 @@ V), every product runs in fp32, ``l`` is clamped at 1e-20. ``k_valid``
 (``[1|b, s]`` bool) is the key factor of a factored padding mask; the
 query factor is applied by the op (``ops.attention``), outside the
 kernels. The backward takes a query row with no visible key to carry a
-zero cotangent, which the op guarantees for padded rows.
+zero cotangent, which the op guarantees for padded rows; under segment
+ids every row sees its own key.
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks what the kernel takes and launches on the
@@ -33,8 +43,13 @@ import ctypes
 import numpy as np
 import torch
 
+from .segment_mask import is_segment_mask
+
 __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_plain", "flash_bwd_plain", "FlashAttention",
+           "flash_fwd_segment", "flash_bwd_segment", "flash_bwd_segment_dq",
+           "flash_bwd_segment_dkv", "flash_fwd_segment_plain",
+           "flash_bwd_segment_plain", "FlashSegmentAttention",
            "flash_fwd_saving_lse", "flash_bwd_from_saved", "launches",
            "NEG_INF", "LSE_LANES", "MAX_HEAD_DIM", "MAX_GROUP"]
 
@@ -44,7 +59,15 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 64              # query heads per kv head a kernel block folds
 _SMEM_LIMIT = 232448        # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNELS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+# kernel name -> (library, its C prefix, kernel index in that library)
+_KERNELS = {
+    "flash_fwd": ("flash_attention", "paddle_flash_", 0),
+    "flash_bwd_dq": ("flash_attention", "paddle_flash_", 1),
+    "flash_bwd_dkv": ("flash_attention", "paddle_flash_", 2),
+    "flash_segment_fwd": ("flash_segment", "paddle_flash_segment_", 0),
+    "flash_segment_bwd_dq": ("flash_segment", "paddle_flash_segment_", 1),
+    "flash_segment_bwd_dkv": ("flash_segment", "paddle_flash_segment_", 2),
+}
 
 launches = {name: 0 for name in _KERNELS}
 
@@ -54,7 +77,7 @@ def _scale(q, scale):
         1.0 / float(np.sqrt(q.shape[-1]))
 
 
-def _check_shapes(q, k, v, k_valid):
+def _check_shapes(q, k, v, k_valid=None, seg=None):
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError("flash attention takes q [b, s, h, d] and k, v "
                          "[b, s, hkv, d] (got %s, %s, %s)"
@@ -72,11 +95,21 @@ def _check_shapes(q, k, v, k_valid):
                                 k_valid.shape[1] != s):
         raise ValueError("k_valid must be [1|b, s] = [1|%d, %d] (got %s)"
                          % (b, s, tuple(k_valid.shape)))
+    if seg is not None:
+        if not is_segment_mask(seg):
+            raise TypeError("segment masks are SegmentIds (got %r)"
+                            % type(seg).__name__)
+        for name, ids in (("q", seg.q), ("kv", seg.kv)):
+            if tuple(ids.shape) != (b, s) or ids.is_floating_point():
+                raise ValueError("segment ids %s must be integer [b, s] = "
+                                 "%s (got %s %s)" % (name, (b, s),
+                                                     ids.dtype,
+                                                     tuple(ids.shape)))
 
 
 # -- plain versions ----------------------------------------------------------
 
-def _logits(q, k, scale, causal, k_valid):
+def _logits(q, k, scale, causal, k_valid, seg=None):
     """fp32 masked logits [b, h, s, s] (head = kv_head * g + i)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -88,6 +121,9 @@ def _logits(q, k, scale, causal, k_valid):
     hidden = hidden[None, None, None]
     if k_valid is not None:
         hidden = hidden | ~k_valid.bool()[:, None, None, None, :]
+    if seg is not None:
+        hidden = hidden | (seg.q[:, :, None] != seg.kv[:, None, :]) \
+            [:, None, None]
     logits = logits.masked_fill(hidden, NEG_INF)
     return logits.reshape(b, h, s, s)
 
@@ -99,13 +135,9 @@ def _kv_heads(x, h):
         .permute(0, 2, 1, 3)
 
 
-def flash_fwd_plain(q, k, v, scale=None, causal=False, k_valid=None):
-    """K1's function in plain PyTorch: ``(o, lse)`` as the kernel returns
-    them. Used for CPU tensors and as the reference the kernel is held
-    against on the card."""
-    _check_shapes(q, k, v, k_valid)
+def _fwd_plain(q, k, v, scale, causal, k_valid, seg):
     b, s, h, d = q.shape
-    logits = _logits(q, k, _scale(q, scale), causal, k_valid)
+    logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg)
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
@@ -115,20 +147,31 @@ def flash_fwd_plain(q, k, v, scale=None, causal=False, k_valid=None):
             lse.expand(b * h, s, LSE_LANES).contiguous())
 
 
+def flash_fwd_plain(q, k, v, scale=None, causal=False, k_valid=None):
+    """K1's function in plain PyTorch: ``(o, lse)`` as the kernel returns
+    them. Used for CPU tensors and as the reference the kernel is held
+    against on the card."""
+    _check_shapes(q, k, v, k_valid)
+    return _fwd_plain(q, k, v, scale, causal, k_valid, None)
+
+
+def flash_fwd_segment_plain(q, k, v, seg, scale=None, causal=False):
+    """K5-fwd's function in plain PyTorch: ``(o, lse)`` under the segment
+    mask ``seg`` (a :class:`SegmentIds` of [b, s] ids)."""
+    _check_shapes(q, k, v, seg=seg)
+    return _fwd_plain(q, k, v, scale, causal, None, seg)
+
+
 def _delta(o, do):
     """Δ = rowsum(dO∘O) in fp32, [b, s, h]."""
     return (do.float() * o.float()).sum(-1)
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, scale=None, causal=False,
-                    k_valid=None):
-    """K2's function in plain PyTorch: ``(dq, dk, dv)`` from the saved
-    forward residuals, dk/dv summed over each kv head's query group."""
-    _check_shapes(q, k, v, k_valid)
+def _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, seg):
     b, s, h, d = q.shape
     hkv = k.shape[2]
     sc = _scale(q, scale)
-    p = torch.exp(_logits(q, k, sc, causal, k_valid) -
+    p = torch.exp(_logits(q, k, sc, causal, k_valid, seg) -
                   lse[..., 0].reshape(b, h, s, 1))
     dof = do.float().permute(0, 2, 1, 3)                 # [b, h, s, d]
     dp = torch.matmul(dof, _kv_heads(v, h).transpose(-1, -2))
@@ -144,44 +187,62 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale=None, causal=False,
             kv_grad(dv).to(v.dtype).contiguous())
 
 
+def flash_bwd_plain(q, k, v, o, lse, do, scale=None, causal=False,
+                    k_valid=None):
+    """K2's function in plain PyTorch: ``(dq, dk, dv)`` from the saved
+    forward residuals, dk/dv summed over each kv head's query group."""
+    _check_shapes(q, k, v, k_valid)
+    return _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, None)
+
+
+def flash_bwd_segment_plain(q, k, v, o, lse, do, seg, scale=None,
+                            causal=False):
+    """K5's backward in plain PyTorch: ``(dq, dk, dv)`` under ``seg``."""
+    _check_shapes(q, k, v, seg=seg)
+    return _bwd_plain(q, k, v, o, lse, do, scale, causal, None, seg)
+
+
 # -- the kernels -------------------------------------------------------------
 
-def _bind():
+def _bind(source, prefix):
     from .. import _build
-    lib = _build.load("flash_attention")
+    lib = _build.load(source)
     if not getattr(lib, "_bound", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 5 + [f32, i32, i32, ptr]   # b s h hkv d scale causal dtype stream
-        lib.paddle_flash_fwd.argtypes = [ptr] * 4 + [i32, ptr, ptr] + dims
-        lib.paddle_flash_bwd_dq.argtypes = [ptr] * 7 + [i32, ptr] + dims
-        lib.paddle_flash_bwd_dkv.argtypes = [ptr] * 7 + [i32, ptr, ptr] + \
-            dims
-        for fn in (lib.paddle_flash_fwd, lib.paddle_flash_bwd_dq,
-                   lib.paddle_flash_bwd_dkv):
+        # the mask: (k_valid, its rows) or (q_seg, kv_seg)
+        mask = [ptr, i32] if source == "flash_attention" else [ptr, ptr]
+        fns = {"fwd": [ptr] * 3 + mask + [ptr] * 2 + dims,
+               "bwd_dq": [ptr] * 6 + mask + [ptr] + dims,
+               "bwd_dkv": [ptr] * 6 + mask + [ptr] * 2 + dims}
+        for fn_name, argtypes in fns.items():
+            fn = getattr(lib, prefix + fn_name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.paddle_flash_smem_bytes.argtypes = [i32, i32]
-        lib.paddle_flash_smem_bytes.restype = ctypes.c_size_t
-        lib.paddle_flash_error_string.argtypes = [i32]
-        lib.paddle_flash_error_string.restype = ctypes.c_char_p
+        smem = getattr(lib, prefix + "smem_bytes")
+        smem.argtypes = [i32, i32]
+        smem.restype = ctypes.c_size_t
+        err = getattr(lib, prefix + "error_string")
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
         lib._bound = True
     return lib
 
 
-def _same_device(name, tensors, k_valid):
+def _same_device(name, tensors, *masks):
     devices = {t.device for t in tensors.values()}
-    if k_valid is not None:
-        devices.add(k_valid.device)
+    devices.update(m.device for m in masks if m is not None)
     if len(devices) != 1:
         raise ValueError("%s inputs span devices %s"
                          % (name, sorted(str(d) for d in devices)))
     return devices.pop()
 
 
-def _check_kernel_inputs(name, tensors, k_valid):
+def _check_kernel_inputs(name, tensors, k_valid=None, seg=None):
     """What every kernel takes: fp32 or bf16 q, k, v (and O, dO) of one
     dtype, fp32 ``lse``/``delta``, contiguous, head_dim <= 256, at most
-    MAX_GROUP query heads per kv head, on a CUDA device. Returns the
-    bound library."""
+    MAX_GROUP query heads per kv head, contiguous int32 segment ids, on a
+    CUDA device. Returns the bound library."""
     q = tensors["q"]
     for n, t in tensors.items():
         want = torch.float32 if n in ("lse", "delta") else q.dtype
@@ -196,6 +257,11 @@ def _check_kernel_inputs(name, tensors, k_valid):
                                 not k_valid.is_contiguous()):
         raise TypeError("%s: k_valid must be a contiguous bool or uint8 "
                         "tensor (got %s)" % (name, k_valid.dtype))
+    if seg is not None:
+        for ids in (seg.q, seg.kv):
+            if ids.dtype != torch.int32 or not ids.is_contiguous():
+                raise TypeError("%s: segment ids must be contiguous int32 "
+                                "(got %s)" % (name, ids.dtype))
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError("%s supports head_dim <= %d (got %d)"
@@ -215,8 +281,9 @@ def _check_kernel_inputs(name, tensors, k_valid):
     if q.device.type != "cuda":
         raise ValueError("%s runs on cpu or cuda tensors (got %s)"
                          % (name, q.device))
-    lib = _bind()
-    smem = lib.paddle_flash_smem_bytes(_KERNELS[name], d)
+    source, prefix, index = _KERNELS[name]
+    lib = _bind(source, prefix)
+    smem = getattr(lib, prefix + "smem_bytes")(index, d)
     if smem > _SMEM_LIMIT:
         raise ValueError("%s at head_dim %d needs %d bytes of shared "
                          "memory per block (limit %d)"
@@ -224,25 +291,55 @@ def _check_kernel_inputs(name, tensors, k_valid):
     return lib
 
 
-def _launch(name, lib, ins, k_valid, outs, scale, causal):
-    """One kernel launch on the current stream: ``ins`` then the mask then
-    ``outs`` as the C entry point orders its pointers."""
+def _mask_args(k_valid=None, seg=None):
+    """The C entry points' mask arguments: (k_valid, its rows) for K1/K2,
+    (q_seg, kv_seg) for K5."""
+    if seg is not None:
+        return [seg.q.data_ptr(), seg.kv.data_ptr()]
+    return [None if k_valid is None else k_valid.data_ptr(),
+            0 if k_valid is None else k_valid.shape[0]]
+
+
+def _launch(name, lib, ins, mask, outs, scale, causal):
+    """One kernel launch on the current stream: ``ins``, then the mask
+    arguments, then ``outs`` as the C entry point orders its pointers."""
     q, k = ins[0], ins[1]
     b, s, h, d = q.shape
+    _, prefix, _ = _KERNELS[name]
     fn = getattr(lib, "paddle_" + name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ins],
-                 None if k_valid is None else k_valid.data_ptr(),
-                 0 if k_valid is None else k_valid.shape[0],
+        err = fn(*[t.data_ptr() for t in ins], *mask,
                  *[t.data_ptr() for t in outs],
                  b, s, h, k.shape[2], d, scale, int(bool(causal)),
                  _DTYPES[q.dtype], stream)
     if err != 0:
+        msg = getattr(lib, prefix + "error_string")(err).decode()
         raise RuntimeError("%s kernel launch failed: CUDA error %d (%s)"
-                           % (name, err,
-                              lib.paddle_flash_error_string(err).decode()))
+                           % (name, err, msg))
     launches[name] += 1
+
+
+def _fwd_kernel(name, q, k, v, scale, causal, k_valid=None, seg=None):
+    lib = _check_kernel_inputs(name, {"q": q, "k": k, "v": v}, k_valid, seg)
+    b, s, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, s, LSE_LANES), dtype=torch.float32,
+                      device=q.device)
+    _launch(name, lib, (q, k, v), _mask_args(k_valid, seg), (out, lse),
+            _scale(q, scale), causal)
+    return out, lse
+
+
+def _bwd_kernel(name, q, k, v, do, lse, delta, scale, causal, k_valid=None,
+                seg=None):
+    ins = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
+    lib = _check_kernel_inputs(name, ins, k_valid, seg)
+    outs = (torch.empty_like(q),) if name.endswith("_dq") else \
+        (torch.empty_like(k), torch.empty_like(v))
+    _launch(name, lib, tuple(ins.values()), _mask_args(k_valid, seg), outs,
+            _scale(q, scale), causal)
+    return outs[0] if len(outs) == 1 else outs
 
 
 def flash_fwd(q, k, v, scale=None, causal=False, k_valid=None):
@@ -253,15 +350,7 @@ def flash_fwd(q, k, v, scale=None, causal=False, k_valid=None):
     dev = _same_device("flash_fwd", {"q": q, "k": k, "v": v}, k_valid)
     if dev.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal, k_valid)
-    lib = _check_kernel_inputs("flash_fwd", {"q": q, "k": k, "v": v},
-                               k_valid)
-    b, s, h, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((b * h, s, LSE_LANES), dtype=torch.float32,
-                      device=q.device)
-    _launch("flash_fwd", lib, (q, k, v), k_valid, (out, lse),
-            _scale(q, scale), causal)
-    return out, lse
+    return _fwd_kernel("flash_fwd", q, k, v, scale, causal, k_valid=k_valid)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale=None, causal=False,
@@ -270,13 +359,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale=None, causal=False,
     ``delta`` = rowsum(dO∘O) [b, s, h] fp32. CUDA tensors only (the CPU
     computes the whole backward in :func:`flash_bwd_plain`)."""
     _check_shapes(q, k, v, k_valid)
-    ins = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
-    _same_device("flash_bwd_dq", ins, k_valid)
-    lib = _check_kernel_inputs("flash_bwd_dq", ins, k_valid)
-    dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", lib, (q, k, v, do, lse, delta), k_valid, (dq,),
-            _scale(q, scale), causal)
-    return dq
+    _same_device("flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do,
+                                  "lse": lse, "delta": delta}, k_valid)
+    return _bwd_kernel("flash_bwd_dq", q, k, v, do, lse, delta, scale,
+                       causal, k_valid=k_valid)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None, causal=False,
@@ -284,13 +370,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None, causal=False,
     """K2-dKV: (dk, dv) at the kv heads from the same inputs as
     :func:`flash_bwd_dq`. CUDA tensors only."""
     _check_shapes(q, k, v, k_valid)
-    ins = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
-    _same_device("flash_bwd_dkv", ins, k_valid)
-    lib = _check_kernel_inputs("flash_bwd_dkv", ins, k_valid)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", lib, (q, k, v, do, lse, delta), k_valid,
-            (dk, dv), _scale(q, scale), causal)
-    return dk, dv
+    _same_device("flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do,
+                                   "lse": lse, "delta": delta}, k_valid)
+    return _bwd_kernel("flash_bwd_dkv", q, k, v, do, lse, delta, scale,
+                       causal, k_valid=k_valid)
 
 
 def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None):
@@ -306,6 +389,62 @@ def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None):
     delta = _delta(o, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_valid)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_valid)
+    return dq, dk, dv
+
+
+def flash_fwd_segment(q, k, v, seg, scale=None, causal=False):
+    """K5-fwd: ``(o, lse)`` on ``[b, s, h, d]`` under the segment mask
+    ``seg`` (int32 [b, s] ids, non-decreasing along each row). CPU
+    tensors take :func:`flash_fwd_segment_plain`; CUDA tensors launch the
+    kernel or raise."""
+    _check_shapes(q, k, v, seg=seg)
+    dev = _same_device("flash_segment_fwd", {"q": q, "k": k, "v": v},
+                       seg.q, seg.kv)
+    if dev.type == "cpu":
+        return flash_fwd_segment_plain(q, k, v, seg, scale, causal)
+    return _fwd_kernel("flash_segment_fwd", q, k, v, scale, causal, seg=seg)
+
+
+def flash_bwd_segment_dq(q, k, v, do, lse, delta, seg, scale=None,
+                         causal=False):
+    """K5-dQ: dq under ``seg`` from the same inputs as
+    :func:`flash_bwd_dq`. CUDA tensors only."""
+    _check_shapes(q, k, v, seg=seg)
+    _same_device("flash_segment_bwd_dq", {"q": q, "k": k, "v": v, "do": do,
+                                          "lse": lse, "delta": delta},
+                 seg.q, seg.kv)
+    return _bwd_kernel("flash_segment_bwd_dq", q, k, v, do, lse, delta,
+                       scale, causal, seg=seg)
+
+
+def flash_bwd_segment_dkv(q, k, v, do, lse, delta, seg, scale=None,
+                          causal=False):
+    """K5-dKV: (dk, dv) at the kv heads under ``seg``. CUDA tensors
+    only."""
+    _check_shapes(q, k, v, seg=seg)
+    _same_device("flash_segment_bwd_dkv", {"q": q, "k": k, "v": v,
+                                           "do": do, "lse": lse,
+                                           "delta": delta}, seg.q, seg.kv)
+    return _bwd_kernel("flash_segment_bwd_dkv", q, k, v, do, lse, delta,
+                       scale, causal, seg=seg)
+
+
+def flash_bwd_segment(q, k, v, o, lse, do, seg, scale=None, causal=False):
+    """K5's backward: ``(dq, dk, dv)`` under ``seg``. CPU tensors take
+    :func:`flash_bwd_segment_plain`; CUDA tensors reduce Δ in torch and
+    launch K5-dQ and K5-dKV, or raise."""
+    _check_shapes(q, k, v, seg=seg)
+    dev = _same_device("flash_bwd_segment", {"q": q, "k": k, "v": v,
+                                             "o": o, "lse": lse, "do": do},
+                       seg.q, seg.kv)
+    if dev.type == "cpu":
+        return flash_bwd_segment_plain(q, k, v, o, lse, do, seg, scale,
+                                       causal)
+    do = do.contiguous()
+    delta = _delta(o, do)
+    dq = flash_bwd_segment_dq(q, k, v, do, lse, delta, seg, scale, causal)
+    dk, dv = flash_bwd_segment_dkv(q, k, v, do, lse, delta, seg, scale,
+                                   causal)
     return dq, dk, dv
 
 
@@ -334,10 +473,38 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class FlashSegmentAttention(torch.autograd.Function):
+    """K5-fwd with K5-dQ/K5-dKV as its backward, under a
+    :class:`SegmentIds` mask. Returns ``(o, lse)``; lse takes no
+    gradient."""
+
+    @staticmethod
+    def forward(q, k, v, seg, scale, causal):
+        return flash_fwd_segment(q, k, v, seg, scale, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, seg, scale, causal = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.seg, ctx.scale, ctx.causal = seg, scale, causal
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_segment(q, k, v, o, lse, do, ctx.seg,
+                                       ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_fwd_saving_lse(q, k, v, scale=None, causal=False, mask=None):
-    """``(o, lse)``, differentiable in q, k, v through K2. ``mask``: None
-    or a factored ``(q_valid, k_valid)`` padding mask, whose key factor
-    the kernels stream (the op applies the query factor)."""
+    """``(o, lse)``, differentiable in q, k, v. ``mask``: None or a
+    factored ``(q_valid, k_valid)`` padding mask (K1 with K2 as its
+    backward; the kernels stream the key factor, the op applies the query
+    factor), or a :class:`SegmentIds` (K5)."""
+    if is_segment_mask(mask):
+        return FlashSegmentAttention.apply(q, k, v, mask, scale, causal)
     k_valid = None if mask is None else mask[1]
     return FlashAttention.apply(q, k, v, scale, causal, k_valid)
 
@@ -345,6 +512,9 @@ def flash_fwd_saving_lse(q, k, v, scale=None, causal=False, mask=None):
 def flash_bwd_from_saved(q, k, v, o, lse, g, scale=None, causal=False,
                          mask=None):
     """``(dq, dk, dv)`` from the saved forward residuals — what the IR's
-    ``fused_attention_grad`` op calls; it never re-runs the forward."""
+    ``fused_attention_grad`` op calls; it never re-runs the forward.
+    ``mask`` as for :func:`flash_fwd_saving_lse`."""
+    if is_segment_mask(mask):
+        return flash_bwd_segment(q, k, v, o, lse, g, mask, scale, causal)
     k_valid = None if mask is None else mask[1]
     return flash_bwd(q, k, v, o, lse, g, scale, causal, k_valid)

@@ -1,9 +1,11 @@
 """Optimizers: build the optimization pass on the IR — the port of
 ``paddle_tpu/optimizer.py``'s ``Optimizer`` base (the global learning-rate
-variable, per-parameter accumulators), ``SGD`` and ``Adam`` (one ``adam``
-op per parameter, beta powers advanced by ``scale`` ops).
-``minimize`` = ``append_backward`` + one optimizer op per parameter.
-Gradient clipping and regularization are not ported yet and raise.
+variable, per-parameter accumulators), ``SGD``, ``Adam`` (one ``adam``
+op per parameter, beta powers advanced by ``scale`` ops) and
+``FusedAdam`` (one ``fused_adam`` op for the whole model, K4 on the
+card). ``minimize`` = ``append_backward`` + the optimizer ops.
+Per-parameter gradient clipping and regularization are not ported yet
+and raise (``FusedAdam``'s fused global-norm clip is).
 """
 
 from collections import defaultdict
@@ -14,7 +16,8 @@ from .framework import Variable, default_main_program
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Adam", "FusedAdam", "SGDOptimizer", "AdamOptimizer",
+           "FusedAdamOptimizer", "Optimizer"]
 
 
 class Optimizer:
@@ -168,5 +171,71 @@ class AdamOptimizer(Optimizer):
                             attrs={"scale": beta}, infer_shape=False)
 
 
+class FusedAdamOptimizer(AdamOptimizer):
+    """Adam emitting ONE ``fused_adam`` op for the whole model instead of
+    one ``adam`` op per parameter: on the card the update is one launch
+    of K4 (``ops.fused_adam``); its plain version is bitwise the
+    per-parameter ops' update. Same accumulators and variable names as
+    :class:`AdamOptimizer`, so ``convert.scope_from_jax`` carries the
+    reference's state across.
+
+    ``clip_global_norm`` > 0 fuses global-norm gradient clipping into the
+    same pass; ``loss_scale_var`` (a [1] float variable) divides the
+    gradients first. A per-parameter learning-rate multiplier cannot be
+    expressed in one fused op and raises ValueError, as in the reference.
+    So does a sparse (``is_sparse``) gradient, which the reference
+    rejects too; sparse gradients are not ported."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, clip_global_norm=0.0, loss_scale_var=None,
+                 **kwargs):
+        super().__init__(learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, **kwargs)
+        self.type = "fused_adam"
+        self._clip_global_norm = float(clip_global_norm)
+        self._loss_scale_var = loss_scale_var
+
+    def _create_optimization_pass(self, parameters_and_grads, loss):
+        self.helper = LayerHelper(self.__class__.__name__)
+        pg = [(p, g) for p, g in parameters_and_grads
+              if g is not None and p.trainable]
+        block = loss.block.program.global_block()
+        sparse_out = {n for op in block.ops if op.attrs.get("is_sparse")
+                      for n in op.all_output_vars()}
+        for p, g in pg:
+            if (p.optimize_attr or {}).get("learning_rate", 1.0) != 1.0:
+                raise ValueError(
+                    "FusedAdam cannot honor the per-parameter learning-"
+                    "rate multiplier on %r — use AdamOptimizer" % p.name)
+            if g.name in sparse_out:
+                raise ValueError(
+                    "FusedAdam cannot take the SelectedRows (sparse) "
+                    "gradient of %r (sparse gradients are not ported) — "
+                    "use a dense embedding" % p.name)
+        self._create_accumulators(loss.block, [p for p, _ in pg])
+        self._create_global_learning_rate()
+        m1 = [self._get_accumulator(self._moment1_acc_str, p) for p, _ in pg]
+        m2 = [self._get_accumulator(self._moment2_acc_str, p) for p, _ in pg]
+        inputs = {"Param": [p for p, _ in pg], "Grad": [g for _, g in pg],
+                  "Moment1": m1, "Moment2": m2,
+                  "LearningRate": [
+                      self._learning_rate_map[default_main_program()]],
+                  "Beta1Pow": [self._beta1_pow],
+                  "Beta2Pow": [self._beta2_pow]}
+        if self._loss_scale_var is not None:
+            inputs["LossScale"] = [self._loss_scale_var]
+        op = block.append_op(
+            type="fused_adam", inputs=inputs,
+            outputs={"ParamOut": [p for p, _ in pg],
+                     "Moment1Out": m1, "Moment2Out": m2},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon,
+                   "clip_norm": self._clip_global_norm},
+            infer_shape=False)
+        self._finish_update(block)
+        return [op]
+
+
 SGD = SGDOptimizer
 Adam = AdamOptimizer
+FusedAdam = FusedAdamOptimizer

@@ -1,10 +1,12 @@
 """A CPU rehearsal of ``chip_smoke.py``'s training phases at a tiny size:
-the flash kernel checks, the fp32 card-vs-CPU gate, the training run and
-the kernel timing report, with every tensor on the CPU.
+the flash, segment and fused-Adam kernel checks, the fp32 card-vs-CPU
+gate, the training run, the packed run with its padded baseline, the
+FusedAdam run and the kernel timing report, with every tensor on the
+CPU.
 
 CPU tensors take the kernels' plain versions and count no launch, and
-K2-dQ / K2-dKV exist only on CUDA, so the rehearsal swaps in shims that
-compute through the plain versions and count one launch each. CUDA
+the backward kernels exist only on CUDA, so the rehearsal swaps in shims
+that compute through the plain versions and count one launch each. CUDA
 events are stubbed (a fixed 0.5 ms). What it shows: the phases' control
 flow, shapes, launch accounting and report keys hold together; it
 cannot show that a kernel compiles or how fast anything runs.
@@ -19,6 +21,7 @@ import torch
 import chip_smoke as cs
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_adam as pfa
 
 ROW_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -32,7 +35,10 @@ def tiny(monkeypatch):
                         ("LM_PROFILE_STEPS", 1), ("GATE_BATCH", 2),
                         ("GATE_SEQ", 32),
                         ("FLASH_GEOMS", [(3, 64, 4, 4, 16),
-                                         (3, 50, 4, 2, 16)])):
+                                         (3, 50, 4, 2, 16)]),
+                        ("BASE_STEPS", 2), ("K4_SIZES", (1, 1023, 5000)),
+                        ("K4_ODD_SIZES", (5, 101, 3333)),
+                        ("ALTERNATE_ROUNDS", 2)):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "_timed", lambda fn, args, reps, flush:
                         (fn(*args), 0.5)[1])
@@ -62,12 +68,50 @@ def tiny(monkeypatch):
                                 k_valid),) + \
             fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_valid)
 
+    real_seg_fwd = fa.flash_fwd_segment
+
+    def seg_fwd(*a, **k):
+        fa.launches["flash_segment_fwd"] += 1
+        return real_seg_fwd(*a, **k)
+
+    def seg_grads(q, k, v, do, lse, seg, scale, causal):
+        o = fa.flash_fwd_segment_plain(q, k, v, seg, scale, causal)[0]
+        return fa.flash_bwd_segment_plain(q, k, v, o, lse, do, seg, scale,
+                                          causal)
+
+    def seg_dq(q, k, v, do, lse, delta, seg, scale=None, causal=False):
+        fa.launches["flash_segment_bwd_dq"] += 1
+        return seg_grads(q, k, v, do, lse, seg, scale, causal)[0]
+
+    def seg_dkv(q, k, v, do, lse, delta, seg, scale=None, causal=False):
+        fa.launches["flash_segment_bwd_dkv"] += 1
+        return seg_grads(q, k, v, do, lse, seg, scale, causal)[1:]
+
+    def seg_bwd(q, k, v, o, lse, do, seg, scale=None, causal=False):
+        delta = (do.float() * o.float()).sum(-1)
+        return (fa.flash_bwd_segment_dq(q, k, v, do, lse, delta, seg, scale,
+                                        causal),) + \
+            fa.flash_bwd_segment_dkv(q, k, v, do, lse, delta, seg, scale,
+                                     causal)
+
+    real_adam = pfa.fused_adam_update
+
+    def adam(*a, **k):
+        pfa.launches["fused_adam"] += 1
+        return real_adam(*a, **k)
+
     for name, fn in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
-                     ("flash_bwd_dkv", dkv), ("flash_bwd", bwd)):
+                     ("flash_bwd_dkv", dkv), ("flash_bwd", bwd),
+                     ("flash_fwd_segment", seg_fwd),
+                     ("flash_bwd_segment_dq", seg_dq),
+                     ("flash_bwd_segment_dkv", seg_dkv),
+                     ("flash_bwd_segment", seg_bwd)):
         monkeypatch.setattr(fa, name, fn)
-    saved = dict(fa.launches)
+    monkeypatch.setattr(pfa, "fused_adam_update", adam)
+    saved, saved_adam = dict(fa.launches), dict(pfa.launches)
     yield
     fa.launches.update(saved)
+    pfa.launches.update(saved_adam)
 
 
 def test_training_phases_rehearse_on_the_cpu(tiny, capsys):
@@ -79,18 +123,66 @@ def test_training_phases_rehearse_on_the_cpu(tiny, capsys):
     assert gate["loss_rel_err"] <= cs.GATE_LOSS_RTOL
     res = cs.train_path()
     steps_x_layers = cs.LM_STEPS * cs.LM_LAYERS
-    assert res["launches"] == {n: steps_x_layers for n in fa.launches}
+    assert res["launches"] == dict({n: steps_x_layers for n in cs.K1K2},
+                                   **{n: 0 for n in cs.K5})
     assert res["losses"][-1] < res["losses"][0]
     assert {"mul", "mul_grad", "fused_attention",
             "fused_attention_grad", "adam"} <= set(res["ops"])
     assert res["ops"]["fused_attention"]["calls"] == cs.LM_LAYERS
     timing = cs.flash_timing(res["launches"])
-    assert [r["name"] for r in timing] == list(fa.launches)
+    assert [r["name"] for r in timing] == list(cs.K1K2)
     for row in timing:
         assert ROW_KEYS <= set(row) and row["launches"] == steps_x_layers
         assert row["bound_by"] in ("bytes", "operations")
     json.dumps(timing)
     assert "flash_fwd" in capsys.readouterr().out
+
+
+def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
+    before, before_adam = dict(fa.launches), dict(pfa.launches)
+    data = cs.packed_data(cs.LM_BATCH, cs.LM_SEQ)
+    seg = data["packed"]["seg"]
+    assert (np.diff(seg, axis=1) >= 0).all() and (seg.max(1) >= 1).all()
+    assert 0 < data["real_packed"] <= cs.LM_BATCH * cs.LM_SEQ
+    assert data["baseline"]["ids"].shape[0] == data["docs"] > cs.LM_BATCH
+    rows = cs.segment_checks(seg)
+    assert len(rows) == 2 * 2 * 2 * len(cs.SEG_MAPS) + 1
+    assert all(r["ok"] for r in rows)
+    assert all("k1k2_max_abs_err" in r for r in rows if r["map"] == "one")
+    adam_rows = cs.fused_adam_checks()
+    assert len(adam_rows) == 5 and all(r["max_ulps"] == 0 for r in adam_rows)
+    assert fa.launches == before and pfa.launches == before_adam
+
+    res, scope = cs.packed_path(data)
+    steps_x_layers = cs.LM_STEPS * cs.LM_LAYERS
+    assert res["launches"] == dict({n: steps_x_layers for n in cs.K5},
+                                   **{n: 0 for n in cs.K1K2})
+    assert res["baseline"]["launches"] == dict(
+        {n: cs.BASE_STEPS * cs.LM_LAYERS for n in cs.K1K2},
+        **{n: 0 for n in cs.K5})
+    assert res["losses"][-1] < res["losses"][0]
+    assert 0 < res["pack_occupancy"] <= 1 and 0 < res["pad_waste_baseline"]
+    assert res["speedup_vs_padded_ragged"] > 0
+    assert [len(v) for v in res["alternating_step_ms"].values()] == \
+        [cs.ALTERNATE_ROUNDS] * 2
+    assert res["ops"]["fused_attention"]["calls"] == cs.LM_LAYERS
+    timing = cs.flash_timing(res["launches"], seg)
+    assert [r["name"] for r in timing] == list(cs.K5)
+
+    fused = cs.fused_adam_path(data, scope, res)
+    assert fused["one_step_vs_adam"]["max_ulps"] <= cs.ADAM_MAX_ULPS
+    assert fused["launches"] == cs.LM_STEPS
+    assert [len(v) for v in fused["alternating_step_ms"].values()] == \
+        [cs.ALTERNATE_ROUNDS] * 2
+    assert fused["adam_ops_calls"] == len(fused["param_shapes"])
+    row = cs.fused_adam_timing(fused["param_shapes"], fused["launches"])
+    assert row["launches"] == cs.LM_STEPS and row["max_ulps"] == 0
+    for r in timing + [row]:
+        assert ROW_KEYS <= set(r) and r["bound_by"] in ("bytes",
+                                                         "operations")
+    json.dumps(timing + [row])
+    out = capsys.readouterr().out
+    assert "flash_segment_fwd" in out and "fused_adam" in out
 
 
 def test_smoke_exits_nonzero_without_a_gpu(monkeypatch, capsys):

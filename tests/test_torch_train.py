@@ -1,9 +1,10 @@
 """The port's Fluid training path against the JAX package on the CPU: one
 build script — ``transformer_lm`` (2 layers, d_model 64, 2 heads, vocab
 64) at batch 2, seq 256, under ``Adam`` — run through both packages,
-once with a factored padding mask (``valid=``) and once with grouped-
-query attention (``num_kv_heads=1``), each in fp32 and under
-``enable_mixed_precision``.
+once with a factored padding mask (``valid=``), once with grouped-query
+attention (``num_kv_heads=1``) and once on packed rows (``segment_ids=``
+fed from ``pack_segments``), each in fp32 and under
+``enable_mixed_precision``; and once in fp32 under ``FusedAdam``.
 
 Both builds give identical variable names; the JAX startup program's
 state is carried into the port with ``convert.scope_from_jax``; then
@@ -34,6 +35,7 @@ import torch
 import paddle_tpu as jfluid
 from paddle_tpu import models as jmodels
 from paddle_tpu import unique_name as junique
+from paddle_tpu.data import decorator as jdecorator
 from paddle_tpu.executor import Scope as JScope
 from paddle_tpu.executor import scope_guard as jscope_guard
 
@@ -46,7 +48,8 @@ B, S, V, LAYERS, D, HEADS = 2, 256, 64, 2, 64, 2
 STEPS, LR = 3, 1e-3
 
 
-def build(fluid, models, unique, *, amp, valid, kv_heads):
+def build(fluid, models, unique, *, amp, valid, kv_heads, packed=False,
+          opt="Adam"):
     with unique.guard():
         prog, startup = fluid.Program(), fluid.Program()
         prog.random_seed = startup.random_seed = 7
@@ -60,20 +63,35 @@ def build(fluid, models, unique, *, amp, valid, kv_heads):
                                      dtype="float32",
                                      append_batch_size=False) \
                 if valid else None
+            seg = fluid.layers.data(name="seg", shape=[B, S],
+                                    dtype="int32",
+                                    append_batch_size=False) \
+                if packed else None
             logits = models.transformer_lm(
                 ids, vocab_size=V, num_layers=LAYERS, d_model=D,
                 num_heads=HEADS, max_len=S, num_kv_heads=kv_heads,
-                valid=mask)
+                valid=mask, segment_ids=seg)
             flat = fluid.layers.reshape(logits, [B * S, V])
             flat_lbl = fluid.layers.reshape(labels, [B * S, 1])
             loss = fluid.layers.mean(
                 fluid.layers.softmax_with_cross_entropy(flat, flat_lbl))
-            fluid.optimizer.Adam(learning_rate=LR).minimize(loss)
+            getattr(fluid.optimizer, opt)(learning_rate=LR).minimize(loss)
         fluid.enable_mixed_precision(prog, amp)
     return prog, startup, loss
 
 
-def feeds(valid):
+def feeds(valid, packed=False):
+    if packed:      # documents of 24-150 tokens, first-fit packed
+        rng = np.random.RandomState(0)
+        docs = [rng.randint(1, V, size=int(rng.randint(24, 150)))
+                for _ in range(12)]
+        rows = jdecorator.pack_segments(docs, S)[:B]
+        ids = np.stack([t for t, _ in rows]).astype(np.int32)
+        seg = np.stack([s for _, s in rows]).astype(np.int32)
+        assert (seg.max(1) >= 2).all()     # several documents per row
+        return {"ids": ids, "seg": seg, "labels": jdecorator
+                .packed_next_token_labels(ids, seg, ignore_id=0)
+                .astype(np.int32)}
     rng = np.random.RandomState(0)
     x = rng.randint(0, V, (B, S))
     feed = {"ids": x.astype(np.int32),
@@ -85,17 +103,17 @@ def feeds(valid):
     return feed
 
 
-def run_both(amp, valid, kv_heads):
-    jprog, jstart, jloss = build(jfluid, jmodels, junique, amp=amp,
-                                 valid=valid, kv_heads=kv_heads)
-    pprog, pstart, ploss = build(pfluid, pmodels, punique, amp=amp,
-                                 valid=valid, kv_heads=kv_heads)
+def run_both(amp, valid, kv_heads, packed=False, opt="Adam"):
+    kw = dict(amp=amp, valid=valid, kv_heads=kv_heads, packed=packed,
+              opt=opt)
+    jprog, jstart, jloss = build(jfluid, jmodels, junique, **kw)
+    pprog, pstart, ploss = build(pfluid, pmodels, punique, **kw)
     names = {n: sorted(v.name for v in p.list_vars())
              for n, p in (("jax", jprog), ("port", pprog))}
     assert names["jax"] == names["port"]
     assert [op.type for op in jprog.global_block().ops] == \
         [op.type for op in pprog.global_block().ops]
-    feed = feeds(valid)
+    feed = feeds(valid, packed)
     jscope = JScope()
     with jscope_guard(jscope):
         jexe = jfluid.Executor(jfluid.TPUPlace())
@@ -136,11 +154,21 @@ def noise_free(name, noise, shape):
     return keep
 
 
-@pytest.mark.parametrize("valid,kv_heads", [(True, None), (False, 1)],
-                         ids=["padding-mask", "gqa"])
+@pytest.mark.parametrize("valid,kv_heads,packed", [
+    (True, None, False), (False, 1, False), (False, None, True)],
+    ids=["padding-mask", "gqa", "packed"])
 @pytest.mark.parametrize("amp", [False, True], ids=["fp32", "amp"])
-def test_three_adam_steps_match_the_reference(amp, valid, kv_heads):
-    jl, pl, start, jfinal, pfinal = run_both(amp, valid, kv_heads)
+def test_three_adam_steps_match_the_reference(amp, valid, kv_heads, packed):
+    check_three_steps(amp, valid, kv_heads, packed, "Adam")
+
+
+def test_three_fused_adam_steps_match_the_reference():
+    check_three_steps(False, False, None, False, "FusedAdam")
+
+
+def check_three_steps(amp, valid, kv_heads, packed, opt):
+    jl, pl, start, jfinal, pfinal = run_both(amp, valid, kv_heads, packed,
+                                             opt)
     assert all(np.isfinite(pl)) and pl[-1] < pl[0]
     np.testing.assert_allclose(pl, jl, rtol=5e-3 if amp else 1e-5)
     assert sorted(pfinal) == sorted(jfinal)
@@ -192,7 +220,7 @@ def test_unported_options_raise():
         ids = pfluid.layers.data(name="ids", shape=[2, 8], dtype="int64",
                                  append_batch_size=False)
         for kw in ({"moe_experts": 2}, {"pipeline_stages": 2},
-                   {"recompute": True}, {"segment_ids": ids}):
+                   {"recompute": True}):
             with pytest.raises(NotImplementedError):
                 pmodels.transformer_lm(ids, vocab_size=16, num_layers=1,
                                        d_model=16, num_heads=2, max_len=8,

@@ -273,8 +273,6 @@ def test_unported_attention_inputs_raise():
     q = torch.zeros(1, 8, 2, 4)
     base = {"causal": True, "layout": "bshd"}
     for extra, attrs in (({"Mask": [torch.ones(1, 1, 8, 8)]}, base),
-                         ({"QSegIds": [torch.zeros(1, 8)],
-                           "KSegIds": [torch.zeros(1, 8)]}, base),
                          ({}, dict(base, layout="bhsd"))):
         with pytest.raises(NotImplementedError):
             lower("port", "fused_attention",
