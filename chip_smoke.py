@@ -13,6 +13,12 @@ raises on failure (the script then exits non-zero and prints no result):
 3. Kernels against their plain versions on the card. K3 in fp32 and
    bf16, at the serving geometry and the reference's tuning grid,
    lengths 0, 1, a mid-page frontier and the full window. K1, K2-dQ and
+   K3-quant (the same kernel on int8/fp8 pools with per-(page, group,
+   kv-head) scales): int8 and fp8, fp32 and bf16 q, one scale group per
+   page and groups of 4, h = hkv and GQA, at the serving geometry (32
+   slots over the quantized engine's 4097-page pool) and small pools.
+   ``paged_quant_append`` on the card must equal the CPU bit for bit on
+   every page but scratch (int8/fp8, both group sizes). K1, K2-dQ and
    K2-dKV (flash attention) in fp32 and bf16, causal and not, h = hkv
    and h = 2 hkv, without a mask and with a factored padding mask (a
    padded tail and a fully padded row), s in {256, 1024, 300}, d in
@@ -34,12 +40,29 @@ raises on failure (the script then exits non-zero and prints no result):
    ``full_recompute_generate`` on the card; bf16 responses must be well
    formed and the bf16 first-step logits must match the fp32 twin's.
    The K3 launch count must equal decode steps × layers. Prints TTFT
-   p50/p99 and decode tokens/s. Then, outside the served window, a
-   decode-step profile with all 32 slots busy, and K3 at that step's
-   layer-0 inputs: held against the plain version (it fails past the
-   stated tolerance) and timed beside its bound, the plain version and
-   ``F.scaled_dot_product_attention`` over the same tokens (a yardstick
-   only: the port never calls it).
+   p50/p99 and decode tokens/s. Then three quantized runs of the same
+   requests: the bf16 decoder with int8 KV pages, with fp8 KV pages, and
+   the bf16 decoder written through ``quantize_decoder_dir(mode="int8")``
+   with int8 KV pages (the pool auto-sized to 4096 pages). Each must
+   launch K3-quant decode steps × layers times and K3 never, answer
+   well formed, and give prefill logits of 8 prompts within rel L2 0.1
+   of the unquantized bf16 engine's; each prints the greedy token match
+   against the bf16 run beside the reference's 0.95 guard (recorded, not
+   held), TTFT, decode tokens/s and pages. Then what the quantized pages
+   buy, admission at equal pool bytes: on 64 slots, 96 requests whose
+   worst case is the whole max_len each, served once with bf16 pages over
+   the bf16 run's 2048 pages and once with int8 pages over as many pages
+   as those bytes hold (4080); the int8 pool may take no more bytes, and
+   the most sequences decoding at once must be at least 1.9x bf16's.
+   Then, outside the served
+   window, a decode-step profile with all 32 slots busy, and K3 at that
+   step's layer-0 inputs: held against the plain version (it fails past
+   the stated tolerance) and timed beside its bound, the plain version
+   and ``F.scaled_dot_product_attention`` over the same tokens (a
+   yardstick only: the port never calls it); then the same for K3-quant
+   on the int8 engine (SDPA over the tokens pre-dequantized to bf16),
+   and K3-quant held against its plain version at the fp8 engine's own
+   decode-step inputs.
 5. Training gate, fp32 with TF32 off: a 2-layer transformer LM at full
    width (512d, 8 heads, vocab 32000), batch 2, seq 512, from one
    initial state, 3 Adam steps through ``Executor.run`` on the card
@@ -135,6 +158,24 @@ BF16_LOGIT_REL_L2 = 5e-2       # bf16 vs fp32 twin, first-step logits
 K3 = {"name": "paged_decode_attention", "route": "cuda",
       "source": "paddle_tpu_torch/csrc/paged_decode.cu",
       "replaces": "paddle_tpu/ops/pallas_paged_attention.py:239"}
+# the quantized variant: the same pallas_call built with quant_group
+K3Q = {"name": "paged_decode_attention_quant", "route": "cuda",
+       "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+       "replaces": "paddle_tpu/ops/pallas_paged_attention.py:239"}
+# the quantized serving runs: KV page modes, the sub-page scale group of the
+# kernel checks, and the reference's greedy token-match guard (a recorded
+# number here: random weights at full width are not the reference's probe)
+KV_MODES = ("int8", "fp8")
+SUB_GROUP = 4
+QUANT_LOGIT_REL_L2 = 1e-1      # quantized vs unquantized prefill logits
+TOKEN_MATCH_GUARD = 0.95
+# admission at equal pool bytes: the bf16 decoder on CAP_SLOTS slots over
+# the bf16 run's pool (SLOTS x MAX_LEN tokens), then with int8 pages over
+# as many pages as those bytes hold; every request's worst case (prompt +
+# budget) is CAP_TOKENS, so both pools, not the slots, bound admission
+CAP_SLOTS, CAP_TOKENS, CAP_BUCKETS = 64, 1024, "64,128,256,512,992"
+CAP_CLIENTS, CAP_PER_CLIENT, CAP_NEW_TOKENS = 16, 6, (32, 64)
+ADMISSION_RATIO = 1.9          # the reference's equal-memory bar
 
 
 _FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -278,6 +319,149 @@ def kernel_checks():
     if not all(r["ok"] for r in rows):
         raise AssertionError("K3 disagrees with its plain version: %s"
                              % [r for r in rows if not r["ok"]])
+    return rows
+
+
+def _quant_pool_case(rng, S, MP, P, page, H, KVH, D, dtype, lengths, mode,
+                     group):
+    """Quantized pools of P pages plus the scratch row (int8 values over
+    the whole range, fp8 from normal draws x 64) and per-(page, group,
+    kv-head) scales that bring the dequantized values to O(1), as a real
+    pool's scale (amax / qmax) does, with one virgin page (scale 0); also
+    q, page table and lengths. Returns the wrapper's (args, kwargs)."""
+    import torch
+    from paddle_tpu_torch.ops import kv_quant as kvq
+    cfg = kvq.KVQuantConfig(mode, page, group)
+    shape = (P + 1, page, KVH, D)
+    if mode == "int8":
+        pools = [torch.from_numpy(rng.randint(-127, 128, size=shape).astype(
+            np.int8)) for _ in range(2)]
+    else:
+        pools = [torch.from_numpy(rng.randn(*shape).astype(np.float32) * 64)
+                 .clamp(-448, 448).to(torch.float8_e4m3fn) for _ in range(2)]
+    spread = 73.0 if mode == "int8" else 64.0   # std of the stored values
+    scales = []
+    for _ in range(2):
+        sc = (0.5 + rng.rand(P + 1, cfg.groups_per_page, KVH)) / spread
+        sc[rng.randint(0, P)] = 0.0
+        scales.append(torch.from_numpy(sc.astype(np.float32)))
+    pt = torch.from_numpy(rng.randint(0, P, size=(S, MP)).astype(np.int32))
+    q = torch.from_numpy(rng.randn(S, H, D).astype(np.float32)).to(dtype)
+    ln = torch.from_numpy(np.asarray(lengths, np.int32))
+    args = [t.to(DEVICE) for t in (q, pools[0], pools[1], pt, ln)]
+    return args, {"k_scale": scales[0].to(DEVICE),
+                  "v_scale": scales[1].to(DEVICE), "quant": cfg}
+
+
+def quant_kernel_checks():
+    """K3-quant against its plain version on the card: int8 and fp8 pools,
+    bf16 and fp32 q, one scale group per page and sub-page groups, H = KVH
+    and GQA, lengths 0, 1, mid-page and the full window; first at the
+    serving geometry (32 slots over the quantized engine's 4097-page
+    pool). Comparison launches do not count as the main path's."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rng = np.random.RandomState(SEED + 9)
+    saved = pa.launches_quant
+    # (S, H, KVH, D, page, MP, P)
+    MP = MAX_LEN // PAGE
+    geoms = [(SLOTS, HEADS, HEADS, DIM // HEADS, PAGE, MP, 2 * SLOTS * MP),
+             (4, 8, 2, 64, 16, 6, 24), (4, 8, 8, 128, 16, 6, 24),
+             (4, 8, 2, 128, 8, 6, 24)]
+    rows = []
+    for S, H, KVH, D, page, mp, P in geoms:
+        lengths = [0, 1, 2 * page + 3, mp * page] + [
+            int(n) for n in rng.randint(1, mp * page + 1, size=S - 4)]
+        for mode in KV_MODES:
+            for group in (page, SUB_GROUP):
+                for dtype in (torch.float32, torch.bfloat16):
+                    args, kw = _quant_pool_case(rng, S, mp, P, page, H, KVH,
+                                                D, dtype, lengths, mode,
+                                                group)
+                    got = pa.paged_decode_attention(*args, **kw)
+                    _sync()
+                    err, ok = _against_plain(
+                        got, pa.paged_decode_attention_plain(*args, **kw))
+                    rows.append({"geometry": [S, H, KVH, D, page, mp],
+                                 "pool": P + 1, "mode": mode, "group": group,
+                                 "dtype": str(dtype).split(".")[-1],
+                                 "max_abs_err": err, "ok": ok})
+                    if not ok or S == SLOTS:
+                        log("  K3-quant S=%d H=%d KVH=%d D=%d page=%d "
+                            "pool=%d %s group=%d %s: max|err| %.3g %s"
+                            % (S, H, KVH, D, page, P + 1, mode, group,
+                               rows[-1]["dtype"], err,
+                               "ok" if ok else "FAIL"))
+    # quantized pools without their scales must raise, never fall back
+    args, kw = _quant_pool_case(rng, 2, 2, 4, 8, 2, 2, 8, torch.float32,
+                                [3, 5], "int8", 8)
+    for bad in ({}, dict(kw, k_scale=kw["k_scale"][:-1])):
+        try:
+            pa.paged_decode_attention(*args, **bad)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("K3-quant accepted inputs it does not take")
+    pa.launches_quant = saved
+    log(json.dumps({"kernel_checks": [{
+        "name": K3Q["name"], "cases": len(rows),
+        "ok": all(r["ok"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows)}]}))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("K3-quant disagrees with its plain version: %s"
+                             % [r for r in rows if not r["ok"]])
+    return rows
+
+
+def quant_append_checks():
+    """``paged_quant_append`` on the card against the CPU from the same
+    inputs: decode-like (one page per slot) and prefill-like (a window of
+    pages plus scratch, padded positions) appends of growing and shrinking
+    magnitude, 8 steps, int8 and fp8, one group per page and SUB_GROUP.
+    Every page but scratch and every scale must be equal bit for bit."""
+    import torch
+    from paddle_tpu_torch.ops import kv_quant as kvq
+    rng = np.random.RandomState(SEED + 10)
+    P, H, D, S = 96, HEADS, DIM // HEADS, 8
+    rows = []
+    for mode in KV_MODES:
+        for group in (PAGE, SUB_GROUP):
+            cfg = kvq.KVQuantConfig(mode, PAGE, group)
+            pools = {dev: (torch.zeros((P + 1, PAGE, H, D),
+                                       dtype=cfg.storage_dtype, device=dev),
+                           torch.zeros(cfg.scale_shape(P + 1, H),
+                                       device=dev))
+                     for dev in ("cpu", DEVICE)}
+            for step in range(8):
+                W, T = (2, 1) if step % 2 else (4, 3 * PAGE)
+                perm = rng.permutation(P)[:S * (W - 1)].reshape(S, W - 1)
+                win = np.concatenate([perm, np.full((S, 1), P)], 1)
+                cells = np.stack([rng.permutation((W - 1) * PAGE)[:T]
+                                  for _ in range(S)])
+                pad = rng.rand(S, T) < 0.2
+                w_idx = np.where(pad, W - 1, cells // PAGE)
+                offs = np.where(pad, 0, cells % PAGE)
+                vals = (rng.randn(S, T, H, D) * [0.2, 5.0, 1.0, 30.0][
+                    step % 4]).astype(np.float32)
+                for dev, (pool, sc) in pools.items():
+                    t = [torch.from_numpy(a.astype(np.int64)).to(dev)
+                         for a in (win, w_idx, offs)]
+                    out = kvq.paged_quant_append(
+                        pool, sc, t[0], t[1], t[2],
+                        torch.from_numpy(vals).to(dev), cfg)
+                    kvq.write_window(pool, sc, t[0], *out)
+            _sync()
+            (cp, cs), (gp, gs) = pools["cpu"], pools[DEVICE]
+            diff_pages = int((cp[:P].view(torch.uint8) !=
+                              gp[:P].cpu().view(torch.uint8)).sum())
+            diff_scales = int((cs[:P] != gs[:P].cpu()).sum())
+            rows.append({"mode": mode, "group": group,
+                         "bytes_differ": diff_pages,
+                         "scales_differ": diff_scales,
+                         "ok": diff_pages == 0 and diff_scales == 0})
+    log(json.dumps({"quant_append_checks": rows}))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("paged_quant_append on the card differs from "
+                             "the CPU: %s" % rows)
     return rows
 
 
@@ -555,10 +739,15 @@ def _post(url, body):
         return json.loads(r.read())
 
 
-def serve_run(model_dir, prompts, budgets):
-    """Serve ``model_dir`` through the port's entry points and send every
+def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
+              slots=None, num_pages=0, buckets=None):
+    """Serve ``model_dir`` through the port's entry points (KV pages in
+    ``kv_quant_dtype``; SLOTS slots, BUCKETS and an auto-sized pool
+    unless given) and send every
     request concurrently; returns the responses, wall seconds, decode
-    steps and K3 launches of this run."""
+    steps, the launches of K3 and K3-quant, the most sequences decoding
+    at once and the pool's bytes in this run. The path's kernel must
+    launch decode steps x layers times and the other kernel never."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.observability import catalog
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -567,9 +756,11 @@ def serve_run(model_dir, prompts, budgets):
                                           make_server)
 
     model, params = load_decoder(model_dir, device=DEVICE)
-    engine = PagedDecodeEngine(model, params, max_slots=SLOTS,
-                               max_len=MAX_LEN, prefill_buckets=BUCKETS,
-                               page_size=PAGE, num_pages=0, device=DEVICE)
+    engine = PagedDecodeEngine(model, params, max_slots=slots or SLOTS,
+                               max_len=MAX_LEN,
+                               prefill_buckets=buckets or BUCKETS,
+                               page_size=PAGE, num_pages=num_pages,
+                               kv_quant_dtype=kv_quant_dtype, device=DEVICE)
     sched = GenerationScheduler(engine, queue_depth=128, seed=SEED)
     server = make_server(sched, host="127.0.0.1", port=0,
                          request_timeout=300.0).start_background()
@@ -578,6 +769,7 @@ def serve_run(model_dir, prompts, budgets):
         profiler.reset_counters()
         profiler.reset_histograms()
         pa.launches = 0           # counts from here are the main path's
+        pa.launches_quant = 0
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
             futs = [ex.submit(_post, url, {"prompt": p.tolist(),
@@ -587,26 +779,45 @@ def serve_run(model_dir, prompts, budgets):
             responses = [f.result() for f in futs]
         _sync()
         wall = time.perf_counter() - t0
-        launches = pa.launches
+        counts = {"k3": pa.launches, "k3_quant": pa.launches_quant}
         steps = int(catalog.GENERATION_DECODE_STEPS.value())
         hist = {name: profiler.histogram_percentiles(name, (50.0, 99.0))
                 for name in ("generation_decode_step_ms",
                              "generation_prefill_ms")}
+        peak = int(max(profiler.get_histogram("generation_slot_occupancy"),
+                       default=0))
         metrics = urllib.request.urlopen(server.url + "/metrics",
                                          timeout=60).read().decode()
         health = _get_status(server.url + "/healthz")
+        quant_pages = catalog.KV_QUANT_PAGES.value()
     finally:
         status = server.shutdown_gracefully(60.0)
     if not status["drained"]:
         raise RuntimeError("server did not drain: %s" % status)
     if health != 200 or "generation_decode_steps_total" not in metrics:
         raise AssertionError("healthz %s / metrics incomplete" % health)
-    if launches <= 0 or launches != steps * model.n_layers:
-        raise AssertionError("K3 launches %d != decode steps %d x %d layers"
-                             % (launches, steps, model.n_layers))
+    path, other = ("k3", "k3_quant") if kv_quant_dtype == "off" else \
+        ("k3_quant", "k3")
+    launches = counts[path]
+    if launches <= 0 or launches != steps * model.n_layers or counts[other]:
+        raise AssertionError(
+            "%s launches %d != decode steps %d x %d layers, or %s launched "
+            "(%d)" % (path, launches, steps, model.n_layers, other,
+                      counts[other]))
+    if (kv_quant_dtype != "off") != (quant_pages > 0):
+        raise AssertionError("kv_quant_pages_total %g on a %s pool"
+                             % (quant_pages, kv_quant_dtype))
+    for r, b in zip(responses, budgets):
+        if r["finish_reason"] != "length" or len(r["tokens"]) != b or \
+                not all(0 <= t < VOCAB for t in r["tokens"]):
+            raise AssertionError("malformed response: %s" % {
+                k: r[k] for k in ("finish_reason", "n_prompt")})
+    pools = engine._kp + engine._vp + (engine._ks or []) + (engine._vs or [])
     return {"model": model, "engine": engine, "responses": responses,
             "wall_s": wall, "steps": steps, "launches": launches,
-            "hist": hist}
+            "counts": counts, "hist": hist, "pages": engine.page_stats(),
+            "peak_slots": peak,
+            "pool_bytes": sum(t.numel() * t.element_size() for t in pools)}
 
 
 def _get_status(url):
@@ -628,7 +839,13 @@ def _serving_stats(run):
             "decode_step_ms_p50": run["hist"]["generation_decode_step_ms"][50.0],
             "decode_step_ms_p99": run["hist"]["generation_decode_step_ms"][99.0],
             "prefill_ms_p50": run["hist"]["generation_prefill_ms"][50.0],
-            "k3_launches": run["launches"]}
+            "k3_launches": run["counts"]["k3"],
+            "k3_quant_launches": run["counts"]["k3_quant"],
+            "kv_quant_dtype": run["pages"]["kv_quant_dtype"],
+            "kv_pages_total": run["pages"]["kv_pages_total"],
+            "kv_pool_effective_capacity":
+                run["pages"]["kv_pool_effective_capacity"],
+            "peak_slots": run["peak_slots"], "pool_bytes": run["pool_bytes"]}
 
 
 # cycles of the device sleep ahead of each timed call (~10 ms at the
@@ -662,14 +879,41 @@ def _timed(fn, args, reps, flush):
     return total / reps
 
 
-def k3_timing(step_args, launches):
-    """K3 at the layer-0 inputs of a decode step with every slot busy
-    (``step_profile``): checked against the plain version, then timed
-    beside its bound, the plain version and the SDPA yardstick on the
-    same tokens."""
+def k3_check(step_args, step_kwargs=None):
+    """K3 (K3-quant when ``step_kwargs`` carry a quant config and scales)
+    against its plain version at a decode step's captured inputs; raises
+    past the tolerance, returns max|err|. The comparison launch is not
+    counted as the main path's."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    kw = dict(step_kwargs or {})
+    saved = (pa.launches, pa.launches_quant)
+    got = pa.paged_decode_attention(*step_args, **kw)
+    _sync()
+    err, ok = _against_plain(
+        got, pa.paged_decode_attention_plain(*step_args, **kw))
+    pa.launches, pa.launches_quant = saved
+    if not ok:
+        raise AssertionError(
+            "%s disagrees with its plain version at the decode step's "
+            "inputs (%s pools): max|err| %.3g"
+            % ("K3" if kw.get("quant") is None else "K3-quant",
+               str(step_args[1].dtype).split(".")[-1], err))
+    return err
+
+
+def k3_timing(step_args, launches, step_kwargs=None):
+    """K3 (K3-quant when ``step_kwargs`` carry a quant config and scales)
+    at the layer-0 inputs of a decode step with every slot busy
+    (``step_profile``): checked against the plain version (``k3_check``),
+    then timed beside its bound, the plain version and the SDPA yardstick
+    on the same tokens (for K3-quant pre-dequantized to a dense cache in
+    q's dtype)."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kv_quant as kvq
     from paddle_tpu_torch.ops import paged_attention as pa
+    kw = dict(step_kwargs or {})
+    quant = kw.get("quant")
     q, kp, vp, pt, lengths = step_args
     S, H, D = q.shape
     _, page, KVH, _ = kp.shape
@@ -677,28 +921,31 @@ def k3_timing(step_args, launches):
     elem = q.element_size()
     tokens = int(n.sum())
     pages = int(((n + page - 1) // page).sum())
-    nbytes = (tokens * KVH * D * 2 * elem + 2 * q.numel() * elem
+    nbytes = (tokens * KVH * D * 2 * kp.element_size() + 2 * q.numel() * elem
               + pages * 4 + S * 4)
+    if quant is not None:   # each live page's K and V scales, read once
+        nbytes += pages * quant.groups_per_page * KVH * 4 * 2
     flops = tokens * H * D * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    saved = pa.launches
-    got = pa.paged_decode_attention(q, kp, vp, pt, lengths)
-    _sync()
-    err, ok = _against_plain(
-        got, pa.paged_decode_attention_plain(q, kp, vp, pt, lengths))
-    if not ok:
-        raise AssertionError("K3 disagrees with its plain version at the "
-                             "decode step's inputs: max|err| %.3g" % err)
+    err = k3_check(step_args, kw)
+    name = "K3" if quant is None else "K3-quant"
+    saved = (pa.launches, pa.launches_quant)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
-    ms = _timed(pa.paged_decode_attention, (q, kp, vp, pt, lengths), 200,
-                flush)
-    plain_ms = _timed(pa.paged_decode_attention_plain,
+    ms = _timed(lambda *a: pa.paged_decode_attention(*a, **kw),
+                (q, kp, vp, pt, lengths), 200, flush)
+    plain_ms = _timed(lambda *a: pa.paged_decode_attention_plain(*a, **kw),
                       (q, kp, vp, pt, lengths), 50, flush)
     # yardstick: the same live tokens pre-gathered into a dense cache
     L = int(n.max())
     idx = pt.long()
-    kd = kp[idx].reshape(S, -1, KVH, D)[:, :L].permute(0, 2, 1, 3).contiguous()
-    vd = vp[idx].reshape(S, -1, KVH, D)[:, :L].permute(0, 2, 1, 3).contiguous()
+    if quant is None:
+        kg, vg = kp[idx], vp[idx]
+    else:
+        kg, vg = (kvq.dequant_pages(kvq.gather_rows(pool, idx), sc[idx],
+                                    quant, out_dtype=q.dtype)
+                  for pool, sc in ((kp, kw["k_scale"]), (vp, kw["v_scale"])))
+    kd = kg.reshape(S, -1, KVH, D)[:, :L].permute(0, 2, 1, 3).contiguous()
+    vd = vg.reshape(S, -1, KVH, D)[:, :L].permute(0, 2, 1, 3).contiguous()
     mask = (torch.arange(L, device=DEVICE)[None, :] < n[:, None])[:, None,
                                                                  None, :]
     q4 = q[:, :, None, :]
@@ -707,19 +954,21 @@ def k3_timing(step_args, launches):
         return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)
 
     library_ms = _timed(sdpa, (q4, kd, vd, mask), 200, flush)
-    pa.launches = saved   # comparison launches are not the main path's
-    row = dict(K3)
+    # comparison launches are not the main path's
+    pa.launches, pa.launches_quant = saved
+    row = dict(K3 if quant is None else K3Q)
     row.update({"launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms})
-    log("K3 at a decode step with every slot busy: S=%d H=%d KVH=%d D=%d "
-        "page=%d %s, %d live tokens, %.1f MB: %.4f ms (bound %.4f ms, %.1f%% of it; "
-        "plain %.4f ms; sdpa %.4f ms); max|err| vs plain %.3g"
-        % (S, H, KVH, D, page, str(q.dtype).split(".")[-1], tokens,
-           nbytes / 1e6, ms, row["bound_ms"], 100 * row["bound_ms"] / ms,
-           plain_ms, library_ms, err))
+    log("%s at a decode step with every slot busy: S=%d H=%d KVH=%d D=%d "
+        "page=%d %s pools %s, %d live tokens, %.1f MB: %.4f ms (bound %.4f "
+        "ms, %.1f%% of it; plain %.4f ms; sdpa %.4f ms); max|err| vs plain "
+        "%.3g" % (name, S, H, KVH, D, page, str(q.dtype).split(".")[-1],
+                  str(kp.dtype).split(".")[-1], tokens, nbytes / 1e6, ms,
+                  row["bound_ms"], 100 * row["bound_ms"] / ms, plain_ms,
+                  library_ms, err))
     return row, {"live_tokens": tokens, "bytes": nbytes, "flops": flops}
 
 
@@ -727,8 +976,8 @@ def step_profile(engine, prompts, steps=20):
     """Where a decode step's time goes at 32 busy slots: host wall per
     step (unprofiled), device-busy time per step and K3's share of it
     (``torch.profiler``), and the device kernels taking the most time.
-    Also returns copies of the K3 inputs of layer 0 of one more step,
-    for ``k3_timing``."""
+    Also returns copies of the K3 (K3-quant) inputs of layer 0 of one more
+    step, as (args, kwargs), for ``k3_timing``."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops import paged_attention as pa
     for i, p in enumerate(prompts[:engine.max_slots]):
@@ -753,7 +1002,9 @@ def step_profile(engine, prompts, steps=20):
 
     def capture(*args, **kw):
         if not captured:
-            captured.extend(t.clone() for t in args)
+            captured.append(tuple(t.clone() for t in args))
+            captured.append({k: v.clone() if hasattr(v, "clone") else v
+                             for k, v in kw.items()})
         return real(*args, **kw)
     pa.paged_decode_attention = capture
     try:
@@ -784,7 +1035,7 @@ def step_profile(engine, prompts, steps=20):
         % (out["slots"], wall_ms, busy, 100 * (out["device_idle_share"]
                                                 or 0), k3,
            json.dumps(out["top_kernels_ms"])))
-    return out, tuple(captured)
+    return out, captured
 
 
 def main_path(workdir):
@@ -836,11 +1087,6 @@ def main_path(workdir):
             "fp32 stream %d differs from full recompute at token %d "
             "(served %s, recomputed %s)" % (i, j, got[j:j + 4],
                                             ref[i][j:j + 4]))
-    for r, b in zip(run32["responses"] + run16["responses"], budgets * 2):
-        if r["finish_reason"] != "length" or len(r["tokens"]) != b or \
-                not all(0 <= t < VOCAB for t in r["tokens"]):
-            raise AssertionError("malformed response: %s" % {
-                k: r[k] for k in ("finish_reason", "n_prompt")})
 
     # bf16: first-step logits against the fp32 twin on the same prompts
     k = 8
@@ -862,11 +1108,153 @@ def main_path(workdir):
     if not (rel <= BF16_LOGIT_REL_L2 and torch.isfinite(l16).all()):
         raise AssertionError("bf16 logits off the fp32 twin: rel L2 %.4g"
                              % rel)
-    prof, step_args = step_profile(run16["engine"], prompts)
+    quant = quant_runs(workdir, d16, prompts, budgets, run16)
+    cap = capacity_runs(d16)
+    launches += cap["runs"]["bf16"]["k3_launches"]
+    prof, (step_args, _) = step_profile(run16["engine"], prompts)
     row, shape = k3_timing(step_args, launches)
+    qprof, (qargs, qkw) = step_profile(quant["runs"]["int8"]["engine"],
+                                       prompts)
+    qrow, qshape = k3_timing(
+        qargs, quant["launches"] + cap["runs"]["int8"]["k3_quant_launches"],
+        qkw)
+    # the fp8 engine's own decode-step inputs: checked, not timed
+    fprof, (fargs, fkw) = step_profile(quant["runs"]["fp8"]["engine"],
+                                       prompts)
+    ferr = k3_check(fargs, fkw)
+    log("K3-quant at the fp8 engine's decode step with every slot busy: "
+        "max|err| vs plain %.3g" % ferr)
     return {"fp32": s32, "bf16": s16, "k3": row, "k3_step": shape,
             "bf16_step_profile": prof,
-            "bf16_logit_rel_l2": rel, "bf16_argmax_agree": agree}
+            "bf16_logit_rel_l2": rel, "bf16_argmax_agree": agree,
+            "quant": quant["stats"], "capacity": cap, "k3_quant": qrow,
+            "k3_quant_step": qshape, "int8_step_profile": qprof,
+            "fp8_step_profile": fprof, "fp8_step_max_abs_err": ferr}
+
+
+def match_fraction(ref, got):
+    """Share of greedy tokens equal position by position (the reference's
+    token-match measure)."""
+    m = t = 0
+    for a, b in zip(ref, got):
+        n = min(len(a), len(b))
+        t += n
+        m += sum(int(x == y) for x, y in zip(a[:n], b[:n]))
+    return m / max(t, 1)
+
+
+def _prefill_logits(engine, prompts):
+    """[len(prompts), vocab] fp32 prefill logits from an emptied engine,
+    one prompt at a time in slot 0 (distinct prompts: nothing is mapped
+    from the prefix cache)."""
+    engine.reset()
+    out = []
+    for p in prompts:
+        out.append(engine.prefill(0, p, max_new_tokens=1))
+        engine.release(0)
+    engine.reset()
+    return np.stack(out)
+
+
+def quant_runs(workdir, d16, prompts, budgets, run16):
+    """The quantized serving runs: the bf16 decoder with int8 and with fp8
+    KV pages, and the bf16 decoder written through
+    ``quantize_decoder_dir(mode="int8")`` with int8 KV pages, each serving
+    the same requests as the bf16 run. Gates (each raises): responses
+    well formed and K3-quant = decode steps x layers with no K3 launch
+    (``serve_run``); the prefill logits of 8 prompts within
+    QUANT_LOGIT_REL_L2 of the unquantized bf16 engine's, finite. Recorded:
+    argmax agreement, the greedy token match against the bf16 run beside
+    the reference's 0.95 guard, TTFT, decode tokens/s, pages."""
+    from paddle_tpu_torch.serving import quantize_decoder_dir
+    dq = os.path.join(workdir, "bf16_weights_int8")
+    quantize_decoder_dir(d16, dq, "int8")
+    k = 8
+    ref = _prefill_logits(run16["engine"], prompts[:k])
+    ref_tokens = [r["tokens"] for r in run16["responses"]]
+    runs, stats, launches = {}, {}, 0
+    for label, mdir, mode in (("int8", d16, "int8"), ("fp8", d16, "fp8"),
+                              ("weights_int8_kv_int8", dq, "int8")):
+        run = serve_run(mdir, prompts, budgets, kv_quant_dtype=mode)
+        launches += run["launches"]
+        st = _serving_stats(run)
+        got = _prefill_logits(run["engine"], prompts[:k])
+        st["weight_quant"] = run["model"].weight_quant or "off"
+        st["prefill_logit_rel_l2"] = float(np.linalg.norm(got - ref) /
+                                           np.linalg.norm(ref))
+        st["prefill_argmax_agree"] = int((got.argmax(-1) ==
+                                          ref.argmax(-1)).sum())
+        st["token_match_vs_bf16"] = match_fraction(
+            ref_tokens, [r["tokens"] for r in run["responses"]])
+        st["token_match_guard"] = TOKEN_MATCH_GUARD
+        log("%s serving: %s" % (label, json.dumps(st)))
+        log("  %s vs bf16: prefill logits rel L2 %.4g (limit %g), argmax "
+            "agrees on %d/%d; greedy token match %.4f (the reference's "
+            "guard %.2f, recorded only)"
+            % (label, st["prefill_logit_rel_l2"], QUANT_LOGIT_REL_L2,
+               st["prefill_argmax_agree"], k, st["token_match_vs_bf16"],
+               TOKEN_MATCH_GUARD))
+        if not (st["prefill_logit_rel_l2"] <= QUANT_LOGIT_REL_L2
+                and np.isfinite(got).all()):
+            raise AssertionError("%s prefill logits off the bf16 engine's: "
+                                 "rel L2 %.4g" % (label,
+                                                  st["prefill_logit_rel_l2"]))
+        runs[label], stats[label] = run, st
+    return {"runs": runs, "stats": stats, "launches": launches}
+
+
+def _capacity_requests():
+    """CAP_CLIENTS x CAP_PER_CLIENT seeded requests whose prompt + budget
+    is CAP_TOKENS each (budgets CAP_NEW_TOKENS)."""
+    rng = np.random.RandomState(SEED + 2)
+    n = CAP_CLIENTS * CAP_PER_CLIENT
+    budgets = rng.randint(CAP_NEW_TOKENS[0], CAP_NEW_TOKENS[1] + 1, size=n)
+    prompts = [rng.randint(0, VOCAB, size=CAP_TOKENS - int(b)).astype(
+        np.int32) for b in budgets]
+    return prompts, [int(b) for b in budgets]
+
+
+def capacity_runs(d16):
+    """What quantized pages buy: admission at equal pool bytes. The bf16
+    decoder on CAP_SLOTS slots serves the same requests twice: with bf16
+    pages over the bf16 run's auto-sized pool, and with int8 pages over as
+    many pages as those bytes hold (``equal_memory_pages``, scales
+    counted). Gates (each raises): the int8 pool takes no more bytes than
+    the bf16 pool; the most sequences decoding at once in the int8 run is
+    at least ADMISSION_RATIO x the bf16 run's; responses well formed and
+    the path's kernel = decode steps x layers (``serve_run``)."""
+    from paddle_tpu_torch.ops import kv_quant as kvq
+    prompts, budgets = _capacity_requests()
+    dense_pages = -(-SLOTS * MAX_LEN // PAGE)
+    q_pages = kvq.equal_memory_pages(dense_pages, PAGE, HEADS, DIM // HEADS,
+                                     kvq.KVQuantConfig("int8", PAGE))
+    stats = {}
+    for label, mode, pages in (("bf16", "off", dense_pages),
+                               ("int8", "int8", q_pages)):
+        run = serve_run(d16, prompts, budgets, kv_quant_dtype=mode,
+                        slots=CAP_SLOTS, num_pages=pages,
+                        buckets=CAP_BUCKETS)
+        stats[label] = _serving_stats(run)
+        log("%s capacity serving (%d slots, %d pages): %s"
+            % (label, CAP_SLOTS, pages, json.dumps(stats[label])))
+        del run
+    b, q = stats["bf16"], stats["int8"]
+    ratio = q["peak_slots"] / b["peak_slots"]
+    log("admission at equal pool bytes (%d requests of %d tokens' worst "
+        "case): int8 pages %d sequences at once over %d pages (%.1f MB) "
+        "against bf16's %d over %d pages (%.1f MB): %.3fx (limit %.2fx)"
+        % (len(prompts), CAP_TOKENS, q["peak_slots"], q["kv_pages_total"],
+           q["pool_bytes"] / 1e6, b["peak_slots"], b["kv_pages_total"],
+           b["pool_bytes"] / 1e6, ratio, ADMISSION_RATIO))
+    if q["pool_bytes"] > b["pool_bytes"]:
+        raise AssertionError("int8 pool %d B > bf16 pool %d B"
+                             % (q["pool_bytes"], b["pool_bytes"]))
+    if ratio < ADMISSION_RATIO:
+        raise AssertionError("int8 pages admitted %d sequences at once, "
+                             "bf16 %d: %.3fx < %.2fx"
+                             % (q["peak_slots"], b["peak_slots"], ratio,
+                                ADMISSION_RATIO))
+    return {"runs": stats, "admission_ratio": ratio}
 
 
 # -- phases 5-6: training -------------------------------------------------
@@ -1494,6 +1882,8 @@ def main(argv=None):
         report["build_s"] = build()
         data = packed_data(LM_BATCH, LM_SEQ)
         report["kernel_checks"] = kernel_checks()
+        report["quant_kernel_checks"] = quant_kernel_checks()
+        report["quant_append_checks"] = quant_append_checks()
         report["flash_checks"] = flash_checks()
         report["segment_checks"] = segment_checks(data["packed"]["seg"])
         report["fused_adam_checks"] = fused_adam_checks()
@@ -1524,7 +1914,8 @@ def main(argv=None):
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1, default=str)
     if not args.kernels_only:
-        print(json.dumps({"kernels": [report["main_path"]["k3"]] +
+        print(json.dumps({"kernels": [report["main_path"]["k3"],
+                                      report["main_path"]["k3_quant"]] +
                           report["flash_timing"] +
                           report["segment_timing"] +
                           [report["fused_adam_timing"]]}))

@@ -17,7 +17,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["params_from_jax", "array_to_tensor", "scope_from_jax"]
+__all__ = ["params_from_jax", "array_to_tensor", "quant_payload_to_tensor",
+           "scope_from_jax"]
 
 
 def array_to_tensor(arr, dtype=None, device="cpu"):
@@ -32,18 +33,40 @@ def array_to_tensor(arr, dtype=None, device="cpu"):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def quant_payload_to_tensor(arr, mode=None, device="cpu"):
+    """A weight-quantized payload (numpy) as an int8 or float8_e4m3fn
+    tensor on ``device``, bit for bit. ``mode`` (``int8|fp8``) names the
+    storage type of raw bytes (uint8, as npz files store fp8); without it
+    the array's own type decides (int8, or the reference's in-memory
+    float8_e4m3fn)."""
+    arr = np.ascontiguousarray(arr)
+    if mode is None:
+        mode = {"int8": "int8", "float8_e4m3fn": "fp8"}.get(arr.dtype.name)
+    if mode not in ("int8", "fp8") or arr.dtype.itemsize != 1:
+        raise ValueError("a quantized weight payload is int8 or "
+                         "float8_e4m3fn bytes (got %s, mode %r)"
+                         % (arr.dtype, mode))
+    raw = torch.from_numpy(arr.view(np.uint8).copy())
+    return raw.view(torch.int8 if mode == "int8"
+                    else torch.float8_e4m3fn).to(device)
+
+
 def params_from_jax(tree, device=None):
     """The port's parameter dict from a reference params pytree of numpy
     arrays, on ``device``. Each leaf keeps its float width; bfloat16
     leaves arrive as float32 (exact — cast with ``.to`` to serve them in
-    bf16). Weight-quantized leaves (``{"qw", "scale"}``) are refused:
-    quantized weights are not ported yet."""
+    bf16). Weight-quantized leaves (``{"qw", "scale"}``) carry their
+    int8/fp8 payload bit for bit and their fp32 scales."""
     dev = resolve_device(device)
 
     def leaf(name, v):
         if isinstance(v, dict):
-            raise ValueError("parameter %r is weight-quantized; quantized "
-                             "weights are not ported yet" % name)
+            if set(v) != {"qw", "scale"}:
+                raise ValueError("parameter %r: a quantized leaf has qw and "
+                                 "scale (got %s)" % (name, sorted(v)))
+            return {"qw": quant_payload_to_tensor(v["qw"], device=dev),
+                    "scale": array_to_tensor(v["scale"], torch.float32,
+                                             dev)}
         return array_to_tensor(v, device=dev)
 
     out = {}

@@ -26,10 +26,21 @@ generation_prefill_buckets = "16,32,64,128"
 
 # Paged KV cache (resolve_generation_knobs(paged=True)):
 # ``kv_page_size`` tokens per page; ``kv_num_pages`` pool capacity per
-# layer (0 = auto, the dense-equivalent budget). The knobs of speculative
-# decoding, megastep decoding and quantized pages come with those paths.
+# layer (0 = auto, the dense-equivalent budget, doubled when the pages are
+# quantized). The knobs of speculative and megastep decoding come with
+# those paths.
 kv_page_size = 16
 kv_num_pages = 0
+
+# Quantized KV pages (``resolve_generation_knobs(paged=True)`` validates
+# them; errors name the FLAGS_* knob):
+# ``kv_quant_dtype`` — KV-page storage of the paged engine: "off" (the
+# model dtype), "fp8" (float8_e4m3fn) or "int8", with per-(page, group,
+# kv-head) fp32 scales; decode attention goes through K3-quant.
+# ``kv_quant_group`` — tokens per scale group within a page (0 = one group
+# per page); must divide kv_page_size.
+kv_quant_dtype = "off"
+kv_quant_group = 0
 
 # End-to-end deadlines and overload hints (the scheduler's share of
 # serving.registry.resolve_fleet_knobs in the reference):

@@ -21,6 +21,7 @@ __all__ = [
     "GENERATION_SLOT_OCCUPANCY", "PREFIX_CACHE_HITS",
     "PREFIX_CACHE_EVICTIONS", "PAGE_EVICTIONS", "DEADLINE_EXCEEDED",
     "REQUEST_TTFT_SECONDS", "REQUEST_TPOT_SECONDS", "REQUESTS_FINISHED",
+    "KV_QUANT_PAGES", "WEIGHT_QUANT_ARTIFACTS",
 ]
 
 _LABEL_SEP = "|"
@@ -142,6 +143,19 @@ PAGE_EVICTIONS = Counter(
     "page_evictions_total",
     help="KV pages reclaimed from the prefix cache back to the free "
     "pool to admit a new request (sole-owner entries only)")
+
+# -- quantized serving (ops/kv_quant.py) -----------------------------------
+
+KV_QUANT_PAGES = Counter(
+    "kv_quant_pages_total",
+    help="KV pages claimed in a quantized (fp8/int8) page pool — "
+    "prefill reservations plus tier imports; zero on full-precision "
+    "engines, so rate() > 0 confirms the quantized path is live")
+WEIGHT_QUANT_ARTIFACTS = Counter(
+    "weight_quant_artifacts_total",
+    help="Decoder directories weight-only-quantized by "
+    "quantize_decoder_dir (per-output-channel scales + weight_quant "
+    "config stanza; load_decoder reconstructs a dequant-on-use model)")
 
 # -- deadlines and token-level SLOs ----------------------------------------
 

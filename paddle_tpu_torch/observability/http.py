@@ -38,6 +38,10 @@ class BackgroundHTTPServer(ThreadingHTTPServer):
     ``server_address`` has the final one."""
 
     daemon_threads = True
+    # the listen backlog: a burst of concurrent clients (64 and more at a
+    # saturated generation server) overflows socketserver's default of 5,
+    # and the kernel then drops or resets their connections
+    request_queue_size = 128
 
     def __init__(self, addr, handler_cls, verbose=False):
         ThreadingHTTPServer.__init__(self, addr, handler_cls)

@@ -27,7 +27,7 @@ import torch
 
 from ..framework import in_var, set_out
 from ..registry import register_op
-from . import flash_attention
+from . import flash_attention, kv_quant
 from .segment_mask import SegmentIds
 
 __all__ = ["dot_product_attention", "paged_chunk_attention", "NEG_INF"]
@@ -69,7 +69,7 @@ def dot_product_attention(q, k, v, *, causal=False, scale=None,
 
 
 def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,
-                          scale=None):
+                          scale=None, k_scale=None, v_scale=None, quant=None):
     """Chunked attention against a paged KV pool:
 
       q:          [slots, chunk, heads, head_dim]; chunk token j sits at
@@ -83,12 +83,22 @@ def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,
 
     The named pool rows are gathered into each slot's logical sequence;
     positions past the mask hold finite stale or scratch values and are
-    excluded by the -1e9 mask."""
+    excluded by the -1e9 mask. Quantized pools (``quant`` a
+    ``KVQuantConfig`` with per-(page, group, kv-head) ``k_scale`` /
+    ``v_scale``) are dequantized in the gather to q's dtype, as the
+    reference's lowering does."""
     S, T, H = q.shape[0], q.shape[1], q.shape[2]
     base = base_lengths.reshape(-1).long()
     idx = page_table.long()
-    kc = k_pool[idx].reshape(S, -1, *k_pool.shape[2:])
-    vc = v_pool[idx].reshape(S, -1, *v_pool.shape[2:])
+    if quant is not None:
+        kc = kv_quant.dequant_pages(kv_quant.gather_rows(k_pool, idx),
+                                    k_scale[idx], quant, out_dtype=q.dtype)
+        vc = kv_quant.dequant_pages(kv_quant.gather_rows(v_pool, idx),
+                                    v_scale[idx], quant, out_dtype=q.dtype)
+    else:
+        kc, vc = k_pool[idx], v_pool[idx]
+    kc = kc.reshape(S, -1, *k_pool.shape[2:])
+    vc = vc.reshape(S, -1, *v_pool.shape[2:])
     kc, vc = _expand_kv(kc, vc, H, 2)
     scale = scale if scale is not None else 1.0 / float(np.sqrt(q.shape[-1]))
     logits = torch.einsum("sjhd,sthd->shjt", q.float(), kc.float()) * scale

@@ -1,19 +1,25 @@
-"""Paged decode attention (K3): the wrapper of the hand-written CUDA
-kernel ``csrc/paged_decode.cu`` and its plain PyTorch version.
+"""Paged decode attention (K3 and K3-quant): the wrapper of the
+hand-written CUDA kernel ``csrc/paged_decode.cu`` and its plain PyTorch
+version.
 
 It replaces ``paddle_tpu/ops/pallas_paged_attention.py::
-paged_flash_decode`` (the Pallas TPU kernel) for full-precision pools:
-single-token attention per slot over the live positions
-``< max(len, 1)`` of its pages, GQA (``H % KVH == 0``), online softmax
-with fp32 statistics, output ``acc / max(l, 1e-30)`` in q's dtype. What
-bounds it on the H100 (device-memory bytes) and how the kernel is laid
-out is written at the top of the CUDA source.
+paged_flash_decode`` (the Pallas TPU kernel): single-token attention per
+slot over the live positions ``< max(len, 1)`` of its pages, GQA (``H %
+KVH == 0``), online softmax with fp32 statistics, output ``acc / max(l,
+1e-30)`` in q's dtype. K3 takes full-precision pools (fp32/bf16, q's
+dtype); K3-quant, the same kernel body instantiated with a one-byte
+storage type, takes int8 or fp8 (e4m3fn) pools with per-(page, group,
+kv-head) fp32 scales: token ``t`` of page ``p`` for kv head ``h`` is
+``float(x) * scale[p, t // group, h]``, dequantized in fp32 as the TPU
+kernel does. What bounds the kernel on the H100 (device-memory bytes)
+and how it is laid out is written at the top of the CUDA source.
 
 :func:`paged_decode_attention` takes the plain version only for tensors
 that lie on the CPU. For CUDA tensors it checks what the kernel takes
 and launches it on the current stream, or raises: there is no fallback.
-``launches`` counts kernel launches (and nothing else), so a run can
-show that its decode steps went through the kernel.
+``launches`` counts K3's launches and ``launches_quant`` K3-quant's (and
+nothing else), so a run can show that its decode steps went through the
+kernel.
 """
 
 import ctypes
@@ -21,18 +27,23 @@ import ctypes
 import numpy as np
 import torch
 
+from . import kv_quant
+
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "launches", "MAX_HEAD_DIM", "NEG_INF"]
+           "launches", "launches_quant", "MAX_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _SMEM_LIMIT = 232448        # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}   # quantized pools
 
 launches = 0
+launches_quant = 0
 
 
-def _check_shapes(q, k_pool, v_pool, page_table, lengths):
+def _check_shapes(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale,
+                  quant):
     if q.dim() != 3 or k_pool.dim() != 4 or page_table.dim() != 2:
         raise ValueError(
             "paged decode attention takes q [S, H, D], pools [P+1, page, "
@@ -52,22 +63,53 @@ def _check_shapes(q, k_pool, v_pool, page_table, lengths):
         raise ValueError("page_table %s / lengths %s do not match %d slots"
                          % (tuple(page_table.shape), tuple(lengths.shape),
                             S))
+    quantized = k_pool.dtype in _KV_DTYPES or v_pool.dtype in _KV_DTYPES
+    if quantized != (quant is not None):
+        raise ValueError(
+            "int8/fp8 pools need quant= (a KVQuantConfig) with k_scale and "
+            "v_scale, and quant= needs int8/fp8 pools (got pools %s/%s, "
+            "quant %r)" % (k_pool.dtype, v_pool.dtype, quant))
+    if quant is None:
+        return
+    if k_pool.dtype != quant.storage_dtype or \
+            v_pool.dtype != quant.storage_dtype:
+        raise TypeError("pools %s/%s are not the %s storage dtype %s"
+                        % (k_pool.dtype, v_pool.dtype, quant.mode,
+                           quant.storage_dtype))
+    if k_pool.shape[1] != quant.page_size:
+        raise ValueError("pool page %d != quant page_size %d"
+                         % (k_pool.shape[1], quant.page_size))
+    want = quant.scale_shape(k_pool.shape[0], k_pool.shape[2])
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None or tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError("%s must be float32 %s (got %s)" % (
+                name, want, None if t is None else
+                "%s %s" % (t.dtype, tuple(t.shape))))
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths,
-                                 scale=None):
-    """The kernel's function in plain PyTorch: gather each slot's pages,
-    mask positions ``>= max(len, 1)``, softmax and weighted sum in fp32,
-    cast to q's dtype. Used for CPU tensors and as the reference the
-    kernel is held against on the card."""
+                                 scale=None, k_scale=None, v_scale=None,
+                                 quant=None):
+    """The kernel's function in plain PyTorch: gather each slot's pages
+    (dequantized in fp32 for int8/fp8 pools), mask positions ``>= max(len,
+    1)``, softmax and weighted sum in fp32, cast to q's dtype. Used for
+    CPU tensors and as the reference the kernel is held against on the
+    card."""
     S, H, D = q.shape
     _, page, KVH, _ = k_pool.shape
     MP = page_table.shape[1]
     scale = float(scale) if scale is not None else 1.0 / float(np.sqrt(D))
     n = lengths.reshape(-1).long().clamp(min=1, max=MP * page)
     idx = page_table.long()
-    kc = k_pool[idx].reshape(S, MP * page, KVH, D).float()
-    vc = v_pool[idx].reshape(S, MP * page, KVH, D).float()
+    if quant is not None:
+        kc = kv_quant.dequant_pages(kv_quant.gather_rows(k_pool, idx),
+                                    k_scale[idx], quant)
+        vc = kv_quant.dequant_pages(kv_quant.gather_rows(v_pool, idx),
+                                    v_scale[idx], quant)
+    else:
+        kc, vc = k_pool[idx].float(), v_pool[idx].float()
+    kc = kc.reshape(S, MP * page, KVH, D)
+    vc = vc.reshape(S, MP * page, KVH, D)
     qg = q.float().reshape(S, KVH, H // KVH, D)
     logits = torch.einsum("skgd,stkd->skgt", qg, kc) * scale
     valid = torch.arange(MP * page, device=q.device)[None, :] < n[:, None]
@@ -86,7 +128,12 @@ def _bind():
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.paddle_paged_decode.restype = ctypes.c_int
+        lib.paddle_paged_decode_quant.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 +
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.paddle_paged_decode_quant.restype = ctypes.c_int
         lib.paddle_paged_decode_smem_bytes.argtypes = [ctypes.c_int,
+                                                       ctypes.c_int,
                                                        ctypes.c_int]
         lib.paddle_paged_decode_smem_bytes.restype = ctypes.c_size_t
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
@@ -96,42 +143,53 @@ def _bind():
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
-                           scale=None):
-    """Single-token attention against a paged KV pool (K3).
+                           scale=None, k_scale=None, v_scale=None,
+                           quant=None):
+    """Single-token attention against a paged KV pool (K3, or K3-quant
+    for quantized pools).
 
       q:          [slots, heads, head_dim]  (this step's token)
       k/v pools:  [num_pages + 1, page_size, kv_heads, head_dim]
       page_table: [slots, max_pages] int32 page ids in sequence order
       lengths:    [slots] int32; positions < max(length, 1) are live and
                   the current token's K/V is already written
+      quant:      None, or the ``KVQuantConfig`` of int8/fp8 pools, with
+                  ``k_scale``/``v_scale`` [num_pages + 1, G, kv_heads] fp32
 
     CPU tensors take :func:`paged_decode_attention_plain`. CUDA tensors
-    launch the kernel; anything it does not take (other dtypes,
-    quantized pools, head_dim > 256, non-contiguous inputs, mixed
-    devices) raises."""
-    global launches
-    _check_shapes(q, k_pool, v_pool, page_table, lengths)
-    devices = {t.device for t in (q, k_pool, v_pool, page_table, lengths)}
+    launch the kernel; anything it does not take (other dtypes, head_dim
+    > 256, non-contiguous inputs, mixed devices) raises."""
+    global launches, launches_quant
+    _check_shapes(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale,
+                  quant)
+    tensors = [q, k_pool, v_pool, page_table, lengths]
+    if quant is not None:
+        tensors += [k_scale, v_scale]
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError("paged decode attention inputs span devices %s"
                          % sorted(str(d) for d in devices))
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
-                                            lengths, scale)
+                                            lengths, scale, k_scale,
+                                            v_scale, quant)
     if q.device.type != "cuda":
         raise ValueError("paged decode attention runs on cpu or cuda "
                          "tensors (got %s)" % q.device)
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or \
-            v_pool.dtype != q.dtype:
+    if q.dtype not in _DTYPES or (quant is None and (
+            k_pool.dtype != q.dtype or v_pool.dtype != q.dtype)):
         raise TypeError(
-            "the paged decode kernel takes float32 or bfloat16 q and pools "
-            "of q's dtype (got q %s, pools %s/%s); quantized pools are not "
-            "ported yet" % (q.dtype, k_pool.dtype, v_pool.dtype))
+            "the paged decode kernel takes float32 or bfloat16 q with pools "
+            "of q's dtype, or int8/fp8 pools with scales (got q %s, pools "
+            "%s/%s)" % (q.dtype, k_pool.dtype, v_pool.dtype))
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32 (got %s, %s)"
                         % (page_table.dtype, lengths.dtype))
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("lengths", lengths)):
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("page_table", page_table), ("lengths", lengths)]
+    if quant is not None:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
     S, H, D = q.shape
@@ -139,12 +197,13 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError("the paged decode kernel supports head_dim <= %d "
                          "and a multiple of 8 (got %d)" % (MAX_HEAD_DIM, D))
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, t in named[:3]:
         if t.data_ptr() % 16:
             raise ValueError("%s must be 16-byte aligned (vector loads)"
                              % name)
     lib = _bind()
-    smem = lib.paddle_paged_decode_smem_bytes(H // KVH, D)
+    smem = lib.paddle_paged_decode_smem_bytes(H // KVH, D,
+                                              int(quant is not None))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             "group %d x head_dim %d needs %d bytes of shared memory per "
@@ -155,14 +214,26 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
     scale = float(scale) if scale is not None else 1.0 / float(np.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paddle_paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            S, H, KVH, D, page, page_table.shape[1], k_pool.shape[0],
-            scale, _DTYPES[q.dtype], stream)
+        if quant is None:
+            err = lib.paddle_paged_decode(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                S, H, KVH, D, page, page_table.shape[1], k_pool.shape[0],
+                scale, _DTYPES[q.dtype], stream)
+        else:
+            err = lib.paddle_paged_decode_quant(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                S, H, KVH, D, page, quant.group, page_table.shape[1],
+                k_pool.shape[0], scale, _DTYPES[q.dtype],
+                _KV_DTYPES[k_pool.dtype], stream)
     if err != 0:
         raise RuntimeError("paged decode kernel launch failed: CUDA error "
                            "%d (%s)" % (err, lib.paddle_cuda_error_string(
                                err).decode()))
-    launches += 1
+    if quant is None:
+        launches += 1
+    else:
+        launches_quant += 1
     return out

@@ -1,5 +1,6 @@
-"""Generation serving on the port: paged-KV decode engine, continuous-
-batching scheduler and the ``/v1/generate`` HTTP server."""
+"""Generation serving on the port: paged-KV decode engine (full-precision
+or int8/fp8 pages), continuous-batching scheduler, weight-only quantized
+decoders and the ``/v1/generate`` HTTP server."""
 
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
                       OverloadedError, PendingResult, ServingClosedError,
@@ -7,7 +8,8 @@ from .batcher import (DeadlineExceededError, DrainRateEstimator,
 from .generation import (DeviceStateError, GenerationScheduler,
                          TransformerDecoderModel, full_recompute_generate,
                          greedy_generate, load_decoder,
-                         resolve_generation_knobs, save_decoder)
+                         quantize_decoder_dir, resolve_generation_knobs,
+                         save_decoder)
 from .metrics import render_prometheus
 from .paged_kv import (PagedDecodeEngine, PagePool, PoolExhaustedError,
                        PrefixCache)
@@ -18,7 +20,8 @@ __all__ = [
     "PendingResult", "ServingClosedError", "resolve_serving_knobs",
     "DeviceStateError", "GenerationScheduler", "TransformerDecoderModel",
     "full_recompute_generate", "greedy_generate", "load_decoder",
-    "resolve_generation_knobs", "save_decoder", "render_prometheus",
+    "quantize_decoder_dir", "resolve_generation_knobs", "save_decoder",
+    "render_prometheus",
     "PagedDecodeEngine", "PagePool", "PoolExhaustedError", "PrefixCache",
     "ServingServer", "make_server",
 ]

@@ -22,15 +22,21 @@ explicit ``torch.Generator`` on the engine's device (temperature
 sampling cannot match ``jax.random`` bit for bit; greedy decoding is
 deterministic in both).
 
+Quantized serving: int8/fp8 KV pages (``kv_quant_dtype``; the append
+and the prefill's dequantizing gather are plain PyTorch in
+``ops.kv_quant``, decode attention is K3-quant) and weight-only quantized
+decoders (:func:`quantize_decoder_dir` → :func:`load_decoder`: ``{"qw",
+"scale"}`` leaves, dequantized before each matmul).
+
 Not ported yet: the dense ``DecodeEngine``, megastep decoding,
-speculative decoding, quantized KV pages and weights, tenancy / SLO
-control / brownout / preemption.
+speculative decoding, tenancy / SLO control / brownout / preemption.
 """
 
 import json
 import math
 import os
 import queue
+import shutil
 import threading
 import time
 
@@ -39,8 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..convert import array_to_tensor
+from ..convert import array_to_tensor, quant_payload_to_tensor
 from ..observability import catalog, tracing
+from ..ops import kv_quant as kvq
 from ..ops import paged_attention
 from ..ops.attention import dot_product_attention, paged_chunk_attention
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
@@ -50,7 +57,8 @@ from .batcher import (DeadlineExceededError, DrainRateEstimator,
 __all__ = [
     "TransformerDecoderModel", "DeviceStateError", "GenerationScheduler",
     "full_recompute_generate", "greedy_generate", "resolve_generation_knobs",
-    "save_decoder", "load_decoder", "params_to_device", "sample_tokens",
+    "save_decoder", "load_decoder", "quantize_decoder_dir",
+    "params_to_device", "sample_tokens",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,14 +75,17 @@ class DeviceStateError(RuntimeError):
 
 def resolve_generation_knobs(max_slots=None, max_len=None,
                              prefill_buckets=None, *, page_size=None,
-                             num_pages=None, paged=False):
+                             num_pages=None, kv_quant_dtype=None,
+                             kv_quant_group=None, paged=False):
     """Resolve ``(max_slots, max_len, buckets)`` from explicit values or
     the ``FLAGS_generation_*`` defaults, validating each (errors name the
     flag). Buckets come back as a sorted tuple clipped to lengths that
     leave room for one generated token. With ``paged=True`` the return
-    extends to ``(..., page_size, num_pages)``; ``num_pages=0`` sizes the
-    pool to the dense-equivalent budget ``ceil(max_slots × max_len /
-    page_size)``."""
+    extends to ``(..., page_size, num_pages, kv_quant_dtype,
+    kv_quant_group)``; ``num_pages=0`` sizes the pool to the
+    dense-equivalent budget ``ceil(max_slots × max_len / page_size)``,
+    DOUBLED when the pages are quantized (int8/fp8 pages cost half the
+    bf16 bytes); ``kv_quant_group=0`` resolves to one group per page."""
     from .. import flags
 
     def _int(value, flag, lo):
@@ -117,15 +128,31 @@ def resolve_generation_knobs(max_slots=None, max_len=None,
                      else page_size, "kv_page_size", 1)
     num_pages = _int(flags.kv_num_pages if num_pages is None
                      else num_pages, "kv_num_pages", 0)
+    kv_quant_dtype = flags.kv_quant_dtype if kv_quant_dtype is None \
+        else kv_quant_dtype
+    if kv_quant_dtype not in kvq.QUANT_DTYPES:
+        raise ValueError("FLAGS_kv_quant_dtype must be one of %s (got %r)"
+                         % ("|".join(kvq.QUANT_DTYPES), kv_quant_dtype))
+    kv_quant_group = _int(flags.kv_quant_group if kv_quant_group is None
+                          else kv_quant_group, "kv_quant_group", 0)
+    if kv_quant_group == 0:
+        kv_quant_group = page_size  # one scale group per page
+    if page_size % kv_quant_group:
+        raise ValueError(
+            "FLAGS_kv_quant_group=%d must divide FLAGS_kv_page_size=%d "
+            "(scale groups tile a page)" % (kv_quant_group, page_size))
     pages_per_seq = -(-max_len // page_size)
     if num_pages == 0:
         num_pages = -(-max_slots * max_len // page_size)
+        if kv_quant_dtype != "off":
+            num_pages *= 2   # the same bytes hold twice the pages
     if num_pages < pages_per_seq:
         raise ValueError(
             "FLAGS_kv_num_pages=%d cannot hold even one full sequence: "
             "FLAGS_generation_max_len=%d at FLAGS_kv_page_size=%d needs "
             "%d pages" % (num_pages, max_len, page_size, pages_per_seq))
-    return max_slots, max_len, usable, page_size, num_pages
+    return (max_slots, max_len, usable, page_size, num_pages,
+            kv_quant_dtype, kv_quant_group)
 
 
 # ---------------------------------------------------------------------------
@@ -140,11 +167,26 @@ def _layer_norm(x, scale, bias, eps=1e-6):
     return (x - m) * torch.rsqrt(v + eps) * scale + bias
 
 
+def _leaf_to(v, device):
+    if isinstance(v, dict):   # a weight-quantized {"qw", "scale"} leaf
+        return {part: t.to(device) for part, t in v.items()}
+    return v.to(device)
+
+
 def params_to_device(params, device):
     """The parameter dict with every tensor on ``device``."""
-    return {k: ([{n: t.to(device) for n, t in blk.items()} for blk in v]
-                if k == "blocks" else v.to(device))
+    return {k: ([{n: _leaf_to(t, device) for n, t in blk.items()}
+                 for blk in v] if k == "blocks" else _leaf_to(v, device))
             for k, v in params.items()}
+
+
+def _wmat(w, dtype):
+    """Dequant-on-use weight access: a weight-quantized ``{"qw": int8/fp8
+    [r, c], "scale": fp32 [c]}`` leaf is dequantized here, before the
+    matmul that consumes it; a full-precision weight passes through."""
+    if isinstance(w, dict):
+        return kvq.dequantize_weight(w["qw"], w["scale"], dtype)
+    return w
 
 
 class TransformerDecoderModel:
@@ -174,6 +216,7 @@ class TransformerDecoderModel:
         self.head_dim = self.dim // self.n_heads
         self.head_init_std = float(head_init_std)
         self.dtype = dtype
+        self.weight_quant = None  # set by load_decoder (quantized decoders)
 
     def init_params(self, seed=0, device=None):
         """Random weights from ``np.random.RandomState(seed)``, drawn in the
@@ -225,14 +268,24 @@ class TransformerDecoderModel:
 
     def _qkv(self, blk, h):
         hd = h.shape[:-1] + (self.n_heads, self.head_dim)
-        return ((h @ blk["wq"]).reshape(hd), (h @ blk["wk"]).reshape(hd),
-                (h @ blk["wv"]).reshape(hd))
+        return tuple((h @ _wmat(blk[n], self.dtype)).reshape(hd)
+                     for n in ("wq", "wk", "wv"))
+
+    def _embed(self, params, tokens):
+        """Token embedding lookup; a quantized table gathers the int8/fp8
+        rows first and dequantizes just them."""
+        emb = params["embed"]
+        if isinstance(emb, dict):
+            rows = kvq.gather_rows(emb["qw"], tokens.long())
+            return (rows.float() * emb["scale"]).to(self.dtype)
+        return emb[tokens.long()]
 
     def _ffn(self, blk, x):
         h = _layer_norm(x, blk["ln2_s"], blk["ln2_b"])
         # the reference's jax.nn.gelu defaults to the tanh approximation
-        return x + F.gelu(h @ blk["w1"] + blk["b1"],
-                          approximate="tanh") @ blk["w2"] + blk["b2"]
+        return x + F.gelu(h @ _wmat(blk["w1"], self.dtype) + blk["b1"],
+                          approximate="tanh") @ _wmat(blk["w2"], self.dtype) \
+            + blk["b2"]
 
     def last_logits_and_kv(self, params, tokens, lengths, need_kv=True):
         """Full causal forward — the full-recompute baseline. ``tokens``
@@ -240,76 +293,118 @@ class TransformerDecoderModel:
         last valid position, ks, vs: per-layer tuples of [B, L, heads,
         head_dim])."""
         B, L = tokens.shape
-        x = params["embed"][tokens.long()] + self._positions(
+        x = self._embed(params, tokens) + self._positions(
             torch.arange(L, device=tokens.device))[None]
         ks, vs = [], []
         for blk in params["blocks"]:
             h = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
             q, k, v = self._qkv(blk, h)
             a = dot_product_attention(q, k, v, causal=True, layout="bshd")
-            x = x + a.reshape(B, L, self.dim) @ blk["wo"]
+            x = x + a.reshape(B, L, self.dim) @ _wmat(blk["wo"], self.dtype)
             x = self._ffn(blk, x)
             if need_kv:
                 ks.append(k)
                 vs.append(v)
         x = _layer_norm(x, params["lnf_s"], params["lnf_b"])
         last = x[torch.arange(B, device=x.device), lengths.long() - 1]
-        return last @ params["head"], tuple(ks), tuple(vs)
+        return last @ _wmat(params["head"], self.dtype), tuple(ks), tuple(vs)
 
     # -- paged-cache surface (serving/paged_kv.py). Pools are
     # [num_pages + 1 scratch, page_size, heads, head_dim] per layer and
     # are written IN PLACE; write coordinates are computed on the host
     # (scratch-page redirects for inactive slots and padded positions).
+    #
+    # QUANTIZED pools (``kv_quant`` a KVQuantConfig) add per-layer fp32
+    # scale tensors ``k_scales``/``v_scales`` [num_pages + 1, G, heads]
+    # and a host-built write WINDOW (``win_pids``: every page the chunk
+    # can land in, ``w_idx``: the window column of each position). The
+    # append gathers the window, dequantizes, inserts, grows the touched
+    # groups' scales and requantizes (ops.kv_quant.paged_quant_append);
+    # pools and scales are then written in place.
+
+    @staticmethod
+    def _quant_append(pool, scales, win_pids, w_idx, offs, vals, cfg):
+        rows, new = kvq.paged_quant_append(pool, scales, win_pids, w_idx,
+                                           offs, vals, cfg)
+        kvq.write_window(pool, scales, win_pids, rows, new)
 
     def paged_prefill_logits(self, params, tokens, n, start, write_pids,
-                             write_offs, page_table_row, k_pools, v_pools):
+                             write_offs, page_table_row, k_pools, v_pools,
+                             k_scales=None, v_scales=None, kv_quant=None,
+                             win_pids=None, w_idx=None):
         """Prefix-aware paged prefill for ONE slot: run the prompt SUFFIX
         (``tokens`` [bucket], ``n`` true length) at positions ``start ..
         start + bucket - 1``, writing its K/V at ``write_pids`` /
-        ``write_offs`` [bucket] and attending over ``page_table_row``
-        [window], which already maps any shared-prefix pages. Returns the
-        logits [vocab] at the last valid position."""
+        ``write_offs`` [bucket] (quantized pools: through the window
+        ``win_pids`` [W] / ``w_idx`` [bucket]) and attending over
+        ``page_table_row`` [window], which already maps any shared-prefix
+        pages. Returns the logits [vocab] at the last valid position."""
         L = tokens.shape[0]
         pos = start + torch.arange(L, device=tokens.device)
-        x = (params["embed"][tokens.long()] + self._positions(pos))[None]
+        x = (self._embed(params, tokens) + self._positions(pos))[None]
         base = torch.full((1,), start, dtype=torch.int64,
                           device=tokens.device)
         table = page_table_row[None]
-        for blk, kp, vp in zip(params["blocks"], k_pools, v_pools):
+        for i, (blk, kp, vp) in enumerate(zip(params["blocks"], k_pools,
+                                              v_pools)):
             h = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
             q, k, v = self._qkv(blk, h)
-            kp.index_put_((write_pids, write_offs), k[0])
-            vp.index_put_((write_pids, write_offs), v[0])
-            a = paged_chunk_attention(q, kp, vp, table, base)
-            x = x + a.reshape(x.shape) @ blk["wo"]
+            ks = vs = None
+            if kv_quant is None:
+                kp.index_put_((write_pids, write_offs), k[0])
+                vp.index_put_((write_pids, write_offs), v[0])
+            else:
+                ks, vs = k_scales[i], v_scales[i]
+                for pool, sc, val in ((kp, ks, k), (vp, vs, v)):
+                    self._quant_append(pool, sc, win_pids[None],
+                                       w_idx[None], write_offs[None], val,
+                                       kv_quant)
+            a = paged_chunk_attention(q, kp, vp, table, base, k_scale=ks,
+                                      v_scale=vs, quant=kv_quant)
+            x = x + a.reshape(x.shape) @ _wmat(blk["wo"], self.dtype)
             x = self._ffn(blk, x)
         x = _layer_norm(x, params["lnf_s"], params["lnf_b"])
-        return x[0, n - 1] @ params["head"]
+        return x[0, n - 1] @ _wmat(params["head"], self.dtype)
 
     def paged_decode_logits(self, params, tokens, positions, active,
                             write_pids, write_offs, page_tables, k_pools,
-                            v_pools):
+                            v_pools, k_scales=None, v_scales=None,
+                            kv_quant=None):
         """One paged incremental step: ``tokens`` [S] (each slot's pending
         input), ``positions`` [S] (the cache index it lands in), ``active``
         [S] bool, ``write_pids``/``write_offs`` [S] (scratch page for
         inactive slots), ``page_tables`` [S, max_pages] int32. Appends
-        K/V in place and attends through K3. Returns logits [S, vocab];
-        inactive slots attend over one stale entry and produce garbage
-        the caller discards."""
+        K/V in place (quantized pools: the write window is the one
+        written page of each slot) and attends through K3 or K3-quant.
+        Returns logits [S, vocab]; inactive slots attend over one stale
+        entry and produce garbage the caller discards."""
         att_len = torch.where(active, positions + 1,
                               torch.ones_like(positions)).to(torch.int32)
-        x = params["embed"][tokens.long()] + self._positions(positions)
-        for blk, kp, vp in zip(params["blocks"], k_pools, v_pools):
+        x = self._embed(params, tokens) + self._positions(positions)
+        if kv_quant is not None:
+            win = write_pids[:, None]
+            w_idx = torch.zeros_like(win)
+            offs = write_offs[:, None]
+        for i, (blk, kp, vp) in enumerate(zip(params["blocks"], k_pools,
+                                              v_pools)):
             h = _layer_norm(x, blk["ln1_s"], blk["ln1_b"])
             q, k, v = self._qkv(blk, h)
-            kp.index_put_((write_pids, write_offs), k)
-            vp.index_put_((write_pids, write_offs), v)
-            a = paged_attention.paged_decode_attention(q, kp, vp,
-                                                       page_tables, att_len)
-            x = x + a.reshape(x.shape) @ blk["wo"]
+            ks = vs = None
+            if kv_quant is None:
+                kp.index_put_((write_pids, write_offs), k)
+                vp.index_put_((write_pids, write_offs), v)
+            else:
+                ks, vs = k_scales[i], v_scales[i]
+                for pool, sc, val in ((kp, ks, k), (vp, vs, v)):
+                    self._quant_append(pool, sc, win, w_idx, offs,
+                                       val[:, None], kv_quant)
+            a = paged_attention.paged_decode_attention(
+                q, kp, vp, page_tables, att_len, k_scale=ks, v_scale=vs,
+                quant=kv_quant)
+            x = x + a.reshape(x.shape) @ _wmat(blk["wo"], self.dtype)
             x = self._ffn(blk, x)
         x = _layer_norm(x, params["lnf_s"], params["lnf_b"])
-        return x @ params["head"]
+        return x @ _wmat(params["head"], self.dtype)
 
 
 def save_decoder(path, model, params):
@@ -340,10 +435,74 @@ def save_decoder(path, model, params):
     np.savez(os.path.join(path, "params.npz"), **flat)
 
 
+# the decoder's 2-D matrices: what weight-only quantization covers (layer
+# norm scales and shifts and the biases stay full precision)
+_QUANTIZABLE_WEIGHTS = frozenset(
+    ("wq", "wk", "wv", "wo", "w1", "w2", "embed", "head"))
+
+
+def quantize_decoder_dir(src_dir, dst_dir, mode):
+    """Publish-time weight-only quantization of a ``save_decoder``
+    directory (either package's): quantize every 2-D matrix per output
+    channel, write ``<dst>/params.npz`` with ``<name>.qw`` and
+    ``<name>.scale`` pairs and ``<dst>/config.json`` with a
+    ``weight_quant`` stanza, so :func:`load_decoder` (either package's)
+    rebuilds a dequant-on-use model. fp8 payloads are stored as uint8
+    views, as the reference stores them. ``mode`` is ``"int8"`` or
+    ``"fp8"``. Sidecar files are copied. Returns the stanza."""
+    if mode not in kvq.WEIGHT_QUANT_DTYPES or mode == "off":
+        raise ValueError("quantize_decoder_dir mode must be fp8|int8 (got "
+                         "%r)" % (mode,))
+    cfg_path = os.path.join(src_dir, "config.json")
+    if not os.path.isfile(cfg_path):
+        raise ValueError(
+            "%s is not a saved decoder (missing config.json) — weight-only "
+            "quantization applies to save_decoder artifacts" % src_dir)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    if cfg.get("weight_quant"):
+        raise ValueError(
+            "%s is already weight-quantized (%r) — re-quantizing a "
+            "quantized artifact would compound the rounding"
+            % (src_dir, cfg["weight_quant"]))
+    flat = {}
+    with np.load(os.path.join(src_dir, "params.npz")) as npz:
+        for key in npz.files:
+            arr = npz[key]
+            if key.split(".")[-1] in _QUANTIZABLE_WEIGHTS:
+                # bf16 arrays (void records) widen exactly to fp32
+                qw, scale = kvq.quantize_weight(
+                    array_to_tensor(arr, torch.float32), mode)
+                if qw.dtype != torch.int8:
+                    qw = qw.view(torch.uint8)
+                flat[key + ".qw"] = qw.numpy()
+                flat[key + ".scale"] = scale.numpy()
+            else:
+                flat[key] = arr
+    stanza = {"dtype": mode, "scheme": "per_output_channel"}
+    cfg["weight_quant"] = stanza
+    os.makedirs(dst_dir, exist_ok=True)
+    with open(os.path.join(dst_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    np.savez(os.path.join(dst_dir, "params.npz"), **flat)
+    for fn in sorted(os.listdir(src_dir)):
+        src = os.path.join(src_dir, fn)
+        if fn in ("config.json", "params.npz", "_MANIFEST") or \
+                not os.path.isfile(src):
+            continue
+        shutil.copyfile(src, os.path.join(dst_dir, fn))
+    catalog.WEIGHT_QUANT_ARTIFACTS.inc()
+    return stanza
+
+
 def load_decoder(path, device=None):
-    """Inverse of :func:`save_decoder` (and of the JAX package's): returns
-    ``(model, params)`` with params on ``device`` in the config's dtype,
-    checked complete against the config's layer count."""
+    """Inverse of :func:`save_decoder` and :func:`quantize_decoder_dir`
+    (and of the JAX package's): returns ``(model, params)`` with params
+    on ``device`` in the config's dtype, checked complete against the
+    config's layer count. A ``weight_quant`` stanza rebuilds ``{"qw",
+    "scale"}`` leaves (payload in the storage dtype, fp32 scales) that
+    the model dequantizes before each matmul; ``model.weight_quant``
+    carries the mode (None at full precision)."""
     dev = resolve_device(device)
     cfg_path = os.path.join(path, "config.json")
     if not os.path.isfile(cfg_path):
@@ -351,32 +510,58 @@ def load_decoder(path, device=None):
                          % path)
     with open(cfg_path) as f:
         cfg = json.load(f)
-    if cfg.pop("weight_quant", None):
-        raise ValueError("%s is a weight-quantized decoder; quantized "
-                         "weights are not ported yet" % path)
+    wq_mode = (cfg.pop("weight_quant", None) or {}).get("dtype")
+    if wq_mode is not None and wq_mode not in ("int8", "fp8"):
+        raise ValueError("config.json weight_quant dtype %r is not fp8|int8"
+                         % (wq_mode,))
     name = cfg.pop("dtype", "float32")
     if name not in _DTYPES:
         raise ValueError("config.json dtype %r is not one of %s"
                          % (name, "|".join(_DTYPES)))
     model = TransformerDecoderModel(dtype=_DTYPES[name], **cfg)
+    model.weight_quant = wq_mode
+
+    def leaf(key, raw):
+        part = key.split(".")[-1]
+        if part == "qw":
+            if wq_mode is None:
+                raise ValueError(
+                    "params.npz carries quantized weight %r but config.json "
+                    "has no weight_quant stanza" % key)
+            return quant_payload_to_tensor(raw, wq_mode, dev)
+        if part == "scale":
+            return array_to_tensor(raw, torch.float32, dev)
+        return array_to_tensor(raw, model.dtype, dev)
+
+    def assign(container, pname, t):
+        if "." in pname:   # "<weight>.qw" / "<weight>.scale"
+            wname, part = pname.split(".", 1)
+            container.setdefault(wname, {})[part] = t
+        else:
+            container[pname] = t
+
     blocks = [{} for _ in range(model.n_layers)]
     params = {"blocks": blocks}
     with np.load(os.path.join(path, "params.npz")) as npz:
         for key in npz.files:
-            t = array_to_tensor(npz[key], model.dtype, dev)
+            t = leaf(key, npz[key])
             if key.startswith("blocks."):
                 _, idx, pname = key.split(".", 2)
                 if int(idx) >= model.n_layers:
                     raise ValueError(
                         "params.npz names layer %s but config.json "
                         "declares n_layers=%d" % (idx, model.n_layers))
-                blocks[int(idx)][pname] = t
+                assign(blocks[int(idx)], pname, t)
             else:
-                params[key] = t
+                assign(params, key, t)
+
+    def complete(v):   # a quantized leaf needs both halves
+        return not isinstance(v, dict) or ("qw" in v and "scale" in v)
+
     missing = ["blocks.%d.%s" % (i, k) for i, blk in enumerate(blocks)
-               for k in _BLOCK_KEYS if k not in blk]
+               for k in _BLOCK_KEYS if k not in blk or not complete(blk[k])]
     missing += [k for k in ("embed", "head", "lnf_s", "lnf_b")
-                if k not in params]
+                if k not in params or not complete(params[k])]
     if missing:
         raise ValueError("params.npz is missing parameters: %s"
                          % ", ".join(missing))
@@ -399,9 +584,9 @@ class _EngineBase:
                 "engine cache buffers were lost by an earlier failed "
                 "call — reset() before further use")
 
-    def _guarded(self, fn, *args):
+    def _guarded(self, fn, *args, **kwargs):
         try:
-            return fn(*args)
+            return fn(*args, **kwargs)
         except Exception as e:
             self._dead = True
             raise DeviceStateError(
@@ -475,7 +660,7 @@ def full_recompute_generate(model, params, prompts, max_new_tokens, *,
     from .. import flags
     if max_len is None:
         max_len = int(flags.generation_max_len)
-    device = params["embed"].device
+    device = params["lnf_s"].device   # a leaf that is never quantized
     B = len(prompts)
     buf = np.zeros((B, max_len), np.int32)
     lengths = np.zeros(B, np.int64)

@@ -17,12 +17,21 @@ port's generation engine; a port of ``paddle_tpu/serving/paged_kv.py``
                  instead of recomputing them (copy-on-write by
                  construction: nobody writes below its own frontier).
 
-The decode step runs the paged-decode kernel (K3) through
-``ops.paged_attention.paged_decode_attention``. Pools are updated in place
-(``index_put_``) where the reference donated them to XLA.
+  quantized    — ``kv_quant_dtype="int8"|"fp8"``: pools in the storage
+                 dtype plus per-layer fp32 scales ``[num_pages + 1, G,
+                 heads]`` beside the page table; a freshly claimed page's
+                 scales are reset to 0, and each append requantizes its
+                 write window (``ops.kv_quant``).
 
-Not ported yet: speculative verify, megastep decoding, quantized pages,
-KV export/adopt and the fleet prefix tier, preempt-to-held.
+The decode step runs the paged-decode kernel (K3, or K3-quant for
+quantized pools) through ``ops.paged_attention.paged_decode_attention``.
+Pools and scales are updated in place (``index_put_``) where the
+reference donated them to XLA.
+
+Not ported yet: speculative verify, megastep decoding, KV export/adopt
+and the fleet prefix tier, preempt-to-held. (A quantized engine that
+adopts pages must refuse them without their scales, as the reference's
+``adopt_prefix`` does.)
 """
 
 import hashlib
@@ -34,6 +43,7 @@ import torch
 
 from .. import resolve_device
 from ..observability import catalog, tracing
+from ..ops.kv_quant import KVQuantConfig
 from .batcher import OverloadedError
 from .generation import (_EngineBase, params_to_device,
                          resolve_generation_knobs, sample_tokens)
@@ -195,19 +205,31 @@ class PagedDecodeEngine(_EngineBase):
     - ``can_admit`` / ``admission_state`` / ``fits_ever`` — free-page
       admission accounting for the scheduler.
 
+    ``kv_quant_dtype`` (``off|int8|fp8``, default
+    ``FLAGS_kv_quant_dtype``) and ``kv_quant_group`` (tokens per scale
+    group, 0 = the page) select quantized pages; ``num_pages=0`` then
+    sizes the pool to twice the dense-equivalent budget.
+
     ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``"cpu"`` to run on the CPU. NOT thread-safe: one thread owns it."""
 
     def __init__(self, model, params, *, max_slots=None, max_len=None,
                  prefill_buckets=None, page_size=None, num_pages=None,
-                 device=None):
+                 kv_quant_dtype=None, kv_quant_group=None, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.params = params_to_device(params, self.device)
         (self.max_slots, self.max_len, self.prefill_buckets,
-         self.page_size, self.num_pages) = resolve_generation_knobs(
+         self.page_size, self.num_pages, self.kv_quant_dtype,
+         self.kv_quant_group) = resolve_generation_knobs(
             max_slots, max_len, prefill_buckets, page_size=page_size,
-            num_pages=num_pages, paged=True)
+            num_pages=num_pages, kv_quant_dtype=kv_quant_dtype,
+            kv_quant_group=kv_quant_group, paged=True)
+        self.kv_quant = None if self.kv_quant_dtype == "off" else \
+            KVQuantConfig(self.kv_quant_dtype, self.page_size,
+                          self.kv_quant_group)
+        self._pool_dtype = model.dtype if self.kv_quant is None else \
+            self.kv_quant.storage_dtype
         self.max_prompt_len = self.prefill_buckets[-1]
         self.pages_per_slot = -(-self.max_len // self.page_size)
         self.scratch_page = self.num_pages  # the pool's extra last row
@@ -231,13 +253,17 @@ class PagedDecodeEngine(_EngineBase):
         """(Re)allocate zeroed pools and clear the allocator, the prefix
         cache and every slot's host bookkeeping — required after
         :class:`DeviceStateError`, harmless otherwise."""
-        dt = self.model.dtype
-        self._kp = [torch.zeros(self._pool_shape, dtype=dt,
-                                device=self.device)
+        def zeros(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=self.device)
                     for _ in range(self.model.n_layers)]
-        self._vp = [torch.zeros(self._pool_shape, dtype=dt,
-                                device=self.device)
-                    for _ in range(self.model.n_layers)]
+        self._kp = zeros(self._pool_shape, self._pool_dtype)
+        self._vp = zeros(self._pool_shape, self._pool_dtype)
+        self._ks = self._vs = None
+        if self.kv_quant is not None:
+            shape = self.kv_quant.scale_shape(self.num_pages + 1,
+                                              self.model.n_heads)
+            self._ks = zeros(shape, torch.float32)
+            self._vs = zeros(shape, torch.float32)
         self.pool.reset()
         self.prefix_cache.reset()
         self.lengths[:] = 0
@@ -306,12 +332,16 @@ class PagedDecodeEngine(_EngineBase):
         return self.num_pages - self.pool.free_pages()
 
     def page_stats(self):
-        """Live pool occupancy for /metrics gauges."""
+        """Live pool occupancy for /metrics gauges.
+        ``kv_pool_effective_capacity`` is the pool's admission token
+        capacity (num_pages × page_size): at equal pool bytes a quantized
+        pool's is ~2x the bf16 pool's."""
         return {"kv_pages_total": self.num_pages,
                 "kv_pages_in_use": self.pages_in_use(),
                 "prefix_cached_pages": len(self.prefix_cache),
                 "kv_pool_effective_capacity":
-                    self.num_pages * self.page_size}
+                    self.num_pages * self.page_size,
+                "kv_quant_dtype": self.kv_quant_dtype}
 
     # -- host surface -------------------------------------------------
     def free_slots(self):
@@ -377,17 +407,40 @@ class PagedDecodeEngine(_EngineBase):
             self.scratch_page).astype(np.int64)
         woffs = np.where(in_range, pos % self.page_size, 0).astype(np.int64)
         window = self._prefill_window(start, bucket)
+        quant = {}
+        if self.kv_quant is not None:
+            # the write WINDOW: the chunk starts page-aligned (start = full
+            # shared pages), so its pages are the next ceil(bucket / page)
+            # table entries, plus scratch for the padded tail
+            p0 = start // self.page_size
+            wr = -(-bucket // self.page_size)
+            win = np.full(wr + 1, self.scratch_page, np.int64)
+            lo = np.arange(wr) + p0
+            ok = lo < self.pages_per_slot
+            win[:wr][ok] = row[lo[ok]]
+            w_idx = np.where(in_range, pos // self.page_size - p0, wr)
+            quant = {"k_scales": self._ks, "v_scales": self._vs,
+                     "kv_quant": self.kv_quant,
+                     "win_pids": self._tensor(win),
+                     "w_idx": self._tensor(w_idx.astype(np.int64))}
         try:
             with tracing.span("engine.prefill", slot=int(slot),
                               bucket=int(bucket), n_prompt=int(n),
                               prefix_hit_pages=len(hit_pids),
                               pages_reserved=int(needed), start=int(start)):
+                if self.kv_quant is not None:
+                    # freshly claimed pages start at scale 0: a previous
+                    # occupant's scale only grows and would coarsen them
+                    self._guarded(self._reset_scales, pids[len(hit_pids):])
                 logits = self._guarded(
                     self.model.paged_prefill_logits, self.params,
                     self._tensor(buf), int(m), int(start),
                     self._tensor(wpids), self._tensor(woffs),
-                    self._tensor(row[:window]), self._kp, self._vp)
+                    self._tensor(row[:window]), self._kp, self._vp,
+                    **quant)
                 logits = logits.float().cpu().numpy()
+                if self.kv_quant is not None:
+                    catalog.KV_QUANT_PAGES.inc(float(needed))
         except Exception:
             if not self._dead:  # failed before touching the pools
                 self.pool.decref(pids)
@@ -407,6 +460,14 @@ class PagedDecodeEngine(_EngineBase):
     def set_input_token(self, slot, token):
         """The token the next decode step consumes for ``slot``."""
         self._in_tokens[slot] = np.int32(token)
+
+    def _reset_scales(self, pids):
+        """Zero the quant scales of freshly (re)claimed pages, in place."""
+        if not len(pids):
+            return
+        idx = self._tensor(np.asarray(pids, np.int64))
+        for sc in self._ks + self._vs:
+            sc.index_fill_(0, idx, 0.0)
 
     def _step_write_coords(self, positions):
         """Per-slot (page id, offset) for writing at ``positions`` [S]:
@@ -443,7 +504,8 @@ class PagedDecodeEngine(_EngineBase):
                 self.params, self._tensor(self._in_tokens),
                 self._tensor(self.lengths), self._tensor(self.active),
                 self._tensor(wpids), self._tensor(woffs),
-                self._tensor(self._page_table), self._kp, self._vp)
+                self._tensor(self._page_table), self._kp, self._vp,
+                k_scales=self._ks, v_scales=self._vs, kv_quant=self.kv_quant)
             return sample_tokens(logits, temps, generator).cpu().numpy()
 
         toks = self._guarded(step).astype(np.int32)

@@ -5,11 +5,16 @@
         [--device cuda] [--host 127.0.0.1] [--port 8500] \
         [--gen-max-slots 32] [--gen-max-len 1024] \
         [--gen-prefill-buckets 64,128,256,512] [--gen-page-size 16] \
-        [--gen-num-pages 0] [--gen-eos-id ID] [--queue-depth N]
+        [--gen-num-pages 0] [--gen-eos-id ID] [--queue-depth N] \
+        [--kv-quant-dtype off|int8|fp8] [--kv-quant-group N]
 
-``DIR`` is a ``save_decoder`` directory (either package writes the same
-form). Knobs left unset come from ``paddle_tpu_torch.flags``. Endpoints:
-POST /v1/generate, GET /healthz, GET /metrics. SIGINT/SIGTERM drain
+``DIR`` is a ``save_decoder`` directory, or a weight-quantized one from
+``quantize_decoder_dir`` (either package writes the same forms). With
+``--kv-quant-dtype int8|fp8`` the KV pages are quantized (decode
+attention through K3-quant) and the auto-sized pool holds twice the
+pages. Knobs left unset come from ``paddle_tpu_torch.flags``. Endpoints:
+POST /v1/generate, GET /healthz (its ``serving`` stanza names
+``kv_quant`` and ``weight_quant``), GET /metrics. SIGINT/SIGTERM drain
 gracefully: /healthz flips to 503, queued and in-flight generations
 complete, then the listener stops. The device defaults to ``cuda`` and
 the server refuses to start without a GPU unless ``--device cpu``.
@@ -43,6 +48,14 @@ def main(argv=None):
                     help="tokens per KV page (default FLAGS_kv_page_size)")
     ap.add_argument("--gen-num-pages", type=int, default=None,
                     help="page-pool capacity; 0 = dense-equivalent auto")
+    ap.add_argument("--kv-quant-dtype", default=None,
+                    choices=("off", "fp8", "int8"),
+                    help="quantized KV-page storage (default FLAGS_kv_"
+                         "quant_dtype)")
+    ap.add_argument("--kv-quant-group", type=int, default=None,
+                    help="tokens per quant scale group within a page (0 = "
+                         "whole page; must divide the page size; default "
+                         "FLAGS_kv_quant_group)")
     ap.add_argument("--gen-eos-id", type=int, default=None,
                     help="token id that finishes a generation")
     ap.add_argument("--gen-max-new-tokens", type=int, default=64,
@@ -61,13 +74,18 @@ def main(argv=None):
         model, params, max_slots=args.gen_max_slots,
         max_len=args.gen_max_len, prefill_buckets=args.gen_prefill_buckets,
         page_size=args.gen_page_size, num_pages=args.gen_num_pages,
-        device=args.device)
+        kv_quant_dtype=args.kv_quant_dtype,
+        kv_quant_group=args.kv_quant_group, device=args.device)
     generator = GenerationScheduler(
         engine, eos_id=args.gen_eos_id, queue_depth=args.queue_depth,
         default_max_new_tokens=args.gen_max_new_tokens)
     server = make_server(generator, host=args.host, port=args.port,
                          request_timeout=args.request_timeout,
                          verbose=args.verbose)
+    server.version_info = {
+        "generation_model": args.generation_model, "paged": True,
+        "kv_quant": engine.kv_quant_dtype,
+        "weight_quant": model.weight_quant or "off"}
 
     def _drain(signum, frame):
         print("serve: draining...", file=sys.stderr)
@@ -85,10 +103,11 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, _drain)
     host, port = server.server_address[:2]
     print("serve: http://%s:%d  generate: %s device=%s slots=%d max_len=%d "
-          "buckets=%s paged(page=%d pages=%d)"
+          "buckets=%s paged(page=%d pages=%d kv_quant=%s) weight_quant=%s"
           % (host, port, args.generation_model, engine.device,
              engine.max_slots, engine.max_len, list(engine.prefill_buckets),
-             engine.page_size, engine.num_pages), file=sys.stderr)
+             engine.page_size, engine.num_pages, engine.kv_quant_dtype,
+             model.weight_quant or "off"), file=sys.stderr)
     try:
         server.serve_forever()
     finally:

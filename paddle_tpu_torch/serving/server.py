@@ -10,7 +10,10 @@
                    503 + Retry-After when the admission queue is full
                    504 when the request's X-Deadline-Ms budget expires
   GET  /healthz    200 {"status": "ok"} while serving, 503 "draining"
-                   after shutdown began
+                   after shutdown began; with ``version_info`` set (the
+                   serve CLI sets it) also ``"serving": {...}``: what
+                   this process serves, ``kv_quant`` and ``weight_quant``
+                   included
   GET  /metrics    Prometheus text (counters, live slot / page gauges,
                    p50/p95/p99)
 
@@ -64,9 +67,12 @@ class _Handler(JsonHTTPHandler):
     def do_GET(self):
         if self.path == "/healthz":
             if self.server.draining:
-                self._send_json(503, {"status": "draining", "ready": False})
+                st = {"status": "draining", "ready": False}
             else:
-                self._send_json(200, {"status": "ok", "ready": True})
+                st = {"status": "ok", "ready": True}
+            if self.server.version_info:
+                st["serving"] = self.server.version_info
+            self._send_json(503 if self.server.draining else 200, st)
         elif self.path == "/metrics":
             gen = self.server.generator
             gauges = {"generation_active_slots": gen.active_slots(),
@@ -179,6 +185,7 @@ class ServingServer(BackgroundHTTPServer):
         self.generator = generator
         self.request_timeout = request_timeout
         self.draining = False
+        self.version_info = None  # what this process serves (serve CLI)
 
     def start_background(self, name="serving-http"):
         return BackgroundHTTPServer.start_background(self, name=name)

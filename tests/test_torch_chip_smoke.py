@@ -1,8 +1,9 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s training phases at a tiny size:
-the flash, segment and fused-Adam kernel checks, the fp32 card-vs-CPU
-gate, the training run, the packed run with its padded baseline, the
-FusedAdam run and the kernel timing report, with every tensor on the
-CPU.
+"""A CPU rehearsal of ``chip_smoke.py``'s phases at a tiny size: the
+K3-quant and quantized-append checks, the serving phase with its three
+quantized runs, the flash, segment and fused-Adam kernel checks, the fp32
+card-vs-CPU gate, the training run, the packed run with its padded
+baseline, the FusedAdam run and the kernel timing report, with every
+tensor on the CPU.
 
 CPU tensors take the kernels' plain versions and count no launch, and
 the backward kernels exist only on CUDA, so the rehearsal swaps in shims
@@ -22,6 +23,7 @@ import chip_smoke as cs
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_adam as pfa
+from paddle_tpu_torch.ops import paged_attention as pa
 
 ROW_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -183,6 +185,97 @@ def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
     json.dumps(timing + [row])
     out = capsys.readouterr().out
     assert "flash_segment_fwd" in out and "fused_adam" in out
+
+
+@pytest.fixture
+def tiny_serving(monkeypatch):
+    """The serving phase's constants shrunk, and a shim that counts a
+    launch of K3 or K3-quant where the kernel would launch."""
+    # head_dim 32 at page 4: an int8 page with its scale takes 0.516 of a
+    # bf16 page, so equal bytes admit 31 sequences of 8 pages against 16;
+    # budgets of 20+ tokens keep the first admitted decoding until every
+    # request has arrived
+    for name, value in (("DEVICE", "cpu"), ("VOCAB", 97), ("DIM", 64),
+                        ("HEADS", 2), ("LAYERS", 2), ("SLOTS", 8),
+                        ("MAX_LEN", 64), ("BUCKETS", "16,32"), ("PAGE", 4),
+                        ("SUB_GROUP", 2), ("N_CLIENTS", 2),
+                        ("PER_CLIENT", 4), ("PROMPT_LEN", (3, 30)),
+                        ("NEW_TOKENS", (3, 8)), ("CAP_SLOTS", 32),
+                        ("CAP_TOKENS", 32), ("CAP_BUCKETS", "16,32"),
+                        ("CAP_CLIENTS", 8), ("CAP_PER_CLIENT", 6),
+                        ("CAP_NEW_TOKENS", (20, 28))):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "_timed", lambda fn, args, reps, flush:
+                        (fn(*args), 0.5)[1])
+    real = pa.paged_decode_attention
+
+    def k3(*args, **kw):
+        out = real(*args, **kw)
+        if kw.get("quant") is None:
+            pa.launches += 1
+        else:
+            pa.launches_quant += 1
+        return out
+    monkeypatch.setattr(pa, "paged_decode_attention", k3)
+    saved = (pa.launches, pa.launches_quant)
+    yield
+    pa.launches, pa.launches_quant = saved
+
+
+def test_quant_kernel_and_append_checks_rehearse_on_the_cpu(tiny_serving):
+    before = (pa.launches, pa.launches_quant)
+    rows = cs.quant_kernel_checks()
+    # 4 geometries x 2 modes x 2 groups x 2 q dtypes
+    assert len(rows) == 32 and all(r["ok"] for r in rows)
+    assert rows[0]["pool"] == 2 * cs.SLOTS * cs.MAX_LEN // cs.PAGE + 1
+    assert {(r["mode"], r["group"]) for r in rows if r["geometry"][4] ==
+            cs.PAGE} == {(m, g) for m in cs.KV_MODES
+                         for g in (cs.PAGE, cs.SUB_GROUP)}
+    assert (pa.launches, pa.launches_quant) == before
+    append = cs.quant_append_checks()
+    assert len(append) == 4 and all(r["ok"] for r in append)
+
+
+def test_serving_phase_with_quantized_runs_rehearses_on_the_cpu(
+        tiny_serving, tmp_path, capsys):
+    res = cs.main_path(str(tmp_path))
+    steps = {k: res[k]["decode_steps"] for k in ("fp32", "bf16")}
+    assert set(res["quant"]) == {"int8", "fp8", "weights_int8_kv_int8"}
+    total = 0
+    for label, st in res["quant"].items():
+        assert st["k3_quant_launches"] == st["decode_steps"] * cs.LAYERS > 0
+        assert st["k3_launches"] == 0
+        assert st["kv_pages_total"] == 2 * cs.SLOTS * cs.MAX_LEN // cs.PAGE
+        assert st["kv_pool_effective_capacity"] == \
+            st["kv_pages_total"] * cs.PAGE
+        assert st["prefill_logit_rel_l2"] <= cs.QUANT_LOGIT_REL_L2
+        assert 0 <= st["token_match_vs_bf16"] <= 1
+        total += st["k3_quant_launches"]
+    assert res["quant"]["fp8"]["kv_quant_dtype"] == "fp8"
+    assert res["quant"]["weights_int8_kv_int8"]["weight_quant"] == "int8"
+    assert res["quant"]["int8"]["weight_quant"] == "off"
+    row = res["k3_quant"]
+    assert row["name"] == cs.K3Q["name"]
+    assert ROW_KEYS <= set(row) and row["bound_by"] in ("bytes",
+                                                        "operations")
+    assert res["k3_quant_step"]["bytes"] < res["k3_step"]["bytes"]
+    cap = res["capacity"]
+    assert cap["runs"]["int8"]["pool_bytes"] <= \
+        cap["runs"]["bf16"]["pool_bytes"]
+    assert (cap["runs"]["bf16"]["peak_slots"],
+            cap["runs"]["int8"]["peak_slots"]) == (16, 31)
+    assert cap["admission_ratio"] >= cs.ADMISSION_RATIO
+    assert cap["runs"]["bf16"]["k3_launches"] > 0 and \
+        cap["runs"]["int8"]["k3_launches"] == 0
+    assert res["k3"]["launches"] == (sum(steps.values()) + cap["runs"][
+        "bf16"]["decode_steps"]) * cs.LAYERS
+    assert row["launches"] == total + cap["runs"]["int8"]["k3_quant_launches"]
+    assert res["fp8_step_max_abs_err"] <= 1e-5
+    json.dumps([res["k3"], row])
+    out = capsys.readouterr().out
+    assert "K3-quant at a decode step" in out and "token match" in out
+    assert "admission at equal pool bytes" in out
+    assert "fp8 engine's decode step" in out
 
 
 def test_smoke_exits_nonzero_without_a_gpu(monkeypatch, capsys):
