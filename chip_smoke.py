@@ -28,7 +28,12 @@ raises on failure (the script then exits non-zero and prints no result):
    the same geometries, dtypes and causal settings under four segment
    maps (random documents, one segment — which must also equal K1/K2 —,
    many 1-8-token segments, boundaries on and one off the kernels' 64-wide
-   tiles), and at the packed step's own shape and map. K4 (fused Adam)
+   tiles), and at the packed step's own shape and map. K6-fwd, K6-dQ
+   and K6-dKV (the per-head [b, h, s, d] layout) without a mask and with
+   a factored padding mask, K6-fwd under dense [1|b, 1|h, s, s] masks
+   and K1-dense under dense [1|b, 1, s, s] masks (each with one fully
+   masked query row), fp32 and bf16, causal and not, h8/hkv8 and
+   h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}. K4 (fused Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
 4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
@@ -98,6 +103,25 @@ raises on failure (the script then exits non-zero and prints no result):
    ms of the ``adam`` ops against the ``fused_adam`` op. Then K4 at the
    LM's 71,153,920 parameters beside its bound, its plain version and
    ``torch._fused_adam_``.
+9. Per-head (bhsd) path: ``build_lm_layout(fluid, "bhsd", "none")`` —
+   the LM of phase 6 with each layer's attention through ``transpose``
+   to [b, h, s, d] and ``fused_attention`` at its default layout. First
+   the layout-parity gate (fp32, TF32 off, 2 layers, full width, one
+   state and feed): its loss and phase 6's program's within 1e-5
+   relative, the layer-0 query projection's 3-step update within 1e-3.
+   Then 10 steps at full size: loss finite and falling, K6-fwd, K6-dQ
+   and K6-dKV each steps x 12 launches and no other flash kernel; a
+   profile; steps in turns with phase 6's program (``step_ratio_vs_bshd``).
+10. Dense-mask path: the prefix-LM mask (``prefix_mask``: [16, 1, 1024,
+   1024] bool, row b sees keys j <= i or j < p_b, p_b in [128, 896];
+   not causal). First fp32 gates (2 layers, full width): program 2 (bhsd)
+   and program 3 (bshd) each card against CPU, and their first-step
+   losses within 1e-5 of each other. Then 5 steps of each at full size:
+   loss finite and falling; program 2 launches K6-fwd-dense steps x 12,
+   program 3 K1-dense steps x 12, and no other flash kernel (the
+   backward recomputes through the plain composition). Then K6-fwd,
+   K6-dQ, K6-dKV at phase 9's attention shape and K6-fwd-dense, K1-dense
+   at phase 10's, each beside its bound, its plain version and SDPA.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +131,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -133,10 +158,13 @@ LM_VOCAB, LM_DIM, LM_HEADS, LM_LAYERS = 32000, 512, 8, 12
 LM_BATCH, LM_SEQ, LM_LR, LM_STEPS, LM_PROFILE_STEPS = 16, 1024, 1e-4, 10, 2
 GATE_LAYERS, GATE_BATCH, GATE_SEQ, GATE_STEPS = 2, 2, 512, 3
 # (b, s, h, hkv, d) of the flash checks; b = 3 rows: full, padded tail,
-# fully padded under the mask
+# fully padded under the mask. WIDE_GROUP is Falcon-7B's attention (71
+# query heads on one kv head, head_dim 64): a group larger than a block's
+# 64 rows, which the kernels split over several blocks.
+WIDE_GROUP = (3, 256, 71, 1, 64)
 FLASH_GEOMS = [(3, 256, 4, 4, 64), (3, 256, 4, 2, 128),
                (3, 1024, 8, 8, 128), (3, 1024, 8, 4, 64),
-               (3, 300, 4, 2, 64), (3, 300, 2, 2, 128)]
+               (3, 300, 4, 2, 64), (3, 300, 2, 2, 128), WIDE_GROUP]
 # fp32 training gate, card (kernels, cuBLAS) vs CPU (plain versions):
 # the same arithmetic in fp32 in another summation order
 GATE_LOSS_RTOL = 1e-5
@@ -197,8 +225,24 @@ K5_DKV = {"name": "flash_segment_bwd_dkv", "route": "cuda",
 K4 = {"name": "fused_adam", "route": "cuda",
       "source": "paddle_tpu_torch/csrc/fused_adam.cu",
       "replaces": "paddle_tpu/ops/pallas_optimizer.py:85"}
+_BHSD_SRC = "paddle_tpu_torch/csrc/flash_bhsd.cu"
+K6_FWD = {"name": "flash_bhsd_fwd", "route": "cuda", "source": _BHSD_SRC,
+          "replaces": "paddle_tpu/ops/pallas_attention.py:430"}
+K6_DQ = {"name": "flash_bhsd_bwd_dq", "route": "cuda", "source": _BHSD_SRC,
+         "replaces": "paddle_tpu/ops/pallas_attention.py:781"}
+K6_DKV = {"name": "flash_bhsd_bwd_dkv", "route": "cuda", "source": _BHSD_SRC,
+          "replaces": "paddle_tpu/ops/pallas_attention.py:798"}
+# the dense-mask instantiations: the same pallas_calls built with a mask
+K6_FWD_DENSE = {"name": "flash_bhsd_fwd_dense", "route": "cuda",
+                "source": _BHSD_SRC,
+                "replaces": "paddle_tpu/ops/pallas_attention.py:430"}
+K1_DENSE = {"name": "flash_fwd_dense", "route": "cuda", "source": _FLASH_SRC,
+            "replaces": "paddle_tpu/ops/pallas_attention.py:616"}
 K1K2 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 K5 = ("flash_segment_fwd", "flash_segment_bwd_dq", "flash_segment_bwd_dkv")
+K6 = ("flash_bhsd_fwd", "flash_bhsd_bwd_dq", "flash_bhsd_bwd_dkv")
+DENSE = ("flash_bhsd_fwd_dense", "flash_fwd_dense")
+FLASH_KERNELS = K1K2 + K5 + K6 + DENSE
 
 # the packed slice: segment maps of the K5 checks, the padded baseline's
 # steps (each ~2.6x the packed step's work), the fused-Adam contract
@@ -208,6 +252,17 @@ ADAM_MAX_ULPS = 2              # kernel vs plain: the reference's contract
 K4_SIZES = (1, 1023, 71153920)
 K4_ODD_SIZES = (5, 10001, 333333)   # offsets off the 16-byte grain
 ALTERNATE_ROUNDS = 5           # Adam / FusedAdam steps taken in turns
+
+# the per-head and dense-mask slice: the K6 / K1-dense check grid (b = 3
+# rows, as FLASH_GEOMS: full, padded tail, fully padded under a factored
+# mask), its masks ("none", "factored", or a dense [mb, mh, s, s] mask
+# with "b"/"h" for the full extent), the dense programs' steps (each step
+# recomputes every layer's backward through [b, h, s, s] fp32 logits)
+BHSD_GEOMS = [(3, s, 8, hkv, d) for s in (256, 1000, 1024) for d in (64, 128)
+              for hkv in (8, 2)] + [WIDE_GROUP]
+BHSD_MASKS = ("none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h"))
+K1_DENSE_MASKS = ((1, 1), ("b", 1))
+DENSE_STEPS = 5
 
 
 def log(msg):
@@ -482,40 +537,125 @@ def _flash_case(rng, b, s, h, hkv, d, dtype, masked):
     return t + [valid]
 
 
-def _flash_api(causal, valid=None, seg=None):
-    """The wrappers (fwd, dq, dkv) and plain versions (fwd, bwd) of K1/K2,
-    or of K5 under segment ids ``seg``, and the arguments each takes
-    after its tensors."""
+def _flash_api(causal, valid=None, seg=None, mask=None, layout="bshd"):
+    """The wrappers (fwd, dq, dkv) and plain versions (fwd, bwd) of K1/K2
+    (K6 in ``layout="bhsd"``), of K5 under segment ids ``seg``, or the
+    forward of K1-dense / K6-fwd-dense under the dense ``mask`` (dq, dkv
+    and the plain bwd None: no kernel takes its backward), and the
+    arguments each takes after its tensors."""
+    import functools
     from paddle_tpu_torch.ops import flash_attention as fa
-    if seg is None:
-        return (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
-                fa.flash_fwd_plain, fa.flash_bwd_plain), (None, causal, valid)
-    return (fa.flash_fwd_segment, fa.flash_bwd_segment_dq,
-            fa.flash_bwd_segment_dkv, fa.flash_fwd_segment_plain,
-            fa.flash_bwd_segment_plain), (seg, None, causal)
+    if seg is not None:
+        return (fa.flash_fwd_segment, fa.flash_bwd_segment_dq,
+                fa.flash_bwd_segment_dkv, fa.flash_fwd_segment_plain,
+                fa.flash_bwd_segment_plain), (seg, None, causal)
+    fwd = functools.partial(fa.flash_fwd, mask=mask, layout=layout)
+    fwd_plain = functools.partial(fa.flash_fwd_plain, mask=mask,
+                                  layout=layout)
+    if mask is not None:
+        return (fwd, None, None, fwd_plain, None), (None, causal)
+    return (fwd, functools.partial(fa.flash_bwd_dq, layout=layout),
+            functools.partial(fa.flash_bwd_dkv, layout=layout), fwd_plain,
+            functools.partial(fa.flash_bwd_plain, layout=layout)), \
+        (None, causal, valid)
 
 
-def _flash_check(q, k, v, do, valid, causal, seg=None):
-    """K1 (K5-fwd under segment ids ``seg``), then K2-dQ and K2-dKV
-    (K5-dQ, K5-dKV) on the plain forward's (o, lse), each held against its
-    plain version elementwise; (max |err| per output, ok, the kernels'
-    (o, lse, dq, dk, dv))."""
+def _flash_check(q, k, v, do, valid, causal, seg=None, mask=None,
+                 layout="bshd"):
+    """K1 (K6-fwd in bhsd, K5-fwd under segment ids ``seg``, K1-dense or
+    K6-fwd-dense under a dense ``mask``), then K2-dQ and K2-dKV (K6-dQ,
+    K6-dKV; K5-dQ, K5-dKV; none under a dense mask) on the plain
+    forward's (o, lse), each held against its plain version elementwise;
+    (max |err| per output, ok, the kernels' (o, lse[, dq, dk, dv]))."""
     (fwd, dq_fn, dkv_fn, fwd_plain, bwd_plain), tail = \
-        _flash_api(causal, valid, seg)
+        _flash_api(causal, valid, seg, mask, layout)
     o, lse = fwd(q, k, v, *tail)
     po, plse = fwd_plain(q, k, v, *tail)
-    delta = (do.float() * po.float()).sum(-1)
-    dq = dq_fn(q, k, v, do, plse, delta, *tail)
-    dk, dv = dkv_fn(q, k, v, do, plse, delta, *tail)
+    checks = [("o", o, po), ("lse", lse, plse)]
+    if dq_fn is not None:
+        delta = (do.float() * po.float()).sum(-1)
+        dq = dq_fn(q, k, v, do, plse, delta, *tail)
+        dk, dv = dkv_fn(q, k, v, do, plse, delta, *tail)
+        _sync()
+        ref = bwd_plain(q, k, v, po, plse, do, *tail)
+        checks += list(zip(("dq", "dk", "dv"), (dq, dk, dv), ref))
     _sync()
-    ref = bwd_plain(q, k, v, po, plse, do, *tail)
     errs, ok = {}, True
-    for name, got, want in zip(("o", "lse", "dq", "dk", "dv"),
-                               (o, lse, dq, dk, dv), (po, plse) + ref):
+    for name, got, want in checks:
         err, good = _against_plain(got, want)
         errs[name] = err
         ok = ok and good
-    return errs, ok, (o, lse, dq, dk, dv)
+    return errs, ok, tuple(got for _, got, _ in checks)
+
+
+def _bhsd(*xs):
+    """bshd tensors as contiguous bhsd ones."""
+    return [x.transpose(1, 2).contiguous() for x in xs]
+
+
+def _check_mask(rng, kind, b, s, h):
+    """A dense check mask [mb, mh, s, s] bool for ``kind`` (mb, mh), "b"
+    and "h" standing for the full extents: each key visible with
+    probability 0.7, and query row 5 of its first [s, s] slice fully
+    masked (that row is the uniform average of V)."""
+    import torch
+    mb, mh = (b if kind[0] == "b" else 1), (h if kind[1] == "h" else 1)
+    m = rng.rand(mb, mh, s, s) < 0.7
+    m[0, 0, 5] = False
+    return torch.from_numpy(m).to(DEVICE)
+
+
+def layout_checks():
+    """K6-fwd, K6-dQ and K6-dKV (bhsd) without a mask, with a factored
+    padding mask, and K6-fwd under dense [1|b, 1|h, s, s] masks; K1-dense
+    (bshd) under dense [1|b, 1, s, s] masks — each against its plain
+    version on the card over BHSD_GEOMS x dtype x causal. Comparison
+    launches do not count as the main path's."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 11)
+    saved = dict(fa.launches)
+    cases = [(g, dt, c, layout, m) for g in BHSD_GEOMS
+             for dt in (torch.float32, torch.bfloat16) for c in (False, True)
+             for layout, masks in (("bhsd", BHSD_MASKS),
+                                   ("bshd", K1_DENSE_MASKS))
+             for m in masks]
+    rows = []
+    for (b, s, h, hkv, d), dtype, causal, layout, kind in cases:
+        q, k, v, do, valid = _flash_case(rng, b, s, h, hkv, d, dtype,
+                                         kind == "factored")
+        if layout == "bhsd":
+            q, k, v, do = _bhsd(q, k, v, do)
+        mask = None if kind in ("none", "factored") else \
+            _check_mask(rng, kind, b, s, h)
+        errs, ok, _ = _flash_check(q, k, v, do, valid, causal, mask=mask,
+                                   layout=layout)
+        name = fa.kernel_name("fwd", layout, mask is not None)
+        rows.append({"kernel": name, "shape": [b, s, h, hkv, d],
+                     "dtype": str(dtype).split(".")[-1], "causal": causal,
+                     "mask": kind if mask is None else list(mask.shape[:2]),
+                     "max_abs_err": errs, "ok": ok})
+        if not ok or len(rows) == len(cases):
+            log("  %s b=%d s=%d h=%d hkv=%d d=%d %s causal=%s mask=%s: "
+                "max|err| %s %s" % (name, b, s, h, hkv, d, rows[-1]["dtype"],
+                                   causal, rows[-1]["mask"], json.dumps(
+                                       {n: float("%.3g" % e)
+                                        for n, e in errs.items()}),
+                                   "ok" if ok else "FAIL"))
+    fa.launches.update(saved)
+    summary = {}
+    for name in ("flash_bhsd_fwd", "flash_bhsd_fwd_dense", "flash_fwd_dense"):
+        mine = [r for r in rows if r["kernel"] == name]
+        summary[name] = {"cases": len(mine), "ok": all(r["ok"] for r in mine),
+                         "max_abs_err": {n: max(r["max_abs_err"][n]
+                                                for r in mine)
+                                         for n in mine[0]["max_abs_err"]}}
+    log(json.dumps({"layout_checks": summary}))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("K6 / K1-dense disagree with their plain "
+                             "versions: %s" % [r for r in rows
+                                               if not r["ok"]])
+    return rows
 
 
 def flash_checks():
@@ -1304,55 +1444,99 @@ def lm_feed(batch, seq):
             "labels": np.roll(x, -1, 1).astype(np.int32)}
 
 
+GATE_WEIGHT = "fc_0.w_0"       # layer 0's query projection
+
+
+def _startup_state(startup):
+    """name -> CPU tensor: ``startup`` run once on the CPU."""
+    import paddle_tpu_torch as fluid
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return {n: scope.find_var(n) for n in scope.local_var_names()}
+
+
+def _steps_from(state, prog, loss, feed, place, steps):
+    """``steps`` steps of ``prog`` on ``place`` from a copy of ``state``:
+    the losses, the seconds they took and GATE_WEIGHT after them."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.to(exe.device, copy=True))
+    t0 = time.perf_counter()
+    losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(steps)]
+    return {"losses": losses, "s": time.perf_counter() - t0,
+            "w": scope.find_var(GATE_WEIGHT).float().cpu()}
+
+
+def _gate(label, runs, start):
+    """Hold two runs from one state to each other: per-step losses within
+    GATE_LOSS_RTOL relative, GATE_WEIGHT's update (from ``start``) within
+    GATE_UPDATE_REL_L2 relative L2 of the second run's; raises past
+    either or on a loss that is not finite."""
+    (ta, a), (tb, b) = runs.items()
+    rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])]
+    upd_a, upd_b = a["w"] - start, b["w"] - start
+    upd_rel = float((upd_a - upd_b).norm() / upd_b.norm())
+    res = {"losses_" + ta: a["losses"], "losses_" + tb: b["losses"],
+           "loss_rel_err": max(rel), "weight": GATE_WEIGHT,
+           "update_rel_l2": upd_rel,
+           "weight_max_abs_diff": float((a["w"] - b["w"]).abs().max()),
+           ta + "_s": a["s"], tb + "_s": b["s"]}
+    log("%s: %s" % (label, json.dumps(res)))
+    if not (max(rel) <= GATE_LOSS_RTOL and upd_rel <= GATE_UPDATE_REL_L2
+            and all(np.isfinite(a["losses"] + b["losses"]))):
+        raise AssertionError("%s: %s and %s disagree: loss rel err %.3g "
+                             "(limit %g), %s update rel L2 %.3g (limit %g)"
+                             % (label, ta, tb, max(rel), GATE_LOSS_RTOL,
+                                GATE_WEIGHT, upd_rel, GATE_UPDATE_REL_L2))
+    return res
+
+
+def _fp32():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def train_gate():
     """fp32 card-vs-CPU gate: the 2-layer full-width LM from one initial
     state (the CPU startup's, copied to the card), 3 Adam steps on each;
     losses within GATE_LOSS_RTOL, the first attention projection's
     3-step update within GATE_UPDATE_REL_L2."""
-    import torch
     import paddle_tpu_torch as fluid
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _fp32()
     log("training gate: fp32, TF32 off for matmuls and cuDNN")
     prog, startup, loss = build_lm(fluid, GATE_LAYERS, GATE_BATCH,
                                    GATE_SEQ, amp=False)
     feed = lm_feed(GATE_BATCH, GATE_SEQ)
-    cpu = fluid.Scope()
-    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
-    card_scope = fluid.Scope()
-    for n in cpu.local_var_names():
-        card_scope.set_var(n, cpu.find_var(n).to(DEVICE))
-    weight = "fc_0.w_0"          # layer 0's query projection
-    start = cpu.find_var(weight).clone()
-    out = {}
-    for tag, scope, place in (("card", card_scope, fluid.CUDAPlace(0)),
-                              ("cpu", cpu, fluid.CPUPlace())):
-        exe = fluid.Executor(place)
-        t0 = time.perf_counter()
-        losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
-                                scope=scope)[0]) for _ in range(GATE_STEPS)]
-        out[tag] = {"losses": losses, "s": time.perf_counter() - t0,
-                    "w": scope.find_var(weight).float().cpu()}
-    rel = [abs(a - b) / abs(b) for a, b in zip(out["card"]["losses"],
-                                                out["cpu"]["losses"])]
-    upd_card = out["card"]["w"] - start
-    upd_cpu = out["cpu"]["w"] - start
-    upd_rel = float((upd_card - upd_cpu).norm() / upd_cpu.norm())
-    wmax = float((out["card"]["w"] - out["cpu"]["w"]).abs().max())
-    res = {"losses_card": out["card"]["losses"],
-           "losses_cpu": out["cpu"]["losses"], "loss_rel_err": max(rel),
-           "weight": weight, "update_rel_l2": upd_rel,
-           "weight_max_abs_diff": wmax, "card_s": out["card"]["s"],
-           "cpu_s": out["cpu"]["s"]}
-    log("training gate: %s" % json.dumps(res))
-    if not (max(rel) <= GATE_LOSS_RTOL and upd_rel <= GATE_UPDATE_REL_L2
-            and all(np.isfinite(out["card"]["losses"]))):
-        raise AssertionError("card and CPU training disagree: loss rel err "
-                             "%.3g (limit %g), %s update rel L2 %.3g "
-                             "(limit %g)" % (max(rel), GATE_LOSS_RTOL,
-                                             weight, upd_rel,
-                                             GATE_UPDATE_REL_L2))
-    return res
+    state = _startup_state(startup)
+    runs = {tag: _steps_from(state, prog, loss, feed, place, GATE_STEPS)
+            for tag, place in (("card", fluid.CUDAPlace(0)),
+                               ("cpu", fluid.CPUPlace()))}
+    return _gate("training gate", runs, state[GATE_WEIGHT])
+
+
+# the flash kernels share their bodies (csrc/flash_kernels.cuh): a
+# profiler row's template arguments <T, D, BK, kMask, kBhsd> name its
+# kernel
+_FLASH_KERNEL = re.compile(
+    r"flash_(fwd|bwd_dq|bwd_dkv)_kernel<[^<>]*, (\d), (true|false)>")
+
+
+def flash_class(key):
+    """"k1" (K1, K1-dense), "k2", "k5" or "k6" (K6-fwd, its dense
+    instantiation, K6-dQ, K6-dKV) for a profiler kernel name, else
+    None."""
+    m = _FLASH_KERNEL.search(key)
+    if m is None:
+        return None
+    if m.group(3) == "true":
+        return "k6"
+    if m.group(2) == "1":
+        return "k5"
+    return "k1" if m.group(1) == "fwd" else "k2"
 
 
 def _profile_steps(exe, prog, feed, loss, steps):
@@ -1382,14 +1566,9 @@ def _profile_steps(exe, prog, feed, loss, steps):
     def ms(pred):
         return sum(e.self_device_time_total for e in events
                    if pred(e.key)) / steps / 1e3
-    def flash(k, seg):
-        # K1/K2 and K5 share kernel bodies; kSeg is the last template
-        # argument of the kernel's name
-        return "flash_" in k and "_kernel" in k and ("true>" in k) == seg
     busy = ms(lambda k: True)
-    k1 = ms(lambda k: flash(k, False) and "fwd_kernel" in k)
-    k2 = ms(lambda k: flash(k, False) and "bwd_" in k)
-    k5 = ms(lambda k: flash(k, True))
+    k1, k2, k5, k6 = (ms(lambda k, c=c: flash_class(k) == c)
+                      for c in ("k1", "k2", "k5", "k6"))
     gemm = ms(lambda k: any(t in k.lower() for t in
                             ("gemm", "nvjet", "xmma", "cutlass")))
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -1402,7 +1581,8 @@ def _profile_steps(exe, prog, feed, loss, steps):
     generic = [t[:-len("_grad")] for t, info in OP_REGISTRY.items()
                if info.generic_grad and t in ops]
     return {"device_busy_ms": busy, "k1_ms": k1, "k2_ms": k2, "k5_ms": k5,
-            "gemm_ms": gemm, "other_ms": busy - k1 - k2 - k5 - gemm,
+            "k6_ms": k6, "gemm_ms": gemm,
+            "other_ms": busy - k1 - k2 - k5 - k6 - gemm,
             "top_kernels_ms": {e.key[:70]: e.self_device_time_total
                                / steps / 1e3 for e in top},
             "ops_host_ms": sum(o["host_ms"] for o in ops.values()),
@@ -1862,6 +2042,363 @@ def fused_adam_timing(shapes, launches):
     return row
 
 
+# -- phases 9-10: the per-head (bhsd) layout and dense masks --------------
+
+def _attention_block(fluid, x, heads, layout, mask, causal):
+    """``models/transformer.py``'s attention block with the op's layout
+    followed: the q/k/v ``fc``s, ``reshape`` to [n, t, h, hd], for bhsd a
+    ``transpose`` to [n, h, t, hd], one ``fused_attention`` op (layout
+    left at its "bhsd" default, or "bshd"; ``mask`` wired as its Mask
+    input), back to [n, t, d] and the output ``fc``."""
+    L = fluid.layers
+    n, t, d = x.shape
+    hd = d // heads
+    q, k, v = [L.fc(input=x, size=d, num_flatten_dims=2, bias_attr=True)
+               for _ in range(3)]
+    q, k, v = [L.reshape(y, [n, t, heads, hd]) for y in (q, k, v)]
+    attrs = {"causal": causal, "scale": 1.0 / float(np.sqrt(hd))}
+    if layout == "bhsd":
+        q, k, v = [L.transpose(y, perm=[0, 2, 1, 3]) for y in (q, k, v)]
+    else:
+        attrs["layout"] = layout
+    helper = fluid.layer_helper.LayerHelper("fused_attention")
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    lse = helper.create_tmp_variable(dtype="float32")
+    lse.stop_gradient = True
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if mask is not None:
+        inputs["Mask"] = [mask]
+    helper.append_op(type="fused_attention", inputs=inputs,
+                     outputs={"Out": [out], "Lse": [lse]}, attrs=attrs)
+    if layout == "bhsd":
+        out = L.transpose(out, perm=[0, 2, 1, 3])
+    return L.fc(input=L.reshape(out, [n, t, d]), size=d, num_flatten_dims=2,
+                bias_attr=True)
+
+
+def build_lm_layout(fluid, layout, mask_kind, layers=None, batch=None,
+                    seq=None, amp=True, vocab=None, dim=None, heads=None,
+                    lr=None):
+    """The flagship LM as ``models/transformer.py transformer_lm`` builds
+    it (pre-LN blocks, tanh-gelu FFN 4x, learned positions), with each
+    layer's attention in ``layout`` (``_attention_block``), under
+    ``mask_kind``: "none" (causal) or "prefix" (a ``mask`` feed [batch,
+    1, seq, seq] bool, not causal: ``prefix_mask``). Softmax
+    cross-entropy on the next token, mean, ``Adam(lr)``; bf16 mixed
+    precision when ``amp``. ``fluid`` is either package (``paddle_tpu``
+    or ``paddle_tpu_torch``): one source defines the program in both, and
+    its parameters are named as ``transformer_lm``'s. Widths default to
+    the LM_* constants."""
+    layers = LM_LAYERS if layers is None else layers
+    batch = LM_BATCH if batch is None else batch
+    seq = LM_SEQ if seq is None else seq
+    vocab = LM_VOCAB if vocab is None else vocab
+    dim = LM_DIM if dim is None else dim
+    heads = LM_HEADS if heads is None else heads
+    lr = LM_LR if lr is None else lr
+    L = fluid.layers
+    with fluid.unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        prog.random_seed = startup.random_seed = SEED
+        with fluid.program_guard(prog, startup):
+            ids = L.data(name="ids", shape=[batch, seq], dtype="int64",
+                         append_batch_size=False)
+            labels = L.data(name="labels", shape=[batch, seq],
+                            dtype="int64", append_batch_size=False)
+            mask = L.data(name="mask", shape=[batch, 1, seq, seq],
+                          dtype="bool", append_batch_size=False) \
+                if mask_kind == "prefix" else None
+            tok = L.embedding(input=ids, size=[vocab, dim])
+            helper = fluid.layer_helper.LayerHelper("transformer_pos")
+            pos_table = helper.create_parameter(None, [seq, dim], "float32")
+            pos = L.slice(pos_table, axes=[0], starts=[0], ends=[seq])
+            x = L.elementwise_add(x=tok, y=pos, axis=1)
+            for _ in range(layers):
+                ln1 = L.layer_norm(x, begin_norm_axis=2)
+                x = L.elementwise_add(x=x, y=_attention_block(
+                    fluid, ln1, heads, layout, mask, mask is None))
+                ln2 = L.layer_norm(x, begin_norm_axis=2)
+                ffn = L.fc(input=ln2, size=dim * 4, num_flatten_dims=2,
+                           act={"type": "gelu", "approximate": True})
+                x = L.elementwise_add(x=x, y=L.fc(input=ffn, size=dim,
+                                                  num_flatten_dims=2))
+            x = L.layer_norm(x, begin_norm_axis=2)
+            logits = L.fc(input=x, size=vocab, num_flatten_dims=2)
+            loss = L.mean(L.softmax_with_cross_entropy(
+                L.reshape(logits, [batch * seq, vocab]),
+                L.reshape(labels, [batch * seq, 1])))
+            fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+        fluid.enable_mixed_precision(prog, amp)
+    return prog, startup, loss
+
+
+def prefix_mask(batch, seq):
+    """The prefix-LM mask feed [batch, 1, seq, seq] bool (UniLM, T5's
+    prefix-LM objective: the prompt attends bidirectionally):
+    ``mask[b, 0, i, j] = j <= i or j < p_b``, each row's prefix p_b drawn
+    from [seq/8, 7 seq/8] ([128, 896] at 1024) by RandomState(SEED)."""
+    rng = np.random.RandomState(SEED)
+    p = rng.randint(seq // 8, seq * 7 // 8 + 1, size=batch)
+    i = np.arange(seq)
+    m = (i[None, None, :] <= i[None, :, None]) | \
+        (i[None, None, :] < p[:, None, None])
+    return m[:, None]
+
+
+def _launch_gate(label, launches, want):
+    """Each kernel of ``want`` (name -> count) launched exactly that often
+    and every other flash kernel never; raises otherwise."""
+    bad = {n: launches[n] for n in FLASH_KERNELS
+           if launches[n] != want.get(n, 0)}
+    if bad:
+        raise AssertionError("%s: flash launches %s, want %s and no other"
+                             % (label, bad, want))
+
+
+def _train_run(fluid, exe, prog, startup, feed, loss, steps):
+    """A fresh scope, startup, then ``steps`` steps with the flash launch
+    counts set to 0 just before and read just after, then a profiled
+    window; (report, scope)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for name in fa.launches:
+            fa.launches[name] = 0      # counts from here are the main path's
+        losses, step_ms = _train_steps(exe, prog, feed, loss, steps)
+        launches = dict(fa.launches)
+        prof = _profile_steps(exe, prog, feed, loss, LM_PROFILE_STEPS)
+    p50 = _p50(step_ms)
+    res = {"losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+           "tokens_per_s": LM_BATCH * LM_SEQ / (p50 / 1e3),
+           "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+           if DEVICE == "cuda" else None}
+    res.update(prof)
+    res["device_idle_share"] = 1.0 - prof["device_busy_ms"] / p50
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("training loss not finite and falling: %s"
+                             % losses)
+    return res, scope
+
+
+def layout_gate():
+    """The layout-parity gate, fp32 with TF32 off, on the card: the
+    2-layer full-width bhsd program (``build_lm_layout``) and phase 6's
+    bshd program (``build_lm``) from one state on one feed, 3 Adam steps
+    each; losses within GATE_LOSS_RTOL, GATE_WEIGHT's update within
+    GATE_UPDATE_REL_L2."""
+    import paddle_tpu_torch as fluid
+    _fp32()
+    feed = lm_feed(GATE_BATCH, GATE_SEQ)
+    bhsd = build_lm_layout(fluid, "bhsd", "none", GATE_LAYERS, GATE_BATCH,
+                           GATE_SEQ, amp=False)
+    bshd = build_lm(fluid, GATE_LAYERS, GATE_BATCH, GATE_SEQ, amp=False)
+    state = _startup_state(bshd[1])
+    runs = {tag: _steps_from(state, prog, loss, feed, fluid.CUDAPlace(0),
+                             GATE_STEPS)
+            for tag, (prog, _, loss) in (("bhsd", bhsd), ("bshd", bshd))}
+    return _gate("layout-parity gate (bhsd vs bshd, card)", runs,
+                 state[GATE_WEIGHT])
+
+
+def bhsd_path():
+    """Phase 9: the LM with per-head (bhsd) attention at full size (the
+    transposes and the op's default layout; causal, no mask): the
+    layout-parity gate, then LM_STEPS steps (K6-fwd, K6-dQ, K6-dKV each
+    steps x 12 launches, no other flash kernel; loss finite and falling),
+    a profiled window, then ALTERNATE_ROUNDS steps in turns with phase
+    6's bshd program, whose p50s give ``step_ratio_vs_bshd``."""
+    import paddle_tpu_torch as fluid
+    gate = layout_gate()
+    feed = lm_feed(LM_BATCH, LM_SEQ)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    prog, startup, loss = build_lm_layout(fluid, "bhsd", "none", amp=True)
+    res, scope = _train_run(fluid, exe, prog, startup, feed, loss, LM_STEPS)
+    _launch_gate("bhsd path", res["launches"],
+                 {n: LM_STEPS * LM_LAYERS for n in K6})
+    bprog, bstartup, bloss = build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ,
+                                      amp=True)
+    bscope = fluid.Scope()
+    with fluid.scope_guard(bscope):
+        exe.run(bstartup)
+        _train_steps(exe, bprog, feed, bloss, 1)
+    turns = {"bhsd": [], "bshd": []}
+    for _ in range(ALTERNATE_ROUNDS):
+        for tag, sc, args in (("bhsd", scope, (prog, feed, loss)),
+                              ("bshd", bscope, (bprog, feed, bloss))):
+            with fluid.scope_guard(sc):
+                turns[tag] += _train_steps(exe, *args, 1)[1]
+    del scope, bscope
+    p50 = {tag: float(np.percentile(ms, 50)) for tag, ms in turns.items()}
+    res.update({"layout_gate": gate, "alternating_step_ms": turns,
+                "alternating_step_ms_p50": p50,
+                "step_ratio_vs_bshd": p50["bhsd"] / p50["bshd"]})
+    busy = res["device_busy_ms"] or float("nan")
+    res["shares_of_busy"] = {k: res[k + "_ms"] / busy
+                             for k in ("k6", "gemm", "other")}
+    log("bhsd training %dL-%dd b%d s%d bf16: %s"
+        % (LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, json.dumps(
+            {k: v for k, v in res.items() if k != "ops"})))
+    return res
+
+
+def dense_gate():
+    """Phase 10's fp32 gates (TF32 off, 2 layers, full width, the prefix
+    mask): programs 2 (bhsd) and 3 (bshd) each card against CPU from one
+    state, 3 Adam steps; then their first-step losses on the card within
+    GATE_LOSS_RTOL of each other (they compute one function)."""
+    import paddle_tpu_torch as fluid
+    _fp32()
+    feed = dict(lm_feed(GATE_BATCH, GATE_SEQ),
+                mask=prefix_mask(GATE_BATCH, GATE_SEQ))
+    out, first = {}, {}
+    state = None
+    for layout in ("bhsd", "bshd"):
+        prog, startup, loss = build_lm_layout(
+            fluid, layout, "prefix", GATE_LAYERS, GATE_BATCH, GATE_SEQ,
+            amp=False)
+        state = state or _startup_state(startup)
+        runs = {tag: _steps_from(state, prog, loss, feed, place, GATE_STEPS)
+                for tag, place in (("card", fluid.CUDAPlace(0)),
+                                   ("cpu", fluid.CPUPlace()))}
+        first[layout] = runs["card"]["losses"][0]
+        out[layout] = _gate("dense-mask %s gate (card vs CPU)" % layout,
+                            runs, state[GATE_WEIGHT])
+    rel = abs(first["bhsd"] - first["bshd"]) / abs(first["bshd"])
+    out["first_loss_bhsd_vs_bshd_rel_err"] = rel
+    log("dense-mask programs 2 and 3, first-step loss on the card: %.9g vs "
+        "%.9g, rel err %.3g (limit %g)" % (first["bhsd"], first["bshd"], rel,
+                                          GATE_LOSS_RTOL))
+    if not rel <= GATE_LOSS_RTOL:
+        raise AssertionError("dense-mask bhsd and bshd programs disagree: "
+                             "first-step loss rel err %.3g" % rel)
+    return out
+
+
+def dense_path():
+    """Phase 10: the prefix-LM mask at full size (``prefix_mask`` [16, 1,
+    1024, 1024], not causal): the fp32 gates (``dense_gate``), then
+    program 2 (bhsd: K6-fwd-dense steps x 12, the backward recomputed
+    through the plain composition) and program 3 (bshd: K1-dense steps x
+    12) for DENSE_STEPS steps each — no other flash kernel, K6-dQ/dKV and
+    K2-dQ/dKV above all; loss finite and falling — with a profiled
+    window and the peak memory."""
+    import paddle_tpu_torch as fluid
+    gate = dense_gate()
+    mask = prefix_mask(LM_BATCH, LM_SEQ)
+    feed = dict(lm_feed(LM_BATCH, LM_SEQ), mask=mask)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    res = {"gate": gate, "visible_pairs_per_head": int(mask.sum()),
+           "visible_share": float(mask.mean())}
+    for layout, kernel in (("bhsd", "flash_bhsd_fwd_dense"),
+                           ("bshd", "flash_fwd_dense")):
+        prog, startup, loss = build_lm_layout(fluid, layout, "prefix",
+                                              amp=True)
+        run, scope = _train_run(fluid, exe, prog, startup, feed, loss,
+                                DENSE_STEPS)
+        del scope
+        _launch_gate("dense-mask %s path" % layout, run["launches"],
+                     {kernel: DENSE_STEPS * LM_LAYERS})
+        log("dense-mask %s training %dL-%dd b%d s%d bf16: %s"
+            % (layout, LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, json.dumps(
+                {k: v for k, v in run.items() if k != "ops"})))
+        res[layout] = run
+    return res
+
+
+def layout_timing(bhsd_launches, dense_res):
+    """K6-fwd, K6-dQ and K6-dKV at phase 9's attention (b16 s1024 h8 d64
+    bf16 causal, bhsd), K6-fwd-dense and K1-dense at phase 10's (the
+    prefix mask, not causal), each checked against its plain version at
+    that shape, then timed alone with L2 flushed beside its bound (the
+    visible pairs' work; the mask's bytes counted once), its plain
+    version and SDPA in its native [b, h, s, d] layout (``is_causal``, or
+    the same bool ``attn_mask``; for K6-dQ/dKV its autograd backward; the
+    bshd inputs' transposes made outside the timed window)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = LM_BATCH, LM_SEQ, LM_HEADS, LM_DIM // LM_HEADS
+    rng = np.random.RandomState(SEED + 12)
+    q, k, v, do, _ = _flash_case(rng, b, s, h, h, d, torch.bfloat16, False)
+    qh, kh, vh, doh = _bhsd(q, k, v, do)
+    mask = torch.from_numpy(prefix_mask(b, s)).to(DEVICE)
+    saved = dict(fa.launches)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    act = b * s * h * d * 2                   # one bf16 [b, h, s, d]
+    lse_b, delta_b = b * h * s * 8 * 4, b * s * h * 4
+    rows = []
+
+    # K6: causal, no mask
+    errs, ok, _ = _flash_check(qh, kh, vh, doh, None, True, layout="bhsd")
+    if not ok:
+        raise AssertionError("K6 disagrees with its plain versions at the "
+                             "bhsd step's shape: %s" % errs)
+    (fwd, dq_fn, dkv_fn, fwd_plain, bwd_plain), tail = \
+        _flash_api(True, layout="bhsd")
+    o, lse = fwd(qh, kh, vh, *tail)
+    delta = (doh.float() * o.float()).sum(-1)
+    ms = {"fwd": _timed(fwd, (qh, kh, vh) + tail, 20, flush),
+          "dq": _timed(dq_fn, (qh, kh, vh, doh, lse, delta) + tail, 20,
+                       flush),
+          "dkv": _timed(dkv_fn, (qh, kh, vh, doh, lse, delta) + tail, 20,
+                        flush)}
+    plain = {"fwd": _timed(fwd_plain, (qh, kh, vh) + tail, 5, flush),
+             "bwd": _timed(bwd_plain, (qh, kh, vh, o, lse, doh) + tail, 5,
+                           flush)}
+    qt, kt, vt = (x.detach().requires_grad_() for x in (qh, kh, vh))
+    lib_fwd = _timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), (), 20, flush)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = _timed(lambda: torch.autograd.grad(out, (qt, kt, vt), doh,
+                                                 retain_graph=True),
+                     (), 20, flush)
+    pairs = h * visible_pairs(np.zeros((b, s)))
+    work = {"fwd": (4 * d * pairs, 4 * act + lse_b),
+            "dq": (6 * d * pairs, 5 * act + lse_b + delta_b),
+            "dkv": (8 * d * pairs, 6 * act + lse_b + delta_b)}
+    shape = "b%d h%d s%d d%d bf16 causal (bhsd)" % (b, h, s, d)
+    rows += [_timing_row(base, bhsd_launches[base["name"]], err, ms[key],
+                         plain[key if key == "fwd" else "bwd"], lib,
+                         *work[key], BF16_FLOPS, shape)
+             for key, base, err, lib in (
+                 ("fwd", K6_FWD, errs["o"], lib_fwd),
+                 ("dq", K6_DQ, errs["dq"], lib_bwd),
+                 ("dkv", K6_DKV, max(errs["dk"], errs["dv"]), lib_bwd))]
+
+    # the dense prefix mask: K6-fwd-dense (bhsd) and K1-dense (bshd)
+    pairs = h * int(mask.sum())
+    lib = _timed(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), (), 20, flush)
+    for base, layout, args in ((K6_FWD_DENSE, "bhsd", (qh, kh, vh)),
+                               (K1_DENSE, "bshd", (q, k, v))):
+        errs, ok, _ = _flash_check(*args, None, None, False, mask=mask,
+                                   layout=layout)
+        if not ok:
+            raise AssertionError("%s disagrees with its plain version at the "
+                                 "prefix-LM step's shape: %s"
+                                 % (base["name"], errs))
+        (fwd, _, _, fwd_plain, _), tail = _flash_api(False, mask=mask,
+                                                     layout=layout)
+        rows.append(_timing_row(
+            base, dense_res[layout]["launches"][base["name"]], errs["o"],
+            _timed(fwd, args + tail, 20, flush),
+            _timed(fwd_plain, args + tail, 5, flush), lib, 4 * d * pairs,
+            4 * act + lse_b + mask.numel(), BF16_FLOPS,
+            "b%d s%d h%d d%d bf16 %s, prefix mask [%d, 1, %d, %d], %d "
+            "visible pairs" % (b, s, h, d, layout, b, s, s, pairs)))
+    fa.launches.update(saved)   # comparison launches are not the path's
+    log("K6 fwd+bwd %.4f ms vs SDPA fwd+bwd %.4f ms; dense fwd: K6 %.4f, "
+        "K1-dense %.4f vs SDPA %.4f ms"
+        % (ms["fwd"] + ms["dq"] + ms["dkv"], lib_fwd + lib_bwd,
+           rows[3]["ms"], rows[4]["ms"], lib))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1886,6 +2423,7 @@ def main(argv=None):
         report["quant_append_checks"] = quant_append_checks()
         report["flash_checks"] = flash_checks()
         report["segment_checks"] = segment_checks(data["packed"]["seg"])
+        report["layout_checks"] = layout_checks()
         report["fused_adam_checks"] = fused_adam_checks()
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
@@ -1902,6 +2440,10 @@ def main(argv=None):
             report["fused_adam_timing"] = fused_adam_timing(
                 report["fused_adam_path"]["param_shapes"],
                 report["fused_adam_path"]["launches"])
+            report["bhsd_path"] = bhsd_path()
+            report["dense_path"] = dense_path()
+            report["layout_timing"] = layout_timing(
+                report["bhsd_path"]["launches"], report["dense_path"])
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()
@@ -1918,7 +2460,8 @@ def main(argv=None):
                                       report["main_path"]["k3_quant"]] +
                           report["flash_timing"] +
                           report["segment_timing"] +
-                          [report["fused_adam_timing"]]}))
+                          [report["fused_adam_timing"]] +
+                          report["layout_timing"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": report["card"]["name"],
         "count": report["card"]["count"]}}))

@@ -29,6 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {"paged_decode": "paged_decode.cu",
            "flash_attention": "flash_attention.cu",
            "flash_segment": "flash_segment.cu",
+           "flash_bhsd": "flash_bhsd.cu",
            "fused_adam": "fused_adam.cu"}
 
 # sm_90a, not sm_90: wgmma/setmaxnreg exist only for the "a" target

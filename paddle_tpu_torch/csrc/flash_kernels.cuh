@@ -1,33 +1,49 @@
-// Flash attention on [batch, seq, heads, head_dim] ("bshd") for Hopper
-// (sm_90a): the kernel bodies shared by flash_attention.cu (K1, K2: no
-// mask or a factored padding mask) and flash_segment.cu (K5: packed
-// segment ids). Each kernel is a template on kSeg, the mask kind:
-//   kSeg = false  key j of batch row bi is visible iff
+// Flash attention for Hopper (sm_90a): the kernel bodies shared by
+// flash_attention.cu (K1, K2 and K1's dense-mask variant, on [b, s, h, d]),
+// flash_segment.cu (K5: packed segment ids, [b, s, h, d]) and
+// flash_bhsd.cu (K6: the per-head layout [b, h, s, d]). Each kernel is a
+// template on two axes:
+//   kBhsd   the layout policy of the loads and stores: element (bi, pos,
+//           head) of a tensor with `heads` heads sits at row
+//           ((bi*s + pos)*heads + head) in bshd and ((bi*heads + head)*s +
+//           pos) in bhsd (rows of d; for K and V heads is hkv; Delta
+//           follows O's layout without the d axis);
+//   kMask   the mask kind:
+//     kMaskValid  key j of batch row bi is visible iff
 //                 k_valid[bi % mask_b][j] != 0 (or always, no mask);
-//   kSeg = true   key j is visible to query i iff
+//     kMaskSeg    key j is visible to query i iff
 //                 q_seg[bi][i] == kv_seg[bi][j];
-// and j <= i on top of either when causal.
+//     kMaskDense  key j is visible to query i of head hd iff
+//                 dense[bi % mask_b][hd % mask_h][i][j] != 0 (a contiguous
+//                 [mask_b, mask_h, s, s] byte mask, mask_b in {1, b},
+//                 mask_h in {1, h}; forward only);
+// and j <= i on top of any of them when causal.
 //
 // Contract (the TPU kernels' own):
-//   q [b, s, h, d], k/v [b, s, hkv, d]   fp32 | bf16 (one dtype), GQA with
-//                                       head = kv_head * g + i, g = h / hkv
-//   O in q's dtype; Lse fp32 [b*h, s, 8], row bi*h + head, value repeated
-//   over the 8 lanes; dq/dk/dv in the input dtype, dk/dv at kv heads.
+//   q [b, s, h, d], k/v [b, s, hkv, d] (bhsd: [b, h, s, d], [b, hkv, s,
+//   d])  fp32 | bf16 (one dtype), GQA with head = kv_head * g + i,
+//   g = h / hkv
+//   O in q's dtype and layout; Lse fp32 [b*h, s, 8] in both layouts, row
+//   bi*h + head, value repeated over the 8 lanes; dq/dk/dv in the input
+//   dtype and layout, dk/dv at kv heads.
 // Masked logits are -1e30 (finite, NEG_INF of the TPU kernels): a row with
 // no visible key comes out as the uniform average of V over all s keys,
 // as the plain version gives. Every product and sum runs in fp32 (tiles
 // are widened at load), as the TPU kernels do. Delta = rowsum(dO * O)
-// [b, s, h] fp32 comes from the caller (a torch reduction, as it is XLA in
-// the reference). The backward assumes that a query row with no visible
-// key carries a zero cotangent (the op zeroes padded rows' cotangent;
-// under segment ids every row sees its own key), so it skips the tiles
-// no row of a block can see.
+// [b, s, h] fp32 ([b, h, s] in bhsd) comes from the caller (a torch
+// reduction, as it is XLA in the reference). The backward assumes that a
+// query row with no visible key carries a zero cotangent (the op zeroes
+// padded rows' cotangent; under segment ids every row sees its own key),
+// so it skips the tiles no row of a block can see.
 //
 // Design, simple and not yet tuned:
-// - Grid (q-tile, kv head, batch) for the forward and dQ. A block's 64
-//   rows are (query head of the group, query position) pairs: the g heads
-//   that share a kv head are folded into the tile, so each K/V tile is
-//   read once per group (the TPU kernel's einsum over the folded group).
+// - Grid (q-tile x group chunk, kv head, batch) for the forward and dQ.
+//   A block's 64 rows are (query head of the group, query position)
+//   pairs: the g heads that share a kv head are folded into the tile, so
+//   each K/V tile is read once per group (the TPU kernel's einsum over the
+//   folded group). A group of more than 64 heads (Falcon-7B's 71 on one kv
+//   head) is split into chunks of 64 heads, one block each, at one query
+//   position per block.
 // - A loop inside the block over key tiles takes the place of the TPU
 //   grid's sequential axis. It visits only the window of key tiles that
 //   some row of the block can see: under segment ids the keys from the
@@ -35,7 +51,9 @@
 //   last (ids never decrease along a row, so two binary searches over the
 //   row's ids find it, inside the kernel), cut at the diagonal when
 //   causal. The forward goes on past the window only while some row has
-//   seen no visible key (the uniform-average rule above).
+//   seen no visible key (the uniform-average rule above). A dense mask
+//   is read where it lies, one byte per (row, key) score, from each row's
+//   own mask row: no tile of it is skipped yet.
 // - Tiles are staged in shared memory as fp32 with a padded row stride
 //   (no bank conflicts). Each of the 128 threads owns 4 rows x BK/8 keys
 //   of the score tile and 4 rows x D/8 columns of the output, keys and
@@ -45,7 +63,9 @@
 // - dK/dV: grid (key tile, kv head, batch); each block keeps its dK/dV
 //   tile in registers and loops over the group's query heads and over
 //   the query positions that can see its keys (the transposed window),
-//   64 at a time: the group sum happens in registers, no atomics.
+//   64 at a time: the group sum happens in registers, no atomics (an fp32
+//   output takes the registers' partial sums every 4 query tiles, see
+//   DkvFlush).
 // Later work: bf16 tensor-core products (mma.sync / wgmma) with TMA
 // staging, which would also round P to bf16 where the TPU kernel does not.
 
@@ -63,6 +83,10 @@ constexpr int kRows = 64;        // query rows of a forward / dQ block
 constexpr int kQTile = 64;       // query positions per dK/dV step
 constexpr int kLanes = 8;        // lanes of the Lse rows
 constexpr float kNegInf = -1e30f;
+// mask kinds (the kMask template argument)
+constexpr int kMaskValid = 0;
+constexpr int kMaskSeg = 1;
+constexpr int kMaskDense = 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -93,7 +117,7 @@ struct Args {
   const float* lse_in;         // backward
   const float* delta;          // backward, [b, s, h]
   const unsigned char* k_valid;
-  int mask_b;                  // rows of k_valid (0 = no mask)
+  int mask_b;                  // rows of k_valid or batch extent of dense
   const int* q_seg;            // [b, s] segment ids (kSeg)
   const int* kv_seg;           // [b, s] segment ids (kSeg)
   void* out;                   // O (fwd) or dQ (dQ) or dK (dK/dV)
@@ -101,32 +125,74 @@ struct Args {
   float* lse_out;              // fwd
   int b, s, h, hkv, d, causal;
   float scale;
+  int mask_h;                  // head extent of dense
+  const unsigned char* dense;  // [mask_b, mask_h, s, s] (kMaskDense)
 };
 
-// one block row -> (query head, query position); rows past the group or
-// past the sequence are invalid
+// blocks along the grid's x axis that split a group of g query heads
+// (one unless g > kRows)
+__host__ __device__ __forceinline__ int group_chunks(int g) {
+  return (g + kRows - 1) / kRows;
+}
+
+// row r of block bx -> (head of the group gi(r), query position pos(r)):
+// a block holds qrows positions of every head of the group, or, for a
+// group larger than kRows, one position of kRows heads from head gi0 on.
+// Rows past the group or past the sequence are invalid.
 struct RowMap {
-  int qrows, g;
-  __device__ RowMap(int g_) : qrows(max(1, kRows / g_)), g(g_) {}
-  __device__ bool valid(int r, int q0, int s) const {
-    return r / qrows < g && q0 + r % qrows < s;
+  int qrows, g, gi0, q0;
+  __device__ RowMap(int g_, int bx) : qrows(max(1, kRows / g_)), g(g_) {
+    const int chunks = group_chunks(g_);
+    gi0 = (bx % chunks) * kRows;
+    q0 = (bx / chunks) * qrows;
+  }
+  __device__ int gi(int r) const { return gi0 + r / qrows; }
+  __device__ int pos(int r) const { return q0 + r % qrows; }
+  __device__ bool valid(int r, int s) const {
+    return gi(r) < g && pos(r) < s;
   }
 };
 
+// the row (of d elements, or of one for Delta) that holds (batch bi,
+// position pos, head hd) of a tensor with `heads` heads: the layout policy
+template <bool kBhsd>
+__device__ __forceinline__ size_t row_at(int bi, int pos, int hd, int s,
+                                         int heads) {
+  return kBhsd ? ((size_t)bi * heads + hd) * s + pos
+               : ((size_t)bi * s + pos) * heads + hd;
+}
+
 // BK rows of K or V starting at key k0, widened to fp32 into
-// dst[BK][stride]; keys past s and columns past d are zero
-template <typename T, int D, int BK>
+// dst[BK][stride]; keys past s and columns past d are zero. The tile's
+// base is found once and keys step by a 32-bit stride: 64-bit index
+// arithmetic per element made this loop a large share of a tile's time
+// (measured on the H100).
+template <typename T, int D, int BK, bool kBhsd>
 __device__ __forceinline__ void load_kv_tile(float* dst, int stride,
                                              const T* src, const Args& a,
                                              int bi, int kvh, int k0) {
+  // key k0 + r sits `step` elements after key k0
+  const T* tile = src + row_at<kBhsd>(bi, k0, kvh, a.s, a.hkv) * a.d;
+  const int step = (kBhsd ? 1 : a.hkv) * a.d;
+  const int n = min(BK, a.s - k0);
   for (int idx = threadIdx.x; idx < BK * D; idx += kThreads) {
     const int r = idx / D, c = idx - (idx / D) * D;
-    const int key = k0 + r;
     float x = 0.f;
-    if (key < a.s && c < a.d)
-      x = to_float(src[(((size_t)bi * a.s + key) * a.hkv + kvh) * a.d + c]);
+    if (r < n && c < a.d) x = to_float(tile[r * step + c]);
     dst[r * stride + c] = x;
   }
+}
+
+// the dense mask's row of query qpos in head hd (kMaskDense; nullptr for
+// the other kinds). Rows past the sequence read the last row: their
+// scores are discarded.
+template <int kMask>
+__device__ __forceinline__ const unsigned char* dense_row(const Args& a,
+                                                          int bi, int hd,
+                                                          int qpos) {
+  if (kMask != kMaskDense) return nullptr;
+  return a.dense + (((size_t)(bi % a.mask_b) * a.mask_h + hd % a.mask_h) *
+                        a.s + min(qpos, a.s - 1)) * a.s;
 }
 
 // n segment ids of `ids` row bi from position p0 into dst (kSeg only);
@@ -139,17 +205,21 @@ __device__ __forceinline__ void load_seg(int* dst, int n, const int* ids,
     dst[r] = p0 + r < a.s ? ids[(size_t)bi * a.s + p0 + r] : -1;
 }
 
-// the score of (row at qpos with segment qseg, key with segment kseg):
-// -inf past the sequence (excluded from the softmax), -1e30 where the
-// causal, padding or segment mask hides the key
-template <bool kSeg>
+// the score of (row at qpos with segment qseg and dense mask row mrow,
+// key with segment kseg): -inf past the sequence (excluded from the
+// softmax), -1e30 where the causal, padding, segment or dense mask hides
+// the key
+template <int kMask>
 __device__ __forceinline__ float masked(float x, int key, int qpos,
-                                        int qseg, int kseg, const Args& a,
-                                        int bi) {
+                                        int qseg, int kseg,
+                                        const unsigned char* mrow,
+                                        const Args& a, int bi) {
   if (key >= a.s) return -INFINITY;
   if (a.causal && key > qpos) return kNegInf;
-  if (kSeg) {
+  if (kMask == kMaskSeg) {
     if (qseg != kseg) return kNegInf;
+  } else if (kMask == kMaskDense) {
+    if (!mrow[key]) return kNegInf;
   } else if (a.k_valid &&
              !a.k_valid[(size_t)(bi % a.mask_b) * a.s + key]) {
     return kNegInf;
@@ -199,9 +269,10 @@ struct FwdSmem {
 };
 
 // ---------------------------------------------------------------- fwd
-template <typename T, int D, int BK, bool kSeg>
+template <typename T, int D, int BK, int kMask, bool kBhsd>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Args a) {
+  constexpr bool kSeg = kMask == kMaskSeg;
   extern __shared__ __align__(16) float smem[];
   using S = FwdSmem<D, BK>;
   float* q_s = smem;
@@ -213,8 +284,8 @@ flash_fwd_kernel(Args a) {
   constexpr int DC = D / 8;      // output columns per thread
 
   const int g = a.h / a.hkv;
-  const RowMap rm(g);
-  const int q0 = blockIdx.x * rm.qrows;
+  const RowMap rm(g, blockIdx.x);
+  const int q0 = rm.q0;
   const int kvh = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 3, kg = tid & 7;
   const T* q = static_cast<const T*>(a.q);
@@ -222,21 +293,23 @@ flash_fwd_kernel(Args a) {
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, c = idx - (idx / D) * D;
     float x = 0.f;
-    if (c < a.d && rm.valid(r, q0, a.s)) {
-      const int head = kvh * g + r / rm.qrows, qpos = q0 + r % rm.qrows;
-      x = to_float(q[(((size_t)bi * a.s + qpos) * a.h + head) * a.d + c]);
+    if (c < a.d && rm.valid(r, a.s)) {
+      const int head = kvh * g + rm.gi(r), qpos = rm.pos(r);
+      x = to_float(q[row_at<kBhsd>(bi, qpos, head, a.s, a.h) * a.d + c]);
     }
     q_s[r * (D + 1) + c] = x;
   }
   int qpos[4], qseg[4];
   bool rv[4];
+  const unsigned char* mrow[4];
   float m[4], l[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
-    rv[i] = rm.valid(r, q0, a.s);
-    qpos[i] = q0 + r % rm.qrows;
+    rv[i] = rm.valid(r, a.s);
+    qpos[i] = rm.pos(r);
     qseg[i] = kSeg && rv[i] ? a.q_seg[(size_t)bi * a.s + qpos[i]] : 0;
+    mrow[i] = dense_row<kMask>(a, bi, kvh * g + rm.gi(r), qpos[i]);
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -263,10 +336,10 @@ flash_fwd_kernel(Args a) {
     }
     const int k0 = t * BK;
     __syncthreads();
-    load_kv_tile<T, D, BK>(k_s, D + 1, static_cast<const T*>(a.k), a, bi,
-                           kvh, k0);
-    load_kv_tile<T, D, BK>(v_s, D, static_cast<const T*>(a.v), a, bi, kvh,
-                           k0);
+    load_kv_tile<T, D, BK, kBhsd>(k_s, D + 1, static_cast<const T*>(a.k), a,
+                                  bi, kvh, k0);
+    load_kv_tile<T, D, BK, kBhsd>(v_s, D, static_cast<const T*>(a.v), a, bi,
+                                  kvh, k0);
     load_seg<kSeg>(kseg_s, BK, a.kv_seg, a, bi, k0);
     __syncthreads();
 
@@ -294,8 +367,8 @@ flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int kl = kg + 8 * j;
-        sc[i][j] = masked<kSeg>(sc[i][j] * a.scale, k0 + kl, qpos[i],
-                                qseg[i], kseg_s[kl], a, bi);
+        sc[i][j] = masked<kMask>(sc[i][j] * a.scale, k0 + kl, qpos[i],
+                                 qseg[i], kseg_s[kl], mrow[i], a, bi);
         mx = fmaxf(mx, sc[i][j]);
       }
       const float m_new = fmaxf(m[i], max8(mx));
@@ -333,9 +406,9 @@ flash_fwd_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     if (!rv[i]) continue;
     const int r = rg * 4 + i;
-    const int head = kvh * g + r / rm.qrows;
+    const int head = kvh * g + rm.gi(r);
     const float lc = fmaxf(l[i], 1e-20f);
-    const size_t base = (((size_t)bi * a.s + qpos[i]) * a.h + head) * a.d;
+    const size_t base = row_at<kBhsd>(bi, qpos[i], head, a.s, a.h) * a.d;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = kg + 8 * c;
@@ -356,9 +429,11 @@ struct DqSmem {
 };
 
 // ------------------------------------------------------------------ dQ
-template <typename T, int D, int BK, bool kSeg>
+template <typename T, int D, int BK, int kMask, bool kBhsd>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(Args a) {
+  static_assert(kMask != kMaskDense, "a dense mask's backward recomputes");
+  constexpr bool kSeg = kMask == kMaskSeg;
   extern __shared__ __align__(16) float smem[];
   using S = DqSmem<D, BK>;
   float* q_s = smem;
@@ -371,8 +446,8 @@ flash_bwd_dq_kernel(Args a) {
   constexpr int DC = D / 8;
 
   const int g = a.h / a.hkv;
-  const RowMap rm(g);
-  const int q0 = blockIdx.x * rm.qrows;
+  const RowMap rm(g, blockIdx.x);
+  const int q0 = rm.q0;
   const int kvh = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 3, kg = tid & 7;
   const T* q = static_cast<const T*>(a.q);
@@ -381,9 +456,9 @@ flash_bwd_dq_kernel(Args a) {
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, c = idx - (idx / D) * D;
     float x = 0.f, y = 0.f;
-    if (c < a.d && rm.valid(r, q0, a.s)) {
-      const int head = kvh * g + r / rm.qrows, qpos = q0 + r % rm.qrows;
-      const size_t off = (((size_t)bi * a.s + qpos) * a.h + head) * a.d + c;
+    if (c < a.d && rm.valid(r, a.s)) {
+      const int head = kvh * g + rm.gi(r), qpos = rm.pos(r);
+      const size_t off = row_at<kBhsd>(bi, qpos, head, a.s, a.h) * a.d + c;
       x = to_float(q[off]);
       y = to_float(dout[off]);
     }
@@ -396,14 +471,14 @@ flash_bwd_dq_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
-    rv[i] = rm.valid(r, q0, a.s);
-    qpos[i] = q0 + r % rm.qrows;
+    rv[i] = rm.valid(r, a.s);
+    qpos[i] = rm.pos(r);
     qseg[i] = kSeg && rv[i] ? a.q_seg[(size_t)bi * a.s + qpos[i]] : 0;
-    const int head = kvh * g + r / rm.qrows;
+    const int head = kvh * g + rm.gi(r);
     lse[i] = rv[i] ? a.lse_in[(((size_t)bi * a.h + head) * a.s + qpos[i]) *
                               kLanes]
                    : 0.f;
-    delta[i] = rv[i] ? a.delta[((size_t)bi * a.s + qpos[i]) * a.h + head]
+    delta[i] = rv[i] ? a.delta[row_at<kBhsd>(bi, qpos[i], head, a.s, a.h)]
                      : 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
@@ -417,10 +492,10 @@ flash_bwd_dq_kernel(Args a) {
   for (int t = klo / BK; t < t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();
-    load_kv_tile<T, D, BK>(k_s, D + 1, static_cast<const T*>(a.k), a, bi,
-                           kvh, k0);
-    load_kv_tile<T, D, BK>(v_s, D + 1, static_cast<const T*>(a.v), a, bi,
-                           kvh, k0);
+    load_kv_tile<T, D, BK, kBhsd>(k_s, D + 1, static_cast<const T*>(a.k), a,
+                                  bi, kvh, k0);
+    load_kv_tile<T, D, BK, kBhsd>(v_s, D + 1, static_cast<const T*>(a.v), a,
+                                  bi, kvh, k0);
     load_seg<kSeg>(kseg_s, BK, a.kv_seg, a, bi, k0);
     __syncthreads();
 
@@ -455,8 +530,8 @@ flash_bwd_dq_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int kl = kg + 8 * j;
-        const float x = masked<kSeg>(sc[i][j] * a.scale, k0 + kl, qpos[i],
-                                     qseg[i], kseg_s[kl], a, bi);
+        const float x = masked<kMask>(sc[i][j] * a.scale, k0 + kl, qpos[i],
+                                      qseg[i], kseg_s[kl], nullptr, a, bi);
         const float p = rv[i] ? expf(x - lse[i]) : 0.f;
         ds_s[(rg * 4 + i) * (BK + 1) + kl] = p * (dp[i][j] - delta[i]);
       }
@@ -480,8 +555,8 @@ flash_bwd_dq_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!rv[i]) continue;
-    const int head = kvh * g + (rg * 4 + i) / rm.qrows;
-    const size_t base = (((size_t)bi * a.s + qpos[i]) * a.h + head) * a.d;
+    const int head = kvh * g + rm.gi(rg * 4 + i);
+    const size_t base = row_at<kBhsd>(bi, qpos[i], head, a.s, a.h) * a.d;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = kg + 8 * c;
@@ -500,10 +575,57 @@ struct DkvSmem {
       sizeof(int) * (BK + kQTile);
 };
 
+// Query tiles a dK/dV block sums in registers before it adds them into an
+// fp32 output (0: one store at the end). One register summing a group's
+// g * s query rows loses ~sqrt(n) half-ulps: over Falcon-7B's 71 heads of
+// 256 rows that left dV 1.3e-4 off the plain version (measured on the
+// H100), so fp32 adds its partial sums into the output every 4 tiles (256
+// rows). A bf16 output's own rounding (2^-9) dwarfs that error: bf16
+// keeps one store.
+template <typename T>
+struct DkvFlush { static constexpr int tiles = 0; };
+template <>
+struct DkvFlush<float> { static constexpr int tiles = 4; };
+
+// store (first) or add this thread's dK/dV sums into its rows of the
+// outputs
+template <typename T, int D, int BK, bool kBhsd>
+__device__ __forceinline__ void store_dkv(const float (&dk)[BK / 16][D / 8],
+                                          const float (&dv)[BK / 16][D / 8],
+                                          const Args& a, int bi, int kvh,
+                                          int k0, int kgr, int rg,
+                                          bool first) {
+  constexpr int KI = BK / 16;
+  constexpr int DC = D / 8;
+  T* dk_out = static_cast<T*>(a.out);
+  T* dv_out = static_cast<T*>(a.out2);
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int key = k0 + kgr * KI + i;
+    if (key >= a.s) continue;
+    const size_t base = row_at<kBhsd>(bi, key, kvh, a.s, a.hkv) * a.d;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = rg + 8 * c;
+      if (col < a.d) {
+        float x = dk[i][c] * a.scale, y = dv[i][c];
+        if (!first) {
+          x += to_float(dk_out[base + col]);
+          y += to_float(dv_out[base + col]);
+        }
+        store(x, dk_out + base + col);
+        store(y, dv_out + base + col);
+      }
+    }
+  }
+}
+
 // --------------------------------------------------------------- dK/dV
-template <typename T, int D, int BK, bool kSeg>
+template <typename T, int D, int BK, int kMask, bool kBhsd>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(Args a) {
+  static_assert(kMask != kMaskDense, "a dense mask's backward recomputes");
+  constexpr bool kSeg = kMask == kMaskSeg;
   extern __shared__ __align__(16) float smem[];
   using S = DkvSmem<D, BK>;
   float* k_s = smem;
@@ -527,10 +649,10 @@ flash_bwd_dkv_kernel(Args a) {
   const T* q = static_cast<const T*>(a.q);
   const T* dout = static_cast<const T*>(a.o_grad);
 
-  load_kv_tile<T, D, BK>(k_s, D + 1, static_cast<const T*>(a.k), a, bi, kvh,
-                         k0);
-  load_kv_tile<T, D, BK>(v_s, D + 1, static_cast<const T*>(a.v), a, bi, kvh,
-                         k0);
+  load_kv_tile<T, D, BK, kBhsd>(k_s, D + 1, static_cast<const T*>(a.k), a, bi,
+                                kvh, k0);
+  load_kv_tile<T, D, BK, kBhsd>(v_s, D + 1, static_cast<const T*>(a.v), a, bi,
+                                kvh, k0);
   load_seg<kSeg>(kseg_s, BK, a.kv_seg, a, bi, k0);
   float dk[KI][DC], dv[KI][DC];
 #pragma unroll
@@ -544,6 +666,9 @@ flash_bwd_dkv_kernel(Args a) {
   int qlo, qhi;
   segment_range<kSeg>(a.kv_seg, a.q_seg, a, bi, k0, kmax, &qlo, &qhi);
   if (a.causal) qlo = max(qlo, k0);
+  constexpr int kFlush = DkvFlush<T>::tiles;
+  int tiles = 0;         // tiles summed since the last store
+  bool stored = false;
   for (int gi = 0; gi < g; ++gi) {
     const int head = kvh * g + gi;
     for (int q0 = qlo; q0 <= qhi; q0 += kQTile) {
@@ -553,7 +678,7 @@ flash_bwd_dkv_kernel(Args a) {
         float x = 0.f, y = 0.f;
         if (c < a.d && q0 + r < a.s) {
           const size_t off =
-              (((size_t)bi * a.s + q0 + r) * a.h + head) * a.d + c;
+              row_at<kBhsd>(bi, q0 + r, head, a.s, a.h) * a.d + c;
           x = to_float(q[off]);
           y = to_float(dout[off]);
         }
@@ -566,7 +691,7 @@ flash_bwd_dkv_kernel(Args a) {
                                           qpos) * kLanes]
                               : 0.f;
         delta_s[r] = qpos < a.s
-                         ? a.delta[((size_t)bi * a.s + qpos) * a.h + head]
+                         ? a.delta[row_at<kBhsd>(bi, qpos, head, a.s, a.h)]
                          : 0.f;
       }
       load_seg<kSeg>(qseg_s, kQTile, a.q_seg, a, bi, q0);
@@ -606,8 +731,8 @@ flash_bwd_dkv_kernel(Args a) {
           const int rl = rg + 8 * j, qpos = q0 + rl;
           float p = 0.f;
           if (qpos < a.s)
-            p = expf(masked<kSeg>(sc[i][j] * a.scale, k0 + kl, qpos,
-                                  qseg_s[rl], kseg_s[kl], a, bi) -
+            p = expf(masked<kMask>(sc[i][j] * a.scale, k0 + kl, qpos,
+                                   qseg_s[rl], kseg_s[kl], nullptr, a, bi) -
                      lse_s[rl]);
           p_s[kl * (kQTile + 1) + rl] = p;
           ds_s[kl * (kQTile + 1) + rl] = p * (dp[i][j] - delta_s[rl]);
@@ -634,25 +759,19 @@ flash_bwd_dkv_kernel(Args a) {
           }
         }
       }
-    }
-  }
-
-  T* dk_out = static_cast<T*>(a.out);
-  T* dv_out = static_cast<T*>(a.out2);
+      if (kFlush > 0 && ++tiles == kFlush) {
+        store_dkv<T, D, BK, kBhsd>(dk, dv, a, bi, kvh, k0, kgr, rg, !stored);
+        stored = true;
+        tiles = 0;
 #pragma unroll
-  for (int i = 0; i < KI; ++i) {
-    const int key = k0 + kgr * KI + i;
-    if (key >= a.s) continue;
-    const size_t base = (((size_t)bi * a.s + key) * a.hkv + kvh) * a.d;
+        for (int i = 0; i < KI; ++i)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = rg + 8 * c;
-      if (col < a.d) {
-        store(dk[i][c] * a.scale, dk_out + base + col);
-        store(dv[i][c], dv_out + base + col);
+          for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
       }
     }
   }
+  if (!stored || tiles > 0)
+    store_dkv<T, D, BK, kBhsd>(dk, dv, a, bi, kvh, k0, kgr, rg, !stored);
 }
 
 // ------------------------------------------------------------ launch
@@ -688,42 +807,52 @@ int launch_kernel(Fn fn, dim3 grid, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int D, int kMask, bool kBhsd>
 int dispatch(int kernel, const Args& a, cudaStream_t stream) {
   constexpr int BK = block_k<D>();
   const int g = a.h / a.hkv;
   const int qrows = kRows / g > 0 ? kRows / g : 1;
+  const dim3 rows_grid((a.s + qrows - 1) / qrows * group_chunks(g), a.hkv,
+                       a.b);
   if (kernel == kFwd)
-    return launch_kernel(flash_fwd_kernel<T, D, BK, kSeg>,
-                         dim3((a.s + qrows - 1) / qrows, a.hkv, a.b),
+    return launch_kernel(flash_fwd_kernel<T, D, BK, kMask, kBhsd>, rows_grid,
                          FwdSmem<D, BK>::bytes, stream, a);
-  if (kernel == kDq)
-    return launch_kernel(flash_bwd_dq_kernel<T, D, BK, kSeg>,
-                         dim3((a.s + qrows - 1) / qrows, a.hkv, a.b),
-                         DqSmem<D, BK>::bytes, stream, a);
-  return launch_kernel(flash_bwd_dkv_kernel<T, D, BK, kSeg>,
-                       dim3((a.s + BK - 1) / BK, a.hkv, a.b),
-                       DkvSmem<D, BK>::bytes, stream, a);
+  if constexpr (kMask == kMaskDense) {
+    return (int)cudaErrorInvalidValue;   // dense masks: forward only
+  } else {
+    if (kernel == kDq)
+      return launch_kernel(flash_bwd_dq_kernel<T, D, BK, kMask, kBhsd>,
+                           rows_grid, DqSmem<D, BK>::bytes, stream, a);
+    return launch_kernel(flash_bwd_dkv_kernel<T, D, BK, kMask, kBhsd>,
+                         dim3((a.s + BK - 1) / BK, a.hkv, a.b),
+                         DkvSmem<D, BK>::bytes, stream, a);
+  }
 }
 
-template <typename T, bool kSeg>
+template <typename T, int kMask, bool kBhsd>
 int dispatch_d(int kernel, const Args& a, cudaStream_t stream) {
-  if (a.d <= 32) return dispatch<T, 32, kSeg>(kernel, a, stream);
-  if (a.d <= 64) return dispatch<T, 64, kSeg>(kernel, a, stream);
-  if (a.d <= 128) return dispatch<T, 128, kSeg>(kernel, a, stream);
-  return dispatch<T, 256, kSeg>(kernel, a, stream);
+  if (a.d <= 32) return dispatch<T, 32, kMask, kBhsd>(kernel, a, stream);
+  if (a.d <= 64) return dispatch<T, 64, kMask, kBhsd>(kernel, a, stream);
+  if (a.d <= 128) return dispatch<T, 128, kMask, kBhsd>(kernel, a, stream);
+  return dispatch<T, 256, kMask, kBhsd>(kernel, a, stream);
 }
 
-template <bool kSeg>
+// one launch of `kernel` (kFwd, kDq, kDkv) for the mask kind and layout
+// of the calling source; a cudaError_t, 0 on success
+template <int kMask, bool kBhsd>
 int run(int kernel, const Args& a, int dtype, void* stream) {
   if (a.b <= 0 || a.s <= 0 || a.h <= 0 || a.hkv <= 0 || a.h % a.hkv ||
-      a.h / a.hkv > kRows || a.d <= 0 || a.d > 256 || a.b > 65535 ||
+      a.d <= 0 || a.d > 256 || a.b > 65535 ||
       a.hkv > 65535 || a.mask_b < 0 ||
-      (kSeg && (a.q_seg == nullptr || a.kv_seg == nullptr)))
+      (kMask == kMaskSeg && (a.q_seg == nullptr || a.kv_seg == nullptr)) ||
+      (kMask == kMaskDense &&
+       (a.dense == nullptr || (a.mask_b != 1 && a.mask_b != a.b) ||
+        (a.mask_h != 1 && a.mask_h != a.h) || (!kBhsd && a.mask_h != 1))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float, kSeg>(kernel, a, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16, kSeg>(kernel, a, st);
+  if (dtype == 0) return dispatch_d<float, kMask, kBhsd>(kernel, a, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, kMask, kBhsd>(kernel, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -734,6 +863,7 @@ Args make_args(const void* q, const void* k, const void* v, int b, int s,
   a.k = k;
   a.v = v;
   a.mask_b = 1;
+  a.mask_h = 1;
   a.b = b;
   a.s = s;
   a.h = h;
@@ -741,6 +871,29 @@ Args make_args(const void* q, const void* k, const void* v, int b, int s,
   a.d = d;
   a.scale = scale;
   a.causal = causal;
+  return a;
+}
+
+// the factored padding mask's arguments: k_valid [mask_b, s] bytes, or
+// none when mask_b is 0
+Args padded_args(const void* q, const void* k, const void* v,
+                 const void* k_valid, int mask_b, int b, int s, int h,
+                 int hkv, int d, float scale, int causal) {
+  Args a = make_args(q, k, v, b, s, h, hkv, d, scale, causal);
+  a.k_valid = static_cast<const unsigned char*>(mask_b > 0 ? k_valid
+                                                           : nullptr);
+  a.mask_b = mask_b > 0 ? mask_b : 1;
+  return a;
+}
+
+// the dense mask's arguments: [mask_b, mask_h, s, s] bytes
+Args dense_args(const void* q, const void* k, const void* v,
+                const void* mask, int mask_b, int mask_h, int b, int s,
+                int h, int hkv, int d, float scale, int causal) {
+  Args a = make_args(q, k, v, b, s, h, hkv, d, scale, causal);
+  a.dense = static_cast<const unsigned char*>(mask);
+  a.mask_b = mask_b;
+  a.mask_h = mask_h;
   return a;
 }
 

@@ -2,7 +2,7 @@
 // Hopper (sm_90a): the forward (K5-fwd) and the two backward kernels
 // (K5-dQ, K5-dKV) of the fused_attention op under QSegIds/KSegIds. The
 // kernel bodies, their contract and design are in flash_kernels.cuh
-// (shared with K1/K2), instantiated with kSeg = true.
+// (shared with K1/K2), instantiated with kMask = kMaskSeg.
 //
 // Replaces (paddle_tpu/ops/pallas_attention.py):
 //   K5-fwd  _flash_fwd_segment (pallas_call at line 1115, kernel
@@ -57,7 +57,7 @@ extern "C" int paddle_flash_segment_fwd(const void* q, const void* k,
                         causal);
   a.out = out;
   a.lse_out = static_cast<float*>(lse);
-  return run<true>(kFwd, a, dtype, stream);
+  return run<kMaskSeg, false>(kFwd, a, dtype, stream);
 }
 
 extern "C" int paddle_flash_segment_bwd_dq(
@@ -71,7 +71,7 @@ extern "C" int paddle_flash_segment_bwd_dq(
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.out = dq;
-  return run<true>(kDq, a, dtype, stream);
+  return run<kMaskSeg, false>(kDq, a, dtype, stream);
 }
 
 extern "C" int paddle_flash_segment_bwd_dkv(
@@ -86,7 +86,7 @@ extern "C" int paddle_flash_segment_bwd_dkv(
   a.delta = static_cast<const float*>(delta);
   a.out = dk;
   a.out2 = dv;
-  return run<true>(kDkv, a, dtype, stream);
+  return run<kMaskSeg, false>(kDkv, a, dtype, stream);
 }
 
 // kernel: 0 = K5-fwd, 1 = K5-dQ, 2 = K5-dKV

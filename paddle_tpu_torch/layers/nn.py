@@ -1,7 +1,7 @@
 """Neural-network layers of the training slice: copies of
 ``paddle_tpu/layers/nn.py``'s ``fc``, ``embedding``, ``layer_norm``,
-``softmax_with_cross_entropy``, ``reshape``, ``split``, ``mean`` and
-``slice``, and of ``layers/ops.py``'s ``elementwise_add``. Each appends
+``softmax_with_cross_entropy``, ``reshape``, ``transpose``, ``split``,
+``mean`` and ``slice``, and of ``layers/ops.py``'s ``elementwise_add``. Each appends
 ops to the current Program; the executor runs them.
 """
 
@@ -11,7 +11,8 @@ from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
-           "reshape", "split", "mean", "slice", "elementwise_add"]
+           "reshape", "transpose", "split", "mean", "slice",
+           "elementwise_add"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -109,6 +110,14 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
     helper.append_op(type="reshape", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"shape": list(shape)})
     return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
 
 
 def split(input, num_or_sections, dim=-1, name=None):

@@ -6,16 +6,30 @@ JAX package computes them outside any Pallas kernel. The reference's
 ``decode_paged_attention`` (the paged decode step) is the K3 wrapper
 itself: ``ops.paged_attention.paged_decode_attention``.
 
-Training: the IR ops ``fused_attention`` and ``fused_attention_grad``.
-On every device they take the reference's ``pallas_saved`` path: the
-forward runs K1 (no mask, factored padding mask) or K5 (segment ids,
-``QSegIds``/``KSegIds``) from ``ops.flash_attention`` and stores its
-logsumexp as the op's ``Lse`` output, and the grad op runs K2 or K5's
-backward on the saved (Q, K, V, Out, Lse) without re-running the
-forward. The reference picks that path from a TPU-measured threshold
-(seq >= 512 for bshd); the port takes it at every length, and CPU
-tensors take the kernels' plain versions. Unported: dense masks and the
-bhsd layout (K1's dense variant and K6) raise ``NotImplementedError``.
+Training: the IR ops ``fused_attention`` and ``fused_attention_grad``,
+in both layouts (``layout`` attr, default ``"bhsd"`` [b, h, s, d];
+``"bshd"`` [b, s, h, d]) and under every mask input the reference takes
+(``Mask`` > ``QSegIds``/``KSegIds`` > ``QValid``/``KValid``).
+:func:`dispatch_path`, a pure function of shapes, picks one of:
+
+- ``"saved"`` (the reference's ``pallas_saved``): no mask, a factored
+  padding mask or segment ids (bshd). The forward runs K1, K6-fwd or K5
+  from ``ops.flash_attention`` and stores its logsumexp as the op's
+  ``Lse`` output; the grad op runs K2, K6 or K5's backward on the saved
+  (Q, K, V, Out, Lse) without re-running the forward. The reference
+  picks that path from TPU-measured thresholds (seq >= 512 for bshd,
+  4096 for bhsd); the port takes it at every length.
+- ``"dense"`` (the reference's ``pallas``): a dense mask the kernels take
+  ([b|1, h|1, s, s] in bhsd, head-broadcast [b|1, 1, s, s] in bshd). The
+  forward runs K6-fwd or K1-dense and stores a real ``Lse`` (the
+  reference's is zeros there); the grad op recomputes through the plain
+  composition, as the reference's generic grad does.
+- ``"plain"`` (the reference's ``xla``): what no kernel takes — a bshd
+  per-head mask, segment ids in bhsd, a mask of another shape, head_dim
+  above 256 — runs :func:`dot_product_attention`, forward and backward;
+  ``Lse`` is zeros, as the reference's.
+
+CPU tensors take the kernels' plain versions.
 
 Numerics follow the reference: logits in fp32 (the reference's
 ``preferred_element_type=float32``), masked with -1e9, softmax in fp32,
@@ -28,9 +42,10 @@ import torch
 from ..framework import in_var, set_out
 from ..registry import register_op
 from . import flash_attention, kv_quant
-from .segment_mask import SegmentIds
+from .segment_mask import SegmentIds, densify_segment_mask
 
-__all__ = ["dot_product_attention", "paged_chunk_attention", "NEG_INF"]
+__all__ = ["dot_product_attention", "dense_mask", "dispatch_path",
+           "paged_chunk_attention", "NEG_INF"]
 
 NEG_INF = -1e9
 
@@ -44,11 +59,24 @@ def _expand_kv(k, v, heads, head_ax):
     return k, v
 
 
-def dot_product_attention(q, k, v, *, causal=False, scale=None,
+def dense_mask(mask):
+    """A mask of the op (a bool tensor broadcastable to [b, h, s_q, s_k],
+    a factored ``(q_valid, k_valid)`` pair or :class:`SegmentIds`) as a
+    dense bool [b|1, h|1, s_q, s_k] (True = visible)."""
+    if isinstance(mask, (tuple, list)):
+        return mask[0].bool()[:, None, :, None] & \
+            mask[1].bool()[:, None, None, :]
+    if isinstance(mask, SegmentIds):
+        return densify_segment_mask(mask)
+    return mask.bool()
+
+
+def dot_product_attention(q, k, v, *, causal=False, scale=None, mask=None,
                           layout="bhsd"):
     """q, k, v: [batch, heads, seq, head_dim] (``layout="bshd"``: [batch,
     seq, heads, head_dim]); q may have its own seq length. Causal masking
-    aligns q's last row with k's last row."""
+    aligns q's last row with k's last row. ``mask``: any mask of
+    :func:`dense_mask`; hidden logits are -1e9, as causal ones."""
     head_ax = 2 if layout == "bshd" else 1
     k, v = _expand_kv(k, v, q.shape[head_ax], head_ax)
     scale = scale if scale is not None else 1.0 / float(np.sqrt(q.shape[-1]))
@@ -62,6 +90,8 @@ def dot_product_attention(q, k, v, *, causal=False, scale=None,
         idx_q = torch.arange(qlen, device=q.device)[:, None] + (klen - qlen)
         idx_k = torch.arange(klen, device=q.device)[None, :]
         logits = logits.masked_fill(~(idx_k <= idx_q), NEG_INF)
+    if mask is not None:
+        logits = logits.masked_fill(~dense_mask(mask), NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if layout == "bshd":
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -114,13 +144,13 @@ def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,
 
 def _resolve_mask(ins):
     """The op's mask inputs, with the reference's precedence Mask > SegIds
-    > Valid: a :class:`SegmentIds` of int32 [b, s] ids from
-    "QSegIds"/"KSegIds", else None or the factored ``(q_valid, k_valid)``
-    pair ([b|1, s] bool each) from "QValid"/"KValid"."""
-    if ins.get("Mask", [None])[0] is not None:
-        raise NotImplementedError(
-            "fused_attention with a dense Mask is not ported yet (K1's "
-            "dense-mask variant and K6)")
+    > Valid: a dense bool tensor from "Mask" ([b|1, h|1, s, s]), a
+    :class:`SegmentIds` of int32 [b, s] ids from "QSegIds"/"KSegIds",
+    else None or the factored ``(q_valid, k_valid)`` pair ([b|1, s] bool
+    each) from "QValid"/"KValid"."""
+    mask = ins.get("Mask", [None])[0]
+    if mask is not None:
+        return mask.bool().contiguous()
     qs = ins.get("QSegIds", [None])[0]
     ks = ins.get("KSegIds", [None])[0]
     if qs is not None or ks is not None:
@@ -137,30 +167,56 @@ def _resolve_mask(ins):
     return qv.bool(), kv.bool().contiguous()
 
 
-def _mask_padded_q_rows(x, mask):
-    """Zero padded query rows of a bshd output or cotangent (the
+def dispatch_path(q, k, mask, layout):
+    """``"saved"``, ``"dense"`` or ``"plain"`` (see the module docstring)
+    for q, k in ``layout`` under ``mask`` (as :func:`_resolve_mask` gives
+    it) — decided from shapes alone, before any launch, so the forward
+    and the grad op take the same path. The counterpart of the
+    reference's ``_dispatch_path`` and ``pallas_attention.supports``."""
+    if flash_attention.dims(q, k, layout)[4] > flash_attention.MAX_HEAD_DIM:
+        return "plain"
+    if isinstance(mask, SegmentIds):
+        return "saved" if layout == "bshd" else "plain"
+    if mask is None or isinstance(mask, (tuple, list)):
+        return "saved"
+    if flash_attention.takes_dense_mask(q, k, mask, layout):
+        return "dense"
+    return "plain"
+
+
+def _mask_padded_q_rows(x, mask, layout):
+    """Zero padded query rows of an output or cotangent in ``layout`` (the
     reference's op-boundary rule: the kernels stream only the key
-    factor). Segment-masked outputs stay as they are: a row's padding
+    factor). Other masks leave it as it is: a segment-masked row's padding
     segment attends itself, as in the reference."""
     if not isinstance(mask, tuple):
         return x
-    return x * mask[0].to(x.dtype)[:, :, None, None]
+    qv = mask[0].to(x.dtype)
+    if layout == "bshd":
+        return x * qv[:, :, None, None]
+    return x * qv[:, None, :, None]
 
 
 def _qkv(ctx, ins):
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
-    if ctx.attr("layout", "bhsd") != "bshd":
-        raise NotImplementedError(
-            "fused_attention with layout %r is not ported yet (the per-head "
-            "kernels, K6); the port takes bshd" % ctx.attr("layout", "bhsd"))
     if ctx.amp:
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def _attrs(ctx):
+    return (ctx.attr("scale", None), ctx.attr("causal", False),
+            ctx.attr("layout", "bhsd"))
+
+
+def _bhs(shape, layout):
+    return (shape[0], shape[2], shape[1]) if layout == "bshd" else \
+        (shape[0], shape[1], shape[2])
+
+
 def _fused_attention_rule(block, op):
     q = in_var(block, op, "Q")
-    b, s, h = q.shape[0], q.shape[1], q.shape[2]
+    b, h, s = _bhs(q.shape, op.attr("layout", "bhsd"))
     set_out(block, op, "Out", q.shape, dtype=q.dtype)
     set_out(block, op, "Lse", [b * h, s, flash_attention.LSE_LANES],
             dtype="float32")
@@ -169,24 +225,40 @@ def _fused_attention_rule(block, op):
 @register_op("fused_attention", infer_shape=_fused_attention_rule)
 def _fused_attention(ctx, ins):
     q, k, v = _qkv(ctx, ins)
+    scale, causal, layout = _attrs(ctx)
     mask = _resolve_mask(ins)
-    out, lse = flash_attention.flash_fwd_saving_lse(
-        q, k, v, ctx.attr("scale", None), ctx.attr("causal", False), mask)
-    return {"Out": [_mask_padded_q_rows(out, mask)], "Lse": [lse]}
+    if dispatch_path(q, k, mask, layout) == "plain":
+        out = dot_product_attention(q, k, v, causal=causal, scale=scale,
+                                    mask=mask, layout=layout)
+        b, h, s = _bhs(q.shape, layout)
+        lse = torch.zeros((b * h, s, flash_attention.LSE_LANES),
+                          dtype=torch.float32, device=q.device)
+    else:
+        out, lse = flash_attention.flash_fwd_saving_lse(
+            q, k, v, scale, causal, mask, layout)
+    return {"Out": [_mask_padded_q_rows(out, mask, layout)], "Lse": [lse]}
 
 
 @register_op("fused_attention_grad", no_grad=True)
 def _fused_attention_grad(ctx, ins):
-    """K2 (or K5's backward) on the saved (Q, K, V, Out, Lse): the forward
-    never runs again. Padded query rows get a zeroed cotangent, so their
-    dq rows and dk/dv contributions vanish inside the kernels."""
+    """On the saved path, K2, K6 or K5's backward on the saved (Q, K, V,
+    Out, Lse): the forward never runs again. Padded query rows get a
+    zeroed cotangent, so their dq rows and dk/dv contributions vanish
+    inside the kernels. Elsewhere (a dense mask, what no kernel takes),
+    the vjp of the plain composition, recomputed from Q, K, V — what the
+    reference's generic grad computes there."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     qb, kb, vb = _qkv(ctx, ins)
+    scale, causal, layout = _attrs(ctx)
     mask = _resolve_mask(ins)
-    o = ins["Out"][0].to(qb.dtype).contiguous()
-    g = _mask_padded_q_rows(ins["Out@GRAD"][0].to(qb.dtype), mask)
-    dq, dk, dv = flash_attention.flash_bwd_from_saved(
-        qb, kb, vb, o, ins["Lse"][0], g.contiguous(), ctx.attr("scale", None),
-        ctx.attr("causal", False), mask)
+    g = _mask_padded_q_rows(ins["Out@GRAD"][0].to(qb.dtype), mask, layout)
+    if dispatch_path(qb, kb, mask, layout) == "saved":
+        o = ins["Out"][0].to(qb.dtype).contiguous()
+        dq, dk, dv = flash_attention.flash_bwd_from_saved(
+            qb, kb, vb, o, ins["Lse"][0], g.contiguous(), scale, causal,
+            mask, layout)
+    else:
+        dq, dk, dv = flash_attention.plain_vjp(
+            qb, kb, vb, g, scale, causal, mask, layout)
     return {"Q@GRAD": [dq.to(q.dtype)], "K@GRAD": [dk.to(k.dtype)],
             "V@GRAD": [dv.to(v.dtype)]}

@@ -1,12 +1,15 @@
-"""Flash attention on ``[b, s, h, d]``: the wrappers of the hand-written
-CUDA kernels, their plain PyTorch versions, and the
-``torch.autograd.Function``s that tie each forward to its backward.
+"""Flash attention: the wrappers of the hand-written CUDA kernels, their
+plain PyTorch versions, and the ``torch.autograd.Function``s that tie
+each forward to its backward.
 
-They replace ``paddle_tpu/ops/pallas_attention.py``'s bshd kernels, the
-``pallas_saved`` path of ``fused_attention``:
+They replace ``paddle_tpu/ops/pallas_attention.py``'s kernels, the
+Pallas paths of ``fused_attention``. Two layouts: ``"bshd"`` ``[b, s, h,
+d]`` (the transformer LM's, the default of these functions) and
+``"bhsd"`` ``[b, h, s, d]`` (the op's default); k and v carry ``hkv``
+heads in the same layout.
 
-- K1/K2 (``csrc/flash_attention.cu``), no mask or a factored padding
-  mask: :func:`flash_fwd` (K1, ``_flash_fwd_bshd``) returns ``(o,
+- K1/K2 (``csrc/flash_attention.cu``), bshd, no mask or a factored
+  padding mask: :func:`flash_fwd` (K1, ``_flash_fwd_bshd``) returns ``(o,
   lse)``: O in q's dtype, Lse fp32 ``[b*h, s, 8]`` (row ``bi*h + head``,
   value repeated over the 8 lanes, the TPU kernel's layout);
   :func:`flash_bwd_dq` (K2-dQ) and :func:`flash_bwd_dkv` (K2-dKV)
@@ -14,7 +17,15 @@ They replace ``paddle_tpu/ops/pallas_attention.py``'s bshd kernels, the
   rowsum(dO∘O), which :func:`flash_bwd` reduces in torch first, as the
   reference leaves Δ to XLA; dk/dv come out at the kv heads (GQA group
   summed).
-- K5 (``csrc/flash_segment.cu``), packed segment ids
+- K6 (``csrc/flash_bhsd.cu``): the same functions with ``layout="bhsd"``
+  (``_flash_fwd_dispatch`` / ``_flash_bwd_dispatch``): K6-fwd, K6-dQ,
+  K6-dKV. The TPU backward takes full heads; K6 folds each kv head's
+  query group as K2 does, which gives the reference's expand-and-sum.
+- Dense masks: ``mask=`` a bool ``[b|1, h|1, s, s]`` tensor (bshd:
+  ``[b|1, 1, s, s]``) takes the forward only — K1-dense in bshd, K6-fwd's
+  dense instantiation in bhsd (each counted apart). Its backward is the
+  plain composition's vjp (:class:`FlashAttention`), as the reference's.
+- K5 (``csrc/flash_segment.cu``), bshd, packed segment ids
   (``segment_mask.SegmentIds``, ``_flash_fwd_segment`` /
   ``_flash_bwd_segment``): :func:`flash_fwd_segment` (K5-fwd),
   :func:`flash_bwd_segment_dq` (K5-dQ), :func:`flash_bwd_segment_dkv`
@@ -46,27 +57,38 @@ import torch
 from .segment_mask import is_segment_mask
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "kernel_name", "dims",
            "flash_fwd_plain", "flash_bwd_plain", "FlashAttention",
            "flash_fwd_segment", "flash_bwd_segment", "flash_bwd_segment_dq",
            "flash_bwd_segment_dkv", "flash_fwd_segment_plain",
            "flash_bwd_segment_plain", "FlashSegmentAttention",
-           "flash_fwd_saving_lse", "flash_bwd_from_saved", "launches",
-           "NEG_INF", "LSE_LANES", "MAX_HEAD_DIM", "MAX_GROUP"]
+           "flash_fwd_saving_lse", "flash_bwd_from_saved", "plain_vjp",
+           "launches",
+           "NEG_INF", "LSE_LANES", "MAX_HEAD_DIM", "takes_dense_mask"]
 
 NEG_INF = -1e30
 LSE_LANES = 8
 MAX_HEAD_DIM = 256
-MAX_GROUP = 64              # query heads per kv head a kernel block folds
 _SMEM_LIMIT = 232448        # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# kernel name -> (library, its C prefix, kernel index in that library)
+# kernel name -> (library, its C prefix, kernel index in that library,
+# mask kind); the bhsd library holds the per-head layout's kernels
 _KERNELS = {
-    "flash_fwd": ("flash_attention", "paddle_flash_", 0),
-    "flash_bwd_dq": ("flash_attention", "paddle_flash_", 1),
-    "flash_bwd_dkv": ("flash_attention", "paddle_flash_", 2),
-    "flash_segment_fwd": ("flash_segment", "paddle_flash_segment_", 0),
-    "flash_segment_bwd_dq": ("flash_segment", "paddle_flash_segment_", 1),
-    "flash_segment_bwd_dkv": ("flash_segment", "paddle_flash_segment_", 2),
+    "flash_fwd": ("flash_attention", "paddle_flash_", 0, "valid"),
+    "flash_fwd_dense": ("flash_attention", "paddle_flash_", 0, "dense"),
+    "flash_bwd_dq": ("flash_attention", "paddle_flash_", 1, "valid"),
+    "flash_bwd_dkv": ("flash_attention", "paddle_flash_", 2, "valid"),
+    "flash_segment_fwd": ("flash_segment", "paddle_flash_segment_", 0,
+                          "seg"),
+    "flash_segment_bwd_dq": ("flash_segment", "paddle_flash_segment_", 1,
+                             "seg"),
+    "flash_segment_bwd_dkv": ("flash_segment", "paddle_flash_segment_", 2,
+                              "seg"),
+    "flash_bhsd_fwd": ("flash_bhsd", "paddle_flash_bhsd_", 0, "valid"),
+    "flash_bhsd_fwd_dense": ("flash_bhsd", "paddle_flash_bhsd_", 0,
+                             "dense"),
+    "flash_bhsd_bwd_dq": ("flash_bhsd", "paddle_flash_bhsd_", 1, "valid"),
+    "flash_bhsd_bwd_dkv": ("flash_bhsd", "paddle_flash_bhsd_", 2, "valid"),
 }
 
 launches = {name: 0 for name in _KERNELS}
@@ -77,19 +99,61 @@ def _scale(q, scale):
         1.0 / float(np.sqrt(q.shape[-1]))
 
 
-def _check_shapes(q, k, v, k_valid=None, seg=None):
+def kernel_name(role, layout="bshd", dense=False):
+    """The ``launches`` key of the kernel that computes ``role`` ("fwd",
+    "bwd_dq" or "bwd_dkv") in ``layout``, under a dense mask when
+    ``dense`` (forward only)."""
+    return ("flash_bhsd_" if layout == "bhsd" else "flash_") + role + \
+        ("_dense" if dense else "")
+
+
+def dims(q, k, layout):
+    """(b, s, h, hkv, d) of q and k in ``layout``."""
+    if layout == "bhsd":
+        return q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3]
+    return q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+
+
+def _to_bshd(x, layout):
+    return x.transpose(1, 2) if layout == "bhsd" else x
+
+
+def _dense_heads(h, layout):
+    """The head extents a kernel takes in a dense mask: 1 or h in bhsd,
+    1 (a head-broadcast mask) in bshd."""
+    return (1, h) if layout == "bhsd" else (1,)
+
+
+def takes_dense_mask(q, k, mask, layout):
+    """Whether a kernel takes the dense ``mask`` over q, k in
+    ``layout``: a 4-d [b|1, h|1, s, s] mask in bhsd, [b|1, 1, s, s] in
+    bshd."""
+    b, s, h, _, _ = dims(q, k, layout)
+    return mask.dim() == 4 and mask.shape[0] in (1, b) and \
+        mask.shape[1] in _dense_heads(h, layout) and \
+        tuple(mask.shape[2:]) == (s, s)
+
+
+def _check_shapes(q, k, v, k_valid=None, seg=None, mask=None,
+                  layout="bshd"):
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError("layout must be 'bshd' or 'bhsd' (got %r)"
+                         % (layout,))
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError("flash attention takes q [b, s, h, d] and k, v "
-                         "[b, s, hkv, d] (got %s, %s, %s)"
+                         "[b, s, hkv, d] (bhsd: [b, h, s, d], [b, hkv, s, "
+                         "d]; got %s, %s, %s)"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    b, s, h, d = q.shape
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+    b, s, h, hkv, d = dims(q, k, layout)
+    if k.shape[0] != b or dims(k, k, layout)[1] != s or k.shape[3] != d:
         raise ValueError("k/v %s do not match q %s (self-attention: same "
                          "batch, sequence and head_dim)"
                          % (tuple(k.shape), tuple(q.shape)))
-    if h % k.shape[2]:
-        raise ValueError("heads %d not divisible by kv_heads %d"
-                         % (h, k.shape[2]))
+    if h % hkv:
+        raise ValueError("heads %d not divisible by kv_heads %d" % (h, hkv))
+    if sum(m is not None for m in (k_valid, seg, mask)) > 1:
+        raise ValueError("pass one mask: k_valid, segment ids or a dense "
+                         "mask")
     if k_valid is not None and (k_valid.dim() != 2 or
                                 k_valid.shape[0] not in (1, b) or
                                 k_valid.shape[1] != s):
@@ -99,18 +163,28 @@ def _check_shapes(q, k, v, k_valid=None, seg=None):
         if not is_segment_mask(seg):
             raise TypeError("segment masks are SegmentIds (got %r)"
                             % type(seg).__name__)
+        if layout != "bshd":
+            raise ValueError("segment masks take the bshd layout")
         for name, ids in (("q", seg.q), ("kv", seg.kv)):
             if tuple(ids.shape) != (b, s) or ids.is_floating_point():
                 raise ValueError("segment ids %s must be integer [b, s] = "
                                  "%s (got %s %s)" % (name, (b, s),
                                                      ids.dtype,
                                                      tuple(ids.shape)))
+    if mask is not None and not takes_dense_mask(q, k, mask, layout):
+        raise ValueError("a dense %s mask must be [1|%d, %s, %d, %d] "
+                         "(got %s)" % (layout, b, "|".join(
+                             map(str, _dense_heads(h, layout))), s, s,
+                                       tuple(mask.shape)))
 
 
 # -- plain versions ----------------------------------------------------------
+# They compute on bshd views; bhsd inputs are transposed views, so the
+# arithmetic is the same in both layouts.
 
-def _logits(q, k, scale, causal, k_valid, seg=None):
-    """fp32 masked logits [b, h, s, s] (head = kv_head * g + i)."""
+def _logits(q, k, scale, causal, k_valid, seg=None, mask=None):
+    """fp32 masked logits [b, h, s, s] (head = kv_head * g + i) of bshd
+    q, k."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     qf = q.float().reshape(b, s, hkv, h // hkv, d)
@@ -124,6 +198,11 @@ def _logits(q, k, scale, causal, k_valid, seg=None):
     if seg is not None:
         hidden = hidden | (seg.q[:, :, None] != seg.kv[:, None, :]) \
             [:, None, None]
+    if mask is not None:      # [mb, 1|h, s, s] → [mb, 1|hkv, 1|g, s, s]
+        m = mask.bool()
+        m = m[:, :, None] if m.shape[1] == 1 else \
+            m.reshape(m.shape[0], hkv, h // hkv, s, s)
+        hidden = hidden | ~m
     logits = logits.masked_fill(hidden, NEG_INF)
     return logits.reshape(b, h, s, s)
 
@@ -135,24 +214,29 @@ def _kv_heads(x, h):
         .permute(0, 2, 1, 3)
 
 
-def _fwd_plain(q, k, v, scale, causal, k_valid, seg):
+def _fwd_plain(q, k, v, scale, causal, k_valid, seg, mask=None,
+               layout="bshd"):
+    q, k, v = (_to_bshd(x, layout) for x in (q, k, v))
     b, s, h, d = q.shape
-    logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg)
+    logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg, mask)
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
     o = torch.matmul(p, _kv_heads(v, h)) / l            # [b, h, s, d]
     lse = (m + torch.log(l)).reshape(b * h, s, 1)
-    return (o.permute(0, 2, 1, 3).to(q.dtype).contiguous(),
+    o = o if layout == "bhsd" else o.permute(0, 2, 1, 3)
+    return (o.to(q.dtype).contiguous(),
             lse.expand(b * h, s, LSE_LANES).contiguous())
 
 
-def flash_fwd_plain(q, k, v, scale=None, causal=False, k_valid=None):
-    """K1's function in plain PyTorch: ``(o, lse)`` as the kernel returns
-    them. Used for CPU tensors and as the reference the kernel is held
+def flash_fwd_plain(q, k, v, scale=None, causal=False, k_valid=None,
+                    mask=None, layout="bshd"):
+    """The forward kernels' function in plain PyTorch (K1, K1-dense, K6-fwd
+    by ``layout`` and ``mask``): ``(o, lse)`` as the kernels return them.
+    Used for CPU tensors and as the reference the kernels are held
     against on the card."""
-    _check_shapes(q, k, v, k_valid)
-    return _fwd_plain(q, k, v, scale, causal, k_valid, None)
+    _check_shapes(q, k, v, k_valid, mask=mask, layout=layout)
+    return _fwd_plain(q, k, v, scale, causal, k_valid, None, mask, layout)
 
 
 def flash_fwd_segment_plain(q, k, v, seg, scale=None, causal=False):
@@ -163,11 +247,14 @@ def flash_fwd_segment_plain(q, k, v, seg, scale=None, causal=False):
 
 
 def _delta(o, do):
-    """Δ = rowsum(dO∘O) in fp32, [b, s, h]."""
+    """Δ = rowsum(dO∘O) in fp32, in O's layout without d: [b, s, h]
+    (bhsd: [b, h, s])."""
     return (do.float() * o.float()).sum(-1)
 
 
-def _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, seg):
+def _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, seg,
+               layout="bshd"):
+    q, k, v, o, do = (_to_bshd(x, layout) for x in (q, k, v, o, do))
     b, s, h, d = q.shape
     hkv = k.shape[2]
     sc = _scale(q, scale)
@@ -181,18 +268,22 @@ def _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, seg):
     dv = torch.matmul(p.transpose(-1, -2), dof)
 
     def kv_grad(x):                                      # [b, h, s, d]
-        return x.reshape(b, hkv, h // hkv, s, d).sum(2).permute(0, 2, 1, 3)
-    return (dq.permute(0, 2, 1, 3).to(q.dtype).contiguous(),
+        x = x.reshape(b, hkv, h // hkv, s, d).sum(2)
+        return x if layout == "bhsd" else x.permute(0, 2, 1, 3)
+    dq = dq if layout == "bhsd" else dq.permute(0, 2, 1, 3)
+    return (dq.to(q.dtype).contiguous(),
             kv_grad(dk).to(k.dtype).contiguous(),
             kv_grad(dv).to(v.dtype).contiguous())
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, scale=None, causal=False,
-                    k_valid=None):
-    """K2's function in plain PyTorch: ``(dq, dk, dv)`` from the saved
-    forward residuals, dk/dv summed over each kv head's query group."""
-    _check_shapes(q, k, v, k_valid)
-    return _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, None)
+                    k_valid=None, layout="bshd"):
+    """The backward kernels' function in plain PyTorch (K2, K6 by
+    ``layout``): ``(dq, dk, dv)`` from the saved forward residuals, dk/dv
+    summed over each kv head's query group."""
+    _check_shapes(q, k, v, k_valid, layout=layout)
+    return _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, None,
+                      layout)
 
 
 def flash_bwd_segment_plain(q, k, v, o, lse, do, seg, scale=None,
@@ -204,20 +295,26 @@ def flash_bwd_segment_plain(q, k, v, o, lse, do, seg, scale=None,
 
 # -- the kernels -------------------------------------------------------------
 
+_MASK_ARGTYPES = {"valid": [ctypes.c_void_p, ctypes.c_int],   # k_valid, rows
+                  "seg": [ctypes.c_void_p, ctypes.c_void_p],  # q_seg, kv_seg
+                  "dense": [ctypes.c_void_p, ctypes.c_int,    # mask, mb, mh
+                            ctypes.c_int]}
+
+
 def _bind(source, prefix):
     from .. import _build
     lib = _build.load(source)
     if not getattr(lib, "_bound", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 5 + [f32, i32, i32, ptr]   # b s h hkv d scale causal dtype stream
-        # the mask: (k_valid, its rows) or (q_seg, kv_seg)
-        mask = [ptr, i32] if source == "flash_attention" else [ptr, ptr]
-        fns = {"fwd": [ptr] * 3 + mask + [ptr] * 2 + dims,
-               "bwd_dq": [ptr] * 6 + mask + [ptr] + dims,
-               "bwd_dkv": [ptr] * 6 + mask + [ptr] * 2 + dims}
-        for fn_name, argtypes in fns.items():
-            fn = getattr(lib, prefix + fn_name)
-            fn.argtypes = argtypes
+        for name, (src, _, index, kind) in _KERNELS.items():
+            if src != source:
+                continue
+            mask = _MASK_ARGTYPES[kind]
+            fn = getattr(lib, "paddle_" + name)
+            fn.argtypes = [[ptr] * 3 + mask + [ptr] * 2,       # fwd
+                           [ptr] * 6 + mask + [ptr],           # dQ
+                           [ptr] * 6 + mask + [ptr] * 2][index] + dims
             fn.restype = ctypes.c_int
         smem = getattr(lib, prefix + "smem_bytes")
         smem.argtypes = [i32, i32]
@@ -229,6 +326,11 @@ def _bind(source, prefix):
     return lib
 
 
+def _kernel_layout(name):
+    """The layout of kernel ``name``'s tensors: its library's."""
+    return "bhsd" if _KERNELS[name][0] == "flash_bhsd" else "bshd"
+
+
 def _same_device(name, tensors, *masks):
     devices = {t.device for t in tensors.values()}
     devices.update(m.device for m in masks if m is not None)
@@ -238,11 +340,13 @@ def _same_device(name, tensors, *masks):
     return devices.pop()
 
 
-def _check_kernel_inputs(name, tensors, k_valid=None, seg=None):
+def _check_kernel_inputs(name, tensors, k_valid=None, seg=None, mask=None):
     """What every kernel takes: fp32 or bf16 q, k, v (and O, dO) of one
-    dtype, fp32 ``lse``/``delta``, contiguous, head_dim <= 256, at most
-    MAX_GROUP query heads per kv head, contiguous int32 segment ids, on a
+    dtype, fp32 ``lse``/``delta``, contiguous, head_dim <= 256,
+    contiguous int32 segment ids, a contiguous bool or uint8 mask, on a
     CUDA device. Returns the bound library."""
+    source, prefix, index, _ = _KERNELS[name]
+    layout = _kernel_layout(name)
     q = tensors["q"]
     for n, t in tensors.items():
         want = torch.float32 if n in ("lse", "delta") else q.dtype
@@ -252,36 +356,34 @@ def _check_kernel_inputs(name, tensors, k_valid=None, seg=None):
                             "%s with q %s)" % (name, n, t.dtype, q.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: %s must be contiguous" % (name, n))
-    if k_valid is not None and (k_valid.dtype not in (torch.bool,
-                                                      torch.uint8) or
-                                not k_valid.is_contiguous()):
-        raise TypeError("%s: k_valid must be a contiguous bool or uint8 "
-                        "tensor (got %s)" % (name, k_valid.dtype))
+    for n, m in (("k_valid", k_valid), ("mask", mask)):
+        if m is not None and (m.dtype not in (torch.bool, torch.uint8) or
+                              not m.is_contiguous()):
+            raise TypeError("%s: %s must be a contiguous bool or uint8 "
+                            "tensor (got %s)" % (name, n, m.dtype))
     if seg is not None:
         for ids in (seg.q, seg.kv):
             if ids.dtype != torch.int32 or not ids.is_contiguous():
                 raise TypeError("%s: segment ids must be contiguous int32 "
                                 "(got %s)" % (name, ids.dtype))
-    b, s, h, d = q.shape
+    b, s, h, hkv, d = dims(q, tensors["k"], layout)
     if d > MAX_HEAD_DIM:
         raise ValueError("%s supports head_dim <= %d (got %d)"
                          % (name, MAX_HEAD_DIM, d))
-    group = h // tensors["k"].shape[2]
-    if group > MAX_GROUP:
-        raise ValueError("%s folds at most %d query heads per kv head "
-                         "(got %d)" % (name, MAX_GROUP, group))
     if "lse" in tensors and tuple(tensors["lse"].shape) != \
             (b * h, s, LSE_LANES):
         raise ValueError("%s: lse must be [b*h, s, %d] = %s (got %s)"
                          % (name, LSE_LANES, (b * h, s, LSE_LANES),
                             tuple(tensors["lse"].shape)))
-    if "delta" in tensors and tuple(tensors["delta"].shape) != (b, s, h):
-        raise ValueError("%s: delta must be [b, s, h] = %s (got %s)"
-                         % (name, (b, s, h), tuple(tensors["delta"].shape)))
+    want = (b, h, s) if layout == "bhsd" else (b, s, h)
+    if "delta" in tensors and tuple(tensors["delta"].shape) != want:
+        raise ValueError("%s: delta must be %s = %s (got %s)"
+                         % (name, "[b, h, s]" if layout == "bhsd"
+                            else "[b, s, h]", want,
+                            tuple(tensors["delta"].shape)))
     if q.device.type != "cuda":
         raise ValueError("%s runs on cpu or cuda tensors (got %s)"
                          % (name, q.device))
-    source, prefix, index = _KERNELS[name]
     lib = _bind(source, prefix)
     smem = getattr(lib, prefix + "smem_bytes")(index, d)
     if smem > _SMEM_LIMIT:
@@ -291,11 +393,13 @@ def _check_kernel_inputs(name, tensors, k_valid=None, seg=None):
     return lib
 
 
-def _mask_args(k_valid=None, seg=None):
-    """The C entry points' mask arguments: (k_valid, its rows) for K1/K2,
-    (q_seg, kv_seg) for K5."""
+def _mask_args(k_valid=None, seg=None, mask=None):
+    """The C entry points' mask arguments: (k_valid, its rows) for K1/K2
+    and K6, (q_seg, kv_seg) for K5, (mask, mb, mh) for a dense mask."""
     if seg is not None:
         return [seg.q.data_ptr(), seg.kv.data_ptr()]
+    if mask is not None:
+        return [mask.data_ptr(), mask.shape[0], mask.shape[1]]
     return [None if k_valid is None else k_valid.data_ptr(),
             0 if k_valid is None else k_valid.shape[0]]
 
@@ -304,14 +408,14 @@ def _launch(name, lib, ins, mask, outs, scale, causal):
     """One kernel launch on the current stream: ``ins``, then the mask
     arguments, then ``outs`` as the C entry point orders its pointers."""
     q, k = ins[0], ins[1]
-    b, s, h, d = q.shape
-    _, prefix, _ = _KERNELS[name]
+    prefix = _KERNELS[name][1]
+    b, s, h, hkv, d = dims(q, k, _kernel_layout(name))
     fn = getattr(lib, "paddle_" + name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*[t.data_ptr() for t in ins], *mask,
                  *[t.data_ptr() for t in outs],
-                 b, s, h, k.shape[2], d, scale, int(bool(causal)),
+                 b, s, h, hkv, d, scale, int(bool(causal)),
                  _DTYPES[q.dtype], stream)
     if err != 0:
         msg = getattr(lib, prefix + "error_string")(err).decode()
@@ -320,14 +424,16 @@ def _launch(name, lib, ins, mask, outs, scale, causal):
     launches[name] += 1
 
 
-def _fwd_kernel(name, q, k, v, scale, causal, k_valid=None, seg=None):
-    lib = _check_kernel_inputs(name, {"q": q, "k": k, "v": v}, k_valid, seg)
-    b, s, h, _ = q.shape
+def _fwd_kernel(name, q, k, v, scale, causal, k_valid=None, seg=None,
+                mask=None):
+    lib = _check_kernel_inputs(name, {"q": q, "k": k, "v": v}, k_valid, seg,
+                               mask)
+    b, s, h, _, _ = dims(q, k, _kernel_layout(name))
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s, LSE_LANES), dtype=torch.float32,
                       device=q.device)
-    _launch(name, lib, (q, k, v), _mask_args(k_valid, seg), (out, lse),
-            _scale(q, scale), causal)
+    _launch(name, lib, (q, k, v), _mask_args(k_valid, seg, mask),
+            (out, lse), _scale(q, scale), causal)
     return out, lse
 
 
@@ -342,56 +448,65 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, scale, causal, k_valid=None,
     return outs[0] if len(outs) == 1 else outs
 
 
-def flash_fwd(q, k, v, scale=None, causal=False, k_valid=None):
-    """K1: ``(o, lse)`` of causal/unmasked/key-padded attention on
-    ``[b, s, h, d]``. CPU tensors take :func:`flash_fwd_plain`; CUDA
-    tensors launch the kernel or raise."""
-    _check_shapes(q, k, v, k_valid)
-    dev = _same_device("flash_fwd", {"q": q, "k": k, "v": v}, k_valid)
+def flash_fwd(q, k, v, scale=None, causal=False, k_valid=None, mask=None,
+              layout="bshd"):
+    """``(o, lse)`` of causal/unmasked/key-padded attention, or under the
+    dense bool ``mask``: K1 (bshd), K6-fwd (bhsd), K1-dense or K6-fwd's
+    dense instantiation (``mask``). CPU tensors take
+    :func:`flash_fwd_plain`; CUDA tensors launch the kernel or raise."""
+    _check_shapes(q, k, v, k_valid, mask=mask, layout=layout)
+    name = kernel_name("fwd", layout, mask is not None)
+    dev = _same_device(name, {"q": q, "k": k, "v": v}, k_valid, mask)
     if dev.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale, causal, k_valid)
-    return _fwd_kernel("flash_fwd", q, k, v, scale, causal, k_valid=k_valid)
+        return flash_fwd_plain(q, k, v, scale, causal, k_valid, mask, layout)
+    return _fwd_kernel(name, q, k, v, scale, causal, k_valid=k_valid,
+                       mask=mask)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale=None, causal=False,
-                 k_valid=None):
-    """K2-dQ: dq from the saved (q, k, v, lse), the cotangent ``do`` and
-    ``delta`` = rowsum(dO∘O) [b, s, h] fp32. CUDA tensors only (the CPU
-    computes the whole backward in :func:`flash_bwd_plain`)."""
-    _check_shapes(q, k, v, k_valid)
-    _same_device("flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do,
-                                  "lse": lse, "delta": delta}, k_valid)
-    return _bwd_kernel("flash_bwd_dq", q, k, v, do, lse, delta, scale,
-                       causal, k_valid=k_valid)
+                 k_valid=None, layout="bshd"):
+    """K2-dQ (bshd) or K6-dQ (bhsd): dq from the saved (q, k, v, lse), the
+    cotangent ``do`` and ``delta`` = rowsum(dO∘O) fp32 in O's layout
+    without d. CUDA tensors only (the CPU computes the whole backward in
+    :func:`flash_bwd_plain`)."""
+    _check_shapes(q, k, v, k_valid, layout=layout)
+    name = kernel_name("bwd_dq", layout)
+    _same_device(name, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                        "delta": delta}, k_valid)
+    return _bwd_kernel(name, q, k, v, do, lse, delta, scale, causal,
+                       k_valid=k_valid)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None, causal=False,
-                  k_valid=None):
-    """K2-dKV: (dk, dv) at the kv heads from the same inputs as
-    :func:`flash_bwd_dq`. CUDA tensors only."""
-    _check_shapes(q, k, v, k_valid)
-    _same_device("flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do,
-                                   "lse": lse, "delta": delta}, k_valid)
-    return _bwd_kernel("flash_bwd_dkv", q, k, v, do, lse, delta, scale,
-                       causal, k_valid=k_valid)
+                  k_valid=None, layout="bshd"):
+    """K2-dKV (bshd) or K6-dKV (bhsd): (dk, dv) at the kv heads from the
+    same inputs as :func:`flash_bwd_dq`. CUDA tensors only."""
+    _check_shapes(q, k, v, k_valid, layout=layout)
+    name = kernel_name("bwd_dkv", layout)
+    _same_device(name, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                        "delta": delta}, k_valid)
+    return _bwd_kernel(name, q, k, v, do, lse, delta, scale, causal,
+                       k_valid=k_valid)
 
 
-def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None):
-    """K2: ``(dq, dk, dv)`` from the saved forward residuals. CPU tensors
-    take :func:`flash_bwd_plain`; CUDA tensors reduce Δ in torch and
-    launch K2-dQ and K2-dKV, or raise."""
-    _check_shapes(q, k, v, k_valid)
+def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None,
+              layout="bshd"):
+    """K2 (bshd) or K6 (bhsd): ``(dq, dk, dv)`` from the saved forward
+    residuals. CPU tensors take :func:`flash_bwd_plain`; CUDA tensors
+    reduce Δ in torch and launch the dQ and dK/dV kernels, or raise."""
+    _check_shapes(q, k, v, k_valid, layout=layout)
     dev = _same_device("flash_bwd", {"q": q, "k": k, "v": v, "o": o,
                                      "lse": lse, "do": do}, k_valid)
     if dev.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid)
+        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid,
+                               layout)
     do = do.contiguous()
     delta = _delta(o, do)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_valid)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_valid)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, k_valid,
+                      layout)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_valid,
+                           layout)
     return dq, dk, dv
-
-
 def flash_fwd_segment(q, k, v, seg, scale=None, causal=False):
     """K5-fwd: ``(o, lse)`` on ``[b, s, h, d]`` under the segment mask
     ``seg`` (int32 [b, s] ids, non-decreasing along each row). CPU
@@ -449,28 +564,52 @@ def flash_bwd_segment(q, k, v, o, lse, do, seg, scale=None, causal=False):
 
 
 class FlashAttention(torch.autograd.Function):
-    """K1 forward with K2 as its backward — the counterpart of the
-    reference's ``flash_fwd_saving_lse`` custom vjp. Returns ``(o, lse)``;
-    lse is a saved statistic and takes no gradient."""
+    """The flash forward (K1, K6-fwd, or their dense-mask variants) with
+    its backward — the counterpart of the reference's
+    ``flash_fwd_saving_lse`` and ``flash_attention`` custom vjps. Returns
+    ``(o, lse)``; lse is a saved statistic and takes no gradient. Without
+    a mask or with ``k_valid`` the backward is K2 or K6 on the saved
+    residuals; under a dense ``mask`` it is the vjp of the plain
+    composition (``attention.dot_product_attention``), as the reference
+    recomputes a dense-masked backward outside any kernel."""
 
     @staticmethod
-    def forward(q, k, v, scale, causal, k_valid):
-        return flash_fwd(q, k, v, scale, causal, k_valid)
+    def forward(q, k, v, scale, causal, k_valid, mask, layout):
+        return flash_fwd(q, k, v, scale, causal, k_valid, mask, layout)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, scale, causal, k_valid = inputs
+        q, k, v, scale, causal, k_valid, mask, layout = inputs
         o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal, ctx.k_valid = scale, causal, k_valid
+        ctx.mask, ctx.layout = mask, layout
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.scale, ctx.causal,
-                               ctx.k_valid)
-        return dq, dk, dv, None, None, None
+        if ctx.mask is not None:
+            dq, dk, dv = plain_vjp(q, k, v, do, ctx.scale, ctx.causal,
+                                        ctx.mask, ctx.layout)
+        else:
+            dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.scale,
+                                   ctx.causal, ctx.k_valid, ctx.layout)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def plain_vjp(q, k, v, do, scale, causal, mask, layout):
+    """``(dq, dk, dv)`` by the vjp of the plain composition
+    (``attention.dot_product_attention``) under ``mask`` (any mask it
+    takes), recomputed from q, k, v: the backward of a dense mask, which
+    no kernel takes."""
+    from .attention import dot_product_attention
+
+    def fwd(q, k, v):
+        return dot_product_attention(q, k, v, causal=causal, scale=scale,
+                                     mask=mask, layout=layout)
+    out, vjp = torch.func.vjp(fwd, q, k, v)
+    return vjp(do.to(out.dtype))
 
 
 class FlashSegmentAttention(torch.autograd.Function):
@@ -498,23 +637,35 @@ class FlashSegmentAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_fwd_saving_lse(q, k, v, scale=None, causal=False, mask=None):
+def flash_fwd_saving_lse(q, k, v, scale=None, causal=False, mask=None,
+                         layout="bshd"):
     """``(o, lse)``, differentiable in q, k, v. ``mask``: None or a
-    factored ``(q_valid, k_valid)`` padding mask (K1 with K2 as its
+    factored ``(q_valid, k_valid)`` padding mask (K1/K6 with K2/K6 as the
     backward; the kernels stream the key factor, the op applies the query
-    factor), or a :class:`SegmentIds` (K5)."""
+    factor), a :class:`SegmentIds` (K5, bshd), or a dense bool tensor
+    (K1-dense/K6-fwd; the backward recomputes)."""
     if is_segment_mask(mask):
+        if layout != "bshd":
+            raise ValueError("segment masks take the bshd layout")
         return FlashSegmentAttention.apply(q, k, v, mask, scale, causal)
-    k_valid = None if mask is None else mask[1]
-    return FlashAttention.apply(q, k, v, scale, causal, k_valid)
+    if isinstance(mask, (tuple, list)):
+        return FlashAttention.apply(q, k, v, scale, causal, mask[1], None,
+                                    layout)
+    return FlashAttention.apply(q, k, v, scale, causal, None, mask, layout)
 
 
 def flash_bwd_from_saved(q, k, v, o, lse, g, scale=None, causal=False,
-                         mask=None):
+                         mask=None, layout="bshd"):
     """``(dq, dk, dv)`` from the saved forward residuals — what the IR's
     ``fused_attention_grad`` op calls; it never re-runs the forward.
-    ``mask`` as for :func:`flash_fwd_saving_lse`."""
+    ``mask``: None, a factored pair or a :class:`SegmentIds` (a dense
+    mask's backward recomputes: :func:`plain_vjp`)."""
     if is_segment_mask(mask):
+        if layout != "bshd":
+            raise ValueError("segment masks take the bshd layout")
         return flash_bwd_segment(q, k, v, o, lse, g, mask, scale, causal)
+    if mask is not None and not isinstance(mask, (tuple, list)):
+        raise ValueError("no saved-residual backward takes a dense mask: "
+                         "it recomputes (plain_vjp)")
     k_valid = None if mask is None else mask[1]
-    return flash_bwd(q, k, v, o, lse, g, scale, causal, k_valid)
+    return flash_bwd(q, k, v, o, lse, g, scale, causal, k_valid, layout)

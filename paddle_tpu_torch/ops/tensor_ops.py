@@ -1,6 +1,7 @@
 """Tensor ops of the training slice — ports of
-``paddle_tpu/ops/tensor_ops.py``: ``reshape``, ``split``, ``cast``,
-``fill_constant``, ``uniform_random``, ``gaussian_random``, ``slice``.
+``paddle_tpu/ops/tensor_ops.py``: ``reshape``, ``transpose``, ``split``,
+``cast``, ``fill_constant``, ``uniform_random``, ``gaussian_random``,
+``slice``.
 
 The random ops draw from the op's ``torch.Generator`` (``ctx.rng()``, or
 one seeded from the op's ``seed`` attr), on the executor's device.
@@ -35,6 +36,19 @@ def _reshape(ctx, ins):
     x = ins["X"][0]
     return {"Out": [x.reshape(_reshape_target(list(x.shape),
                                               ctx.attr("shape")))]}
+
+
+def _transpose_rule(block, op):
+    x = in_var(block, op, "X")
+    set_out(block, op, "Out", [x.shape[p] for p in op.attr("axis")],
+            dtype=x.dtype)
+
+
+@register_op("transpose", infer_shape=_transpose_rule)
+def _transpose(ctx, ins):
+    """The permuted view; its grad is the generic vjp (the inverse
+    permutation)."""
+    return {"Out": [ins["X"][0].permute(*ctx.attr("axis"))]}
 
 
 def _sections(op_or_ctx, dim_size, n_outputs):

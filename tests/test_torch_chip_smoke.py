@@ -1,9 +1,10 @@
 """A CPU rehearsal of ``chip_smoke.py``'s phases at a tiny size: the
 K3-quant and quantized-append checks, the serving phase with its three
-quantized runs, the flash, segment and fused-Adam kernel checks, the fp32
-card-vs-CPU gate, the training run, the packed run with its padded
-baseline, the FusedAdam run and the kernel timing report, with every
-tensor on the CPU.
+quantized runs, the flash, segment, K6 / K1-dense and fused-Adam kernel
+checks, the fp32 card-vs-CPU gate, the training run, the packed run with
+its padded baseline, the FusedAdam run, the per-head (bhsd) and
+dense-mask runs with their gates, and the kernel timing report, with
+every tensor on the CPU.
 
 CPU tensors take the kernels' plain versions and count no launch, and
 the backward kernels exist only on CUDA, so the rehearsal swaps in shims
@@ -40,35 +41,44 @@ def tiny(monkeypatch):
                                          (3, 50, 4, 2, 16)]),
                         ("BASE_STEPS", 2), ("K4_SIZES", (1, 1023, 5000)),
                         ("K4_ODD_SIZES", (5, 101, 3333)),
-                        ("ALTERNATE_ROUNDS", 2)):
+                        ("ALTERNATE_ROUNDS", 2),
+                        ("BHSD_GEOMS", [(3, 64, 4, 4, 16),
+                                        (3, 50, 4, 2, 16)]),
+                        ("DENSE_STEPS", 3)):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "_timed", lambda fn, args, reps, flush:
                         (fn(*args), 0.5)[1])
     monkeypatch.setattr(fluid, "CUDAPlace", lambda i=0: fluid.CPUPlace())
     real_fwd = fa.flash_fwd
 
-    def fwd(*a, **k):
-        fa.launches["flash_fwd"] += 1
-        return real_fwd(*a, **k)
+    def fwd(q, k, v, scale=None, causal=False, k_valid=None, mask=None,
+            layout="bshd"):
+        fa.launches[fa.kernel_name("fwd", layout, mask is not None)] += 1
+        return real_fwd(q, k, v, scale, causal, k_valid, mask, layout)
 
-    def grads(q, k, v, do, lse, scale, causal, k_valid):
-        o = fa.flash_fwd_plain(q, k, v, scale, causal, k_valid)[0]
+    def grads(q, k, v, do, lse, scale, causal, k_valid, layout):
+        o = fa.flash_fwd_plain(q, k, v, scale, causal, k_valid,
+                               layout=layout)[0]
         return fa.flash_bwd_plain(q, k, v, o, lse, do, scale, causal,
-                                  k_valid)
+                                  k_valid, layout)
 
-    def dq(q, k, v, do, lse, delta, scale=None, causal=False, k_valid=None):
-        fa.launches["flash_bwd_dq"] += 1
-        return grads(q, k, v, do, lse, scale, causal, k_valid)[0]
+    def dq(q, k, v, do, lse, delta, scale=None, causal=False, k_valid=None,
+           layout="bshd"):
+        fa.launches[fa.kernel_name("bwd_dq", layout)] += 1
+        return grads(q, k, v, do, lse, scale, causal, k_valid, layout)[0]
 
-    def dkv(q, k, v, do, lse, delta, scale=None, causal=False, k_valid=None):
-        fa.launches["flash_bwd_dkv"] += 1
-        return grads(q, k, v, do, lse, scale, causal, k_valid)[1:]
+    def dkv(q, k, v, do, lse, delta, scale=None, causal=False, k_valid=None,
+            layout="bshd"):
+        fa.launches[fa.kernel_name("bwd_dkv", layout)] += 1
+        return grads(q, k, v, do, lse, scale, causal, k_valid, layout)[1:]
 
-    def bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None):
+    def bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None,
+            layout="bshd"):
         delta = (do.float() * o.float()).sum(-1)
         return (fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal,
-                                k_valid),) + \
-            fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_valid)
+                                k_valid, layout),) + \
+            fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, k_valid,
+                             layout)
 
     real_seg_fwd = fa.flash_fwd_segment
 
@@ -125,8 +135,8 @@ def test_training_phases_rehearse_on_the_cpu(tiny, capsys):
     assert gate["loss_rel_err"] <= cs.GATE_LOSS_RTOL
     res = cs.train_path()
     steps_x_layers = cs.LM_STEPS * cs.LM_LAYERS
-    assert res["launches"] == dict({n: steps_x_layers for n in cs.K1K2},
-                                   **{n: 0 for n in cs.K5})
+    assert res["launches"] == dict({n: 0 for n in cs.FLASH_KERNELS},
+                                   **{n: steps_x_layers for n in cs.K1K2})
     assert res["losses"][-1] < res["losses"][0]
     assert {"mul", "mul_grad", "fused_attention",
             "fused_attention_grad", "adam"} <= set(res["ops"])
@@ -157,11 +167,11 @@ def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
 
     res, scope = cs.packed_path(data)
     steps_x_layers = cs.LM_STEPS * cs.LM_LAYERS
-    assert res["launches"] == dict({n: steps_x_layers for n in cs.K5},
-                                   **{n: 0 for n in cs.K1K2})
+    assert res["launches"] == dict({n: 0 for n in cs.FLASH_KERNELS},
+                                   **{n: steps_x_layers for n in cs.K5})
     assert res["baseline"]["launches"] == dict(
-        {n: cs.BASE_STEPS * cs.LM_LAYERS for n in cs.K1K2},
-        **{n: 0 for n in cs.K5})
+        {n: 0 for n in cs.FLASH_KERNELS},
+        **{n: cs.BASE_STEPS * cs.LM_LAYERS for n in cs.K1K2})
     assert res["losses"][-1] < res["losses"][0]
     assert 0 < res["pack_occupancy"] <= 1 and 0 < res["pad_waste_baseline"]
     assert res["speedup_vs_padded_ragged"] > 0
@@ -185,6 +195,80 @@ def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
     json.dumps(timing + [row])
     out = capsys.readouterr().out
     assert "flash_segment_fwd" in out and "fused_adam" in out
+
+
+def test_layout_and_dense_mask_phases_rehearse_on_the_cpu(tiny, capsys):
+    before = dict(fa.launches)
+    rows = cs.layout_checks()
+    masks = len(cs.BHSD_MASKS) + len(cs.K1_DENSE_MASKS)
+    assert len(rows) == len(cs.BHSD_GEOMS) * 2 * 2 * masks
+    assert all(r["ok"] for r in rows)
+    assert {r["kernel"] for r in rows} == {"flash_bhsd_fwd",
+                                           "flash_bhsd_fwd_dense",
+                                           "flash_fwd_dense"}
+    assert all("dq" in r["max_abs_err"] for r in rows
+               if r["kernel"] == "flash_bhsd_fwd")
+    assert fa.launches == before     # comparison launches are restored
+
+    zero = {n: 0 for n in cs.FLASH_KERNELS}
+    res = cs.bhsd_path()
+    assert res["launches"] == dict(zero, **{
+        n: cs.LM_STEPS * cs.LM_LAYERS for n in cs.K6})
+    gate = res["layout_gate"]
+    assert gate["loss_rel_err"] <= cs.GATE_LOSS_RTOL
+    assert gate["update_rel_l2"] <= cs.GATE_UPDATE_REL_L2
+    assert res["losses"][-1] < res["losses"][0]
+    assert res["ops"]["fused_attention"]["calls"] == cs.LM_LAYERS
+    # 3 into the op and 1 out of it per layer, forward and backward
+    assert res["ops"]["transpose"]["calls"] == 4 * cs.LM_LAYERS
+    assert res["ops"]["transpose_grad"]["calls"] == 4 * cs.LM_LAYERS
+    assert [len(v) for v in res["alternating_step_ms"].values()] == \
+        [cs.ALTERNATE_ROUNDS] * 2 and res["step_ratio_vs_bshd"] > 0
+
+    dense = cs.dense_path()
+    for layout, kernel in (("bhsd", "flash_bhsd_fwd_dense"),
+                           ("bshd", "flash_fwd_dense")):
+        run = dense[layout]
+        assert run["launches"] == dict(zero, **{
+            kernel: cs.DENSE_STEPS * cs.LM_LAYERS})
+        assert run["losses"][-1] < run["losses"][0]
+        assert dense["gate"][layout]["loss_rel_err"] <= cs.GATE_LOSS_RTOL
+    assert dense["gate"]["first_loss_bhsd_vs_bshd_rel_err"] <= \
+        cs.GATE_LOSS_RTOL
+    assert 0.5 < dense["visible_share"] < 1
+
+    before = dict(fa.launches)
+    timing = cs.layout_timing(res["launches"], dense)
+    assert fa.launches == before     # comparison launches are restored
+    assert [r["name"] for r in timing] == list(cs.K6) + list(cs.DENSE)
+    assert [r["launches"] for r in timing] == \
+        [cs.LM_STEPS * cs.LM_LAYERS] * 3 + [cs.DENSE_STEPS * cs.LM_LAYERS] * 2
+    for r in timing:
+        assert ROW_KEYS <= set(r) and r["bound_by"] in ("bytes",
+                                                         "operations")
+    json.dumps(timing)
+    out = capsys.readouterr().out
+    assert "layout-parity gate" in out and "dense-mask bhsd gate" in out
+
+
+def test_prefix_mask_and_kernel_classes():
+    m = cs.prefix_mask(3, 64)
+    assert m.shape == (3, 1, 64, 64) and m.dtype == bool
+    lo, hi = 64 // 8, 64 * 7 // 8
+    for row in m[:, 0]:
+        p = int(row[0].sum())          # the first query sees the prefix
+        assert lo <= p <= hi
+        assert row[:, :p].all()        # the prefix is visible to all
+        assert (row[:, p:] == np.tril(np.ones((64, 64), bool))[:, p:]).all()
+    names = {
+        "k1": "void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, "
+              "64, 64, 2, false>((anonymous namespace)::Args)",
+        "k2": "flash_bwd_dkv_kernel<float, 64, 64, 0, false>(Args)",
+        "k5": "flash_bwd_dq_kernel<__nv_bfloat16, 64, 64, 1, false>(Args)",
+        "k6": "flash_fwd_kernel<__nv_bfloat16, 128, 64, 0, true>(Args)"}
+    for want, key in names.items():
+        assert cs.flash_class(key) == want
+    assert cs.flash_class("ampere_bf16_s16816gemm_bf16") is None
 
 
 @pytest.fixture

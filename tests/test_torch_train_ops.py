@@ -269,12 +269,21 @@ def test_fused_attention(reference_saved_path, amp, masked):
         assert not to_np(pout["Out"][0])[1, 180:].any()
 
 
-def test_unported_attention_inputs_raise():
-    q = torch.zeros(1, 8, 2, 4)
+def test_dense_mask_and_bhsd_inputs_match_the_reference():
+    """A dense Mask and the bhsd layout lower and compute the reference's
+    Out."""
+    rng = np.random.RandomState(5)
+    q = rng.randn(1, 8, 2, 4).astype(np.float32)
+    mask = rng.rand(1, 1, 8, 8) > 0.3
     base = {"causal": True, "layout": "bshd"}
-    for extra, attrs in (({"Mask": [torch.ones(1, 1, 8, 8)]}, base),
+    for extra, attrs in (({"Mask": [mask]}, base),
                          ({}, dict(base, layout="bhsd"))):
-        with pytest.raises(NotImplementedError):
-            lower("port", "fused_attention",
-                  dict({"Q": [q], "K": [q], "V": [q]}, **extra), attrs,
-                  False)
+        ins = dict({"Q": [q], "K": [q], "V": [q]}, **extra)
+        jout = lower("jax", "fused_attention",
+                     {s: [jnp.asarray(a) for a in v] for s, v in ins.items()},
+                     attrs, False)
+        pout = lower("port", "fused_attention",
+                     {s: [torch.from_numpy(a) for a in v]
+                      for s, v in ins.items()}, attrs, False)
+        np.testing.assert_allclose(to_np(pout["Out"][0]),
+                                   to_np(jout["Out"][0]), **FP32)
