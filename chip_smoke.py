@@ -9,7 +9,8 @@ raises on failure (the script then exits non-zero and prints no result):
 
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
 2. Build: compile every kernel of every slice from
-   ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel).
+   ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel); the
+   tensor-core K2 bodies at head_dim 64 must not spill (ptxas -v).
 3. Kernels against their plain versions on the card. K3 in fp32 and
    bf16, at the serving geometry and the reference's tuning grid,
    lengths 0, 1, a mid-page frontier and the full window. K1, K2-dQ and
@@ -21,9 +22,12 @@ raises on failure (the script then exits non-zero and prints no result):
    every page but scratch (int8/fp8, both group sizes). K1, K2-dQ and
    K2-dKV (flash attention) in fp32 and bf16, causal and not, h = hkv
    and h = 2 hkv, without a mask and with a factored padding mask (a
-   padded tail and a fully padded row), s in {256, 1024, 300}, d in
-   {64, 128}, and at the training step's shape (b16 s1024 h8 d64 bf16
-   causal): o, lse, dq, dk and dv elementwise.
+   padded tail and a fully padded row), s in {256, 1024, 300, 130}, d in
+   {64, 128, 96, 36}, a 71-head group on one kv head, and at the training
+   step's shape (b16 s1024 h8 d64 bf16 causal): o, lse, dq, dk and dv
+   elementwise. bf16 K2 runs on the tensor cores (d 96 puts zero columns
+   inside their 16-wide steps, d 36 rows take their element-copy
+   staging); fp32 K2 and K1 on the CUDA cores.
    Then K5-fwd, K5-dQ and K5-dKV (packed-segment flash attention) over
    the same geometries, dtypes and causal settings under four segment
    maps (random documents, one segment — which must also equal K1/K2 —,
@@ -32,8 +36,9 @@ raises on failure (the script then exits non-zero and prints no result):
    and K6-dKV (the per-head [b, h, s, d] layout) without a mask and with
    a factored padding mask, K6-fwd under dense [1|b, 1|h, s, s] masks
    and K1-dense under dense [1|b, 1, s, s] masks (each with one fully
-   masked query row), fp32 and bf16, causal and not, h8/hkv8 and
-   h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}. K4 (fused Adam)
+   masked query row), fp32 and bf16 (K6 rounds P and dS to bf16 there,
+   as the TPU's K6 and the plain version do), causal and not, h8/hkv8
+   and h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}. K4 (fused Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
 4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
@@ -80,11 +85,12 @@ raises on failure (the script then exits non-zero and prints no result):
    and lower at the last step than the first, and K1, K2-dQ and K2-dKV
    must each launch steps x 12 times. Prints step ms p50, tokens/s and a
    ``torch.profiler`` breakdown (device-busy ms per step, idle share,
-   the shares of K1, K2 and the GEMMs). Then K1, K2-dQ and K2-dKV at the
-   step's attention shape, L2 flushed before each call: each kernel
-   beside its bound, its plain version and the library yardstick
+   the shares of K1, K2 — its tensor-core kernels ``flash_bwd_*_mma_
+   kernel`` — and the GEMMs). Then K1, K2-dQ and K2-dKV at the step's
+   attention shape, L2 flushed before each call: each kernel beside its
+   bound, its plain version, the library yardstick
    (``F.scaled_dot_product_attention`` forward for K1, its autograd
-   backward for K2).
+   backward for K2) and its max |err| against the plain version.
 7. Packed path: ``bench_lm.py BENCH_PACKED=1``'s step — the same model
    on 16 rows x 1024 packed with ``data.decorator.pack_segments`` from
    its seeded documents (labels from ``packed_next_token_labels``, ids
@@ -125,6 +131,12 @@ raises on failure (the script then exits non-zero and prints no result):
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``--ab PARENT`` compares the flash kernels' times with another checkout
+(unpack ``git archive <parent>`` there): in turns parent, this tree,
+this tree, parent, each in its own process from its tree's root, it runs
+that tree's ``flash_timing`` (the LM step's shape, then the packed
+step's) and ``layout_timing`` and prints one line per run.
 """
 
 import argparse
@@ -161,10 +173,14 @@ GATE_LAYERS, GATE_BATCH, GATE_SEQ, GATE_STEPS = 2, 2, 512, 3
 # fully padded under the mask. WIDE_GROUP is Falcon-7B's attention (71
 # query heads on one kv head, head_dim 64): a group larger than a block's
 # 64 rows, which the kernels split over several blocks.
+# head_dim 96 leaves zero columns inside the bf16 K2 bodies' 16-wide
+# tensor-core steps; head_dim 36 rows are not 16-byte aligned, so those
+# bodies stage them element by element instead of by cp.async.
 WIDE_GROUP = (3, 256, 71, 1, 64)
 FLASH_GEOMS = [(3, 256, 4, 4, 64), (3, 256, 4, 2, 128),
                (3, 1024, 8, 8, 128), (3, 1024, 8, 4, 64),
-               (3, 300, 4, 2, 64), (3, 300, 2, 2, 128), WIDE_GROUP]
+               (3, 300, 4, 2, 64), (3, 300, 2, 2, 128), (3, 300, 4, 2, 96),
+               (3, 130, 2, 1, 36), WIDE_GROUP]
 # fp32 training gate, card (kernels, cuBLAS) vs CPU (plain versions):
 # the same arithmetic in fp32 in another summation order
 GATE_LOSS_RTOL = 1e-5
@@ -173,12 +189,17 @@ GATE_UPDATE_REL_L2 = 1e-3      # of the weight's 3-step update
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
-# Kernel and plain version both compute in fp32 and round once to the
+# Kernel and plain version both accumulate in fp32 and round once to the
 # output's dtype (K3 and K1/K2 alike), so they differ by summation order
 # only: ~1e-7 relative in fp32 (the flash grid read <= 1.5e-5 on dv,
 # whose sums over 2048 query rows reach tens),
 # and in bf16 at most one unit in the last place of the output (<= 2^-7
-# relative) where the fp32 values straddle a rounding boundary.
+# relative) where the fp32 values straddle a rounding boundary. Under
+# bf16 the K2 tensor-core bodies carry P and dS as hi + lo bf16 halves
+# (~2^-17 relative of fp32 operands); K6 and its plain version round P
+# and dS to bf16 at the same points (the forward's P at each key tile's
+# running max), so a rounding differs only where the summation order
+# moves an fp32 value across a bf16 boundary.
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 BF16_LOGIT_REL_L2 = 5e-2       # bf16 vs fp32 twin, first-step logits
@@ -292,14 +313,41 @@ def card():
 
 
 def build():
+    """Compile every source; print ptxas's registers and spills, and
+    fail if a tensor-core body (the bf16 K2 kernels) at head_dim 64 — the
+    training step's — spills."""
     from paddle_tpu_torch import _build
     secs = _build.build()
     for name, text in sorted(_build.build_logs.items()):
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln:
                 log("  nvcc %s: %s" % (name, ln.strip()))
+    spills = mma_spills(_build.build_logs.get("flash_attention", ""))
+    log("tensor-core bodies (kernel: spill bytes stored, loaded): %s"
+        % json.dumps(spills))
+    bad = {k: v for k, v in spills.items() if "Li64ELi64E" in k and any(v)}
+    if bad:
+        raise AssertionError("the tensor-core K2 bodies spill at head_dim "
+                             "64: %s" % bad)
     log("build: %s in %.2f s" % (", ".join(sorted(_build.SOURCES)), secs))
     return secs
+
+
+def mma_spills(text):
+    """{mangled name: (spill stores, spill loads)} of the tensor-core
+    kernels in ptxas's ``-v`` output (empty when nothing was built)."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name and "_mma_kernel" in name:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -1518,11 +1566,12 @@ def train_gate():
     return _gate("training gate", runs, state[GATE_WEIGHT])
 
 
-# the flash kernels share their bodies (csrc/flash_kernels.cuh): a
-# profiler row's template arguments <T, D, BK, kMask, kBhsd> name its
-# kernel
+# the flash kernels share their bodies (csrc/flash_kernels.cuh, the
+# tensor-core backward in csrc/flash_mma.cuh): a profiler row's template
+# arguments <T, D, BK, kMask, kBhsd> name its kernel
 _FLASH_KERNEL = re.compile(
-    r"flash_(fwd|bwd_dq|bwd_dkv)_kernel<[^<>]*, (\d), (true|false)>")
+    r"flash_(fwd|bwd_dq|bwd_dkv)(?:_mma)?_kernel<[^<>]*, (\d), "
+    r"(true|false)>")
 
 
 def flash_class(key):
@@ -2399,12 +2448,58 @@ def layout_timing(bhsd_launches, dense_res):
     return rows
 
 
+# one A/B run: the timing functions of the chip_smoke.py in the current
+# directory, with every launch count at 0
+_AB_RUN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch import _build
+from paddle_tpu_torch.ops import flash_attention as fa
+_build.build()
+z = {n: 0 for n in fa.launches}
+rows = cs.flash_timing(z)
+rows += cs.flash_timing(z, cs.packed_data(cs.LM_BATCH, cs.LM_SEQ)
+                        ["packed"]["seg"])
+rows += cs.layout_timing(z, {"bhsd": {"launches": z},
+                             "bshd": {"launches": z}})
+print("AB_ROWS " + json.dumps([{k: r[k] for k in (
+    "name", "ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")}
+    for r in rows]))
+"""
+
+
+def ab_timing(parent):
+    """The flash kernels timed in turns — the checkout at ``parent``, this
+    tree, this tree, ``parent`` — each run in its own process from its
+    tree's root, with that tree's timing functions. [{"tree", "rows"}]."""
+    runs = []
+    for label, root in (("parent", parent), ("this", REPO), ("this", REPO),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", _AB_RUN],
+                              cwd=os.path.abspath(root), capture_output=True,
+                              text=True, timeout=900)
+        rows = [json.loads(ln[len("AB_ROWS "):])
+                for ln in proc.stdout.splitlines()
+                if ln.startswith("AB_ROWS ")]
+        if proc.returncode or not rows:
+            raise RuntimeError("A/B run in %s failed (exit %d): %s"
+                               % (root, proc.returncode, proc.stderr[-3000:]))
+        runs.append({"tree": label, "rows": rows[0]})
+        log("%s: %s" % (label, " ".join("%s=%.4f" % (r["name"], r["ms"])
+                                        for r in rows[0])))
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3)")
+    ap.add_argument("--ab", metavar="PARENT", default=None,
+                    help="only time the flash kernels in turns against "
+                         "the checkout at PARENT")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2416,6 +2511,9 @@ def main(argv=None):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
+        if args.ab:
+            report["ab"] = ab_timing(args.ab)
+            return 0
         report["build_s"] = build()
         data = packed_data(LM_BATCH, LM_SEQ)
         report["kernel_checks"] = kernel_checks()

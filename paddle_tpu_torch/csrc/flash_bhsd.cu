@@ -28,7 +28,8 @@
 // MB: the bytes bound them at the tensor-core rate); under the prefix-LM
 // dense mask (not causal, prefixes of 128-896) about two thirds of all
 // pairs are visible, ~21 GFLOP on ~88 MB with the mask. The products run
-// in fp32 on the CUDA cores, as the TPU kernels compute in fp32.
+// in fp32 on the CUDA cores; under bf16 inputs P and dS are rounded to
+// bf16 before each product they enter, as the TPU's K6 rounds them.
 
 #include "flash_kernels.cuh"
 
@@ -101,8 +102,9 @@ extern "C" int paddle_flash_bhsd_bwd_dkv(const void* q, const void* k,
 }
 
 // kernel: 0 = K6-fwd (either mask kind), 1 = K6-dQ, 2 = K6-dKV
-extern "C" size_t paddle_flash_bhsd_smem_bytes(int kernel, int d) {
-  return smem_bytes(kernel, d);
+extern "C" size_t paddle_flash_bhsd_smem_bytes(int kernel, int d,
+                                               int dtype) {
+  return smem_bytes<kMaskValid, true>(kernel, d, dtype);
 }
 
 extern "C" const char* paddle_flash_bhsd_error_string(int err) {

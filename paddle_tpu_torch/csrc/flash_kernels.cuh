@@ -28,13 +28,20 @@
 //   dtype and layout, dk/dv at kv heads.
 // Masked logits are -1e30 (finite, NEG_INF of the TPU kernels): a row with
 // no visible key comes out as the uniform average of V over all s keys,
-// as the plain version gives. Every product and sum runs in fp32 (tiles
-// are widened at load), as the TPU kernels do. Delta = rowsum(dO * O)
-// [b, s, h] fp32 ([b, h, s] in bhsd) comes from the caller (a torch
-// reduction, as it is XLA in the reference). The backward assumes that a
-// query row with no visible key carries a zero cotangent (the op zeroes
-// padded rows' cotangent; under segment ids every row sees its own key),
-// so it skips the tiles no row of a block can see.
+// as the plain version gives. These bodies run every product and sum in
+// fp32 (tiles are widened at load). The operands P and dS follow each TPU
+// kernel: the bshd kernels (K1, K2, K5) keep them in fp32, as theirs do
+// by default; the per-head kernels (K6) round them to the input dtype
+// before each product under bf16, as the TPU's K6 does (P before P.V,
+// dS before dS.K, P before P^T.dO and dS before dS^T.Q; `operand`), the
+// forward's row sum keeping the unrounded P. K2's bf16 backward at
+// head_dim <= 128 runs on the tensor cores instead (flash_mma.cuh), with
+// P and dS as hi + lo bf16 pairs that keep them near fp32. Delta =
+// rowsum(dO * O) [b, s, h] fp32 ([b, h, s] in bhsd) comes from the caller
+// (a torch reduction, as it is XLA in the reference). The backward
+// assumes that a query row with no visible key carries a zero cotangent
+// (the op zeroes padded rows' cotangent; under segment ids every row sees
+// its own key), so it skips the tiles no row of a block can see.
 //
 // Design, simple and not yet tuned:
 // - Grid (q-tile x group chunk, kv head, batch) for the forward and dQ.
@@ -66,8 +73,10 @@
 //   64 at a time: the group sum happens in registers, no atomics (an fp32
 //   output takes the registers' partial sums every 4 query tiles, see
 //   DkvFlush).
-// Later work: bf16 tensor-core products (mma.sync / wgmma) with TMA
-// staging, which would also round P to bf16 where the TPU kernel does not.
+// - The bf16 backward of K2 (head_dim <= 128) takes the tensor-core bodies
+//   of flash_mma.cuh (mma.sync, cp.async staging) on the same template
+//   axes; fp32, head_dim > 128, K1, K5 and K6 take these bodies. Later
+//   work: the other kernels onto the tensor cores, then wgmma with TMA.
 
 #pragma once
 
@@ -75,6 +84,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -95,6 +106,17 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float x, float* p) { *p = x; }
 __device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16(x);
+}
+
+// P or dS as an operand of the next product: rounded to bf16 by the
+// per-head kernels (kBhsd) under bf16 inputs, as the TPU's K6 rounds them
+// (pallas_attention.py:298, :663, :706, :709); fp32 otherwise, as K1, K2
+// and K5 keep them
+template <typename T, bool kBhsd>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (kBhsd && std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16(x));
+  return x;
 }
 
 // reduce over the 8 lanes (tid & 7) that share a row
@@ -376,7 +398,7 @@ flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const float p = expf(sc[i][j] - m_new);
-        p_s[(rg * 4 + i) * (BK + 1) + kg + 8 * j] = p;
+        p_s[(rg * 4 + i) * (BK + 1) + kg + 8 * j] = operand<T, kBhsd>(p);
         sum += p;
       }
       const float corr = expf(m[i] - m_new);
@@ -533,7 +555,8 @@ flash_bwd_dq_kernel(Args a) {
         const float x = masked<kMask>(sc[i][j] * a.scale, k0 + kl, qpos[i],
                                       qseg[i], kseg_s[kl], nullptr, a, bi);
         const float p = rv[i] ? expf(x - lse[i]) : 0.f;
-        ds_s[(rg * 4 + i) * (BK + 1) + kl] = p * (dp[i][j] - delta[i]);
+        ds_s[(rg * 4 + i) * (BK + 1) + kl] =
+            operand<T, kBhsd>(p * (dp[i][j] - delta[i]));
       }
     __syncthreads();
 
@@ -734,8 +757,9 @@ flash_bwd_dkv_kernel(Args a) {
             p = expf(masked<kMask>(sc[i][j] * a.scale, k0 + kl, qpos,
                                    qseg_s[rl], kseg_s[kl], nullptr, a, bi) -
                      lse_s[rl]);
-          p_s[kl * (kQTile + 1) + rl] = p;
-          ds_s[kl * (kQTile + 1) + rl] = p * (dp[i][j] - delta_s[rl]);
+          p_s[kl * (kQTile + 1) + rl] = operand<T, kBhsd>(p);
+          ds_s[kl * (kQTile + 1) + rl] =
+              operand<T, kBhsd>(p * (dp[i][j] - delta_s[rl]));
         }
       }
       __syncthreads();
@@ -774,25 +798,56 @@ flash_bwd_dkv_kernel(Args a) {
     store_dkv<T, D, BK, kBhsd>(dk, dv, a, bi, kvh, k0, kgr, rg, !stored);
 }
 
+}  // namespace
+
+#include "flash_mma.cuh"
+
+namespace {
+
 // ------------------------------------------------------------ launch
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <int D>
 constexpr int block_k() { return D <= 128 ? 64 : 32; }
 
-template <int D>
+// whether the backward of (T, D, mask kind, layout) runs on the tensor
+// cores (flash_mma.cuh): bf16 K2 at head_dim <= 128. A fixed choice by
+// dtype and head_dim; fp32 (the fp32 gates), head_dim in (128, 256], K5
+// and K6 take the CUDA-core bodies above.
+template <typename T, int D, int kMask, bool kBhsd>
+constexpr bool mma_backward() {
+  return std::is_same<T, __nv_bfloat16>::value && D <= 128 &&
+         kMask == kMaskValid && !kBhsd;
+}
+
+template <typename T, int D, int kMask, bool kBhsd>
 size_t smem_for(int kernel) {
   constexpr int BK = block_k<D>();
   if (kernel == kFwd) return FwdSmem<D, BK>::bytes;
-  if (kernel == kDq) return DqSmem<D, BK>::bytes;
-  return DkvSmem<D, BK>::bytes;
+  if constexpr (mma_backward<T, D, kMask, kBhsd>()) {
+    if (kernel == kDq) return DqMmaSmem<D, BK>::bytes;
+    return DkvMmaSmem<D, BK>::bytes;
+  } else {
+    if (kernel == kDq) return DqSmem<D, BK>::bytes;
+    return DkvSmem<D, BK>::bytes;
+  }
 }
 
-size_t smem_bytes(int kernel, int d) {
-  if (d <= 32) return smem_for<32>(kernel);
-  if (d <= 64) return smem_for<64>(kernel);
-  if (d <= 128) return smem_for<128>(kernel);
-  return smem_for<256>(kernel);
+template <typename T, int kMask, bool kBhsd>
+size_t smem_for_d(int kernel, int d) {
+  if (d <= 32) return smem_for<T, 32, kMask, kBhsd>(kernel);
+  if (d <= 64) return smem_for<T, 64, kMask, kBhsd>(kernel);
+  if (d <= 128) return smem_for<T, 128, kMask, kBhsd>(kernel);
+  return smem_for<T, 256, kMask, kBhsd>(kernel);
+}
+
+// shared memory of one block of `kernel` at head_dim d and dtype (0 =
+// float32, 1 = bfloat16), for the mask kind and layout of the calling
+// source: the body that dispatch launches
+template <int kMask, bool kBhsd>
+size_t smem_bytes(int kernel, int d, int dtype) {
+  return dtype == 1 ? smem_for_d<__nv_bfloat16, kMask, kBhsd>(kernel, d)
+                    : smem_for_d<float, kMask, kBhsd>(kernel, d);
 }
 
 template <typename Fn>
@@ -819,6 +874,13 @@ int dispatch(int kernel, const Args& a, cudaStream_t stream) {
                          FwdSmem<D, BK>::bytes, stream, a);
   if constexpr (kMask == kMaskDense) {
     return (int)cudaErrorInvalidValue;   // dense masks: forward only
+  } else if constexpr (mma_backward<T, D, kMask, kBhsd>()) {
+    if (kernel == kDq)
+      return launch_kernel(flash_bwd_dq_mma_kernel<T, D, BK, kMask, kBhsd>,
+                           rows_grid, DqMmaSmem<D, BK>::bytes, stream, a);
+    return launch_kernel(flash_bwd_dkv_mma_kernel<T, D, BK, kMask, kBhsd>,
+                         dim3((a.s + BK - 1) / BK, a.hkv, a.b),
+                         DkvMmaSmem<D, BK>::bytes, stream, a);
   } else {
     if (kernel == kDq)
       return launch_kernel(flash_bwd_dq_kernel<T, D, BK, kMask, kBhsd>,

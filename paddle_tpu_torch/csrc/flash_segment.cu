@@ -90,8 +90,9 @@ extern "C" int paddle_flash_segment_bwd_dkv(
 }
 
 // kernel: 0 = K5-fwd, 1 = K5-dQ, 2 = K5-dKV
-extern "C" size_t paddle_flash_segment_smem_bytes(int kernel, int d) {
-  return smem_bytes(kernel, d);
+extern "C" size_t paddle_flash_segment_smem_bytes(int kernel, int d,
+                                                  int dtype) {
+  return smem_bytes<kMaskSeg, false>(kernel, d, dtype);
 }
 
 extern "C" const char* paddle_flash_segment_error_string(int err) {

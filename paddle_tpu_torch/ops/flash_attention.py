@@ -36,8 +36,15 @@ heads in the same layout.
 
 Semantics shared with the TPU kernels: masked logits are ``NEG_INF =
 -1e30`` (finite, so a row with no visible key is the uniform average of
-V), every product runs in fp32, ``l`` is clamped at 1e-20. ``k_valid``
-(``[1|b, s]`` bool) is the key factor of a factored padding mask; the
+V), ``l`` is clamped at 1e-20, products accumulate in fp32. Their
+operands P and dS follow each TPU kernel: K1/K2/K5 keep them in fp32
+(K2's bf16 kernels carry them as hi + lo bf16 halves on the tensor
+cores); K6 rounds them to bf16 under bf16 inputs (P before P·V, dS
+before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q), and so does its plain
+version, which rounds the forward's P at the running row max of each key
+tile of the kernel's width (:func:`key_tile`), where an online softmax
+rounds it. ``k_valid`` (``[1|b, s]`` bool) is the key factor of a
+factored padding mask; the
 query factor is applied by the op (``ops.attention``), outside the
 kernels. The backward takes a query row with no visible key to carry a
 zero cotangent, which the op guarantees for padded rows; under segment
@@ -63,7 +70,7 @@ __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_segment_dkv", "flash_fwd_segment_plain",
            "flash_bwd_segment_plain", "FlashSegmentAttention",
            "flash_fwd_saving_lse", "flash_bwd_from_saved", "plain_vjp",
-           "launches",
+           "launches", "key_tile",
            "NEG_INF", "LSE_LANES", "MAX_HEAD_DIM", "takes_dense_mask"]
 
 NEG_INF = -1e30
@@ -214,6 +221,38 @@ def _kv_heads(x, h):
         .permute(0, 2, 1, 3)
 
 
+def key_tile(d):
+    """The key tile of the CUDA-core flash bodies at head_dim ``d``
+    (``block_k`` in ``csrc/flash_kernels.cuh``): the step of the forward's
+    online softmax."""
+    return 64 if d <= 128 else 32
+
+
+def _rounds_operands(dtype, layout):
+    """Whether P and dS enter their products rounded to the input
+    dtype: K6 (bhsd) under bf16, as the TPU's K6 rounds them; K1, K2 and
+    K5 keep them in fp32, as theirs do."""
+    return layout == "bhsd" and dtype == torch.bfloat16
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _online_p(logits, m, tile):
+    """P as an online softmax over key tiles of width ``tile`` feeds it
+    to P·V rounded to bf16: each tile's exp(x - m_t), m_t the row's
+    running max through that tile, rounded, then carried to the row max
+    ``m`` by exp(m_t - m), the rescaling the kernel applies after."""
+    b, h, s, _ = logits.shape
+    n = -(-s // tile)
+    x = torch.nn.functional.pad(logits, (0, n * tile - s),
+                                value=-float("inf")).reshape(b, h, s, n, tile)
+    m_t = x.amax(-1).cummax(-1).values                   # [b, h, s, n]
+    p = _bf16(torch.exp(x - m_t[..., None])) * torch.exp(m_t - m)[..., None]
+    return p.reshape(b, h, s, n * tile)[..., :s]
+
+
 def _fwd_plain(q, k, v, scale, causal, k_valid, seg, mask=None,
                layout="bshd"):
     q, k, v = (_to_bshd(x, layout) for x in (q, k, v))
@@ -221,7 +260,9 @@ def _fwd_plain(q, k, v, scale, causal, k_valid, seg, mask=None,
     logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg, mask)
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
-    l = p.sum(-1, keepdim=True).clamp_min(1e-20)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-20)         # unrounded P
+    if _rounds_operands(q.dtype, layout):
+        p = _online_p(logits, m, key_tile(d))
     o = torch.matmul(p, _kv_heads(v, h)) / l            # [b, h, s, d]
     lse = (m + torch.log(l)).reshape(b * h, s, 1)
     o = o if layout == "bhsd" else o.permute(0, 2, 1, 3)
@@ -263,6 +304,8 @@ def _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, seg,
     dof = do.float().permute(0, 2, 1, 3)                 # [b, h, s, d]
     dp = torch.matmul(dof, _kv_heads(v, h).transpose(-1, -2))
     ds = p * (dp - _delta(o, do).permute(0, 2, 1)[..., None])
+    if _rounds_operands(q.dtype, layout):
+        p, ds = _bf16(p), _bf16(ds)
     dq = torch.matmul(ds, _kv_heads(k, h)) * sc
     dk = torch.matmul(ds.transpose(-1, -2), q.float().permute(0, 2, 1, 3)) * sc
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -317,7 +360,7 @@ def _bind(source, prefix):
                            [ptr] * 6 + mask + [ptr] * 2][index] + dims
             fn.restype = ctypes.c_int
         smem = getattr(lib, prefix + "smem_bytes")
-        smem.argtypes = [i32, i32]
+        smem.argtypes = [i32, i32, i32]              # kernel, d, dtype
         smem.restype = ctypes.c_size_t
         err = getattr(lib, prefix + "error_string")
         err.argtypes = [i32]
@@ -385,11 +428,11 @@ def _check_kernel_inputs(name, tensors, k_valid=None, seg=None, mask=None):
         raise ValueError("%s runs on cpu or cuda tensors (got %s)"
                          % (name, q.device))
     lib = _bind(source, prefix)
-    smem = getattr(lib, prefix + "smem_bytes")(index, d)
+    smem = getattr(lib, prefix + "smem_bytes")(index, d, _DTYPES[q.dtype])
     if smem > _SMEM_LIMIT:
-        raise ValueError("%s at head_dim %d needs %d bytes of shared "
+        raise ValueError("%s at head_dim %d in %s needs %d bytes of shared "
                          "memory per block (limit %d)"
-                         % (name, d, smem, _SMEM_LIMIT))
+                         % (name, d, q.dtype, smem, _SMEM_LIMIT))
     return lib
 
 

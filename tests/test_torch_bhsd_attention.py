@@ -16,6 +16,18 @@ fp32:
 Tolerance: within 5e-6 of each tensor's largest magnitude, entries at the
 -1e30 mask value equal (both sides compute in fp32 and differ in
 summation order only: test_torch_flash_attention.py's bound).
+bf16 cases of K6-fwd (no mask, factored, a dense [b, h, s, s] mask) and
+K6-dQ/dKV: the same inputs cast to bf16, where the TPU's K6 rounds P and
+dS to bf16 before each product; every element within 2 bf16 ulps of the
+reference tensor's largest magnitude and at most 1% of them differing at
+all (lse, fp32, as above); plain versions that keep P and dS in fp32
+fail it, with 37-43% of the elements differing. The reference's blocks
+are pinned to the port's key tile (``PADDLE_TPU_FLASH_BLOCK_Q/K``): an
+online softmax rounds P at each tile's running max, so the forward's
+rounding follows the tile width. Its backward takes the reference's (o,
+lse), the same residuals on both sides; batch 2, and only rows with a
+visible key (the average of a fully masked row follows the blocks the
+kernel visits).
 
 The ops through both packages' ``Executor`` and ``append_backward``:
 ``fused_attention`` in bhsd (no mask, factored, dense) and bshd (a
@@ -50,6 +62,7 @@ from paddle_tpu.ops import pallas_attention as jpa
 import paddle_tpu_torch as pfluid
 from paddle_tpu_torch.convert import scope_from_jax
 from paddle_tpu_torch.ops import flash_attention as fa
+from tests.test_torch_flash_attention import assert_bf16_close
 
 S = 512
 FP32 = dict(atol=1e-5, rtol=1e-5)
@@ -64,6 +77,29 @@ def assert_close(name, got, want):
     np.testing.assert_allclose(got[finite], want[finite], rtol=0,
                                atol=5e-6 * np.abs(want[finite]).max(),
                                err_msg=name)
+
+
+def pin_blocks(monkeypatch, d):
+    """The reference's flash blocks at the port's key tile."""
+    tile = str(fa.key_tile(d))
+    monkeypatch.setattr(jpa, "_BQ_ENV", tile)
+    monkeypatch.setattr(jpa, "_BK_ENV", tile)
+
+
+def seen_rows(b, h, causal, valid=None, m=None):
+    """[b, h, S] bool: query rows that see at least one key."""
+    vis = np.ones((b, h, S, S), bool)
+    if causal:
+        vis &= np.tril(np.ones((S, S), bool))
+    if valid is not None:
+        vis &= valid[:, None, None, :]
+    if m is not None:
+        vis &= m
+    return vis.any(-1)
+
+
+def to_bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
 
 
 @pytest.fixture
@@ -106,18 +142,27 @@ def torch_all(*xs):
 
 
 MASKS = ["none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h")]
+BF16_MASKS = ["none", "factored", ("b", "h")]
 
 
-@pytest.mark.parametrize("mask", MASKS, ids=lambda m: m if isinstance(
-    m, str) else "dense-%s-%s" % m)
+def mask_id(m):
+    return m if isinstance(m, str) else "dense-%s-%s" % m
+
+
+@pytest.mark.parametrize(
+    "mask,bf16", [(m, False) for m in MASKS] + [(m, True) for m in BF16_MASKS],
+    ids=[mask_id(m) for m in MASKS] + [mask_id(m) + "-bf16"
+                                       for m in BF16_MASKS])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("h,hkv,d", [(4, 4, 16), (4, 1, 32), (2, 2, 32)],
                          ids=["mha", "gqa", "d32"])
-def test_k6_forward_plain_matches_the_pallas_kernel(interpret, h, hkv, d,
-                                                     causal, mask):
-    b = 3
+def test_k6_forward_plain_matches_the_pallas_kernel(interpret, monkeypatch,
+                                                     h, hkv, d, causal, mask,
+                                                     bf16):
+    b = 2 if bf16 else 3
     q, k, v, _, valid = inputs(b, h, hkv, d)
     scale = 1.0 / np.sqrt(d)
+    m = None
     if mask == "none":
         jm = pm = kv = None
     elif mask == "factored":
@@ -126,40 +171,64 @@ def test_k6_forward_plain_matches_the_pallas_kernel(interpret, h, hkv, d,
     else:
         m = dense(b, h, *mask)
         jm, kv, pm = jnp.asarray(m), None, torch.from_numpy(m)
-    jo, jlse = jpa._flash_fwd_impl(*jnp_all(q, k, v), scale, causal,
-                                   save_lse=True, mask=jm, layout="bhsd")
+    jin, tin = jnp_all(q, k, v), torch_all(q, k, v)
+    if bf16:
+        pin_blocks(monkeypatch, d)
+        jin = [x.astype(jnp.bfloat16) for x in jin]
+        tin = [x.to(torch.bfloat16) for x in tin]
+    jo, jlse = jpa._flash_fwd_impl(*jin, scale, causal, save_lse=True,
+                                   mask=jm, layout="bhsd")
     before = dict(fa.launches)
-    o, lse = fa.flash_fwd(*torch_all(q, k, v), scale, causal, kv, pm,
-                          layout="bhsd")
+    o, lse = fa.flash_fwd(*tin, scale, causal, kv, pm, layout="bhsd")
     assert fa.launches == before        # CPU tensors launch nothing
     assert tuple(o.shape) == q.shape and tuple(lse.shape) == (b * h, S, 8)
-    assert_close("o", o.numpy(), jo)
     assert_close("lse", lse.numpy(), jlse)
+    if bf16:
+        seen = seen_rows(b, h, causal, None if kv is None else valid, m)
+        assert_bf16_close("o", o.float().numpy()[seen],
+                          np.asarray(jo.astype(jnp.float32))[seen])
+        return
+    assert_close("o", o.numpy(), jo)
     if pm is not None:   # the fully masked row is V's uniform average
         vbar = v[0].mean(axis=1).repeat(h // hkv, axis=0)
         np.testing.assert_allclose(o[0, 0, 5].numpy(), vbar[0], atol=1e-5)
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "factored"])
+@pytest.mark.parametrize(
+    "masked,bf16", [(False, False), (True, False), (False, True),
+                    (True, True)],
+    ids=["nomask", "factored", "nomask-bf16", "factored-bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("h,d", [(2, 32), (4, 16)])
-def test_k6_backward_plain_matches_the_pallas_kernels(interpret, h, d,
-                                                      causal, masked):
-    q, k, v, do, valid = inputs(3, h, h, d, seed=2)
+def test_k6_backward_plain_matches_the_pallas_kernels(interpret, monkeypatch,
+                                                      h, d, causal, masked,
+                                                      bf16):
+    q, k, v, do, valid = inputs(2 if bf16 else 3, h, h, d, seed=2)
     scale = 1.0 / np.sqrt(d)
     jm = (jnp.asarray(valid), jnp.asarray(valid)) if masked else None
     jq, jk, jv, jdo = jnp_all(q, k, v, do)
+    t = torch_all(q, k, v, do)
+    if bf16:
+        pin_blocks(monkeypatch, d)
+        jq, jk, jv, jdo = (x.astype(jnp.bfloat16) for x in (jq, jk, jv, jdo))
+        t = [x.to(torch.bfloat16) for x in t]
     jo, jlse = jpa._flash_fwd_impl(jq, jk, jv, scale, causal, save_lse=True,
                                    mask=jm, layout="bhsd")
     jgrads = jpa._flash_bwd_impl(jq, jk, jv, jo, jlse, jdo, scale, causal,
                                  layout="bhsd", mask=jm)
     kv = torch.from_numpy(valid) if masked else None
-    t = torch_all(q, k, v, do)
-    o, lse = fa.flash_fwd(*t[:3], scale, causal, kv, layout="bhsd")
+    if bf16:     # the reference's residuals: the backward on equal inputs
+        o, lse = to_bf16(jo.astype(jnp.float32)), torch_all(jlse)[0]
+    else:
+        o, lse = fa.flash_fwd(*t[:3], scale, causal, kv, layout="bhsd")
     grads = fa.flash_bwd(*t[:3], o, lse, t[3], scale, causal, kv,
                          layout="bhsd")
     for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
-        assert_close(name, got.numpy(), want)
+        if bf16:
+            assert_bf16_close(name, got.float().numpy(),
+                              want.astype(jnp.float32))
+        else:
+            assert_close(name, got.numpy(), want)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])

@@ -15,6 +15,7 @@ cannot show that a kernel compiles or how fast anything runs.
 """
 
 import json
+import subprocess
 
 import numpy as np
 import pytest
@@ -260,15 +261,38 @@ def test_prefix_mask_and_kernel_classes():
         assert lo <= p <= hi
         assert row[:, :p].all()        # the prefix is visible to all
         assert (row[:, p:] == np.tril(np.ones((64, 64), bool))[:, p:]).all()
-    names = {
-        "k1": "void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, "
-              "64, 64, 2, false>((anonymous namespace)::Args)",
-        "k2": "flash_bwd_dkv_kernel<float, 64, 64, 0, false>(Args)",
-        "k5": "flash_bwd_dq_kernel<__nv_bfloat16, 64, 64, 1, false>(Args)",
-        "k6": "flash_fwd_kernel<__nv_bfloat16, 128, 64, 0, true>(Args)"}
-    for want, key in names.items():
+    names = [
+        ("k1", "void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, "
+               "64, 64, 2, false>((anonymous namespace)::Args)"),
+        ("k2", "flash_bwd_dkv_kernel<float, 64, 64, 0, false>(Args)"),
+        # the tensor-core bodies of bf16 K2 (csrc/flash_mma.cuh)
+        ("k2", "void (anonymous namespace)::flash_bwd_dq_mma_kernel<"
+               "__nv_bfloat16, 64, 64, 0, false>((anonymous namespace)::"
+               "Args)"),
+        ("k2", "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 128, 64, 0, false>"
+               "(Args)"),
+        ("k5", "flash_bwd_dq_kernel<__nv_bfloat16, 64, 64, 1, false>(Args)"),
+        ("k6", "flash_fwd_kernel<__nv_bfloat16, 128, 64, 0, true>(Args)")]
+    for want, key in names:
         assert cs.flash_class(key) == want
     assert cs.flash_class("ampere_bf16_s16816gemm_bf16") is None
+
+
+def test_mma_spills_reads_ptxas_output():
+    """The build's spill gate reads ptxas -v per tensor-core kernel and
+    nothing else."""
+    dq = "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelI13__nv_bfloat16" \
+         "Li64ELi64ELi0ELb0EEEvNS_4ArgsE"
+    fwd = "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELi64ELi0ELb0EEEvNS_4ArgsE"
+    text = "\n".join([
+        "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % dq,
+        "ptxas info    : Function properties for %s" % dq,
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, 384 bytes cmem[0]",
+        "ptxas info    : Function properties for %s" % fwd,
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"])
+    assert cs.mma_spills(text) == {dq: (8, 4)}
+    assert cs.mma_spills("") == {}
 
 
 @pytest.fixture
@@ -375,3 +399,26 @@ def test_flash_case_zeroes_the_cotangent_of_padded_rows(monkeypatch):
     assert valid[0].all() and not valid[2].any()
     assert valid[1, :30].all() and not valid[1, 30:].any()
     assert not do[2].any() and not do[1, 30:].any() and do[0].all()
+
+
+def test_ab_timing_runs_in_turns_and_reads_each_run(monkeypatch, tmp_path):
+    """``--ab``: parent, this tree, this tree, parent, each from its own
+    root, one row list per run; a run that fails raises."""
+    calls = []
+
+    def fake_run(cmd, cwd, **kw):
+        calls.append(cwd)
+        ms = 2.0 if cwd == str(tmp_path) else 1.0
+        rows = [{"name": "flash_bwd_dq", "ms": ms, "bound_ms": 0.1,
+                 "plain_ms": 3.0, "library_ms": 0.5, "max_abs_err": 0.0}]
+        return subprocess.CompletedProcess(
+            cmd, 0, "noise\nAB_ROWS " + json.dumps(rows) + "\n", "")
+    monkeypatch.setattr(cs.subprocess, "run", fake_run)
+    runs = cs.ab_timing(str(tmp_path))
+    assert calls == [str(tmp_path), cs.REPO, cs.REPO, str(tmp_path)]
+    assert [r["tree"] for r in runs] == ["parent", "this", "this", "parent"]
+    assert [r["rows"][0]["ms"] for r in runs] == [2.0, 1.0, 1.0, 2.0]
+    monkeypatch.setattr(cs.subprocess, "run", lambda cmd, cwd, **kw:
+                        subprocess.CompletedProcess(cmd, 1, "", "boom"))
+    with pytest.raises(RuntimeError):
+        cs.ab_timing(str(tmp_path))

@@ -10,7 +10,12 @@ without a factored padding mask (a padded tail and a fully padded row).
 o, lse ([b*h, s, 8]), dq, dk and dv agree within 5e-6 of each tensor's
 largest magnitude (both compute in fp32 and differ in summation order
 only; the worst case read 7.5e-7), and a fully padded row's lse is the
-same -1e30 in both.
+same -1e30 in both. The same cases in bf16 (the inputs cast to bf16; the
+TPU's K1/K2 keep P and dS in fp32, and so do the plain versions, which
+the bf16 kernels are held against on the card): o, dq, dk and dv within
+2 bf16 ulps of each reference tensor's largest magnitude with at most
+1% of the elements differing at all, lse as in fp32; the backward takes
+the reference's (o, lse), so both sides start from the same residuals.
 
 Also: the ``autograd.Function`` (K1 with K2 as its backward) against
 autograd of a naive attention, and the wrappers' device rule — CPU
@@ -31,6 +36,21 @@ from paddle_tpu_torch.ops import flash_attention as fa
 
 S = 256
 TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+def assert_bf16_close(name, got, want):
+    """bf16 results as float32 arrays: every element within 2 bf16 ulps of
+    the reference tensor's largest magnitude (as the fp32 cases bound each
+    tensor at its largest magnitude: an element that cancels to near zero
+    moves by many of its own ulps when one rounding of P or dS flips with
+    the summation order), and at most 1% of the elements differing at
+    all."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    worst = float(np.abs(got - want).max() / ulp)
+    differ = float((got != want).mean())
+    assert worst <= 2 and differ <= 0.01, \
+        "%s: %.2f bf16 ulps off, %.2f%% differ" % (name, worst, 100 * differ)
 
 
 def assert_close(name, got, want):
@@ -70,33 +90,47 @@ def inputs(b, h, hkv, d, masked, seed=0):
 CASES = [(2, 2, 32), (4, 1, 64), (4, 2, 32), (2, 1, 64)]
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "factored"])
+@pytest.mark.parametrize(
+    "masked,bf16", [(False, False), (True, False), (False, True),
+                    (True, True)],
+    ids=["nomask", "factored", "nomask-bf16", "factored-bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("h,hkv,d", CASES)
 def test_plain_versions_match_the_pallas_kernels(interpret, h, hkv, d,
-                                                 causal, masked):
+                                                 causal, masked, bf16):
     q, k, v, do, valid = inputs(3, h, hkv, d, masked)
     scale = 1.0 / np.sqrt(d)
     jmask = None if valid is None else (jnp.asarray(valid),
                                         jnp.asarray(valid))
-    jo, jlse = jpa._flash_fwd_bshd(jnp.asarray(q), jnp.asarray(k),
-                                   jnp.asarray(v), scale, causal,
-                                   save_lse=True, mask=jmask)
-    jgrads = jpa._flash_bwd_bshd(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), jo, jlse, jnp.asarray(do),
-                                 scale, causal, mask=jmask)
+    jin = [jnp.asarray(x) for x in (q, k, v, do)]
     t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    if bf16:
+        jin = [x.astype(jnp.bfloat16) for x in jin]
+        t = [x.to(torch.bfloat16) for x in t]
+    jo, jlse = jpa._flash_fwd_bshd(*jin[:3], scale, causal, save_lse=True,
+                                   mask=jmask)
+    jgrads = jpa._flash_bwd_bshd(*jin[:3], jo, jlse, jin[3], scale, causal,
+                                 mask=jmask)
     kv = None if valid is None else torch.from_numpy(valid)
     before = dict(fa.launches)
     o, lse = fa.flash_fwd(t[0], t[1], t[2], scale, causal, kv)
-    grads = fa.flash_bwd(t[0], t[1], t[2], o, lse, t[3], scale, causal, kv)
+    res = (o, lse)
+    if bf16:     # the reference's residuals: the backward on equal inputs
+        res = (torch.from_numpy(np.asarray(jo.astype(jnp.float32)))
+               .to(torch.bfloat16), torch.from_numpy(np.asarray(jlse)))
+    grads = fa.flash_bwd(t[0], t[1], t[2], *res, t[3], scale, causal, kv)
     assert fa.launches == before        # CPU tensors launch nothing
     assert tuple(lse.shape) == (3 * h, S, fa.LSE_LANES)
     for name, got, want in zip(("o", "lse", "dq", "dk", "dv"),
                                (o, lse) + grads,
                                (jo, jlse) + tuple(jgrads)):
-        assert_close(name, got.numpy(), want)
-    if masked:   # the fully padded row is V's uniform average, not NaN
+        if bf16 and name != "lse":
+            assert got.dtype == torch.bfloat16
+            assert_bf16_close(name, got.float().numpy(),
+                              want.astype(jnp.float32))
+        else:
+            assert_close(name, got.numpy(), want)
+    if masked and not bf16:   # a fully padded row is V's average, not NaN
         vbar = v[2].mean(axis=0).repeat(h // hkv, axis=0)
         np.testing.assert_allclose(o[2].numpy(), np.broadcast_to(
             vbar, o[2].shape), atol=1e-5)
