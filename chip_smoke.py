@@ -9,8 +9,9 @@ raises on failure (the script then exits non-zero and prints no result):
 
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
 2. Build: compile every kernel of every slice from
-   ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel); the
-   tensor-core K2 bodies at head_dim 64 must not spill (ptxas -v).
+   ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel); no
+   tensor-core body (K1's forward, K2's and K6's backward, at head_dim
+   32, 64 and 128) may spill (ptxas -v).
 3. Kernels against their plain versions on the card. K3 in fp32 and
    bf16, at the serving geometry and the reference's tuning grid,
    lengths 0, 1, a mid-page frontier and the full window. K1, K2-dQ and
@@ -23,11 +24,11 @@ raises on failure (the script then exits non-zero and prints no result):
    K2-dKV (flash attention) in fp32 and bf16, causal and not, h = hkv
    and h = 2 hkv, without a mask and with a factored padding mask (a
    padded tail and a fully padded row), s in {256, 1024, 300, 130}, d in
-   {64, 128, 96, 36}, a 71-head group on one kv head, and at the training
-   step's shape (b16 s1024 h8 d64 bf16 causal): o, lse, dq, dk and dv
-   elementwise. bf16 K2 runs on the tensor cores (d 96 puts zero columns
-   inside their 16-wide steps, d 36 rows take their element-copy
-   staging); fp32 K2 and K1 on the CUDA cores.
+   {64, 128, 96, 36, 32}, a 71-head group on one kv head, and at the
+   training step's shape (b16 s1024 h8 d64 bf16 causal): o, lse, dq, dk and dv
+   elementwise. bf16 K1 and K2 run on the tensor cores (d 96 puts zero
+   columns inside their 16-wide steps, d 36 rows take their element-copy
+   staging); fp32 K1 and K2 on the CUDA cores.
    Then K5-fwd, K5-dQ and K5-dKV (packed-segment flash attention) over
    the same geometries, dtypes and causal settings under four segment
    maps (random documents, one segment — which must also equal K1/K2 —,
@@ -38,7 +39,9 @@ raises on failure (the script then exits non-zero and prints no result):
    and K1-dense under dense [1|b, 1, s, s] masks (each with one fully
    masked query row), fp32 and bf16 (K6 rounds P and dS to bf16 there,
    as the TPU's K6 and the plain version do), causal and not, h8/hkv8
-   and h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}. K4 (fused Adam)
+   and h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}, and s 300 d 32
+   h8/hkv2 (bf16 K6-dQ and K6-dKV on the tensor cores, taking P and dS
+   as bf16). K4 (fused Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
 4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
@@ -85,8 +88,9 @@ raises on failure (the script then exits non-zero and prints no result):
    and lower at the last step than the first, and K1, K2-dQ and K2-dKV
    must each launch steps x 12 times. Prints step ms p50, tokens/s and a
    ``torch.profiler`` breakdown (device-busy ms per step, idle share,
-   the shares of K1, K2 — its tensor-core kernels ``flash_bwd_*_mma_
-   kernel`` — and the GEMMs). Then K1, K2-dQ and K2-dKV at the step's
+   the shares of K1, K2 and the GEMMs; the flash kernels it saw, which
+   must be exactly the bshd tensor-core bodies ``flash_fwd_mma_kernel``
+   and ``flash_bwd_*_mma_kernel``). Then K1, K2-dQ and K2-dKV at the step's
    attention shape, L2 flushed before each call: each kernel beside its
    bound, its plain version, the library yardstick
    (``F.scaled_dot_product_attention`` forward for K1, its autograd
@@ -117,7 +121,9 @@ raises on failure (the script then exits non-zero and prints no result):
    relative, the layer-0 query projection's 3-step update within 1e-3.
    Then 10 steps at full size: loss finite and falling, K6-fwd, K6-dQ
    and K6-dKV each steps x 12 launches and no other flash kernel; a
-   profile; steps in turns with phase 6's program (``step_ratio_vs_bshd``).
+   profile, whose flash kernels must be K6's CUDA-core forward and its
+   tensor-core backward bodies (``flash_bwd_*_mma_kernel<..., true>``);
+   steps in turns with phase 6's program (``step_ratio_vs_bshd``).
 10. Dense-mask path: the prefix-LM mask (``prefix_mask``: [16, 1, 1024,
    1024] bool, row b sees keys j <= i or j < p_b, p_b in [128, 896];
    not causal). First fp32 gates (2 layers, full width): program 2 (bhsd)
@@ -173,14 +179,15 @@ GATE_LAYERS, GATE_BATCH, GATE_SEQ, GATE_STEPS = 2, 2, 512, 3
 # fully padded under the mask. WIDE_GROUP is Falcon-7B's attention (71
 # query heads on one kv head, head_dim 64): a group larger than a block's
 # 64 rows, which the kernels split over several blocks.
-# head_dim 96 leaves zero columns inside the bf16 K2 bodies' 16-wide
+# head_dim 96 leaves zero columns inside the bf16 K1/K2 bodies' 16-wide
 # tensor-core steps; head_dim 36 rows are not 16-byte aligned, so those
-# bodies stage them element by element instead of by cp.async.
+# bodies stage them element by element instead of by cp.async; head_dim
+# 32 takes the bodies' narrowest bin.
 WIDE_GROUP = (3, 256, 71, 1, 64)
 FLASH_GEOMS = [(3, 256, 4, 4, 64), (3, 256, 4, 2, 128),
                (3, 1024, 8, 8, 128), (3, 1024, 8, 4, 64),
                (3, 300, 4, 2, 64), (3, 300, 2, 2, 128), (3, 300, 4, 2, 96),
-               (3, 130, 2, 1, 36), WIDE_GROUP]
+               (3, 130, 2, 1, 36), (3, 300, 4, 2, 32), WIDE_GROUP]
 # fp32 training gate, card (kernels, cuBLAS) vs CPU (plain versions):
 # the same arithmetic in fp32 in another summation order
 GATE_LOSS_RTOL = 1e-5
@@ -195,11 +202,12 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 # whose sums over 2048 query rows reach tens),
 # and in bf16 at most one unit in the last place of the output (<= 2^-7
 # relative) where the fp32 values straddle a rounding boundary. Under
-# bf16 the K2 tensor-core bodies carry P and dS as hi + lo bf16 halves
+# bf16 the K1/K2 tensor-core bodies carry P and dS as hi + lo bf16 halves
 # (~2^-17 relative of fp32 operands); K6 and its plain version round P
 # and dS to bf16 at the same points (the forward's P at each key tile's
 # running max), so a rounding differs only where the summation order
-# moves an fp32 value across a bf16 boundary.
+# moves an fp32 value across a bf16 boundary. The Lse stays fp32: the
+# tensor cores change only the order of its sums.
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 BF16_LOGIT_REL_L2 = 5e-2       # bf16 vs fp32 twin, first-step logits
@@ -280,10 +288,17 @@ ALTERNATE_ROUNDS = 5           # Adam / FusedAdam steps taken in turns
 # with "b"/"h" for the full extent), the dense programs' steps (each step
 # recomputes every layer's backward through [b, h, s, s] fp32 logits)
 BHSD_GEOMS = [(3, s, 8, hkv, d) for s in (256, 1000, 1024) for d in (64, 128)
-              for hkv in (8, 2)] + [WIDE_GROUP]
+              for hkv in (8, 2)] + [(3, 300, 8, 2, 32), WIDE_GROUP]
 BHSD_MASKS = ("none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h"))
 K1_DENSE_MASKS = ((1, 1), ("b", 1))
 DENSE_STEPS = 5
+# the flash bodies (``flash_bodies``) that the profiles of phase 6 (K1,
+# K2) and phase 9 (K6) must show at the step's bf16 head_dim 64: the
+# tensor-core bodies, except K6's forward
+TRAIN_BODIES = {("fwd", "mma", "bshd", 0), ("bwd_dq", "mma", "bshd", 0),
+                ("bwd_dkv", "mma", "bshd", 0)}
+BHSD_BODIES = {("fwd", "cuda-core", "bhsd", 0), ("bwd_dq", "mma", "bhsd", 0),
+               ("bwd_dkv", "mma", "bhsd", 0)}
 
 
 def log(msg):
@@ -314,21 +329,21 @@ def card():
 
 def build():
     """Compile every source; print ptxas's registers and spills, and
-    fail if a tensor-core body (the bf16 K2 kernels) at head_dim 64 — the
-    training step's — spills."""
+    fail if any tensor-core body (``*_mma_kernel``: K1's forward, the
+    backward of K2 and K6, at every head_dim bin) spills."""
     from paddle_tpu_torch import _build
     secs = _build.build()
+    spills = {}
     for name, text in sorted(_build.build_logs.items()):
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln:
                 log("  nvcc %s: %s" % (name, ln.strip()))
-    spills = mma_spills(_build.build_logs.get("flash_attention", ""))
+        spills.update(mma_spills(text))
     log("tensor-core bodies (kernel: spill bytes stored, loaded): %s"
         % json.dumps(spills))
-    bad = {k: v for k, v in spills.items() if "Li64ELi64E" in k and any(v)}
+    bad = {k: v for k, v in spills.items() if any(v)}
     if bad:
-        raise AssertionError("the tensor-core K2 bodies spill at head_dim "
-                             "64: %s" % bad)
+        raise AssertionError("tensor-core bodies spill: %s" % bad)
     log("build: %s in %.2f s" % (", ".join(sorted(_build.SOURCES)), secs))
     return secs
 
@@ -1567,10 +1582,10 @@ def train_gate():
 
 
 # the flash kernels share their bodies (csrc/flash_kernels.cuh, the
-# tensor-core backward in csrc/flash_mma.cuh): a profiler row's template
+# tensor-core bodies in csrc/flash_mma.cuh): a profiler row's template
 # arguments <T, D, BK, kMask, kBhsd> name its kernel
 _FLASH_KERNEL = re.compile(
-    r"flash_(fwd|bwd_dq|bwd_dkv)(?:_mma)?_kernel<[^<>]*, (\d), "
+    r"flash_(fwd|bwd_dq|bwd_dkv)(_mma)?_kernel<[^<>]*, (\d), "
     r"(true|false)>")
 
 
@@ -1581,11 +1596,38 @@ def flash_class(key):
     m = _FLASH_KERNEL.search(key)
     if m is None:
         return None
-    if m.group(3) == "true":
+    if m.group(4) == "true":
         return "k6"
-    if m.group(2) == "1":
+    if m.group(3) == "1":
         return "k5"
     return "k1" if m.group(1) == "fwd" else "k2"
+
+
+def flash_bodies(names):
+    """The flash bodies among profiler kernel names: a set of (role —
+    "fwd", "bwd_dq" or "bwd_dkv" —, "mma" for a tensor-core body or
+    "cuda-core", layout — "bhsd" or "bshd" —, mask kind digit)."""
+    out = set()
+    for key in names:
+        m = _FLASH_KERNEL.search(key)
+        if m:
+            out.add((m.group(1), "mma" if m.group(2) else "cuda-core",
+                     "bhsd" if m.group(4) == "true" else "bshd",
+                     int(m.group(3))))
+    return out
+
+
+def body_gate(label, names, want):
+    """The flash bodies that the profiler saw (``flash_bodies`` of
+    ``names``) are exactly ``want``; raises otherwise. On CPU tensors no
+    kernel runs and nothing is checked."""
+    log("%s, profiled flash kernels: %s" % (label, json.dumps(sorted(names))))
+    if DEVICE != "cuda":
+        return
+    seen = flash_bodies(names)
+    if seen != set(want):
+        raise AssertionError("%s: the profile shows the flash bodies %s, "
+                             "want %s" % (label, sorted(seen), sorted(want)))
 
 
 def _profile_steps(exe, prog, feed, loss, steps):
@@ -1622,6 +1664,8 @@ def _profile_steps(exe, prog, feed, loss, steps):
                             ("gemm", "nvjet", "xmma", "cutlass")))
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    flash = {e.key: e.self_device_time_total / steps / 1e3 for e in events
+             if flash_class(e.key) is not None}
     ops = {e.key: {"host_ms": e.cpu_time_total / steps / 1e3,
                    "device_ms": e.device_time_total / steps / 1e3,
                    "calls": e.count // steps}
@@ -1634,6 +1678,7 @@ def _profile_steps(exe, prog, feed, loss, steps):
             "other_ms": busy - k1 - k2 - k5 - k6 - gemm,
             "top_kernels_ms": {e.key[:70]: e.self_device_time_total
                                / steps / 1e3 for e in top},
+            "flash_kernels_ms": flash,
             "ops_host_ms": sum(o["host_ms"] for o in ops.values()),
             "ops": dict(sorted(ops.items(),
                                key=lambda kv: -kv[1]["host_ms"])),
@@ -1697,6 +1742,7 @@ def train_path():
         raise AssertionError("flash launches %s: K1/K2 != steps %d x "
                              "layers %d or K5 launched"
                              % (launches, LM_STEPS, LM_LAYERS))
+    body_gate("training path", res["flash_kernels_ms"], TRAIN_BODIES)
     return res
 
 
@@ -2269,6 +2315,7 @@ def bhsd_path():
     res, scope = _train_run(fluid, exe, prog, startup, feed, loss, LM_STEPS)
     _launch_gate("bhsd path", res["launches"],
                  {n: LM_STEPS * LM_LAYERS for n in K6})
+    body_gate("bhsd path", res["flash_kernels_ms"], BHSD_BODIES)
     bprog, bstartup, bloss = build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ,
                                       amp=True)
     bscope = fluid.Scope()

@@ -27,9 +27,15 @@
 // causal) the work and bytes are K1/K2's (~17 / 26 / 34 GFLOP over 67-100
 // MB: the bytes bound them at the tensor-core rate); under the prefix-LM
 // dense mask (not causal, prefixes of 128-896) about two thirds of all
-// pairs are visible, ~21 GFLOP on ~88 MB with the mask. The products run
-// in fp32 on the CUDA cores; under bf16 inputs P and dS are rounded to
-// bf16 before each product they enter, as the TPU's K6 rounds them.
+// pairs are visible, ~21 GFLOP on ~88 MB with the mask. Under bf16 inputs
+// P and dS are rounded to bf16 before each product they enter, as the
+// TPU's K6 rounds them. K6-dQ and K6-dKV under bf16 at head_dim <= 128 run
+// on the tensor cores (flash_mma.cuh's bodies: S and dP summed in fp64 on
+// the FP64 tensor cores and rounded to fp32 once, so that the roundings of
+// P and dS do not follow a summation order, then the products after them
+// with bf16 operands); their own bound is the FP64 tensor-core rate (67
+// TFLOP/s: ~0.26 ms each at the step's shape). fp32, head_dim > 128 and
+// the forwards run their products in fp32 on the CUDA cores.
 
 #include "flash_kernels.cuh"
 
@@ -101,7 +107,8 @@ extern "C" int paddle_flash_bhsd_bwd_dkv(const void* q, const void* k,
   return run<kMaskValid, true>(kDkv, a, dtype, stream);
 }
 
-// kernel: 0 = K6-fwd (either mask kind), 1 = K6-dQ, 2 = K6-dKV
+// kernel: 0 = K6-fwd (either mask kind), 1 = K6-dQ, 2 = K6-dKV (the bf16
+// backward at head_dim <= 128: the tensor-core bodies)
 extern "C" size_t paddle_flash_bhsd_smem_bytes(int kernel, int d,
                                                int dtype) {
   return smem_bytes<kMaskValid, true>(kernel, d, dtype);

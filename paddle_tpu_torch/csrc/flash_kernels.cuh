@@ -34,9 +34,12 @@
 // by default; the per-head kernels (K6) round them to the input dtype
 // before each product under bf16, as the TPU's K6 does (P before P.V,
 // dS before dS.K, P before P^T.dO and dS before dS^T.Q; `operand`), the
-// forward's row sum keeping the unrounded P. K2's bf16 backward at
-// head_dim <= 128 runs on the tensor cores instead (flash_mma.cuh), with
-// P and dS as hi + lo bf16 pairs that keep them near fp32. Delta =
+// forward's row sum keeping the unrounded P. Under bf16 at head_dim <=
+// 128 without a mask or with the factored one, K1's forward and the
+// backward of K2 and K6 run on the tensor cores instead (flash_mma.cuh):
+// in bshd P and dS enter as hi + lo bf16 pairs that keep them near fp32,
+// in bhsd as hi alone, K6's rounding, from S and dP summed in fp64 and
+// rounded to fp32 once (the plain version's sums). Delta =
 // rowsum(dO * O) [b, s, h] fp32 ([b, h, s] in bhsd) comes from the caller
 // (a torch reduction, as it is XLA in the reference). The backward
 // assumes that a query row with no visible key carries a zero cotangent
@@ -73,10 +76,12 @@
 //   64 at a time: the group sum happens in registers, no atomics (an fp32
 //   output takes the registers' partial sums every 4 query tiles, see
 //   DkvFlush).
-// - The bf16 backward of K2 (head_dim <= 128) takes the tensor-core bodies
-//   of flash_mma.cuh (mma.sync, cp.async staging) on the same template
-//   axes; fp32, head_dim > 128, K1, K5 and K6 take these bodies. Later
-//   work: the other kernels onto the tensor cores, then wgmma with TMA.
+// - Under bf16 at head_dim <= 128 (kMaskValid) K1's forward and the
+//   backward of K2 and K6 take the tensor-core bodies of flash_mma.cuh
+//   (mma.sync, cp.async staging) on the same template axes; fp32, head_dim
+//   > 128, K5, K6's forward and the dense-mask forwards take these
+//   bodies. Later work: the other kernels onto the tensor cores, then
+//   wgmma with TMA.
 
 #pragma once
 
@@ -811,11 +816,20 @@ template <int D>
 constexpr int block_k() { return D <= 128 ? 64 : 32; }
 
 // whether the backward of (T, D, mask kind, layout) runs on the tensor
-// cores (flash_mma.cuh): bf16 K2 at head_dim <= 128. A fixed choice by
-// dtype and head_dim; fp32 (the fp32 gates), head_dim in (128, 256], K5
-// and K6 take the CUDA-core bodies above.
+// cores (flash_mma.cuh): bf16 K2 and K6 at head_dim <= 128. A fixed
+// choice by dtype and head_dim, not a fallback; fp32 (the fp32 gates),
+// head_dim in (128, 256] and K5 take the CUDA-core bodies above.
 template <typename T, int D, int kMask, bool kBhsd>
 constexpr bool mma_backward() {
+  return std::is_same<T, __nv_bfloat16>::value && D <= 128 &&
+         kMask == kMaskValid;
+}
+
+// whether the forward runs on the tensor cores: bf16 K1 at head_dim <=
+// 128, without a mask or with the factored one. K6's forward, K5's and
+// the dense-mask forwards keep the CUDA-core body.
+template <typename T, int D, int kMask, bool kBhsd>
+constexpr bool mma_forward() {
   return std::is_same<T, __nv_bfloat16>::value && D <= 128 &&
          kMask == kMaskValid && !kBhsd;
 }
@@ -823,7 +837,12 @@ constexpr bool mma_backward() {
 template <typename T, int D, int kMask, bool kBhsd>
 size_t smem_for(int kernel) {
   constexpr int BK = block_k<D>();
-  if (kernel == kFwd) return FwdSmem<D, BK>::bytes;
+  if (kernel == kFwd) {
+    if constexpr (mma_forward<T, D, kMask, kBhsd>())
+      return FwdMmaSmem<D, BK>::bytes;
+    else
+      return FwdSmem<D, BK>::bytes;
+  }
   if constexpr (mma_backward<T, D, kMask, kBhsd>()) {
     if (kernel == kDq) return DqMmaSmem<D, BK>::bytes;
     return DkvMmaSmem<D, BK>::bytes;
@@ -869,9 +888,14 @@ int dispatch(int kernel, const Args& a, cudaStream_t stream) {
   const int qrows = kRows / g > 0 ? kRows / g : 1;
   const dim3 rows_grid((a.s + qrows - 1) / qrows * group_chunks(g), a.hkv,
                        a.b);
-  if (kernel == kFwd)
-    return launch_kernel(flash_fwd_kernel<T, D, BK, kMask, kBhsd>, rows_grid,
-                         FwdSmem<D, BK>::bytes, stream, a);
+  if (kernel == kFwd) {
+    if constexpr (mma_forward<T, D, kMask, kBhsd>())
+      return launch_kernel(flash_fwd_mma_kernel<T, D, BK, kMask, kBhsd>,
+                           rows_grid, FwdMmaSmem<D, BK>::bytes, stream, a);
+    else
+      return launch_kernel(flash_fwd_kernel<T, D, BK, kMask, kBhsd>,
+                           rows_grid, FwdSmem<D, BK>::bytes, stream, a);
+  }
   if constexpr (kMask == kMaskDense) {
     return (int)cudaErrorInvalidValue;   // dense masks: forward only
   } else if constexpr (mma_backward<T, D, kMask, kBhsd>()) {

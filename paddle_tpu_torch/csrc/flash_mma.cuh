@@ -1,32 +1,55 @@
-// Flash attention's backward on Hopper's tensor cores (sm_90a): dQ and
+// Flash attention on Hopper's tensor cores (sm_90a): the forward, dQ and
 // dK/dV with mma.sync (m16n8k16, bf16 operands, fp32 accumulators), fed by
 // ldmatrix from bf16 tiles that cp.async stages in shared memory.
 // Included by flash_kernels.cuh after its shared helpers (Args, RowMap,
 // row_at, masked, segment_range, load_seg), whose contract these bodies
 // keep, on the same template axes <T, D, BK, kMask, kBhsd>. This version
-// builds and launches <__nv_bfloat16, D <= 128, kMaskValid, bshd> only
-// (flash_attention.cu's bf16 K2); `mma_backward` in flash_kernels.cuh is
-// that choice. The bodies already carry the other axes (the bhsd layout
-// policy with K6's bf16 operands, the segment window) for later sources.
+// builds and launches, for bf16 at D <= 128 without a mask or with the
+// factored k_valid mask (kMaskValid): the forward in bshd (K1,
+// flash_attention.cu), the backward in bshd (K2, flash_attention.cu) and
+// in bhsd (K6-dQ, K6-dKV, flash_bhsd.cu); `mma_forward` and
+// `mma_backward` in flash_kernels.cuh are that choice. The bodies already
+// carry the other axes (the forward's bhsd rounding, the segment window)
+// for later sources.
 //
 // Replaces (paddle_tpu/ops/pallas_attention.py):
+//   K1     _flash_fwd_bshd's pallas_call (line 616, kernel
+//          _fwd_kernel_bshd);
 //   K2-dQ  _flash_bwd_bshd's first pallas_call (line 959, kernel
 //          _bwd_dq_kernel_bshd);
-//   K2-dKV its second pallas_call (line 977, _bwd_dkv_kernel_bshd).
+//   K2-dKV its second pallas_call (line 977, _bwd_dkv_kernel_bshd);
+//   K6-dQ  _flash_bwd_dispatch's first pallas_call (line 781, kernel
+//          _bwd_dq_kernel);
+//   K6-dKV its second pallas_call (line 798, _bwd_dkv_kernel).
 //
-// What bounds it: at the training step (b16 s1024 h8 d64 bf16 causal) the
-// bytes bound dQ (0.026 ms) and the products dK/dV (0.035 ms) at the
-// card's peaks, but mma.sync reaches only part of the tensor cores' rate
-// (wgmma reaches the rest), and this design issues more products than the
-// function needs: each product with P or dS as its A operand runs twice,
-// on a hi and a lo bf16 half (1.33x the tensor work in dQ, 1.5x in dK/dV).
-// The exponentials and masks run on the CUDA cores between the products.
+// What bounds them: at the training step (b16 s1024 h8 d64 bf16 causal)
+// the bytes bound the forward (0.021 ms) and dQ (0.026 ms) and the
+// products dK/dV (0.035 ms) at the card's peaks, but mma.sync reaches only
+// part of the tensor cores' rate (wgmma reaches the rest), and the bshd
+// bodies issue more products than the function needs: each product with P
+// or dS as its A operand runs twice, on a hi and a lo bf16 half (1.5x the
+// tensor work in the forward and dK/dV, 1.33x in dQ). The per-head
+// backward (K6) takes S and dP in fp64 (below), so the FP64 tensor
+// cores' 67 TFLOP/s bound it: ~17 GFLOP of them per kernel at the step,
+// >= 0.26 ms each. The exponentials and masks run on the CUDA cores
+// between the products.
 //
 // Design:
-// - 4 warps; each owns 16 rows of a 64-row tile: query rows for dQ (the
-//   rows of RowMap, which may gather several heads of a group), keys for
-//   dK/dV. Grids, RowMap, the causal window, the factored k_valid mask
-//   and the zero-cotangent rule are the CUDA-core bodies'.
+// - 4 warps; each owns 16 rows of a 64-row tile: query rows for the
+//   forward and dQ (the rows of RowMap, which may gather several heads of
+//   a group), keys for dK/dV. Grids, RowMap, the causal window, the
+//   factored k_valid mask and the zero-cotangent rule are the CUDA-core
+//   bodies'.
+// - Forward: S = Q.K^T per 64-key tile (A from the Q tile, B from the K
+//   tile, ldmatrix), the online softmax on the accumulator fragments (a
+//   thread holds two rows, gid and gid + 8; a row's max reduces over its
+//   quad of lanes), the running max taken over the whole tile, O's
+//   accumulators rescaled by exp(m_old - m_new), then O += P.V with P's
+//   accumulator fragments as the A operand in registers and V read by
+//   ldmatrix.trans. The row sum l takes the unrounded fp32 P and reduces
+//   over the quad once, at the end. Past the key window the loop goes on
+//   only while a row of the block has seen no visible key (the CUDA-core
+//   forward's uniform-average rule), one tile at a time.
 // - dQ: S = Q.K^T and dP = dO.V^T per key tile (A from Q/dO tiles, B from
 //   the K/V tile, ldmatrix), P = exp(S * scale - Lse) and dS = P (dP - D)
 //   on the accumulator fragments, then dQ += dS.K with dS's accumulator
@@ -40,22 +63,33 @@
 //   group's query heads and the query tiles are one flattened loop, the
 //   GQA sum stays in registers (no atomics), one bf16 store per output.
 // - Rounding: Q.K^T and dO.V^T take the bf16 inputs exactly. The TPU's
-//   K2 keeps P and dS in fp32 (its _dop is a no-op by default), so they
-//   enter each product as hi = bf16(x) and lo = bf16(x - hi): two mma,
-//   ~16 bits of mantissa, within a small fraction of a bf16 output ulp of
-//   fp32 operands. The per-head layout (kBhsd, K6) takes hi alone, which
-//   is the rounding of its TPU kernel.
+//   K1 and K2 keep P and dS in fp32 (their _dop is a no-op by default),
+//   so in bshd they enter each product as hi = bf16(x) and lo = bf16(x -
+//   hi): two mma, ~16 bits of mantissa, within a small fraction of a bf16
+//   output ulp of fp32 operands. The per-head layout (kBhsd, K6) takes hi
+//   alone, which is the rounding of its TPU kernel (P before P.V, dS
+//   before dS.K, P before P^T.dO, dS before dS^T.Q); dS is computed from
+//   the unrounded P. There the lo halves are never formed. Such a
+//   rounding depends on the last bit of S and dP: summed in fp32 in the
+//   tensor cores' order they rounded a few P and dS of the early causal
+//   rows apart from the plain version's (measured on the H100), which
+//   moved whole rows of dQ or dK by an ulp of P. So the per-head backward
+//   sums S and dP in fp64 on the FP64 tensor cores (mma.sync m16n8k8
+//   f64, bf16 operands widened exactly) and rounds each to fp32 once: the
+//   correctly rounded sum, which the plain version takes too. The
+//   products after the rounding (dS.K, P^T.dO, dS^T.Q) take bf16
+//   operands exactly on the bf16 tensor cores.
 // - Staging: a two-stage ring of tiles in shared memory; the next K/V
-//   tile (dQ) or the next Q/dO tile with its Lse and Delta (dK/dV) is in
-//   flight (cp.async, 16-byte copies per row: the rows of a dQ block may
-//   come from several heads, so no TMA box covers them) while the current
-//   one is multiplied. Rows are padded by 16 bytes so ldmatrix's eight
-//   row addresses fall in distinct banks. Columns past d and rows past s
-//   are zeros. Rows whose start is not 16-byte aligned (head_dim not a
-//   multiple of 8) are copied element by element instead, into the same
-//   tiles.
-// - Under the causal mask the dQ grid runs its query tiles in reverse, so
-//   the blocks with the most key tiles start first.
+//   tile (forward, dQ) or the next Q/dO tile with its Lse and Delta
+//   (dK/dV) is in flight (cp.async, 16-byte copies per row: the rows of a
+//   forward or dQ block may come from several heads, so no TMA box covers
+//   them) while the current one is multiplied. Rows are padded by 16
+//   bytes so ldmatrix's eight row addresses fall in distinct banks.
+//   Columns past d and rows past s are zeros. Rows whose start is not
+//   16-byte aligned (head_dim not a multiple of 8) are copied element by
+//   element instead, into the same tiles.
+// - Under the causal mask the forward and dQ grids run their query tiles
+//   in reverse, so the blocks with the most key tiles start first.
 
 #pragma once
 
@@ -100,25 +134,30 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 }
 
 // (x0, x1) as bf16 pairs hi = bf16(x), lo = bf16(x - hi); x0 in the low
-// half, the lower column of an mma fragment
+// half, the lower column of an mma fragment. The per-head layout (kBhsd)
+// takes hi alone: lo is never formed
+template <bool kBhsd>
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
                                            uint32_t* lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
   *hi = bf16x2_bits(h);
-  *lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+  if constexpr (!kBhsd) {
+    const float2 hf = __bfloat1622float2(h);
+    *lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+  }
 }
 
 // the A fragments (hi, lo) of k-slice j (columns 16j..16j+15) from the
 // m16n8 accumulators c[2j], c[2j+1] of the same rows
+template <bool kBhsd>
 __device__ __forceinline__ void a_from_acc(const float (&c0)[4],
                                            const float (&c1)[4],
                                            uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], &hi[0], &lo[0]);
-  split_bf16(c0[2], c0[3], &hi[1], &lo[1]);
-  split_bf16(c1[0], c1[1], &hi[2], &lo[2]);
-  split_bf16(c1[2], c1[3], &hi[3], &lo[3]);
+  split_bf16<kBhsd>(c0[0], c0[1], &hi[0], &lo[0]);
+  split_bf16<kBhsd>(c0[2], c0[3], &hi[1], &lo[1]);
+  split_bf16<kBhsd>(c1[0], c1[1], &hi[2], &lo[2]);
+  split_bf16<kBhsd>(c1[2], c1[3], &hi[3], &lo[3]);
 }
 
 // acc += A.B twice, once per half of A; the per-head layout takes hi
@@ -130,6 +169,73 @@ __device__ __forceinline__ void mma_split(float (&c)[4],
                                           uint32_t b0, uint32_t b1) {
   mma_bf16(c, hi, b0, b1);
   if constexpr (!kBhsd) mma_bf16(c, lo, b0, b1);
+}
+
+// c (m16n8, fp64) += a (m16k8, fp64) * b (k8n8, fp64) on the FP64 tensor
+// cores. Fragments: a[i] row gid + 8 (i & 1), column tig + 4 (i >> 1);
+// b[i] row tig + 4 i, column gid; c as the bf16 product's (checked
+// against a host product on the H100)
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                       const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+__device__ __forceinline__ double f64_at(const __nv_bfloat16* p) {
+  return static_cast<double>(__bfloat162float(*p));
+}
+
+// sc = A.B^T and dp = G.W^T for the 16 rows of A and G from row r0 and
+// the NT * 8 rows of B and W from row n0 (bf16 tiles of row stride SD,
+// D columns), summed in fp64 on the FP64 tensor cores and rounded to
+// fp32 once: the products of bf16 values are exact in fp64, so this is
+// the correctly rounded fp32 of each exact sum, whatever the order. The
+// per-head bodies take S and dP so, because K6 rounds P and dS to bf16:
+// a rounding then depends on the last bit of S and dP, and an order of
+// fp32 sums of its own would round some of them apart from the plain
+// version's (which takes the same correctly rounded sums)
+template <int D, int SD, int NT>
+__device__ __forceinline__ void exact_products(
+    float (&sc)[NT][4], float (&dp)[NT][4], const __nv_bfloat16* a_s,
+    const __nv_bfloat16* g_s, int r0, const __nv_bfloat16* b_s,
+    const __nv_bfloat16* w_s, int n0, int gid, int tig) {
+  double s64[NT][4], d64[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s64[i][e] = d64[i][e] = 0.0;
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    double fa[4], fg[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = (r0 + gid + 8 * (i & 1)) * SD + kk + tig + 4 * (i >> 1);
+      fa[i] = f64_at(a_s + off);
+      fg[i] = f64_at(g_s + off);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      double fb[2], fw[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off = (n0 + nt * 8 + gid) * SD + kk + tig + 4 * i;
+        fb[i] = f64_at(b_s + off);
+        fw[i] = f64_at(w_s + off);
+      }
+      mma_f64(s64[nt], fa, fb);
+      mma_f64(d64[nt], fg, fw);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[i][e] = static_cast<float>(s64[i][e]);
+      dp[i][e] = static_cast<float>(d64[i][e]);
+    }
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
@@ -201,6 +307,256 @@ __device__ __forceinline__ void store_pair(float x0, float x1,
   }
 }
 
+// reduce over the quad of lanes (lane & 3) that holds one row of an
+// m16n8 accumulator fragment
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// key tile t of K and V (and its segment ids) into ring stage st of a
+// forward or dQ block, one copy group: the stage holds the K tile then
+// the V tile, BK rows of SD bf16 each; keys past s and columns past d
+// are zeros
+template <int D, int BK, int SD, bool kSeg, bool kBhsd>
+__device__ __forceinline__ void stage_kv_tile(__nv_bfloat16* kv_s,
+                                              int* kseg_s, const Args& a,
+                                              int bi, int kvh, int t, int st,
+                                              bool vec) {
+  constexpr int CH = D / 8;
+  const int k0 = t * BK;
+  __nv_bfloat16* ks = kv_s + st * 2 * BK * SD;
+  __nv_bfloat16* vs = ks + BK * SD;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v);
+  const size_t base = row_at<kBhsd>(bi, k0, kvh, a.s, a.hkv) * a.d;
+  const int step = (kBhsd ? 1 : a.hkv) * a.d;
+  const int n = min(BK, a.s - k0);
+  for (int idx = threadIdx.x; idx < BK * CH; idx += kThreads) {
+    const int r = idx / CH, col = (idx % CH) * 8;
+    const bool in = r < n;
+    stage_chunk(ks + r * SD + col, in ? kp + base + r * step : nullptr, col,
+                a.d, vec);
+    stage_chunk(vs + r * SD + col, in ? vp + base + r * step : nullptr, col,
+                a.d, vec);
+  }
+  load_seg<kSeg>(kseg_s + st * BK, BK, a.kv_seg, a, bi, k0);
+  cp_async_commit();
+}
+
+template <int D, int BK>
+struct FwdMmaSmem {
+  static constexpr int kStride = D + 8;            // bf16 per row
+  static constexpr int kTile = kRows * kStride;    // bf16 per tile
+  static constexpr size_t bytes =
+      sizeof(__nv_bfloat16) * 5 * kTile + sizeof(int) * 2 * BK;
+};
+
+// ----------------------------------------------------------------- fwd
+template <typename T, int D, int BK, int kMask, bool kBhsd>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(Args a) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value,
+                "the tensor-core bodies take bf16");
+  static_assert(BK == kRows && D % 16 == 0 && D <= 128,
+                "64-wide tiles, head_dim bins of 16 up to 128");
+  static_assert(kMask != kMaskDense,
+                "the dense-mask forward takes the CUDA-core body");
+  constexpr bool kSeg = kMask == kMaskSeg;
+  using S = FwdMmaSmem<D, BK>;
+  constexpr int SD = S::kStride;
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int NT = BK / 8;              // m16n8 score tiles of a key tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* kv_s = q_s + S::kTile;               // stage st: K, then V
+  int* kseg_s = reinterpret_cast<int*>(kv_s + 4 * S::kTile);   // [2][BK]
+
+  const int g = a.h / a.hkv;
+  const int bx = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const RowMap rm(g, bx);
+  const int kvh = blockIdx.y, bi = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const T* q = static_cast<const T*>(a.q);
+  const bool vec = rows_aligned(a);
+
+  // the block's Q rows, in the first copy group
+  for (int idx = tid; idx < kRows * CH; idx += kThreads) {
+    const int r = idx / CH, col = (idx % CH) * 8;
+    const T* qrow = nullptr;
+    if (rm.valid(r, a.s))
+      qrow = q + row_at<kBhsd>(bi, rm.pos(r), kvh * g + rm.gi(r), a.s,
+                               a.h) * a.d;
+    stage_chunk(q_s + r * SD + col, qrow, col, a.d, vec);
+  }
+
+  // this thread's rows: warp * 16 + gid and 8 below it; l is this
+  // thread's share of the row sum until the end
+  int qpos[2], qseg[2];
+  bool rv[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * kWarpRows + gid + 8 * hh;
+    rv[hh] = rm.valid(r, a.s);
+    qpos[hh] = rm.pos(r);
+    qseg[hh] = kSeg && rv[hh] ? a.q_seg[(size_t)bi * a.s + qpos[hh]] : 0;
+    m[hh] = kNegInf;
+    l[hh] = 0.f;
+  }
+  const int qmax = min(rm.q0 + rm.qrows, a.s) - 1;
+  int klo, khi;
+  segment_range<kSeg>(a.q_seg, a.kv_seg, a, bi, rm.q0, qmax, &klo, &khi);
+  if (a.causal) khi = min(khi, qmax);
+  const int n_tiles = (a.s + BK - 1) / BK;
+  const int t_lo = klo / BK;
+  const int n_win = khi >= klo ? khi / BK - t_lo + 1 : 0;
+  // the key tile of step `it`: the window first, then the tiles before
+  // it, then those after it
+  auto tile_at = [&](int it) {
+    if (it < n_win) return t_lo + it;
+    const int o = it - n_win;
+    return o < t_lo ? o : o + n_win;
+  };
+
+  auto stage_tile = [&](int t, int st) {
+    stage_kv_tile<D, BK, SD, kSeg, kBhsd>(kv_s, kseg_s, a, bi, kvh, t, st,
+                                          vec);
+  };
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  if (n_win > 0) stage_tile(t_lo, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int t = tile_at(it);
+    if (it >= n_win) {
+      // outside the window: go on only for rows with no visible key yet,
+      // one tile at a time (no copy ahead)
+      int need = 0;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) need |= (rv[hh] && m[hh] <= kNegInf);
+      if (!__syncthreads_or(need)) break;
+      stage_tile(t, st);
+    }
+    if (it + 1 < n_win) {
+      stage_tile(tile_at(it + 1), st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * BK;
+    const T* ks = kv_s + st * 2 * S::kTile;
+    const T* vs = ks + S::kTile;
+    const int* kseg = kseg_s + st * BK;
+
+    // S = Q.K^T over the tile's keys
+    float sc[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t qa[4];
+      ldsm_x4(qa, smem_u32(q_s + (warp * kWarpRows + (lane & 15)) * SD + kk +
+                           (lane >> 4) * 8));
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t kb[4];
+        const int key = nt * 8 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk + ((lane >> 3) & 1) * 8;
+        ldsm_x4(kb, smem_u32(ks + key * SD + col));
+        mma_bf16(sc[nt], qa, kb[0], kb[1]);
+        mma_bf16(sc[nt + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // the online softmax on the accumulators: the running max over the
+    // whole tile, P = exp(x - m_new), O and l rescaled by exp(m_old - m_new)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int kl = nt * 8 + 2 * tig + (e & 1);
+        const float x = masked<kMask>(sc[nt][e] * a.scale, k0 + kl,
+                                      qpos[hh], qseg[hh],
+                                      kSeg ? kseg[kl] : 0, nullptr, a, bi);
+        sc[nt][e] = x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
+      corr[hh] = expf(m[hh] - m_new);
+      m[hh] = m_new;
+      l[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[nt][e] - m[e >> 1]);
+        sc[nt][e] = p;
+        l[e >> 1] += p;                 // the unrounded P
+      }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] *= corr[e >> 1];
+
+    // O += P.V, P from the accumulators, V by ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t hi[4], lo[4];
+      a_from_acc<kBhsd>(sc[2 * j], sc[2 * j + 1], hi, lo);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        uint32_t vb[4];
+        const int key = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = nd * 8 + (lane >> 4) * 8;
+        ldsm_x4_t(vb, smem_u32(vs + key * SD + col));
+        mma_split<kBhsd>(o[nd], hi, lo, vb[0], vb[1]);
+        mma_split<kBhsd>(o[nd + 1], hi, lo, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();    // the stage is refilled next
+  }
+  cp_async_wait_all();   // the staged rows of a block with no tile
+
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lc = fmaxf(quad_sum(l[hh]), 1e-20f);
+    if (!rv[hh]) continue;
+    const int r = warp * kWarpRows + gid + 8 * hh;
+    const int head = kvh * g + rm.gi(r);
+    T* row = out + row_at<kBhsd>(bi, qpos[hh], head, a.s, a.h) * a.d;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      store_pair(o[nd][2 * hh] / lc, o[nd][2 * hh + 1] / lc, row,
+                 nd * 8 + 2 * tig, a.d);
+    // the row's Lse on its 8 lanes, two from each thread of the quad
+    const float lse = m[hh] + logf(lc);
+    *reinterpret_cast<float2*>(
+        a.lse_out + (((size_t)bi * a.h + head) * a.s + qpos[hh]) * kLanes +
+        2 * tig) = make_float2(lse, lse);
+  }
+}
+
 template <int D, int BK>
 struct DqMmaSmem {
   static constexpr int kStride = D + 8;            // bf16 per row
@@ -221,8 +577,9 @@ flash_bwd_dq_mma_kernel(Args a) {
   constexpr bool kSeg = kMask == kMaskSeg;
   using S = DqMmaSmem<D, BK>;
   constexpr int SD = S::kStride;
-  // keys per S/dP chunk: narrower as the dQ accumulators grow with D
-  constexpr int KC = D <= 32 ? 64 : D <= 64 ? 16 : 32;
+  // keys per S/dP chunk: narrower as the dQ accumulators grow with D;
+  // 16 for the fp64 products of the per-head layout
+  constexpr int KC = kBhsd ? 16 : D <= 32 ? 64 : D <= 64 ? 16 : 32;
   constexpr int CH = D / 8;               // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
@@ -238,8 +595,6 @@ flash_bwd_dq_mma_kernel(Args a) {
   const int gid = lane >> 2, tig = lane & 3;
   const T* q = static_cast<const T*>(a.q);
   const T* dout = static_cast<const T*>(a.o_grad);
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
   const bool vec = rows_aligned(a);
 
   // the block's Q and dO rows, in the first copy group
@@ -281,24 +636,9 @@ flash_bwd_dq_mma_kernel(Args a) {
   const int t_lo = klo / BK;
   const int t_end = khi >= klo ? khi / BK + 1 : 0;
 
-  // key tile t into stage st (K, V and their segment ids), one group
   auto stage_tile = [&](int t, int st) {
-    const int k0 = t * BK;
-    T* ks = kv_s + st * 2 * S::kTile;
-    T* vs = ks + S::kTile;
-    const size_t base = row_at<kBhsd>(bi, k0, kvh, a.s, a.hkv) * a.d;
-    const int step = (kBhsd ? 1 : a.hkv) * a.d;
-    const int n = min(BK, a.s - k0);
-    for (int idx = tid; idx < BK * CH; idx += kThreads) {
-      const int r = idx / CH, col = (idx % CH) * 8;
-      const bool in = r < n;
-      stage_chunk(ks + r * SD + col, in ? kp + base + r * step : nullptr,
-                  col, a.d, vec);
-      stage_chunk(vs + r * SD + col, in ? vp + base + r * step : nullptr,
-                  col, a.d, vec);
-    }
-    load_seg<kSeg>(kseg_s + st * BK, BK, a.kv_seg, a, bi, k0);
-    cp_async_commit();
+    stage_kv_tile<D, BK, SD, kSeg, kBhsd>(kv_s, kseg_s, a, bi, kvh, t, st,
+                                          vec);
   };
 
   float dq[D / 8][4];
@@ -329,24 +669,29 @@ flash_bwd_dq_mma_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
       // S = Q.K^T, dP = dO.V^T over this chunk's keys
+      if constexpr (kBhsd) {
+        exact_products<D, SD, KC / 8>(sc, dp, q_s, do_s, warp * kWarpRows,
+                                      ks, vs, kc, gid, tig);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t qa[4], ga[4];
-        const int arow = warp * kWarpRows + (lane & 15);
-        const int acol = kk + (lane >> 4) * 8;
-        ldsm_x4(qa, smem_u32(q_s + arow * SD + acol));
-        ldsm_x4(ga, smem_u32(do_s + arow * SD + acol));
+        for (int kk = 0; kk < D; kk += 16) {
+          uint32_t qa[4], ga[4];
+          const int arow = warp * kWarpRows + (lane & 15);
+          const int acol = kk + (lane >> 4) * 8;
+          ldsm_x4(qa, smem_u32(q_s + arow * SD + acol));
+          ldsm_x4(ga, smem_u32(do_s + arow * SD + acol));
 #pragma unroll
-        for (int nt = 0; nt < KC / 8; nt += 2) {
-          uint32_t kb[4], vb[4];
-          const int key = kc + nt * 8 + (lane & 7) + ((lane >> 4) << 3);
-          const int col = kk + ((lane >> 3) & 1) * 8;
-          ldsm_x4(kb, smem_u32(ks + key * SD + col));
-          ldsm_x4(vb, smem_u32(vs + key * SD + col));
-          mma_bf16(sc[nt], qa, kb[0], kb[1]);
-          mma_bf16(sc[nt + 1], qa, kb[2], kb[3]);
-          mma_bf16(dp[nt], ga, vb[0], vb[1]);
-          mma_bf16(dp[nt + 1], ga, vb[2], vb[3]);
+          for (int nt = 0; nt < KC / 8; nt += 2) {
+            uint32_t kb[4], vb[4];
+            const int key = kc + nt * 8 + (lane & 7) + ((lane >> 4) << 3);
+            const int col = kk + ((lane >> 3) & 1) * 8;
+            ldsm_x4(kb, smem_u32(ks + key * SD + col));
+            ldsm_x4(vb, smem_u32(vs + key * SD + col));
+            mma_bf16(sc[nt], qa, kb[0], kb[1]);
+            mma_bf16(sc[nt + 1], qa, kb[2], kb[3]);
+            mma_bf16(dp[nt], ga, vb[0], vb[1]);
+            mma_bf16(dp[nt + 1], ga, vb[2], vb[3]);
+          }
         }
       }
       // P and dS = P (dP - Delta) in the accumulators
@@ -366,7 +711,7 @@ flash_bwd_dq_mma_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < KC / 16; ++j) {
         uint32_t hi[4], lo[4];
-        a_from_acc(dp[2 * j], dp[2 * j + 1], hi, lo);
+        a_from_acc<kBhsd>(dp[2 * j], dp[2 * j + 1], hi, lo);
 #pragma unroll
         for (int nd = 0; nd < D / 8; nd += 2) {
           uint32_t kb[4];
@@ -419,8 +764,9 @@ flash_bwd_dkv_mma_kernel(Args a) {
   using S = DkvMmaSmem<D, BK>;
   constexpr int SD = S::kStride;
   // queries per S^T/dP^T chunk: the dK/dV accumulators take D / 2
-  // registers, so the chunk narrows as D grows
-  constexpr int QC = D <= 32 ? 64 : D <= 64 ? 32 : 16;
+  // registers, so the chunk narrows as D grows; 16 for the fp64 products
+  // of the per-head layout
+  constexpr int QC = kBhsd || D > 64 ? 16 : D <= 32 ? 64 : 32;
   constexpr int CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);
@@ -532,24 +878,29 @@ flash_bwd_dkv_mma_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
       // S^T = K.Q^T, dP^T = V.dO^T over this chunk's queries
+      if constexpr (kBhsd) {
+        exact_products<D, SD, QC / 8>(sc, dp, k_s, v_s, warp * kWarpRows,
+                                      qs, gs, qc, gid, tig);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t ka[4], va[4];
-        const int arow = warp * kWarpRows + (lane & 15);
-        const int acol = kk + (lane >> 4) * 8;
-        ldsm_x4(ka, smem_u32(k_s + arow * SD + acol));
-        ldsm_x4(va, smem_u32(v_s + arow * SD + acol));
+        for (int kk = 0; kk < D; kk += 16) {
+          uint32_t ka[4], va[4];
+          const int arow = warp * kWarpRows + (lane & 15);
+          const int acol = kk + (lane >> 4) * 8;
+          ldsm_x4(ka, smem_u32(k_s + arow * SD + acol));
+          ldsm_x4(va, smem_u32(v_s + arow * SD + acol));
 #pragma unroll
-        for (int nt = 0; nt < QC / 8; nt += 2) {
-          uint32_t qb[4], gb[4];
-          const int row = qc + nt * 8 + (lane & 7) + ((lane >> 4) << 3);
-          const int col = kk + ((lane >> 3) & 1) * 8;
-          ldsm_x4(qb, smem_u32(qs + row * SD + col));
-          ldsm_x4(gb, smem_u32(gs + row * SD + col));
-          mma_bf16(sc[nt], ka, qb[0], qb[1]);
-          mma_bf16(sc[nt + 1], ka, qb[2], qb[3]);
-          mma_bf16(dp[nt], va, gb[0], gb[1]);
-          mma_bf16(dp[nt + 1], va, gb[2], gb[3]);
+          for (int nt = 0; nt < QC / 8; nt += 2) {
+            uint32_t qb[4], gb[4];
+            const int row = qc + nt * 8 + (lane & 7) + ((lane >> 4) << 3);
+            const int col = kk + ((lane >> 3) & 1) * 8;
+            ldsm_x4(qb, smem_u32(qs + row * SD + col));
+            ldsm_x4(gb, smem_u32(gs + row * SD + col));
+            mma_bf16(sc[nt], ka, qb[0], qb[1]);
+            mma_bf16(sc[nt + 1], ka, qb[2], qb[3]);
+            mma_bf16(dp[nt], va, gb[0], gb[1]);
+            mma_bf16(dp[nt + 1], va, gb[2], gb[3]);
+          }
         }
       }
       // P^T and dS^T = P^T (dP^T - Delta), Lse and Delta per column
@@ -573,8 +924,8 @@ flash_bwd_dkv_mma_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < QC / 16; ++j) {
         uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
-        a_from_acc(sc[2 * j], sc[2 * j + 1], p_hi, p_lo);
-        a_from_acc(dp[2 * j], dp[2 * j + 1], ds_hi, ds_lo);
+        a_from_acc<kBhsd>(sc[2 * j], sc[2 * j + 1], p_hi, p_lo);
+        a_from_acc<kBhsd>(dp[2 * j], dp[2 * j + 1], ds_hi, ds_lo);
 #pragma unroll
         for (int nd = 0; nd < D / 8; nd += 2) {
           uint32_t gb[4], qb[4];

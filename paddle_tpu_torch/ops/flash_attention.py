@@ -38,12 +38,15 @@ Semantics shared with the TPU kernels: masked logits are ``NEG_INF =
 -1e30`` (finite, so a row with no visible key is the uniform average of
 V), ``l`` is clamped at 1e-20, products accumulate in fp32. Their
 operands P and dS follow each TPU kernel: K1/K2/K5 keep them in fp32
-(K2's bf16 kernels carry them as hi + lo bf16 halves on the tensor
-cores); K6 rounds them to bf16 under bf16 inputs (P before P·V, dS
+(the bf16 tensor-core kernels of K1 and K2 carry them as hi + lo bf16
+halves); K6 rounds them to bf16 under bf16 inputs (P before P·V, dS
 before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q), and so does its plain
 version, which rounds the forward's P at the running row max of each key
 tile of the kernel's width (:func:`key_tile`), where an online softmax
-rounds it. ``k_valid`` (``[1|b, s]`` bool) is the key factor of a
+rounds it. K6's bf16 backward takes S and dP as correctly rounded fp32
+sums (fp64 on the card's FP64 tensor cores; :func:`_exact_bmm` in the
+plain version), so that its roundings do not follow a summation order.
+``k_valid`` (``[1|b, s]`` bool) is the key factor of a
 factored padding mask; the
 query factor is applied by the op (``ops.attention``), outside the
 kernels. The backward takes a query row with no visible key to carry a
@@ -189,13 +192,18 @@ def _check_shapes(q, k, v, k_valid=None, seg=None, mask=None,
 # They compute on bshd views; bhsd inputs are transposed views, so the
 # arithmetic is the same in both layouts.
 
-def _logits(q, k, scale, causal, k_valid, seg=None, mask=None):
+def _logits(q, k, scale, causal, k_valid, seg=None, mask=None,
+            exact=False):
     """fp32 masked logits [b, h, s, s] (head = kv_head * g + i) of bshd
-    q, k."""
+    q, k; ``exact``: each Q.K^T sum taken in fp64 and rounded to fp32
+    once before the scale (:func:`_exact_bmm`)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     qf = q.float().reshape(b, s, hkv, h // hkv, d)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    kf = k.float()
+    if exact:
+        qf, kf = qf.double(), kf.double()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, kf).float() * scale
     hidden = torch.zeros((s, s), dtype=torch.bool, device=q.device)
     if causal:
         hidden = torch.ones_like(hidden).triu_(1)
@@ -237,6 +245,16 @@ def _rounds_operands(dtype, layout):
 
 def _bf16(x):
     return x.to(torch.bfloat16).float()
+
+
+def _exact_bmm(a, b):
+    """a @ b of fp32 tensors holding bf16 values, each sum taken in fp64
+    (the products are exact there) and rounded to fp32 once: the
+    correctly rounded sums, whatever the order. The backward that rounds
+    P and dS to bf16 (K6 under bf16) takes S and dP so, as its kernels do
+    on the FP64 tensor cores: a rounding then depends on the last bit of
+    S and dP, which two fp32 summation orders would set apart."""
+    return torch.matmul(a.double(), b.double()).float()
 
 
 def _online_p(logits, m, tile):
@@ -299,12 +317,14 @@ def _bwd_plain(q, k, v, o, lse, do, scale, causal, k_valid, seg,
     b, s, h, d = q.shape
     hkv = k.shape[2]
     sc = _scale(q, scale)
-    p = torch.exp(_logits(q, k, sc, causal, k_valid, seg) -
+    rounds = _rounds_operands(q.dtype, layout)
+    p = torch.exp(_logits(q, k, sc, causal, k_valid, seg, exact=rounds) -
                   lse[..., 0].reshape(b, h, s, 1))
     dof = do.float().permute(0, 2, 1, 3)                 # [b, h, s, d]
-    dp = torch.matmul(dof, _kv_heads(v, h).transpose(-1, -2))
+    vt = _kv_heads(v, h).transpose(-1, -2)
+    dp = _exact_bmm(dof, vt) if rounds else torch.matmul(dof, vt)
     ds = p * (dp - _delta(o, do).permute(0, 2, 1)[..., None])
-    if _rounds_operands(q.dtype, layout):
+    if rounds:
         p, ds = _bf16(p), _bf16(ds)
     dq = torch.matmul(ds, _kv_heads(k, h)) * sc
     dk = torch.matmul(ds.transpose(-1, -2), q.float().permute(0, 2, 1, 3)) * sc

@@ -195,21 +195,33 @@ def test_k6_forward_plain_matches_the_pallas_kernel(interpret, monkeypatch,
 
 
 @pytest.mark.parametrize(
-    "masked,bf16", [(False, False), (True, False), (False, True),
-                    (True, True)],
-    ids=["nomask", "factored", "nomask-bf16", "factored-bf16"])
+    "masked,bf16,block",
+    [(False, False, None), (True, False, None), (False, True, None),
+     (True, True, None), (False, True, 32), (True, True, 32),
+     (False, True, 128), (True, True, 128)],
+    ids=["nomask", "factored", "nomask-bf16", "factored-bf16",
+         "nomask-bf16-block32", "factored-bf16-block32",
+         "nomask-bf16-block128", "factored-bf16-block128"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("h,d", [(2, 32), (4, 16)])
 def test_k6_backward_plain_matches_the_pallas_kernels(interpret, monkeypatch,
                                                       h, d, causal, masked,
-                                                      bf16):
+                                                      bf16, block):
+    """``block``: the reference's blocks pinned to that width instead of
+    the port's key tile. The backward rounds P and dS elementwise, so its
+    rounding does not follow the tile width (which the tensor-core
+    bodies' 16-wide chunks rely on), and the bound holds at any width."""
     q, k, v, do, valid = inputs(2 if bf16 else 3, h, h, d, seed=2)
     scale = 1.0 / np.sqrt(d)
     jm = (jnp.asarray(valid), jnp.asarray(valid)) if masked else None
     jq, jk, jv, jdo = jnp_all(q, k, v, do)
     t = torch_all(q, k, v, do)
     if bf16:
-        pin_blocks(monkeypatch, d)
+        if block is None:
+            pin_blocks(monkeypatch, d)
+        else:
+            monkeypatch.setattr(jpa, "_BQ_ENV", str(block))
+            monkeypatch.setattr(jpa, "_BK_ENV", str(block))
         jq, jk, jv, jdo = (x.astype(jnp.bfloat16) for x in (jq, jk, jv, jdo))
         t = [x.to(torch.bfloat16) for x in t]
     jo, jlse = jpa._flash_fwd_impl(jq, jk, jv, scale, causal, save_lse=True,

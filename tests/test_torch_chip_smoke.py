@@ -272,10 +272,56 @@ def test_prefix_mask_and_kernel_classes():
         ("k2", "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 128, 64, 0, false>"
                "(Args)"),
         ("k5", "flash_bwd_dq_kernel<__nv_bfloat16, 64, 64, 1, false>(Args)"),
-        ("k6", "flash_fwd_kernel<__nv_bfloat16, 128, 64, 0, true>(Args)")]
+        ("k6", "flash_fwd_kernel<__nv_bfloat16, 128, 64, 0, true>(Args)"),
+        # K1's tensor-core forward and K6's tensor-core backward
+        ("k1", "void (anonymous namespace)::flash_fwd_mma_kernel<"
+               "__nv_bfloat16, 64, 64, 0, false>((anonymous namespace)::"
+               "Args)"),
+        ("k6", "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 0, true>"
+               "(Args)"),
+        ("k6", "void (anonymous namespace)::flash_bwd_dkv_mma_kernel<"
+               "__nv_bfloat16, 128, 64, 0, true>((anonymous namespace)::"
+               "Args)")]
     for want, key in names:
         assert cs.flash_class(key) == want
     assert cs.flash_class("ampere_bf16_s16816gemm_bf16") is None
+
+
+def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
+    """Phases 6 and 9 hold the profiled flash kernels to exactly the
+    bodies they must run: K1 and K2 on the tensor cores in bshd; K6's
+    CUDA-core forward and tensor-core backward in bhsd."""
+    ns = "void (anonymous namespace)::"
+    args = "((anonymous namespace)::Args)"
+    train = {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, false>" +
+             args: 1.1,
+             ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 0, false>" +
+             args: 2.0,
+             ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 0, "
+             "false>" + args: 2.5,
+             "ampere_bf16_s16816gemm_bf16_128x64": 9.0}
+    bhsd = {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 0, true>" + args:
+            1.0,
+            ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
+            args: 2.0,
+            ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
+            args: 2.0}
+    assert cs.flash_bodies(train) == cs.TRAIN_BODIES
+    assert cs.flash_bodies(bhsd) == cs.BHSD_BODIES
+    monkeypatch.setattr(cs, "DEVICE", "cuda")
+    cs.body_gate("training path", train, cs.TRAIN_BODIES)
+    cs.body_gate("bhsd path", bhsd, cs.BHSD_BODIES)
+    # a CUDA-core body where the tensor-core one must run
+    cuda_core = dict(train)
+    cuda_core[ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 0, false>" +
+              args] = 13.0
+    with pytest.raises(AssertionError):
+        cs.body_gate("training path", cuda_core, cs.TRAIN_BODIES)
+    with pytest.raises(AssertionError):          # a body missing
+        cs.body_gate("bhsd path", dict(list(bhsd.items())[:2]),
+                     cs.BHSD_BODIES)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")     # no kernel runs there
+    cs.body_gate("training path", {}, cs.TRAIN_BODIES)
 
 
 def test_mma_spills_reads_ptxas_output():
@@ -284,14 +330,19 @@ def test_mma_spills_reads_ptxas_output():
     dq = "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelI13__nv_bfloat16" \
          "Li64ELi64ELi0ELb0EEEvNS_4ArgsE"
     fwd = "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELi64ELi0ELb0EEEvNS_4ArgsE"
+    mma_fwd = "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelI13__nv_bfloat16" \
+              "Li128ELi64ELi0ELb0EEEvNS_4ArgsE"
     text = "\n".join([
         "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % dq,
         "ptxas info    : Function properties for %s" % dq,
         "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
         "ptxas info    : Used 168 registers, 384 bytes cmem[0]",
         "ptxas info    : Function properties for %s" % fwd,
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"])
-    assert cs.mma_spills(text) == {dq: (8, 4)}
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Function properties for %s" % mma_fwd,
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, 384 bytes cmem[0]"])
+    assert cs.mma_spills(text) == {dq: (8, 4), mma_fwd: (0, 0)}
     assert cs.mma_spills("") == {}
 
 
