@@ -10,8 +10,12 @@ raises on failure (the script then exits non-zero and prints no result):
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
 2. Build: compile every kernel of every slice from
    ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel); no
-   tensor-core body (K1's forward, K2's and K6's backward, at head_dim
-   32, 64 and 128) may spill (ptxas -v).
+   tensor-core body (the forward of K1, K1-dense and K6, the backward of
+   K2 and K6, at head_dim 32, 64 and 128) may spill (ptxas -v). Every
+   flash kernel's reported shared memory at head_dim 32-256 in fp32 and
+   bf16 is logged, and must belong to the body it launches: a kernel
+   that runs a CUDA-core body under bf16 reports its fp32 bytes, one
+   that runs a tensor-core body other bytes (``smem_gate``).
 3. Kernels against their plain versions on the card. K3 in fp32 and
    bf16, at the serving geometry and the reference's tuning grid,
    lengths 0, 1, a mid-page frontier and the full window. K1, K2-dQ and
@@ -40,8 +44,10 @@ raises on failure (the script then exits non-zero and prints no result):
    masked query row), fp32 and bf16 (K6 rounds P and dS to bf16 there,
    as the TPU's K6 and the plain version do), causal and not, h8/hkv8
    and h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}, and s 300 d 32
-   h8/hkv2 (bf16 K6-dQ and K6-dKV on the tensor cores, taking P and dS
-   as bf16). K4 (fused Adam)
+   h8/hkv2 (bf16 K6-fwd, K6-dQ and K6-dKV and bf16 K1-dense on the tensor
+   cores; K6 taking P and dS as bf16 from S and dP summed in fp64; s
+   1000 and 300 stage K1-dense's mask rows byte by byte). K4 (fused
+   Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
 4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
@@ -121,9 +127,10 @@ raises on failure (the script then exits non-zero and prints no result):
    relative, the layer-0 query projection's 3-step update within 1e-3.
    Then 10 steps at full size: loss finite and falling, K6-fwd, K6-dQ
    and K6-dKV each steps x 12 launches and no other flash kernel; a
-   profile, whose flash kernels must be K6's CUDA-core forward and its
-   tensor-core backward bodies (``flash_bwd_*_mma_kernel<..., true>``);
-   steps in turns with phase 6's program (``step_ratio_vs_bshd``).
+   profile, whose flash kernels must be exactly K6's tensor-core bodies
+   (``flash_fwd_mma_kernel<..., 0, true>``,
+   ``flash_bwd_*_mma_kernel<..., 0, true>``: ``BHSD_BODIES``); steps in
+   turns with phase 6's program (``step_ratio_vs_bshd``).
 10. Dense-mask path: the prefix-LM mask (``prefix_mask``: [16, 1, 1024,
    1024] bool, row b sees keys j <= i or j < p_b, p_b in [128, 896];
    not causal). First fp32 gates (2 layers, full width): program 2 (bhsd)
@@ -131,7 +138,11 @@ raises on failure (the script then exits non-zero and prints no result):
    losses within 1e-5 of each other. Then 5 steps of each at full size:
    loss finite and falling; program 2 launches K6-fwd-dense steps x 12,
    program 3 K1-dense steps x 12, and no other flash kernel (the
-   backward recomputes through the plain composition). Then K6-fwd,
+   backward recomputes through the plain composition); each program's
+   profile must show exactly its forward body (``DENSE_BODIES``: K1-dense
+   on the tensor cores, ``flash_fwd_mma_kernel<..., 2, false>``; the
+   CUDA-core ``flash_fwd_kernel<..., 2, true>`` for K6-fwd-dense). Then
+   K6-fwd,
    K6-dQ, K6-dKV at phase 9's attention shape and K6-fwd-dense, K1-dense
    at phase 10's, each beside its bound, its plain version and SDPA.
 
@@ -293,12 +304,21 @@ BHSD_MASKS = ("none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h"))
 K1_DENSE_MASKS = ((1, 1), ("b", 1))
 DENSE_STEPS = 5
 # the flash bodies (``flash_bodies``) that the profiles of phase 6 (K1,
-# K2) and phase 9 (K6) must show at the step's bf16 head_dim 64: the
-# tensor-core bodies, except K6's forward
+# K2), phase 9 (K6) and phase 10's two programs (by layout) must show at
+# the step's bf16 head_dim 64: the tensor-core bodies, except K6's
+# dense-mask forward
 TRAIN_BODIES = {("fwd", "mma", "bshd", 0), ("bwd_dq", "mma", "bshd", 0),
                 ("bwd_dkv", "mma", "bshd", 0)}
-BHSD_BODIES = {("fwd", "cuda-core", "bhsd", 0), ("bwd_dq", "mma", "bhsd", 0),
+BHSD_BODIES = {("fwd", "mma", "bhsd", 0), ("bwd_dq", "mma", "bhsd", 0),
                ("bwd_dkv", "mma", "bhsd", 0)}
+DENSE_BODIES = {"bhsd": {("fwd", "cuda-core", "bhsd", 2)},
+                "bshd": {("fwd", "mma", "bshd", 2)}}
+# the flash kernels whose bf16 calls at head_dim <= 128 run a tensor-core
+# body (``mma_forward`` / ``mma_backward`` in csrc/flash_kernels.cuh);
+# every other kernel, head_dim and dtype runs a CUDA-core body, whose
+# shared memory holds fp32 tiles whatever the input dtype
+MMA_FLASH = K1K2 + K6 + ("flash_fwd_dense",)
+SMEM_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def log(msg):
@@ -329,8 +349,10 @@ def card():
 
 def build():
     """Compile every source; print ptxas's registers and spills, and
-    fail if any tensor-core body (``*_mma_kernel``: K1's forward, the
-    backward of K2 and K6, at every head_dim bin) spills."""
+    fail if any tensor-core body (``*_mma_kernel``: the forward of K1,
+    K1-dense and K6, the backward of K2 and K6, at every head_dim bin)
+    spills, or if a flash kernel reports the shared memory of a body it
+    does not launch (``flash_smem``)."""
     from paddle_tpu_torch import _build
     secs = _build.build()
     spills = {}
@@ -345,7 +367,47 @@ def build():
     if bad:
         raise AssertionError("tensor-core bodies spill: %s" % bad)
     log("build: %s in %.2f s" % (", ".join(sorted(_build.SOURCES)), secs))
+    flash_smem()
     return secs
+
+
+def flash_smem():
+    """Each flash kernel's reported shared memory per block (what its
+    wrapper checks against the card's limit) at SMEM_HEAD_DIMS in fp32
+    and bf16, logged and held by ``smem_gate``."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    nbytes = {(name, d, dt): fa.smem_bytes(name, d, dtype)
+              for name in FLASH_KERNELS for d in SMEM_HEAD_DIMS
+              for dt, dtype in (("float32", torch.float32),
+                                ("bfloat16", torch.bfloat16))}
+    log("flash kernels' shared memory (bytes, fp32 / bf16): %s" % json.dumps(
+        {"%s d%d" % (name, d): [nbytes[(name, d, "float32")],
+                                nbytes[(name, d, "bfloat16")]]
+         for name in FLASH_KERNELS for d in SMEM_HEAD_DIMS}))
+    smem_gate(nbytes)
+    return nbytes
+
+
+def smem_gate(nbytes):
+    """``nbytes`` {(kernel, head_dim, "float32" | "bfloat16"): bytes}:
+    the bytes belong to the body that each call launches, so a kernel
+    that runs a CUDA-core body under bf16 (fp32 tiles) reports its fp32
+    bytes and one that runs a tensor-core body (bf16 tiles, MMA_FLASH at
+    head_dim <= 128) other bytes; raises otherwise."""
+    bad = []
+    for name in FLASH_KERNELS:
+        for d in SMEM_HEAD_DIMS:
+            mma = name in MMA_FLASH and d <= 128
+            same = nbytes[(name, d, "bfloat16")] == \
+                nbytes[(name, d, "float32")]
+            if same == mma:
+                bad.append("%s d%d (%s body)" % (
+                    name, d, "tensor-core" if mma else "CUDA-core"))
+    if bad:
+        raise AssertionError("flash kernels report the shared memory of "
+                             "another body than they launch under bf16: "
+                             "%s" % bad)
 
 
 def mma_spills(text):
@@ -2382,7 +2444,8 @@ def dense_path():
     through the plain composition) and program 3 (bshd: K1-dense steps x
     12) for DENSE_STEPS steps each — no other flash kernel, K6-dQ/dKV and
     K2-dQ/dKV above all; loss finite and falling — with a profiled
-    window and the peak memory."""
+    window (its flash bodies exactly DENSE_BODIES of the layout) and the
+    peak memory."""
     import paddle_tpu_torch as fluid
     gate = dense_gate()
     mask = prefix_mask(LM_BATCH, LM_SEQ)
@@ -2399,6 +2462,8 @@ def dense_path():
         del scope
         _launch_gate("dense-mask %s path" % layout, run["launches"],
                      {kernel: DENSE_STEPS * LM_LAYERS})
+        body_gate("dense-mask %s path" % layout, run["flash_kernels_ms"],
+                  DENSE_BODIES[layout])
         log("dense-mask %s training %dL-%dd b%d s%d bf16: %s"
             % (layout, LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, json.dumps(
                 {k: v for k, v in run.items() if k != "ops"})))

@@ -25,17 +25,20 @@
 // FLOP per byte, so at the tensor-core rate the bytes bound it (~0.021
 // ms). K2-dQ (~26 GFLOP on 88 MB) is bound by its bytes too (0.026 ms),
 // K2-dKV (~34 GFLOP) by its products (0.035 ms). Under bf16 at head_dim <=
-// 128 K1 and K2 run on the tensor cores (flash_mma.cuh: mma.sync fed by
-// ldmatrix from cp.async-staged bf16 tiles; K1's online softmax on the
-// score accumulators; P and dS as register operands split into hi and lo
-// bf16 halves so they stay near the fp32 of the TPU kernels); their own
-// limit is mma.sync's share of the tensor-core rate and the hi/lo
-// products (1.5x the tensor work in K1 and dK/dV, 1.33x in dQ). K1-dense,
-// and K1/K2 in fp32 or at head_dim > 128, do their products in fp32 on the
-// CUDA cores (67 TFLOP/s peak), so their own bound is the fp32 rate.
-// K1-dense at the prefix-LM step (b16 s1024 h8 d64 bf16, not causal,
+// 128 K1, K1-dense and K2 run on the tensor cores (flash_mma.cuh: mma.sync
+// fed by ldmatrix from cp.async-staged bf16 tiles; the forward's online
+// softmax on the score accumulators; P and dS as register operands split
+// into hi and lo bf16 halves so they stay near the fp32 of the TPU
+// kernels); their own limit is mma.sync's share of the tensor-core rate
+// and the hi/lo products (1.5x the tensor work in K1 and dK/dV, 1.33x in
+// dQ). K1-dense at the prefix-LM step (b16 s1024 h8 d64 bf16, not causal,
 // prefixes of 128-896) sees about two thirds of all pairs: ~21 GFLOP on
-// ~88 MB (the 16 MiB mask counted once; the kernel visits every key tile).
+// ~88 MB (the 16 MiB mask counted once), so its bytes bound it (0.026
+// ms); it visits every key tile (256 of a head against the causal K1's
+// 136) and reads each score's mask byte from a [64 x 64] byte tile that
+// rides in the copy ring beside K and V. In fp32 or at head_dim > 128
+// the forwards and K2 do their products in fp32 on the CUDA cores (67
+// TFLOP/s peak), so their own bound is the fp32 rate.
 
 #include "flash_kernels.cuh"
 
@@ -102,11 +105,12 @@ extern "C" int paddle_flash_bwd_dkv(const void* q, const void* k,
   return run<kMaskValid, false>(kDkv, a, dtype, stream);
 }
 
-// kernel: 0 = K1, 1 = K2-dQ, 2 = K2-dKV; dtype as above (the bf16 bodies
-// at head_dim <= 128 are the tensor-core ones)
-extern "C" size_t paddle_flash_smem_bytes(int kernel, int d,
+// kernel: 0 = K1 (mask 0) or K1-dense (mask 2), 1 = K2-dQ, 2 = K2-dKV;
+// mask: 0 = none or k_valid, 2 = dense; dtype as above (the bf16 bodies at
+// head_dim <= 128 are the tensor-core ones)
+extern "C" size_t paddle_flash_smem_bytes(int kernel, int mask, int d,
                                           int dtype) {
-  return smem_bytes<kMaskValid, false>(kernel, d, dtype);
+  return smem_bytes<false>(kernel, mask, d, dtype);
 }
 
 extern "C" const char* paddle_flash_error_string(int err) {

@@ -35,11 +35,12 @@
 // before each product under bf16, as the TPU's K6 does (P before P.V,
 // dS before dS.K, P before P^T.dO and dS before dS^T.Q; `operand`), the
 // forward's row sum keeping the unrounded P. Under bf16 at head_dim <=
-// 128 without a mask or with the factored one, K1's forward and the
-// backward of K2 and K6 run on the tensor cores instead (flash_mma.cuh):
-// in bshd P and dS enter as hi + lo bf16 pairs that keep them near fp32,
-// in bhsd as hi alone, K6's rounding, from S and dP summed in fp64 and
-// rounded to fp32 once (the plain version's sums). Delta =
+// 128 without a mask or with the factored one, the forward and backward
+// of K1/K2 and K6 run on the tensor cores instead (flash_mma.cuh), and so
+// does K1's dense-mask forward: in bshd P and dS enter as hi + lo bf16
+// pairs that keep them near fp32, in bhsd as hi alone, K6's rounding,
+// from S and dP summed in fp64 and rounded to fp32 once (the plain
+// version's sums). Delta =
 // rowsum(dO * O) [b, s, h] fp32 ([b, h, s] in bhsd) comes from the caller
 // (a torch reduction, as it is XLA in the reference). The backward
 // assumes that a query row with no visible key carries a zero cotangent
@@ -63,7 +64,8 @@
 //   causal. The forward goes on past the window only while some row has
 //   seen no visible key (the uniform-average rule above). A dense mask
 //   is read where it lies, one byte per (row, key) score, from each row's
-//   own mask row: no tile of it is skipped yet.
+//   own mask row (the tensor-core body stages it in shared memory): no
+//   tile of it is skipped yet.
 // - Tiles are staged in shared memory as fp32 with a padded row stride
 //   (no bank conflicts). Each of the 128 threads owns 4 rows x BK/8 keys
 //   of the score tile and 4 rows x D/8 columns of the output, keys and
@@ -76,11 +78,11 @@
 //   64 at a time: the group sum happens in registers, no atomics (an fp32
 //   output takes the registers' partial sums every 4 query tiles, see
 //   DkvFlush).
-// - Under bf16 at head_dim <= 128 (kMaskValid) K1's forward and the
-//   backward of K2 and K6 take the tensor-core bodies of flash_mma.cuh
-//   (mma.sync, cp.async staging) on the same template axes; fp32, head_dim
-//   > 128, K5, K6's forward and the dense-mask forwards take these
-//   bodies. Later work: the other kernels onto the tensor cores, then
+// - Under bf16 at head_dim <= 128 the forward and backward of K1/K2 and
+//   K6 (kMaskValid) and K1's dense-mask forward take the tensor-core
+//   bodies of flash_mma.cuh (mma.sync, cp.async staging) on the same
+//   template axes; fp32, head_dim > 128, K5 and K6's dense-mask forward
+//   take these bodies. Later work: those onto the tensor cores, then
 //   wgmma with TMA.
 
 #pragma once
@@ -825,13 +827,14 @@ constexpr bool mma_backward() {
          kMask == kMaskValid;
 }
 
-// whether the forward runs on the tensor cores: bf16 K1 at head_dim <=
-// 128, without a mask or with the factored one. K6's forward, K5's and
-// the dense-mask forwards keep the CUDA-core body.
+// whether the forward runs on the tensor cores: bf16 K1 and K6 at
+// head_dim <= 128, without a mask or with the factored one, and bf16 K1
+// under a dense mask. K5's forward and K6's dense-mask forward keep the
+// CUDA-core body.
 template <typename T, int D, int kMask, bool kBhsd>
 constexpr bool mma_forward() {
   return std::is_same<T, __nv_bfloat16>::value && D <= 128 &&
-         kMask == kMaskValid && !kBhsd;
+         (kMask == kMaskValid || (kMask == kMaskDense && !kBhsd));
 }
 
 template <typename T, int D, int kMask, bool kBhsd>
@@ -839,7 +842,7 @@ size_t smem_for(int kernel) {
   constexpr int BK = block_k<D>();
   if (kernel == kFwd) {
     if constexpr (mma_forward<T, D, kMask, kBhsd>())
-      return FwdMmaSmem<D, BK>::bytes;
+      return FwdMmaSmem<D, BK, kMask == kMaskDense>::bytes;
     else
       return FwdSmem<D, BK>::bytes;
   }
@@ -860,13 +863,22 @@ size_t smem_for_d(int kernel, int d) {
   return smem_for<T, 256, kMask, kBhsd>(kernel);
 }
 
-// shared memory of one block of `kernel` at head_dim d and dtype (0 =
-// float32, 1 = bfloat16), for the mask kind and layout of the calling
-// source: the body that dispatch launches
 template <int kMask, bool kBhsd>
-size_t smem_bytes(int kernel, int d, int dtype) {
+size_t smem_for_dtype(int kernel, int d, int dtype) {
   return dtype == 1 ? smem_for_d<__nv_bfloat16, kMask, kBhsd>(kernel, d)
                     : smem_for_d<float, kMask, kBhsd>(kernel, d);
+}
+
+// shared memory of one block of `kernel` under mask kind `mask` (a kMask
+// value) at head_dim d and dtype (0 = float32, 1 = bfloat16), in the
+// layout of the calling source: the body that dispatch launches for them
+template <bool kBhsd>
+size_t smem_bytes(int kernel, int mask, int d, int dtype) {
+  if (mask == kMaskSeg)
+    return smem_for_dtype<kMaskSeg, kBhsd>(kernel, d, dtype);
+  if (mask == kMaskDense)
+    return smem_for_dtype<kMaskDense, kBhsd>(kernel, d, dtype);
+  return smem_for_dtype<kMaskValid, kBhsd>(kernel, d, dtype);
 }
 
 template <typename Fn>
@@ -891,7 +903,9 @@ int dispatch(int kernel, const Args& a, cudaStream_t stream) {
   if (kernel == kFwd) {
     if constexpr (mma_forward<T, D, kMask, kBhsd>())
       return launch_kernel(flash_fwd_mma_kernel<T, D, BK, kMask, kBhsd>,
-                           rows_grid, FwdMmaSmem<D, BK>::bytes, stream, a);
+                           rows_grid,
+                           FwdMmaSmem<D, BK, kMask == kMaskDense>::bytes,
+                           stream, a);
     else
       return launch_kernel(flash_fwd_kernel<T, D, BK, kMask, kBhsd>,
                            rows_grid, FwdSmem<D, BK>::bytes, stream, a);

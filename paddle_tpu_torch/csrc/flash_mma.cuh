@@ -6,18 +6,23 @@
 // keep, on the same template axes <T, D, BK, kMask, kBhsd>. This version
 // builds and launches, for bf16 at D <= 128 without a mask or with the
 // factored k_valid mask (kMaskValid): the forward in bshd (K1,
-// flash_attention.cu), the backward in bshd (K2, flash_attention.cu) and
-// in bhsd (K6-dQ, K6-dKV, flash_bhsd.cu); `mma_forward` and
-// `mma_backward` in flash_kernels.cuh are that choice. The bodies already
-// carry the other axes (the forward's bhsd rounding, the segment window)
-// for later sources.
+// flash_attention.cu) and in bhsd (K6-fwd, flash_bhsd.cu), the backward
+// in bshd (K2, flash_attention.cu) and in bhsd (K6-dQ, K6-dKV,
+// flash_bhsd.cu); and the bshd forward under a dense head-broadcast mask
+// (kMaskDense, K1-dense, flash_attention.cu). `mma_forward` and
+// `mma_backward` in flash_kernels.cuh are that choice. The per-head dense
+// forward (K6-fwd-dense) keeps the CUDA-core body; the bodies carry the
+// segment window (kSeg) for a later source.
 //
 // Replaces (paddle_tpu/ops/pallas_attention.py):
 //   K1     _flash_fwd_bshd's pallas_call (line 616, kernel
-//          _fwd_kernel_bshd);
+//          _fwd_kernel_bshd), and K1-dense, the same call with a dense
+//          [b|1, 1, s, s] mask (lines 606-614);
 //   K2-dQ  _flash_bwd_bshd's first pallas_call (line 959, kernel
 //          _bwd_dq_kernel_bshd);
 //   K2-dKV its second pallas_call (line 977, _bwd_dkv_kernel_bshd);
+//   K6-fwd _flash_fwd_dispatch's pallas_call (line 430, kernel
+//          _fwd_kernel, line 243);
 //   K6-dQ  _flash_bwd_dispatch's first pallas_call (line 781, kernel
 //          _bwd_dq_kernel);
 //   K6-dKV its second pallas_call (line 798, _bwd_dkv_kernel).
@@ -29,9 +34,13 @@
 // bodies issue more products than the function needs: each product with P
 // or dS as its A operand runs twice, on a hi and a lo bf16 half (1.5x the
 // tensor work in the forward and dK/dV, 1.33x in dQ). The per-head
-// backward (K6) takes S and dP in fp64 (below), so the FP64 tensor
-// cores' 67 TFLOP/s bound it: ~17 GFLOP of them per kernel at the step,
-// >= 0.26 ms each. The exponentials and masks run on the CUDA cores
+// kernels (K6) take S (and dP) in fp64 (below), so the FP64 tensor cores'
+// 67 TFLOP/s bound them: ~17 GFLOP of them per backward kernel at the
+// step (>= 0.26 ms each) and ~9.1 GFLOP in the forward (>= 0.14 ms). The
+// dense-mask forward (the prefix-LM step: b16 s1024 h8 d64, not causal)
+// visits all 256 key tiles of a (batch, head) rather than the causal 136
+// and reads one mask byte per score from a staged tile; its bytes bound
+// it at 0.026 ms. The exponentials and masks run on the CUDA cores
 // between the products.
 //
 // Design:
@@ -49,7 +58,11 @@
 //   ldmatrix.trans. The row sum l takes the unrounded fp32 P and reduces
 //   over the quad once, at the end. Past the key window the loop goes on
 //   only while a row of the block has seen no visible key (the CUDA-core
-//   forward's uniform-average rule), one tile at a time.
+//   forward's uniform-average rule), one tile at a time. Under a dense
+//   mask (bshd: one mask row per query position, whatever the head) the
+//   block's [positions x 64 keys] byte tile rides in the copy ring beside
+//   K and V, and each score reads its byte from shared memory; every key
+//   tile is visited when the call is not causal.
 // - dQ: S = Q.K^T and dP = dO.V^T per key tile (A from Q/dO tiles, B from
 //   the K/V tile, ldmatrix), P = exp(S * scale - Lse) and dS = P (dP - D)
 //   on the accumulator fragments, then dQ += dS.K with dS's accumulator
@@ -73,12 +86,12 @@
 //   rounding depends on the last bit of S and dP: summed in fp32 in the
 //   tensor cores' order they rounded a few P and dS of the early causal
 //   rows apart from the plain version's (measured on the H100), which
-//   moved whole rows of dQ or dK by an ulp of P. So the per-head backward
-//   sums S and dP in fp64 on the FP64 tensor cores (mma.sync m16n8k8
-//   f64, bf16 operands widened exactly) and rounds each to fp32 once: the
-//   correctly rounded sum, which the plain version takes too. The
-//   products after the rounding (dS.K, P^T.dO, dS^T.Q) take bf16
-//   operands exactly on the bf16 tensor cores.
+//   moved whole rows of dQ or dK by an ulp of P. So the per-head bodies
+//   sum S (and dP) in fp64 on the FP64 tensor cores (mma.sync m16n8k8
+//   f64, bf16 operands widened exactly), 16 or 32 keys or queries at a
+//   time, and round each to fp32 once: the correctly rounded sum, which the
+//   plain version takes too. The products after the rounding (P.V, dS.K,
+//   P^T.dO, dS^T.Q) take bf16 operands exactly on the bf16 tensor cores.
 // - Staging: a two-stage ring of tiles in shared memory; the next K/V
 //   tile (forward, dQ) or the next Q/dO tile with its Lse and Delta
 //   (dK/dV) is in flight (cp.async, 16-byte copies per row: the rows of a
@@ -238,6 +251,40 @@ __device__ __forceinline__ void exact_products(
     }
 }
 
+// sc = A.B^T alone, as exact_products sums it (the per-head forward's S)
+template <int D, int SD, int NT>
+__device__ __forceinline__ void exact_product(float (&sc)[NT][4],
+                                              const __nv_bfloat16* a_s,
+                                              int r0,
+                                              const __nv_bfloat16* b_s,
+                                              int n0, int gid, int tig) {
+  double s64[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s64[i][e] = 0.0;
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    double fa[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      fa[i] = f64_at(a_s + (r0 + gid + 8 * (i & 1)) * SD + kk + tig +
+                     4 * (i >> 1));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      double fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        fb[i] = f64_at(b_s + (n0 + nt * 8 + gid) * SD + kk + tig + 4 * i);
+      mma_f64(s64[nt], fa, fb);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[i][e] = static_cast<float>(s64[i][e]);
+}
+
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(src)
@@ -348,12 +395,52 @@ __device__ __forceinline__ void stage_kv_tile(__nv_bfloat16* kv_s,
   cp_async_commit();
 }
 
-template <int D, int BK>
+// bytes per staged dense-mask row: 64 keys and a pad, so that the eight
+// rows of an m16n8 fragment read from distinct banks (a multiple of 16
+// for cp.async)
+constexpr int kMaskStride = 80;
+
+// the dense mask's bytes of the key tile from k0 for the block's query
+// positions into one ring stage m_s [kRows][kMaskStride]: row i holds
+// position rm.q0 + i (bshd: a mask row per position, shared by the heads
+// of the block), in the caller's copy group — 16-byte copies where the
+// rows are aligned (vec), byte loads otherwise; keys and positions past s
+// are zeros
+template <int BK>
+__device__ __forceinline__ void stage_mask_tile(unsigned char* m_s,
+                                                const Args& a, int bi,
+                                                const RowMap& rm, int k0,
+                                                bool vec) {
+  constexpr int CH = BK / 16;
+  for (int idx = threadIdx.x; idx < rm.qrows * CH; idx += kThreads) {
+    const int i = idx / CH, c = (idx % CH) * 16;
+    const int pos = rm.q0 + i;
+    unsigned char* dst = m_s + i * kMaskStride + c;
+    if (pos < a.s && k0 + c < a.s) {
+      const unsigned char* src =
+          dense_row<kMaskDense>(a, bi, 0, pos) + k0 + c;
+      if (vec) {
+        cp_async16(smem_u32(dst), src);
+        continue;
+      }
+      __align__(16) unsigned char x[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) x[e] = k0 + c + e < a.s ? src[e] : 0;
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(x);
+      continue;
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <int D, int BK, bool kDense>
 struct FwdMmaSmem {
   static constexpr int kStride = D + 8;            // bf16 per row
   static constexpr int kTile = kRows * kStride;    // bf16 per tile
-  static constexpr size_t bytes =
-      sizeof(__nv_bfloat16) * 5 * kTile + sizeof(int) * 2 * BK;
+  static constexpr int kMaskStage = kRows * kMaskStride;   // bytes
+  static constexpr size_t bytes = sizeof(__nv_bfloat16) * 5 * kTile +
+                                  sizeof(int) * 2 * BK +
+                                  (kDense ? 2 * kMaskStage : 0);
 };
 
 // ----------------------------------------------------------------- fwd
@@ -364,17 +451,24 @@ flash_fwd_mma_kernel(Args a) {
                 "the tensor-core bodies take bf16");
   static_assert(BK == kRows && D % 16 == 0 && D <= 128,
                 "64-wide tiles, head_dim bins of 16 up to 128");
-  static_assert(kMask != kMaskDense,
-                "the dense-mask forward takes the CUDA-core body");
+  static_assert(!(kMask == kMaskDense && kBhsd),
+                "the per-head dense-mask forward takes the CUDA-core body");
   constexpr bool kSeg = kMask == kMaskSeg;
-  using S = FwdMmaSmem<D, BK>;
+  constexpr bool kDense = kMask == kMaskDense;
+  using S = FwdMmaSmem<D, BK, kDense>;
   constexpr int SD = S::kStride;
   constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int NT = BK / 8;              // m16n8 score tiles of a key tile
+  // keys per fp64 S chunk (kBhsd): 32 builds without a spill at every D
+  // (16 spilled at D = 32) and reloads Q's fragments half as often as 16
+  // (K6-fwd 0.395-0.398 ms against 0.418 at the training step, H100)
+  constexpr int KC = 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
   T* kv_s = q_s + S::kTile;               // stage st: K, then V
   int* kseg_s = reinterpret_cast<int*>(kv_s + 4 * S::kTile);   // [2][BK]
+  // stage st: the dense mask's [kRows][kMaskStride] bytes (kDense)
+  unsigned char* mask_s = reinterpret_cast<unsigned char*>(kseg_s + 2 * BK);
 
   const int g = a.h / a.hkv;
   const int bx = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -396,8 +490,9 @@ flash_fwd_mma_kernel(Args a) {
   }
 
   // this thread's rows: warp * 16 + gid and 8 below it; l is this
-  // thread's share of the row sum until the end
-  int qpos[2], qseg[2];
+  // thread's share of the row sum until the end; mrow the offset of the
+  // row's staged mask bytes in a stage (kDense)
+  int qpos[2], qseg[2], mrow[2];
   bool rv[2];
   float m[2], l[2];
 #pragma unroll
@@ -406,9 +501,12 @@ flash_fwd_mma_kernel(Args a) {
     rv[hh] = rm.valid(r, a.s);
     qpos[hh] = rm.pos(r);
     qseg[hh] = kSeg && rv[hh] ? a.q_seg[(size_t)bi * a.s + qpos[hh]] : 0;
+    mrow[hh] = (qpos[hh] - rm.q0) * kMaskStride;
     m[hh] = kNegInf;
     l[hh] = 0.f;
   }
+  const bool mask_vec = kDense && a.s % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(a.dense) % 16 == 0;
   const int qmax = min(rm.q0 + rm.qrows, a.s) - 1;
   int klo, khi;
   segment_range<kSeg>(a.q_seg, a.kv_seg, a, bi, rm.q0, qmax, &klo, &khi);
@@ -424,7 +522,11 @@ flash_fwd_mma_kernel(Args a) {
     return o < t_lo ? o : o + n_win;
   };
 
+  // key tile t (and its mask bytes) into stage st, one copy group
   auto stage_tile = [&](int t, int st) {
+    if constexpr (kDense)
+      stage_mask_tile<BK>(mask_s + st * S::kMaskStage, a, bi, rm, t * BK,
+                          mask_vec);
     stage_kv_tile<D, BK, SD, kSeg, kBhsd>(kv_s, kseg_s, a, bi, kvh, t, st,
                                           vec);
   };
@@ -459,26 +561,42 @@ flash_fwd_mma_kernel(Args a) {
     const T* ks = kv_s + st * 2 * S::kTile;
     const T* vs = ks + S::kTile;
     const int* kseg = kseg_s + st * BK;
+    // the staged mask, indexed by key as `masked` reads a mask row
+    const unsigned char* mtile = mask_s + st * S::kMaskStage - k0;
 
-    // S = Q.K^T over the tile's keys
+    // S = Q.K^T over the tile's keys: in fp64, KC keys at a time, for the
+    // per-head layout (K6 rounds P from it)
     float sc[NT][4];
+    if constexpr (kBhsd) {
 #pragma unroll
-    for (int i = 0; i < NT; ++i)
+      for (int kc = 0; kc < BK; kc += KC) {
+        float part[KC / 8][4];
+        exact_product<D, SD, KC / 8>(part, q_s, warp * kWarpRows, ks, kc,
+                                     gid, tig);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+        for (int i = 0; i < KC / 8; ++i)
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t qa[4];
-      ldsm_x4(qa, smem_u32(q_s + (warp * kWarpRows + (lane & 15)) * SD + kk +
-                           (lane >> 4) * 8));
+          for (int e = 0; e < 4; ++e) sc[kc / 8 + i][e] = part[i][e];
+      }
+    } else {
 #pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t kb[4];
-        const int key = nt * 8 + (lane & 7) + ((lane >> 4) << 3);
-        const int col = kk + ((lane >> 3) & 1) * 8;
-        ldsm_x4(kb, smem_u32(ks + key * SD + col));
-        mma_bf16(sc[nt], qa, kb[0], kb[1]);
-        mma_bf16(sc[nt + 1], qa, kb[2], kb[3]);
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t qa[4];
+        ldsm_x4(qa, smem_u32(q_s + (warp * kWarpRows + (lane & 15)) * SD +
+                             kk + (lane >> 4) * 8));
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t kb[4];
+          const int key = nt * 8 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = kk + ((lane >> 3) & 1) * 8;
+          ldsm_x4(kb, smem_u32(ks + key * SD + col));
+          mma_bf16(sc[nt], qa, kb[0], kb[1]);
+          mma_bf16(sc[nt + 1], qa, kb[2], kb[3]);
+        }
       }
     }
 
@@ -493,7 +611,9 @@ flash_fwd_mma_kernel(Args a) {
         const int kl = nt * 8 + 2 * tig + (e & 1);
         const float x = masked<kMask>(sc[nt][e] * a.scale, k0 + kl,
                                       qpos[hh], qseg[hh],
-                                      kSeg ? kseg[kl] : 0, nullptr, a, bi);
+                                      kSeg ? kseg[kl] : 0,
+                                      kDense ? mtile + mrow[hh] : nullptr,
+                                      a, bi);
         sc[nt][e] = x;
         mx[hh] = fmaxf(mx[hh], x);
       }

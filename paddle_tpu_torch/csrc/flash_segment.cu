@@ -89,10 +89,11 @@ extern "C" int paddle_flash_segment_bwd_dkv(
   return run<kMaskSeg, false>(kDkv, a, dtype, stream);
 }
 
-// kernel: 0 = K5-fwd, 1 = K5-dQ, 2 = K5-dKV
-extern "C" size_t paddle_flash_segment_smem_bytes(int kernel, int d,
-                                                  int dtype) {
-  return smem_bytes<kMaskSeg, false>(kernel, d, dtype);
+// kernel: 0 = K5-fwd, 1 = K5-dQ, 2 = K5-dKV; mask: 1 (segment ids, the
+// one kind this source launches)
+extern "C" size_t paddle_flash_segment_smem_bytes(int kernel, int mask,
+                                                  int d, int dtype) {
+  return smem_bytes<false>(kernel, mask, d, dtype);
 }
 
 extern "C" const char* paddle_flash_segment_error_string(int err) {

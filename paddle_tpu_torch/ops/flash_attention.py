@@ -38,14 +38,16 @@ Semantics shared with the TPU kernels: masked logits are ``NEG_INF =
 -1e30`` (finite, so a row with no visible key is the uniform average of
 V), ``l`` is clamped at 1e-20, products accumulate in fp32. Their
 operands P and dS follow each TPU kernel: K1/K2/K5 keep them in fp32
-(the bf16 tensor-core kernels of K1 and K2 carry them as hi + lo bf16
-halves); K6 rounds them to bf16 under bf16 inputs (P before P·V, dS
+(the bf16 tensor-core kernels of K1, K1-dense and K2 carry them as hi +
+lo bf16 halves); K6 rounds them to bf16 under bf16 inputs (P before P·V, dS
 before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q), and so does its plain
 version, which rounds the forward's P at the running row max of each key
 tile of the kernel's width (:func:`key_tile`), where an online softmax
-rounds it. K6's bf16 backward takes S and dP as correctly rounded fp32
-sums (fp64 on the card's FP64 tensor cores; :func:`_exact_bmm` in the
-plain version), so that its roundings do not follow a summation order.
+rounds it. K6's bf16 kernels take S (and dP) as correctly rounded fp32
+sums (fp64 on the card's FP64 tensor cores; :func:`_exact_bmm` and
+``_logits(exact=True)`` in the plain version), so that its roundings do
+not follow a summation order; K6's dense-mask forward still sums S in
+fp32 on the CUDA cores, and its plain version with it.
 ``k_valid`` (``[1|b, s]`` bool) is the key factor of a
 factored padding mask; the
 query factor is applied by the op (``ops.attention``), outside the
@@ -73,7 +75,7 @@ __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_segment_dkv", "flash_fwd_segment_plain",
            "flash_bwd_segment_plain", "FlashSegmentAttention",
            "flash_fwd_saving_lse", "flash_bwd_from_saved", "plain_vjp",
-           "launches", "key_tile",
+           "launches", "key_tile", "smem_bytes",
            "NEG_INF", "LSE_LANES", "MAX_HEAD_DIM", "takes_dense_mask"]
 
 NEG_INF = -1e30
@@ -82,7 +84,9 @@ MAX_HEAD_DIM = 256
 _SMEM_LIMIT = 232448        # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel name -> (library, its C prefix, kernel index in that library,
-# mask kind); the bhsd library holds the per-head layout's kernels
+# mask kind); the bhsd library holds the per-head layout's kernels. The
+# mask kind's value in the C sources (kMask) picks the body, and with it
+# the shared memory, that a library reports for a kernel index.
 _KERNELS = {
     "flash_fwd": ("flash_attention", "paddle_flash_", 0, "valid"),
     "flash_fwd_dense": ("flash_attention", "paddle_flash_", 0, "dense"),
@@ -100,6 +104,8 @@ _KERNELS = {
     "flash_bhsd_bwd_dq": ("flash_bhsd", "paddle_flash_bhsd_", 1, "valid"),
     "flash_bhsd_bwd_dkv": ("flash_bhsd", "paddle_flash_bhsd_", 2, "valid"),
 }
+
+_MASK_KINDS = {"valid": 0, "seg": 1, "dense": 2}
 
 launches = {name: 0 for name in _KERNELS}
 
@@ -275,7 +281,11 @@ def _fwd_plain(q, k, v, scale, causal, k_valid, seg, mask=None,
                layout="bshd"):
     q, k, v = (_to_bshd(x, layout) for x in (q, k, v))
     b, s, h, d = q.shape
-    logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg, mask)
+    # S as its kernel sums it: correctly rounded where K6 rounds P from it
+    # on the tensor cores; K6's dense-mask forward sums in fp32
+    exact = _rounds_operands(q.dtype, layout) and mask is None
+    logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg, mask,
+                     exact=exact)
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)         # unrounded P
@@ -380,7 +390,7 @@ def _bind(source, prefix):
                            [ptr] * 6 + mask + [ptr] * 2][index] + dims
             fn.restype = ctypes.c_int
         smem = getattr(lib, prefix + "smem_bytes")
-        smem.argtypes = [i32, i32, i32]              # kernel, d, dtype
+        smem.argtypes = [i32] * 4        # kernel, mask kind, d, dtype
         smem.restype = ctypes.c_size_t
         err = getattr(lib, prefix + "error_string")
         err.argtypes = [i32]
@@ -403,12 +413,22 @@ def _same_device(name, tensors, *masks):
     return devices.pop()
 
 
+def smem_bytes(name, d, dtype):
+    """Shared memory of one block of kernel ``name`` at head_dim ``d`` and
+    ``dtype`` (torch.float32 or torch.bfloat16), as its library reports
+    it: that of the body its dispatch launches (builds the library)."""
+    source, prefix, index, kind = _KERNELS[name]
+    lib = _bind(source, prefix)
+    return getattr(lib, prefix + "smem_bytes")(index, _MASK_KINDS[kind], d,
+                                               _DTYPES[dtype])
+
+
 def _check_kernel_inputs(name, tensors, k_valid=None, seg=None, mask=None):
     """What every kernel takes: fp32 or bf16 q, k, v (and O, dO) of one
     dtype, fp32 ``lse``/``delta``, contiguous, head_dim <= 256,
     contiguous int32 segment ids, a contiguous bool or uint8 mask, on a
     CUDA device. Returns the bound library."""
-    source, prefix, index, _ = _KERNELS[name]
+    source, prefix, _, _ = _KERNELS[name]
     layout = _kernel_layout(name)
     q = tensors["q"]
     for n, t in tensors.items():
@@ -448,7 +468,7 @@ def _check_kernel_inputs(name, tensors, k_valid=None, seg=None, mask=None):
         raise ValueError("%s runs on cpu or cuda tensors (got %s)"
                          % (name, q.device))
     lib = _bind(source, prefix)
-    smem = getattr(lib, prefix + "smem_bytes")(index, d, _DTYPES[q.dtype])
+    smem = smem_bytes(name, d, q.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError("%s at head_dim %d in %s needs %d bytes of shared "
                          "memory per block (limit %d)"

@@ -265,23 +265,74 @@ def test_k6_gqa_backward_matches_the_reference_vjp(interpret, monkeypatch,
         assert_close(name, got.numpy(), want)
 
 
-@pytest.mark.parametrize("mb", [1, "b"], ids=["mask-b1", "mask-bb"])
+@pytest.mark.parametrize(
+    "mb,bf16", [(1, False), ("b", False), (1, True), ("b", True)],
+    ids=["mask-b1", "mask-bb", "mask-b1-bf16", "mask-bb-bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
 def test_k1_dense_plain_matches_the_pallas_kernel(interpret, h, hkv, causal,
-                                                  mb):
+                                                  mb, bf16):
+    """bf16: the inputs cast to bf16, the reference's blocks at the port's
+    key tile; K1 keeps P in fp32 (its tensor-core body as hi + lo), so O
+    is held to ``assert_bf16_close`` over the rows that see a key (a
+    fully masked row averages the blocks the reference visits) and the
+    fp32 Lse as in fp32."""
     b, d = 2, 32
     q, k, v = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
                for x in inputs(b, h, hkv, d, seed=4)[:3])
     m = dense(b, h, mb, 1, seed=5)
     scale = 1.0 / np.sqrt(d)
-    with jpa._block_ctx(S, S):
-        jo, jlse = jpa._flash_fwd_bshd(*jnp_all(q, k, v), scale, causal,
-                                       save_lse=True, mask=jnp.asarray(m))
-    o, lse = fa.flash_fwd(*torch_all(q, k, v), scale, causal,
-                          mask=torch.from_numpy(m))
-    assert_close("o", o.numpy(), jo)
+    jin, tin = jnp_all(q, k, v), torch_all(q, k, v)
+    block = S
+    if bf16:
+        block = fa.key_tile(d)
+        jin = [x.astype(jnp.bfloat16) for x in jin]
+        tin = [x.to(torch.bfloat16) for x in tin]
+    with jpa._block_ctx(block, block):
+        jo, jlse = jpa._flash_fwd_bshd(*jin, scale, causal, save_lse=True,
+                                       mask=jnp.asarray(m))
+    o, lse = fa.flash_fwd(*tin, scale, causal, mask=torch.from_numpy(m))
     assert_close("lse", lse.numpy(), jlse)
+    if bf16:
+        seen = seen_rows(b, h, causal, None, m)
+        assert_bf16_close(
+            "o", o.float().numpy().transpose(0, 2, 1, 3)[seen],
+            np.asarray(jo.astype(jnp.float32)).transpose(0, 2, 1, 3)[seen])
+        return
+    assert_close("o", o.numpy(), jo)
+
+
+def test_k6_forward_plain_takes_the_correctly_rounded_scores():
+    """Under bf16 the plain bhsd forward without a dense mask sums each
+    Q.K^T in float64 and rounds it once, as K6's tensor-core forward sums
+    it on the FP64 tensor cores: a dot product of bf16 terms 2^24, 1 (x
+    14) and -2^24, which an fp32 sum in index order takes to 0, comes
+    out 14, so the row's softmax and Lse follow the float64 answer (from
+    a score of 0 the Lse would be log 2)."""
+    d = 16
+    q = np.ones((1, 1, 2, d), np.float32)
+    k = np.zeros((1, 1, 2, d), np.float32)
+    q[..., [0, -1]] = 2.0 ** 12
+    k[0, 0, 0] = 1.0
+    k[0, 0, 0, [0, -1]] = [2.0 ** 12, -2.0 ** 12]
+    v = np.zeros((1, 1, 2, d), np.float32)
+    v[0, 0, 0] = 1.0
+    terms = (q[0, 0, 0] * k[0, 0, 0]).astype(np.float32)
+    in_order = np.float32(0)
+    for t in terms:                  # an fp32 sum loses the ones
+        in_order = np.float32(in_order + t)
+    exact = float(np.dot(q[0, 0, 0].astype(np.float64),
+                         k[0, 0, 0].astype(np.float64)))
+    assert (in_order, exact) == (0.0, 14.0)
+    t = [x.to(torch.bfloat16) for x in torch_all(q, k, v)]
+    for x, x32 in zip(t, torch_all(q, k, v)):    # bf16 holds every term
+        assert torch.equal(x.float(), x32)
+    o, lse = fa.flash_fwd(*t, 1.0, False, layout="bhsd")
+    s = np.array([exact, 0.0])                     # the scores of row 0
+    want_lse = np.log(np.exp(s).sum())
+    np.testing.assert_allclose(lse[0, 0].numpy(), want_lse, rtol=1e-6)
+    np.testing.assert_allclose(o[0, 0, 0].float().numpy(),
+                               np.exp(s[0] - want_lse), rtol=2 ** -8)
 
 
 def test_dense_mask_autograd_recomputes_through_the_composition():

@@ -281,6 +281,13 @@ def test_prefix_mask_and_kernel_classes():
                "(Args)"),
         ("k6", "void (anonymous namespace)::flash_bwd_dkv_mma_kernel<"
                "__nv_bfloat16, 128, 64, 0, true>((anonymous namespace)::"
+               "Args)"),
+        # K6's tensor-core forward and K1-dense's
+        ("k6", "void (anonymous namespace)::flash_fwd_mma_kernel<"
+               "__nv_bfloat16, 64, 64, 0, true>((anonymous namespace)::"
+               "Args)"),
+        ("k1", "void (anonymous namespace)::flash_fwd_mma_kernel<"
+               "__nv_bfloat16, 64, 64, 2, false>((anonymous namespace)::"
                "Args)")]
     for want, key in names:
         assert cs.flash_class(key) == want
@@ -288,9 +295,11 @@ def test_prefix_mask_and_kernel_classes():
 
 
 def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
-    """Phases 6 and 9 hold the profiled flash kernels to exactly the
+    """Phases 6, 9 and 10 hold the profiled flash kernels to exactly the
     bodies they must run: K1 and K2 on the tensor cores in bshd; K6's
-    CUDA-core forward and tensor-core backward in bhsd."""
+    tensor-core forward and backward in bhsd; K1-dense's tensor-core
+    forward in the bshd prefix-mask program and K6-fwd-dense's CUDA-core
+    forward in the bhsd one."""
     ns = "void (anonymous namespace)::"
     args = "((anonymous namespace)::Args)"
     train = {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, false>" +
@@ -300,8 +309,8 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
              ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 0, "
              "false>" + args: 2.5,
              "ampere_bf16_s16816gemm_bf16_128x64": 9.0}
-    bhsd = {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 0, true>" + args:
-            1.0,
+    bhsd = {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
+            args: 1.0,
             ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
             args: 2.0,
             ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
@@ -320,8 +329,73 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
     with pytest.raises(AssertionError):          # a body missing
         cs.body_gate("bhsd path", dict(list(bhsd.items())[:2]),
                      cs.BHSD_BODIES)
+    # K6's CUDA-core forward where its tensor-core forward must run
+    old_k6 = dict(list(bhsd.items())[1:])
+    old_k6[ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 0, true>" +
+           args] = 12.7
+    with pytest.raises(AssertionError):
+        cs.body_gate("bhsd path", old_k6, cs.BHSD_BODIES)
+    # phase 10: one forward body per program, the backward recomputed
+    gemm = {"ampere_bf16_s16816gemm_bf16_128x64": 9.0}
+    dense = {"bshd": {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 2, "
+                      "false>" + args: 0.5},
+             "bhsd": {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 2, "
+                      "true>" + args: 1.9}}
+    for layout, names in dense.items():
+        assert cs.flash_bodies(names) == cs.DENSE_BODIES[layout]
+        cs.body_gate("dense-mask %s path" % layout, dict(names, **gemm),
+                     cs.DENSE_BODIES[layout])
+    wrong = {"bshd": {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 2, "
+                      "false>" + args: 2.0},     # K1-dense's CUDA-core body
+             "bhsd": {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, "
+                      "true>" + args: 0.4}}      # K6-fwd, not the dense one
+    for layout, names in wrong.items():
+        with pytest.raises(AssertionError):
+            cs.body_gate("dense-mask %s path" % layout, names,
+                         cs.DENSE_BODIES[layout])
+    with pytest.raises(AssertionError):          # a flash backward runs
+        cs.body_gate("dense-mask bshd path", dict(dense["bshd"], **{
+            ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 0, false>" +
+            args: 0.3}), cs.DENSE_BODIES["bshd"])
     monkeypatch.setattr(cs, "DEVICE", "cpu")     # no kernel runs there
     cs.body_gate("training path", {}, cs.TRAIN_BODIES)
+
+
+def _smem_report(cuda_core=1000, mma=600):
+    """Shared memory per (kernel, head_dim, dtype) as the libraries report
+    it: ``cuda_core`` bytes per head_dim unit for a CUDA-core body (fp32
+    tiles, either input dtype), ``mma`` for a tensor-core one."""
+    out = {}
+    for name in cs.FLASH_KERNELS:
+        for d in cs.SMEM_HEAD_DIMS:
+            out[(name, d, "float32")] = cuda_core * d
+            out[(name, d, "bfloat16")] = \
+                (mma if name in cs.MMA_FLASH and d <= 128 else cuda_core) * d
+    return out
+
+
+def test_smem_gate_holds_each_kernel_to_the_body_it_launches():
+    """The build phase's shared-memory check: every bf16 tensor-core
+    body (K1, K1-dense, K2, K6 at head_dim <= 128) reports other bytes
+    than its fp32 CUDA-core twin, every other call the fp32 bytes. The
+    per-head dense forward reporting K6-fwd's tensor-core bytes (one
+    size for both bhsd forwards: a library that ignores the mask kind)
+    fails it, and so does a K6-fwd that reports the CUDA-core body's."""
+    good = _smem_report()
+    assert {n for n in cs.FLASH_KERNELS if good[(n, 64, "bfloat16")] !=
+            good[(n, 64, "float32")]} == set(cs.MMA_FLASH)
+    cs.smem_gate(good)
+    one_size = dict(good)
+    for d in cs.SMEM_HEAD_DIMS:
+        one_size[("flash_bhsd_fwd_dense", d, "bfloat16")] = \
+            good[("flash_bhsd_fwd", d, "bfloat16")]
+    with pytest.raises(AssertionError, match="flash_bhsd_fwd_dense d64"):
+        cs.smem_gate(one_size)
+    stale = dict(good)
+    stale[("flash_bhsd_fwd", 64, "bfloat16")] = \
+        good[("flash_bhsd_fwd", 64, "float32")]
+    with pytest.raises(AssertionError, match="flash_bhsd_fwd d64"):
+        cs.smem_gate(stale)
 
 
 def test_mma_spills_reads_ptxas_output():
