@@ -10,8 +10,9 @@ raises on failure (the script then exits non-zero and prints no result):
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
 2. Build: compile every kernel of every slice from
    ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel); no
-   tensor-core body (the forward of K1, K1-dense and K6, the backward of
-   K2 and K6, at head_dim 32, 64 and 128) may spill (ptxas -v). Every
+   tensor-core body (the forward of K1, K1-dense, K6 and K6-fwd-dense,
+   the backward of K2, K5 and K6, at head_dim 32, 64 and 128) may spill
+   (ptxas -v). Every
    flash kernel's reported shared memory at head_dim 32-256 in fp32 and
    bf16 is logged, and must belong to the body it launches: a kernel
    that runs a CUDA-core body under bf16 reports its fp32 bytes, one
@@ -37,16 +38,18 @@ raises on failure (the script then exits non-zero and prints no result):
    the same geometries, dtypes and causal settings under four segment
    maps (random documents, one segment — which must also equal K1/K2 —,
    many 1-8-token segments, boundaries on and one off the kernels' 64-wide
-   tiles), and at the packed step's own shape and map. K6-fwd, K6-dQ
+   tiles), and at the packed step's own shape and map (bf16 K5-dQ and
+   K5-dKV on the tensor cores, K5-fwd on the CUDA cores). K6-fwd, K6-dQ
    and K6-dKV (the per-head [b, h, s, d] layout) without a mask and with
    a factored padding mask, K6-fwd under dense [1|b, 1|h, s, s] masks
    and K1-dense under dense [1|b, 1, s, s] masks (each with one fully
    masked query row), fp32 and bf16 (K6 rounds P and dS to bf16 there,
    as the TPU's K6 and the plain version do), causal and not, h8/hkv8
    and h8/hkv2, s in {256, 1000, 1024}, d in {64, 128}, and s 300 d 32
-   h8/hkv2 (bf16 K6-fwd, K6-dQ and K6-dKV and bf16 K1-dense on the tensor
-   cores; K6 taking P and dS as bf16 from S and dP summed in fp64; s
-   1000 and 300 stage K1-dense's mask rows byte by byte). K4 (fused
+   h8/hkv2 (bf16 K6-fwd, K6-fwd-dense, K6-dQ and K6-dKV and bf16
+   K1-dense on the tensor cores; K6 taking P and dS as bf16 from S and
+   dP summed in fp64; s 1000 and 300 stage the dense masks' rows byte
+   by byte). K4 (fused
    Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
@@ -106,8 +109,10 @@ raises on failure (the script then exits non-zero and prints no result):
    its seeded documents (labels from ``packed_next_token_labels``, ids
    from ``transformer_lm(segment_ids=...)``) — 10 steps: loss finite and
    falling, K5-fwd, K5-dQ and K5-dKV each steps x 12 launches and K1/K2
-   none. Then the padded baseline (the same documents one per row under
-   a ``valid`` mask, through K1/K2) for a few steps. Prints real tokens/s
+   none; a profile whose flash kernels must be exactly the CUDA-core K5
+   forward and the tensor-core K5 backward (``PACKED_BODIES``). Then the
+   padded baseline (the same documents one per row under a ``valid``
+   mask, through K1/K2) for a few steps. Prints real tokens/s
    both ways, ``speedup_vs_padded_ragged``, ``pack_occupancy``,
    ``pad_waste_baseline`` and a profile (device-busy ms, idle share, the
    K5 share). Then K5 x3 at the packed step's shape beside their bounds
@@ -139,9 +144,9 @@ raises on failure (the script then exits non-zero and prints no result):
    loss finite and falling; program 2 launches K6-fwd-dense steps x 12,
    program 3 K1-dense steps x 12, and no other flash kernel (the
    backward recomputes through the plain composition); each program's
-   profile must show exactly its forward body (``DENSE_BODIES``: K1-dense
-   on the tensor cores, ``flash_fwd_mma_kernel<..., 2, false>``; the
-   CUDA-core ``flash_fwd_kernel<..., 2, true>`` for K6-fwd-dense). Then
+   profile must show exactly its forward body (``DENSE_BODIES``: the
+   tensor-core ``flash_fwd_mma_kernel<..., 2, false>`` for K1-dense and
+   ``flash_fwd_mma_kernel<..., 2, true>`` for K6-fwd-dense). Then
    K6-fwd,
    K6-dQ, K6-dKV at phase 9's attention shape and K6-fwd-dense, K1-dense
    at phase 10's, each beside its bound, its plain version and SDPA.
@@ -207,6 +212,7 @@ GATE_UPDATE_REL_L2 = 1e-3      # of the weight's 3-step update
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+FP64_TC_FLOPS = 67e12          # H100 SXM fp64 tensor cores (data sheet)
 # Kernel and plain version both accumulate in fp32 and round once to the
 # output's dtype (K3 and K1/K2 alike), so they differ by summation order
 # only: ~1e-7 relative in fp32 (the flash grid read <= 1.5e-5 on dv,
@@ -304,20 +310,23 @@ BHSD_MASKS = ("none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h"))
 K1_DENSE_MASKS = ((1, 1), ("b", 1))
 DENSE_STEPS = 5
 # the flash bodies (``flash_bodies``) that the profiles of phase 6 (K1,
-# K2), phase 9 (K6) and phase 10's two programs (by layout) must show at
-# the step's bf16 head_dim 64: the tensor-core bodies, except K6's
-# dense-mask forward
+# K2), phase 7 (K5), phase 9 (K6) and phase 10's two programs (by layout)
+# must show at the step's bf16 head_dim 64: the tensor-core bodies,
+# except K5's forward
 TRAIN_BODIES = {("fwd", "mma", "bshd", 0), ("bwd_dq", "mma", "bshd", 0),
                 ("bwd_dkv", "mma", "bshd", 0)}
+PACKED_BODIES = {("fwd", "cuda-core", "bshd", 1),
+                 ("bwd_dq", "mma", "bshd", 1), ("bwd_dkv", "mma", "bshd", 1)}
 BHSD_BODIES = {("fwd", "mma", "bhsd", 0), ("bwd_dq", "mma", "bhsd", 0),
                ("bwd_dkv", "mma", "bhsd", 0)}
-DENSE_BODIES = {"bhsd": {("fwd", "cuda-core", "bhsd", 2)},
+DENSE_BODIES = {"bhsd": {("fwd", "mma", "bhsd", 2)},
                 "bshd": {("fwd", "mma", "bshd", 2)}}
 # the flash kernels whose bf16 calls at head_dim <= 128 run a tensor-core
 # body (``mma_forward`` / ``mma_backward`` in csrc/flash_kernels.cuh);
 # every other kernel, head_dim and dtype runs a CUDA-core body, whose
 # shared memory holds fp32 tiles whatever the input dtype
-MMA_FLASH = K1K2 + K6 + ("flash_fwd_dense",)
+MMA_FLASH = K1K2 + K6 + ("flash_fwd_dense", "flash_bhsd_fwd_dense",
+                          "flash_segment_bwd_dq", "flash_segment_bwd_dkv")
 SMEM_HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -350,9 +359,9 @@ def card():
 def build():
     """Compile every source; print ptxas's registers and spills, and
     fail if any tensor-core body (``*_mma_kernel``: the forward of K1,
-    K1-dense and K6, the backward of K2 and K6, at every head_dim bin)
-    spills, or if a flash kernel reports the shared memory of a body it
-    does not launch (``flash_smem``)."""
+    K1-dense, K6 and K6-fwd-dense, the backward of K2, K5 and K6, at
+    every head_dim bin) spills, or if a flash kernel reports the shared
+    memory of a body it does not launch (``flash_smem``)."""
     from paddle_tpu_torch import _build
     secs = _build.build()
     spills = {}
@@ -394,7 +403,10 @@ def smem_gate(nbytes):
     the bytes belong to the body that each call launches, so a kernel
     that runs a CUDA-core body under bf16 (fp32 tiles) reports its fp32
     bytes and one that runs a tensor-core body (bf16 tiles, MMA_FLASH at
-    head_dim <= 128) other bytes; raises otherwise."""
+    head_dim <= 128) other bytes; a dense-mask forward's tensor-core
+    body stages the mask's tile beside K and V, so it reports more than
+    the unmasked forward of its layout (the CUDA-core bodies read the
+    mask where it lies: the same bytes); raises otherwise."""
     bad = []
     for name in FLASH_KERNELS:
         for d in SMEM_HEAD_DIMS:
@@ -404,6 +416,15 @@ def smem_gate(nbytes):
             if same == mma:
                 bad.append("%s d%d (%s body)" % (
                     name, d, "tensor-core" if mma else "CUDA-core"))
+    for dense, plain in zip(DENSE, ("flash_bhsd_fwd", "flash_fwd")):
+        for d in SMEM_HEAD_DIMS:
+            for dt in ("float32", "bfloat16"):
+                staged = dt == "bfloat16" and d <= 128
+                more = nbytes[(dense, d, dt)] - nbytes[(plain, d, dt)]
+                if (more <= 0) if staged else more != 0:
+                    bad.append("%s d%d %s (%s than %s)" % (
+                        dense, d, dt, "no more" if staged else "other",
+                        plain))
     if bad:
         raise AssertionError("flash kernels report the shared memory of "
                              "another body than they launch under bf16: "
@@ -1965,7 +1986,8 @@ def _p50(step_ms):
 def packed_path(data):
     """Phase 7: bench_lm.py's packed step at full size — LM_STEPS steps
     with the launch counts set to 0 just before and read just after (K5
-    x steps x layers, no K1/K2), a profiled window, then the padded
+    x steps x layers, no K1/K2), a profiled window (its flash bodies
+    exactly PACKED_BODIES), then the padded
     baseline through K1/K2 for BASE_STEPS steps, then ALTERNATE_ROUNDS
     packed and baseline steps in turns, whose p50s give
     ``speedup_vs_padded_ragged``. Returns the report and the packed run's
@@ -1998,6 +2020,7 @@ def packed_path(data):
         raise AssertionError("packed path launches %s: K5 != steps %d x "
                              "layers %d or K1/K2 launched"
                              % (launches, LM_STEPS, LM_LAYERS))
+    body_gate("packed path", prof["flash_kernels_ms"], PACKED_BODIES)
 
     # the padded baseline: the same documents one per row, K1/K2
     nb = data["baseline"]["ids"].shape[0]
@@ -2471,6 +2494,16 @@ def dense_path():
     return res
 
 
+def _fp64_floor_ms(b, h, s, d, causal, products):
+    """The least time of the fp64 products (S; S and dP in the backward:
+    ``products``) that K6's tensor-core bodies run over the 64 x 64
+    tiles they visit — the causal triangle's, or every tile (no tile is
+    skipped under a dense mask) — at the FP64 tensor cores' rate."""
+    n = -(-s // 64)
+    tiles = n * (n + 1) // 2 if causal else n * n
+    return products * 2 * d * b * h * tiles * 64 * 64 / FP64_TC_FLOPS * 1e3
+
+
 def layout_timing(bhsd_launches, dense_res):
     """K6-fwd, K6-dQ and K6-dKV at phase 9's attention (b16 s1024 h8 d64
     bf16 causal, bhsd), K6-fwd-dense and K1-dense at phase 10's (the
@@ -2479,7 +2512,9 @@ def layout_timing(bhsd_launches, dense_res):
     visible pairs' work; the mask's bytes counted once), its plain
     version and SDPA in its native [b, h, s, d] layout (``is_causal``, or
     the same bool ``attn_mask``; for K6-dQ/dKV its autograd backward; the
-    bshd inputs' transposes made outside the timed window)."""
+    bshd inputs' transposes made outside the timed window). The floor of
+    K6's fp64 sums is logged by kernel name; it is worked out, not
+    measured, so it stays out of the rows."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -2553,6 +2588,11 @@ def layout_timing(bhsd_launches, dense_res):
             "b%d s%d h%d d%d bf16 %s, prefix mask [%d, 1, %d, %d], %d "
             "visible pairs" % (b, s, h, d, layout, b, s, s, pairs)))
     fa.launches.update(saved)   # comparison launches are not the path's
+    log("K6 fp64 floors (ms): %s" % json.dumps(
+        {base["name"]: _fp64_floor_ms(b, h, s, d, causal, products)
+         for base, causal, products in ((K6_FWD, True, 1), (K6_DQ, True, 2),
+                                        (K6_DKV, True, 2),
+                                        (K6_FWD_DENSE, False, 1))}))
     log("K6 fwd+bwd %.4f ms vs SDPA fwd+bwd %.4f ms; dense fwd: K6 %.4f, "
         "K1-dense %.4f vs SDPA %.4f ms"
         % (ms["fwd"] + ms["dq"] + ms["dkv"], lib_fwd + lib_bwd,

@@ -29,15 +29,17 @@
 // dense mask (not causal, prefixes of 128-896) about two thirds of all
 // pairs are visible, ~21 GFLOP on ~88 MB with the mask. Under bf16 inputs
 // P and dS are rounded to bf16 before each product they enter, as the
-// TPU's K6 rounds them. K6-fwd, K6-dQ and K6-dKV under bf16 at head_dim <=
-// 128 without a dense mask run on the tensor cores (flash_mma.cuh's
-// bodies: S (and dP) summed in fp64 on the FP64 tensor cores and rounded
-// to fp32 once, so that the roundings of P and dS do not follow a
-// summation order, then the products after them with bf16 operands);
-// their own bound is the FP64 tensor-core rate (67 TFLOP/s: ~0.26 ms for
-// each backward kernel and ~0.14 ms for the forward at the step's shape).
-// fp32, head_dim > 128 and the dense-mask forward run their products in
-// fp32 on the CUDA cores.
+// TPU's K6 rounds them. K6-fwd, K6-fwd-dense, K6-dQ and K6-dKV under bf16
+// at head_dim <= 128 run on the tensor cores (flash_mma.cuh's bodies: S
+// (and dP) summed in fp64 on the FP64 tensor cores and rounded to fp32
+// once, so that the roundings of P and dS do not follow a summation
+// order, then the products after them with bf16 operands); their own
+// bound is the FP64 tensor-core rate (67 TFLOP/s: ~0.26 ms for each
+// backward kernel and ~0.14 ms for the causal forward at the step's
+// shape; ~0.26 ms for the dense-mask forward, which computes S for all
+// 256 key tiles of a head). The dense-mask forward stages one mask row
+// per block row (flash_mma.cuh). fp32 and head_dim > 128 run their
+// products in fp32 on the CUDA cores.
 
 #include "flash_kernels.cuh"
 
@@ -111,7 +113,8 @@ extern "C" int paddle_flash_bhsd_bwd_dkv(const void* q, const void* k,
 
 // kernel: 0 = K6-fwd (mask 0) or K6-fwd-dense (mask 2), 1 = K6-dQ, 2 =
 // K6-dKV; mask: 0 = none or k_valid, 2 = dense (the bf16 bodies at
-// head_dim <= 128 without a dense mask are the tensor-core ones)
+// head_dim <= 128 are the tensor-core ones, of each mask kind's own
+// bytes)
 extern "C" size_t paddle_flash_bhsd_smem_bytes(int kernel, int mask, int d,
                                                int dtype) {
   return smem_bytes<true>(kernel, mask, d, dtype);

@@ -4,15 +4,17 @@
 // Included by flash_kernels.cuh after its shared helpers (Args, RowMap,
 // row_at, masked, segment_range, load_seg), whose contract these bodies
 // keep, on the same template axes <T, D, BK, kMask, kBhsd>. This version
-// builds and launches, for bf16 at D <= 128 without a mask or with the
-// factored k_valid mask (kMaskValid): the forward in bshd (K1,
-// flash_attention.cu) and in bhsd (K6-fwd, flash_bhsd.cu), the backward
-// in bshd (K2, flash_attention.cu) and in bhsd (K6-dQ, K6-dKV,
-// flash_bhsd.cu); and the bshd forward under a dense head-broadcast mask
-// (kMaskDense, K1-dense, flash_attention.cu). `mma_forward` and
-// `mma_backward` in flash_kernels.cuh are that choice. The per-head dense
-// forward (K6-fwd-dense) keeps the CUDA-core body; the bodies carry the
-// segment window (kSeg) for a later source.
+// builds and launches, for bf16 at D <= 128: the forward without a mask
+// or with the factored k_valid mask (kMaskValid) in bshd (K1,
+// flash_attention.cu) and in bhsd (K6-fwd, flash_bhsd.cu); the forward
+// under a dense mask (kMaskDense) in bshd (K1-dense, a head-broadcast
+// [b|1, 1, s, s] mask, flash_attention.cu) and in bhsd (K6-fwd-dense, a
+// [b|1, h|1, s, s] mask, flash_bhsd.cu); the backward in bshd (K2,
+// flash_attention.cu), in bhsd (K6-dQ, K6-dKV, flash_bhsd.cu) and under
+// packed segment ids (kMaskSeg: K5-dQ, K5-dKV, flash_segment.cu).
+// `mma_forward` and `mma_backward` in flash_kernels.cuh are that choice.
+// K5's forward keeps the CUDA-core body: the forward's kSeg instance is
+// written but neither built nor checked.
 //
 // Replaces (paddle_tpu/ops/pallas_attention.py):
 //   K1     _flash_fwd_bshd's pallas_call (line 616, kernel
@@ -21,8 +23,12 @@
 //   K2-dQ  _flash_bwd_bshd's first pallas_call (line 959, kernel
 //          _bwd_dq_kernel_bshd);
 //   K2-dKV its second pallas_call (line 977, _bwd_dkv_kernel_bshd);
+//   K5-dQ  _flash_bwd_segment's first pallas_call (line 1258, kernel
+//          _seg_bwd_dq_kernel);
+//   K5-dKV its second pallas_call (line 1289, _seg_bwd_dkv_kernel);
 //   K6-fwd _flash_fwd_dispatch's pallas_call (line 430, kernel
-//          _fwd_kernel, line 243);
+//          _fwd_kernel, line 243), and K6-fwd-dense, the same call with a
+//          dense [b|1, h|1, s, s] mask (lines 412-428);
 //   K6-dQ  _flash_bwd_dispatch's first pallas_call (line 781, kernel
 //          _bwd_dq_kernel);
 //   K6-dKV its second pallas_call (line 798, _bwd_dkv_kernel).
@@ -33,15 +39,19 @@
 // part of the tensor cores' rate (wgmma reaches the rest), and the bshd
 // bodies issue more products than the function needs: each product with P
 // or dS as its A operand runs twice, on a hi and a lo bf16 half (1.5x the
-// tensor work in the forward and dK/dV, 1.33x in dQ). The per-head
-// kernels (K6) take S (and dP) in fp64 (below), so the FP64 tensor cores'
-// 67 TFLOP/s bound them: ~17 GFLOP of them per backward kernel at the
-// step (>= 0.26 ms each) and ~9.1 GFLOP in the forward (>= 0.14 ms). The
-// dense-mask forward (the prefix-LM step: b16 s1024 h8 d64, not causal)
-// visits all 256 key tiles of a (batch, head) rather than the causal 136
-// and reads one mask byte per score from a staged tile; its bytes bound
-// it at 0.026 ms. The exponentials and masks run on the CUDA cores
-// between the products.
+// tensor work in the forward and dK/dV, 1.33x in dQ). K5's backward at
+// the packed step (the same shape, 36.6% of the causal pairs visible)
+// walks only the key (dK/dV: query) tiles of the segment window; its
+// bytes bound it (0.027 ms dQ, 0.032 ms dK/dV). The per-head kernels (K6)
+// take S (and dP) in fp64 (below), so the FP64 tensor cores' 67 TFLOP/s
+// bound them: ~17 GFLOP of them per backward kernel at the step (>= 0.26
+// ms each) and ~9.1 GFLOP in the causal forward (>= 0.14 ms). The
+// dense-mask forwards (the prefix-LM step: b16 s1024 h8 d64, not causal)
+// visit all 256 key tiles of a (batch, head) rather than the causal 136
+// and read one mask byte per score from a staged tile; their bytes bound
+// them at 0.026 ms, and K6-fwd-dense's ~17.2 GFLOP of fp64 S at >= 0.26
+// ms. The exponentials and masks run on the CUDA cores between the
+// products.
 //
 // Design:
 // - 4 warps; each owns 16 rows of a 64-row tile: query rows for the
@@ -59,10 +69,14 @@
 //   over the quad once, at the end. Past the key window the loop goes on
 //   only while a row of the block has seen no visible key (the CUDA-core
 //   forward's uniform-average rule), one tile at a time. Under a dense
-//   mask (bshd: one mask row per query position, whatever the head) the
-//   block's [positions x 64 keys] byte tile rides in the copy ring beside
-//   K and V, and each score reads its byte from shared memory; every key
-//   tile is visited when the call is not causal.
+//   mask the block's [64 rows x 64 keys] byte tile rides in the copy
+//   ring beside K and V, and each score reads its byte from shared
+//   memory; every key tile is visited when the call is not causal. A
+//   block's rows are (head of the group, position) pairs (RowMap) and a
+//   per-head bhsd mask may give each its own row (64 heads of one
+//   position under the 71-head group), so the tile holds one mask row
+//   per block row, 64 rows of 80 bytes, in both layouts (the bshd mask
+//   is head-broadcast: the heads of one position stage the same bytes).
 // - dQ: S = Q.K^T and dP = dO.V^T per key tile (A from Q/dO tiles, B from
 //   the K/V tile, ldmatrix), P = exp(S * scale - Lse) and dS = P (dP - D)
 //   on the accumulator fragments, then dQ += dS.K with dS's accumulator
@@ -92,6 +106,15 @@
 //   time, and round each to fp32 once: the correctly rounded sum, which the
 //   plain version takes too. The products after the rounding (P.V, dS.K,
 //   P^T.dO, dS^T.Q) take bf16 operands exactly on the bf16 tensor cores.
+//   K5 is bshd: its TPU kernels keep P and dS in fp32, so its backward
+//   takes them as hi + lo from fp32 sums, as K2's does.
+// - Segment ids (K5's backward): dQ walks the key tiles of the window
+//   that its block's queries can see and dK/dV the query tiles that can
+//   see its key tile (segment_range, two binary searches over the row's
+//   non-decreasing ids), as the CUDA-core bodies do; the key ids ride in
+//   the copy ring beside K and V (kseg_s), the query ids beside each
+//   staged query tile in dK/dV (qseg_s), and `masked` compares them per
+//   score on the accumulator fragments.
 // - Staging: a two-stage ring of tiles in shared memory; the next K/V
 //   tile (forward, dQ) or the next Q/dO tile with its Lse and Delta
 //   (dK/dV) is in flight (cp.async, 16-byte copies per row: the rows of a
@@ -400,25 +423,51 @@ __device__ __forceinline__ void stage_kv_tile(__nv_bfloat16* kv_s,
 // for cp.async)
 constexpr int kMaskStride = 80;
 
-// the dense mask's bytes of the key tile from k0 for the block's query
-// positions into one ring stage m_s [kRows][kMaskStride]: row i holds
-// position rm.q0 + i (bshd: a mask row per position, shared by the heads
-// of the block), in the caller's copy group — 16-byte copies where the
-// rows are aligned (vec), byte loads otherwise; keys and positions past s
-// are zeros
+// the mask rows of the two 16-byte items of the dense mask's [kRows][BK]
+// tile that this thread stages in every key tile (item j: idx = tid + j *
+// kThreads, block row idx / (BK / 16)), as row numbers of the [mask_b *
+// mask_h * s, s] mask; ~0u for invalid rows. Block row i reads the mask
+// row of (head kvh * g + rm.gi(i), position rm.pos(i)): a per-head bhsd
+// mask gives each head of a folded query group rows of its own; the bshd
+// mask is head-broadcast, so there the heads of one position stage the
+// same bytes. Found once a block: found per key tile, with integer
+// divisions by g's row count and mask_h, they slowed the copy loop
+// (K6-fwd-dense 0.605 ms against 0.665; K1-dense, whose rows were found
+// per tile by position, 0.383 against 0.408; in turns at the prefix-LM
+// step, H100 80GB HBM3, 700 W)
+template <int BK>
+__device__ __forceinline__ void mask_items(unsigned row[2], const Args& a,
+                                           int bi, int kvh,
+                                           const RowMap& rm) {
+  constexpr int CH = BK / 16;
+  static_assert(kRows * CH == 2 * kThreads, "two 16-byte items a thread");
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = (threadIdx.x + j * kThreads) / CH;
+    const int hd = kvh * rm.g + rm.gi(i);
+    row[j] = rm.valid(i, a.s)
+                 ? ((unsigned)(bi % a.mask_b) * a.mask_h + hd % a.mask_h) *
+                           a.s + rm.pos(i)
+                 : ~0u;
+  }
+}
+
+// the dense mask's bytes of the key tile from k0 into one ring stage m_s
+// [kRows][kMaskStride], in the caller's copy group, from the rows of
+// mask_items — 16-byte copies where the rows are aligned (vec), byte
+// loads otherwise; keys past s and invalid rows are zeros
 template <int BK>
 __device__ __forceinline__ void stage_mask_tile(unsigned char* m_s,
-                                                const Args& a, int bi,
-                                                const RowMap& rm, int k0,
+                                                const unsigned row[2],
+                                                const Args& a, int k0,
                                                 bool vec) {
   constexpr int CH = BK / 16;
-  for (int idx = threadIdx.x; idx < rm.qrows * CH; idx += kThreads) {
-    const int i = idx / CH, c = (idx % CH) * 16;
-    const int pos = rm.q0 + i;
-    unsigned char* dst = m_s + i * kMaskStride + c;
-    if (pos < a.s && k0 + c < a.s) {
-      const unsigned char* src =
-          dense_row<kMaskDense>(a, bi, 0, pos) + k0 + c;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int idx = threadIdx.x + j * kThreads, c = (idx % CH) * 16;
+    unsigned char* dst = m_s + (idx / CH) * kMaskStride + c;
+    if (row[j] != ~0u && k0 + c < a.s) {
+      const unsigned char* src = a.dense + (size_t)row[j] * a.s + k0 + c;
       if (vec) {
         cp_async16(smem_u32(dst), src);
         continue;
@@ -451,8 +500,6 @@ flash_fwd_mma_kernel(Args a) {
                 "the tensor-core bodies take bf16");
   static_assert(BK == kRows && D % 16 == 0 && D <= 128,
                 "64-wide tiles, head_dim bins of 16 up to 128");
-  static_assert(!(kMask == kMaskDense && kBhsd),
-                "the per-head dense-mask forward takes the CUDA-core body");
   constexpr bool kSeg = kMask == kMaskSeg;
   constexpr bool kDense = kMask == kMaskDense;
   using S = FwdMmaSmem<D, BK, kDense>;
@@ -461,7 +508,8 @@ flash_fwd_mma_kernel(Args a) {
   constexpr int NT = BK / 8;              // m16n8 score tiles of a key tile
   // keys per fp64 S chunk (kBhsd): 32 builds without a spill at every D
   // (16 spilled at D = 32) and reloads Q's fragments half as often as 16
-  // (K6-fwd 0.395-0.398 ms against 0.418 at the training step, H100)
+  // (K6-fwd 0.395-0.398 ms against 0.418 at the training step, H100
+  // 80GB HBM3, 700 W)
   constexpr int KC = 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
@@ -491,7 +539,8 @@ flash_fwd_mma_kernel(Args a) {
 
   // this thread's rows: warp * 16 + gid and 8 below it; l is this
   // thread's share of the row sum until the end; mrow the offset of the
-  // row's staged mask bytes in a stage (kDense)
+  // row's staged mask bytes in a stage (kDense: by block row, as
+  // stage_mask_tile stages them)
   int qpos[2], qseg[2], mrow[2];
   bool rv[2];
   float m[2], l[2];
@@ -501,12 +550,14 @@ flash_fwd_mma_kernel(Args a) {
     rv[hh] = rm.valid(r, a.s);
     qpos[hh] = rm.pos(r);
     qseg[hh] = kSeg && rv[hh] ? a.q_seg[(size_t)bi * a.s + qpos[hh]] : 0;
-    mrow[hh] = (qpos[hh] - rm.q0) * kMaskStride;
+    mrow[hh] = r * kMaskStride;
     m[hh] = kNegInf;
     l[hh] = 0.f;
   }
   const bool mask_vec = kDense && a.s % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(a.dense) % 16 == 0;
+  unsigned mrows[2] = {~0u, ~0u};
+  if constexpr (kDense) mask_items<BK>(mrows, a, bi, kvh, rm);
   const int qmax = min(rm.q0 + rm.qrows, a.s) - 1;
   int klo, khi;
   segment_range<kSeg>(a.q_seg, a.kv_seg, a, bi, rm.q0, qmax, &klo, &khi);
@@ -525,7 +576,7 @@ flash_fwd_mma_kernel(Args a) {
   // key tile t (and its mask bytes) into stage st, one copy group
   auto stage_tile = [&](int t, int st) {
     if constexpr (kDense)
-      stage_mask_tile<BK>(mask_s + st * S::kMaskStage, a, bi, rm, t * BK,
+      stage_mask_tile<BK>(mask_s + st * S::kMaskStage, mrows, a, t * BK,
                           mask_vec);
     stage_kv_tile<D, BK, SD, kSeg, kBhsd>(kv_s, kseg_s, a, bi, kvh, t, st,
                                           vec);
@@ -698,7 +749,9 @@ flash_bwd_dq_mma_kernel(Args a) {
   using S = DqMmaSmem<D, BK>;
   constexpr int SD = S::kStride;
   // keys per S/dP chunk: narrower as the dQ accumulators grow with D;
-  // 16 for the fp64 products of the per-head layout
+  // 16 for the fp64 products of the per-head layout (32 at D = 64 made
+  // K5-dQ slower: 0.153 against 0.144 ms at the packed step, H100 80GB
+  // HBM3, 700 W)
   constexpr int KC = kBhsd ? 16 : D <= 32 ? 64 : D <= 64 ? 16 : 32;
   constexpr int CH = D / 8;               // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -885,8 +938,12 @@ flash_bwd_dkv_mma_kernel(Args a) {
   constexpr int SD = S::kStride;
   // queries per S^T/dP^T chunk: the dK/dV accumulators take D / 2
   // registers, so the chunk narrows as D grows; 16 for the fp64 products
-  // of the per-head layout
-  constexpr int QC = kBhsd || D > 64 ? 16 : D <= 32 ? 64 : 32;
+  // of the per-head layout, and for the segment ids' body at D = 64
+  // (K5-dKV 0.199 ms against 0.239 with 32 at the packed step), but not
+  // for K2 there (K2-dKV 0.442-0.443 ms with 32 against 0.452-0.458 with
+  // 16 at the LM step); each in turns, H100 80GB HBM3, 700 W
+  constexpr int QC =
+      kBhsd || D > 64 || (kSeg && D > 32) ? 16 : D <= 32 ? 64 : 32;
   constexpr int CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);

@@ -38,16 +38,15 @@ Semantics shared with the TPU kernels: masked logits are ``NEG_INF =
 -1e30`` (finite, so a row with no visible key is the uniform average of
 V), ``l`` is clamped at 1e-20, products accumulate in fp32. Their
 operands P and dS follow each TPU kernel: K1/K2/K5 keep them in fp32
-(the bf16 tensor-core kernels of K1, K1-dense and K2 carry them as hi +
-lo bf16 halves); K6 rounds them to bf16 under bf16 inputs (P before P·V, dS
-before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q), and so does its plain
-version, which rounds the forward's P at the running row max of each key
-tile of the kernel's width (:func:`key_tile`), where an online softmax
-rounds it. K6's bf16 kernels take S (and dP) as correctly rounded fp32
+(the bf16 tensor-core kernels of K1, K1-dense, K2 and K5's backward
+carry them as hi + lo bf16 halves); K6 rounds them to bf16 under bf16
+inputs (P before P·V, dS before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q),
+and so does its plain version, which rounds the forward's P at the
+running row max of each key tile of the kernel's width
+(:func:`key_tile`), where an online softmax rounds it. K6's bf16 kernels take S (and dP) as correctly rounded fp32
 sums (fp64 on the card's FP64 tensor cores; :func:`_exact_bmm` and
 ``_logits(exact=True)`` in the plain version), so that its roundings do
-not follow a summation order; K6's dense-mask forward still sums S in
-fp32 on the CUDA cores, and its plain version with it.
+not follow a summation order, under a dense mask too.
 ``k_valid`` (``[1|b, s]`` bool) is the key factor of a
 factored padding mask; the
 query factor is applied by the op (``ops.attention``), outside the
@@ -281,11 +280,10 @@ def _fwd_plain(q, k, v, scale, causal, k_valid, seg, mask=None,
                layout="bshd"):
     q, k, v = (_to_bshd(x, layout) for x in (q, k, v))
     b, s, h, d = q.shape
-    # S as its kernel sums it: correctly rounded where K6 rounds P from it
-    # on the tensor cores; K6's dense-mask forward sums in fp32
-    exact = _rounds_operands(q.dtype, layout) and mask is None
+    # S as its kernel sums it: correctly rounded where K6 (with or
+    # without a dense mask) rounds P from it on the tensor cores
     logits = _logits(q, k, _scale(q, scale), causal, k_valid, seg, mask,
-                     exact=exact)
+                     exact=_rounds_operands(q.dtype, layout))
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)         # unrounded P

@@ -16,7 +16,7 @@ fp32:
 Tolerance: within 5e-6 of each tensor's largest magnitude, entries at the
 -1e30 mask value equal (both sides compute in fp32 and differ in
 summation order only: test_torch_flash_attention.py's bound).
-bf16 cases of K6-fwd (no mask, factored, a dense [b, h, s, s] mask) and
+bf16 cases of K6-fwd (no mask, factored, each dense mask) and
 K6-dQ/dKV: the same inputs cast to bf16, where the TPU's K6 rounds P and
 dS to bf16 before each product; every element within 2 bf16 ulps of the
 reference tensor's largest magnitude and at most 1% of them differing at
@@ -142,7 +142,6 @@ def torch_all(*xs):
 
 
 MASKS = ["none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h")]
-BF16_MASKS = ["none", "factored", ("b", "h")]
 
 
 def mask_id(m):
@@ -150,9 +149,8 @@ def mask_id(m):
 
 
 @pytest.mark.parametrize(
-    "mask,bf16", [(m, False) for m in MASKS] + [(m, True) for m in BF16_MASKS],
-    ids=[mask_id(m) for m in MASKS] + [mask_id(m) + "-bf16"
-                                       for m in BF16_MASKS])
+    "mask,bf16", [(m, False) for m in MASKS] + [(m, True) for m in MASKS],
+    ids=[mask_id(m) for m in MASKS] + [mask_id(m) + "-bf16" for m in MASKS])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("h,hkv,d", [(4, 4, 16), (4, 1, 32), (2, 2, 32)],
                          ids=["mha", "gqa", "d32"])
@@ -302,20 +300,18 @@ def test_k1_dense_plain_matches_the_pallas_kernel(interpret, h, hkv, causal,
     assert_close("o", o.numpy(), jo)
 
 
-def test_k6_forward_plain_takes_the_correctly_rounded_scores():
-    """Under bf16 the plain bhsd forward without a dense mask sums each
-    Q.K^T in float64 and rounds it once, as K6's tensor-core forward sums
-    it on the FP64 tensor cores: a dot product of bf16 terms 2^24, 1 (x
-    14) and -2^24, which an fp32 sum in index order takes to 0, comes
-    out 14, so the row's softmax and Lse follow the float64 answer (from
-    a score of 0 the Lse would be log 2)."""
-    d = 16
-    q = np.ones((1, 1, 2, d), np.float32)
-    k = np.zeros((1, 1, 2, d), np.float32)
+def cancelling_row(d, n_keys):
+    """bhsd q, k, v of one head with ``n_keys`` positions whose score
+    (0, 0) is a dot product of bf16 terms 2^24, 1 (x d - 2) and -2^24:
+    an fp32 sum in index order loses the ones and takes it to 0, the
+    exact sum is d - 2. Key 1 scores 0; V is ones at key 0, zeros
+    elsewhere. Returns (q, k, v, in_order, exact)."""
+    q = np.ones((1, 1, n_keys, d), np.float32)
+    k = np.zeros((1, 1, n_keys, d), np.float32)
     q[..., [0, -1]] = 2.0 ** 12
     k[0, 0, 0] = 1.0
     k[0, 0, 0, [0, -1]] = [2.0 ** 12, -2.0 ** 12]
-    v = np.zeros((1, 1, 2, d), np.float32)
+    v = np.zeros((1, 1, n_keys, d), np.float32)
     v[0, 0, 0] = 1.0
     terms = (q[0, 0, 0] * k[0, 0, 0]).astype(np.float32)
     in_order = np.float32(0)
@@ -323,12 +319,47 @@ def test_k6_forward_plain_takes_the_correctly_rounded_scores():
         in_order = np.float32(in_order + t)
     exact = float(np.dot(q[0, 0, 0].astype(np.float64),
                          k[0, 0, 0].astype(np.float64)))
+    return q, k, v, in_order, exact
+
+
+def test_k6_forward_plain_takes_the_correctly_rounded_scores():
+    """Under bf16 the plain bhsd forward without a dense mask sums each
+    Q.K^T in float64 and rounds it once, as K6's tensor-core forward sums
+    it on the FP64 tensor cores: a dot product of bf16 terms 2^24, 1 (x
+    14) and -2^24, which an fp32 sum in index order takes to 0, comes
+    out 14, so the row's softmax and Lse follow the float64 answer (from
+    a score of 0 the Lse would be log 2)."""
+    q, k, v, in_order, exact = cancelling_row(16, 2)
     assert (in_order, exact) == (0.0, 14.0)
     t = [x.to(torch.bfloat16) for x in torch_all(q, k, v)]
     for x, x32 in zip(t, torch_all(q, k, v)):    # bf16 holds every term
         assert torch.equal(x.float(), x32)
     o, lse = fa.flash_fwd(*t, 1.0, False, layout="bhsd")
     s = np.array([exact, 0.0])                     # the scores of row 0
+    want_lse = np.log(np.exp(s).sum())
+    np.testing.assert_allclose(lse[0, 0].numpy(), want_lse, rtol=1e-6)
+    np.testing.assert_allclose(o[0, 0, 0].float().numpy(),
+                               np.exp(s[0] - want_lse), rtol=2 ** -8)
+
+
+def test_k6_dense_forward_plain_takes_the_correctly_rounded_scores():
+    """Under a dense mask too, the plain bhsd bf16 forward takes S in
+    float64, as K6-fwd-dense's tensor-core body sums it: row 0's first
+    score is the cancelling dot product of ``cancelling_row`` (exactly
+    14, 0 in fp32 in index order), its second 0, and the mask hides its
+    third key, whose score of 4096 would take the whole softmax. P of
+    key 0 is then exp(14 - Lse), which rounds to bf16 1.0 (from an fp32
+    score of 0 it would be 0.5), and the Lse log(e^14 + 1). A plain
+    version that sums S in fp32 under a dense mask (the forward's split
+    before K6-fwd-dense ran on the tensor cores) fails it."""
+    q, k, v, in_order, exact = cancelling_row(16, 3)
+    k[0, 0, 2, 0] = 1.0                  # score (0, 2) = 2^12: hidden
+    mask = np.ones((1, 1, 3, 3), bool)
+    mask[0, 0, 0, 2] = False
+    t = [x.to(torch.bfloat16) for x in torch_all(q, k, v)]
+    o, lse = fa.flash_fwd(*t, 1.0, False, mask=torch.from_numpy(mask),
+                          layout="bhsd")
+    s = np.array([exact, 0.0])                     # row 0's visible scores
     want_lse = np.log(np.exp(s).sum())
     np.testing.assert_allclose(lse[0, 0].numpy(), want_lse, rtol=1e-6)
     np.testing.assert_allclose(o[0, 0, 0].float().numpy(),

@@ -196,6 +196,7 @@ def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
     json.dumps(timing + [row])
     out = capsys.readouterr().out
     assert "flash_segment_fwd" in out and "fused_adam" in out
+    assert "packed path, profiled flash kernels" in out    # PACKED_BODIES
 
 
 def test_layout_and_dense_mask_phases_rehearse_on_the_cpu(tiny, capsys):
@@ -295,11 +296,12 @@ def test_prefix_mask_and_kernel_classes():
 
 
 def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
-    """Phases 6, 9 and 10 hold the profiled flash kernels to exactly the
-    bodies they must run: K1 and K2 on the tensor cores in bshd; K6's
-    tensor-core forward and backward in bhsd; K1-dense's tensor-core
-    forward in the bshd prefix-mask program and K6-fwd-dense's CUDA-core
-    forward in the bhsd one."""
+    """Phases 6, 7, 9 and 10 hold the profiled flash kernels to exactly
+    the bodies they must run: K1 and K2 on the tensor cores in bshd; K5's
+    CUDA-core forward and tensor-core backward under segment ids; K6's
+    tensor-core forward and backward in bhsd; the tensor-core forwards of
+    K1-dense in the bshd prefix-mask program and of K6-fwd-dense in the
+    bhsd one."""
     ns = "void (anonymous namespace)::"
     args = "((anonymous namespace)::Args)"
     train = {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, false>" +
@@ -315,11 +317,39 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
             args: 2.0,
             ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
             args: 2.0}
+    packed = {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 1, false>" +
+              args: 2.7,
+              ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 1, "
+              "false>" + args: 0.5,
+              ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 1, "
+              "false>" + args: 0.6,
+              "ampere_bf16_s16816gemm_bf16_128x64": 9.0}
     assert cs.flash_bodies(train) == cs.TRAIN_BODIES
     assert cs.flash_bodies(bhsd) == cs.BHSD_BODIES
+    assert cs.flash_bodies(packed) == cs.PACKED_BODIES
     monkeypatch.setattr(cs, "DEVICE", "cuda")
     cs.body_gate("training path", train, cs.TRAIN_BODIES)
     cs.body_gate("bhsd path", bhsd, cs.BHSD_BODIES)
+    cs.body_gate("packed path", packed, cs.PACKED_BODIES)
+    # K5's CUDA-core backward where its tensor-core one must run
+    old_k5 = dict(packed)
+    del old_k5[ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 1, "
+               "false>" + args]
+    old_k5[ns + "flash_bwd_dq_kernel<__nv_bfloat16, 64, 64, 1, false>" +
+           args] = 1.07
+    with pytest.raises(AssertionError):
+        cs.body_gate("packed path", old_k5, cs.PACKED_BODIES)
+    # a tensor-core K5 forward, which this body set does not hold
+    mma_fwd = dict(packed)
+    del mma_fwd[ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 1, false>" +
+                args]
+    mma_fwd[ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 1, false>" +
+            args] = 0.3
+    with pytest.raises(AssertionError):
+        cs.body_gate("packed path", mma_fwd, cs.PACKED_BODIES)
+    with pytest.raises(AssertionError):          # K1/K2 in the packed step
+        cs.body_gate("packed path", dict(packed, **train),
+                     cs.PACKED_BODIES)
     # a CUDA-core body where the tensor-core one must run
     cuda_core = dict(train)
     cuda_core[ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 0, false>" +
@@ -339,17 +369,19 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
     gemm = {"ampere_bf16_s16816gemm_bf16_128x64": 9.0}
     dense = {"bshd": {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 2, "
                       "false>" + args: 0.5},
-             "bhsd": {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 2, "
-                      "true>" + args: 1.9}}
+             "bhsd": {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 2, "
+                      "true>" + args: 0.6}}
     for layout, names in dense.items():
         assert cs.flash_bodies(names) == cs.DENSE_BODIES[layout]
         cs.body_gate("dense-mask %s path" % layout, dict(names, **gemm),
                      cs.DENSE_BODIES[layout])
-    wrong = {"bshd": {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 2, "
-                      "false>" + args: 2.0},     # K1-dense's CUDA-core body
-             "bhsd": {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, "
-                      "true>" + args: 0.4}}      # K6-fwd, not the dense one
-    for layout, names in wrong.items():
+    wrong = [("bshd", {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 2, "
+                       "false>" + args: 2.0}),   # K1-dense's CUDA-core body
+             ("bhsd", {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, "
+                       "true>" + args: 0.4}),    # K6-fwd, not the dense one
+             ("bhsd", {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 2, "
+                       "true>" + args: 1.9})]    # K6-fwd-dense's CUDA-core
+    for layout, names in wrong:
         with pytest.raises(AssertionError):
             cs.body_gate("dense-mask %s path" % layout, names,
                          cs.DENSE_BODIES[layout])
@@ -361,29 +393,39 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
     cs.body_gate("training path", {}, cs.TRAIN_BODIES)
 
 
-def _smem_report(cuda_core=1000, mma=600):
+def _smem_report(cuda_core=1000, mma=600, mask_tile=10240):
     """Shared memory per (kernel, head_dim, dtype) as the libraries report
     it: ``cuda_core`` bytes per head_dim unit for a CUDA-core body (fp32
-    tiles, either input dtype), ``mma`` for a tensor-core one."""
+    tiles, either input dtype), ``mma`` for a tensor-core one, whose
+    dense-mask forward adds ``mask_tile`` bytes (the staged mask)."""
     out = {}
     for name in cs.FLASH_KERNELS:
         for d in cs.SMEM_HEAD_DIMS:
+            mma_body = name in cs.MMA_FLASH and d <= 128
             out[(name, d, "float32")] = cuda_core * d
             out[(name, d, "bfloat16")] = \
-                (mma if name in cs.MMA_FLASH and d <= 128 else cuda_core) * d
+                mma * d + mask_tile * (name in cs.DENSE) if mma_body \
+                else cuda_core * d
     return out
 
 
 def test_smem_gate_holds_each_kernel_to_the_body_it_launches():
     """The build phase's shared-memory check: every bf16 tensor-core
-    body (K1, K1-dense, K2, K6 at head_dim <= 128) reports other bytes
-    than its fp32 CUDA-core twin, every other call the fp32 bytes. The
-    per-head dense forward reporting K6-fwd's tensor-core bytes (one
+    body (K1, K1-dense, K2, K5's backward, K6, K6-fwd-dense at head_dim
+    <= 128) reports other bytes than its fp32 CUDA-core twin, every
+    other call (K5's forward among them) the fp32 bytes, and each bf16
+    dense-mask forward more than the unmasked forward of its layout.
+    The per-head dense forward reporting K6-fwd's tensor-core bytes (one
     size for both bhsd forwards: a library that ignores the mask kind)
-    fails it, and so does a K6-fwd that reports the CUDA-core body's."""
+    fails it, and so do a K6-fwd that reports the CUDA-core body's, a
+    K5 backward that reports its CUDA-core body's and a K5 forward that
+    reports a tensor-core body's."""
     good = _smem_report()
     assert {n for n in cs.FLASH_KERNELS if good[(n, 64, "bfloat16")] !=
             good[(n, 64, "float32")]} == set(cs.MMA_FLASH)
+    assert {"flash_bhsd_fwd_dense", "flash_segment_bwd_dq",
+            "flash_segment_bwd_dkv"} <= set(cs.MMA_FLASH)
+    assert "flash_segment_fwd" not in cs.MMA_FLASH
     cs.smem_gate(good)
     one_size = dict(good)
     for d in cs.SMEM_HEAD_DIMS:
@@ -396,6 +438,16 @@ def test_smem_gate_holds_each_kernel_to_the_body_it_launches():
         good[("flash_bhsd_fwd", 64, "float32")]
     with pytest.raises(AssertionError, match="flash_bhsd_fwd d64"):
         cs.smem_gate(stale)
+    for name, d, nbytes in (
+            ("flash_segment_bwd_dq", 64,
+             good[("flash_segment_bwd_dq", 64, "float32")]),
+            ("flash_segment_bwd_dkv", 128,
+             good[("flash_segment_bwd_dkv", 128, "float32")]),
+            ("flash_segment_fwd", 64, good[("flash_fwd", 64, "bfloat16")])):
+        wrong = dict(good)
+        wrong[(name, d, "bfloat16")] = nbytes
+        with pytest.raises(AssertionError, match="%s d%d" % (name, d)):
+            cs.smem_gate(wrong)
 
 
 def test_mma_spills_reads_ptxas_output():
