@@ -10,20 +10,24 @@ raises on failure (the script then exits non-zero and prints no result):
 1. Card: require CUDA; print ``nvidia-smi`` name and power limit.
 2. Build: compile every kernel of every slice from
    ``paddle_tpu_torch/csrc`` (one nvcc per source, in parallel); no
-   tensor-core body (the forward of K1, K1-dense, K6 and K6-fwd-dense,
-   the backward of K2, K5 and K6, at head_dim 32, 64 and 128) may spill
+   tensor-core body (the forward of K1, K1-dense, K5, K6 and
+   K6-fwd-dense, the backward of K2, K5 and K6, at head_dim 32, 64 and
+   128) may spill
    (ptxas -v). Every
    flash kernel's reported shared memory at head_dim 32-256 in fp32 and
    bf16 is logged, and must belong to the body it launches: a kernel
    that runs a CUDA-core body under bf16 reports its fp32 bytes, one
    that runs a tensor-core body other bytes (``smem_gate``).
 3. Kernels against their plain versions on the card. K3 in fp32 and
-   bf16, at the serving geometry and the reference's tuning grid,
-   lengths 0, 1, a mid-page frontier and the full window. K1, K2-dQ and
-   K3-quant (the same kernel on int8/fp8 pools with per-(page, group,
-   kv-head) scales): int8 and fp8, fp32 and bf16 q, one scale group per
-   page and groups of 4, h = hkv and GQA, at the serving geometry (32
-   slots over the quantized engine's 4097-page pool) and small pools.
+   bf16, at the serving geometry, the reference's tuning grid and a wide
+   table (4 slots of 256 pages: 8 splits a slot, 32 on one-byte pools),
+   lengths 0, 1, a mid-page frontier and the full window, then the split
+   edges (a split's tokens - 1, them, + 1, and one token short of the
+   full table). K3-quant (the same kernel on int8/fp8 pools with per-(page,
+   group, kv-head) scales): int8 and fp8, fp32 and bf16 q, one scale
+   group per page and groups of 4, h = hkv and GQA, both length lists,
+   at the serving geometry (32 slots over the quantized engine's
+   4097-page pool), small pools and the wide table.
    ``paged_quant_append`` on the card must equal the CPU bit for bit on
    every page but scratch (int8/fp8, both group sizes). K1, K2-dQ and
    K2-dKV (flash attention) in fp32 and bf16, causal and not, h = hkv
@@ -38,8 +42,8 @@ raises on failure (the script then exits non-zero and prints no result):
    the same geometries, dtypes and causal settings under four segment
    maps (random documents, one segment — which must also equal K1/K2 —,
    many 1-8-token segments, boundaries on and one off the kernels' 64-wide
-   tiles), and at the packed step's own shape and map (bf16 K5-dQ and
-   K5-dKV on the tensor cores, K5-fwd on the CUDA cores). K6-fwd, K6-dQ
+   tiles), and at the packed step's own shape and map (bf16 K5-fwd,
+   K5-dQ and K5-dKV on the tensor cores). K6-fwd, K6-dQ
    and K6-dKV (the per-head [b, h, s, d] layout) without a mask and with
    a factored padding mask, K6-fwd under dense [1|b, 1|h, s, s] masks
    and K1-dense under dense [1|b, 1, s, s] masks (each with one fully
@@ -84,7 +88,9 @@ raises on failure (the script then exits non-zero and prints no result):
    yardstick only: the port never calls it); then the same for K3-quant
    on the int8 engine (SDPA over the tokens pre-dequantized to bf16),
    and K3-quant held against its plain version at the fp8 engine's own
-   decode-step inputs.
+   decode-step inputs. Then K3 at long contexts (4 slots x 4096 tokens,
+   where the split across blocks matters most), checked and timed beside
+   SDPA over the same tokens: logged, not a row of the kernels line.
 5. Training gate, fp32 with TF32 off: a 2-layer transformer LM at full
    width (512d, 8 heads, vocab 32000), batch 2, seq 512, from one
    initial state, 3 Adam steps through ``Executor.run`` on the card
@@ -109,8 +115,8 @@ raises on failure (the script then exits non-zero and prints no result):
    its seeded documents (labels from ``packed_next_token_labels``, ids
    from ``transformer_lm(segment_ids=...)``) — 10 steps: loss finite and
    falling, K5-fwd, K5-dQ and K5-dKV each steps x 12 launches and K1/K2
-   none; a profile whose flash kernels must be exactly the CUDA-core K5
-   forward and the tensor-core K5 backward (``PACKED_BODIES``). Then the
+   none; a profile whose flash kernels must be exactly the tensor-core
+   K5 forward and backward (``PACKED_BODIES``). Then the
    padded baseline (the same documents one per row under a ``valid``
    mask, through K1/K2) for a few steps. Prints real tokens/s
    both ways, ``speedup_vs_padded_ragged``, ``pack_occupancy``,
@@ -154,11 +160,13 @@ raises on failure (the script then exits non-zero and prints no result):
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``--ab PARENT`` compares the flash kernels' times with another checkout
-(unpack ``git archive <parent>`` there): in turns parent, this tree,
-this tree, parent, each in its own process from its tree's root, it runs
-that tree's ``flash_timing`` (the LM step's shape, then the packed
-step's) and ``layout_timing`` and prints one line per run.
+``--ab PARENT`` compares the flash kernels' and K3's times with another
+checkout (unpack ``git archive <parent>`` there): in turns parent, this
+tree, this tree, parent, each in its own process from its tree's root,
+it runs that tree's ``flash_timing`` (the LM step's shape, then the
+packed step's), ``layout_timing`` and, with this tree's helpers over
+that tree's kernels, ``k3_ab_rows`` (K3 and K3-quant at a decode step's
+lengths, K3 at long contexts), and prints one line per run.
 """
 
 import argparse
@@ -250,6 +258,11 @@ TOKEN_MATCH_GUARD = 0.95
 CAP_SLOTS, CAP_TOKENS, CAP_BUCKETS = 64, 1024, "64,128,256,512,992"
 CAP_CLIENTS, CAP_PER_CLIENT, CAP_NEW_TOKENS = 16, 6, (32, 64)
 ADMISSION_RATIO = 1.9          # the reference's equal-memory bar
+# (S, H, KVH, D, page, MP) of the K3 checks' wide table: 8 splits of the
+# kernel's plan per slot (32 for int8/fp8 pools); and the long-context K3
+# timing's slots, all at LONG_TOKENS
+K3_WIDE = (4, 8, 2, 64, 16, 256)
+LONG_SLOTS, LONG_TOKENS = 4, 4096
 
 
 _FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -311,22 +324,20 @@ K1_DENSE_MASKS = ((1, 1), ("b", 1))
 DENSE_STEPS = 5
 # the flash bodies (``flash_bodies``) that the profiles of phase 6 (K1,
 # K2), phase 7 (K5), phase 9 (K6) and phase 10's two programs (by layout)
-# must show at the step's bf16 head_dim 64: the tensor-core bodies,
-# except K5's forward
+# must show at the step's bf16 head_dim 64: the tensor-core bodies
 TRAIN_BODIES = {("fwd", "mma", "bshd", 0), ("bwd_dq", "mma", "bshd", 0),
                 ("bwd_dkv", "mma", "bshd", 0)}
-PACKED_BODIES = {("fwd", "cuda-core", "bshd", 1),
+PACKED_BODIES = {("fwd", "mma", "bshd", 1),
                  ("bwd_dq", "mma", "bshd", 1), ("bwd_dkv", "mma", "bshd", 1)}
 BHSD_BODIES = {("fwd", "mma", "bhsd", 0), ("bwd_dq", "mma", "bhsd", 0),
                ("bwd_dkv", "mma", "bhsd", 0)}
 DENSE_BODIES = {"bhsd": {("fwd", "mma", "bhsd", 2)},
                 "bshd": {("fwd", "mma", "bshd", 2)}}
 # the flash kernels whose bf16 calls at head_dim <= 128 run a tensor-core
-# body (``mma_forward`` / ``mma_backward`` in csrc/flash_kernels.cuh);
-# every other kernel, head_dim and dtype runs a CUDA-core body, whose
-# shared memory holds fp32 tiles whatever the input dtype
-MMA_FLASH = K1K2 + K6 + ("flash_fwd_dense", "flash_bhsd_fwd_dense",
-                          "flash_segment_bwd_dq", "flash_segment_bwd_dkv")
+# body (``mma_forward`` / ``mma_backward`` in csrc/flash_kernels.cuh): all
+# of them; fp32 and head_dim > 128 run a CUDA-core body, whose shared
+# memory holds fp32 tiles whatever the input dtype
+MMA_FLASH = FLASH_KERNELS
 SMEM_HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -359,7 +370,7 @@ def card():
 def build():
     """Compile every source; print ptxas's registers and spills, and
     fail if any tensor-core body (``*_mma_kernel``: the forward of K1,
-    K1-dense, K6 and K6-fwd-dense, the backward of K2, K5 and K6, at
+    K1-dense, K5, K6 and K6-fwd-dense, the backward of K2, K5 and K6, at
     every head_dim bin) spills, or if a flash kernel reports the shared
     memory of a body it does not launch (``flash_smem``)."""
     from paddle_tpu_torch import _build
@@ -475,22 +486,37 @@ def _against_plain(got, ref):
     return float(err.max()), ok
 
 
+def k3_lengths(rng, S, MP, page, edges=False, quant=False):
+    """The S lengths of a K3 check over a table of MP pages: 0 (one live
+    position), 1, a mid-page frontier and the full window — or, with
+    ``edges``, the edges of the kernel's split plan for such pools
+    (``quant``: int8/fp8; a split's tokens - 1, them, + 1, and one token
+    short of the full table; capped at the table) —, then seeded lengths
+    for the remaining slots."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    T = MP * page
+    if edges:
+        C = pa.split_plan(MP, page, quant)[0] * page
+        fixed = [min(n, T) for n in (C - 1, C, C + 1, T - 1)]
+    else:
+        fixed = [0, 1, 2 * page + 3, T]
+    return fixed + [int(n) for n in rng.randint(1, T + 1, size=S - 4)]
+
+
 def kernel_checks():
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
     rng = np.random.RandomState(SEED)
     # (S, H, KVH, D, page, MP): the serving geometry at the engine's slot
-    # count and pool size, then the tuning grid of
-    # tests/serving/test_paged_generation.py
+    # count and pool size, the tuning grid of
+    # tests/serving/test_paged_generation.py, then the wide table
     geoms = [(SLOTS, HEADS, HEADS, DIM // HEADS, PAGE, MAX_LEN // PAGE),
              (4, 4, 4, 32, 8, 6), (4, 4, 2, 64, 16, 6), (4, 8, 2, 128, 16, 6),
-             (4, 4, 2, 192, 8, 6), (4, 4, 1, 256, 8, 6)]
+             (4, 4, 2, 192, 8, 6), (4, 4, 1, 256, 8, 6), K3_WIDE]
     rows = []
-    for S, H, KVH, D, page, MP in geoms:
-        # 0 (one live position), 1, a mid-page frontier, the full window,
-        # then seeded lengths for the remaining slots
-        lengths = [0, 1, 2 * page + 3, MP * page] + [
-            int(n) for n in rng.randint(1, MP * page + 1, size=S - 4)]
+    for (S, H, KVH, D, page, MP), edges in [(g, e) for g in geoms
+                                            for e in (False, True)]:
+        lengths = k3_lengths(rng, S, MP, page, edges)
         for dtype in (torch.float32, torch.bfloat16):
             args = _pool_case(rng, S, MP, page, H, KVH, D, dtype, lengths)
             got = pa.paged_decode_attention(*args)
@@ -500,9 +526,10 @@ def kernel_checks():
             rows.append({"geometry": [S, H, KVH, D, page, MP],
                          "dtype": str(dtype).split(".")[-1],
                          "lengths": lengths, "max_abs_err": err, "ok": ok})
-            log("  K3 S=%d H=%d KVH=%d D=%d page=%d pool=%d %s: max|err| "
-                "%.3g %s" % (S, H, KVH, D, page, S * MP + 1,
-                             rows[-1]["dtype"], err, "ok" if ok else "FAIL"))
+            log("  K3 S=%d H=%d KVH=%d D=%d page=%d pool=%d %s lengths "
+                "%s...: max|err| %.3g %s"
+                % (S, H, KVH, D, page, S * MP + 1, rows[-1]["dtype"],
+                   lengths[:4], err, "ok" if ok else "FAIL"))
     # what the kernel does not take must raise, never fall back
     q, kp, vp, pt, ln = _pool_case(rng, 2, 2, 8, 2, 2, 8, torch.float32,
                                    [3, 5])
@@ -557,9 +584,10 @@ def _quant_pool_case(rng, S, MP, P, page, H, KVH, D, dtype, lengths, mode,
 def quant_kernel_checks():
     """K3-quant against its plain version on the card: int8 and fp8 pools,
     bf16 and fp32 q, one scale group per page and sub-page groups, H = KVH
-    and GQA, lengths 0, 1, mid-page and the full window; first at the
-    serving geometry (32 slots over the quantized engine's 4097-page
-    pool). Comparison launches do not count as the main path's."""
+    and GQA, lengths 0, 1, mid-page and the full window, then the split
+    edges (``k3_lengths``); first at the serving geometry (32 slots over
+    the quantized engine's 4097-page pool), last on the wide table.
+    Comparison launches do not count as the main path's."""
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
     rng = np.random.RandomState(SEED + 9)
@@ -568,11 +596,11 @@ def quant_kernel_checks():
     MP = MAX_LEN // PAGE
     geoms = [(SLOTS, HEADS, HEADS, DIM // HEADS, PAGE, MP, 2 * SLOTS * MP),
              (4, 8, 2, 64, 16, 6, 24), (4, 8, 8, 128, 16, 6, 24),
-             (4, 8, 2, 128, 8, 6, 24)]
+             (4, 8, 2, 128, 8, 6, 24), K3_WIDE + (K3_WIDE[0] * K3_WIDE[5],)]
     rows = []
-    for S, H, KVH, D, page, mp, P in geoms:
-        lengths = [0, 1, 2 * page + 3, mp * page] + [
-            int(n) for n in rng.randint(1, mp * page + 1, size=S - 4)]
+    for (S, H, KVH, D, page, mp, P), edges in [(g, e) for g in geoms
+                                               for e in (False, True)]:
+        lengths = k3_lengths(rng, S, mp, page, edges, quant=True)
         for mode in KV_MODES:
             for group in (page, SUB_GROUP):
                 for dtype in (torch.float32, torch.bfloat16):
@@ -584,6 +612,7 @@ def quant_kernel_checks():
                     err, ok = _against_plain(
                         got, pa.paged_decode_attention_plain(*args, **kw))
                     rows.append({"geometry": [S, H, KVH, D, page, mp],
+                                 "lengths": lengths,
                                  "pool": P + 1, "mode": mode, "group": group,
                                  "dtype": str(dtype).split(".")[-1],
                                  "max_abs_err": err, "ok": ok})
@@ -1256,6 +1285,62 @@ def k3_timing(step_args, launches, step_kwargs=None):
                   row["bound_ms"], 100 * row["bound_ms"] / ms, plain_ms,
                   library_ms, err))
     return row, {"live_tokens": tokens, "bytes": nbytes, "flops": flops}
+
+
+def k3_step_inputs(rng, S, lengths, quant_mode=None):
+    """K3's inputs at the serving widths (H = KVH = HEADS, D = DIM / HEADS,
+    bf16 q, PAGE) for S slots of the given lengths, with a page table
+    wide enough for the longest and distinct pages (a permutation of the
+    pool, as an engine allocates them), bf16 pools, or int8 pools with
+    one scale group a page (``quant_mode="int8"``): (args, kwargs) of the
+    wrapper."""
+    import torch
+    mp = -(-max(lengths) // PAGE)
+    d = DIM // HEADS
+    if quant_mode is None:
+        args, kw = _pool_case(rng, S, mp, PAGE, HEADS, HEADS, d,
+                              torch.bfloat16, lengths), {}
+    else:
+        args, kw = _quant_pool_case(rng, S, mp, 2 * S * mp, PAGE, HEADS,
+                                    HEADS, d, torch.bfloat16, lengths,
+                                    quant_mode, PAGE)
+    pool = args[1].shape[0] - 1
+    args[3] = torch.from_numpy(rng.permutation(pool)[:S * mp].reshape(
+        S, mp).astype(np.int32)).to(DEVICE)
+    return args, kw
+
+
+def k3_long_timing():
+    """K3 at long contexts, where the split matters most: LONG_SLOTS
+    slots at LONG_TOKENS each (``k3_step_inputs``), checked and timed as
+    ``k3_timing`` times the decode step (beside its bound, the plain
+    version and SDPA over the same tokens); logged and reported, not a
+    row of the kernels line."""
+    rng = np.random.RandomState(SEED + 11)
+    args, _ = k3_step_inputs(rng, LONG_SLOTS, [LONG_TOKENS] * LONG_SLOTS)
+    row, shape = k3_timing(args, 0)
+    log("K3 at long contexts (%d slots x %d tokens): %.4f ms, sdpa %.4f "
+        "ms, bound %.4f ms" % (LONG_SLOTS, LONG_TOKENS, row["ms"],
+                               row["library_ms"], row["bound_ms"]))
+    return dict(row, launches=None, **shape)
+
+
+def k3_ab_rows():
+    """The K3 rows of ``--ab``: K3 and K3-quant (int8 pages) at a decode
+    step with every slot busy — the served requests' prompts plus 44
+    decoded tokens, ``k3_step_inputs`` — and K3 at long contexts
+    (``k3_long_timing``, named ``..._long``). ``ab_timing`` runs this
+    tree's source of these helpers in either tree, over that tree's
+    kernels and ``k3_timing``."""
+    rng = np.random.RandomState(SEED + 12)
+    prompts, _ = _requests()
+    lengths = [min(len(p) + 44, MAX_LEN) for p in prompts[:SLOTS]]
+    rows = []
+    for mode in (None, "int8"):
+        args, kw = k3_step_inputs(rng, SLOTS, lengths, mode)
+        rows.append(k3_timing(args, 0, kw)[0])
+    row = k3_long_timing()
+    return rows + [dict(row, name=row["name"] + "_long")]
 
 
 def step_profile(engine, prompts, steps=20):
@@ -2601,7 +2686,8 @@ def layout_timing(bhsd_launches, dense_res):
 
 
 # one A/B run: the timing functions of the chip_smoke.py in the current
-# directory, with every launch count at 0
+# directory, with every launch count at 0, and the K3 rows of this tree's
+# K3_AB source (its constants and helpers, run over that tree's kernels)
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -2615,20 +2701,34 @@ rows += cs.flash_timing(z, cs.packed_data(cs.LM_BATCH, cs.LM_SEQ)
                         ["packed"]["seg"])
 rows += cs.layout_timing(z, {"bhsd": {"launches": z},
                              "bshd": {"launches": z}})
+vars(cs).update(K3_CONSTS)
+exec(K3_AB, vars(cs))
+rows += cs.k3_ab_rows()
 print("AB_ROWS " + json.dumps([{k: r[k] for k in (
     "name", "ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")}
     for r in rows]))
 """
 
 
+def _ab_script():
+    """``_AB_RUN`` with this tree's K3 helpers and their constants in."""
+    import inspect
+    src = "".join(inspect.getsource(f) + "\n\n" for f in (
+        k3_step_inputs, k3_long_timing, k3_ab_rows))
+    return _AB_RUN.replace("K3_CONSTS", repr({
+        "LONG_SLOTS": LONG_SLOTS, "LONG_TOKENS": LONG_TOKENS})).replace(
+            "K3_AB", repr(src))
+
+
 def ab_timing(parent):
-    """The flash kernels timed in turns — the checkout at ``parent``, this
-    tree, this tree, ``parent`` — each run in its own process from its
-    tree's root, with that tree's timing functions. [{"tree", "rows"}]."""
+    """The flash kernels and K3 (``k3_ab_rows``) timed in turns — the
+    checkout at ``parent``, this tree, this tree, ``parent`` — each run in
+    its own process from its tree's root, with that tree's timing
+    functions. [{"tree", "rows"}]."""
     runs = []
     for label, root in (("parent", parent), ("this", REPO), ("this", REPO),
                         ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", _AB_RUN],
+        proc = subprocess.run([sys.executable, "-c", _ab_script()],
                               cwd=os.path.abspath(root), capture_output=True,
                               text=True, timeout=900)
         rows = [json.loads(ln[len("AB_ROWS "):])
@@ -2677,6 +2777,7 @@ def main(argv=None):
         report["fused_adam_checks"] = fused_adam_checks()
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
+            report["k3_long"] = k3_long_timing()
             report["train_gate"] = train_gate()
             report["train_path"] = train_path()
             report["flash_timing"] = flash_timing(

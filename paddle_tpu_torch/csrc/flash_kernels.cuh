@@ -35,12 +35,12 @@
 // before each product under bf16, as the TPU's K6 does (P before P.V,
 // dS before dS.K, P before P^T.dO and dS before dS^T.Q; `operand`), the
 // forward's row sum keeping the unrounded P. Under bf16 at head_dim <=
-// 128 the forwards of K1 and K6 (without a mask, with the factored one
-// or under a dense mask) and the backwards of K2, K5 and K6 run on the
-// tensor cores instead (flash_mma.cuh): in bshd P and dS enter as hi +
-// lo bf16 pairs that keep them near fp32, in bhsd as hi alone, K6's
-// rounding, from S and dP summed in fp64 and rounded to fp32 once (the
-// plain version's sums). Delta =
+// 128 the forwards of K1, K5 and K6 (without a mask, with the factored
+// one, under segment ids or under a dense mask) and the backwards of K2,
+// K5 and K6 run on the tensor cores instead (flash_mma.cuh): in bshd P
+// and dS enter as hi + lo bf16 pairs that keep them near fp32, in bhsd as
+// hi alone, K6's rounding, from S and dP summed in fp64 and rounded to
+// fp32 once (the plain version's sums). Delta =
 // rowsum(dO * O) [b, s, h] fp32 ([b, h, s] in bhsd) comes from the caller
 // (a torch reduction, as it is XLA in the reference). The backward
 // assumes that a query row with no visible key carries a zero cotangent
@@ -78,12 +78,11 @@
 //   64 at a time: the group sum happens in registers, no atomics (an fp32
 //   output takes the registers' partial sums every 4 query tiles, see
 //   DkvFlush).
-// - Under bf16 at head_dim <= 128 the forwards of K1 and K6 (kMaskValid,
-//   kMaskDense) and the backwards of K2, K5 and K6 (kMaskValid, kMaskSeg)
-//   take the tensor-core bodies of flash_mma.cuh (mma.sync, cp.async
-//   staging) on the same template axes; fp32, head_dim > 128 and K5's
-//   forward take these bodies. Later work: K5's forward onto the tensor
-//   cores, then wgmma with TMA.
+// - Under bf16 at head_dim <= 128 every forward (K1, K5 and K6, under
+//   every mask kind) and the backwards of K2, K5 and K6 (kMaskValid,
+//   kMaskSeg) take the tensor-core bodies of flash_mma.cuh (mma.sync,
+//   cp.async staging) on the same template axes; fp32 and head_dim > 128
+//   take these bodies. Later work: wgmma with TMA.
 
 #pragma once
 
@@ -827,14 +826,12 @@ constexpr bool mma_backward() {
          (kMask == kMaskValid || kMask == kMaskSeg);
 }
 
-// whether the forward runs on the tensor cores: bf16 K1 and K6 at
-// head_dim <= 128, without a mask, with the factored one or under a
-// dense mask (K1-dense, K6-fwd-dense). K5's forward keeps the CUDA-core
-// body.
+// whether the forward runs on the tensor cores: bf16 K1, K5 and K6 at
+// head_dim <= 128, without a mask, with the factored one, under segment
+// ids (K5-fwd) or under a dense mask (K1-dense, K6-fwd-dense)
 template <typename T, int D, int kMask, bool kBhsd>
 constexpr bool mma_forward() {
-  return std::is_same<T, __nv_bfloat16>::value && D <= 128 &&
-         (kMask == kMaskValid || kMask == kMaskDense);
+  return std::is_same<T, __nv_bfloat16>::value && D <= 128;
 }
 
 template <typename T, int D, int kMask, bool kBhsd>

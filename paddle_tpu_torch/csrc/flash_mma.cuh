@@ -9,12 +9,11 @@
 // flash_attention.cu) and in bhsd (K6-fwd, flash_bhsd.cu); the forward
 // under a dense mask (kMaskDense) in bshd (K1-dense, a head-broadcast
 // [b|1, 1, s, s] mask, flash_attention.cu) and in bhsd (K6-fwd-dense, a
-// [b|1, h|1, s, s] mask, flash_bhsd.cu); the backward in bshd (K2,
-// flash_attention.cu), in bhsd (K6-dQ, K6-dKV, flash_bhsd.cu) and under
-// packed segment ids (kMaskSeg: K5-dQ, K5-dKV, flash_segment.cu).
-// `mma_forward` and `mma_backward` in flash_kernels.cuh are that choice.
-// K5's forward keeps the CUDA-core body: the forward's kSeg instance is
-// written but neither built nor checked.
+// [b|1, h|1, s, s] mask, flash_bhsd.cu); the forward and the backward
+// under packed segment ids (kMaskSeg: K5-fwd, K5-dQ, K5-dKV,
+// flash_segment.cu); the backward in bshd (K2, flash_attention.cu) and in
+// bhsd (K6-dQ, K6-dKV, flash_bhsd.cu). `mma_forward` and `mma_backward`
+// in flash_kernels.cuh are that choice.
 //
 // Replaces (paddle_tpu/ops/pallas_attention.py):
 //   K1     _flash_fwd_bshd's pallas_call (line 616, kernel
@@ -23,6 +22,8 @@
 //   K2-dQ  _flash_bwd_bshd's first pallas_call (line 959, kernel
 //          _bwd_dq_kernel_bshd);
 //   K2-dKV its second pallas_call (line 977, _bwd_dkv_kernel_bshd);
+//   K5-fwd _flash_fwd_segment's pallas_call (line 1115, kernel
+//          _seg_fwd_kernel);
 //   K5-dQ  _flash_bwd_segment's first pallas_call (line 1258, kernel
 //          _seg_bwd_dq_kernel);
 //   K5-dKV its second pallas_call (line 1289, _seg_bwd_dkv_kernel);
@@ -39,10 +40,10 @@
 // part of the tensor cores' rate (wgmma reaches the rest), and the bshd
 // bodies issue more products than the function needs: each product with P
 // or dS as its A operand runs twice, on a hi and a lo bf16 half (1.5x the
-// tensor work in the forward and dK/dV, 1.33x in dQ). K5's backward at
-// the packed step (the same shape, 36.6% of the causal pairs visible)
-// walks only the key (dK/dV: query) tiles of the segment window; its
-// bytes bound it (0.027 ms dQ, 0.032 ms dK/dV). The per-head kernels (K6)
+// tensor work in the forward and dK/dV, 1.33x in dQ). K5 at the packed
+// step (the same shape, 36.6% of the causal pairs visible) walks only the
+// key (dK/dV: query) tiles of the segment window; its bytes bound it
+// (0.021 ms forward, 0.027 ms dQ, 0.032 ms dK/dV). The per-head kernels (K6)
 // take S (and dP) in fp64 (below), so the FP64 tensor cores' 67 TFLOP/s
 // bound them: ~17 GFLOP of them per backward kernel at the step (>= 0.26
 // ms each) and ~9.1 GFLOP in the causal forward (>= 0.14 ms). The
@@ -106,10 +107,11 @@
 //   time, and round each to fp32 once: the correctly rounded sum, which the
 //   plain version takes too. The products after the rounding (P.V, dS.K,
 //   P^T.dO, dS^T.Q) take bf16 operands exactly on the bf16 tensor cores.
-//   K5 is bshd: its TPU kernels keep P and dS in fp32, so its backward
-//   takes them as hi + lo from fp32 sums, as K2's does.
-// - Segment ids (K5's backward): dQ walks the key tiles of the window
-//   that its block's queries can see and dK/dV the query tiles that can
+//   K5 is bshd: its TPU kernels keep P and dS in fp32, so its forward
+//   and backward take them as hi + lo from fp32 sums, as K1's and K2's
+//   do (the forward's row sum the unrounded P).
+// - Segment ids (K5): the forward and dQ walk the key tiles of the
+//   window that their block's queries can see and dK/dV the query tiles that can
 //   see its key tile (segment_range, two binary searches over the row's
 //   non-decreasing ids), as the CUDA-core bodies do; the key ids ride in
 //   the copy ring beside K and V (kseg_s), the query ids beside each

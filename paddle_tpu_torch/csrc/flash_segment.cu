@@ -26,10 +26,10 @@
 // d64 bf16 causal, 3-4 documents per row) the mask leaves ~37% of the
 // causal pairs visible: ~6.3 / 9.4 / 12.6 GFLOP against ~71 / 89 / 105 MB
 // of inputs and outputs, so the bytes bound all three (~0.02-0.03 ms).
-// Under bf16 at head_dim <= 128 the backward (K5-dQ, K5-dKV) runs on the
-// tensor cores (flash_mma.cuh's kMaskSeg bodies: S and dP summed in fp32
-// by mma.sync, P and dS as hi + lo bf16 halves, as K2's); the forward,
-// fp32 and head_dim > 128 run their products in fp32 on the CUDA cores.
+// Under bf16 at head_dim <= 128 all three run on the tensor cores
+// (flash_mma.cuh's kMaskSeg bodies: S and dP summed in fp32 by mma.sync,
+// P and dS as hi + lo bf16 halves, as K1's and K2's); fp32 and head_dim >
+// 128 run their products in fp32 on the CUDA cores.
 // The skip cuts the work to the tiles that straddle or lie inside a
 // segment.
 
@@ -94,9 +94,8 @@ extern "C" int paddle_flash_segment_bwd_dkv(
 }
 
 // kernel: 0 = K5-fwd, 1 = K5-dQ, 2 = K5-dKV; mask: 1 (segment ids, the
-// one kind this source launches). Under bf16 at head_dim <= 128 K5-dQ
-// and K5-dKV report the tensor-core bodies' bytes, K5-fwd the CUDA-core
-// body's.
+// one kind this source launches). Under bf16 at head_dim <= 128 all
+// three report the tensor-core bodies' bytes.
 extern "C" size_t paddle_flash_segment_smem_bytes(int kernel, int mask,
                                                   int d, int dtype) {
   return smem_bytes<false>(kernel, mask, d, dtype);

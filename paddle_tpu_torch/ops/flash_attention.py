@@ -38,8 +38,8 @@ Semantics shared with the TPU kernels: masked logits are ``NEG_INF =
 -1e30`` (finite, so a row with no visible key is the uniform average of
 V), ``l`` is clamped at 1e-20, products accumulate in fp32. Their
 operands P and dS follow each TPU kernel: K1/K2/K5 keep them in fp32
-(the bf16 tensor-core kernels of K1, K1-dense, K2 and K5's backward
-carry them as hi + lo bf16 halves); K6 rounds them to bf16 under bf16
+(the bf16 tensor-core kernels of K1, K1-dense, K2 and K5 carry them
+as hi + lo bf16 halves); K6 rounds them to bf16 under bf16
 inputs (P before P·V, dS before dS·K, P before Pᵀ·dO, dS before dSᵀ·Q),
 and so does its plain version, which rounds the forward's P at the
 running row max of each key tile of the kernel's width

@@ -298,10 +298,9 @@ def test_prefix_mask_and_kernel_classes():
 def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
     """Phases 6, 7, 9 and 10 hold the profiled flash kernels to exactly
     the bodies they must run: K1 and K2 on the tensor cores in bshd; K5's
-    CUDA-core forward and tensor-core backward under segment ids; K6's
-    tensor-core forward and backward in bhsd; the tensor-core forwards of
-    K1-dense in the bshd prefix-mask program and of K6-fwd-dense in the
-    bhsd one."""
+    tensor-core forward and backward under segment ids; K6's tensor-core
+    forward and backward in bhsd; the tensor-core forwards of K1-dense in
+    the bshd prefix-mask program and of K6-fwd-dense in the bhsd one."""
     ns = "void (anonymous namespace)::"
     args = "((anonymous namespace)::Args)"
     train = {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 0, false>" +
@@ -317,8 +316,8 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
             args: 2.0,
             ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 0, true>" +
             args: 2.0}
-    packed = {ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 1, false>" +
-              args: 2.7,
+    packed = {ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 1, false>" +
+              args: 0.3,
               ns + "flash_bwd_dq_mma_kernel<__nv_bfloat16, 64, 64, 1, "
               "false>" + args: 0.5,
               ns + "flash_bwd_dkv_mma_kernel<__nv_bfloat16, 64, 64, 1, "
@@ -339,14 +338,14 @@ def test_body_gate_reads_the_profiled_flash_bodies(monkeypatch):
            args] = 1.07
     with pytest.raises(AssertionError):
         cs.body_gate("packed path", old_k5, cs.PACKED_BODIES)
-    # a tensor-core K5 forward, which this body set does not hold
-    mma_fwd = dict(packed)
-    del mma_fwd[ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 1, false>" +
-                args]
-    mma_fwd[ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 1, false>" +
-            args] = 0.3
+    # K5's CUDA-core forward where its tensor-core forward must run
+    cuda_fwd = dict(packed)
+    del cuda_fwd[ns + "flash_fwd_mma_kernel<__nv_bfloat16, 64, 64, 1, "
+                 "false>" + args]
+    cuda_fwd[ns + "flash_fwd_kernel<__nv_bfloat16, 64, 64, 1, false>" +
+             args] = 2.7
     with pytest.raises(AssertionError):
-        cs.body_gate("packed path", mma_fwd, cs.PACKED_BODIES)
+        cs.body_gate("packed path", cuda_fwd, cs.PACKED_BODIES)
     with pytest.raises(AssertionError):          # K1/K2 in the packed step
         cs.body_gate("packed path", dict(packed, **train),
                      cs.PACKED_BODIES)
@@ -411,21 +410,23 @@ def _smem_report(cuda_core=1000, mma=600, mask_tile=10240):
 
 def test_smem_gate_holds_each_kernel_to_the_body_it_launches():
     """The build phase's shared-memory check: every bf16 tensor-core
-    body (K1, K1-dense, K2, K5's backward, K6, K6-fwd-dense at head_dim
-    <= 128) reports other bytes than its fp32 CUDA-core twin, every
-    other call (K5's forward among them) the fp32 bytes, and each bf16
-    dense-mask forward more than the unmasked forward of its layout.
-    The per-head dense forward reporting K6-fwd's tensor-core bytes (one
-    size for both bhsd forwards: a library that ignores the mask kind)
-    fails it, and so do a K6-fwd that reports the CUDA-core body's, a
-    K5 backward that reports its CUDA-core body's and a K5 forward that
-    reports a tensor-core body's."""
+    body (K1, K1-dense, K2, K5, K6, K6-fwd-dense at head_dim <= 128)
+    reports other bytes than its fp32 CUDA-core twin, every other call
+    (head_dim 256) the fp32 bytes, and each bf16 dense-mask forward more
+    than the unmasked forward of its layout. The per-head dense forward
+    reporting K6-fwd's tensor-core bytes (one size for both bhsd
+    forwards: a library that ignores the mask kind) fails it, and so do
+    a K6-fwd that reports the CUDA-core body's, a K5 backward that
+    reports its CUDA-core body's and a K5 forward that reports its
+    fp32 CUDA-core body's under bf16."""
     good = _smem_report()
     assert {n for n in cs.FLASH_KERNELS if good[(n, 64, "bfloat16")] !=
             good[(n, 64, "float32")]} == set(cs.MMA_FLASH)
-    assert {"flash_bhsd_fwd_dense", "flash_segment_bwd_dq",
-            "flash_segment_bwd_dkv"} <= set(cs.MMA_FLASH)
-    assert "flash_segment_fwd" not in cs.MMA_FLASH
+    assert {"flash_bhsd_fwd_dense", "flash_segment_fwd",
+            "flash_segment_bwd_dq", "flash_segment_bwd_dkv"} <= \
+        set(cs.MMA_FLASH)
+    assert all(good[(n, 256, "bfloat16")] == good[(n, 256, "float32")]
+               for n in cs.FLASH_KERNELS)
     cs.smem_gate(good)
     one_size = dict(good)
     for d in cs.SMEM_HEAD_DIMS:
@@ -443,7 +444,10 @@ def test_smem_gate_holds_each_kernel_to_the_body_it_launches():
              good[("flash_segment_bwd_dq", 64, "float32")]),
             ("flash_segment_bwd_dkv", 128,
              good[("flash_segment_bwd_dkv", 128, "float32")]),
-            ("flash_segment_fwd", 64, good[("flash_fwd", 64, "bfloat16")])):
+            ("flash_segment_fwd", 64,
+             good[("flash_segment_fwd", 64, "float32")]),
+            ("flash_segment_fwd", 128,
+             good[("flash_segment_fwd", 128, "float32")])):
         wrong = dict(good)
         wrong[(name, d, "bfloat16")] = nbytes
         with pytest.raises(AssertionError, match="%s d%d" % (name, d)):
@@ -510,15 +514,58 @@ def tiny_serving(monkeypatch):
 def test_quant_kernel_and_append_checks_rehearse_on_the_cpu(tiny_serving):
     before = (pa.launches, pa.launches_quant)
     rows = cs.quant_kernel_checks()
-    # 4 geometries x 2 modes x 2 groups x 2 q dtypes
-    assert len(rows) == 32 and all(r["ok"] for r in rows)
+    # 5 geometries x 2 length lists x 2 modes x 2 groups x 2 q dtypes
+    assert len(rows) == 80 and all(r["ok"] for r in rows)
     assert rows[0]["pool"] == 2 * cs.SLOTS * cs.MAX_LEN // cs.PAGE + 1
+    _assert_split_edges(rows, 8)
     assert {(r["mode"], r["group"]) for r in rows if r["geometry"][4] ==
             cs.PAGE} == {(m, g) for m in cs.KV_MODES
                          for g in (cs.PAGE, cs.SUB_GROUP)}
     assert (pa.launches, pa.launches_quant) == before
     append = cs.quant_append_checks()
     assert len(append) == 4 and all(r["ok"] for r in append)
+
+
+def _assert_split_edges(rows, per_list):
+    """Each geometry of a K3 case list runs both length lists (0, 1,
+    mid-page, full; then the split plan's edges), ``per_list`` cases
+    each, and the wide table (8 splits a slot, 32 on one-byte pools) is
+    among them."""
+    lists = {}
+    quant = "mode" in rows[0]      # K3-quant's rows: int8/fp8 pools
+    for r in rows:
+        S, H, KVH, D, page, mp = r["geometry"]
+        lists.setdefault((S, H, KVH, D, page, mp), []).append(
+            tuple(r["lengths"][:4]))
+    for (S, H, KVH, D, page, mp), got in lists.items():
+        C = pa.split_plan(mp, page, quant)[0] * page
+        T = mp * page
+        edges = tuple(min(n, T) for n in (C - 1, C, C + 1, T - 1))
+        assert sorted(set(got)) == sorted({(0, 1, 2 * page + 3, T), edges})
+        assert got.count(edges) == per_list
+    assert tuple(cs.K3_WIDE) in lists
+    assert pa.split_plan(cs.K3_WIDE[5], cs.K3_WIDE[4], quant)[1] == \
+        (32 if quant else 8)
+
+
+def test_k3_checks_cover_the_split_edges_and_a_wide_table(tiny_serving,
+                                                          monkeypatch):
+    """Phase 3's K3 case list: the serving geometry, the reference's
+    tuning grid and the wide table, each with lengths 0, 1, a mid-page
+    frontier and the full window, and again at the edges of the kernel's
+    split plan (a split's tokens - 1, them, + 1, one token short of the
+    table); the comparison launches leave the main path's count alone."""
+    shim = pa.paged_decode_attention
+
+    def typed(*args, **kw):     # the card's dtype rule for the table
+        if args[3].dtype != torch.int32:
+            raise TypeError("page_table must be int32")
+        return shim(*args, **kw)
+    monkeypatch.setattr(pa, "paged_decode_attention", typed)
+    rows = cs.kernel_checks()
+    # 7 geometries x 2 length lists x 2 q dtypes
+    assert len(rows) == 28 and all(r["ok"] for r in rows)
+    _assert_split_edges(rows, 2)
 
 
 def test_serving_phase_with_quantized_runs_rehearses_on_the_cpu(
@@ -576,6 +623,28 @@ def test_flash_case_zeroes_the_cotangent_of_padded_rows(monkeypatch):
     assert valid[0].all() and not valid[2].any()
     assert valid[1, :30].all() and not valid[1, 30:].any()
     assert not do[2].any() and not do[1, 30:].any() and do[0].all()
+
+
+def test_ab_script_carries_this_trees_k3_helpers(tiny_serving,
+                                                 monkeypatch):
+    """``--ab`` runs this tree's K3 helpers over either tree's kernels:
+    the script compiles, and its K3 source and constants, run in a
+    module without them (an older tree's ``chip_smoke``), give the K3
+    rows there."""
+    script = cs._ab_script()
+    compile(script, "ab", "exec")
+    consts = script.split("vars(cs).update(")[1].split(")\n")[0]
+    src = script.split("exec(")[1].split(", vars(cs))")[0]
+    older = dict(vars(cs))
+    for name in ("k3_step_inputs", "k3_long_timing", "k3_ab_rows",
+                 "LONG_SLOTS", "LONG_TOKENS"):
+        del older[name]
+    older.update(eval(consts), LONG_SLOTS=2, LONG_TOKENS=64)
+    exec(eval(src), older)
+    rows = older["k3_ab_rows"]()
+    assert [r["name"] for r in rows] == [
+        cs.K3["name"], cs.K3Q["name"], cs.K3["name"] + "_long"]
+    assert all(r["max_abs_err"] == 0.0 and r["ms"] == 0.5 for r in rows)
 
 
 def test_ab_timing_runs_in_turns_and_reads_each_run(monkeypatch, tmp_path):

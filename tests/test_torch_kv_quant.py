@@ -296,9 +296,9 @@ def test_quantize_weight_is_bitwise_the_reference(mode):
 # -- K3-quant's plain version -----------------------------------------------
 
 def _quant_pool_case(seed, mode, S=4, P=12, MP=5, page=4, H=2, HKV=None,
-                     D=8, group=None):
+                     D=8, group=None, lengths=None):
     """The reference's fixture (test_kv_quant.py:153) with lengths 0, 1, a
-    mid-page frontier and the full window."""
+    mid-page frontier and the full window (or the given ``lengths``)."""
     rng = np.random.RandomState(seed)
     HKV = H if HKV is None else HKV
     cfg = pq.KVQuantConfig(mode, page, group or 0)
@@ -321,7 +321,9 @@ def _quant_pool_case(seed, mode, S=4, P=12, MP=5, page=4, H=2, HKV=None,
     ks[3] = 0.0                          # a virgin page: exact zeros
     pt = rng.randint(0, P, size=(S, MP)).astype(np.int32)
     q = rng.randn(S, H, D).astype(np.float32)
-    lengths = np.array([0, 1, 2 * page + 3, MP * page], np.int32)[:S]
+    if lengths is None:
+        lengths = [0, 1, 2 * page + 3, MP * page]
+    lengths = np.array(lengths, np.int32)[:S]
     ref_cfg = jq.KVQuantConfig(mode, page, group or 0)
     jax_args = (jnp.asarray(q), jk, jv, pt, lengths)
     jax_kw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
@@ -350,6 +352,33 @@ def test_plain_k3_quant_matches_the_reference_pallas_kernel(
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
     gather = np.asarray(decode_paged_attention(*jax_args, **jax_kw))
     np.testing.assert_allclose(got, gather, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,MP,group,pallas", [
+    ("int8", 20, None, False), ("fp8", 20, 4, False),
+    ("int8", 256, 4, True), ("fp8", 256, None, True)])
+def test_plain_k3_quant_matches_the_reference_at_the_split_edges(
+        monkeypatch, mode, MP, group, pallas):
+    """The plain version at the edges of the kernel's split plan (a
+    split's tokens - 1, them, + 1, and one token short of the table), at
+    the serving page size, on a 20-page and a 256-page table (32 splits
+    a slot on one-byte pools), against the reference's gather lowering and, on the wide
+    table, its Pallas kernel in interpret mode."""
+    page = 16
+    C = pa.split_plan(MP, page, quant=True)[0] * page
+    lengths = [min(n, MP * page) for n in (C - 1, C, C + 1, MP * page - 1)]
+    jax_args, jax_kw, port_args, port_kw = _quant_pool_case(
+        11, mode, P=4 * MP, MP=MP, page=page, H=4, HKV=2, group=group,
+        lengths=lengths)
+    got = pa.paged_decode_attention(*port_args, **port_kw).numpy()
+    gather = np.asarray(decode_paged_attention(*jax_args, **jax_kw))
+    np.testing.assert_allclose(got, gather, rtol=1e-4, atol=1e-5)
+    if pallas:
+        from jax.experimental import pallas as pl
+        monkeypatch.setattr(pl, "pallas_call", functools.partial(
+            pl.pallas_call, interpret=True))
+        ref = np.asarray(ppa.paged_flash_decode(*jax_args, **jax_kw))
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
 def test_plain_k3_quant_dequantizes_in_fp32_and_counts_no_launch():

@@ -68,6 +68,64 @@ def test_plain_k3_matches_reference_pallas_kernel(monkeypatch, geom):
     np.testing.assert_allclose(_port_k3(*args), ref, rtol=1e-4, atol=1e-5)
 
 
+# (heads, kv_heads, head_dim, page) of the split-edge cases: GQA at the
+# serving page size, whose tables the kernel splits into 32-page chunks
+SPLIT_GEOM = (8, 2, 64, 16)
+
+
+def _split_edge_case(MP, seed=9, geom=SPLIT_GEOM):
+    """Four slots at the edges of the kernel's split plan over a table of
+    MP pages: a split's tokens - 1, them, + 1, and one token short of
+    the full table (capped at the table)."""
+    q, k_pool, v_pool, pt, _ = _pool_case(geom, seed=seed, MP=MP)
+    page = geom[3]
+    C = port_k3.split_plan(MP, page)[0] * page
+    lengths = np.minimum([C - 1, C, C + 1, MP * page - 1],
+                         MP * page).astype(np.int32)
+    return q, k_pool, v_pool, pt, lengths
+
+
+@pytest.mark.parametrize("MP", [6, 64, 256])
+def test_plain_k3_matches_reference_at_the_split_edges(MP):
+    """The plain version at the lengths where the kernel's chunks begin
+    and end, and on a 256-page table (8 chunks a slot), against the
+    reference's gather lowering."""
+    args = _split_edge_case(MP)
+    ref = np.asarray(decode_paged_attention(*args))
+    np.testing.assert_allclose(_port_k3(*args), ref, rtol=1e-4, atol=1e-5)
+
+
+def test_plain_k3_matches_reference_pallas_kernel_on_a_wide_table(
+        monkeypatch):
+    """The split edges on a 256-page table against the Pallas kernel in
+    interpret mode."""
+    from jax.experimental import pallas as pl
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    args = _split_edge_case(256, seed=10)
+    ref = np.asarray(ppa.paged_flash_decode(*args))
+    np.testing.assert_allclose(_port_k3(*args), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("MP,page", [(64, 16), (6, 8), (256, 16), (40, 4),
+                                     (70, 2), (4097, 1), (3, 256)])
+def test_split_plan_covers_the_table_once(MP, page, quant):
+    """The kernel's chunks (for full-precision or one-byte pools) are
+    whole pages, about SPLIT_TOKENS tokens (at most 32 pages, one page at
+    least), cover ``[0, MP * page)`` exactly once in order, and none
+    starts past the table."""
+    per, splits = port_k3.split_plan(MP, page, quant)
+    assert 1 <= per <= min(32, MP)
+    assert per * page <= max(port_k3.SPLIT_TOKENS[quant], page)
+    chunks = [(i * per * page, min((i + 1) * per, MP) * page)
+              for i in range(splits)]
+    assert all(a % page == 0 and b % page == 0 and a < b <= MP * page
+               for a, b in chunks)
+    covered = np.concatenate([np.arange(a, b) for a, b in chunks])
+    np.testing.assert_array_equal(covered, np.arange(MP * page))
+
+
 def test_plain_k3_ignores_table_entries_past_the_frontier():
     q, k_pool, v_pool, pt, lengths = _pool_case((2, 2, 8, 4))
     lengths = np.array([5, 9, 1, 4], np.int32)   # 2, 3, 1, 1 live pages
