@@ -156,6 +156,33 @@ raises on failure (the script then exits non-zero and prints no result):
    K6-fwd,
    K6-dQ, K6-dKV at phase 9's attention shape and K6-fwd-dense, K1-dense
    at phase 10's, each beside its bound, its plain version and SDPA.
+11. ResNet training: ``bench.py``'s program (``resnet_imagenet(depth=50)``
+   in NHWC, ``cross_entropy``, ``mean``, ``Momentum(0.01, 0.9)``). No TPU
+   kernel lies on this path: its convolutions are cuDNN's. First the
+   path's ops (``conv2d`` and its analytic grad at the stem's, a 3x3's
+   and a strided 1x1's geometry, ``pool2d``, ``batch_norm``, ``relu``,
+   ``softmax``, ``cross_entropy``, ``momentum``) card against CPU in fp32
+   with TF32 off (1e-5 relative L2) and the convolutions in bf16. Then
+   the fp32 card-vs-CPU gate (TF32 off; class_dim 10, batch 8, 64x64
+   images, one startup state): 3 steps, each from the CPU run's state
+   before it, losses and every persistable's update within
+   ``RGATE_LOSS_RTOL`` / ``RGATE_UPDATE_REL_L2``. Then ``run_steps``
+   against ``run`` on the card (the same model, fp32,
+   ``cudnn.deterministic``): 4 ``run()`` calls, ``run_steps(n_steps=4)``
+   and ``run_steps(n_steps=4)`` again must leave every persistable and
+   the last loss bitwise equal to 12 ``run()`` calls, with 1 capture and
+   7 replays; then a ``run()`` and ``run_steps`` on another feed (the
+   replays load both) bitwise equal to as many ``run()`` calls. Then ``bench.py``'s configuration at full size (batch 256,
+   224x224, 1000 classes, bf16 mixed precision; the feed from
+   ``RandomState(0)`` on the card): eager ``run()`` steps and a profiled
+   window, then one warm-up dispatch and ``RESNET_ROUNDS`` timed rounds of
+   ``run_steps(n_steps=RESNET_STEPS)`` (bench.py: 100 x 3) and a profiled
+   replay. Gates: the loss finite and lower after the rounds than at the
+   first step; no launch of any of the 14 kernel entry points; one
+   capture. Prints images/s (median round), the captured step's ms, MFU
+   (``flops.estimate_program_flops`` over ``flops.device_peak_flops``),
+   device-busy ms and idle share of an eager and of a captured step, the
+   eager step's p50, peak memory and the top device operations.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -171,6 +198,7 @@ lengths, K3 at long contexts), and prints one line per run.
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -1834,11 +1862,7 @@ def _profile_steps(exe, prog, feed, loss, steps):
                  reverse=True)[:8]
     flash = {e.key: e.self_device_time_total / steps / 1e3 for e in events
              if flash_class(e.key) is not None}
-    ops = {e.key: {"host_ms": e.cpu_time_total / steps / 1e3,
-                   "device_ms": e.device_time_total / steps / 1e3,
-                   "calls": e.count // steps}
-           for e in averages if e.key in OP_REGISTRY
-           and str(e.device_type) == "DeviceType.CPU"}
+    ops = _op_ranges(averages, steps)
     generic = [t[:-len("_grad")] for t, info in OP_REGISTRY.items()
                if info.generic_grad and t in ops]
     return {"device_busy_ms": busy, "k1_ms": k1, "k2_ms": k2, "k5_ms": k5,
@@ -1852,6 +1876,17 @@ def _profile_steps(exe, prog, feed, loss, steps):
                                key=lambda kv: -kv[1]["host_ms"])),
             "generic_vjp_recompute_ms": sum(ops[t]["device_ms"]
                                             for t in generic if t in ops)}
+
+
+def _op_ranges(averages, steps):
+    """Per op type, the host ms, device ms and calls per step of the
+    executor's ranges (``trace_ops``) in a profile's averages."""
+    from paddle_tpu_torch.registry import OP_REGISTRY
+    return {e.key: {"host_ms": e.cpu_time_total / steps / 1e3,
+                    "device_ms": e.device_time_total / steps / 1e3,
+                    "calls": e.count // steps}
+            for e in averages if e.key in OP_REGISTRY
+            and str(e.device_type) == "DeviceType.CPU"}
 
 
 def _train_steps(exe, prog, feed, loss, steps):
@@ -2688,6 +2723,558 @@ def layout_timing(bhsd_launches, dense_res):
 # one A/B run: the timing functions of the chip_smoke.py in the current
 # directory, with every launch count at 0, and the K3 rows of this tree's
 # K3_AB source (its constants and helpers, run over that tree's kernels)
+# -- phase 11: ResNet training ---------------------------------------------
+
+# bench.py's ResNet step (bench.py:36-121): resnet_imagenet(depth=50) in
+# NHWC, batch 256 of 224x224 images, 1000 classes, bf16 mixed precision,
+# Momentum(0.01, 0.9), timed through run_steps. The one cut: 50 steps a
+# dispatch and one warm-up dispatch, against bench.py's 100 x 3.
+RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 50, 256, 224, 1000
+RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
+RESNET_STEPS, RESNET_ROUNDS = 50, 3
+RESNET_EAGER_STEPS, RESNET_PROFILE_STEPS = 5, 5
+# the gates' model: the same program at class_dim 10, batch 8 of 64x64
+# images (its last stage normalizes each channel over 8 x 2 x 2 = 32
+# values). Card against CPU, each step from the CPU run's state: at this
+# size a step's update moves by 2.5-3.3% rel L2 when the images move by
+# 1e-7 (measured on the CPU, tests/test_torch_resnet.py), so the update
+# is held to 0.15, the loss to 1e-3; the ops, one at a time, to 1e-5.
+RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES, RGATE_STEPS = 8, 64, 10, 3
+RGATE_LOSS_RTOL, RGATE_UPDATE_REL_L2 = 1e-3, 0.15
+ROP_REL_L2, ROP_BF16_REL_L2 = 1e-5, 1e-2
+# run_steps against run: run() calls, then two run_steps calls of
+# RGATE_N_STEPS each; 1 capture and 2 x RGATE_N_STEPS - 1 replays
+RGATE_RUN_CALLS, RGATE_N_STEPS = 4, 4
+
+
+def build_resnet(fluid, depth, batch, size, class_dim, amp):
+    """bench.py's program: ``resnet_imagenet`` in NHWC, cross_entropy on
+    the softmax, mean, Momentum; bf16 mixed precision when ``amp``."""
+    from paddle_tpu_torch import models, unique_name
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            images = fluid.layers.data(name="images", shape=[3, size, size],
+                                       dtype="float32")
+            label = fluid.layers.data(name="label", shape=[1],
+                                      dtype="int64")
+            pred = models.resnet_imagenet(images, class_dim=class_dim,
+                                          depth=depth, data_format="NHWC")
+            loss = fluid.layers.mean(
+                fluid.layers.cross_entropy(input=pred, label=label))
+            fluid.optimizer.Momentum(learning_rate=RESNET_LR,
+                                     momentum=RESNET_MOMENTUM).minimize(loss)
+        fluid.enable_mixed_precision(prog, amp)
+    return prog, startup, loss
+
+
+def resnet_feed(batch, size, class_dim, device="cpu", seed=SEED):
+    """bench.py's synthetic feed: images, then labels, from
+    ``RandomState(seed)``, as tensors on ``device``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    images = rng.rand(batch, 3, size, size).astype(np.float32)
+    label = rng.randint(0, class_dim, (batch, 1)).astype(np.int64)
+    return {"images": torch.from_numpy(images).to(device),
+            "label": torch.from_numpy(label).to(device)}
+
+
+def _rel_l2(got, want):
+    want = want.double()
+    return float((got.double() - want).norm() / max(float(want.norm()),
+                                                    1e-30))
+
+
+def _run_op(op_type, ins, attrs, amp, device, outputs=None):
+    """``op_type``'s lowering (a grad op's: registered, or the generic
+    vjp of its forward) on ``ins`` moved to ``device``; CPU outputs."""
+    import types
+    from paddle_tpu_torch import registry
+    if registry.is_registered(op_type):
+        fn = registry.get_op_info(op_type).lowering
+    else:
+        fn = registry.make_generic_grad_lowering(op_type[:-len("_grad")])
+    op = types.SimpleNamespace(type=op_type, attrs=dict(attrs), op_uid=1,
+                               inputs={}, outputs=outputs or {},
+                               forward_op=None)
+    ctx = registry.LoweringContext(op, step_key=(0, 0), device=device,
+                                   amp=amp)
+    outs = fn(ctx, {s: [v.to(device) for v in vs] for s, vs in ins.items()})
+    return {s: [v.cpu() for v in vs if v is not None]
+            for s, vs in outs.items()}
+
+
+def _op_case(rng, label, op_type, ins, attrs, grads=(), amp=False):
+    """One op on the card against the CPU: its outputs, then the grads
+    of ``grads`` from random output cotangents; the worst rel L2."""
+    import torch
+    card = torch.device(DEVICE)
+    cpu = torch.device("cpu")
+    got = _run_op(op_type, ins, attrs, amp, card)
+    want = _run_op(op_type, ins, attrs, amp, cpu)
+    errs = [_rel_l2(a.float(), b.float()) for s in want
+            for a, b in zip(got[s], want[s])]
+    if grads:
+        gins = dict(ins, **{s: want[s] for s in want})
+        for s in want:
+            gins[s + "@GRAD"] = [torch.from_numpy(
+                rng.randn(*v.shape).astype(np.float32)).to(v.dtype)
+                for v in want[s]]
+        gattrs = dict(attrs, __fwd_input_slots__=list(ins),
+                      __fwd_output_slots__=list(want), __fwd_op_uid__=1)
+        outs = {s + "@GRAD": [s + "@GRAD"] for s in grads}
+        got = _run_op(op_type + "_grad", gins, gattrs, amp, card, outs)
+        want = _run_op(op_type + "_grad", gins, gattrs, amp, cpu, outs)
+        errs += [_rel_l2(a.float(), b.float()) for s in want
+                 for a, b in zip(got[s], want[s])]
+    return {"case": label, "rel_l2": max(errs), "amp": amp}
+
+
+def resnet_op_checks():
+    """The ResNet path's ops on the card against the CPU, fp32 with TF32
+    off (ROP_REL_L2): conv2d and its analytic grad at the stem's, a
+    3x3's and a strided 1x1's geometry in NHWC (and a 3x3 in NCHW);
+    pool2d max (3x3, stride 2, pad 1) and global avg; batch_norm in
+    training (running mean away from the batch mean) and in test, with
+    its grad; relu, softmax, cross_entropy, momentum. Then the three
+    NHWC convolutions in bf16 (ROP_BF16_REL_L2: cuDNN and the CPU round
+    the same fp32 sums once, in other orders)."""
+    import torch
+    _fp32()
+    rng = np.random.RandomState(SEED)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.randn(*shape) * scale + shift)
+                                .astype(np.float32))
+
+    b = RGATE_BATCH
+    conv = {"stem-7x7-s2-p3": ((b, 64, 64, 3), (64, 3, 7, 7), 2, 3),
+            "3x3-s1-p1": ((b, 16, 16, 64), (64, 64, 3, 3), 1, 1),
+            "1x1-s2": ((b, 16, 16, 256), (512, 256, 1, 1), 2, 0)}
+    rows = []
+    for amp in (False, True):
+        for name, (xs, ws, stride, pad) in conv.items():
+            attrs = {"strides": [stride] * 2, "paddings": [pad] * 2,
+                     "dilations": [1, 1], "groups": 1,
+                     "data_format": "NHWC"}
+            rows.append(_op_case(rng, "conv2d " + name, "conv2d",
+                                 {"Input": [t(*xs)], "Filter": [t(*ws)]},
+                                 attrs, ("Input", "Filter"), amp))
+    rows.append(_op_case(rng, "conv2d 3x3-s2-p1 NCHW", "conv2d",
+                         {"Input": [t(b, 64, 16, 16)],
+                          "Filter": [t(64, 64, 3, 3)]},
+                         {"strides": [2, 2], "paddings": [1, 1],
+                          "dilations": [1, 1], "groups": 1,
+                          "data_format": "NCHW"}, ("Input", "Filter")))
+    x = t(b, 32, 32, 64)
+    rows.append(_op_case(rng, "pool2d max-3x3-s2-p1", "pool2d", {"X": [x]},
+                         {"pooling_type": "max", "ksize": [3, 3],
+                          "strides": [2, 2], "paddings": [1, 1],
+                          "data_format": "NHWC"}, ("X",)))
+    rows.append(_op_case(rng, "pool2d avg-global", "pool2d",
+                         {"X": [t(b, 2, 2, 2048)]},
+                         {"pooling_type": "avg", "ksize": [1, 1],
+                          "global_pooling": True, "data_format": "NHWC"},
+                         ("X",)))
+    for is_test in (False, True):
+        c = 64
+        rows.append(_op_case(
+            rng, "batch_norm " + ("test" if is_test else "train"),
+            "batch_norm", {"X": [t(b, 16, 16, c, scale=3.0, shift=2.0)],
+                           "Scale": [1.0 + 0.1 * t(c)],
+                           "Bias": [0.1 * t(c)], "Mean": [0.5 * t(c)],
+                           "Variance": [1.0 + 0.2 * t(c).abs()]},
+            {"epsilon": 1e-5, "momentum": 0.9, "is_test": is_test,
+             "data_layout": "NHWC"}, ("X", "Scale", "Bias")))
+    rows.append(_op_case(rng, "relu", "relu", {"X": [x]}, {}, ("X",)))
+    rows.append(_op_case(rng, "softmax", "softmax", {"X": [t(b, 1000)]},
+                         {}, ("X",)))
+    p = torch.softmax(t(b, 1000), -1)
+    rows.append(_op_case(rng, "cross_entropy", "cross_entropy",
+                         {"X": [p], "Label": [torch.from_numpy(
+                             rng.randint(0, 1000, (b, 1)))]},
+                         {}, ("X",)))
+    rows.append(_op_case(rng, "momentum", "momentum",
+                         {"Param": [t(512, 256)], "Grad": [t(512, 256)],
+                          "Velocity": [t(512, 256)],
+                          "LearningRate": [torch.tensor([RESNET_LR])]},
+                         {"mu": RESNET_MOMENTUM}))
+    for r in rows:
+        r["ok"] = r["rel_l2"] <= (ROP_BF16_REL_L2 if r["amp"]
+                                  else ROP_REL_L2)
+    log("resnet op checks (card vs CPU): %s" % json.dumps(rows))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError("resnet ops disagree, card vs CPU: %s" % bad)
+    return rows
+
+
+def _copy_scope(fluid, state, device):
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.to(device, copy=True))
+    return scope
+
+
+def resnet_gate():
+    """fp32 card-vs-CPU gate, TF32 off: the gate model from one startup
+    state (the CPU's), RGATE_STEPS steps; step k runs on both devices
+    from the CPU run's state before it. Per step the losses within
+    RGATE_LOSS_RTOL and every persistable's update within
+    RGATE_UPDATE_REL_L2 relative L2."""
+    import torch
+    import paddle_tpu_torch as fluid
+    _fp32()
+    prog, startup, loss = build_resnet(fluid, RESNET_DEPTH, RGATE_BATCH,
+                                       RGATE_SIZE, RGATE_CLASSES, amp=False)
+    feed = resnet_feed(RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES)
+    state = _startup_state(startup)
+    exes = {"card": fluid.Executor(fluid.CUDAPlace(0)),
+            "cpu": fluid.Executor(fluid.CPUPlace())}
+    steps, worst = [], {"loss": 0.0, "update": 0.0}
+    for k in range(RGATE_STEPS):
+        after = {}
+        for tag, exe in exes.items():
+            scope = _copy_scope(fluid, state, exe.device)
+            lv = float(exe.run(prog, feed=feed, fetch_list=[loss],
+                               scope=scope)[0])
+            after[tag] = (lv, {n: scope.find_var(n).float().cpu()
+                               for n in state})
+        (lc, card), (lp, cpu) = after["card"], after["cpu"]
+        upd = {}
+        for n, v in state.items():
+            want = cpu[n] - v.float()
+            if bool(want.any()):
+                upd[n] = _rel_l2(card[n] - v.float(), want)
+            elif bool((card[n] - v.float()).any()):
+                upd[n] = float("inf")   # moved on the card only
+        name = max(upd, key=upd.get)
+        row = {"step": k, "loss_card": lc, "loss_cpu": lp,
+               "loss_rel_err": abs(lc - lp) / abs(lp),
+               "updates": len(upd), "worst_update": name,
+               "worst_update_rel_l2": upd[name],
+               "median_update_rel_l2": float(np.median(list(upd.values())))}
+        steps.append(row)
+        worst["loss"] = max(worst["loss"], row["loss_rel_err"])
+        worst["update"] = max(worst["update"], upd[name])
+        state = {n: v.clone() for n, v in cpu.items()}
+    res = {"steps": steps, "loss_rel_err": worst["loss"],
+           "update_rel_l2": worst["update"]}
+    log("resnet gate (card vs CPU, fp32): %s" % json.dumps(res))
+    if not (worst["loss"] <= RGATE_LOSS_RTOL and
+            worst["update"] <= RGATE_UPDATE_REL_L2 and
+            all(np.isfinite([r["loss_card"] for r in steps]))):
+        raise AssertionError(
+            "resnet gate: card and CPU disagree: loss rel err %.3g (limit "
+            "%g), update rel L2 %.3g (limit %g)" % (
+                worst["loss"], RGATE_LOSS_RTOL, worst["update"],
+                RGATE_UPDATE_REL_L2))
+    return res
+
+
+@contextlib.contextmanager
+def _cudnn(**flags):
+    """torch.backends.cudnn flags set for the block, restored after."""
+    import torch
+    old = {k: getattr(torch.backends.cudnn, k) for k in flags}
+    for k, v in flags.items():
+        setattr(torch.backends.cudnn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(torch.backends.cudnn, k, v)
+
+
+def _bitwise(ref, got, names):
+    """The names whose tensors differ in any bit between two scopes."""
+    import torch
+    return sorted(n for n in names if not torch.equal(
+        ref.find_var(n).cpu(), got.find_var(n).cpu()))
+
+
+def resnet_replay_gate():
+    """``run_steps`` against ``run`` on the card, fp32, TF32 off,
+    deterministic cuDNN, from one state: RGATE_RUN_CALLS ``run()`` calls
+    then two ``run_steps(n_steps=RGATE_N_STEPS)`` calls (the first: a
+    warm-up step, the capture, RGATE_N_STEPS - 1 replays; the second:
+    RGATE_N_STEPS replays) against as many ``run()`` calls: every
+    persistable and both returned losses bitwise equal, and on the card
+    1 capture and 2 x RGATE_N_STEPS - 1 replays. Then one ``run()`` (it
+    replaces the scope's tensors) and ``run_steps`` on another feed of
+    the same shapes, which the replays must load, against as many
+    ``run()`` calls: bitwise again, with RGATE_N_STEPS more replays and
+    no new capture."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    _fp32()
+    prog, startup, loss = build_resnet(fluid, RESNET_DEPTH, RGATE_BATCH,
+                                       RGATE_SIZE, RGATE_CLASSES, amp=False)
+    feed = resnet_feed(RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES)
+    feed2 = resnet_feed(RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES, seed=SEED + 1)
+    state = _startup_state(startup)
+    total = RGATE_RUN_CALLS + 2 * RGATE_N_STEPS
+    on_card = DEVICE == "cuda"
+    with _cudnn(deterministic=True, benchmark=False):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        ref = _copy_scope(fluid, state, exe.device)
+        ref_losses = [exe.run(prog, feed=feed, fetch_list=[loss],
+                              scope=ref)[0] for _ in range(total)]
+        got = _copy_scope(fluid, state, exe.device)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        for _ in range(RGATE_RUN_CALLS):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=got)
+        for name in pexe.graph_launches:
+            pexe.graph_launches[name] = 0
+        losses = [exe.run_steps(prog, feed=feed, n_steps=RGATE_N_STEPS,
+                                fetch_list=[loss], scope=got)[0]
+                  for _ in range(2)]
+        counts = dict(pexe.graph_launches)
+        differ = _bitwise(ref, got, state)
+        # the replay path's loads: state that run() replaced, a new feed
+        for f in [feed] + [feed2] * RGATE_N_STEPS:
+            ref_last = exe.run(prog, feed=f, fetch_list=[loss], scope=ref)[0]
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=got)
+        last = exe.run_steps(prog, feed=feed2, n_steps=RGATE_N_STEPS,
+                             fetch_list=[loss], scope=got)[0]
+        counts_after = dict(pexe.graph_launches)
+        differ_after = _bitwise(ref, got, state)
+        _sync()
+    same_loss = [bool(np.array_equal(a, ref_losses[i])) for a, i in
+                 zip(losses, (total - RGATE_N_STEPS - 1, total - 1))] + \
+        [bool(np.array_equal(last, ref_last))]
+    want = {"captures": 1, "replays": 2 * RGATE_N_STEPS - 1} if on_card \
+        else {"captures": 0, "replays": 0}
+    want_after = {"captures": 1, "replays": 3 * RGATE_N_STEPS - 1} \
+        if on_card else want
+    res = {"run_calls": RGATE_RUN_CALLS, "n_steps": RGATE_N_STEPS,
+           "losses": [float(v) for v in losses] + [float(last)],
+           "ref_losses": [float(v) for v in ref_losses] + [float(ref_last)],
+           "losses_bitwise": same_loss, "persistables": len(state),
+           "persistables_differing": differ,
+           "persistables_differing_after_reload": differ_after,
+           "graph_launches": counts, "graph_launches_after": counts_after}
+    log("resnet run_steps vs run (card, fp32, deterministic cuDNN): %s"
+        % json.dumps(res))
+    if differ or differ_after or not all(same_loss) or counts != want \
+            or counts_after != want_after:
+        raise AssertionError(
+            "run_steps differs from run: %d / %d persistables differ (%s), "
+            "losses bitwise %s, graph launches %s then %s (want %s then %s)"
+            % (len(differ), len(differ_after), (differ + differ_after)[:5],
+               same_loss, counts, counts_after, want, want_after))
+    return res
+
+
+def _kernel_counts():
+    """name -> launches of the 14 kernel entry points."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_adam as pfa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    counts = dict(fa.launches)
+    counts["paged_decode_attention"] = pa.launches
+    counts["paged_decode_attention_quant"] = pa.launches_quant
+    counts["fused_adam"] = pfa.launches["fused_adam"]
+    return counts
+
+
+def _reset_kernel_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_adam as pfa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    for name in fa.launches:
+        fa.launches[name] = 0
+    pa.launches = pa.launches_quant = 0
+    pfa.launches["fused_adam"] = 0
+
+
+# device kernels by what they compute, for the ResNet profile (first
+# match wins)
+_RESNET_CLASSES = (
+    ("pool", ("pool",)),
+    ("conv", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
+              "fprop", "sm90_")),
+    ("gemm", ("gemm", "nvjet", "cutlass")),
+    ("reduce", ("reduce",)),
+    ("copy", ("copy", "memcpy", "memset", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
+                     "where", "cat")),
+)
+
+
+def resnet_class(key):
+    low = key.lower()
+    for name, tags in _RESNET_CLASSES:
+        if any(t in low for t in tags):
+            return name
+    return "other"
+
+
+def _device_events(prof):
+    from paddle_tpu_torch.registry import OP_REGISTRY
+    return [e for e in prof.key_averages()
+            if str(e.device_type) == "DeviceType.CUDA"
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in OP_REGISTRY and e.self_device_time_total > 0]
+
+
+def _kernel_profile(prof, steps):
+    """Device-busy ms per step, by class (``resnet_class``) and the top
+    12 kernels, from a profile over ``steps`` steps."""
+    events = _device_events(prof)
+    by_class = {}
+    for e in events:
+        c = resnet_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + \
+            e.self_device_time_total / steps / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    return {"device_busy_ms": sum(by_class.values()),
+            "class_ms": dict(sorted(by_class.items(),
+                                    key=lambda kv: -kv[1])),
+            "top_kernels_ms": {e.key[:90]: e.self_device_time_total
+                               / steps / 1e3 for e in top}}
+
+
+def _profile_eager(exe, prog, feed, loss, steps):
+    """``steps`` ``run()`` steps under ``torch.profiler``: the kernel
+    profile (``_kernel_profile``) and per op type the host and device ms
+    of its lowering's range."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        for _ in range(steps):
+            exe.run(prog, feed=feed, fetch_list=[loss])
+        _sync()
+    res = _kernel_profile(prof, steps)
+    res["ops"] = _op_ranges(prof.key_averages(), steps)
+    return res
+
+
+def _profile_replay(exe, prog, feed, loss, steps):
+    """One ``run_steps(n_steps=steps)`` replay under ``torch.profiler``:
+    device-busy ms per step, wall ms per step, the kernel classes."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        exe.run_steps(prog, feed=feed, n_steps=steps, fetch_list=[loss])
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    res = _kernel_profile(prof, steps)
+    res["wall_ms"] = wall
+    return res
+
+
+def resnet_path(card_label=""):
+    """bench.py's ResNet step at full size on the card: startup, eager
+    ``run()`` steps (the first also lets cuDNN pick its algorithms), a
+    profiled eager window, then one warm-up ``run_steps`` dispatch (the
+    capture) and RESNET_ROUNDS timed ones, then a profiled replay; the
+    kernel counts and the graph counts set to 0 just before and read
+    just after."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch.flops import device_peak_flops, \
+        estimate_program_flops
+    prog, startup, loss = build_resnet(fluid, RESNET_DEPTH, RESNET_BATCH,
+                                       RESNET_SIZE, RESNET_CLASSES, amp=True)
+    flops = estimate_program_flops(prog, RESNET_BATCH, training=True)
+    peak = device_peak_flops() if DEVICE == "cuda" else None
+    feed = resnet_feed(RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES, DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    for name in pexe.graph_launches:
+        pexe.graph_launches[name] = 0
+    with _cudnn(benchmark=True, deterministic=False), \
+            fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        losses, eager_ms = _train_steps(exe, prog, feed, loss,
+                                        1 + RESNET_EAGER_STEPS)
+        eager_prof = _profile_eager(exe, prog, feed, loss,
+                                    RESNET_PROFILE_STEPS)
+        t0 = time.perf_counter()
+        (lv,) = exe.run_steps(prog, feed=feed, n_steps=RESNET_STEPS,
+                              fetch_list=[loss])
+        warmup_s = time.perf_counter() - t0
+        rounds = []
+        for _ in range(RESNET_ROUNDS):
+            t0 = time.perf_counter()
+            (lv,) = exe.run_steps(prog, feed=feed, n_steps=RESNET_STEPS,
+                                  fetch_list=[loss])
+            rounds.append(time.perf_counter() - t0)
+        replay_prof = _profile_replay(exe, prog, feed, loss,
+                                      RESNET_PROFILE_STEPS)
+    launches = _kernel_counts()
+    graphs = dict(pexe.graph_launches)
+    med = float(np.median(rounds))
+    step_ms = med * 1e3 / RESNET_STEPS
+    eager_p50 = float(np.percentile(eager_ms[1:], 50))
+    res = {"config": {"depth": RESNET_DEPTH, "batch": RESNET_BATCH,
+                      "image": RESNET_SIZE, "classes": RESNET_CLASSES,
+                      "layout": "NHWC", "amp": True,
+                      "optimizer": "Momentum(%g, %g)" % (RESNET_LR,
+                                                         RESNET_MOMENTUM),
+                      "cudnn_benchmark": True},
+           "cut": "run_steps n_steps %d x %d rounds after one warm-up "
+                  "dispatch (bench.py: 100 x 3)" % (RESNET_STEPS,
+                                                     RESNET_ROUNDS),
+           "card": card_label,
+           "first_loss": losses[0], "eager_losses": losses,
+           "final_loss": float(lv), "warmup_dispatch_s": warmup_s,
+           "round_s": rounds, "images_per_s": RESNET_BATCH / (step_ms / 1e3),
+           "step_ms_captured": step_ms, "step_ms_eager": eager_ms,
+           "step_ms_eager_p50": eager_p50,
+           "flops_per_step": flops, "peak_flops": peak,
+           "mfu": flops / (step_ms / 1e3) / peak if peak else None,
+           "eager_profile": eager_prof,
+           "eager_device_busy_ms": eager_prof["device_busy_ms"],
+           "eager_idle_share": 1.0 - eager_prof["device_busy_ms"]
+           / eager_p50,
+           "replay_profile": replay_prof,
+           "replay_device_busy_ms": replay_prof["device_busy_ms"],
+           "replay_idle_share": 1.0 - replay_prof["device_busy_ms"]
+           / replay_prof["wall_ms"],
+           "batch_norm_grad_device_ms":
+               eager_prof["ops"].get("batch_norm_grad", {})
+               .get("device_ms"),
+           "launches": launches, "graph_launches": graphs,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+           if DEVICE == "cuda" else None}
+    summary = {k: res[k] for k in (
+        "card", "cut", "images_per_s", "step_ms_captured",
+        "step_ms_eager_p50", "mfu", "eager_device_busy_ms",
+        "eager_idle_share", "replay_device_busy_ms", "replay_idle_share",
+        "batch_norm_grad_device_ms", "peak_memory_gb", "first_loss",
+        "final_loss", "round_s", "graph_launches")}
+    summary["eager_class_ms"] = eager_prof["class_ms"]
+    summary["replay_class_ms"] = replay_prof["class_ms"]
+    summary["replay_top_kernels_ms"] = replay_prof["top_kernels_ms"]
+    log("resnet-%d NHWC b%d %dx%d bf16 Momentum: %s"
+        % (RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE, RESNET_SIZE,
+           json.dumps(summary)))
+    if not (np.isfinite(res["final_loss"]) and
+            all(np.isfinite(losses)) and res["final_loss"] < losses[0]):
+        raise AssertionError("resnet loss not finite and falling: first "
+                             "%s, after the rounds %s"
+                             % (losses[0], res["final_loss"]))
+    if any(launches.values()):
+        raise AssertionError("the ResNet steps launched kernels of other "
+                             "paths: %s" % {n: c for n, c in
+                                            launches.items() if c})
+    want = 1 if DEVICE == "cuda" else 0
+    if graphs["captures"] != want:
+        raise AssertionError("resnet: %d graph captures, want %d"
+                             % (graphs["captures"], want))
+    return res
+
+
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -2795,6 +3382,11 @@ def main(argv=None):
             report["dense_path"] = dense_path()
             report["layout_timing"] = layout_timing(
                 report["bhsd_path"]["launches"], report["dense_path"])
+            report["resnet_op_checks"] = resnet_op_checks()
+            report["resnet_gate"] = resnet_gate()
+            report["resnet_replay_gate"] = resnet_replay_gate()
+            report["resnet_path"] = resnet_path(
+                report["card"]["nvidia_smi"])
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

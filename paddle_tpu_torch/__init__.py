@@ -6,7 +6,7 @@ numpy and the standard library only — never jax and never a module of
 ``paddle_tpu`` — and keeps its own trimmed copies of the backend-neutral
 pieces it needs (flags, profiler counters, metric catalogue, tracing).
 
-Three slices are ported:
+Four slices are ported:
 
 - paged-KV generation serving (``serving``): the decoder model, the paged
   decode engine, the continuous-batching scheduler and the HTTP server,
@@ -22,7 +22,11 @@ Three slices are ported:
   attends through the packed-segment flash kernels
   (``csrc/flash_segment.cu``), and ``optimizer.FusedAdam`` updates every
   parameter in one launch of the fused Adam kernel
-  (``csrc/fused_adam.cu``).
+  (``csrc/fused_adam.cu``);
+- ResNet training as ``bench.py`` runs it: ``models.resnet_imagenet``
+  (conv2d through cuDNN, batch norm, pooling), ``optimizer.Momentum``,
+  and ``Executor.run_steps``, which captures a step as one CUDA graph
+  and replays it.
 
 Device rule: every entry point takes a device (``device=``, or a place
 for the ``Executor``). The default is CUDA, which raises when no GPU is

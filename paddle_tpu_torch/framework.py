@@ -9,6 +9,7 @@ ops); an op without one keeps the shapes its layer declared.
 """
 
 import contextlib
+import itertools
 
 from . import unique_name
 from .core import convert_dtype
@@ -160,6 +161,8 @@ class Block:
                   infer_shape=True):
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
+        # the executor's caches (liveness, captured graphs) key on it
+        self.program._version += 1
         if infer_shape:
             infer_op_shape(self, op)
         return op
@@ -168,9 +171,15 @@ class Block:
 class Program:
     """Block 0 of a program (the only one the slice builds). Two default
     instances exist at any time: the *startup* program (parameter
-    initialization, run once) and the *main* program."""
+    initialization, run once) and the *main* program. ``_uid`` names the
+    program for the executor's caches; ``_version`` counts its ops'
+    appends."""
+
+    _uid_counter = itertools.count(1)
 
     def __init__(self):
+        self._uid = next(Program._uid_counter)
+        self._version = 0
         self.blocks = [Block(self, 0)]
         self.random_seed = 0
         self._is_test = False

@@ -93,6 +93,12 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient, lod_level=lod_level)
 
+    def create_global_variable(self, persistable=False, **kwargs):
+        kwargs.setdefault(
+            "name", unique_name.generate(".".join([self.name, "tmp"])))
+        return self.main_program.global_block().create_var(
+            persistable=persistable, **kwargs)
+
     def set_variable_initializer(self, var, initializer):
         """Create the same-named var in startup program with an init op."""
         sb = self.startup_program.global_block()

@@ -1,16 +1,20 @@
-"""Neural-network layers of the training slice: copies of
-``paddle_tpu/layers/nn.py``'s ``fc``, ``embedding``, ``layer_norm``,
+"""Neural-network layers of the training slices: copies of
+``paddle_tpu/layers/nn.py``'s ``fc``, ``embedding``, ``conv2d``,
+``pool2d``, ``batch_norm``, ``layer_norm``, ``cross_entropy``,
 ``softmax_with_cross_entropy``, ``reshape``, ``transpose``, ``split``,
-``mean`` and ``slice``, and of ``layers/ops.py``'s ``elementwise_add``. Each appends
-ops to the current Program; the executor runs them.
+``mean`` and ``slice``, and of ``layers/ops.py``'s ``elementwise_add``.
+Each appends ops to the current Program; the executor runs them.
 """
+
+import os
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "cross_entropy", "softmax_with_cross_entropy",
            "reshape", "transpose", "split", "mean", "slice",
            "elementwise_add"]
 
@@ -65,6 +69,120 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None, data_format="NCHW"):
+    """2-D convolution (reference nn.py:302). ``data_format='NHWC'`` runs
+    channels-last; the filter stays OIHW either way, initialized from
+    Normal(0, sqrt(2 / (kh·kw·c_in))). The reference's delayed-scaling
+    fp8 conv output (``PADDLE_TPU_FP8_CONV_OUT=delayed``, a persistable
+    scale per conv) is not ported and raises."""
+    if os.environ.get("PADDLE_TPU_FP8_CONV_OUT") == "delayed":
+        raise NotImplementedError(
+            "PADDLE_TPU_FP8_CONV_OUT=delayed (the fp8 conv-output scale "
+            "state) is not ported")
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[-1] if data_format == "NHWC" \
+        else input.shape[1]
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    stride = [stride, stride] if isinstance(stride, int) else list(stride)
+    padding = [padding, padding] if isinstance(padding, int) \
+        else list(padding)
+    dilation = [dilation, dilation] if isinstance(dilation, int) \
+        else list(dilation)
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    filter_param = helper.create_parameter(
+        helper.param_attr, filter_shape, dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    pre_bias = helper.create_tmp_variable(dtype=dtype)
+    helper.append_op(type="conv2d",
+                     inputs={"Input": [input], "Filter": [filter_param]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "data_format": data_format})
+    if data_format == "NHWC":
+        pre_act = helper.append_bias_op(pre_bias, dim_start=3, dim_end=4)
+    else:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None,
+           data_format="NCHW"):
+    """Max or average pooling (reference nn.py:474)."""
+    helper = LayerHelper("pool2d", **locals())
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    out = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type="pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size,
+                            "global_pooling": global_pooling,
+                            "strides": pool_stride, "paddings": pool_padding,
+                            "ceil_mode": ceil_mode,
+                            "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, use_mkldnn=False, name=None,
+               moving_mean_name=None, moving_variance_name=None):
+    """Batch normalization (reference nn.py:516): Scale 1, Bias 0, and the
+    moving mean (0) and variance (1) as persistable state that the op
+    reads as Mean/Variance and writes back as MeanOut/VarianceOut."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    channel_num = input.shape[1] if data_layout == "NCHW" \
+        else input.shape[-1]
+    param_shape = [channel_num]
+    scale = helper.create_parameter(
+        helper.param_attr, param_shape, dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, param_shape, dtype,
+                                   is_bias=True)
+    mean = helper.create_global_variable(
+        persistable=True, dtype=dtype, shape=param_shape)
+    if moving_mean_name:
+        mean = helper.main_program.global_block().create_var(
+            name=moving_mean_name, dtype=dtype, shape=param_shape,
+            persistable=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        persistable=True, dtype=dtype, shape=param_shape)
+    if moving_variance_name:
+        variance = helper.main_program.global_block().create_var(
+            name=moving_variance_name, dtype=dtype, shape=param_shape,
+            persistable=True)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    saved_variance = helper.create_tmp_variable(dtype=dtype,
+                                                stop_gradient=True)
+    batch_norm_out = input if in_place else \
+        helper.create_tmp_variable(dtype=dtype)
+    helper.append_op(type="batch_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                             "Mean": [mean], "Variance": [variance]},
+                     outputs={"Y": [batch_norm_out], "MeanOut": [mean],
+                              "VarianceOut": [variance],
+                              "SavedMean": [saved_mean],
+                              "SavedVariance": [saved_variance]},
+                     attrs={"momentum": momentum, "epsilon": epsilon,
+                            "is_test": is_test, "data_layout": data_layout})
+    return helper.append_activation(batch_norm_out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -91,6 +209,16 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(layer_norm_out)
+
+
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype,
+                                     lod_level=input.lod_level)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]}, attrs={"soft_label": soft_label})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False):

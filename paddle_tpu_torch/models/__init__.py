@@ -1,4 +1,5 @@
 """Models built with the port's layers DSL."""
 
+from .resnet import resnet_cifar10, resnet_imagenet  # noqa
 from .transformer import (multi_head_attention, transformer_layer,  # noqa
                           transformer_lm)

@@ -1,5 +1,5 @@
 """Optimizer ops — ports of ``paddle_tpu/ops/optimizer_ops.py``'s ``sgd``,
-per-parameter ``adam`` and whole-model ``fused_adam`` (dense gradients;
+``momentum``, per-parameter ``adam`` and whole-model ``fused_adam`` (dense gradients;
 SelectedRows are not ported). Arithmetic in the reference's order;
 ``fused_adam``'s update is K4 (``ops.fused_adam``). The executor writes
 ParamOut / moment outputs back to the scope under the parameter's name,
@@ -17,6 +17,21 @@ def _sgd(ctx, ins):
     p, g = ins["Param"][0], ins["Grad"][0]
     lr = ins["LearningRate"][0].reshape(())
     return {"ParamOut": [p - lr * g]}
+
+
+@register_op("momentum", no_grad=True)
+def _momentum(ctx, ins):
+    """v' = mu·v + g; p' = p − lr·v', or p − (g + mu·v')·lr with
+    ``use_nesterov``."""
+    p, v, g = ins["Param"][0], ins["Velocity"][0], ins["Grad"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    mu = ctx.attr("mu")
+    v_out = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
 @register_op("adam", no_grad=True)

@@ -1,6 +1,7 @@
 """Optimizers: build the optimization pass on the IR — the port of
 ``paddle_tpu/optimizer.py``'s ``Optimizer`` base (the global learning-rate
-variable, per-parameter accumulators), ``SGD``, ``Adam`` (one ``adam``
+variable, per-parameter accumulators), ``SGD``, ``Momentum`` (one
+``momentum`` op per parameter, a ``velocity`` accumulator each), ``Adam`` (one ``adam``
 op per parameter, beta powers advanced by ``scale`` ops) and
 ``FusedAdam`` (one ``fused_adam`` op for the whole model, K4 on the
 card). ``minimize`` = ``append_backward`` + the optimizer ops.
@@ -16,8 +17,9 @@ from .framework import Variable, default_main_program
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 
-__all__ = ["SGD", "Adam", "FusedAdam", "SGDOptimizer", "AdamOptimizer",
-           "FusedAdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "FusedAdam", "SGDOptimizer",
+           "MomentumOptimizer", "AdamOptimizer", "FusedAdamOptimizer",
+           "Optimizer"]
 
 
 class Optimizer:
@@ -126,6 +128,34 @@ class SGDOptimizer(Optimizer):
             inputs={"Param": [param_and_grad[0]], "Grad": [param_and_grad[1]],
                     "LearningRate": [self._create_param_lr(param_and_grad)]},
             outputs={"ParamOut": [param_and_grad[0]]}, infer_shape=False)
+
+
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param_and_grad[0]], "Grad": [param_and_grad[1]],
+                    "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+            infer_shape=False)
 
 
 class AdamOptimizer(Optimizer):
@@ -237,5 +267,6 @@ class FusedAdamOptimizer(AdamOptimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 FusedAdam = FusedAdamOptimizer

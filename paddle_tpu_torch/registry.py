@@ -36,12 +36,15 @@ class OpInfo:
     no_grad: bool = False                # op is non-differentiable
     infer_shape: typing.Callable = None  # fn(block, op): sets output shapes
     generic_grad: bool = False           # grad = torch.func.vjp of the fwd
+    host: bool = False                   # host side effects (save/print):
+                                         # Executor.run_steps refuses it
 
 
 OP_REGISTRY: typing.Dict[str, OpInfo] = {}
 
 
-def register_op(op_type, lowering=None, no_grad=False, infer_shape=None):
+def register_op(op_type, lowering=None, no_grad=False, infer_shape=None,
+                host=False):
     """Register an op. Usable directly or as a decorator on the lowering."""
 
     def _register(fn):
@@ -49,7 +52,7 @@ def register_op(op_type, lowering=None, no_grad=False, infer_shape=None):
             raise ValueError("op %r registered twice" % op_type)
         OP_REGISTRY[op_type] = OpInfo(
             type=op_type, lowering=fn, no_grad=no_grad,
-            infer_shape=infer_shape)
+            infer_shape=infer_shape, host=host)
         return fn
 
     if lowering is not None:
@@ -80,22 +83,33 @@ class LoweringContext:
     ``step_key`` is ``(program seed, executor step)``; :meth:`rng` returns
     a ``torch.Generator`` on the device seeded from (step_key, op uid,
     call #), so random ops reproduce run to run. Its numbers are not
-    ``jax.random``'s: parity tests carry initial state across instead."""
+    ``jax.random``'s: parity tests carry initial state across instead.
+
+    ``graphed`` marks a step that ``Executor.run_steps`` captures as a
+    CUDA graph: the graph would replay one step's draws on every step,
+    so :meth:`rng` raises there, naming the op."""
 
     def __init__(self, op, step_key=None, is_test=False, device=None,
-                 amp=False):
+                 amp=False, graphed=False):
         self.op = op
         self.attrs = op.attrs
         self.step_key = step_key
         self.is_test = is_test
         self.device = torch.device("cpu") if device is None else device
         self.amp = amp          # bf16 compute / fp32 master weights
+        self.graphed = graphed
         self._rng_calls = 0
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
     def rng(self):
+        if self.graphed:
+            raise RuntimeError(
+                "op %r draws random numbers, which a captured CUDA graph "
+                "would repeat on every replay: Executor.run_steps cannot "
+                "capture it on the card — use run() per step"
+                % self.op.type)
         if self.step_key is None:
             raise RuntimeError(
                 "op %r needs a random stream but the executor did not "
@@ -148,7 +162,7 @@ def make_generic_grad_lowering(fwd_type):
         fwd_ctx = LoweringContext(
             ctx.op.forward_op or _FakeFwdOp(ctx, fwd_type),
             step_key=ctx.step_key, is_test=ctx.is_test, device=ctx.device,
-            amp=ctx.amp)
+            amp=ctx.amp, graphed=ctx.graphed)
 
         def fwd_fn(d_ins):
             merged = {s: list(v) for s, v in fwd_ins.items()}

@@ -668,3 +668,114 @@ def test_ab_timing_runs_in_turns_and_reads_each_run(monkeypatch, tmp_path):
                         subprocess.CompletedProcess(cmd, 1, "", "boom"))
     with pytest.raises(RuntimeError):
         cs.ab_timing(str(tmp_path))
+
+
+@pytest.fixture
+def tiny_resnet(monkeypatch):
+    """Phase 11 at a tiny size on the CPU: depth 18, batch 2 of 32x32
+    images (the gates: batch 4 of 32x32), 2-step dispatches."""
+    for name, value in (("DEVICE", "cpu"), ("RESNET_DEPTH", 18),
+                        ("RESNET_BATCH", 2), ("RESNET_SIZE", 32),
+                        ("RESNET_CLASSES", 10), ("RESNET_STEPS", 2),
+                        ("RESNET_ROUNDS", 2), ("RESNET_EAGER_STEPS", 1),
+                        ("RESNET_PROFILE_STEPS", 1), ("RGATE_BATCH", 4),
+                        ("RGATE_SIZE", 32), ("RGATE_STEPS", 2),
+                        ("RGATE_RUN_CALLS", 1), ("RGATE_N_STEPS", 2)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(fluid, "CUDAPlace", lambda i=0: fluid.CPUPlace())
+
+
+def test_resnet_feed_is_bench_pys():
+    feed = cs.resnet_feed(3, 8, 1000)
+    rng = np.random.RandomState(0)
+    images = rng.rand(3, 3, 8, 8).astype(np.float32)
+    label = rng.randint(0, 1000, (3, 1)).astype(np.int64)
+    assert feed["images"].dtype == torch.float32
+    assert feed["label"].dtype == torch.int64
+    np.testing.assert_array_equal(feed["images"].numpy(), images)
+    np.testing.assert_array_equal(feed["label"].numpy(), label)
+
+
+def test_resnet_build_is_bench_pys_program():
+    """``build_resnet`` at bench.py's size: the JAX package's program
+    (``bench.py:70-84``), op for op and name for name, bf16 under amp,
+    and its FLOPs the reference's estimate."""
+    import paddle_tpu as jfluid
+    from paddle_tpu import models as jmodels
+    from paddle_tpu import unique_name as junique
+    from paddle_tpu.flops import estimate_program_flops as jflops
+    from paddle_tpu_torch.flops import estimate_program_flops
+    prog, startup, loss = cs.build_resnet(fluid, 50, 256, 224, 1000, True)
+    with junique.guard():
+        jprog, jstart = jfluid.Program(), jfluid.Program()
+        with jfluid.program_guard(jprog, jstart):
+            images = jfluid.layers.data(name="images", shape=[3, 224, 224],
+                                        dtype="float32")
+            label = jfluid.layers.data(name="label", shape=[1],
+                                       dtype="int64")
+            pred = jmodels.resnet_imagenet(images, class_dim=1000, depth=50,
+                                           data_format="NHWC")
+            jloss = jfluid.layers.mean(
+                jfluid.layers.cross_entropy(input=pred, label=label))
+            jfluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9) \
+                .minimize(jloss)
+        jfluid.enable_mixed_precision(jprog, True)
+    assert [op.type for op in prog.global_block().ops] == \
+        [op.type for op in jprog.global_block().ops]
+    assert sorted(v.name for v in prog.list_vars()) == \
+        sorted(v.name for v in jprog.list_vars())
+    assert loss.name == jloss.name and prog._amp
+    assert estimate_program_flops(prog, 256) == jflops(jprog, 256)
+
+
+def test_resnet_phase_rehearses_on_the_cpu(tiny_resnet, capsys):
+    from paddle_tpu_torch import executor as pexe
+    rows = cs.resnet_op_checks()
+    assert len(rows) == 15 and all(r["ok"] for r in rows)
+    gate = cs.resnet_gate()
+    assert len(gate["steps"]) == cs.RGATE_STEPS
+    assert gate["loss_rel_err"] == 0 and gate["update_rel_l2"] == 0
+    assert all(r["updates"] > 0 for r in gate["steps"])
+    replay = cs.resnet_replay_gate()
+    assert replay["persistables_differing"] == []
+    assert replay["persistables_differing_after_reload"] == []
+    assert replay["losses_bitwise"] == [True, True, True]
+    assert replay["graph_launches"] == {"captures": 0, "replays": 0}
+    # the second feed is another batch: the reload compared real work
+    assert replay["losses"][-1] != replay["losses"][-2]
+
+    kernels_before = cs._kernel_counts()
+    res = cs.resnet_path("card, 700 W")
+    assert cs._kernel_counts() == kernels_before
+    assert res["launches"] == {n: 0 for n in kernels_before}
+    assert len(res["launches"]) == 14
+    assert res["graph_launches"] == pexe.graph_launches
+    assert res["final_loss"] < res["first_loss"]
+    assert len(res["round_s"]) == cs.RESNET_ROUNDS
+    assert res["images_per_s"] > 0 and res["mfu"] is None
+    assert res["step_ms_captured"] > 0 and res["step_ms_eager_p50"] > 0
+    assert res["flops_per_step"] > 0 and res["peak_memory_gb"] is None
+    assert "cut" in res and res["card"] == "card, 700 W"
+    for prof in (res["eager_profile"], res["replay_profile"]):
+        assert {"device_busy_ms", "class_ms", "top_kernels_ms"} <= set(prof)
+    assert res["eager_profile"]["ops"]["conv2d_grad"]["calls"] == 20
+    assert res["eager_profile"]["ops"]["batch_norm_grad"]["calls"] == 20
+    json.dumps(res, default=str)
+    out = capsys.readouterr().out
+    assert "resnet op checks" in out and "resnet gate" in out
+    assert "run_steps vs run" in out and "resnet-18 NHWC b2" in out
+
+
+def test_resnet_profile_classes():
+    assert cs.resnet_class(
+        "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc") == \
+        "conv"
+    assert cs.resnet_class("cudnn::bn_fw_tr_1C11_kernel_NCHW") == "conv"
+    assert cs.resnet_class("void at::native::reduce_kernel<512, 1>") == \
+        "reduce"
+    assert cs.resnet_class(
+        "void at::native::vectorized_elementwise_kernel<4>") == \
+        "elementwise"
+    assert cs.resnet_class("Memcpy DtoD (Device -> Device)") == "copy"
+    assert cs.resnet_class("max_pool_forward_nhwc") == "pool"
+    assert cs.resnet_class("nvjet_tst_128x64") == "gemm"
