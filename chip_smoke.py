@@ -183,6 +183,27 @@ raises on failure (the script then exits non-zero and prints no result):
    (``flops.estimate_program_flops`` over ``flops.device_peak_flops``),
    device-busy ms and idle share of an eager and of a captured step, the
    eager step's p50, peak memory and the top device operations.
+12. Megastep serving, run right after phase 4 (its decoder files, K = 1
+   streams and decode-step profiles): ``megastep_k`` 8, the reference's
+   auto value at max_len 1024, on fp32, bf16, int8 and fp8 pages. For
+   each pool dtype: first the engine gate (``megastep_engine_gate``: 32
+   busy slots, a greedy and a mixed temperature cohort, megasteps of 8,
+   8 chained and 3 trips against 19 eager ``decode_step`` calls on a
+   twin engine: every stream token-identical, one capture and one
+   warm-up trip per variant, every megastep trip a replay, K3 (K3-quant)
+   launched layers x (steps + trips + warm-up trips)); then phase 4's 48
+   requests served through phase 4's entry points with ``megastep_k`` 8
+   (the engine ``serve --gen-megastep-k 8`` builds): fp32 streams
+   token-identical to full recompute and to phase 4's K = 1 run (48 of
+   48; the other dtypes' matches printed), one greedy capture, replays =
+   trips dispatched, the path's kernel launched layers x (trips +
+   warm-up trips + eager steps). Prints TTFT p50/p99, TPOT, decode
+   tokens/s, megasteps, the trips histogram, host gap a token and the
+   capture and replay counts beside phase 4's K = 1 run; then
+   ``megastep_profile`` on the served engine at 32 busy slots: wall ms a
+   trip (megasteps synced one by one, and chained), device-busy ms a
+   trip, idle share and the K3 instance the profile names (it must be
+   the pool's), beside phase 4's decode-step profile.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1083,14 +1104,16 @@ def _post(url, body):
 
 
 def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
-              slots=None, num_pages=0, buckets=None):
+              slots=None, num_pages=0, buckets=None, megastep_k=1):
     """Serve ``model_dir`` through the port's entry points (KV pages in
     ``kv_quant_dtype``; SLOTS slots, BUCKETS and an auto-sized pool
-    unless given) and send every
+    unless given; ``megastep_k`` decode trips a dispatch) and send every
     request concurrently; returns the responses, wall seconds, decode
     steps, the launches of K3 and K3-quant, the most sequences decoding
-    at once and the pool's bytes in this run. The path's kernel must
-    launch decode steps x layers times and the other kernel never."""
+    at once, the pool's bytes, the decode host gap and the megasteps in
+    this run. The path's kernel must launch layers x (eager decode steps
+    + megastep trips + warm-up trips) times — decode steps x layers at
+    K = 1 — and the other kernel never."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.observability import catalog
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -1103,7 +1126,8 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
                                max_len=MAX_LEN,
                                prefill_buckets=buckets or BUCKETS,
                                page_size=PAGE, num_pages=num_pages,
-                               kv_quant_dtype=kv_quant_dtype, device=DEVICE)
+                               kv_quant_dtype=kv_quant_dtype,
+                               megastep_k=megastep_k, device=DEVICE)
     sched = GenerationScheduler(engine, queue_depth=128, seed=SEED)
     server = make_server(sched, host="127.0.0.1", port=0,
                          request_timeout=300.0).start_background()
@@ -1133,6 +1157,10 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
                                          timeout=60).read().decode()
         health = _get_status(server.url + "/healthz")
         quant_pages = catalog.KV_QUANT_PAGES.value()
+        gap_s = catalog.DECODE_HOST_GAP_SECONDS.value()
+        megasteps = int(catalog.GENERATION_MEGASTEPS.value())
+        trips = [int(t) for t in
+                 profiler.get_histogram("generation_megastep_trips")]
     finally:
         status = server.shutdown_gracefully(60.0)
     if not status["drained"]:
@@ -1142,11 +1170,17 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
     path, other = ("k3", "k3_quant") if kv_quant_dtype == "off" else \
         ("k3_quant", "k3")
     launches = counts[path]
-    if launches <= 0 or launches != steps * model.n_layers or counts[other]:
+    trip = dict(engine.trip_stats)
+    want = launch_want(trip, model.n_layers)
+    if launches <= 0 or launches != want or counts[other] or \
+            (megastep_k == 1 and launches != steps * model.n_layers):
         raise AssertionError(
-            "%s launches %d != decode steps %d x %d layers, or %s launched "
-            "(%d)" % (path, launches, steps, model.n_layers, other,
-                      counts[other]))
+            "%s launches %d != %d layers x (decode steps %d + megastep "
+            "trips %d + warm-up trips %d) = %d (served decode steps %d), "
+            "or %s launched (%d)"
+            % (path, launches, model.n_layers, trip["decode_steps"],
+               trip["trips_dispatched"], trip["warmups"], want, steps,
+               other, counts[other]))
     if (kv_quant_dtype != "off") != (quant_pages > 0):
         raise AssertionError("kv_quant_pages_total %g on a %s pool"
                              % (quant_pages, kv_quant_dtype))
@@ -1160,7 +1194,18 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
             "wall_s": wall, "steps": steps, "launches": launches,
             "counts": counts, "hist": hist, "pages": engine.page_stats(),
             "peak_slots": peak,
-            "pool_bytes": sum(t.numel() * t.element_size() for t in pools)}
+            "pool_bytes": sum(t.numel() * t.element_size() for t in pools),
+            "gap_s": gap_s, "megasteps": megasteps, "trips": trips,
+            "trip_stats": trip}
+
+
+def launch_want(trip, layers):
+    """K3 (or K3-quant) launches a run owes, from the engine's
+    ``trip_stats``: every eager decode step, megastep trip (a replay of
+    the captured trip on the card, an eager trip on the CPU) and warm-up
+    trip runs the kernel once a layer; a capture launches nothing."""
+    return layers * (trip["decode_steps"] + trip["trips_dispatched"] +
+                     trip["warmups"])
 
 
 def _get_status(url):
@@ -1173,10 +1218,20 @@ def _get_status(url):
 
 def _serving_stats(run):
     ttft = np.array([r["slo"]["ttft_ms"] for r in run["responses"]])
+    tpot = np.array([r["slo"]["tpot_ms"] for r in run["responses"]
+                     if "tpot_ms" in r["slo"]])
     decode_tokens = sum(len(r["tokens"]) - 1 for r in run["responses"])
     return {"ttft_ms_p50": float(np.percentile(ttft, 50)),
             "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "tpot_ms_p50": float(np.percentile(tpot, 50)),
+            "tpot_ms_p99": float(np.percentile(tpot, 99)),
             "decode_tokens_per_s": decode_tokens / run["wall_s"],
+            "host_gap_ms_per_token": run["gap_s"] * 1e3 / (
+                decode_tokens + len(run["responses"])),
+            "megasteps": run["megasteps"],
+            "trips_histogram": {str(t): run["trips"].count(t)
+                                for t in sorted(set(run["trips"]))},
+            "trip_stats": run["trip_stats"],
             "tokens": int(decode_tokens + len(run["responses"])),
             "wall_s": run["wall_s"], "decode_steps": run["steps"],
             "decode_step_ms_p50": run["hist"]["generation_decode_step_ms"][50.0],
@@ -1523,12 +1578,19 @@ def main_path(workdir):
     ferr = k3_check(fargs, fkw)
     log("K3-quant at the fp8 engine's decode step with every slot busy: "
         "max|err| vs plain %.3g" % ferr)
+    streams = {label: [r["tokens"] for r in run["responses"]]
+               for label, run in (("fp32", run32), ("bf16", run16),
+                                  ("int8", quant["runs"]["int8"]),
+                                  ("fp8", quant["runs"]["fp8"]))}
     return {"fp32": s32, "bf16": s16, "k3": row, "k3_step": shape,
             "bf16_step_profile": prof,
             "bf16_logit_rel_l2": rel, "bf16_argmax_agree": agree,
             "quant": quant["stats"], "capacity": cap, "k3_quant": qrow,
             "k3_quant_step": qshape, "int8_step_profile": qprof,
-            "fp8_step_profile": fprof, "fp8_step_max_abs_err": ferr}
+            "fp8_step_profile": fprof, "fp8_step_max_abs_err": ferr,
+            # for phase 12 (main() drops them from the report)
+            "_streams": streams, "_recompute": ref,
+            "_dirs": {"fp32": d32, "bf16": d16}}
 
 
 def match_fraction(ref, got):
@@ -1654,6 +1716,292 @@ def capacity_runs(d16):
                              % (q["peak_slots"], b["peak_slots"], ratio,
                                 ADMISSION_RATIO))
     return {"runs": stats, "admission_ratio": ratio}
+
+
+# -- phase 12: megastep decoding -------------------------------------------
+
+MEGASTEP_K = 8                 # the reference's auto value at MAX_LEN 1024
+# (label, decoder, KV pages) of phase 12's runs: phase 4's pool dtypes
+MS_RUNS = (("fp32", "fp32", "off"), ("bf16", "bf16", "off"),
+           ("int8", "bf16", "int8"), ("fp8", "bf16", "fp8"))
+MS_GATE_KS = (8, 8, 3)         # the engine gate: fresh, chained, fresh
+MS_PROFILE_MEGASTEPS = 4       # megasteps of MEGASTEP_K trips timed
+
+
+def ms_temperatures(n):
+    """The engine gate's mixed cohort: greedy, 0.9, greedy, 0.7, ..."""
+    return np.array([(0.0, 0.9, 0.0, 0.7)[i % 4] for i in range(n)],
+                    np.float32)
+
+
+def trip_gate(label, trip, variants):
+    """The captured trip's accounting: on the card one capture and one
+    warm-up trip per variant used (``variants`` of greedy, sampling) and
+    every dispatched trip a replay; on the CPU every trip eager and
+    nothing captured. Raises otherwise."""
+    cuda = DEVICE == "cuda"
+    got = {"greedy": trip["captures_greedy"],
+           "sampling": trip["captures_sampling"]}
+    want = {v: int(cuda and v in variants) for v in got}
+    runs = (trip["replays"], trip["eager_trips"])
+    want_runs = (trip["trips_dispatched"], 0) if cuda else \
+        (0, trip["trips_dispatched"])
+    if got != want or trip["warmups"] != sum(want.values()) or \
+            runs != want_runs or trip["trips_dispatched"] <= 0:
+        raise AssertionError(
+            "%s: captures %s (want %s), warm-up trips %d, (replays, eager "
+            "trips) %s for %d dispatched trips (want %s)"
+            % (label, got, want, trip["warmups"], runs,
+               trip["trips_dispatched"], want_runs))
+
+
+def k3_instance(key):
+    """"k3_quant" for a profiled ``paged_decode_kernel`` instance over
+    one-byte pages (int8 is ``signed char``), else "k3"."""
+    return "k3_quant" if ("char" in key or "fp8" in key) else "k3"
+
+
+def megastep_engine_gate(label, model_dir, kv_quant_dtype, prompts):
+    """A megastep engine against the eager decode step, at full width on
+    SLOTS busy slots: a greedy cohort and a mixed temperature cohort
+    (``ms_temperatures``), each decoded ``sum(MS_GATE_KS)`` steps by
+    ``decode_step`` on one engine and by megasteps of MS_GATE_KS trips
+    (a fresh dispatch, one chained on its device outputs, a fresh one)
+    on another. Gates (each raises): every stream, length and pending
+    token identical; ``trip_gate``; the path's kernel launched
+    ``launch_want`` of both engines and the other kernel never."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import PagedDecodeEngine, load_decoder
+    model, params = load_decoder(model_dir, device=DEVICE)
+    prompts = prompts[:SLOTS]
+    trips = sum(MS_GATE_KS)
+
+    def engine():
+        return PagedDecodeEngine(model, params, max_slots=SLOTS,
+                                 max_len=MAX_LEN, prefill_buckets=BUCKETS,
+                                 page_size=PAGE,
+                                 kv_quant_dtype=kv_quant_dtype,
+                                 megastep_k=MEGASTEP_K, device=DEVICE)
+    ref_eng, ms_eng = engine(), engine()
+    pa.launches = pa.launches_quant = 0
+    t0 = time.perf_counter()
+    out = {}
+    for variant, temps in (("greedy", np.zeros(SLOTS, np.float32)),
+                           ("sampling", ms_temperatures(SLOTS))):
+        for i, p in enumerate(prompts):
+            logits = ref_eng.prefill(i, p, max_new_tokens=trips + 2)
+            first = int(np.argmax(logits))
+            ms_eng.prefill(i, p, max_new_tokens=trips + 2)
+            ref_eng.set_input_token(i, first)
+            ms_eng.set_input_token(i, first)
+        ref = [[] for _ in prompts]
+        for t in range(trips):
+            toks = ref_eng.decode_step(temps, seed=SEED, step=t)
+            for i in range(len(prompts)):
+                ref[i].append(int(toks[i]))
+        k1, k2, k3 = MS_GATE_KS
+        h1 = ms_eng.megastep_dispatch(SEED, 0, k1, temperatures=temps)
+        h2 = ms_eng.megastep_dispatch(
+            SEED, h1["step0"] + h1["trips"], k2, temperatures=temps,
+            caps=h1["caps"] - h1["n_emitted"], live=h1["live"],
+            tokens=h1["tokens"], lengths=h1["lengths"])
+        rs = [ms_eng.megastep_sync(h1), ms_eng.megastep_sync(h2)]
+        rs.append(ms_eng.megastep_decode(SEED, k1 + k2, k_eff=k3,
+                                         temperatures=temps))
+        got = [[int(t) for r in rs for t in r["out"][:, i] if t >= 0]
+               for i in range(len(prompts))]
+        same = sum(a == b for a, b in zip(got, ref))
+        state_ok = bool((ms_eng.lengths == ref_eng.lengths).all() and
+                        (ms_eng._in_tokens == ref_eng._in_tokens).all())
+        out[variant] = {"identical": same, "of": len(prompts),
+                        "trips": [r["trips"] for r in rs],
+                        "host_state_equal": state_ok}
+        if same != len(prompts) or not state_ok or \
+                [r["trips"] for r in rs] != list(MS_GATE_KS):
+            i = next((k for k in range(len(prompts)) if got[k] != ref[k]),
+                     0)
+            raise AssertionError(
+                "%s megastep %s cohort: %d/%d streams equal decode_step's, "
+                "host state equal %s, trips %s (stream %d: %s vs %s)"
+                % (label, variant, same, len(prompts), state_ok,
+                   [r["trips"] for r in rs], i, got[i][:8], ref[i][:8]))
+        for i in range(len(prompts)):
+            ref_eng.release(i)
+            ms_eng.release(i)
+    _sync()
+    path, other = ("k3", "k3_quant") if kv_quant_dtype == "off" else \
+        ("k3_quant", "k3")
+    counts = {"k3": pa.launches, "k3_quant": pa.launches_quant}
+    want = launch_want(ref_eng.trip_stats, model.n_layers) + \
+        launch_want(ms_eng.trip_stats, model.n_layers)
+    trip_gate(label + " engine gate", ms_eng.trip_stats,
+              {"greedy", "sampling"})
+    if counts[path] != want or counts[other]:
+        raise AssertionError("%s engine gate: %s launches %d != %d, %s %d"
+                             % (label, path, counts[path], want, other,
+                                counts[other]))
+    res = {"cohorts": out, "launches": counts[path],
+           "trip_stats": dict(ms_eng.trip_stats),
+           "seconds": time.perf_counter() - t0}
+    log("%s megastep engine gate (%d slots, megasteps of %s trips against "
+        "%d decode steps): greedy %d/%d and temperature %d/%d streams "
+        "identical; %s launches %d = %d layers x trips and steps; %s"
+        % (label, len(prompts), list(MS_GATE_KS), trips,
+           out["greedy"]["identical"], len(prompts),
+           out["sampling"]["identical"], len(prompts), path, counts[path],
+           model.n_layers, json.dumps(res["trip_stats"])))
+    return res
+
+
+def megastep_profile(engine, prompts, k1_profile=None):
+    """Where a megastep's time goes at SLOTS busy slots: wall ms a trip
+    over MS_PROFILE_MEGASTEPS megasteps of MEGASTEP_K trips, dispatched
+    and synced one by one and chained (each dispatched before the one
+    before it is synced), against the device-busy ms a trip
+    (``torch.profiler`` over the synced loop) and the idle share; the
+    paged-decode kernels the profile names, which must be the pool's
+    K3 instance on the card. ``k1_profile`` is phase 4's decode step at
+    the same pool dtype, for the log."""
+    from torch.profiler import ProfilerActivity, profile
+    n = min(len(prompts), engine.max_slots)
+    K, M = MEGASTEP_K, MS_PROFILE_MEGASTEPS
+    for i, p in enumerate(prompts[:n]):
+        engine.prefill(i, p, max_new_tokens=K * (3 * M + 1) + 4)
+        engine.set_input_token(i, 1)
+    step0 = [0]
+
+    def synced(count):
+        for _ in range(count):
+            step0[0] += engine.megastep_decode(SEED, step0[0], K)["trips"]
+
+    def chained(count):
+        h = engine.megastep_dispatch(SEED, step0[0], K)
+        for _ in range(count - 1):
+            h2 = engine.megastep_dispatch(
+                SEED, h["step0"] + h["trips"], K,
+                caps=h["caps"] - h["n_emitted"], live=h["live"],
+                tokens=h["tokens"], lengths=h["lengths"])
+            step0[0] += engine.megastep_sync(h)["trips"]
+            h = h2
+        step0[0] += engine.megastep_sync(h)["trips"]
+
+    synced(1)
+    _sync()
+    t0 = time.perf_counter()
+    synced(M)
+    _sync()
+    wall = (time.perf_counter() - t0) / (M * K) * 1e3
+    t0 = time.perf_counter()
+    chained(M)
+    _sync()
+    chained_wall = (time.perf_counter() - t0) / (M * K) * 1e3
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        synced(M)
+        _sync()
+    for i in range(engine.max_slots):
+        if engine.active[i]:
+            engine.release(i)
+    trips = M * K
+    events = [e for e in prof.key_averages()
+              if str(e.device_type) == "DeviceType.CUDA"
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / trips / 1e3
+    k3 = [e for e in events if "paged_decode_kernel" in e.key]
+    named = sorted({k3_instance(e.key) for e in k3})
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    out = {"slots": n, "megastep_k": K, "trip_wall_ms": wall,
+           "chained_trip_wall_ms": chained_wall, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "chained_idle_share": 1.0 - busy / chained_wall,
+           "k3_ms": sum(e.self_device_time_total for e in k3) / trips / 1e3,
+           "k3_launches_profiled": sum(e.count for e in k3),
+           "k3_named": named,
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total
+                              / trips / 1e3 for e in top}}
+    if k1_profile:
+        out["k1_step_wall_ms"] = k1_profile["step_wall_ms"]
+        out["k1_step_busy_ms"] = k1_profile["device_busy_ms"]
+    want = "k3" if engine.kv_quant is None else "k3_quant"
+    if DEVICE == "cuda" and named != [want]:
+        raise AssertionError("the megastep profile names paged-decode "
+                             "kernels %s, want %s: %s"
+                             % (named, want, [e.key for e in k3]))
+    log("megastep at %d busy slots, K=%d: %.3f ms wall a trip (chained "
+        "%.3f), %.3f ms device-busy (idle %.0f%%, chained %.0f%%), K3 %.3f "
+        "ms a trip (%d launches profiled: %s); the K=1 step: %s; top: %s"
+        % (n, K, wall, chained_wall, busy, 100 * out["device_idle_share"],
+           100 * out["chained_idle_share"], out["k3_ms"],
+           out["k3_launches_profiled"], named,
+           "%.3f ms wall, %.3f busy" % (k1_profile["step_wall_ms"],
+                                         k1_profile["device_busy_ms"])
+           if k1_profile else "not profiled",
+           json.dumps(out["top_kernels_ms"])))
+    return out
+
+
+def megastep_path(phase4):
+    """Phase 12: phase 4's serving path with ``megastep_k`` MEGASTEP_K,
+    on fp32, bf16, int8 and fp8 pages. For each: the engine gate
+    (``megastep_engine_gate``); the 48 requests served (``serve_run``,
+    gates there and ``trip_gate``: one greedy capture, a replay per
+    dispatched trip); fp32's streams must equal full recompute and phase
+    4's K = 1 streams (48 of 48), the others' matches are recorded; then
+    ``megastep_profile`` on the served engine. Logs each run beside phase
+    4's K = 1 run of the same pages."""
+    prompts, budgets = _requests()
+    k1_stats = {"fp32": phase4["fp32"], "bf16": phase4["bf16"],
+                "int8": phase4["quant"]["int8"],
+                "fp8": phase4["quant"]["fp8"]}
+    k1_profiles = {"bf16": phase4["bf16_step_profile"],
+                   "int8": phase4["int8_step_profile"],
+                   "fp8": phase4["fp8_step_profile"]}
+    res = {"megastep_k": MEGASTEP_K, "gates": {}, "runs": {},
+           "profiles": {}, "launches": {"k3": 0, "k3_quant": 0}}
+    for label, dec, mode in MS_RUNS:
+        mdir = phase4["_dirs"][dec]
+        res["gates"][label] = megastep_engine_gate(label, mdir, mode,
+                                                   prompts)
+        run = serve_run(mdir, prompts, budgets, kv_quant_dtype=mode,
+                        megastep_k=MEGASTEP_K)
+        trip_gate(label + " served", run["trip_stats"], {"greedy"})
+        st = _serving_stats(run)
+        toks = [r["tokens"] for r in run["responses"]]
+        st["streams_equal_k1"] = sum(
+            a == b for a, b in zip(toks, phase4["_streams"][label]))
+        if label == "fp32":
+            st["streams_equal_recompute"] = sum(
+                a == b for a, b in zip(toks, phase4["_recompute"]))
+            if st["streams_equal_recompute"] != len(toks) or \
+                    st["streams_equal_k1"] != len(toks):
+                raise AssertionError(
+                    "fp32 megastep streams: %d/%d equal full recompute, "
+                    "%d/%d equal K=1" % (st["streams_equal_recompute"],
+                                         len(toks), st["streams_equal_k1"],
+                                         len(toks)))
+        path = "k3" if mode == "off" else "k3_quant"
+        res["launches"][path] += run["launches"]
+        k1 = k1_stats[label]
+        log("%s megastep serving (K=%d): %s" % (label, MEGASTEP_K,
+                                                json.dumps(st)))
+        log("  %s K=%d vs K=1 (phase 4): TTFT p50 %.1f / %.1f ms, p99 %.1f "
+            "/ %.1f; TPOT p50 %.3f / %.3f ms; decode %.1f / %.1f tokens/s; "
+            "host gap %.4f / %.4f ms a token; %d megasteps, trips %s; "
+            "streams equal to K=1: %d/%d"
+            % (label, MEGASTEP_K, st["ttft_ms_p50"], k1["ttft_ms_p50"],
+               st["ttft_ms_p99"], k1["ttft_ms_p99"], st["tpot_ms_p50"],
+               k1["tpot_ms_p50"], st["decode_tokens_per_s"],
+               k1["decode_tokens_per_s"], st["host_gap_ms_per_token"],
+               k1["host_gap_ms_per_token"], st["megasteps"],
+               st["trips_histogram"], st["streams_equal_k1"], len(toks)))
+        res["runs"][label] = st
+        res["profiles"][label] = megastep_profile(
+            run["engine"], prompts, k1_profiles.get(label))
+        del run
+    return res
 
 
 # -- phases 5-6: training -------------------------------------------------
@@ -3364,6 +3712,14 @@ def main(argv=None):
         report["fused_adam_checks"] = fused_adam_checks()
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
+            report["megastep_path"] = megastep_path(report["main_path"])
+            for key in ("_streams", "_recompute", "_dirs"):
+                report["main_path"].pop(key)
+            # K3's rows count the launches of both serving paths
+            for row, name in ((report["main_path"]["k3"], "k3"),
+                              (report["main_path"]["k3_quant"],
+                               "k3_quant")):
+                row["launches"] += report["megastep_path"]["launches"][name]
             report["k3_long"] = k3_long_timing()
             report["train_gate"] = train_gate()
             report["train_path"] = train_path()

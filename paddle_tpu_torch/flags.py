@@ -27,10 +27,17 @@ generation_prefill_buckets = "16,32,64,128"
 # Paged KV cache (resolve_generation_knobs(paged=True)):
 # ``kv_page_size`` tokens per page; ``kv_num_pages`` pool capacity per
 # layer (0 = auto, the dense-equivalent budget, doubled when the pages are
-# quantized). The knobs of speculative and megastep decoding come with
-# those paths.
+# quantized). The knob of speculative decoding comes with that path.
+# ``generation_megastep_k`` — decode trips per scheduler dispatch
+# (``PagedDecodeEngine.megastep_dispatch``): one trip is captured as a
+# CUDA graph and replayed, with token feedback, sampling and EOS/budget
+# freezing on the device, so the host pays one dispatch and one sync per
+# K tokens. 1 = the step-at-a-time loop; 0 = auto (min(8,
+# generation_max_len - 1)). The scheduler clamps each megastep's K by the
+# widest remaining budget and the tightest deadline's slack.
 kv_page_size = 16
 kv_num_pages = 0
+generation_megastep_k = 1
 
 # Quantized KV pages (``resolve_generation_knobs(paged=True)`` validates
 # them; errors name the FLAGS_* knob):

@@ -18,7 +18,9 @@ __all__ = [
     "GENERATION_REQUESTS", "GENERATION_REJECTED", "GENERATION_FAILED",
     "GENERATION_PREFILLS", "GENERATION_DECODE_STEPS", "GENERATION_TOKENS",
     "GENERATION_PREFILL_MS", "GENERATION_DECODE_STEP_MS",
-    "GENERATION_SLOT_OCCUPANCY", "PREFIX_CACHE_HITS",
+    "GENERATION_SLOT_OCCUPANCY", "GENERATION_MEGASTEPS",
+    "GENERATION_MEGASTEP_TRIPS", "DECODE_HOST_GAP_SECONDS",
+    "DECODE_HOST_GAP", "PREFIX_CACHE_HITS",
     "PREFIX_CACHE_EVICTIONS", "PAGE_EVICTIONS", "DEADLINE_EXCEEDED",
     "REQUEST_TTFT_SECONDS", "REQUEST_TPOT_SECONDS", "REQUESTS_FINISHED",
     "KV_QUANT_PAGES", "WEIGHT_QUANT_ARTIFACTS",
@@ -128,6 +130,30 @@ GENERATION_SLOT_OCCUPANCY = Histogram(
     "generation_slot_occupancy",
     help="Active KV-cache slots per decode step (ceiling = "
     "FLAGS_generation_max_slots)")
+
+# -- megastep decoding (serving/paged_kv.py megastep_dispatch) -------------
+
+GENERATION_MEGASTEPS = Counter(
+    "generation_megasteps_total",
+    help="Fused multi-token decode loops dispatched (each runs up to "
+    "megastep_k device-resident decode trips; generation_decode_steps_"
+    "total still counts the trips, so steps/megasteps is the fusion "
+    "ratio actually achieved)")
+GENERATION_MEGASTEP_TRIPS = Histogram(
+    "generation_megastep_trips",
+    help="Decode trips actually executed per megastep (after deadline/"
+    "budget clamping and the all-finished device early exit; ceiling = "
+    "FLAGS_generation_megastep_k)")
+DECODE_HOST_GAP_SECONDS = Counter(
+    "decode_host_gap_seconds_total",
+    help="Host seconds between a decode/megastep result landing and "
+    "the NEXT decode dispatch — the per-token host overhead megastep "
+    "decoding amortizes; per-token gap = this / generation_tokens_"
+    "total (chained double-buffered dispatches contribute 0)")
+DECODE_HOST_GAP = Histogram(
+    "decode_host_gap_seconds",
+    help="Per-dispatch distribution of the decode host gap (see "
+    "decode_host_gap_seconds_total)")
 
 # -- paged KV cache (serving/paged_kv.py) ----------------------------------
 

@@ -26,7 +26,10 @@ that lie on the CPU. For CUDA tensors it checks what the kernel takes
 and launches it on the current stream, or raises: there is no fallback.
 ``launches`` counts K3's launches and ``launches_quant`` K3-quant's (and
 nothing else), so a run can show that its decode steps went through the
-kernel.
+kernel. A call made while its stream is being captured into a CUDA graph
+launches nothing: it adds to ``recorded`` instead, and whoever replays
+the graph adds what it recorded to the counts at each replay
+(:func:`count_replays`).
 """
 
 import ctypes
@@ -37,8 +40,8 @@ import torch
 from . import kv_quant
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "split_plan", "launches", "launches_quant", "MAX_HEAD_DIM",
-           "NEG_INF", "SPLIT_TOKENS"]
+           "split_plan", "count_replays", "launches", "launches_quant",
+           "recorded", "MAX_HEAD_DIM", "NEG_INF", "SPLIT_TOKENS"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -56,6 +59,7 @@ _MAX_SPLIT_PAGES = 32       # page ids one warp holds in its lanes
 
 launches = 0
 launches_quant = 0
+recorded = {"k3": 0, "k3_quant": 0}   # calls captured into CUDA graphs
 _workspaces = {}            # (device index, stream) -> (part, tickets)
 _plans = {}                 # call geometry -> _plan's answer
 
@@ -266,11 +270,23 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
         raise RuntimeError("paged decode kernel launch failed: CUDA error "
                            "%d (%s)" % (err, lib.paddle_cuda_error_string(
                                err).decode()))
-    if quant is None:
+    name = "k3" if quant is None else "k3_quant"
+    if torch.cuda.is_current_stream_capturing():
+        recorded[name] += 1       # a graph node: counted at each replay
+    elif quant is None:
         launches += 1
     else:
         launches_quant += 1
     return out
+
+
+def count_replays(per_replay, replays):
+    """Add the launches of ``replays`` replays of a CUDA graph that
+    recorded ``per_replay`` calls (``{"k3": n, "k3_quant": n}``, the
+    difference of :data:`recorded` across its capture)."""
+    global launches, launches_quant
+    launches += per_replay["k3"] * replays
+    launches_quant += per_replay["k3_quant"] * replays
 
 
 def _plan(lib, S, H, KVH, D, kv_bytes, quant, page, max_pages):

@@ -17,10 +17,11 @@ PyTorch idiom in place of JAX's: the engine's KV pools are updated IN
 PLACE (``index_put_``) where the reference used donated functional
 ``.at[].set`` updates, so a failure mid-step leaves the pools partly
 written — the engine is then marked dead and raises
-:class:`DeviceStateError` until :meth:`reset`. Randomness comes from an
-explicit ``torch.Generator`` on the engine's device (temperature
-sampling cannot match ``jax.random`` bit for bit; greedy decoding is
-deterministic in both).
+:class:`DeviceStateError` until :meth:`reset`. Temperature draws are a
+pure function of (seed, decode step, slot): a counter hash feeds a
+Gumbel-max draw (:func:`draw_tokens`), so a replayed CUDA graph draws
+what the step-at-a-time loop draws. That stream is not ``jax.random``'s;
+greedy decoding is deterministic in both.
 
 Quantized serving: int8/fp8 KV pages (``kv_quant_dtype``; the append
 and the prefill's dequantizing gather are plain PyTorch in
@@ -28,8 +29,8 @@ and the prefill's dequantizing gather are plain PyTorch in
 decoders (:func:`quantize_decoder_dir` → :func:`load_decoder`: ``{"qw",
 "scale"}`` leaves, dequantized before each matmul).
 
-Not ported yet: the dense ``DecodeEngine``, megastep decoding,
-speculative decoding, tenancy / SLO control / brownout / preemption.
+Not ported yet: the dense ``DecodeEngine``, speculative decoding,
+tenancy / SLO control / brownout / preemption.
 """
 
 import json
@@ -58,7 +59,7 @@ __all__ = [
     "TransformerDecoderModel", "DeviceStateError", "GenerationScheduler",
     "full_recompute_generate", "greedy_generate", "resolve_generation_knobs",
     "save_decoder", "load_decoder", "quantize_decoder_dir",
-    "params_to_device", "sample_tokens",
+    "params_to_device", "sample_tokens", "draw_tokens",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -76,16 +77,18 @@ class DeviceStateError(RuntimeError):
 def resolve_generation_knobs(max_slots=None, max_len=None,
                              prefill_buckets=None, *, page_size=None,
                              num_pages=None, kv_quant_dtype=None,
-                             kv_quant_group=None, paged=False):
+                             kv_quant_group=None, megastep_k=None,
+                             paged=False):
     """Resolve ``(max_slots, max_len, buckets)`` from explicit values or
     the ``FLAGS_generation_*`` defaults, validating each (errors name the
     flag). Buckets come back as a sorted tuple clipped to lengths that
     leave room for one generated token. With ``paged=True`` the return
     extends to ``(..., page_size, num_pages, kv_quant_dtype,
-    kv_quant_group)``; ``num_pages=0`` sizes the pool to the
+    kv_quant_group, megastep_k)``; ``num_pages=0`` sizes the pool to the
     dense-equivalent budget ``ceil(max_slots × max_len / page_size)``,
     DOUBLED when the pages are quantized (int8/fp8 pages cost half the
-    bf16 bytes); ``kv_quant_group=0`` resolves to one group per page."""
+    bf16 bytes); ``kv_quant_group=0`` resolves to one group per page;
+    ``megastep_k=0`` resolves to ``min(8, max_len - 1)``."""
     from .. import flags
 
     def _int(value, flag, lo):
@@ -151,8 +154,17 @@ def resolve_generation_knobs(max_slots=None, max_len=None,
             "FLAGS_kv_num_pages=%d cannot hold even one full sequence: "
             "FLAGS_generation_max_len=%d at FLAGS_kv_page_size=%d needs "
             "%d pages" % (num_pages, max_len, page_size, pages_per_seq))
+    megastep_k = _int(flags.generation_megastep_k if megastep_k is None
+                      else megastep_k, "generation_megastep_k", 0)
+    if megastep_k == 0:
+        megastep_k = min(8, max_len - 1)
+    if megastep_k >= max_len:
+        raise ValueError(
+            "FLAGS_generation_megastep_k=%d must be < FLAGS_generation_"
+            "max_len=%d (one megastep's tokens must fit a slot's cache "
+            "beside at least a one-token prompt)" % (megastep_k, max_len))
     return (max_slots, max_len, usable, page_size, num_pages,
-            kv_quant_dtype, kv_quant_group)
+            kv_quant_dtype, kv_quant_group, megastep_k)
 
 
 # ---------------------------------------------------------------------------
@@ -595,20 +607,63 @@ class _EngineBase:
                 % (type(e).__name__, e)) from e
 
 
-def sample_tokens(logits, temperatures, generator=None):
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """``x * c mod 2**32`` for ``x`` in [0, 2**32) (a Python int or an
+    int64 tensor) and a 32-bit constant ``c``, split at 16 bits so no
+    product leaves int64."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(h):
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32) whose
+    output bits each depend on every input bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def draw_tokens(logits, temperatures, seed, step, greedy=None):
+    """Temperature draws that are a pure function of ``(seed, step, slot,
+    token)``: a Gumbel-max draw from ``softmax(logits / t)`` whose
+    uniforms come from a counter hash, so step ``step`` of any schedule
+    (one step at a time, or trip ``step - step0`` of a megastep) draws
+    the same tokens, and a CUDA graph can replay it. ``temperatures`` is
+    a device tensor [S]; ``seed`` and ``step`` are ints or int64 device
+    tensors of one element. Slots at temperature <= 0 take ``greedy``
+    (argmax of the logits when not given)."""
+    S, V = logits.shape
+    dev = logits.device
+    if greedy is None:
+        greedy = torch.argmax(logits, dim=-1)
+    key = _mix32(_mix32(seed & _M32) ^ (step & _M32))
+    slot_key = _mix32(key ^ torch.arange(S, device=dev))       # [S]
+    token_key = _mix32((torch.arange(V, device=dev) + 0x9E3779B9) & _M32)
+    bits = _mix32(slot_key[:, None] ^ token_key[None, :]) >> 8  # 24 bits
+    u = (bits.float() + 0.5) * (1.0 / (1 << 24))               # (0, 1)
+    gumbel = -torch.log(-torch.log(u))
+    hot = temperatures > 0
+    safe_t = torch.where(hot, temperatures, torch.ones_like(temperatures))
+    sampled = torch.argmax(logits.float() / safe_t[:, None] + gumbel,
+                           dim=-1)
+    return torch.where(hot, sampled, greedy)
+
+
+def sample_tokens(logits, temperatures, seed=0, step=0):
     """Next tokens from ``logits`` [S, V] (on the device): argmax where
-    ``temperatures`` (host array [S]) is <= 0, else a draw from
-    ``softmax(logits / t)`` with ``generator``. Returns a device tensor."""
+    ``temperatures`` (host array [S]) is <= 0, else :func:`draw_tokens`'
+    draw for ``(seed, step)``. Draws nothing when no slot samples.
+    Returns a device tensor."""
     greedy = torch.argmax(logits, dim=-1)
     temps = np.asarray(temperatures, np.float32)
     if not (temps > 0).any():
         return greedy
-    t = torch.from_numpy(np.where(temps > 0, temps, 1.0).astype(
-        np.float32)).to(logits.device)
-    probs = torch.softmax(logits.float() / t[:, None], dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    hot = torch.from_numpy(temps > 0).to(logits.device)
-    return torch.where(hot, sampled, greedy)
+    return draw_tokens(logits, torch.from_numpy(temps).to(logits.device),
+                       int(seed), int(step), greedy)
 
 
 def greedy_generate(engine, prompts, max_new_tokens, *, eos_id=None):
@@ -768,8 +823,18 @@ class GenerationScheduler:
     between decode steps.
 
     Greedy requests (temperature 0) are deterministic and independent of
-    co-scheduling; sampled ones draw from the scheduler's
-    ``torch.Generator`` (seeded by ``seed``) on the engine's device.
+    co-scheduling; sampled ones draw under ``(seed, decode step, slot)``
+    (:func:`draw_tokens`), first tokens under steps -1, -2, ... in
+    admission order.
+
+    Megastep decoding (``engine.megastep_k`` > 1): each iteration
+    dispatches up to K decode trips at once
+    (:meth:`~.paged_kv.PagedDecodeEngine.megastep_dispatch`), K clamped
+    by the widest remaining budget and the tightest deadline's slack
+    (:meth:`_clamp_k`); when no admission work waits, megastep N+1 is
+    dispatched from N's device outputs before N is synced
+    (:meth:`_ms_can_chain`). Trip t draws as step ``step0 + t`` would,
+    so the streams are those of the step-at-a-time loop (K = 1).
     ``close()`` drains: no new admissions, every queued and in-flight
     sequence decodes to its natural finish, then the loop exits.
     """
@@ -786,8 +851,12 @@ class GenerationScheduler:
         self.device = engine.device
         self.eos_id = eos_id
         self.default_max_new_tokens = int(default_max_new_tokens)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(int(seed))
+        self._seed = int(seed)
+        self._first_draws = 0
+        self._megastep_k = int(getattr(engine, "megastep_k", 1))
+        self._ms_inflight = None     # a chained megastep not yet synced
+        self._last_result_t = None   # when the last decode result landed
+        self._step_ewma_s = None     # observed wall seconds per trip
         self._q = queue.Queue(maxsize=depth)
         self._held = None        # (req, since): page-pressure hold
         self._step_idx = 0
@@ -901,12 +970,14 @@ class GenerationScheduler:
 
     # -- loop thread ---------------------------------------------------
     def _sample_first(self, logits, temperature):
-        """First token from the prefill logits (host array [vocab])."""
+        """First token from the prefill logits (host array [vocab]); the
+        n-th sampled first token draws under step -n."""
         if temperature <= 0:
             return int(np.argmax(logits))
+        self._first_draws += 1
         t = torch.from_numpy(np.asarray(logits, np.float32))[None]
         return int(sample_tokens(t.to(self.device), [temperature],
-                                 self._generator)[0])
+                                 self._seed, -self._first_draws)[0])
 
     def _slo_summary(self, state, reason):
         """TTFT = submit → first token; TPOT = mean inter-token latency
@@ -1051,6 +1122,10 @@ class GenerationScheduler:
         state also resets the engine."""
         if slots:
             catalog.GENERATION_FAILED.inc(float(len(slots)))
+        # a chained megastep rode the state that just failed: drop its
+        # handle unsynced
+        self._ms_inflight = None
+        self._last_result_t = None
         for s, st in list(slots.items()):
             try:
                 self._account_done(st, "error", error=error)
@@ -1116,19 +1191,37 @@ class GenerationScheduler:
             snap = self.engine.admission_state()
         self._n_active = len(slots)
         if not slots:
+            if self._ms_inflight is not None:
+                # every rider of the chained megastep left: sync it and
+                # apply nothing (only=())
+                self.engine.megastep_sync(self._ms_inflight["handle"],
+                                          only=())
+                self._ms_inflight = None
+            # idle: the next decode's lead-in is queue wait, not host gap
+            self._last_result_t = None
             return state["saw_stop"] and self._held is None
         riders = [st.pending.trace.request_id for st in slots.values()
                   if st.pending.trace is not None]
-        temps = np.zeros(self.engine.max_slots, np.float32)
-        for s, st in slots.items():
-            temps[s] = st.temperature
         t0 = time.perf_counter()
+        # the decode host gap: from the last decode result landing to
+        # this dispatch (a chained megastep counted its zero gap when it
+        # was dispatched)
+        if self._ms_inflight is None and self._last_result_t is not None:
+            gap = max(0.0, t0 - self._last_result_t)
+            catalog.DECODE_HOST_GAP_SECONDS.inc(gap)
+            catalog.DECODE_HOST_GAP.observe(gap)
+        if self._megastep_k > 1 or self._ms_inflight is not None:
+            k = self._clamp_k(slots)
+            if k > 1 or self._ms_inflight is not None:
+                return self._megastep_iterate(slots, state, k, t0, riders)
+        # K = 1: one decode step across every active slot
         step_idx = self._step_idx
         self._step_idx += 1
-        toks = self.engine.decode_step(temperatures=temps,
-                                       generator=self._generator)
+        toks = self.engine.decode_step(temperatures=self._ms_temps(slots),
+                                       seed=self._seed, step=step_idx)
+        self._last_result_t = time.perf_counter()
         catalog.GENERATION_DECODE_STEP_MS.observe(
-            (time.perf_counter() - t0) * 1e3)
+            (self._last_result_t - t0) * 1e3)
         catalog.GENERATION_DECODE_STEPS.inc()
         catalog.GENERATION_SLOT_OCCUPANCY.observe(len(slots))
         catalog.GENERATION_TOKENS.inc(float(len(slots)))
@@ -1145,6 +1238,143 @@ class GenerationScheduler:
             elif len(st.generated) >= st.budget or \
                     self.engine.lengths[s] >= self.engine.max_len:
                 self._finish(s, st, "length", slots)
+        self._n_active = len(slots)
+        return False
+
+    # -- megastep decoding ------------------------------------------------
+    def _update_step_ewma(self, dt):
+        """Observed wall seconds per decode trip (EWMA): what
+        :meth:`_clamp_k` turns deadline slack into trips with."""
+        if self._step_ewma_s is None:
+            self._step_ewma_s = dt
+        else:
+            self._step_ewma_s = 0.8 * self._step_ewma_s + 0.2 * dt
+
+    def _clamp_k(self, slots):
+        """This cohort's megastep depth: ``megastep_k`` clamped by the
+        WIDEST remaining budget (frozen slots cost nothing, so the widest
+        rider sets the useful depth) and by each in-flight deadline's
+        slack in observed trip times, so eviction and admission run
+        before the tightest deadline can pass. The reference's third
+        term, K = 1 under SLO pressure, waits for the port's tenancy and
+        SLO control."""
+        k = min(self._megastep_k,
+                max(1, max((st.budget - len(st.generated)
+                            for st in slots.values()), default=1)))
+        ewma = self._step_ewma_s
+        if ewma and ewma > 0:
+            now = time.perf_counter()
+            for st in slots.values():
+                dl = st.pending.deadline
+                if dl is not None:
+                    k = min(k, max(1, int((dl - now) / ewma)))
+        return max(1, k)
+
+    def _ms_caps(self, slots):
+        """Per-slot emission caps for the device: min(remaining budget,
+        remaining page reservation)."""
+        caps = np.zeros(self.engine.max_slots, np.int64)
+        for s, st in slots.items():
+            caps[s] = max(1, min(
+                st.budget - len(st.generated),
+                int(self.engine._reserved[s]) -
+                int(self.engine.lengths[s])))
+        return caps
+
+    def _ms_temps(self, slots):
+        temps = np.zeros(self.engine.max_slots, np.float32)
+        for s, st in slots.items():
+            temps[s] = st.temperature
+        return temps
+
+    def _ms_can_chain(self, slots, state, riders):
+        """Whether megastep N+1 may be dispatched before N is synced: only
+        with no admission work pending (empty queue, nothing held, not
+        stopping), so a prefill never waits behind K more trips, and only
+        when every tracked slot rode N (``riders``, checked by identity):
+        a chained megastep inherits N's device live mask, so a slot
+        admitted after N would never decode in it."""
+        return (self._megastep_k > 1 and bool(slots) and
+                not state["saw_stop"] and self._held is None and
+                self._q.qsize() == 0 and
+                all(riders.get(s) is st for s, st in slots.items()))
+
+    def _megastep_iterate(self, slots, state, k, t0, riders_ids):
+        """One iteration at megastep granularity: take the in-flight
+        (chained) megastep or dispatch a fresh one; chain megastep N+1
+        from N's device outputs before syncing N when the gate allows;
+        then hand N's tokens to its riders, each token's time spread over
+        the megastep's wall time (TPOT)."""
+        eng = self.engine
+        eos = -1 if self.eos_id is None else int(self.eos_id)
+        info = self._ms_inflight
+        self._ms_inflight = None
+        if info is None:
+            handle = eng.megastep_dispatch(
+                self._seed, self._step_idx, k,
+                temperatures=self._ms_temps(slots),
+                caps=self._ms_caps(slots), eos_id=eos)
+            info = {"handle": handle, "t0": t0, "riders": dict(slots)}
+        handle = info["handle"]
+        k2 = self._clamp_k(slots)
+        if k2 > 1 and self._ms_can_chain(slots, state, info["riders"]):
+            # N+1 rides N's device tokens, lengths and live mask, and
+            # device arithmetic for its caps and step0: no host read
+            t_chain = time.perf_counter()
+            h2 = eng.megastep_dispatch(
+                self._seed, handle["step0"] + handle["trips"], k2,
+                temperatures=self._ms_temps(slots),
+                caps=handle["caps"] - handle["n_emitted"], eos_id=eos,
+                live=handle["live"], tokens=handle["tokens"],
+                lengths=handle["lengths"])
+            catalog.DECODE_HOST_GAP_SECONDS.inc(0.0)
+            catalog.DECODE_HOST_GAP.observe(0.0)
+            self._ms_inflight = {"handle": h2, "t0": t_chain,
+                                 "riders": dict(slots)}
+        # identity, not membership: a slot evicted and re-admitted while
+        # the megastep flew holds another request now
+        only = [s for s, st in info["riders"].items()
+                if slots.get(s) is st]
+        res = eng.megastep_sync(handle, only=only)
+        trips = int(res["trips"])
+        now = time.perf_counter()
+        self._last_result_t = now
+        dt = max(now - info["t0"], 0.0)
+        per_trip = dt / max(trips, 1)
+        self._update_step_ewma(per_trip)
+        step_idx = self._step_idx
+        self._step_idx += trips
+        catalog.GENERATION_MEGASTEPS.inc()
+        catalog.GENERATION_MEGASTEP_TRIPS.observe(float(trips))
+        catalog.GENERATION_DECODE_STEPS.inc(float(trips))
+        catalog.GENERATION_DECODE_STEP_MS.observe(per_trip * 1e3)
+        catalog.GENERATION_SLOT_OCCUPANCY.observe(len(slots))
+        tracing.span_from(info["t0"], "gen.megastep", ctx=None,
+                          step=step_idx, trips=trips,
+                          k=int(handle["k_eff"]), n_slots=len(slots),
+                          request_ids=riders_ids)
+        out = res["out"]  # [trips, max_slots]; -1 = frozen that trip
+        total = 0
+        for s in only:
+            st = slots.get(s)
+            if st is None:
+                continue
+            toks = [int(t) for t in out[:, s] if t >= 0]
+            if not toks:
+                continue
+            m = len(toks)
+            total += m
+            st.generated.extend(toks)
+            # a slot emits in trips 0 .. m-1, so its last token landed
+            # m/trips of the way through the megastep
+            st.t_last = info["t0"] + dt * m / max(trips, 1)
+            st.decode_steps += m
+            if self.eos_id is not None and toks[-1] == self.eos_id:
+                self._finish(s, st, "eos", slots)
+            elif len(st.generated) >= st.budget or \
+                    eng.lengths[s] >= eng.max_len:
+                self._finish(s, st, "length", slots)
+        catalog.GENERATION_TOKENS.inc(float(total))
         self._n_active = len(slots)
         return False
 

@@ -28,14 +28,28 @@ quantized pools) through ``ops.paged_attention.paged_decode_attention``.
 Pools and scales are updated in place (``index_put_``) where the
 reference donated them to XLA.
 
-Not ported yet: speculative verify, megastep decoding, KV export/adopt
-and the fleet prefix tier, preempt-to-held. (A quantized engine that
-adopts pages must refuse them without their scales, as the reference's
-``adopt_prefix`` does.)
+  megastep     — ``megastep_dispatch`` runs up to ``megastep_k`` decode
+                 trips per host dispatch, the reference's ``lax.while_loop``
+                 (``_megastep_impl``) as a CUDA graph: one trip over
+                 static tensors (token feedback, write coordinates,
+                 sampling, EOS/budget freezing, all on the device) is
+                 captured once per variant (greedy, or with temperature
+                 draws) and replayed ``k_eff`` times. A graph cannot stop
+                 on device data: the replays after every slot froze do
+                 masked work that writes only the scratch page, and
+                 ``trips`` counts the trips that began with a slot live,
+                 the reference's early-exit count. On the CPU the same
+                 trip runs eagerly ``k_eff`` times.
+
+Not ported yet: speculative verify, KV export/adopt and the fleet prefix
+tier, preempt-to-held. (A quantized engine that adopts pages must refuse
+them without their scales, as the reference's ``adopt_prefix`` does.)
 """
 
+import contextlib
 import hashlib
 import time
+import types
 from collections import OrderedDict
 
 import numpy as np
@@ -43,9 +57,10 @@ import torch
 
 from .. import resolve_device
 from ..observability import catalog, tracing
+from ..ops import paged_attention
 from ..ops.kv_quant import KVQuantConfig
 from .batcher import OverloadedError
-from .generation import (_EngineBase, params_to_device,
+from .generation import (_EngineBase, draw_tokens, params_to_device,
                          resolve_generation_knobs, sample_tokens)
 
 __all__ = ["PagePool", "PagedDecodeEngine", "PoolExhaustedError",
@@ -200,31 +215,38 @@ class PagedDecodeEngine(_EngineBase):
     - ``prefill(slot, prompt, max_new_tokens=...)`` reserves the
       request's worst case ``ceil((prompt + budget) / page_size)`` pages
       and maps any cached shared prefix instead of recomputing it;
-    - ``decode_step(temperatures, generator)`` advances every active slot
-      by one token (K/V appended in place, attention through K3);
+    - ``decode_step(temperatures, seed, step)`` advances every active
+      slot by one token (K/V appended in place, attention through K3);
+    - ``megastep_dispatch`` / ``megastep_sync`` / ``megastep_decode`` —
+      up to ``megastep_k`` such steps per dispatch, replayed from a
+      captured CUDA graph on the card;
     - ``can_admit`` / ``admission_state`` / ``fits_ever`` — free-page
       admission accounting for the scheduler.
 
     ``kv_quant_dtype`` (``off|int8|fp8``, default
     ``FLAGS_kv_quant_dtype``) and ``kv_quant_group`` (tokens per scale
     group, 0 = the page) select quantized pages; ``num_pages=0`` then
-    sizes the pool to twice the dense-equivalent budget.
+    sizes the pool to twice the dense-equivalent budget. ``megastep_k``
+    (default ``FLAGS_generation_megastep_k``; 0 = auto) bounds the trips
+    of one megastep.
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``"cpu"`` to run on the CPU. NOT thread-safe: one thread owns it."""
 
     def __init__(self, model, params, *, max_slots=None, max_len=None,
                  prefill_buckets=None, page_size=None, num_pages=None,
-                 kv_quant_dtype=None, kv_quant_group=None, device=None):
+                 kv_quant_dtype=None, kv_quant_group=None, megastep_k=None,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model
         self.params = params_to_device(params, self.device)
         (self.max_slots, self.max_len, self.prefill_buckets,
          self.page_size, self.num_pages, self.kv_quant_dtype,
-         self.kv_quant_group) = resolve_generation_knobs(
+         self.kv_quant_group, self.megastep_k) = resolve_generation_knobs(
             max_slots, max_len, prefill_buckets, page_size=page_size,
             num_pages=num_pages, kv_quant_dtype=kv_quant_dtype,
-            kv_quant_group=kv_quant_group, paged=True)
+            kv_quant_group=kv_quant_group, megastep_k=megastep_k,
+            paged=True)
         self.kv_quant = None if self.kv_quant_dtype == "off" else \
             KVQuantConfig(self.kv_quant_dtype, self.page_size,
                           self.kv_quant_group)
@@ -247,12 +269,27 @@ class PagedDecodeEngine(_EngineBase):
         self.pool = PagePool(self.num_pages)
         self.prefix_cache = PrefixCache(self.pool, self.page_size)
         self.last_prefill_stats = {}
+        # what the decode path ran: eager decode steps, megasteps, their
+        # trips (replays of a captured trip on the card, eager trips on
+        # the CPU), warm-up trips, captures by variant
+        self.trip_stats = {"decode_steps": 0, "megasteps": 0,
+                           "trips_dispatched": 0, "replays": 0,
+                           "eager_trips": 0, "warmups": 0,
+                           "captures_greedy": 0, "captures_sampling": 0}
+        self._ms = None
         self.reset()
 
     def reset(self):
         """(Re)allocate zeroed pools and clear the allocator, the prefix
         cache and every slot's host bookkeeping — required after
-        :class:`DeviceStateError`, harmless otherwise."""
+        :class:`DeviceStateError`, harmless otherwise. Captured megastep
+        graphs hold the old pools' addresses: they are dropped, after
+        the device finished what was queued."""
+        if self._ms is not None and self.device.type == "cuda":
+            with contextlib.suppress(Exception):  # a faulted device
+                torch.cuda.synchronize(self.device)
+        self._ms = None
+
         def zeros(shape, dtype):
             return [torch.zeros(shape, dtype=dtype, device=self.device)
                     for _ in range(self.model.n_layers)]
@@ -484,11 +521,11 @@ class PagedDecodeEngine(_EngineBase):
         return pids.astype(np.int64), offs.astype(np.int64)
 
     @torch.no_grad()
-    def decode_step(self, temperatures=None, generator=None):
+    def decode_step(self, temperatures=None, seed=0, step=0):
         """Advance every active slot by one token: greedy where the
-        slot's temperature is <= 0, else sampled with ``generator`` (a
-        ``torch.Generator`` on the engine's device). Returns the tokens
-        (np.int32 [max_slots]; inactive slots' entries are garbage)."""
+        slot's temperature is <= 0, else drawn under ``(seed, step)``
+        (:func:`~.generation.draw_tokens`). Returns the tokens (np.int32
+        [max_slots]; inactive slots' entries are garbage)."""
         if not self.active.any():
             raise RuntimeError("decode_step with no active slots")
         if (self.lengths[self.active] >= self._reserved[self.active]).any():
@@ -499,20 +536,234 @@ class PagedDecodeEngine(_EngineBase):
             if temperatures is None else np.asarray(temperatures, np.float32)
         wpids, woffs = self._step_write_coords(self.lengths)
 
-        def step():
+        def run():
             logits = self.model.paged_decode_logits(
                 self.params, self._tensor(self._in_tokens),
                 self._tensor(self.lengths), self._tensor(self.active),
                 self._tensor(wpids), self._tensor(woffs),
                 self._tensor(self._page_table), self._kp, self._vp,
                 k_scales=self._ks, v_scales=self._vs, kv_quant=self.kv_quant)
-            return sample_tokens(logits, temps, generator).cpu().numpy()
+            return sample_tokens(logits, temps, seed, step).cpu().numpy()
 
-        toks = self._guarded(step).astype(np.int32)
+        toks = self._guarded(run).astype(np.int32)
+        self.trip_stats["decode_steps"] += 1
         self.lengths[self.active] += 1
         self._in_tokens = np.where(self.active, toks,
                                    self._in_tokens).astype(np.int32)
         return toks
+
+    # -- megastep decoding -------------------------------------------
+    def _ms_trip(self, sample):
+        """One decode trip over the megastep's static tensors, in place:
+        the counterpart of one ``_megastep_impl`` trip of the reference.
+        Frozen slots (and positions at or over the reservation) write the
+        scratch page; trip ``t`` draws under ``(seed, step0 + t)``."""
+        m = self._ms
+        v = m.v
+        live = v.live.bool()
+        pos = v.lengths
+        valid = live & (pos < v.reserved)
+        pidx = torch.clamp(pos // self.page_size,
+                           max=self.pages_per_slot - 1)
+        row = m.table.gather(1, pidx[:, None])[:, 0].long()
+        wpids = torch.where(valid, row, self.scratch_page)
+        woffs = torch.where(valid, pos % self.page_size, 0)
+        logits = self.model.paged_decode_logits(
+            self.params, v.tokens, pos, live, wpids, woffs, m.table,
+            self._kp, self._vp, k_scales=self._ks, v_scales=self._vs,
+            kv_quant=self.kv_quant)
+        toks = torch.argmax(logits, dim=-1)
+        if sample:
+            toks = draw_tokens(logits, m.temps, v.seed, v.step0 + v.t, toks)
+        toks = torch.where(live, toks, v.tokens)
+        v.out.index_copy_(0, v.t, torch.where(live, toks, -1)[None])
+        v.emitted += v.live
+        v.lengths += v.live
+        done = live & (((v.eos >= 0) & (toks == v.eos)) |
+                       (v.emitted >= v.caps))
+        v.trips += live.any()
+        v.live.copy_(live & ~done)
+        v.tokens.copy_(toks)
+        v.t += 1
+
+    def _ms_graph(self, sample):
+        """The captured trip of one variant (greedy, or with temperature
+        draws), made on first use on the megastep's side stream: a
+        warm-up trip with every slot frozen (it writes only the scratch
+        page and builds K3's plan and workspace and cuBLAS's state for
+        this stream), then the capture of one trip on the same stream.
+        Returns ``(graph, K3 calls it recorded, K3's workspace)``; the
+        workspace is kept alive with the graph, which holds its
+        address."""
+        m = self._ms
+        if sample in m.graphs:
+            return m.graphs[sample]
+        m.v.live.zero_()
+        m.v.t.zero_()
+        self._ms_trip(sample)
+        self.trip_stats["warmups"] += 1
+        before = dict(paged_attention.recorded)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the CUDA calls of the server's other threads do
+        # not invalidate this thread's capture
+        with torch.cuda.graph(graph, stream=m.stream,
+                              capture_error_mode="thread_local"):
+            self._ms_trip(sample)
+        per = {n: paged_attention.recorded[n] - before[n] for n in before}
+        ws = paged_attention._workspaces.get((self.device.index,
+                                              m.stream.cuda_stream))
+        m.graphs[sample] = (graph, per, ws)
+        self.trip_stats["captures_sampling" if sample
+                        else "captures_greedy"] += 1
+        return m.graphs[sample]
+
+    def _ms_load(self, m, args, temps):
+        """Write one dispatch's arguments into the static tensors, in
+        stream order (a megastep already queued still reads its own):
+        the host values in one copy, then the device values of a chained
+        dispatch over them; the temperatures and the page table."""
+        host = np.zeros(m.state.numel(), np.int64)
+        hv = _ms_views(host, self.megastep_k, self.max_slots)
+        hv.out[:] = -1
+        hv.reserved[:] = self._reserved
+        on_device = {}
+        for name, val in args.items():
+            if torch.is_tensor(val):
+                on_device[name] = val
+            else:
+                getattr(hv, name)[:] = val
+        _stream_copy(m.state, host)
+        for name, val in on_device.items():
+            getattr(m.v, name).copy_(val.reshape(-1))
+        _stream_copy(m.temps, temps)
+        _stream_copy(m.table, self._page_table)
+
+    @torch.no_grad()
+    def _ms_run(self, k_eff, sample, args, temps):
+        if self._ms is None:
+            self._ms = _MegastepState(self)
+        m = self._ms
+        cuda = self.device.type == "cuda"
+        if cuda:
+            m.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(m.stream) if cuda else \
+                contextlib.nullcontext():
+            graph = self._ms_graph(sample) if cuda else None
+            self._ms_load(m, args, temps)
+            for _ in range(k_eff):
+                if cuda:
+                    graph[0].replay()
+                else:
+                    self._ms_trip(sample)
+            snap = m.state.clone()
+            done = None
+            if cuda:
+                host = torch.empty(snap.shape, dtype=snap.dtype,
+                                   pin_memory=True)
+                host.copy_(snap, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(m.stream)
+            else:
+                host = snap
+        st = self.trip_stats
+        st["megasteps"] += 1
+        st["trips_dispatched"] += k_eff
+        if cuda:
+            # later work on the caller's stream (a prefill, a decode
+            # step) runs after this megastep, as in the reference's one
+            # device queue
+            torch.cuda.current_stream(self.device).wait_stream(m.stream)
+            paged_attention.count_replays(graph[1], k_eff)
+            st["replays"] += k_eff
+        else:
+            st["eager_trips"] += k_eff
+        v = _ms_views(snap, self.megastep_k, self.max_slots)
+        return {"out": v.out, "n_emitted": v.emitted, "lengths": v.lengths,
+                "live": v.live, "tokens": v.tokens, "trips": v.trips,
+                "caps": v.caps, "step0": v.step0, "k_eff": k_eff,
+                "_host": host, "_done": done}
+
+    def megastep_dispatch(self, seed, step0, k_eff, temperatures=None,
+                          caps=None, eos_id=None, live=None, tokens=None,
+                          lengths=None):
+        """Queue one megastep — ``k_eff`` (in [1, megastep_k]) decode
+        trips — and return a handle of device tensors without waiting for
+        the device; host bookkeeping waits for :meth:`megastep_sync`.
+
+        ``seed``/``step0`` pin the sampling stream: trip t draws as
+        ``decode_step(seed=seed, step=step0 + t)`` does, so a megastep
+        emits the step-at-a-time tokens. ``caps`` [max_slots] bounds the
+        tokens each slot emits (default: its remaining reservation); a
+        slot freezes on the device once it emits ``caps`` tokens or
+        ``eos_id``.
+
+        Chained dispatch: pass a previous handle's ``tokens``,
+        ``lengths`` and ``live`` (and ``caps - n_emitted``, ``step0 +
+        trips``, as device tensors) to queue megastep N+1 before syncing
+        N; nothing is read back to the host. The temperatures, the
+        reservations and the page table come from the host at every
+        dispatch (a released slot's row is the scratch page)."""
+        self._check_live()
+        k_eff = int(k_eff)
+        if not 1 <= k_eff <= self.megastep_k:
+            raise ValueError(
+                "k_eff=%d must be in [1, megastep_k=%d] (the captured trip "
+                "writes a megastep_k-row token buffer)"
+                % (k_eff, self.megastep_k))
+        if tokens is None:
+            live = self.active.copy() if live is None else \
+                np.asarray(live, bool)
+            if not live.any():
+                raise RuntimeError("megastep_dispatch with no live slots")
+            if (self.lengths[live] >= self._reserved[live]).any():
+                raise RuntimeError(
+                    "a live slot is at its reserved page budget — evict "
+                    "it first")
+            tokens, lengths = self._in_tokens, self.lengths
+        if caps is None:
+            caps = np.maximum(self._reserved - self.lengths, 0)
+        temps = np.zeros(self.max_slots, np.float32) \
+            if temperatures is None else np.asarray(temperatures,
+                                                    np.float32)
+        args = {"tokens": tokens, "lengths": lengths, "live": live,
+                "caps": caps, "step0": step0, "seed": int(seed) & 0xFFFFFFFF,
+                "eos": -1 if eos_id is None else int(eos_id)}
+        return self._guarded(self._ms_run, k_eff, bool((temps > 0).any()),
+                             args, temps)
+
+    def megastep_sync(self, handle, only=None):
+        """Wait for a dispatched megastep and apply its host bookkeeping.
+        ``only`` (slot indices) limits which slots' lengths and pending
+        tokens are applied: the caller passes the slots it still tracks,
+        so a slot released (and perhaps re-admitted) while the megastep
+        flew keeps its new state. Returns ``{"out": [trips, S] np.int32
+        (-1 = frozen), "n_emitted": [S], "live": [S] bool, "trips":
+        int}``."""
+        def read(h):
+            if h["_done"] is not None:
+                h["_done"].synchronize()
+            return h["_host"].numpy()
+        v = _ms_views(self._guarded(read, handle), self.megastep_k,
+                      self.max_slots)
+        trips = int(v.trips[0])
+        moved = v.emitted > 0
+        if only is not None:
+            mask = np.zeros(self.max_slots, bool)
+            mask[[int(s) for s in only]] = True
+            moved &= mask
+        self.lengths[moved] = v.lengths[moved]
+        self._in_tokens[moved] = v.tokens[moved]
+        return {"out": v.out[:trips].astype(np.int32),
+                "n_emitted": v.emitted.astype(np.int32),
+                "live": v.live.astype(bool), "trips": trips}
+
+    def megastep_decode(self, seed, step0, k_eff=None, temperatures=None,
+                        caps=None, eos_id=None):
+        """Dispatch and sync in one call (the scheduler uses the halves
+        to keep one megastep in flight while it syncs the previous)."""
+        return self.megastep_sync(self.megastep_dispatch(
+            seed, step0, self.megastep_k if k_eff is None else k_eff,
+            temperatures=temperatures, caps=caps, eos_id=eos_id))
 
     def release(self, slot):
         """Evict a finished sequence: drop the slot's page references
@@ -525,3 +776,53 @@ class PagedDecodeEngine(_EngineBase):
         self.lengths[slot] = 0
         self._reserved[slot] = 0
         self._in_tokens[slot] = 0
+
+
+_MS_ROWS = ("tokens", "lengths", "live", "emitted", "caps", "reserved")
+_MS_SCALARS = ("t", "trips", "step0", "eos", "seed")
+
+
+def _ms_views(buf, K, S):
+    """Named views of a megastep state vector (an int64 tensor or numpy
+    array): ``out`` [K, S], the [S] rows, then the one-element scalars."""
+    views = {"out": buf[:K * S].reshape(K, S)}
+    at = K * S
+    for name in _MS_ROWS:
+        views[name] = buf[at:at + S]
+        at += S
+    for name in _MS_SCALARS:
+        views[name] = buf[at:at + 1]
+        at += 1
+    return types.SimpleNamespace(**views)
+
+
+def _stream_copy(dst, arr):
+    """``dst.copy_(arr)`` for a host array; onto the card from pinned
+    memory without blocking the host, so the copy takes its place in the
+    current stream's order."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if dst.is_cuda:
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+class _MegastepState:
+    """What a captured decode trip reads and writes: one int64 state
+    vector (the [megastep_k, S] token buffer, each slot's pending token,
+    length, live flag, emitted count, cap and reservation, and the trip
+    index, trip count, step0, EOS id and seed), the temperatures and the
+    page table; the side stream the trips run on, and the captured
+    graphs by variant."""
+
+    def __init__(self, engine):
+        K, S, dev = engine.megastep_k, engine.max_slots, engine.device
+        n = K * S + len(_MS_ROWS) * S + len(_MS_SCALARS)
+        self.state = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.v = _ms_views(self.state, K, S)
+        self.temps = torch.zeros(S, dtype=torch.float32, device=dev)
+        self.table = torch.zeros(engine._page_table.shape,
+                                 dtype=torch.int32, device=dev)
+        self.stream = torch.cuda.Stream(device=dev) \
+            if dev.type == "cuda" else None
+        self.graphs = {}

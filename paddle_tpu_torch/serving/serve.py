@@ -6,18 +6,22 @@
         [--gen-max-slots 32] [--gen-max-len 1024] \
         [--gen-prefill-buckets 64,128,256,512] [--gen-page-size 16] \
         [--gen-num-pages 0] [--gen-eos-id ID] [--queue-depth N] \
-        [--kv-quant-dtype off|int8|fp8] [--kv-quant-group N]
+        [--kv-quant-dtype off|int8|fp8] [--kv-quant-group N] \
+        [--gen-megastep-k K]
 
 ``DIR`` is a ``save_decoder`` directory, or a weight-quantized one from
 ``quantize_decoder_dir`` (either package writes the same forms). With
 ``--kv-quant-dtype int8|fp8`` the KV pages are quantized (decode
 attention through K3-quant) and the auto-sized pool holds twice the
-pages. Knobs left unset come from ``paddle_tpu_torch.flags``. Endpoints:
-POST /v1/generate, GET /healthz (its ``serving`` stanza names
-``kv_quant`` and ``weight_quant``), GET /metrics. SIGINT/SIGTERM drain
-gracefully: /healthz flips to 503, queued and in-flight generations
-complete, then the listener stops. The device defaults to ``cuda`` and
-the server refuses to start without a GPU unless ``--device cpu``.
+pages. With ``--gen-megastep-k K`` (K > 1, or 0 for auto) the scheduler
+decodes up to K tokens per dispatch, each trip a replay of a captured
+CUDA graph. Knobs left unset come from ``paddle_tpu_torch.flags``.
+Endpoints: POST /v1/generate, GET /healthz (its ``serving`` stanza names
+``kv_quant``, ``weight_quant`` and ``megastep_k``), GET /metrics.
+SIGINT/SIGTERM drain gracefully: /healthz flips to 503, queued and
+in-flight generations complete, then the listener stops. The device
+defaults to ``cuda`` and the server refuses to start without a GPU
+unless ``--device cpu``.
 """
 
 import argparse
@@ -56,6 +60,10 @@ def main(argv=None):
                     help="tokens per quant scale group within a page (0 = "
                          "whole page; must divide the page size; default "
                          "FLAGS_kv_quant_group)")
+    ap.add_argument("--gen-megastep-k", type=int, default=None,
+                    help="decode trips per dispatch, replayed from one "
+                         "captured trip; 1 = step at a time, 0 = auto "
+                         "(default FLAGS_generation_megastep_k)")
     ap.add_argument("--gen-eos-id", type=int, default=None,
                     help="token id that finishes a generation")
     ap.add_argument("--gen-max-new-tokens", type=int, default=64,
@@ -75,7 +83,8 @@ def main(argv=None):
         max_len=args.gen_max_len, prefill_buckets=args.gen_prefill_buckets,
         page_size=args.gen_page_size, num_pages=args.gen_num_pages,
         kv_quant_dtype=args.kv_quant_dtype,
-        kv_quant_group=args.kv_quant_group, device=args.device)
+        kv_quant_group=args.kv_quant_group,
+        megastep_k=args.gen_megastep_k, device=args.device)
     generator = GenerationScheduler(
         engine, eos_id=args.gen_eos_id, queue_depth=args.queue_depth,
         default_max_new_tokens=args.gen_max_new_tokens)
@@ -85,7 +94,8 @@ def main(argv=None):
     server.version_info = {
         "generation_model": args.generation_model, "paged": True,
         "kv_quant": engine.kv_quant_dtype,
-        "weight_quant": model.weight_quant or "off"}
+        "weight_quant": model.weight_quant or "off",
+        "megastep_k": engine.megastep_k}
 
     def _drain(signum, frame):
         print("serve: draining...", file=sys.stderr)
@@ -103,11 +113,13 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, _drain)
     host, port = server.server_address[:2]
     print("serve: http://%s:%d  generate: %s device=%s slots=%d max_len=%d "
-          "buckets=%s paged(page=%d pages=%d kv_quant=%s) weight_quant=%s"
+          "buckets=%s paged(page=%d pages=%d kv_quant=%s) weight_quant=%s "
+          "megastep_k=%d"
           % (host, port, args.generation_model, engine.device,
              engine.max_slots, engine.max_len, list(engine.prefill_buckets),
              engine.page_size, engine.num_pages, engine.kv_quant_dtype,
-             model.weight_quant or "off"), file=sys.stderr)
+             model.weight_quant or "off", engine.megastep_k),
+          file=sys.stderr)
     try:
         server.serve_forever()
     finally:

@@ -610,6 +610,88 @@ def test_serving_phase_with_quantized_runs_rehearses_on_the_cpu(
     assert "fp8 engine's decode step" in out
 
 
+def test_megastep_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
+                                            monkeypatch, capsys):
+    """Phase 12 at a tiny size after phase 4: every megastep trip runs
+    eagerly on the CPU, with the card's gates and launch arithmetic
+    (layers x (eager steps + trips + warm-up trips))."""
+    monkeypatch.setattr(cs, "MEGASTEP_K", 4)
+    monkeypatch.setattr(cs, "MS_GATE_KS", (4, 4, 3))
+    monkeypatch.setattr(cs, "MS_PROFILE_MEGASTEPS", 1)
+    phase4 = cs.main_path(str(tmp_path))
+    res = cs.megastep_path(phase4)
+    labels = {"fp32", "bf16", "int8", "fp8"}
+    assert set(res["runs"]) == set(res["gates"]) == set(res["profiles"]) \
+        == labels
+    n = cs.N_CLIENTS * cs.PER_CLIENT
+    launches = {"k3": 0, "k3_quant": 0}
+    for label, st in res["runs"].items():
+        trip = st["trip_stats"]
+        assert trip["replays"] == trip["warmups"] == 0
+        assert trip["eager_trips"] == trip["trips_dispatched"] > 0
+        assert st["megasteps"] == sum(st["trips_histogram"].values()) > 0
+        assert all(1 <= int(t) <= 4 for t in st["trips_histogram"])
+        path, other = ("k3_launches", "k3_quant_launches")[::(
+            1 if label in ("fp32", "bf16") else -1)]
+        assert st[path] == cs.launch_want(trip, cs.LAYERS) > 0
+        assert st[other] == 0
+        launches[path[:-len("_launches")]] += st[path]
+        assert st["streams_equal_k1"] == n
+        assert st["host_gap_ms_per_token"] >= 0 and st["tpot_ms_p50"] > 0
+        gate = res["gates"][label]
+        for cohort in ("greedy", "sampling"):
+            c = gate["cohorts"][cohort]
+            assert c["identical"] == c["of"] == cs.SLOTS
+            assert c["trips"] == [4, 4, 3] and c["host_state_equal"]
+        assert gate["trip_stats"]["eager_trips"] == 22
+        prof = res["profiles"][label]
+        assert prof["trip_wall_ms"] > 0 and prof["megastep_k"] == 4
+    assert res["runs"]["fp32"]["streams_equal_recompute"] == n
+    assert res["launches"] == launches
+    assert "k1_step_wall_ms" in res["profiles"]["int8"]
+    out = capsys.readouterr().out
+    for text in ("megastep engine gate", "vs K=1 (phase 4)", "megastep at",
+                 "fp8 megastep serving"):
+        assert text in out
+
+
+def test_trip_gate_and_the_launch_arithmetic(monkeypatch):
+    """On the card: one capture and one warm-up trip per variant used,
+    every dispatched trip a replay; K3 owes a launch a layer for every
+    eager step, trip and warm-up trip; the profile's K3 instances."""
+    trip = {"decode_steps": 3, "megasteps": 4, "trips_dispatched": 20,
+            "replays": 20, "eager_trips": 0, "warmups": 1,
+            "captures_greedy": 1, "captures_sampling": 0}
+    monkeypatch.setattr(cs, "DEVICE", "cuda")
+    cs.trip_gate("served", trip, {"greedy"})
+    cs.trip_gate("gate", dict(trip, captures_sampling=1, warmups=2),
+                 {"greedy", "sampling"})
+    assert cs.launch_want(trip, 12) == 12 * (3 + 20 + 1)
+    for bad in ({"captures_greedy": 2, "warmups": 2}, {"replays": 19},
+                {"eager_trips": 20, "replays": 0}, {"warmups": 0},
+                {"captures_sampling": 1, "warmups": 2},
+                {"trips_dispatched": 0, "replays": 0}):
+        with pytest.raises(AssertionError):
+            cs.trip_gate("served", dict(trip, **bad), {"greedy"})
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    cs.trip_gate("served", dict(trip, replays=0, eager_trips=20, warmups=0,
+                                captures_greedy=0), {"greedy"})
+    with pytest.raises(AssertionError):
+        cs.trip_gate("served", trip, {"greedy"})
+    for key, want in (
+            ("void paged_decode_kernel<float, float, 8>(Params)", "k3"),
+            ("void paged_decode_kernel<__nv_bfloat16, __nv_bfloat16, 4>"
+             "(Params)", "k3"),
+            ("void paged_decode_kernel<__nv_bfloat16, signed char, 4>"
+             "(Params)", "k3_quant"),
+            ("void paged_decode_kernel<__nv_bfloat16, __nv_fp8_e4m3, 4>"
+             "(Params)", "k3_quant")):
+        assert cs.k3_instance(key) == want
+    temps = cs.ms_temperatures(6)
+    assert temps.tolist() == [0.0, np.float32(0.9), 0.0, np.float32(0.7),
+                              0.0, np.float32(0.9)]
+
+
 def test_smoke_exits_nonzero_without_a_gpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cs.main([]) != 0
