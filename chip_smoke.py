@@ -2,6 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (``paddle_tpu_torch``).
 
     python3 chip_smoke.py [--out REPORT.json] [--kernels-only]
+    python3 chip_smoke.py --resume-child CHECKPOINT_DIR OUT_NPZ [...]
 
 Run from the root of a checkout on a machine with one NVIDIA GPU (built
 for the H100: the kernels compile for sm_90a). Phases, each of which
@@ -146,7 +147,7 @@ raises on failure (the script then exits non-zero and prints no result):
    1024] bool, row b sees keys j <= i or j < p_b, p_b in [128, 896];
    not causal). First fp32 gates (2 layers, full width): program 2 (bhsd)
    and program 3 (bshd) each card against CPU, and their first-step
-   losses within 1e-5 of each other. Then 5 steps of each at full size:
+   losses within 1e-5 of each other. Then 3 steps of each at full size:
    loss finite and falling; program 2 launches K6-fwd-dense steps x 12,
    program 3 K1-dense steps x 12, and no other flash kernel (the
    backward recomputes through the plain composition); each program's
@@ -205,8 +206,42 @@ raises on failure (the script then exits non-zero and prints no result):
    trip, idle share and the K3 instance the profile names (it must be
    the pool's), beside phase 4's decode-step profile.
 
+13. LM training as ``bench_lm.py`` runs it, through the captured step
+   (run after phase 10; phases 8-10 end in its captured rounds).
+   First the equivalence gates (fp32, TF32 off, deterministic
+   algorithms, the 2-layer LM at full width, batch 2, seq 512, one
+   state): 4 ``run()`` calls, then ``run_steps(4)`` twice, bitwise 12
+   ``run()`` calls in every persistable and both losses, 1 capture and 7
+   replays, K1/K2-dQ/K2-dKV launched 12 x 2 each counted through the
+   replays; the same on packed rows with K5 x3 and no K1/K2. Then random
+   ops under capture (``build_dropout``: dropout 0.5 and Adam):
+   ``run_steps(8)`` bitwise 8 ``run()`` calls, two further rounds draw
+   different masks, each keeping a share within 4 sigma of 0.5. Then
+   ``bench_lm.py``'s rounds at full size through
+   ``paddle_tpu_torch.benchmarks.lm`` (``main()``, then ``packed_main()``
+   with its padded baseline; 60-step rounds, one warm, 3 timed; the JSON
+   line printed): the loss finite and falling from the first round to
+   the last, ``compile_cache_misses`` = the (program, feed) pairs, the
+   path's flash kernels launched steps x 12, one capture a program;
+   printed beside phase 6's and 7's eager p50: the captured step's ms,
+   the busy ms and idle share of a profiled replay, ``device_wait_s``,
+   MFU and peak memory. Then preemption and resume (``resume_gate``):
+   child processes (``--resume-child``) train the 2-layer LM under
+   ``robustness.train_loop`` with a checkpoint every 10-step round; one
+   SIGTERMs itself after round 2 and must exit 42 leaving a valid serial
+   of step 2 and step counter 21; its relaunch must resume there and end
+   bitwise an uninterrupted child. Phases 8, 9 and 10 each end in their
+   program's 20-step captured rounds (``captured_rounds``: a warm round
+   and 2 timed; K4 steps x 1 and K5 x3 steps x 12, K6 x3, K6-fwd-dense,
+   K1-dense steps x 12, counted through the replays; one capture), timed
+   beside their eager p50 with a profiled replay's busy ms and idle
+   share. The kernels line counts these launches too.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``--resume-child CHECKPOINT_DIR OUT_NPZ [--device cpu] [--preempt-after
+K] [--layers ...]`` runs one child of the preemption gate by hand.
 
 ``--ab PARENT`` compares the flash kernels' and K3's times with another
 checkout (unpack ``git archive <parent>`` there): in turns parent, this
@@ -359,7 +394,7 @@ BASE_STEPS = 4
 ADAM_MAX_ULPS = 2              # kernel vs plain: the reference's contract
 K4_SIZES = (1, 1023, 71153920)
 K4_ODD_SIZES = (5, 10001, 333333)   # offsets off the 16-byte grain
-ALTERNATE_ROUNDS = 5           # Adam / FusedAdam steps taken in turns
+ALTERNATE_ROUNDS = 3           # Adam / FusedAdam steps taken in turns
 
 # the per-head and dense-mask slice: the K6 / K1-dense check grid (b = 3
 # rows, as FLASH_GEOMS: full, padded tail, fully padded under a factored
@@ -370,7 +405,7 @@ BHSD_GEOMS = [(3, s, 8, hkv, d) for s in (256, 1000, 1024) for d in (64, 128)
               for hkv in (8, 2)] + [(3, 300, 8, 2, 32), WIDE_GROUP]
 BHSD_MASKS = ("none", "factored", (1, 1), ("b", 1), (1, "h"), ("b", "h"))
 K1_DENSE_MASKS = ((1, 1), ("b", 1))
-DENSE_STEPS = 5
+DENSE_STEPS = 3
 # the flash bodies (``flash_bodies``) that the profiles of phase 6 (K1,
 # K2), phase 7 (K5), phase 9 (K6) and phase 10's two programs (by layout)
 # must show at the step's bf16 head_dim 64: the tensor-core bodies
@@ -2630,6 +2665,10 @@ def fused_adam_path(data, packed_scope, packed_res):
         for tag, (tprog, _, tloss) in (("adam", adam), ("fused", fused)):
             with fluid.scope_guard(scopes[tag]):
                 turns[tag] += _train_steps(exe, tprog, feed, tloss, 1)[1]
+    with fluid.scope_guard(scopes["fused"]):
+        captured = captured_rounds(
+            "FusedAdam packed program", exe, prog, feed, loss,
+            dict({n: LM_LAYERS for n in K5}, fused_adam=1), _p50(step_ms))
     del scopes
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError("FusedAdam loss not finite and falling: %s"
@@ -2650,11 +2689,12 @@ def fused_adam_path(data, packed_scope, packed_res):
            "fused_adam_op_host_ms": prof["ops"]["fused_adam"]["host_ms"],
            "fused_adam_op_device_ms": prof["ops"]["fused_adam"]["device_ms"],
            "device_busy_ms": prof["device_busy_ms"],
-           "ops_host_ms": prof["ops_host_ms"],
+           "ops_host_ms": prof["ops_host_ms"], "captured": captured,
            "param_shapes": [list(p.shape) for p in
                             fused[0].global_block().all_parameters()]}
     log("FusedAdam packed training: %s" % json.dumps(
-        {k: v for k, v in res.items() if k != "param_shapes"}))
+        {k: v for k, v in res.items()
+         if k not in ("param_shapes", "captured")}))
     return res
 
 
@@ -2881,7 +2921,12 @@ def bhsd_path():
                               ("bshd", bscope, (bprog, feed, bloss))):
             with fluid.scope_guard(sc):
                 turns[tag] += _train_steps(exe, *args, 1)[1]
-    del scope, bscope
+    del bscope
+    with fluid.scope_guard(scope):
+        res["captured"] = captured_rounds(
+            "bhsd program", exe, prog, feed, loss,
+            {n: LM_LAYERS for n in K6}, res["step_ms_p50"])
+    del scope
     p50 = {tag: float(np.percentile(ms, 50)) for tag, ms in turns.items()}
     res.update({"layout_gate": gate, "alternating_step_ms": turns,
                 "alternating_step_ms_p50": p50,
@@ -2891,7 +2936,7 @@ def bhsd_path():
                              for k in ("k6", "gemm", "other")}
     log("bhsd training %dL-%dd b%d s%d bf16: %s"
         % (LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, json.dumps(
-            {k: v for k, v in res.items() if k != "ops"})))
+            {k: v for k, v in res.items() if k not in ("ops", "captured")})))
     return res
 
 
@@ -2950,6 +2995,10 @@ def dense_path():
                                               amp=True)
         run, scope = _train_run(fluid, exe, prog, startup, feed, loss,
                                 DENSE_STEPS)
+        with fluid.scope_guard(scope):
+            run["captured"] = captured_rounds(
+                "dense-mask %s program" % layout, exe, prog, feed, loss,
+                {kernel: LM_LAYERS}, run["step_ms_p50"])
         del scope
         _launch_gate("dense-mask %s path" % layout, run["launches"],
                      {kernel: DENSE_STEPS * LM_LAYERS})
@@ -2957,7 +3006,8 @@ def dense_path():
                   DENSE_BODIES[layout])
         log("dense-mask %s training %dL-%dd b%d s%d bf16: %s"
             % (layout, LM_LAYERS, LM_DIM, LM_BATCH, LM_SEQ, json.dumps(
-                {k: v for k, v in run.items() if k != "ops"})))
+                {k: v for k, v in run.items()
+                 if k not in ("ops", "captured")})))
         res[layout] = run
     return res
 
@@ -3075,12 +3125,13 @@ def layout_timing(bhsd_launches, dense_res):
 
 # bench.py's ResNet step (bench.py:36-121): resnet_imagenet(depth=50) in
 # NHWC, batch 256 of 224x224 images, 1000 classes, bf16 mixed precision,
-# Momentum(0.01, 0.9), timed through run_steps. The one cut: 50 steps a
-# dispatch and one warm-up dispatch, against bench.py's 100 x 3.
+# Momentum(0.01, 0.9), timed through run_steps. The one cut: 25 steps a
+# dispatch and one warm-up dispatch, against bench.py's 100 x 3, so that
+# every phase fits the script's time limit.
 RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 50, 256, 224, 1000
 RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
-RESNET_STEPS, RESNET_ROUNDS = 50, 3
-RESNET_EAGER_STEPS, RESNET_PROFILE_STEPS = 5, 5
+RESNET_STEPS, RESNET_ROUNDS = 25, 3
+RESNET_EAGER_STEPS, RESNET_PROFILE_STEPS = 3, 3
 # the gates' model: the same program at class_dim 10, batch 8 of 64x64
 # images (its last stage normalizes each channel over 8 x 2 x 2 = 32
 # values). Card against CPU, each step from the CPU run's state: at this
@@ -3623,6 +3674,520 @@ def resnet_path(card_label=""):
     return res
 
 
+# -- phase 13: bench_lm.py's rounds through the captured step ------------
+
+# the run_steps ≡ run() gates (fp32, deterministic): REPLAY_RUN_CALLS
+# run() calls then two run_steps(REPLAY_N_STEPS) against as many run()
+# calls on a twin executor
+REPLAY_RUN_CALLS, REPLAY_N_STEPS = 4, 4
+# the random-op gate: a classifier with one dropout layer, Adam
+DROPOUT_P, DROPOUT_ROWS, DROPOUT_WIDTH, DROPOUT_STEPS = 0.5, 64, 512, 8
+# bench_lm.py's methodology: ITERS-step rounds, one warm round, 3 timed
+BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 60, 3, 5
+# phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS
+CAPTURED_STEPS, CAPTURED_ROUNDS = 20, 2
+# the preemption gate: the 2-layer LM at full width, one run_steps round
+# of RESUME_ROUND_STEPS per train_loop step, SIGTERM after round
+# RESUME_PREEMPT_AFTER, a checkpoint every round
+RESUME_ROUNDS, RESUME_ROUND_STEPS, RESUME_PREEMPT_AFTER = 4, 10, 2
+RESUME_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """fp32 matmuls without TF32, deterministic algorithms (cuBLAS reads
+    CUBLAS_WORKSPACE_CONFIG, set by ``main`` before CUDA starts). Yields
+    a list that collects, once each, the warnings of operations that have
+    no deterministic implementation (they run, and the gate names them)."""
+    import warnings
+    import torch
+    _fp32()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    seen = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for w in caught:
+            msg = str(w.message)[:200]
+            if "deterministic" in msg and msg not in seen:
+                seen.append(msg)
+
+
+def _zero_counts():
+    from paddle_tpu_torch import executor as pexe
+    _reset_kernel_counts()
+    for name in pexe.graph_launches:
+        pexe.graph_launches[name] = 0
+
+
+def _counts_gate(label, launches, want):
+    """Every kernel entry point launched exactly ``want[name]`` times (0
+    where not named); raises otherwise."""
+    bad = {n: c for n, c in launches.items() if c != want.get(n, 0)}
+    if bad:
+        raise AssertionError("%s: kernel launches %s, want %s and no other"
+                             % (label, bad, want))
+
+
+def lm_replay_gate(mask=None):
+    """``run_steps`` against ``run`` on the LM, fp32, deterministic: the
+    2-layer full-width program (``mask`` None: K1/K2; "packed": K5 on
+    the packed rows at the gate's size) from one state, REPLAY_RUN_CALLS
+    ``run()`` calls then two ``run_steps(REPLAY_N_STEPS)``, against as
+    many ``run()`` calls on a twin: every persistable and both losses
+    bitwise, 1 capture and 2 x REPLAY_N_STEPS - 1 replays, and the
+    path's flash kernels launched steps x layers each (counted through
+    the replays), the others never."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    prog, startup, loss = build_lm(fluid, GATE_LAYERS, GATE_BATCH, GATE_SEQ,
+                                   amp=False, mask=mask)
+    feed = packed_data(GATE_BATCH, GATE_SEQ)["packed"] if mask \
+        else lm_feed(GATE_BATCH, GATE_SEQ)
+    state = _startup_state(startup)
+    total = REPLAY_RUN_CALLS + 2 * REPLAY_N_STEPS
+    with _deterministic() as nondeterministic:
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        ref = _copy_scope(fluid, state, exe.device)
+        ref_losses = [exe.run(prog, feed=feed, fetch_list=[loss],
+                              scope=ref)[0] for _ in range(total)]
+        got = _copy_scope(fluid, state, exe.device)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        _zero_counts()
+        for _ in range(REPLAY_RUN_CALLS):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=got)
+        losses = [exe.run_steps(prog, feed=feed, n_steps=REPLAY_N_STEPS,
+                                fetch_list=[loss], scope=got)[0]
+                  for _ in range(2)]
+        launches, graphs = _kernel_counts(), dict(pexe.graph_launches)
+        differ = _bitwise(ref, got, state)
+        exe.close()
+    same = [bool(np.array_equal(a, ref_losses[i])) for a, i in
+            zip(losses, (total - REPLAY_N_STEPS - 1, total - 1))]
+    want_graphs = {"captures": 1, "replays": 2 * REPLAY_N_STEPS - 1} \
+        if DEVICE == "cuda" else {"captures": 0, "replays": 0}
+    kernels = K5 if mask else K1K2
+    res = {"mask": mask or "none", "losses": [float(v) for v in losses],
+           "ref_losses": [float(v) for v in ref_losses],
+           "losses_bitwise": same, "persistables": len(state),
+           "persistables_differing": differ, "graph_launches": graphs,
+           "launches": {n: launches[n] for n in kernels},
+           "nondeterministic_ops": nondeterministic}
+    log("LM run_steps vs run (%s, fp32, deterministic): %s"
+        % (res["mask"], json.dumps(res)))
+    if differ or not all(same) or graphs != want_graphs:
+        raise AssertionError(
+            "LM run_steps differs from run (%s): %d persistables differ "
+            "(%s), losses bitwise %s, graph launches %s (want %s)"
+            % (res["mask"], len(differ), differ[:5], same, graphs,
+               want_graphs))
+    _counts_gate("LM run_steps gate (%s)" % res["mask"], launches,
+                 {n: total * GATE_LAYERS for n in kernels})
+    return res
+
+
+def build_dropout(fluid):
+    """The random-op program: x [DROPOUT_ROWS, DROPOUT_WIDTH] → fc relu →
+    dropout(DROPOUT_P) → fc(10) → softmax cross-entropy → mean, Adam;
+    returns (prog, startup, loss, the dropout's Mask variable name)."""
+    from paddle_tpu_torch import unique_name
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        prog.random_seed = startup.random_seed = SEED
+        with fluid.program_guard(prog, startup):
+            x = fluid.layers.data(name="x", shape=[DROPOUT_WIDTH],
+                                  dtype="float32")
+            y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+            h = fluid.layers.fc(x, DROPOUT_WIDTH, act="relu")
+            h = fluid.layers.dropout(h, dropout_prob=DROPOUT_P)
+            logits = fluid.layers.fc(h, 10)
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(logits, y))
+            fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    mask = [op for op in prog.global_block().ops
+            if op.type == "dropout"][0].output("Mask")[0]
+    return prog, startup, loss, mask
+
+
+def dropout_gate():
+    """Random ops under capture: ``run_steps(DROPOUT_STEPS)`` of the
+    dropout program bitwise DROPOUT_STEPS ``run()`` calls (fp32,
+    deterministic, one state); then two more rounds fetching the mask:
+    they draw different masks, and each keeps a share within 4 sigma of
+    1 - DROPOUT_P."""
+    import paddle_tpu_torch as fluid
+    prog, startup, loss, mask = build_dropout(fluid)
+    rng = np.random.RandomState(SEED)
+    feed = {"x": rng.randn(DROPOUT_ROWS, DROPOUT_WIDTH).astype(np.float32),
+            "y": rng.randint(0, 10, (DROPOUT_ROWS, 1)).astype(np.int64)}
+    state = _startup_state(startup)
+    with _deterministic() as nondeterministic:
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        ref = _copy_scope(fluid, state, exe.device)
+        ref_losses = [exe.run(prog, feed=feed, fetch_list=[loss],
+                              scope=ref)[0] for _ in range(DROPOUT_STEPS)]
+        got = _copy_scope(fluid, state, exe.device)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        last = exe.run_steps(prog, feed=feed, n_steps=DROPOUT_STEPS,
+                             fetch_list=[loss], scope=got)[0]
+        differ = _bitwise(ref, got, state)
+        masks = [exe.run_steps(prog, feed=feed, n_steps=DROPOUT_STEPS,
+                               fetch_list=[mask], scope=got)[0]
+                 for _ in range(2)]
+        exe.close()
+    n = masks[0].size
+    sigma = float(np.sqrt(DROPOUT_P * (1 - DROPOUT_P) / n))
+    kept = [float(m.mean()) for m in masks]
+    res = {"steps": DROPOUT_STEPS, "loss": float(last),
+           "ref_loss": float(ref_losses[-1]),
+           "loss_bitwise": bool(np.array_equal(last, ref_losses[-1])),
+           "persistables_differing": differ, "kept_share": kept,
+           "sigma": sigma, "nondeterministic_ops": nondeterministic,
+           "masks_differ": not np.array_equal(masks[0], masks[1])}
+    log("dropout under capture: %s" % json.dumps(res))
+    if differ or not res["loss_bitwise"] or not res["masks_differ"] or \
+            any(abs(k - (1 - DROPOUT_P)) > 4 * sigma for k in kept):
+        raise AssertionError("dropout under capture: %s" % json.dumps(res))
+    return res
+
+
+def _replay_profile(exe, prog, feed, loss):
+    """A warm-up round (the capture, where the executor has none), then
+    one profiled ``run_steps(BENCH_PROFILE_STEPS)`` replay: device-busy
+    ms a step, wall ms a step, idle share and the top kernels."""
+    exe.run_steps(prog, feed=feed, n_steps=2, fetch_list=[loss])
+    prof = _profile_replay(exe, prog, feed, loss, BENCH_PROFILE_STEPS)
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    return prof
+
+
+def bench_lm_rounds(eager_p50):
+    """bench_lm.py's measured path through the port
+    (``paddle_tpu_torch.benchmarks.lm``): ``main()`` at LM_* sizes, then
+    ``packed_main()``, with BENCH_ITERS-step rounds (one warm, then
+    BENCH_ROUNDS timed); each with the kernel, graph and telemetry
+    counts set to 0 just before and read just after. Gates: the loss
+    finite and lower after the last round than after the first; cache
+    misses = distinct (program, feed) pairs; the path's flash kernels
+    launched steps x layers; one capture a program. Then a profiled
+    replay of each program (busy ms, idle share) beside ``eager_p50``
+    (phase 6's and 7's step p50)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.benchmarks import lm
+    from paddle_tpu_torch.observability import steps as step_telemetry
+    sizes = {"BATCH": LM_BATCH, "SEQ": LM_SEQ, "VOCAB": LM_VOCAB,
+             "LAYERS": LM_LAYERS, "D_MODEL": LM_DIM, "HEADS": LM_HEADS,
+             "ITERS": BENCH_ITERS, "WARMUP": BENCH_ITERS,
+             "ROUNDS": BENCH_ROUNDS}
+    saved = {k: getattr(lm, k) for k in sizes}
+    handles = []
+    real_run_steps = pexe.Executor.run_steps
+
+    def spy(self, *args, **kwargs):
+        out = real_run_steps(self, *args, **kwargs)
+        handles.append(out)
+        return out
+
+    steps = (1 + BENCH_ROUNDS) * BENCH_ITERS
+    out = {}
+    vars(lm).update(sizes)
+    pexe.Executor.run_steps = spy
+    try:
+        for mode, fn in (("dense", lm.main), ("packed", lm.packed_main)):
+            profiler.reset_counters()
+            profiler.reset_histograms()
+            _zero_counts()
+            handles.clear()
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            rec = fn()
+            tel = step_telemetry.step_summary()
+            launches, graphs = _kernel_counts(), dict(pexe.graph_launches)
+            mine = handles[-(1 + BENCH_ROUNDS):]
+            round_losses = [float(h.numpy()[0].ravel()[0]) for h in mine]
+            programs = 2 if mode == "packed" else 1
+            rec.update({
+                "round_losses": round_losses, "launches": launches,
+                "graph_launches": graphs,
+                "compile_cache_misses_by_cause":
+                    tel.get("compile_cache_misses_by_cause"),
+                "device_wait_s": tel.get("device_wait_s", 0.0),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+                if DEVICE == "cuda" else None,
+                "eager_step_ms_p50": eager_p50[mode]})
+            if mode == "dense":
+                rec["step_ms_captured"] = rec["_round_s"] * 1e3 / BENCH_ITERS
+                want = {n: steps * LM_LAYERS for n in K1K2}
+            else:
+                rec["step_ms_captured"] = {
+                    k: v * 1e3 / BENCH_ITERS
+                    for k, v in rec["_round_s"].items()}
+                want = {n: steps * LM_LAYERS for n in K1K2 + K5}
+            if not (all(np.isfinite(round_losses)) and
+                    round_losses[-1] < round_losses[0]):
+                raise AssertionError("bench %s: round losses not finite "
+                                     "and falling: %s"
+                                     % (mode, round_losses))
+            if tel.get("compile_cache_misses") != 2 * programs:
+                raise AssertionError(
+                    "bench %s: %s cache misses, want %d (startup and step "
+                    "of %d program(s)): %s"
+                    % (mode, tel.get("compile_cache_misses"), 2 * programs,
+                       programs, tel.get("compile_cache_misses_by_cause")))
+            if graphs["captures"] != (programs if DEVICE == "cuda" else 0):
+                raise AssertionError("bench %s: %d captures for %d "
+                                     "program(s)" % (mode,
+                                                     graphs["captures"],
+                                                     programs))
+            _counts_gate("bench %s" % mode, launches, want)
+            out[mode] = rec
+        pexe.Executor.run_steps = real_run_steps
+        # a profiled replay of each program, outside the counted rounds
+        dense_feed = lm_feed(LM_BATCH, LM_SEQ)
+        pdata = lm.packed_data(LM_BATCH, LM_SEQ, LM_VOCAB)
+        for mode, (prog, startup, loss), feed in (
+                ("dense", lm._build_lm(LM_BATCH, LM_SEQ, valid=False),
+                 dense_feed),
+                ("packed", lm._build_lm(LM_BATCH, LM_SEQ, packed_rows=True),
+                 pdata[0])):
+            with fluid.scope_guard(fluid.Scope()):
+                exe = fluid.Executor(fluid.CUDAPlace(0))
+                exe.run(startup)
+                prof = _replay_profile(exe, prog, feed, loss)
+                exe.close()
+            out[mode]["replay_profile"] = prof
+            out[mode]["replay_device_busy_ms"] = prof["device_busy_ms"]
+            out[mode]["replay_wall_ms"] = prof["wall_ms"]
+            out[mode]["replay_idle_share"] = prof["idle_share"]
+    finally:
+        pexe.Executor.run_steps = real_run_steps
+        vars(lm).update(saved)
+    for mode, rec in out.items():
+        log("bench_lm %s through the captured step: %s" % (mode, json.dumps(
+            {k: v for k, v in rec.items()
+             if k not in ("replay_profile", "launches")})))
+    return out
+
+
+def _child_args(argv):
+    """The preemption child's arguments (``--resume-child``)."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --resume-child")
+    ap.add_argument("--resume-child", nargs=2, required=True,
+                    metavar=("CHECKPOINT_DIR", "OUT_NPZ"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--layers", type=int, default=GATE_LAYERS)
+    ap.add_argument("--dim", type=int, default=LM_DIM)
+    ap.add_argument("--heads", type=int, default=LM_HEADS)
+    ap.add_argument("--vocab", type=int, default=LM_VOCAB)
+    ap.add_argument("--batch", type=int, default=GATE_BATCH)
+    ap.add_argument("--seq", type=int, default=GATE_SEQ)
+    ap.add_argument("--rounds", type=int, default=RESUME_ROUNDS)
+    ap.add_argument("--round-steps", type=int, default=RESUME_ROUND_STEPS)
+    ap.add_argument("--preempt-after", type=int, default=0,
+                    help="SIGTERM itself after this many rounds (0: never)")
+    args = ap.parse_args(argv)
+    for name in ("layers", "dim", "heads", "vocab", "batch", "seq",
+                 "rounds", "round_steps"):
+        if getattr(args, name) < 1:
+            ap.error("--%s must be >= 1" % name.replace("_", "-"))
+    if not 0 <= args.preempt_after < args.rounds:
+        ap.error("--preempt-after must lie in [0, --rounds)")
+    return args
+
+
+def resume_child(argv):
+    """The preemption gate's child: the LM (fp32, deterministic) under
+    ``robustness.train_loop`` with checkpoints in CHECKPOINT_DIR every
+    round, one ``run_steps(--round-steps)`` round a loop step, resumed
+    from the latest valid serial when there is one; ``--preempt-after
+    K`` makes round K's ``step_fn`` send itself SIGTERM (the loop then
+    checkpoints and exits 42). A finished run writes OUT_NPZ: the last
+    loss, every persistable, the serial it resumed from and the step
+    counter it resumed at. Returns the exit code."""
+    import signal
+    import torch
+    args = _child_args(argv)
+    global DEVICE, LM_DIM, LM_HEADS, LM_VOCAB
+    DEVICE, LM_DIM, LM_HEADS, LM_VOCAB = (args.device, args.dim, args.heads,
+                                          args.vocab)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("resume child: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags, robustness
+    flags.checkpoint_dir = args.resume_child[0]
+    flags.checkpoint_every_steps = 1
+    prog, startup, loss = build_lm(fluid, args.layers, args.batch, args.seq,
+                                   amp=False)
+    feed = lm_feed(args.batch, args.seq)
+    place = fluid.CUDAPlace(0) if args.device == "cuda" \
+        else fluid.CPUPlace()
+    info = {}
+    with _deterministic(), fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+
+        def step_fn(i):
+            info.setdefault("resumed_at_step_counter", exe.step_counter)
+            (lv,) = exe.run_steps(prog, feed=feed, n_steps=args.round_steps,
+                                  fetch_list=[loss])
+            info["loss"] = lv
+            if args.preempt_after and i + 1 == args.preempt_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return lv
+
+        res = robustness.train_loop(
+            step_fn, args.rounds, program=prog, executor=exe,
+            checkpoint=robustness.CheckpointManager.from_flags())
+        scope = fluid.global_scope()
+        arrays = {"p:" + n: scope.find_var(n).cpu().numpy()
+                  for n in scope.local_var_names()}
+    np.savez(args.resume_child[1], loss=info["loss"],
+             resumed_from=-1 if res.resumed_from is None
+             else res.resumed_from,
+             resumed_at_step_counter=info["resumed_at_step_counter"],
+             **arrays)
+    return 0
+
+
+def _run_child(ckpt, out, device, sizes, preempt_after=0):
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    argv = [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+            "--resume-child", ckpt, out, "--device", device,
+            "--preempt-after", str(preempt_after)]
+    for k, v in sizes.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=RESUME_TIMEOUT_S)
+    return proc
+
+
+def resume_gate(workdir, device=None, sizes=None):
+    """Preemption and resume: an uninterrupted child, then a child that
+    SIGTERMs itself after RESUME_PREEMPT_AFTER rounds (it must exit 42
+    leaving a valid serial of that step and its step counter), then its
+    relaunch, which must resume from that serial at that counter and end
+    with every persistable and the loss bitwise the uninterrupted
+    child's. ``sizes``: the children's ``--layers`` ... options (default:
+    the 2-layer LM at full width, batch GATE_BATCH, seq GATE_SEQ)."""
+    import paddle_tpu_torch as fluid  # noqa: F401  (the package is there)
+    from paddle_tpu_torch import robustness
+    device = device or DEVICE
+    sizes = dict(sizes or {})
+    rounds = sizes.get("rounds", RESUME_ROUNDS)
+    round_steps = sizes.get("round_steps", RESUME_ROUND_STEPS)
+    t0 = time.perf_counter()
+    whole, cut = (os.path.join(workdir, t) for t in ("whole", "cut"))
+    # the uninterrupted child runs beside the other two, which run in turn
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        uninterrupted = pool.submit(_run_child, os.path.join(whole, "ckpt"),
+                                    whole + ".npz", device, sizes)
+        procs = {"preempted": _run_child(os.path.join(cut, "ckpt"),
+                                         cut + "_first.npz", device, sizes,
+                                         RESUME_PREEMPT_AFTER)}
+        found = robustness.CheckpointManager(
+            dirname=os.path.join(cut, "ckpt")).latest_valid()
+        procs["resumed"] = _run_child(os.path.join(cut, "ckpt"),
+                                      cut + ".npz", device, sizes)
+        procs["whole"] = uninterrupted.result()
+    rcs = {k: p.returncode for k, p in procs.items()}
+    want_rcs = {"whole": 0, "preempted": robustness.EXIT_PREEMPTED,
+                "resumed": 0}
+    if rcs != want_rcs:
+        raise AssertionError("resume gate exit codes %s, want %s: %s" % (
+            rcs, want_rcs, {k: p.stderr[-2000:] for k, p in procs.items()
+                            if rcs[k] != want_rcs[k]}))
+    want_counter = 1 + RESUME_PREEMPT_AFTER * round_steps
+    serial, state = found if found else (None, {})
+    with np.load(whole + ".npz") as a, np.load(cut + ".npz") as b:
+        names = sorted(k for k in a.files if k.startswith("p:"))
+        differ = [k[2:] for k in names
+                  if k not in b.files or not np.array_equal(a[k], b[k])]
+        res = {"device": device, "rounds": rounds,
+               "round_steps": round_steps,
+               "preempted_after": RESUME_PREEMPT_AFTER,
+               "exit_codes": rcs, "serial": serial,
+               "serial_step": (state or {}).get("step"),
+               "serial_executor_step": (state or {}).get("executor_step"),
+               "resumed_from": int(b["resumed_from"]),
+               "resumed_at_step_counter":
+                   int(b["resumed_at_step_counter"]),
+               "loss": float(b["loss"].ravel()[0]),
+               "loss_uninterrupted": float(a["loss"].ravel()[0]),
+               "loss_bitwise": bool(np.array_equal(a["loss"], b["loss"])),
+               "persistables": len(names), "persistables_differing": differ,
+               "seconds": time.perf_counter() - t0}
+    log("preemption and resume: %s" % json.dumps(res))
+    if serial is None or res["serial_step"] != RESUME_PREEMPT_AFTER or \
+            res["serial_executor_step"] != want_counter or \
+            res["resumed_from"] != serial or \
+            res["resumed_at_step_counter"] != want_counter or differ or \
+            not res["loss_bitwise"]:
+        raise AssertionError("resume gate: %s" % json.dumps(res))
+    return res
+
+
+def captured_rounds(label, exe, prog, feed, loss, per_step, eager_p50):
+    """A phase's program in captured rounds (run from the phase's scope):
+    a warm round of CAPTURED_STEPS (the capture), CAPTURED_ROUNDS timed
+    ones, with the kernel and graph counts set to 0 just before and read
+    just after; then a profiled replay. Gates: finite losses, each kernel
+    of ``per_step`` (name → launches a step) launched steps x that, the
+    others never, one capture. The graphs are dropped after."""
+    from paddle_tpu_torch import executor as pexe
+    _zero_counts()
+    losses, round_s = [], []
+    for _ in range(1 + CAPTURED_ROUNDS):
+        t0 = time.perf_counter()
+        h = exe.run_steps(prog, feed=feed, n_steps=CAPTURED_STEPS,
+                          fetch_list=[loss], return_numpy=False)
+        losses.append(float(h.numpy()[0].ravel()[0]))
+        round_s.append(time.perf_counter() - t0)
+    launches, graphs = _kernel_counts(), dict(pexe.graph_launches)
+    prof = _profile_replay(exe, prog, feed, loss, BENCH_PROFILE_STEPS)
+    exe.close()
+    steps = (1 + CAPTURED_ROUNDS) * CAPTURED_STEPS
+    step_ms = float(np.median(round_s[1:])) * 1e3 / CAPTURED_STEPS
+    res = {"steps": steps, "round_s": round_s, "losses": losses,
+           "step_ms_captured": step_ms, "step_ms_eager_p50": eager_p50,
+           "replay_device_busy_ms": prof["device_busy_ms"],
+           "replay_wall_ms": prof["wall_ms"],
+           "replay_idle_share": 1.0 - prof["device_busy_ms"]
+           / prof["wall_ms"],
+           "launches": {n: c for n, c in launches.items() if c},
+           "graph_launches": graphs}
+    log("%s in captured rounds: %s" % (label, json.dumps(res)))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("%s captured: losses %s" % (label, losses))
+    if graphs["captures"] != (1 if DEVICE == "cuda" else 0):
+        raise AssertionError("%s captured: %s" % (label, graphs))
+    _counts_gate("%s captured" % label, launches,
+                 {n: steps * c for n, c in per_step.items()})
+    return res
+
+
+def phase13_launches(report):
+    """name → launches of phase 13's main-path runs: the bench's rounds
+    and phases 8-10's captured rounds (the gates' are not counted)."""
+    total = {}
+    runs = [report["bench_lm"]["dense"], report["bench_lm"]["packed"],
+            report["fused_adam_path"]["captured"],
+            report["bhsd_path"]["captured"],
+            report["dense_path"]["bhsd"]["captured"],
+            report["dense_path"]["bshd"]["captured"]]
+    for run in runs:
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -3679,6 +4244,11 @@ def ab_timing(parent):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if "--resume-child" in argv:
+        return resume_child(argv)
+    # cuBLAS reads it when it starts: the deterministic gates need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
@@ -3694,25 +4264,43 @@ def main(argv=None):
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    report = {"card": card()}
+    report = {"card": card(), "phase_s": {}}
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
+        mark = [t0]
+
+        def lap(name):
+            """The seconds since the last lap, as ``phase_s[name]``."""
+            now = time.perf_counter()
+            report["phase_s"][name] = now - mark[0]
+            mark[0] = now
+
         if args.ab:
             report["ab"] = ab_timing(args.ab)
             return 0
         report["build_s"] = build()
+        lap("build_s")
         data = packed_data(LM_BATCH, LM_SEQ)
         report["kernel_checks"] = kernel_checks()
+        lap("kernel_checks")
         report["quant_kernel_checks"] = quant_kernel_checks()
+        lap("quant_kernel_checks")
         report["quant_append_checks"] = quant_append_checks()
+        lap("quant_append_checks")
         report["flash_checks"] = flash_checks()
+        lap("flash_checks")
         report["segment_checks"] = segment_checks(data["packed"]["seg"])
+        lap("segment_checks")
         report["layout_checks"] = layout_checks()
+        lap("layout_checks")
         report["fused_adam_checks"] = fused_adam_checks()
+        lap("fused_adam_checks")
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
+            lap("main_path")
             report["megastep_path"] = megastep_path(report["main_path"])
+            lap("megastep_path")
             for key in ("_streams", "_recompute", "_dirs"):
                 report["main_path"].pop(key)
             # K3's rows count the launches of both serving paths
@@ -3721,28 +4309,59 @@ def main(argv=None):
                                "k3_quant")):
                 row["launches"] += report["megastep_path"]["launches"][name]
             report["k3_long"] = k3_long_timing()
+            lap("k3_long")
             report["train_gate"] = train_gate()
+            lap("train_gate")
             report["train_path"] = train_path()
+            lap("train_path")
             report["flash_timing"] = flash_timing(
                 report["train_path"]["launches"])
+            lap("flash_timing")
             report["packed_path"], scope = packed_path(data)
+            lap("packed_path")
             report["segment_timing"] = flash_timing(
                 report["packed_path"]["launches"], data["packed"]["seg"])
+            lap("segment_timing")
             report["fused_adam_path"] = fused_adam_path(
                 data, scope, report["packed_path"])
+            lap("fused_adam_path")
             del scope
             report["fused_adam_timing"] = fused_adam_timing(
                 report["fused_adam_path"]["param_shapes"],
                 report["fused_adam_path"]["launches"])
+            lap("fused_adam_timing")
             report["bhsd_path"] = bhsd_path()
+            lap("bhsd_path")
             report["dense_path"] = dense_path()
+            lap("dense_path")
             report["layout_timing"] = layout_timing(
                 report["bhsd_path"]["launches"], report["dense_path"])
+            lap("layout_timing")
+            report["lm_replay_gates"] = [lm_replay_gate(),
+                                         lm_replay_gate("packed")]
+            lap("lm_replay_gates")
+            report["dropout_gate"] = dropout_gate()
+            lap("dropout_gate")
+            report["bench_lm"] = bench_lm_rounds({
+                "dense": report["train_path"]["step_ms_p50"],
+                "packed": report["packed_path"]["step_ms_p50"]})
+            lap("bench_lm")
+            report["resume_gate"] = resume_gate(workdir)
+            lap("resume_gate")
+            # the kernel rows count phase 13's launches too
+            extra = phase13_launches(report)
+            for row in report["flash_timing"] + report["segment_timing"] + \
+                    [report["fused_adam_timing"]] + report["layout_timing"]:
+                row["launches"] += extra.get(row["name"], 0)
             report["resnet_op_checks"] = resnet_op_checks()
+            lap("resnet_op_checks")
             report["resnet_gate"] = resnet_gate()
+            lap("resnet_gate")
             report["resnet_replay_gate"] = resnet_replay_gate()
+            lap("resnet_replay_gate")
             report["resnet_path"] = resnet_path(
                 report["card"]["nvidia_smi"])
+            lap("resnet_path")
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

@@ -6,7 +6,7 @@ numpy and the standard library only — never jax and never a module of
 ``paddle_tpu`` — and keeps its own trimmed copies of the backend-neutral
 pieces it needs (flags, profiler counters, metric catalogue, tracing).
 
-Four slices are ported:
+Five slices are ported:
 
 - paged-KV generation serving (``serving``): the decoder model, the paged
   decode engine, the continuous-batching scheduler and the HTTP server,
@@ -26,7 +26,13 @@ Four slices are ported:
 - ResNet training as ``bench.py`` runs it: ``models.resnet_imagenet``
   (conv2d through cuDNN, batch norm, pooling), ``optimizer.Momentum``,
   and ``Executor.run_steps``, which captures a step as one CUDA graph
-  and replays it.
+  and replays it;
+- LM training as ``bench_lm.py`` measures it (``benchmarks.lm``):
+  captured ``run_steps`` rounds returning a ``FetchHandle``, under the
+  fault-tolerant ``robustness.train_loop`` with checkpoints (``io``,
+  ``robustness.CheckpointManager``), with step telemetry
+  (``observability.steps``) and random ops (``dropout``) that a captured
+  step replays with fresh draws.
 
 Device rule: every entry point takes a device (``device=``, or a place
 for the ``Executor``). The default is CUDA, which raises when no GPU is
@@ -43,7 +49,7 @@ __all__ = ["DEFAULT_DEVICE", "resolve_device", "CPUPlace", "CUDAPlace",
            "default_main_program", "default_startup_program", "layers",
            "optimizer", "models", "data", "Executor", "Scope",
            "global_scope", "scope_guard", "append_backward", "ParamAttr",
-           "unique_name", "enable_mixed_precision"]
+           "unique_name", "enable_mixed_precision", "io"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -86,4 +92,5 @@ from . import ops as _ops       # noqa: E402,F401  registers the lowerings
 from . import data, layers, models, optimizer               # noqa: E402
 from .backward import append_backward                       # noqa: E402
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa
+from . import io                                            # noqa: E402
 from .param_attr import ParamAttr                           # noqa: E402

@@ -1,4 +1,4 @@
-"""Runtime flags the ported serving slice reads — a trimmed copy of
+"""Runtime flags the port reads — a trimmed copy of
 ``paddle_tpu/flags.py`` (the port keeps its own copy; it never imports the
 JAX package). Set by assignment (``flags.generation_max_slots = 32``) or
 passed explicitly to the resolvers, which validate each value and raise
@@ -59,3 +59,52 @@ deadline_default_ms = 0.0
 deadline_admit_min_ms = 0.0
 shed_retry_floor_s = 0.05
 shed_retry_cap_s = 5.0
+
+# Debugging: ``check_nan_inf`` — per-step NaN/Inf scan of the fetches and
+# the updated state (``Executor._nan_check``); forces a host sync and
+# raises ``FloatingPointError`` naming the variable.
+check_nan_inf = False
+
+# Observability (observability.flight_recorder):
+# - ``flight_recorder_events`` — ring-buffer capacity of the always-on
+#   trace flight recorder (executor-level spans; a handful per step).
+#   Read at first use; resize a live recorder via
+#   ``observability.flight_recorder.get_recorder().set_capacity(n)``.
+# - ``trace_dump_dir`` — where crash/SIGUSR1 flight-recorder dumps land
+#   (default: the system temp dir).
+flight_recorder_events = 4096
+trace_dump_dir = ""
+
+# Fault-tolerant training runtime (robustness.CheckpointManager /
+# robustness.train_loop read these):
+#
+# - ``checkpoint_dir`` — root of the versioned serial-dir checkpoints
+#   ("" = checkpointing disabled; ``CheckpointManager.from_flags()``
+#   returns None so call sites need no conditional wiring).
+# - ``checkpoint_every_steps`` / ``checkpoint_every_secs`` — save policy;
+#   either (or both) may be set, 0 disables that trigger. The save
+#   snapshots device state to host synchronously (one consistent cut)
+#   and writes/fsyncs in a background thread overlapping training.
+# - ``checkpoint_keep`` — newest serials retained after each save.
+# - ``step_retry_max`` / ``step_retry_backoff_s`` — retryable step
+#   failures (transient host/IO) are retried with capped exponential
+#   backoff; fatal ones (DeviceStateError, NaN) never are.
+# - ``step_deadline_s`` — hang watchdog: a step exceeding this many
+#   wall seconds dumps the flight recorder + faulthandler stacks and
+#   aborts with EXIT_WATCHDOG. 0 disables.
+checkpoint_dir = ""
+checkpoint_every_steps = 0
+checkpoint_every_secs = 0.0
+checkpoint_keep = 3
+step_retry_max = 3
+step_retry_backoff_s = 0.5
+step_deadline_s = 0.0
+
+# Chaos fault injection (robustness.chaos parses these). ``chaos_spec``
+# is a comma-separated list of ``point:selector=action`` rules, e.g.
+# ``step:37=raise``, ``save:2=kill9``, ``step:*=raise@0.01``
+# (probabilistic rules draw from a PRNG seeded by ``chaos_seed`` —
+# deterministic, replayable). "" = no injection (the hooks are free
+# no-ops).
+chaos_spec = ""
+chaos_seed = 0

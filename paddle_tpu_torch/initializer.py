@@ -2,8 +2,8 @@
 copy of ``paddle_tpu/initializer.py``'s Constant, Uniform, Normal and
 Xavier (what ``fc``, ``embedding``, ``layer_norm`` and
 ``create_parameter`` use by default). The startup program runs them on
-the executor's device; their random streams are the port's own
-(``torch.Generator``), not ``jax.random``'s.
+the executor's device; their random streams are the port's own (a counter
+hash, ``registry.CounterStream``), not ``jax.random``'s.
 """
 
 import math

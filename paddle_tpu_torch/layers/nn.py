@@ -2,7 +2,8 @@
 ``paddle_tpu/layers/nn.py``'s ``fc``, ``embedding``, ``conv2d``,
 ``pool2d``, ``batch_norm``, ``layer_norm``, ``cross_entropy``,
 ``softmax_with_cross_entropy``, ``reshape``, ``transpose``, ``split``,
-``mean`` and ``slice``, and of ``layers/ops.py``'s ``elementwise_add``.
+``mean``, ``slice`` and ``dropout``, and of ``layers/ops.py``'s
+``elementwise_add``.
 Each appends ops to the current Program; the executor runs them.
 """
 
@@ -14,7 +15,8 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
-           "layer_norm", "cross_entropy", "softmax_with_cross_entropy",
+           "layer_norm", "dropout", "cross_entropy",
+           "softmax_with_cross_entropy",
            "reshape", "transpose", "split", "mean", "slice",
            "elementwise_add"]
 
@@ -209,6 +211,19 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(layer_norm_out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """Dropout (reference nn.py:589), "downgrade_in_infer": training
+    multiplies by a 0/1 mask (no rescale), test by 1 - dropout_prob."""
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype, lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(dtype=x.dtype, stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed if seed is not None else 0})
+    return out
 
 
 def cross_entropy(input, label, soft_label=False):

@@ -1,5 +1,19 @@
-"""Observability for the port: the metric catalogue the serving slice
-records into (``catalog``), request tracing (``tracing``) and the stdlib
-HTTP plumbing (``http``). Trimmed copies of ``paddle_tpu/observability``;
-the span spool, fleet trace merge and the training monitor are not
-ported yet."""
+"""Observability for the port — trimmed copies of
+``paddle_tpu/observability``:
+
+- ``catalog`` — the typed metric catalogue (``Counter``/``Gauge``/
+  ``Histogram`` over ``profiler``'s storage) that serving and training
+  record into;
+- ``steps`` — per-step telemetry emitted by ``Executor.run`` /
+  ``run_steps`` (wait times, cache hit/miss with the miss's cause) and
+  ``step_summary``, the report the bench prints;
+- ``runlog`` — the opt-in JSONL run log opened by a run manifest;
+- ``flight_recorder`` — the always-on ring of ``record_event`` spans,
+  dumped when a step raises;
+- ``liveness`` — the last step, checkpoint and watchdog deadline that
+  /healthz reports;
+- ``tracing`` — request tracing; ``http`` — the stdlib HTTP plumbing.
+
+The span spool, the fleet trace merge and the training monitor are not
+ported yet.
+"""

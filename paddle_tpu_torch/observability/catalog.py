@@ -1,20 +1,28 @@
-"""The metric catalogue of the ported serving slice — the names, help
-text and label sets of ``paddle_tpu/observability/catalog.py`` for every
-metric this slice records, with the typed-metric layer of
+"""The metric catalogue of the port — the names, help text and label
+sets of ``paddle_tpu/observability/catalog.py`` for every metric the
+ported slices record, with the typed-metric layer of
 ``paddle_tpu/observability/registry.py`` folded in.
 
 Storage is ``profiler``'s counters and histograms; a labelled sample is
 stored under ``name|k=v,k2=v2`` (keys sorted), which the Prometheus
-renderer (``serving.metrics``) splits back into ``name{k="v"}``.
-Exposition names and help strings match the reference, so one scrape
-config reads either package.
+renderer (``serving.metrics``) splits back into ``name{k="v"}``. A metric
+declared with ``legacy=`` stores under that older key
+(``feed_wait_s``, ``device_wait_s``), so ``profiler.get_counters()``
+readers see the reference's keys. Exposition names and help strings
+match the reference, so one scrape config reads either package.
 """
 
 from .. import profiler
 
 __all__ = [
-    "Counter", "Histogram", "resolve", "parse_storage_key",
+    "Counter", "Gauge", "Histogram", "resolve", "parse_storage_key",
     "encode_storage_key", "live_gauges",
+    "STEPS_TOTAL", "COMPILE_CACHE_HITS", "COMPILE_CACHE_MISSES",
+    "COMPILE_SECONDS", "FEED_WAIT_SECONDS", "DEVICE_WAIT_SECONDS",
+    "STEP_SECONDS", "CHECKPOINTS_SAVED", "CHECKPOINT_WRITE_SECONDS",
+    "CHECKPOINT_LAST_STEP", "CHECKPOINT_GC_SECONDS", "STEP_RETRIES",
+    "PREEMPTIONS", "CHAOS_INJECTED", "FLIGHT_DROPPED", "FLIGHT_DUMPS",
+    "ATTENTION_MASK_BYTES_AVOIDED", "PACKED_SEGMENTS",
     "GENERATION_REQUESTS", "GENERATION_REJECTED", "GENERATION_FAILED",
     "GENERATION_PREFILLS", "GENERATION_DECODE_STEPS", "GENERATION_TOKENS",
     "GENERATION_PREFILL_MS", "GENERATION_DECODE_STEP_MS",
@@ -27,7 +35,7 @@ __all__ = [
 ]
 
 _LABEL_SEP = "|"
-_by_storage = {}   # metric name -> metric (filled at import)
+_by_storage = {}   # storage key and name -> metric (filled at import)
 
 
 def encode_storage_key(base, labels):
@@ -54,17 +62,20 @@ def parse_storage_key(key):
 class _Metric:
     kind = None
 
-    def __init__(self, name, help="", labels=()):
+    def __init__(self, name, help="", labels=(), unit="", legacy=None):
         self.name = name
         self.help = help
+        self.unit = unit
         self.label_names = tuple(labels)
-        _by_storage[name] = self
+        # the profiler-storage key: the legacy name when one exists
+        self.storage_key = legacy or name
+        _by_storage[name] = _by_storage[self.storage_key] = self
 
     def _key(self, labels):
         if set(labels) != set(self.label_names):
             raise ValueError("metric %r takes labels %r, got %r"
                              % (self.name, self.label_names, tuple(labels)))
-        return encode_storage_key(self.name, labels)
+        return encode_storage_key(self.storage_key, labels)
 
 
 class Counter(_Metric):
@@ -76,6 +87,18 @@ class Counter(_Metric):
         if value < 0:
             raise ValueError("counter %r cannot decrease" % self.name)
         profiler.incr_counter(self._key(labels), value)
+
+    def value(self, **labels):
+        return profiler.get_counters().get(self._key(labels), 0.0)
+
+
+class Gauge(_Metric):
+    """A value that can go up and down (the last checkpoint's step)."""
+
+    kind = "gauge"
+
+    def set(self, value, **labels):
+        profiler.set_counter(self._key(labels), value)
 
     def value(self, **labels):
         return profiler.get_counters().get(self._key(labels), 0.0)
@@ -94,6 +117,90 @@ def resolve(storage_key):
     """The metric owning a storage key (None for ad-hoc keys)."""
     return _by_storage.get(parse_storage_key(storage_key)[0])
 
+
+# -- executor / training step telemetry ------------------------------------
+
+STEPS_TOTAL = Counter(
+    "steps_total", help="Executor steps dispatched (run_steps counts its "
+    "device-loop iterations individually)")
+COMPILE_CACHE_HITS = Counter(
+    "compile_cache_hits_total",
+    help="Steps served by an already-compiled executable")
+COMPILE_CACHE_MISSES = Counter(
+    "compile_cache_misses_total", labels=("cause",),
+    help="XLA (re)compiles, attributed to what changed vs the previous "
+    "compile of the same program: first_compile, feed_signature, "
+    "fetch_list, program_version, param_set, mode, n_steps")
+COMPILE_SECONDS = Counter(
+    "compile_seconds_total",
+    help="Host seconds spent building/jit-wrapping step executables",
+    unit="seconds")
+FEED_WAIT_SECONDS = Counter(
+    "feed_wait_seconds_total", legacy="feed_wait_s",
+    help="Host seconds converting/uploading feeds (Executor._prepare)",
+    unit="seconds")
+DEVICE_WAIT_SECONDS = Counter(
+    "device_wait_seconds_total", legacy="device_wait_s",
+    help="Host seconds blocked on device results (fetch -> numpy sync)",
+    unit="seconds")
+STEP_SECONDS = Histogram(
+    "step_seconds",
+    help="Per-run() host wall seconds (feed prepare + compile + "
+    "dispatch; device sync always excluded — see "
+    "device_wait_seconds_total)", unit="seconds")
+
+# -- fault-tolerant training runtime (robustness/) -------------------------
+
+CHECKPOINTS_SAVED = Counter(
+    "checkpoints_saved_total",
+    help="Checkpoints committed (tensor files + TRAIN_STATE + manifest "
+    "durable on disk)")
+CHECKPOINT_WRITE_SECONDS = Counter(
+    "checkpoint_write_seconds_total",
+    help="Seconds spent writing checkpoint serials (background writer "
+    "thread; overlaps training)", unit="seconds")
+CHECKPOINT_LAST_STEP = Gauge(
+    "checkpoint_last_step",
+    help="Global step of the last committed checkpoint")
+CHECKPOINT_GC_SECONDS = Counter(
+    "checkpoint_gc_seconds_total",
+    help="Seconds the background checkpoint GC worker spent trimming "
+    "old serials (off the save path)", unit="seconds")
+STEP_RETRIES = Counter(
+    "step_retries_total",
+    help="Training steps retried after a retryable (transient host/IO) "
+    "failure — robustness.train_loop's backoff path")
+PREEMPTIONS = Counter(
+    "preemptions_total",
+    help="Preemption signals honored: finish-step + checkpoint + exit "
+    "cycles (SIGTERM/SIGINT in robustness.train_loop)")
+CHAOS_INJECTED = Counter(
+    "chaos_injected_total", labels=("point", "action"),
+    help="Faults injected by robustness.chaos (FLAGS_chaos_spec)")
+
+# -- flight recorder -------------------------------------------------------
+
+FLIGHT_DROPPED = Counter(
+    "flight_recorder_dropped_total",
+    help="Spans evicted from the flight-recorder ring buffer")
+FLIGHT_DUMPS = Counter(
+    "flight_recorder_dumps_total", labels=("reason",),
+    help="Flight-recorder chrome-trace exports (reason: crash, signal, "
+    "http, manual)")
+
+# -- packed-document attention (benchmarks.lm packed_main) -----------------
+
+ATTENTION_MASK_BYTES_AVOIDED = Counter(
+    "attention_mask_bytes_avoided_total",
+    help="Dense-mask bytes the segment-packed attention path did NOT "
+    "materialize or stream (rows × seq² int8 per attention layer per "
+    "step — what the pre-packing dense-mask route would have paid; "
+    "recorded by the packed benches from the step geometry)",
+    unit="bytes")
+PACKED_SEGMENTS = Counter(
+    "packed_segments_total",
+    help="Sequences packed into fixed-length segment rows by the "
+    "packed input path (data.decorator.pack_segments callers)")
 
 # -- generation (serving/generation.py) ------------------------------------
 

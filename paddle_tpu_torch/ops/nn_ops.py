@@ -297,6 +297,39 @@ def _batch_norm(ctx, ins):
             "SavedVariance": [use_var]}
 
 
+# -- dropout -----------------------------------------------------------------
+
+def _dropout_rule(block, op):
+    x = in_var(block, op, "X")
+    if x is not None and x.shape is not None:
+        set_out(block, op, "Out", x.shape, dtype=x.dtype)
+        set_out(block, op, "Mask", x.shape, dtype=x.dtype)
+
+
+@register_op("dropout", infer_shape=_dropout_rule)
+def _dropout(ctx, ins):
+    """The reference's "downgrade_in_infer" dropout: in training
+    ``Out = X * Mask`` with ``Mask`` kept with probability 1 - p and no
+    rescale; in test ``Out = X * (1 - p)`` and ``Mask`` all ones. The
+    draw is the op's counter stream (``ctx.rng()``), so a captured step
+    draws a fresh mask at every replay."""
+    x = ins["X"][0]
+    p = ctx.attr("dropout_prob", 0.5)
+    if ctx.attr("is_test", False) or ctx.is_test:
+        return {"Out": [x * (1.0 - p)], "Mask": [torch.ones_like(x)]}
+    keep = ctx.rng().uniform(x.shape) < (1.0 - p)
+    mask = keep.to(x.dtype)
+    return {"Out": [x * mask], "Mask": [mask]}
+
+
+@register_op("dropout_grad", no_grad=True)
+def _dropout_grad(ctx, ins):
+    """dx = g·Mask, from the forward's saved mask: the backward never
+    draws again."""
+    g, mask = ins["Out@GRAD"][0], ins["Mask"][0]
+    return {"X@GRAD": [g * mask.to(g.dtype)]}
+
+
 # -- relu, softmax, cross_entropy --------------------------------------------
 
 @register_op("relu", infer_shape=same_shape_rule())

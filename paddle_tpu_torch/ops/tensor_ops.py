@@ -3,8 +3,10 @@
 ``cast``, ``fill_constant``, ``uniform_random``, ``gaussian_random``,
 ``slice``.
 
-The random ops draw from the op's ``torch.Generator`` (``ctx.rng()``, or
-one seeded from the op's ``seed`` attr), on the executor's device.
+The random ops draw from the op's counter stream (``ctx.rng()``: a pure
+function of the program seed, the step, the op and the element), or from
+the fixed stream of the op's ``seed`` attr, on the executor's device —
+so a captured step replays them with the step it reads on the device.
 """
 
 import numpy as np
@@ -12,7 +14,7 @@ import torch
 
 from ..core import torch_dtype
 from ..framework import in_var, set_out
-from ..registry import register_op
+from ..registry import register_op, seeded_stream
 
 
 def _reshape_target(in_shape, target):
@@ -102,28 +104,22 @@ def _fill_constant(ctx, ins):
                                device=ctx.device)]}
 
 
-def _generator(ctx):
+def _stream(ctx):
     seed = ctx.attr("seed", 0)
-    if not seed:
-        return ctx.rng()
-    gen = torch.Generator(device=ctx.device)
-    gen.manual_seed(int(seed))
-    return gen
+    return seeded_stream(seed, ctx.device) if seed else ctx.rng()
 
 
 @register_op("uniform_random", no_grad=True, infer_shape=_fill_rule)
 def _uniform_random(ctx, ins):
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
-    u = torch.rand(tuple(ctx.attr("shape")), generator=_generator(ctx),
-                   dtype=torch.float32, device=ctx.device)
+    u = _stream(ctx).uniform(tuple(ctx.attr("shape")))
     out = u * (hi - lo) + lo
     return {"Out": [out.to(torch_dtype(ctx.attr("dtype", "float32")))]}
 
 
 @register_op("gaussian_random", no_grad=True, infer_shape=_fill_rule)
 def _gaussian_random(ctx, ins):
-    n = torch.randn(tuple(ctx.attr("shape")), generator=_generator(ctx),
-                    dtype=torch.float32, device=ctx.device)
+    n = _stream(ctx).normal(tuple(ctx.attr("shape")))
     out = n * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0)
     return {"Out": [out.to(torch_dtype(ctx.attr("dtype", "float32")))]}
 

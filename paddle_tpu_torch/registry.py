@@ -12,15 +12,14 @@ reference leaves the duplicate to XLA's CSE; eager PyTorch pays it).
 """
 
 import dataclasses
-import hashlib
 import typing
 
 import torch
 
 __all__ = ["GRAD_SUFFIX", "OpInfo", "OP_REGISTRY", "register_op",
            "get_op_info", "is_registered", "grad_var_name",
-           "LoweringContext", "make_generic_grad_lowering",
-           "ensure_grad_op_registered"]
+           "LoweringContext", "CounterStream", "seeded_stream",
+           "make_generic_grad_lowering", "ensure_grad_op_registered"]
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -70,55 +69,108 @@ def is_registered(op_type):
     return op_type in OP_REGISTRY
 
 
-def _mix(*parts):
-    """A 63-bit seed from integers, stable across processes."""
-    digest = hashlib.sha256(repr(tuple(int(p) for p in parts)).encode())
-    return int.from_bytes(digest.digest()[:8], "little") >> 1
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _mul32(x, c):
+    """``x * c mod 2**32`` for ``x`` in [0, 2**32) (a Python int or an
+    int64 tensor) and a 32-bit constant ``c``, split at 16 bits so no
+    product leaves int64."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(h):
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32) whose
+    output bits each depend on every input bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _fold(key, value):
+    """``key`` (an int or an int64 device tensor) with ``value`` folded
+    in: the next key of the chain."""
+    return _mix32(key ^ _mix32((value + _GOLDEN) & _M32))
+
+
+class CounterStream:
+    """Random numbers that are a pure function of integers: element ``i``
+    of a draw under ``key`` comes from ``_mix32`` of (key, i), a counter
+    hash evaluated on the device. ``key`` may be an int64 device tensor
+    (a captured step's counter), so a CUDA graph that replays the draw
+    reads the key anew each time; an int and a tensor of the same value
+    give the same numbers bit for bit."""
+
+    def __init__(self, key, device):
+        self.key = key
+        self.device = device
+
+    def _bits(self, n):
+        """[n] int64 of 24 random bits each: element i folded into the
+        key."""
+        idx = torch.arange(n, device=self.device, dtype=torch.int64)
+        return _fold(self.key, idx) >> 8
+
+    def uniform(self, shape):
+        """fp32 uniforms in (0, 1) on a 2**-24 grid."""
+        n = int(torch.Size(shape).numel())
+        u = (self._bits(n).float() + 0.5) * (1.0 / (1 << 24))
+        return u.reshape(tuple(shape))
+
+    def normal(self, shape):
+        """fp32 standard normals (Box-Muller over two uniforms an
+        element)."""
+        n = int(torch.Size(shape).numel())
+        u = (self._bits(2 * n).float() + 0.5) * (1.0 / (1 << 24))
+        r = torch.sqrt(-2.0 * torch.log(u[:n]))
+        return (r * torch.cos((2.0 * torch.pi) * u[n:])).reshape(
+            tuple(shape))
+
+
+def seeded_stream(seed, device):
+    """The fixed stream of an op's explicit ``seed`` attribute: the same
+    numbers at every step and for every op with that seed."""
+    return CounterStream(_fold(_mix32(int(seed) & _M32), 0), device)
 
 
 class LoweringContext:
     """Per-op context handed to lowerings: the op's attributes, the
     device, execution-mode flags and a deterministic random stream.
 
-    ``step_key`` is ``(program seed, executor step)``; :meth:`rng` returns
-    a ``torch.Generator`` on the device seeded from (step_key, op uid,
-    call #), so random ops reproduce run to run. Its numbers are not
-    ``jax.random``'s: parity tests carry initial state across instead.
-
-    ``graphed`` marks a step that ``Executor.run_steps`` captures as a
-    CUDA graph: the graph would replay one step's draws on every step,
-    so :meth:`rng` raises there, naming the op."""
+    ``step_key`` is ``(program seed, executor step)``; the step is an int
+    (``Executor.run``) or an int64 device scalar that a captured step
+    advances on the device at each replay (``Executor.run_steps``).
+    :meth:`rng` returns a :class:`CounterStream` keyed by (seed, step, op
+    uid, call #), so random ops reproduce run to run, and ``run_steps(n)``
+    draws what ``n`` ``run()`` calls draw. Its numbers are not
+    ``jax.random``'s: parity tests carry initial state across instead."""
 
     def __init__(self, op, step_key=None, is_test=False, device=None,
-                 amp=False, graphed=False):
+                 amp=False):
         self.op = op
         self.attrs = op.attrs
         self.step_key = step_key
         self.is_test = is_test
         self.device = torch.device("cpu") if device is None else device
         self.amp = amp          # bf16 compute / fp32 master weights
-        self.graphed = graphed
         self._rng_calls = 0
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
     def rng(self):
-        if self.graphed:
-            raise RuntimeError(
-                "op %r draws random numbers, which a captured CUDA graph "
-                "would repeat on every replay: Executor.run_steps cannot "
-                "capture it on the card — use run() per step"
-                % self.op.type)
         if self.step_key is None:
             raise RuntimeError(
                 "op %r needs a random stream but the executor did not "
                 "provide a step key" % self.op.type)
         self._rng_calls += 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_mix(*self.step_key, self.op.op_uid,
-                             self._rng_calls))
-        return gen
+        seed, step = self.step_key
+        key = _fold(_mix32(int(seed) & _M32), step & _M32)
+        key = _fold(_fold(key, int(self.op.op_uid)), self._rng_calls)
+        return CounterStream(key, self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +214,7 @@ def make_generic_grad_lowering(fwd_type):
         fwd_ctx = LoweringContext(
             ctx.op.forward_op or _FakeFwdOp(ctx, fwd_type),
             step_key=ctx.step_key, is_test=ctx.is_test, device=ctx.device,
-            amp=ctx.amp, graphed=ctx.graphed)
+            amp=ctx.amp)
 
         def fwd_fn(d_ins):
             merged = {s: list(v) for s, v in fwd_ins.items()}

@@ -51,6 +51,7 @@ from ..observability import catalog, tracing
 from ..ops import kv_quant as kvq
 from ..ops import paged_attention
 from ..ops.attention import dot_product_attention, paged_chunk_attention
+from ..registry import _M32, _mix32
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
                       OverloadedError, PendingResult, ServingClosedError,
                       resolve_serving_knobs)
@@ -605,26 +606,6 @@ class _EngineBase:
                 "a call that updates the KV pools in place failed (%s: %s) "
                 "— engine state unknown, reset() required"
                 % (type(e).__name__, e)) from e
-
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c):
-    """``x * c mod 2**32`` for ``x`` in [0, 2**32) (a Python int or an
-    int64 tensor) and a 32-bit constant ``c``, split at 16 bits so no
-    product leaves int64."""
-    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(h):
-    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32) whose
-    output bits each depend on every input bit."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
 
 
 def draw_tokens(logits, temperatures, seed, step, greedy=None):

@@ -40,6 +40,7 @@ def render_prometheus(gauges=None):
         base, labels = catalog.parse_storage_key(key)
         m = catalog.resolve(key)
         if m is not None:
+            base = m.name       # a legacy storage key renders canonically
             help_, kind = m.help, m.kind
         else:
             help_ = ""
@@ -71,7 +72,7 @@ def render_prometheus(gauges=None):
     for name, vals in sorted(profiler.get_histograms().items()):
         base, labels = catalog.parse_storage_key(name)
         m = catalog.resolve(name)
-        metric = PREFIX + _sanitize(base)
+        metric = PREFIX + _sanitize(m.name if m is not None else base)
         if m is not None and m.help:
             lines.append("# HELP %s %s" % (metric, m.help))
         lines.append("# TYPE %s summary" % metric)

@@ -45,7 +45,10 @@ def tiny(monkeypatch):
                         ("ALTERNATE_ROUNDS", 2),
                         ("BHSD_GEOMS", [(3, 64, 4, 4, 16),
                                         (3, 50, 4, 2, 16)]),
-                        ("DENSE_STEPS", 3)):
+                        ("DENSE_STEPS", 3), ("CAPTURED_STEPS", 2),
+                        ("CAPTURED_ROUNDS", 1), ("BENCH_ITERS", 2),
+                        ("BENCH_ROUNDS", 1), ("BENCH_PROFILE_STEPS", 1),
+                        ("DROPOUT_ROWS", 16), ("DROPOUT_WIDTH", 256)):
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "_timed", lambda fn, args, reps, flush:
                         (fn(*args), 0.5)[1])
@@ -861,3 +864,77 @@ def test_resnet_profile_classes():
     assert cs.resnet_class("Memcpy DtoD (Device -> Device)") == "copy"
     assert cs.resnet_class("max_pool_forward_nhwc") == "pool"
     assert cs.resnet_class("nvjet_tst_128x64") == "gemm"
+
+
+def test_phase13_gates_and_bench_rounds_rehearse_on_the_cpu(tiny, capsys):
+    """The run_steps ≡ run() gates (dense and packed, with the launch
+    arithmetic counted through the steps), the dropout gate and the
+    bench's rounds through ``benchmarks.lm`` at the tiny size."""
+    total = cs.REPLAY_RUN_CALLS + 2 * cs.REPLAY_N_STEPS
+    for mask, kernels in ((None, cs.K1K2), ("packed", cs.K5)):
+        gate = cs.lm_replay_gate(mask)
+        assert all(gate["losses_bitwise"])
+        assert gate["persistables_differing"] == []
+        assert gate["graph_launches"] == {"captures": 0, "replays": 0}
+        assert gate["launches"] == {n: total * cs.GATE_LAYERS
+                                    for n in kernels}
+    drop = cs.dropout_gate()
+    assert drop["loss_bitwise"] and drop["masks_differ"]
+    assert all(abs(k - 0.5) <= 4 * drop["sigma"] for k in drop["kept_share"])
+    bench = cs.bench_lm_rounds({"dense": 10.0, "packed": 12.0})
+    steps = (1 + cs.BENCH_ROUNDS) * cs.BENCH_ITERS
+    dense, packed = bench["dense"], bench["packed"]
+    assert {"metric", "value", "unit", "config", "mfu", "loss", "steps",
+            "compile_cache_misses", "device_wait_s"} <= set(dense)
+    assert dense["steps"] == 1 + steps
+    assert dense["compile_cache_misses_by_cause"] == {"first_compile": 2.0}
+    assert packed["compile_cache_misses_by_cause"] == {"first_compile": 4.0}
+    assert dense["launches"] == dict(
+        {n: 0 for n in dense["launches"]},
+        **{n: steps * cs.LM_LAYERS for n in cs.K1K2})
+    assert packed["launches"] == dict(
+        {n: 0 for n in packed["launches"]},
+        **{n: steps * cs.LM_LAYERS for n in cs.K1K2 + cs.K5})
+    for rec in (dense, packed):
+        assert len(rec["round_losses"]) == 1 + cs.BENCH_ROUNDS
+        assert rec["replay_device_busy_ms"] >= 0
+        assert rec["replay_wall_ms"] > 0
+    assert dense["eager_step_ms_p50"] == 10.0
+    assert set(packed["step_ms_captured"]) == {"baseline", "packed"}
+    out = capsys.readouterr().out
+    assert '"metric": "transformer_lm_train_tokens_per_sec_per_chip"' in out
+    assert "bench_lm packed through the captured step" in out
+
+
+def test_phase13_launches_sum_the_main_path_runs():
+    runs = {"a": {"launches": {"flash_fwd": 24, "fused_adam": 2}},
+            "b": {"launches": {"flash_fwd": 6}}}
+    report = {"bench_lm": {"dense": runs["a"], "packed": runs["b"]},
+              "fused_adam_path": {"captured": runs["b"]},
+              "bhsd_path": {"captured": {"launches": {}}},
+              "dense_path": {"bhsd": {"captured": runs["a"]},
+                             "bshd": {"captured": {"launches": {}}}}}
+    assert cs.phase13_launches(report) == {"flash_fwd": 60,
+                                           "fused_adam": 4}
+
+
+def test_resume_child_arguments():
+    args = cs._child_args(["--resume-child", "ck", "out.npz"])
+    assert (args.resume_child, args.device, args.layers, args.dim,
+            args.heads, args.vocab, args.batch, args.seq) == \
+        (["ck", "out.npz"], "cuda", cs.GATE_LAYERS, cs.LM_DIM, cs.LM_HEADS,
+         cs.LM_VOCAB, cs.GATE_BATCH, cs.GATE_SEQ)
+    assert (args.rounds, args.round_steps, args.preempt_after) == \
+        (cs.RESUME_ROUNDS, cs.RESUME_ROUND_STEPS, 0)
+    args = cs._child_args(["--resume-child", "ck", "o", "--device", "cpu",
+                           "--layers", "1", "--round-steps", "2",
+                           "--preempt-after", "2"])
+    assert (args.device, args.layers, args.round_steps,
+            args.preempt_after) == ("cpu", 1, 2, 2)
+    for bad in (["--device", "tpu"], ["--layers", "0"],
+                ["--preempt-after", str(cs.RESUME_ROUNDS)],
+                ["--preempt-after", "-1"]):
+        with pytest.raises(SystemExit):
+            cs._child_args(["--resume-child", "ck", "o"] + bad)
+    with pytest.raises(SystemExit):
+        cs._child_args(["--device", "cpu"])        # no --resume-child

@@ -309,8 +309,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, and chip_smoke.py, imported in a fresh
-    interpreter, leaves no jax and no paddle_tpu module loaded."""
+    """Every module of the port — the bench, the robustness runtime and
+    the step telemetry among them — and chip_smoke.py, imported in a
+    fresh interpreter, leaves no jax and no paddle_tpu module loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import paddle_tpu_torch, chip_smoke\n"
@@ -320,8 +321,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "n = sum(m.startswith('paddle_tpu_torch') for m in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 15 else 0)\n")
+        "need = {'paddle_tpu_torch.' + m for m in (\n"
+        "    'benchmarks.common', 'benchmarks.lm', 'robustness.chaos',\n"
+        "    'robustness.checkpoint', 'robustness.train_loop', 'io',\n"
+        "    'ops.io_ops', 'observability.steps', 'observability.runlog',\n"
+        "    'observability.flight_recorder', 'observability.liveness')}\n"
+        "missing = sorted(need - set(sys.modules))\n"
+        "print(n, bad, missing)\n"
+        "sys.exit(1 if bad or missing or n < 15 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
