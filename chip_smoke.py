@@ -2042,48 +2042,30 @@ def megastep_path(phase4):
 # -- phases 5-6: training -------------------------------------------------
 
 def build_lm(fluid, layers, batch, seq, amp, mask=None, opt="Adam"):
-    """bench_lm.py's program: transformer_lm, softmax cross-entropy on the
-    next token, mean, ``opt``(LM_LR); bf16 mixed precision when ``amp``.
+    """bench_lm.py's program as the port's bench builds it
+    (``benchmarks.lm._build_lm``) at LM_DIM, LM_HEADS, LM_VOCAB and
+    ``layers``, with ``opt``(LM_LR); bf16 mixed precision when ``amp``.
     ``mask``: None, "packed" (a ``seg`` feed of segment ids, its
-    ``_build_lm(packed_rows=True)``) or "valid" (a ``valid`` padding
-    feed, its padded baseline)."""
-    from paddle_tpu_torch import models, unique_name
+    ``packed_rows=True``) or "valid" (a ``valid`` padding feed, its
+    padded baseline)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.benchmarks import lm
     with unique_name.guard():
-        prog, startup = fluid.Program(), fluid.Program()
-        prog.random_seed = startup.random_seed = SEED
-        with fluid.program_guard(prog, startup):
-            ids = fluid.layers.data(name="ids", shape=[batch, seq],
-                                    dtype="int64", append_batch_size=False)
-            labels = fluid.layers.data(name="labels", shape=[batch, seq],
-                                       dtype="int64",
-                                       append_batch_size=False)
-            kw = {}
-            if mask == "packed":
-                kw["segment_ids"] = fluid.layers.data(
-                    name="seg", shape=[batch, seq], dtype="int32",
-                    append_batch_size=False)
-            elif mask == "valid":
-                kw["valid"] = fluid.layers.data(
-                    name="valid", shape=[batch, seq], dtype="int32",
-                    append_batch_size=False)
-            logits = models.transformer_lm(
-                ids, vocab_size=LM_VOCAB, num_layers=layers,
-                d_model=LM_DIM, num_heads=LM_HEADS, max_len=seq, **kw)
-            flat = fluid.layers.reshape(logits, [batch * seq, LM_VOCAB])
-            flat_lbl = fluid.layers.reshape(labels, [batch * seq, 1])
-            loss = fluid.layers.mean(
-                fluid.layers.softmax_with_cross_entropy(flat, flat_lbl))
-            getattr(fluid.optimizer, opt)(learning_rate=LM_LR).minimize(loss)
-        fluid.enable_mixed_precision(prog, amp)
+        prog, startup, loss = lm._build_lm(
+            batch, seq, packed_rows=mask == "packed", valid=mask == "valid",
+            layers=layers, d_model=LM_DIM, heads=LM_HEADS, vocab=LM_VOCAB,
+            optimizer=getattr(fluid.optimizer, opt)(learning_rate=LM_LR),
+            amp=amp)
+    prog.random_seed = startup.random_seed = SEED
     return prog, startup, loss
 
 
 def lm_feed(batch, seq):
-    """bench_lm.py's feed: ids from seed 0, labels the ids rolled by one."""
-    rng = np.random.RandomState(SEED)
-    x = rng.randint(0, LM_VOCAB, (batch, seq))
-    return {"ids": x.astype(np.int32),
-            "labels": np.roll(x, -1, 1).astype(np.int32)}
+    """bench_lm.py's feed as the port's bench makes it
+    (``benchmarks.lm.dense_data``, at LM_VOCAB): ids from seed 0, labels
+    the ids rolled by one."""
+    from paddle_tpu_torch.benchmarks import lm
+    return lm.dense_data(batch, seq, LM_VOCAB)
 
 
 GATE_WEIGHT = "fc_0.w_0"       # layer 0's query projection
@@ -2432,45 +2414,18 @@ def _timing_row(base, launches, err, ms, plain_ms, library_ms, flops,
 # -- phases 7-8: packed documents, fused Adam -----------------------------
 
 def packed_data(batch, seq):
-    """bench_lm.py packed_main's data through the port's packer: seeded
-    ragged documents of seq/8 .. seq/2 tokens, first-fit packed into
-    ``batch`` rows with segment ids, next-token labels with ignore_id 0;
-    and its padded baseline, the documents of those rows one per row
-    under a ``valid`` mask. Real tokens: positions outside each row's
-    padding tail."""
-    from paddle_tpu_torch.data import decorator as D
-    rng = np.random.RandomState(SEED)
-    docs = []
-    while sum(len(d) for d in docs) < int(batch * seq * 1.05):
-        docs.append(rng.randint(1, LM_VOCAB, size=int(
-            rng.randint(seq // 8, seq // 2))).astype(np.int32))
-    rows = D.pack_segments(docs, seq)[:batch]
-    ids = np.stack([t for t, _ in rows]).astype(np.int32)
-    seg = np.stack([s for _, s in rows]).astype(np.int32)
-    lab = D.packed_next_token_labels(ids, seg, ignore_id=0)
-    pad = np.zeros_like(seg, bool)
-    for r in range(batch):
-        tail = seg[r] == seg[r, -1]
-        if ids[r][tail].max(initial=0) == 0 and seg[r, -1] > 0:
-            pad[r] = tail
-    base_docs = [t[s == si] for t, s in rows for si in range(int(s.max()) + 1)
-                 if (t[s == si] != 0).any()]
-    nb = len(base_docs)
-    base_ids = np.zeros((nb, seq), np.int32)
-    base_valid = np.zeros((nb, seq), np.int32)
-    for i, d in enumerate(base_docs):
-        base_ids[i, :len(d)] = d
-        base_valid[i, :len(d)] = 1
-    base_lab = np.zeros((nb, seq), np.int32)
-    base_lab[:, :-1] = base_ids[:, 1:]
-    return {"packed": {"ids": ids, "seg": seg,
-                       "labels": lab.astype(np.int32)},
-            "baseline": {"ids": base_ids, "valid": base_valid,
-                         "labels": base_lab},
-            "real_packed": int((~pad).sum()),
-            "real_baseline": int(base_valid.sum()), "docs": nb,
-            "doc_lengths": [len(d) for d in base_docs],
-            "segments_per_row": [int(r.max()) + 1 for r in seg]}
+    """bench_lm.py packed_main's data as the port's bench makes it
+    (``benchmarks.lm.packed_data``, at LM_VOCAB): the packed rows with
+    segment ids and next-token labels, and the padded baseline, the
+    documents of those rows one per row under a ``valid`` mask; with the
+    real-token counts and the documents' geometry."""
+    from paddle_tpu_torch.benchmarks import lm
+    packed, base, real_packed, real_base, docs = lm.packed_data(
+        batch, seq, LM_VOCAB)
+    return {"packed": packed, "baseline": base,
+            "real_packed": real_packed, "real_baseline": real_base,
+            "docs": len(docs), "doc_lengths": [len(d) for d in docs],
+            "segments_per_row": [int(r.max()) + 1 for r in packed["seg"]]}
 
 
 def visible_pairs(seg, causal=True):
@@ -3949,13 +3904,12 @@ def bench_lm_rounds(eager_p50):
             out[mode] = rec
         pexe.Executor.run_steps = real_run_steps
         # a profiled replay of each program, outside the counted rounds
-        dense_feed = lm_feed(LM_BATCH, LM_SEQ)
-        pdata = lm.packed_data(LM_BATCH, LM_SEQ, LM_VOCAB)
         for mode, (prog, startup, loss), feed in (
-                ("dense", lm._build_lm(LM_BATCH, LM_SEQ, valid=False),
-                 dense_feed),
-                ("packed", lm._build_lm(LM_BATCH, LM_SEQ, packed_rows=True),
-                 pdata[0])):
+                ("dense", build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ,
+                                   amp=True), lm_feed(LM_BATCH, LM_SEQ)),
+                ("packed", build_lm(fluid, LM_LAYERS, LM_BATCH, LM_SEQ,
+                                    amp=True, mask="packed"),
+                 packed_data(LM_BATCH, LM_SEQ)["packed"])):
             with fluid.scope_guard(fluid.Scope()):
                 exe = fluid.Executor(fluid.CUDAPlace(0))
                 exe.run(startup)

@@ -21,11 +21,9 @@ REAL tokens/s.
 
 Knobs (environment): BENCH_BATCH (16), BENCH_SEQ (1024), BENCH_WARMUP
 (steps, rounded up to whole rounds; 3), BENCH_ITERS (60), BENCH_ROUNDS
-(3), BENCH_PACKED (0); the port adds BENCH_LAYERS (12), BENCH_DMODEL
-(512), BENCH_HEADS (8) and BENCH_VOCAB (32000) for smoke runs at a small
-size. ``BENCH_FORCE_CPU=1`` runs on the CPU (plain versions of the
-kernels); without it a machine with no card gets the failure JSON line
-and exit 1.
+(3), BENCH_PACKED (0). ``BENCH_FORCE_CPU=1`` runs on the CPU (plain
+versions of the kernels); without it a machine with no card gets the
+failure JSON line and exit 1.
 """
 
 import json
@@ -38,10 +36,8 @@ METRIC = "transformer_lm_train_tokens_per_sec_per_chip"
 UNIT = "tokens/sec"
 BATCH = int(os.environ.get("BENCH_BATCH", 16))
 SEQ = int(os.environ.get("BENCH_SEQ", 1024))
-VOCAB = int(os.environ.get("BENCH_VOCAB", 32000))
-LAYERS = int(os.environ.get("BENCH_LAYERS", 12))
-D_MODEL = int(os.environ.get("BENCH_DMODEL", 512))
-HEADS = int(os.environ.get("BENCH_HEADS", 8))
+VOCAB = 32000
+LAYERS, D_MODEL, HEADS = 12, 512, 8
 WARMUP = int(os.environ.get("BENCH_WARMUP", 3))
 ITERS = int(os.environ.get("BENCH_ITERS", 60))
 PACKED = os.environ.get("BENCH_PACKED", "0") == "1"
@@ -81,14 +77,23 @@ def _measure_rounds(exe, prog, loss, feed, iters, warm_rounds, rounds):
     return dts[len(dts) // 2], state["lv"]
 
 
-def _build_lm(batch, seq, packed_rows=False, valid=True):
+def _build_lm(batch, seq, packed_rows=False, valid=True, *, layers=None,
+              d_model=None, heads=None, vocab=None, optimizer=None,
+              amp=True):
     """The LM training program; ``packed_rows`` adds a seg-id feed for the
     packed path (segment-aware attention), otherwise ``valid`` a padding
     feed (the padded baseline); ``valid=False`` is ``main()``'s program,
-    with neither."""
+    with neither. The sizes default to LAYERS, D_MODEL, HEADS and VOCAB,
+    the optimizer to ``Adam(1e-4)``; ``amp``: bf16 mixed precision."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import models
 
+    layers = LAYERS if layers is None else layers
+    d_model = D_MODEL if d_model is None else d_model
+    heads = HEADS if heads is None else heads
+    vocab = VOCAB if vocab is None else vocab
+    if optimizer is None:
+        optimizer = fluid.optimizer.Adam(learning_rate=1e-4)
     prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(prog, startup):
         ids = fluid.layers.data(name="ids", shape=[batch, seq],
@@ -105,17 +110,25 @@ def _build_lm(batch, seq, packed_rows=False, valid=True):
                 name="valid", shape=[batch, seq], dtype="int32",
                 append_batch_size=False)
         logits = models.transformer_lm(
-            ids, vocab_size=VOCAB, num_layers=LAYERS, d_model=D_MODEL,
-            num_heads=HEADS, max_len=seq, **kw)
-        flat = fluid.layers.reshape(logits, [batch * seq, VOCAB])
+            ids, vocab_size=vocab, num_layers=layers, d_model=d_model,
+            num_heads=heads, max_len=seq, **kw)
+        flat = fluid.layers.reshape(logits, [batch * seq, vocab])
         flat_lbl = fluid.layers.reshape(labels, [batch * seq, 1])
         # fused log-softmax + gather loss: no fp32 probabilities over the
         # 32k vocab
         loss = fluid.layers.mean(
             fluid.layers.softmax_with_cross_entropy(flat, flat_lbl))
-        fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
-    fluid.enable_mixed_precision(prog)
+        optimizer.minimize(loss)
+    fluid.enable_mixed_precision(prog, amp)
     return prog, startup, loss
+
+
+def dense_data(batch, seq, vocab):
+    """``main()``'s feed from ``RandomState(0)``: ids, and labels the ids
+    rolled by one."""
+    x = np.random.RandomState(0).randint(0, vocab, (batch, seq))
+    return {"ids": x.astype(np.int32),
+            "labels": np.roll(x, -1, 1).astype(np.int32)}
 
 
 def packed_data(batch, seq, vocab):
@@ -246,10 +259,7 @@ def main():
 
     prog, startup, loss = _build_lm(BATCH, SEQ, valid=False)
     step_flops = estimate_program_flops(prog, BATCH, training=True)
-    rng = np.random.RandomState(0)
-    x = rng.randint(0, VOCAB, (BATCH, SEQ))
-    feed = {"ids": x.astype(np.int32),
-            "labels": np.roll(x, -1, 1).astype(np.int32)}
+    feed = dense_data(BATCH, SEQ, VOCAB)
 
     with fluid.scope_guard(fluid.Scope()):
         exe = fluid.Executor(place())

@@ -30,7 +30,7 @@ from . import flags, profiler
 from .core import Place, torch_dtype
 from .framework import VarType, default_main_program
 from .observability import flight_recorder, steps as step_telemetry
-from .ops import flash_attention, fused_adam
+from .ops import launch_count
 from .registry import LoweringContext, get_op_info
 
 __all__ = ["Executor", "FetchHandle", "Scope", "global_scope",
@@ -456,8 +456,6 @@ class Executor:
         return (self._package_fetches(fetched, fetch_names, return_numpy),
                 cache, cause, build_s, dispatch_s)
 
-        return packaged
-
     # -- run_steps -----------------------------------------------------
     def run_steps(self, program=None, feed=None, n_steps=1, fetch_list=None,
                   scope=None, return_numpy=True):
@@ -571,19 +569,13 @@ class Executor:
             self._graphs.clear()
 
 
-# the kernel wrappers whose calls under capture a replay must count:
-# (their recorded counts, how they add replays)
-_COUNTED = ((lambda: flash_attention.recorded, flash_attention.count_replays),
-            (lambda: fused_adam.recorded, fused_adam.count_replays))
-
-
 class _CapturedStep:
     """One program step captured as a CUDA graph over static tensors
     (``state``: persistables by name; ``feed``: feeds by name; ``step_t``:
     the executor step the random ops read, an int64 scalar), and the
-    fetch tensors its replays write. ``per_replay`` holds the kernel
-    calls the capture recorded, ``pins`` the host buffers the graph
-    reads."""
+    fetch tensors its replays write. ``recorded`` (a
+    ``launch_count.Capture``) holds the kernel calls the capture
+    recorded and the host buffers the graph reads."""
 
     def __init__(self, exe, program, scope, feed_vals, fetch_names, start):
         self.exe, self.program = exe, program
@@ -608,8 +600,7 @@ class _CapturedStep:
         self.step_t = torch.zeros((), dtype=torch.int64, device=exe.device)
         self.drop = liveness(block, set(self.state) | set(self.written) |
                              set(fetch_names))
-        self.per_replay = []
-        self.pins = []
+        self.recorded = launch_count.Capture()
         self.warm = self._capture(start)
 
     def _step(self):
@@ -644,19 +635,12 @@ class _CapturedStep:
         with torch.cuda.stream(side):
             warm = self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = [dict(rec()) for rec, _ in _COUNTED]
-        pins0 = len(fused_adam.captured_pins)
         graph = torch.cuda.CUDAGraph()
-        try:
-            # thread_local: CUDA calls of the process's other threads (a
-            # server's) do not invalidate this thread's capture
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.fetches = self._step()
-        finally:
-            self.pins = fused_adam.captured_pins[pins0:]
-            del fused_adam.captured_pins[pins0:]
-            self.per_replay = [{k: rec()[k] - b[k] for k in b}
-                               for (rec, _), b in zip(_COUNTED, before)]
+        # thread_local: CUDA calls of the process's other threads (a
+        # server's) do not invalidate this thread's capture
+        with self.recorded, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.fetches = self._step()
         self.graph = graph
         graph_launches["captures"] += 1
         return warm
@@ -687,7 +671,5 @@ class _CapturedStep:
         for _ in range(n):
             self.graph.replay()
             graph_launches["replays"] += 1
-        for (_, add), per in zip(_COUNTED, self.per_replay):
-            if any(per.values()):
-                add(per, n)
+        self.recorded.replayed(n)
         return self.fetches

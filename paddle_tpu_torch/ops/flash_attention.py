@@ -57,10 +57,9 @@ ids every row sees its own key.
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks what the kernel takes and launches on the
 current stream, or raises: there is no fallback. ``launches`` counts
-kernel launches per kernel (and nothing else). A call made while the
-current stream is being captured into a CUDA graph launches nothing: it
-adds to ``recorded`` instead, and whoever replays the graph adds what it
-recorded to ``launches`` at each replay (:func:`count_replays`).
+kernel launches per kernel (and nothing else); a call made while the
+current stream is being captured into a CUDA graph is counted at each
+replay of the graph (``launch_count``).
 """
 
 import ctypes
@@ -68,6 +67,7 @@ import ctypes
 import numpy as np
 import torch
 
+from . import launch_count
 from .segment_mask import is_segment_mask
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -77,7 +77,7 @@ __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_segment_dkv", "flash_fwd_segment_plain",
            "flash_bwd_segment_plain", "FlashSegmentAttention",
            "flash_fwd_saving_lse", "flash_bwd_from_saved", "plain_vjp",
-           "launches", "recorded", "count_replays", "key_tile",
+           "launches", "key_tile",
            "smem_bytes",
            "NEG_INF", "LSE_LANES", "MAX_HEAD_DIM", "takes_dense_mask"]
 
@@ -111,7 +111,10 @@ _KERNELS = {
 _MASK_KINDS = {"valid": 0, "seg": 1, "dense": 2}
 
 launches = {name: 0 for name in _KERNELS}
-recorded = {name: 0 for name in _KERNELS}   # calls captured into graphs
+
+
+def _add(name, n):
+    launches[name] += n
 
 
 def _scale(q, scale):
@@ -507,18 +510,7 @@ def _launch(name, lib, ins, mask, outs, scale, causal):
         msg = getattr(lib, prefix + "error_string")(err).decode()
         raise RuntimeError("%s kernel launch failed: CUDA error %d (%s)"
                            % (name, err, msg))
-    if torch.cuda.is_current_stream_capturing():
-        recorded[name] += 1       # a graph node: counted at each replay
-    else:
-        launches[name] += 1
-
-
-def count_replays(per_replay, replays):
-    """Add the launches of ``replays`` replays of a CUDA graph that
-    recorded ``per_replay`` calls (name -> calls, the difference of
-    :data:`recorded` across its capture)."""
-    for name, n in per_replay.items():
-        launches[name] += n * replays
+    launch_count.launched(name, _add)
 
 
 def _fwd_kernel(name, q, k, v, scale, causal, k_valid=None, seg=None,

@@ -17,30 +17,25 @@ per role (three allocations a step, not three per parameter). The
 kernel rounds each operation on its own, so it equals the plain
 version's eager kernels; the contract it is held to is the reference's,
 at most 2 ulp.
-``launches`` counts kernel launches. A call under CUDA-graph capture
-adds to ``recorded`` instead (the replays count it:
-:func:`count_replays`), and its pinned pointer table — which the graph's
-copy node reads at every replay — is appended to ``captured_pins``; the
-capturer must keep those buffers, unchanged, as long as the graph.
+``launches`` counts kernel launches; a call under CUDA-graph capture is
+counted at each replay, and its pinned pointer table, which the graph's
+copy node reads at every replay, is kept alive with the graph
+(``launch_count``).
 """
 
 import ctypes
 
 import torch
 
-__all__ = ["fused_adam_update", "fused_adam_update_plain", "launches",
-           "recorded", "count_replays", "captured_pins"]
+from . import launch_count
+
+__all__ = ["fused_adam_update", "fused_adam_update_plain", "launches"]
 
 launches = {"fused_adam": 0}
-recorded = {"fused_adam": 0}   # calls captured into CUDA graphs
-captured_pins = []             # pinned tables that captured graphs read
 
 
-def count_replays(per_replay, replays):
-    """Add the launches of ``replays`` replays of a CUDA graph that
-    recorded ``per_replay`` calls."""
-    for name, n in per_replay.items():
-        launches[name] += n * replays
+def _add(name, n):
+    launches[name] += n
 
 
 def _check(params, grads, m1s, m2s):
@@ -141,9 +136,6 @@ def fused_adam_update(params, grads, m1s, m2s, lr_t, gscale, beta1, beta2,
         raise RuntimeError("fused_adam kernel launch failed: CUDA error %d "
                            "(%s)" % (err, lib.paddle_fused_adam_error_string(
                                err).decode()))
-    if torch.cuda.is_current_stream_capturing():
-        recorded["fused_adam"] += 1
-        captured_pins.append(host)
-    else:
-        launches["fused_adam"] += 1
+    launch_count.keep_alive(host)
+    launch_count.launched("fused_adam", _add)
     return outs

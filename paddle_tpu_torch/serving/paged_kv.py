@@ -57,7 +57,7 @@ import torch
 
 from .. import resolve_device
 from ..observability import catalog, tracing
-from ..ops import paged_attention
+from ..ops import launch_count, paged_attention
 from ..ops.kv_quant import KVQuantConfig
 from .batcher import OverloadedError
 from .generation import (_EngineBase, draw_tokens, params_to_device,
@@ -592,9 +592,9 @@ class PagedDecodeEngine(_EngineBase):
         warm-up trip with every slot frozen (it writes only the scratch
         page and builds K3's plan and workspace and cuBLAS's state for
         this stream), then the capture of one trip on the same stream.
-        Returns ``(graph, K3 calls it recorded, K3's workspace)``; the
-        workspace is kept alive with the graph, which holds its
-        address."""
+        Returns ``(graph, its capture's K3 calls (a
+        ``launch_count.Capture``), K3's workspace)``; the workspace is
+        kept alive with the graph, which holds its address."""
         m = self._ms
         if sample in m.graphs:
             return m.graphs[sample]
@@ -602,14 +602,13 @@ class PagedDecodeEngine(_EngineBase):
         m.v.t.zero_()
         self._ms_trip(sample)
         self.trip_stats["warmups"] += 1
-        before = dict(paged_attention.recorded)
         graph = torch.cuda.CUDAGraph()
         # thread_local: the CUDA calls of the server's other threads do
         # not invalidate this thread's capture
-        with torch.cuda.graph(graph, stream=m.stream,
-                              capture_error_mode="thread_local"):
+        with launch_count.Capture() as per, \
+                torch.cuda.graph(graph, stream=m.stream,
+                                 capture_error_mode="thread_local"):
             self._ms_trip(sample)
-        per = {n: paged_attention.recorded[n] - before[n] for n in before}
         ws = paged_attention._workspaces.get((self.device.index,
                                               m.stream.cuda_stream))
         m.graphs[sample] = (graph, per, ws)
@@ -673,7 +672,7 @@ class PagedDecodeEngine(_EngineBase):
             # step) runs after this megastep, as in the reference's one
             # device queue
             torch.cuda.current_stream(self.device).wait_stream(m.stream)
-            paged_attention.count_replays(graph[1], k_eff)
+            graph[1].replayed(k_eff)
             st["replays"] += k_eff
         else:
             st["eager_trips"] += k_eff

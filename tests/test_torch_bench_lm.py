@@ -37,10 +37,16 @@ from paddle_tpu_torch.benchmarks import lm
 from paddle_tpu_torch.convert import scope_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMALL = {"BENCH_LAYERS": "2", "BENCH_DMODEL": "64", "BENCH_HEADS": "2",
-         "BENCH_VOCAB": "97", "BENCH_BATCH": "2", "BENCH_SEQ": "64",
-         "BENCH_ITERS": "2", "BENCH_WARMUP": "2", "BENCH_ROUNDS": "3"}
+# the model's sizes, which bench_lm.py fixes, cut in the module; the
+# rounds' sizes through the environment knobs
+SIZES = {"LAYERS": 2, "D_MODEL": 64, "HEADS": 2, "VOCAB": 97}
+SMALL = {"BENCH_BATCH": "2", "BENCH_SEQ": "64", "BENCH_ITERS": "2",
+         "BENCH_WARMUP": "2", "BENCH_ROUNDS": "3"}
 ITERS, WARM_ROUNDS, ROUNDS = 2, 1, 3
+# what ``python -m paddle_tpu_torch.benchmarks.lm`` runs, at SIZES
+ENTRY = ("from paddle_tpu_torch.benchmarks import common, lm\n"
+         "vars(lm).update(%r)\n"
+         "common.run_guarded(lm.main, lm.METRIC, lm.UNIT)\n" % SIZES)
 
 
 def reference_keys(function):
@@ -56,19 +62,19 @@ def reference_keys(function):
     raise AssertionError("no json.dumps dict in bench_lm.%s" % function)
 
 
-def run_bench(**env):
+def run_bench(args, **env):
     full = {k: v for k, v in os.environ.items()
             if not k.startswith("BENCH_")}
     full.update(PYTHONPATH=REPO, **env)
-    return subprocess.run([sys.executable, "-m",
-                           "paddle_tpu_torch.benchmarks.lm"], cwd=REPO,
+    return subprocess.run([sys.executable] + args, cwd=REPO,
                           env=full, capture_output=True, text=True,
                           timeout=300)
 
 
 @pytest.mark.parametrize("packed", ["0", "1"], ids=["dense", "packed"])
 def test_prints_the_reference_keys_on_the_forced_cpu(packed):
-    out = run_bench(BENCH_FORCE_CPU="1", BENCH_PACKED=packed, **SMALL)
+    out = run_bench(["-c", ENTRY], BENCH_FORCE_CPU="1", BENCH_PACKED=packed,
+                    **SMALL)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1
@@ -88,7 +94,7 @@ def test_prints_the_reference_keys_on_the_forced_cpu(packed):
 
 
 def test_refuses_the_cpu_unless_asked():
-    out = run_bench(**SMALL)
+    out = run_bench(["-m", "paddle_tpu_torch.benchmarks.lm"], **SMALL)
     assert out.returncode == 1
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1                   # no bench line before it
@@ -115,8 +121,7 @@ class _Recording:
 
 def _small(monkeypatch):
     for mod in (bench_lm, lm):
-        for name, value in (("LAYERS", 2), ("D_MODEL", 64), ("HEADS", 2),
-                            ("VOCAB", 97)):
+        for name, value in SIZES.items():
             monkeypatch.setattr(mod, name, value)
 
 

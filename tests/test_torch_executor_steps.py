@@ -37,6 +37,7 @@ from paddle_tpu_torch.layer_helper import LayerHelper as PLayerHelper
 from paddle_tpu_torch.observability import steps as psteps
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_adam as pfa
+from paddle_tpu_torch.ops import launch_count
 from paddle_tpu_torch.ops import paged_attention as pa
 
 B, IN, HID, CLASSES = 8, 13, 16, 4
@@ -311,20 +312,26 @@ def test_dropout_trains_through_its_mask_at_the_keep_rate():
 
 @pytest.fixture
 def zero_counts():
-    saved = (dict(fa.launches), dict(fa.recorded), dict(pfa.launches),
-             dict(pfa.recorded), pa.launches, pa.launches_quant,
-             dict(pa.recorded), dict(pexecutor.graph_launches))
-    for d in (fa.launches, fa.recorded, pfa.launches, pfa.recorded,
-              pa.recorded, pexecutor.graph_launches):
+    saved = (dict(fa.launches), dict(pfa.launches), pa.launches,
+             pa.launches_quant, dict(launch_count.recorded),
+             dict(pexecutor.graph_launches))
+    for d in (fa.launches, pfa.launches, pexecutor.graph_launches):
         for k in d:
             d[k] = 0
+    launch_count.recorded.clear()
     pa.launches = pa.launches_quant = 0
     yield
-    (la, ra, lf, rf, pa.launches, pa.launches_quant, rp, g) = saved
-    for d, v in ((fa.launches, la), (fa.recorded, ra), (pfa.launches, lf),
-                 (pfa.recorded, rf), (pa.recorded, rp),
+    (la, lf, pa.launches, pa.launches_quant, rec, g) = saved
+    for d, v in ((fa.launches, la), (pfa.launches, lf),
                  (pexecutor.graph_launches, g)):
         d.update(v)
+    launch_count.recorded.clear()
+    launch_count.recorded.update(rec)
+
+
+def _capturing(monkeypatch, capturing):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
 
 
 def test_a_call_under_capture_is_recorded_not_launched(monkeypatch,
@@ -339,28 +346,55 @@ def test_a_call_under_capture_is_recorded_not_launched(monkeypatch,
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: type("S", (), {"cuda_stream": 0}))
     for capturing, want in ((False, (1, 0)), (True, (1, 1))):
-        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                            lambda c=capturing: c)
+        _capturing(monkeypatch, capturing)
         fa._launch("flash_fwd", Lib(), (q, q, q), [None, 0], (q,), 1.0,
                    True)
-        assert (fa.launches["flash_fwd"], fa.recorded["flash_fwd"]) == want
+        assert (fa.launches["flash_fwd"],
+                launch_count.recorded.get("flash_fwd", 0)) == want
 
 
-def test_replays_add_what_the_capture_recorded(zero_counts):
+def test_replays_add_what_the_capture_recorded(monkeypatch, zero_counts):
     class Graph:
         replays = 0
 
         def replay(self):
             Graph.replays += 1
 
+    # one LM step's capture: 12 layers of K1/K2 and one K4, whose
+    # pinned table the graph reads
+    table = torch.zeros(4)
+    _capturing(monkeypatch, True)
+    with launch_count.Capture() as rec:
+        for _ in range(12):
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                launch_count.launched(name, fa._add)
+        launch_count.keep_alive(table)
+        launch_count.launched("fused_adam", pfa._add)
+    _capturing(monkeypatch, False)
+    assert rec.per_replay == {"flash_fwd": 12, "flash_bwd_dq": 12,
+                              "flash_bwd_dkv": 12, "fused_adam": 1}
+    assert rec.kept == [table] and launch_count._kept == []
+    assert fa.launches["flash_fwd"] == pfa.launches["fused_adam"] == 0
+    launch_count.keep_alive(torch.zeros(1))     # not capturing: dropped
+    assert launch_count._kept == []
+
     step = pexecutor._CapturedStep.__new__(pexecutor._CapturedStep)
-    step.graph, step.fetches = Graph(), ["loss"]
-    step.per_replay = [{"flash_fwd": 12, "flash_bwd_dq": 12,
-                        "flash_bwd_dkv": 12}, {"fused_adam": 1}]
+    step.graph, step.fetches, step.recorded = Graph(), ["loss"], rec
     assert step.replays(7) == ["loss"]
     assert Graph.replays == 7
     assert pexecutor.graph_launches["replays"] == 7
     assert fa.launches["flash_fwd"] == fa.launches["flash_bwd_dkv"] == 84
     assert fa.launches["flash_segment_fwd"] == 0
     assert pfa.launches["fused_adam"] == 7
-    assert pa.launches == 0
+    assert pa.launches == pa.launches_quant == 0
+
+    # a decode trip's capture: K3's counts are module ints
+    _capturing(monkeypatch, True)
+    with launch_count.Capture() as trip:
+        launch_count.launched("k3", pa._add)
+        launch_count.launched("k3", pa._add)
+        launch_count.launched("k3_quant", pa._add)
+    _capturing(monkeypatch, False)
+    trip.replayed(3)
+    assert (pa.launches, pa.launches_quant) == (6, 3)
+    assert fa.launches["flash_fwd"] == 84

@@ -554,11 +554,21 @@ def test_run_steps_refuses_host_ops(monkeypatch):
 
 
 def test_a_graphed_step_refuses_random_ops_by_name():
-    """A captured step no longer refuses random ops: the draw is a pure
-    function of (seed, step, op, call, element), and a step held in an
-    int64 tensor — what a CUDA graph reads at each replay — draws what
-    the same step as an int draws, bit for bit; another step draws
-    other numbers."""
+    """What is left of the refusal: a random op traced with no step key
+    refuses to draw, naming itself. A graphed step always has one (the
+    step tensor its replays read), so it no longer refuses random ops:
+    the next test holds what it draws."""
+    with pytest.raises(RuntimeError, match="'dropout'.*step key"):
+        preg.LoweringContext(fake_op("dropout", {})).rng()
+    assert preg.LoweringContext(fake_op("dropout", {}),
+                                step_key=(0, 0)).rng() is not None
+
+
+def test_a_step_in_a_device_tensor_draws_what_the_int_step_draws():
+    """The draw is a pure function of (seed, step, op, call, element):
+    a step held in an int64 tensor, what a CUDA graph reads at each
+    replay, draws what the same step as an int draws, bit for bit;
+    another step draws other numbers."""
     op = fake_op("dropout", {})
 
     def draw(step):
@@ -567,8 +577,6 @@ def test_a_graphed_step_refuses_random_ops_by_name():
 
     assert torch.equal(draw(torch.tensor(3, dtype=torch.int64)), draw(3))
     assert not torch.equal(draw(3), draw(4))
-    with pytest.raises(RuntimeError, match="'dropout'.*step key"):
-        preg.LoweringContext(op).rng()
 
 
 def test_liveness_drops_intermediates_but_keeps_state_and_fetches():
