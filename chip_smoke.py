@@ -205,6 +205,33 @@ raises on failure (the script then exits non-zero and prints no result):
    trip (megasteps synced one by one, and chained), device-busy ms a
    trip, idle share and the K3 instance the profile names (it must be
    the pool's), beside phase 4's decode-step profile.
+14. Speculative decoding, tenants and shedding, run right after phase 12
+   (phase 4's decoder files, requests, K = 1 streams and full recompute;
+   phase 12's K = 8 run beside it). (a) ``spec_engine_gate``:
+   ``speculative_greedy_generate`` over 32 prompts x 64 tokens on the fp32
+   and bf16 targets (and bf16 with int8 pages at k 4), with the target as
+   its own draft and a 2-layer full-width draft from seed 1, at k 1 and
+   4, against ``greedy_generate`` on the paged engine alone: K3 (K3-quant)
+   launched exactly layers x the synced fallback steps (the verify and the
+   dense draft launch none); fp32 streams token-identical, and the self
+   draft's accepted = drafted less the drafts its streams' last, budget-
+   truncated rounds drop (read from the catalog's counters); the bf16 and
+   int8 matches printed. (b) Phase 4's 48 requests served through the
+   engines ``serve --gen-draft-model DRAFT --gen-speculative-k 4`` builds,
+   fp32, with the 2-layer draft and with the target as its own draft (some
+   drafts accepted), then through the dense ``DecodeEngine`` ``serve``
+   builds by default (K3 launched never): 48 of 48 equal full recompute in
+   each; drafted, accepted, fallback reasons, TTFT, TPOT and tokens/s
+   printed beside phase 4's K = 1 and phase 12's K = 8. (c) The requests at ``megastep_k`` 8 with every other one
+   from tenant ``capped`` (16 tokens a 0.25 s window): a budget preemption
+   to the held lane at least once, every stream equal to full recompute, a
+   resumed prefill mapping a parked page. (d) Every other request
+   ``"priority": "low"``, sent behind the high half under watermarks 0.05 /
+   0.02: no high request fails and each equals full recompute (its first
+   ``FLAGS_shed_token_cap`` tokens where level 2 clamped it), each low one
+   does so or is answered 503 with Retry-After, at least one is shed, and
+   ``requests_shed_total{class="low"}`` equals the 503s. Phases 4 and 12
+   (``serve_run``) keep the shed ladder at level 0.
 
 13. LM training as ``bench_lm.py`` runs it, through the captured step
    (run after phase 10; phases 8-10 end in its captured rounds).
@@ -256,6 +283,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -1131,42 +1159,92 @@ def _requests():
     return prompts, [int(b) for b in budgets]
 
 
-def _post(url, body):
+def _post(url, body, headers=None, delay_s=0.0, shed_ok=False):
+    """POST ``body`` as JSON (after ``delay_s``); the decoded reply. With
+    ``shed_ok`` a 503 comes back as ``{"status": 503, "retry_after": ...,
+    "error": ...}`` instead of raising."""
+    time.sleep(delay_s)
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=300) as r:
-        return json.loads(r.read())
+                                 headers=dict({"Content-Type":
+                                               "application/json"},
+                                              **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        if not (shed_ok and e.code == 503):
+            raise
+        return {"status": 503, "retry_after": e.headers.get("Retry-After"),
+                "error": json.loads(e.read()).get("error")}
 
 
 def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
-              slots=None, num_pages=0, buckets=None, megastep_k=1):
+              slots=None, num_pages=0, buckets=None, megastep_k=1,
+              draft_dir=None, speculative_k=0, sched_kw=None, extra=None,
+              delays=None, token_cap=None, paged=True):
     """Serve ``model_dir`` through the port's entry points (KV pages in
     ``kv_quant_dtype``; SLOTS slots, BUCKETS and an auto-sized pool
-    unless given; ``megastep_k`` decode trips a dispatch) and send every
-    request concurrently; returns the responses, wall seconds, decode
-    steps, the launches of K3 and K3-quant, the most sequences decoding
-    at once, the pool's bytes, the decode host gap and the megasteps in
-    this run. The path's kernel must launch layers x (eager decode steps
-    + megastep trips + warm-up trips) times — decode steps x layers at
-    K = 1 — and the other kernel never."""
+    unless given; ``megastep_k`` decode trips a dispatch; without
+    ``paged`` the dense ``DecodeEngine`` that ``serve`` builds by
+    default, whose steps launch neither K3 nor K3-quant; with
+    ``draft_dir`` the engines ``serve --gen-draft-model DRAFT
+    --gen-speculative-k K`` builds: speculative rounds over a dense
+    ``DecodeEngine`` on the draft) and send every request concurrently
+    (``extra``: per request, ``(body fields, headers)``, e.g. a priority
+    and an ``X-Tenant-Id``; ``delays``: per request, seconds before it is
+    sent; ``sched_kw``: more ``GenerationScheduler`` arguments; without a
+    ``brownout`` there, the shed ladder stays at level 0; ``token_cap``:
+    the ladder's level-2 budget clamp, which a response may end at).
+    Returns
+    the responses (a shed request's as ``_post`` gives it), wall seconds,
+    decode steps, the launches of K3 and K3-quant, the most sequences
+    decoding at once, the pool's bytes, the decode host gap, the
+    megasteps and the scheduler's counters in this run. The path's kernel
+    must launch layers x (eager decode steps + megastep trips + warm-up
+    trips) times — decode steps x layers at K = 1, the synced fallback
+    steps of a speculative run (its verify and its draft launch none) —
+    and the other kernel never."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.observability import catalog
     from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.serving import (GenerationScheduler,
+    from paddle_tpu_torch.serving import (BrownoutController, DecodeEngine,
+                                          GenerationScheduler,
                                           PagedDecodeEngine, load_decoder,
                                           make_server)
 
     model, params = load_decoder(model_dir, device=DEVICE)
-    engine = PagedDecodeEngine(model, params, max_slots=slots or SLOTS,
-                               max_len=MAX_LEN,
-                               prefill_buckets=buckets or BUCKETS,
-                               page_size=PAGE, num_pages=num_pages,
-                               kv_quant_dtype=kv_quant_dtype,
-                               megastep_k=megastep_k, device=DEVICE)
-    sched = GenerationScheduler(engine, queue_depth=128, seed=SEED)
+    if paged:
+        engine = PagedDecodeEngine(model, params, max_slots=slots or SLOTS,
+                                   max_len=MAX_LEN,
+                                   prefill_buckets=buckets or BUCKETS,
+                                   page_size=PAGE, num_pages=num_pages,
+                                   speculative_k=speculative_k,
+                                   kv_quant_dtype=kv_quant_dtype,
+                                   megastep_k=megastep_k, device=DEVICE)
+    else:
+        engine = DecodeEngine(model, params, max_slots=slots or SLOTS,
+                              max_len=MAX_LEN,
+                              prefill_buckets=buckets or BUCKETS,
+                              device=DEVICE)
+    draft = None
+    if draft_dir is not None:
+        dm, dp = load_decoder(draft_dir, device=DEVICE)
+        draft = DecodeEngine(dm, dp, max_slots=engine.max_slots,
+                             max_len=engine.max_len,
+                             prefill_buckets=engine.prefill_buckets,
+                             device=DEVICE)
+    sched_kw = dict(sched_kw or {})
+    # the runs that measure the engines keep the shed ladder at level 0
+    # (a controller whose dwell never passes): the capacity runs fill the
+    # pool on purpose, and level 2 would clamp their budgets
+    sched_kw.setdefault("brownout", BrownoutController(dwell_s=math.inf))
+    sched = GenerationScheduler(engine, queue_depth=128, seed=SEED,
+                                draft_engine=draft, **sched_kw)
     server = make_server(sched, host="127.0.0.1", port=0,
                          request_timeout=300.0).start_background()
     url = server.url + "/v1/generate"
+    extra = extra or [({}, {})] * len(prompts)
+    delays = delays or [0.0] * len(prompts)
     try:
         profiler.reset_counters()
         profiler.reset_histograms()
@@ -1174,10 +1252,13 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
         pa.launches_quant = 0
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
-            futs = [ex.submit(_post, url, {"prompt": p.tolist(),
-                                           "max_new_tokens": b,
-                                           "temperature": 0.0})
-                    for p, b in zip(prompts, budgets)]
+            futs = [ex.submit(_post, url,
+                              dict({"prompt": p.tolist(),
+                                    "max_new_tokens": b,
+                                    "temperature": 0.0}, **body),
+                              headers, delay, "priority" in body)
+                    for p, b, (body, headers), delay
+                    in zip(prompts, budgets, extra, delays)]
             responses = [f.result() for f in futs]
         _sync()
         wall = time.perf_counter() - t0
@@ -1196,6 +1277,16 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
         megasteps = int(catalog.GENERATION_MEGASTEPS.value())
         trips = [int(t) for t in
                  profiler.get_histogram("generation_megastep_trips")]
+        counters = {
+            "drafted": catalog.SPECULATIVE_DRAFTED.value(),
+            "accepted": catalog.SPECULATIVE_ACCEPTED.value(),
+            "fallback": {r: catalog.SPECULATIVE_FALLBACK.value(reason=r)
+                         for r in ("brownout", "capacity", "sampled")},
+            "preempted": {r: catalog.PREEMPTIONS_TO_HELD.value(reason=r)
+                          for r in ("budget", "pages", "slo")},
+            "shed_low": catalog.REQUESTS_SHED.value(**{"class": "low"}),
+            "shed_high": catalog.REQUESTS_SHED.value(**{"class": "high"}),
+            "brownout_level_end": sched.brownout_level()}
     finally:
         status = server.shutdown_gracefully(60.0)
     if not status["drained"]:
@@ -1205,10 +1296,12 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
     path, other = ("k3", "k3_quant") if kv_quant_dtype == "off" else \
         ("k3_quant", "k3")
     launches = counts[path]
-    trip = dict(engine.trip_stats)
+    trip = dict(engine.trip_stats) if paged else \
+        {"decode_steps": 0, "trips_dispatched": 0, "warmups": 0}
     want = launch_want(trip, model.n_layers)
-    if launches <= 0 or launches != want or counts[other] or \
-            (megastep_k == 1 and launches != steps * model.n_layers):
+    if launches != want or counts[other] or (paged and draft is None and (
+            launches <= 0 or
+            (megastep_k == 1 and launches != steps * model.n_layers))):
         raise AssertionError(
             "%s launches %d != %d layers x (decode steps %d + megastep "
             "trips %d + warm-up trips %d) = %d (served decode steps %d), "
@@ -1220,18 +1313,29 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
         raise AssertionError("kv_quant_pages_total %g on a %s pool"
                              % (quant_pages, kv_quant_dtype))
     for r, b in zip(responses, budgets):
-        if r["finish_reason"] != "length" or len(r["tokens"]) != b or \
+        if r.get("status") == 503:
+            continue          # shed: held by the shedding phase's gates
+        n = len(r["tokens"])
+        if r["finish_reason"] != "length" or \
+                (n != b and not (token_cap and n == token_cap < b)) or \
                 not all(0 <= t < VOCAB for t in r["tokens"]):
             raise AssertionError("malformed response: %s" % {
                 k: r[k] for k in ("finish_reason", "n_prompt")})
-    pools = engine._kp + engine._vp + (engine._ks or []) + (engine._vs or [])
+    if paged:
+        pools = engine._kp + engine._vp + (engine._ks or []) + \
+            (engine._vs or [])
+        pages = engine.page_stats()
+    else:
+        pools = engine._ck + engine._cv
+        pages = {"kv_quant_dtype": "off", "kv_pages_total": None,
+                 "kv_pool_effective_capacity": None}
     return {"model": model, "engine": engine, "responses": responses,
             "wall_s": wall, "steps": steps, "launches": launches,
-            "counts": counts, "hist": hist, "pages": engine.page_stats(),
+            "counts": counts, "hist": hist, "pages": pages,
             "peak_slots": peak,
             "pool_bytes": sum(t.numel() * t.element_size() for t in pools),
             "gap_s": gap_s, "megasteps": megasteps, "trips": trips,
-            "trip_stats": trip}
+            "trip_stats": trip, "counters": counters}
 
 
 def launch_want(trip, layers):
@@ -1252,22 +1356,23 @@ def _get_status(url):
 
 
 def _serving_stats(run):
-    ttft = np.array([r["slo"]["ttft_ms"] for r in run["responses"]])
-    tpot = np.array([r["slo"]["tpot_ms"] for r in run["responses"]
+    served = [r for r in run["responses"] if "slo" in r]   # not shed
+    ttft = np.array([r["slo"]["ttft_ms"] for r in served])
+    tpot = np.array([r["slo"]["tpot_ms"] for r in served
                      if "tpot_ms" in r["slo"]])
-    decode_tokens = sum(len(r["tokens"]) - 1 for r in run["responses"])
+    decode_tokens = sum(len(r["tokens"]) - 1 for r in served)
     return {"ttft_ms_p50": float(np.percentile(ttft, 50)),
             "ttft_ms_p99": float(np.percentile(ttft, 99)),
             "tpot_ms_p50": float(np.percentile(tpot, 50)),
             "tpot_ms_p99": float(np.percentile(tpot, 99)),
             "decode_tokens_per_s": decode_tokens / run["wall_s"],
             "host_gap_ms_per_token": run["gap_s"] * 1e3 / (
-                decode_tokens + len(run["responses"])),
+                decode_tokens + len(served)),
             "megasteps": run["megasteps"],
             "trips_histogram": {str(t): run["trips"].count(t)
                                 for t in sorted(set(run["trips"]))},
             "trip_stats": run["trip_stats"],
-            "tokens": int(decode_tokens + len(run["responses"])),
+            "tokens": int(decode_tokens + len(served)),
             "wall_s": run["wall_s"], "decode_steps": run["steps"],
             "decode_step_ms_p50": run["hist"]["generation_decode_step_ms"][50.0],
             "decode_step_ms_p99": run["hist"]["generation_decode_step_ms"][99.0],
@@ -2036,6 +2141,319 @@ def megastep_path(phase4):
         res["profiles"][label] = megastep_profile(
             run["engine"], prompts, k1_profiles.get(label))
         del run
+    return res
+
+
+# -- phase 14: speculative decoding, tenants, shedding ---------------------
+
+SPEC_KS = (1, 4)               # the engine gates' draft lengths
+SPEC_NEW_TOKENS = 64           # a gate stream's tokens (SLOTS prompts)
+DRAFT_LAYERS, DRAFT_SEED = 2, 1
+SERVED_SPEC_K = 4              # serve --gen-speculative-k 4
+# (label, target decoder, KV pages, gated) of the engine gates: fp32
+# streams must equal plain greedy; the others' matches are recorded
+SPEC_RUNS = (("fp32", "fp32", "off", True), ("bf16", "bf16", "off", False),
+             ("int8", "bf16", "int8", False))
+TENANT, TENANT_BUDGET, TENANT_WINDOW_S = "capped", 16, 0.25
+# the shedding run's ladder: watermarks the 48 requests' pages cross, the
+# controller's default dwell (a level a dwell, so level 3 from ~0.5 s),
+# and the low requests' arrivals behind the high ones
+SHED_HIGH, SHED_LOW, SHED_DWELL_S = 0.05, 0.02, 0.25
+SHED_LEAD_S, SHED_SPACING_S = 0.25, 0.05
+
+
+def draft_decoder(workdir):
+    """The DRAFT_LAYERS-layer full-width draft from seed DRAFT_SEED,
+    written with ``save_decoder`` (the gates read it with
+    ``load_decoder``)."""
+    from paddle_tpu_torch.serving import TransformerDecoderModel, \
+        save_decoder
+    m = TransformerDecoderModel(VOCAB, dim=DIM, n_heads=HEADS,
+                                n_layers=DRAFT_LAYERS, ffn_mult=FFN_MULT)
+    path = os.path.join(workdir, "draft")
+    save_decoder(path, m, m.init_params(DRAFT_SEED, device="cpu"))
+    return path
+
+
+def truncation_loss(n, k, fallback):
+    """Drafts a draft that agrees with the target every time still loses
+    over ``n`` streams of SPEC_NEW_TOKENS tokens at draft length ``k``:
+    such streams move in lock-step, so after the prefill's token each
+    takes rounds of k until fewer than k tokens are left, and then either
+    every stream takes one round truncated at its budget (the drafts past
+    it are not accepted) or, where that round no longer fits the pages
+    (``fallback`` synced steps), none does."""
+    left = (SPEC_NEW_TOKENS - 1) % k
+    return 0 if fallback or not left else n * (k - left)
+
+
+def spec_engine_gate(label, target_dir, mode, drafts, prompts, gated):
+    """``speculative_greedy_generate`` on the full-width target (KV pages
+    in ``mode``) over SLOTS prompts, SPEC_NEW_TOKENS each, with every
+    draft of ``drafts`` (label → decoder directory) at every k of
+    SPEC_KS, against ``greedy_generate`` on the paged engine alone. Gates
+    (each raises): K3 (K3-quant) launched exactly layers x the synced
+    fallback steps and the other kernel never (the verify and the dense
+    draft launch none); with ``gated``, every stream token-identical to
+    plain greedy and the self-draft's accepted = drafted less the
+    ``truncation_loss``. Drafted and accepted are the catalog's
+    ``speculative_*_tokens_total``. Returns the per-run records and the
+    launches."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import catalog
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (DecodeEngine, PagedDecodeEngine,
+                                          greedy_generate, load_decoder,
+                                          speculative_greedy_generate)
+    model, params = load_decoder(target_dir, device=DEVICE)
+
+    def target(k):
+        return PagedDecodeEngine(model, params, max_slots=SLOTS,
+                                 max_len=MAX_LEN, prefill_buckets=BUCKETS,
+                                 page_size=PAGE, speculative_k=k,
+                                 kv_quant_dtype=mode, device=DEVICE)
+    path, other = ("k3", "k3_quant") if mode == "off" else \
+        ("k3_quant", "k3")
+    pa.launches = pa.launches_quant = 0
+    plain = greedy_generate(target(0), prompts, SPEC_NEW_TOKENS)
+    _sync()
+    launches = {"k3": pa.launches, "k3_quant": pa.launches_quant}
+    out = {}
+    for dlabel, ddir in drafts.items():
+        dm, dp = load_decoder(ddir, device=DEVICE)
+        for k in SPEC_KS:
+            if mode != "off" and k != max(SPEC_KS):
+                continue          # quantized pages: the widest k only
+            eng = target(k)
+            draft = DecodeEngine(dm, dp, max_slots=SLOTS, max_len=MAX_LEN,
+                                 prefill_buckets=BUCKETS, device=DEVICE)
+            pa.launches = pa.launches_quant = 0
+            profiler.reset_counters()
+            t0 = time.perf_counter()
+            got = speculative_greedy_generate(eng, draft, prompts,
+                                              SPEC_NEW_TOKENS)
+            _sync()
+            counts = {"k3": pa.launches, "k3_quant": pa.launches_quant}
+            for name in launches:
+                launches[name] += counts[name]
+            fallback = eng.trip_stats["decode_steps"]
+            rec = {"draft": dlabel, "k": k, "fallback_steps": fallback,
+                   "drafted": int(catalog.SPECULATIVE_DRAFTED.value()),
+                   "accepted": int(catalog.SPECULATIVE_ACCEPTED.value()),
+                   "truncation_loss": truncation_loss(len(prompts), k,
+                                                      fallback),
+                   "streams_equal_plain": sum(
+                       a == b for a, b in zip(got, plain)),
+                   "match_vs_plain": match_fraction(plain, got),
+                   "launches": counts[path],
+                   "seconds": time.perf_counter() - t0}
+            rec["acceptance_rate"] = rec["accepted"] / max(rec["drafted"], 1)
+            out["%s_k%d" % (dlabel, k)] = rec
+            log("%s speculative engine gate, %s draft, k=%d: %d/%d streams "
+                "equal plain greedy (token match %.4f), drafted %d, "
+                "accepted %d (%.3f; a perfect draft's truncation loss %d), "
+                "%d synced fallback steps, %s launches %d, %.1f s"
+                % (label, dlabel, k, rec["streams_equal_plain"],
+                   len(prompts), rec["match_vs_plain"], rec["drafted"],
+                   rec["accepted"], rec["acceptance_rate"],
+                   rec["truncation_loss"], fallback, path, counts[path],
+                   rec["seconds"]))
+            if counts[path] != fallback * model.n_layers or counts[other]:
+                raise AssertionError(
+                    "%s %s k=%d: %s launches %d != %d layers x %d synced "
+                    "fallback steps, or %s launched %d"
+                    % (label, dlabel, k, path, counts[path], model.n_layers,
+                       fallback, other, counts[other]))
+            if gated and rec["streams_equal_plain"] != len(prompts):
+                i = next(j for j in range(len(prompts))
+                         if got[j] != plain[j])
+                raise AssertionError(
+                    "%s %s k=%d: stream %d differs from plain greedy (%s vs "
+                    "%s)" % (label, dlabel, k, i, got[i][:8], plain[i][:8]))
+            if gated and dlabel == "self" and (
+                    not rec["drafted"] or rec["accepted"] !=
+                    rec["drafted"] - rec["truncation_loss"]):
+                raise AssertionError(
+                    "%s self draft k=%d: accepted %d of %d drafted, not "
+                    "all but the truncation loss %d"
+                    % (label, k, rec["accepted"], rec["drafted"],
+                       rec["truncation_loss"]))
+            del eng, draft
+    return out, launches
+
+
+def _vs(label, st, k1, k8):
+    log("  %s vs K=1 (phase 4) / K=8 (phase 12): TTFT p50 %.1f / %.1f / "
+        "%.1f ms, p99 %.1f / %.1f / %.1f; TPOT p50 %.3f / %.3f / %.3f ms; "
+        "decode %.1f / %.1f / %.1f tokens/s"
+        % (label, st["ttft_ms_p50"], k1["ttft_ms_p50"], k8["ttft_ms_p50"],
+           st["ttft_ms_p99"], k1["ttft_ms_p99"], k8["ttft_ms_p99"],
+           st["tpot_ms_p50"], k1["tpot_ms_p50"], k8["tpot_ms_p50"],
+           st["decode_tokens_per_s"], k1["decode_tokens_per_s"],
+           k8["decode_tokens_per_s"]))
+
+
+def spec_path(phase4, phase12, workdir):
+    """Phase 14: speculative decoding, tenants, preemption and shedding,
+    after phase 12 (phase 4's decoder files, requests, K = 1 streams and
+    full recompute; phase 12's K = 8 run for comparison).
+
+    (a) ``spec_engine_gate`` on the fp32 and bf16 targets and on bf16
+    with int8 pages, drafts: the target itself and a DRAFT_LAYERS-layer
+    full-width decoder from seed DRAFT_SEED. (b) Phase 4's 48 requests
+    served over HTTP by the engines ``serve --gen-draft-model DRAFT
+    --gen-speculative-k SERVED_SPEC_K`` builds, fp32, once with the
+    2-layer draft and once with the target as its own draft (which must
+    accept some drafts), then by the dense ``DecodeEngine`` that ``serve``
+    builds by default (K3 launched never): 48 of 48 streams
+    token-identical to full recompute in each. (c) The same requests, fp32,
+    ``megastep_k`` MEGASTEP_K, every other one from tenant TENANT with a
+    budget of TENANT_BUDGET tokens a TENANT_WINDOW_S window: at least one
+    preemption to the held lane for the budget, every stream equal to
+    full recompute, a resumed admission's prefill mapping >= 1 parked
+    page. (d) Shedding: watermarks SHED_HIGH / SHED_LOW, every other
+    request ``"priority": "low"``, the high ones sent first and the low
+    ones spread behind them: no high request fails and each equals full
+    recompute (its first FLAGS_shed_token_cap tokens where level 2
+    clamped its budget); each low one does so or is answered 503 with
+    Retry-After, at least one is shed, and ``requests_shed_total{class=
+    "low"}`` equals the low 503s. Each gate raises. Returns the report
+    and the K3 / K3-quant launches of the phase."""
+    from paddle_tpu_torch.serving import BrownoutController
+    t0 = time.perf_counter()
+    prompts, budgets = _requests()
+    ref = phase4["_recompute"]
+    dirs = dict(phase4["_dirs"], draft=draft_decoder(workdir))
+    res = {"engine_gates": {}, "launches": {"k3": 0, "k3_quant": 0}}
+    for label, dec, mode, gated in SPEC_RUNS:
+        gate, launches = spec_engine_gate(
+            label, dirs[dec], mode, {"self": dirs[dec],
+                                     "2-layer": dirs["draft"]},
+            prompts[:SLOTS], gated)
+        res["engine_gates"][label] = gate
+        for name in launches:
+            res["launches"][name] += launches[name]
+    k1, k8 = phase4["fp32"], phase12["runs"]["fp32"]
+
+    def served(label, run, want_all=True):
+        st = _serving_stats(run)
+        st["counters"] = run["counters"]
+        toks = [r.get("tokens") for r in run["responses"]]
+        st["streams_equal_recompute"] = sum(a == b for a, b in zip(toks, ref))
+        res["launches"]["k3"] += run["counts"]["k3"]
+        res["launches"]["k3_quant"] += run["counts"]["k3_quant"]
+        log("%s: %s" % (label, json.dumps(st)))
+        _vs(label, st, k1, k8)
+        if want_all and st["streams_equal_recompute"] != len(toks):
+            raise AssertionError("%s: %d/%d streams equal full recompute"
+                                 % (label, st["streams_equal_recompute"],
+                                    len(toks)))
+        return st
+
+    # (b) the served speculative runs: the 2-layer draft, then the target
+    # as its own draft, whose rounds accept (several tokens a round, each
+    # charged to its tenant, committed m > 1 at a time)
+    for key, dlabel, ddir in (("served", "2-layer", dirs["draft"]),
+                              ("served_self", "self", dirs["fp32"])):
+        run = serve_run(dirs["fp32"], prompts, budgets, draft_dir=ddir,
+                        speculative_k=SERVED_SPEC_K)
+        st = served("fp32 speculative serving (%s draft, k=%d)"
+                    % (dlabel, SERVED_SPEC_K), run)
+        c = run["counters"]
+        st["acceptance_rate"] = c["accepted"] / max(c["drafted"], 1)
+        log("  drafted %d, accepted %d (rate %.4f), fallback steps by "
+            "reason %s" % (c["drafted"], c["accepted"],
+                           st["acceptance_rate"], json.dumps(c["fallback"])))
+        if dlabel == "self" and not c["accepted"]:
+            raise AssertionError("self-draft serving: accepted 0 of %d "
+                                 "drafted" % c["drafted"])
+        res[key] = st
+        del run
+
+    # serve's default engine (no --gen-paged, draft or KV quantization):
+    # dense prefill and decode_cache_attention steps, no K3
+    run = serve_run(dirs["fp32"], prompts, budgets, paged=False)
+    res["served_dense"] = served("fp32 dense DecodeEngine serving (serve's "
+                                 "default)", run)
+    del run
+
+    # (c) a token-budgeted tenant, preempted to the held lane
+    extra = [({}, {"X-Tenant-Id": TENANT} if i % 2 == 0 else {})
+             for i in range(len(prompts))]
+    run = serve_run(dirs["fp32"], prompts, budgets, megastep_k=MEGASTEP_K,
+                    extra=extra, sched_kw={
+                        "tenant_token_budget_map": {TENANT: TENANT_BUDGET},
+                        "tenant_budget_window_s": TENANT_WINDOW_S})
+    st = served("fp32 tenant serving (%s: %d tokens a %.2f s window, K=%d)"
+                % (TENANT, TENANT_BUDGET, TENANT_WINDOW_S, MEGASTEP_K), run)
+    hits = [r["slo"].get("prefix_hit_pages", 0)
+            for r, (_, h) in zip(run["responses"], extra) if h]
+    st["capped_prefix_hit_pages_max"] = max(hits)
+    st["capped_resumed"] = sum(1 for h in hits if h > 0)
+    log("  preemptions to the held lane %s; %d capped requests resumed "
+        "with parked pages (at most %d pages mapped)"
+        % (json.dumps(run["counters"]["preempted"]), st["capped_resumed"],
+           st["capped_prefix_hit_pages_max"]))
+    if run["counters"]["preempted"]["budget"] < 1 or max(hits) < 1:
+        raise AssertionError("tenant run: %s budget preemptions, a resumed "
+                             "prefill mapped at most %d pages"
+                             % (run["counters"]["preempted"]["budget"],
+                                max(hits)))
+    res["tenants"] = st
+    del run
+
+    # (d) shedding: the high half first, the low half spread behind it.
+    # From level 2 the ladder clamps new admissions' budgets to
+    # FLAGS_shed_token_cap: such a stream is full recompute's first
+    # tokens, ending at the cap
+    from paddle_tpu_torch.serving import resolve_fleet_knobs
+    cap = resolve_fleet_knobs(which=("shed_token_cap",))["shed_token_cap"]
+    low = [i % 2 == 1 for i in range(len(prompts))]
+    extra = [({"priority": "low" if lo else "high"}, {}) for lo in low]
+    delays = [SHED_LEAD_S + SHED_SPACING_S * (i // 2) if lo else 0.0
+              for i, lo in enumerate(low)]
+    run = serve_run(dirs["fp32"], prompts, budgets, extra=extra,
+                    delays=delays, token_cap=cap,
+                    sched_kw={"brownout": BrownoutController(
+                        high=SHED_HIGH, low=SHED_LOW, dwell_s=SHED_DWELL_S)})
+    st = served("fp32 shedding (watermarks %.2f / %.2f)"
+                % (SHED_HIGH, SHED_LOW), run, want_all=False)
+    rs = run["responses"]
+
+    def identical(i):
+        toks = rs[i].get("tokens")
+        return toks is not None and toks == ref[i][:len(toks)] and \
+            len(toks) in (len(ref[i]), cap)
+    shed = [r for r, lo in zip(rs, low) if lo and r.get("status") == 503]
+    bad_high = [i for i, lo in enumerate(low) if not lo and not identical(i)]
+    bad_low = [i for i, lo in enumerate(low)
+               if lo and rs[i].get("status") != 503 and not identical(i)]
+    no_retry = [r for r in shed if not r.get("retry_after") or
+                int(r["retry_after"]) < 1]
+    st.update({"low_shed": len(shed), "low_served": sum(low) - len(shed),
+               "high_served": len(rs) - sum(low) - len(bad_high),
+               "clamped": sum(1 for i, r in enumerate(rs)
+                              if len(r.get("tokens") or ()) == cap <
+                              len(ref[i]))})
+    log("  high %d/%d served identically; low: %d shed with Retry-After %s, "
+        "%d served; %d streams clamped at %d tokens (level 2); "
+        "requests_shed_total{class=\"low\"} %d; level at the end %d"
+        % (st["high_served"], len(rs) - sum(low), len(shed),
+           sorted({r.get("retry_after") for r in shed}), st["low_served"],
+           st["clamped"], cap, run["counters"]["shed_low"],
+           run["counters"]["brownout_level_end"]))
+    if bad_high or bad_low or no_retry or not shed or \
+            run["counters"]["shed_low"] != len(shed) or \
+            run["counters"]["shed_high"]:
+        raise AssertionError(
+            "shedding: high failures %s, low streams off %s, shed without "
+            "Retry-After %d, %d low shed (requests_shed_total low %d, high "
+            "%d)" % (bad_high, bad_low, len(no_retry), len(shed),
+                     run["counters"]["shed_low"],
+                     run["counters"]["shed_high"]))
+    res["shedding"] = st
+    del run
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -4255,13 +4673,17 @@ def main(argv=None):
             lap("main_path")
             report["megastep_path"] = megastep_path(report["main_path"])
             lap("megastep_path")
+            report["spec_path"] = spec_path(report["main_path"],
+                                            report["megastep_path"], workdir)
+            lap("spec_path")
             for key in ("_streams", "_recompute", "_dirs"):
                 report["main_path"].pop(key)
-            # K3's rows count the launches of both serving paths
+            # K3's rows count the launches of every serving path
             for row, name in ((report["main_path"]["k3"], "k3"),
                               (report["main_path"]["k3_quant"],
                                "k3_quant")):
                 row["launches"] += report["megastep_path"]["launches"][name]
+                row["launches"] += report["spec_path"]["launches"][name]
             report["k3_long"] = k3_long_timing()
             lap("k3_long")
             report["train_gate"] = train_gate()

@@ -24,10 +24,15 @@ generation_max_slots = 8
 generation_max_len = 256
 generation_prefill_buckets = "16,32,64,128"
 
-# Paged KV cache (resolve_generation_knobs(paged=True)):
+# Paged KV cache + speculative decoding (resolve_generation_knobs(
+# paged=True)):
 # ``kv_page_size`` tokens per page; ``kv_num_pages`` pool capacity per
 # layer (0 = auto, the dense-equivalent budget, doubled when the pages are
-# quantized). The knob of speculative decoding comes with that path.
+# quantized).
+# ``speculative_k`` — tokens drafted per speculative-decode round (0
+# disables). Requires a draft model (serve --gen-draft-model); greedy
+# requests then emit up to k tokens per verify step, token-identical to
+# plain greedy decoding.
 # ``generation_megastep_k`` — decode trips per scheduler dispatch
 # (``PagedDecodeEngine.megastep_dispatch``): one trip is captured as a
 # CUDA graph and replayed, with token feedback, sampling and EOS/budget
@@ -37,6 +42,7 @@ generation_prefill_buckets = "16,32,64,128"
 # widest remaining budget and the tightest deadline's slack.
 kv_page_size = 16
 kv_num_pages = 0
+speculative_k = 0
 generation_megastep_k = 1
 
 # Quantized KV pages (``resolve_generation_knobs(paged=True)`` validates
@@ -49,16 +55,61 @@ generation_megastep_k = 1
 kv_quant_dtype = "off"
 kv_quant_group = 0
 
-# End-to-end deadlines and overload hints (the scheduler's share of
-# serving.registry.resolve_fleet_knobs in the reference):
+# End-to-end deadlines and brownout load shedding (the scheduler's share
+# of ``serving.registry.resolve_fleet_knobs``; errors name the flag):
 # ``deadline_default_ms`` — implicit per-request deadline (0 = none);
 # ``deadline_admit_min_ms`` — budget a request must have left to be
-# admitted; ``shed_retry_floor_s`` / ``shed_retry_cap_s`` clamp the
-# drain-rate Retry-After hint of overload 503s.
+# admitted (HTTP 504 before any prefill otherwise).
+#
+# Brownout load shedding (watermark-driven ladder with hysteresis over
+# queue/page-pool pressure — serving.generation.BrownoutController):
+#
+# - ``shed_high_watermark`` / ``shed_low_watermark`` — pressure (max of
+#   queue fullness and KV-page-pool occupancy, in [0, 1]) above high
+#   escalates the brownout level one step per evaluation; below low
+#   de-escalates; between the two the level holds (hysteresis).
+# - ``shed_token_cap`` — at brownout level >= 2, new admissions'
+#   max_new_tokens are clamped to this many tokens.
+# - ``shed_retry_floor_s`` / ``shed_retry_cap_s`` — clamp on the
+#   Retry-After hint derived from the observed queue drain rate
+#   (backlog / drain rate) that overload and shed 503s carry.
 deadline_default_ms = 0.0
 deadline_admit_min_ms = 0.0
+shed_high_watermark = 0.85
+shed_low_watermark = 0.60
+shed_token_cap = 16
 shed_retry_floor_s = 0.05
 shed_retry_cap_s = 5.0
+
+# Multi-tenant isolation + SLO-driven admission (validated by
+# ``serving.generation.resolve_tenant_knobs``, whose errors name the
+# offending FLAGS_* name):
+#
+# - ``tenant_token_budget`` — default per-tenant decode-token budget per
+#   accounting window (0 = unlimited). A tenant over budget is not
+#   503d: its next admissions wait in the held lane until the window
+#   rolls, so a hot tenant throttles ITSELF, never the fleet.
+# - ``tenant_token_budget_map`` — per-tenant overrides as
+#   "tenantA=500,tenantB=100"; unlisted tenants get the default.
+# - ``tenant_budget_window_s`` — budget accounting window length.
+# - ``tenant_held_depth`` — bound on the held queue (page-pressure
+#   holds, budget throttles, and SLO preemptions all park here).
+#   Overflow sheds with 503 + Retry-After like any overload.
+# - ``slo_ttft_ms`` / ``slo_tpot_ms`` — per-class targets as
+#   "high=250,low=0" (0 / unlisted class = no target; "" disables the
+#   control loop for that signal). Compared against live observations
+#   every scheduler iteration.
+# - ``slo_sustain_s`` — a violation must persist this long before the
+#   scheduler reacts (preempt low-class work to the held lane, clamp
+#   the megastep K, feed the brownout ladder) — transient blips don't
+#   trigger preemption.
+tenant_token_budget = 0
+tenant_token_budget_map = ""
+tenant_budget_window_s = 1.0
+tenant_held_depth = 8
+slo_ttft_ms = ""
+slo_tpot_ms = ""
+slo_sustain_s = 1.0
 
 # Debugging: ``check_nan_inf`` — per-step NaN/Inf scan of the fetches and
 # the updated state (``Executor._nan_check``); forces a host sync and

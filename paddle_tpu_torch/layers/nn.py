@@ -2,8 +2,8 @@
 ``paddle_tpu/layers/nn.py``'s ``fc``, ``embedding``, ``conv2d``,
 ``pool2d``, ``batch_norm``, ``layer_norm``, ``cross_entropy``,
 ``softmax_with_cross_entropy``, ``reshape``, ``transpose``, ``split``,
-``mean``, ``slice`` and ``dropout``, and of ``layers/ops.py``'s
-``elementwise_add``.
+``mean``, ``slice``, ``dropout`` and ``decode_cache_attention``, and of
+``layers/ops.py``'s ``elementwise_add``.
 Each appends ops to the current Program; the executor runs them.
 """
 
@@ -18,7 +18,7 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "cross_entropy",
            "softmax_with_cross_entropy",
            "reshape", "transpose", "split", "mean", "slice",
-           "elementwise_add"]
+           "elementwise_add", "decode_cache_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -303,3 +303,21 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return helper.append_activation(out)
+
+
+def decode_cache_attention(q, k_cache, v_cache, cache_lengths, scale=None,
+                           name=None):
+    """Incremental-decoding attention (inference only): one query token
+    per slot against a per-slot KV cache, masked by live per-slot
+    lengths. ``q`` [slots, heads, head_dim]; ``k_cache`` / ``v_cache``
+    [slots, max_len, kv_heads, head_dim]; ``cache_lengths`` [slots] int
+    (``ops.attention.decode_cache_attention``)."""
+    helper = LayerHelper("decode_cache_attention", **locals())
+    out = helper.create_tmp_variable(dtype=q.dtype)
+    helper.append_op(type="decode_cache_attention",
+                     inputs={"Q": [q], "KCache": [k_cache],
+                             "VCache": [v_cache],
+                             "CacheLengths": [cache_lengths]},
+                     outputs={"Out": [out]},
+                     attrs={"scale": scale})
+    return out

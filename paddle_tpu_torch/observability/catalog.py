@@ -31,7 +31,9 @@ __all__ = [
     "DECODE_HOST_GAP", "PREFIX_CACHE_HITS",
     "PREFIX_CACHE_EVICTIONS", "PAGE_EVICTIONS", "DEADLINE_EXCEEDED",
     "REQUEST_TTFT_SECONDS", "REQUEST_TPOT_SECONDS", "REQUESTS_FINISHED",
-    "KV_QUANT_PAGES", "WEIGHT_QUANT_ARTIFACTS",
+    "KV_QUANT_PAGES", "WEIGHT_QUANT_ARTIFACTS", "SPECULATIVE_DRAFTED",
+    "SPECULATIVE_ACCEPTED", "SPECULATIVE_FALLBACK", "REQUESTS_SHED",
+    "TENANT_TOKENS", "PREEMPTIONS_TO_HELD", "SLO_VIOLATION_SECONDS",
 ]
 
 _LABEL_SEP = "|"
@@ -277,6 +279,22 @@ PAGE_EVICTIONS = Counter(
     help="KV pages reclaimed from the prefix cache back to the free "
     "pool to admit a new request (sole-owner entries only)")
 
+SPECULATIVE_DRAFTED = Counter(
+    "speculative_drafted_tokens_total",
+    help="Tokens proposed by the draft model (speculative_k per live "
+    "slot per round)")
+SPECULATIVE_ACCEPTED = Counter(
+    "speculative_accepted_tokens_total",
+    help="Drafted tokens confirmed by the verify step and emitted — "
+    "the speculative win; acceptance rate = accepted / drafted")
+SPECULATIVE_FALLBACK = Counter(
+    "speculative_fallback_total", labels=("reason",),
+    help="Decode iterations that fell back from a speculative round to "
+    "plain synced stepping, by reason: brownout (shed ladder turned "
+    "speculation off), capacity (a slot's verify chunk no longer fits "
+    "its reservation or the draft cache), sampled (a temperature>0 "
+    "co-rider — speculation is greedy-only)")
+
 # -- quantized serving (ops/kv_quant.py) -----------------------------------
 
 KV_QUANT_PAGES = Counter(
@@ -290,14 +308,19 @@ WEIGHT_QUANT_ARTIFACTS = Counter(
     "quantize_decoder_dir (per-output-channel scales + weight_quant "
     "config stanza; load_decoder reconstructs a dequant-on-use model)")
 
-# -- deadlines and token-level SLOs ----------------------------------------
+# -- deadlines, brownout and token-level SLOs ------------------------------
 
+REQUESTS_SHED = Counter(
+    "requests_shed_total", labels=("class",),
+    help="Requests shed by brownout admission control (level >= 3), by "
+    "priority class; shed 503s carry a drain-rate-derived Retry-After")
 DEADLINE_EXCEEDED = Counter(
     "deadline_exceeded_total", labels=("stage",),
     help="Requests failed by end-to-end deadline expiry (HTTP 504), by "
-    "stage: admission (dead on arrival — rejected BEFORE consuming a "
-    "prefill), decode (slot evicted between decode steps), held "
-    "(expired while held at the queue head for pages)")
+    "stage: admission (generation request dead on arrival — rejected "
+    "BEFORE consuming a prefill), decode (slot evicted between decode "
+    "steps), held (request expired while parked in the held lane — "
+    "evicted before any prefill is spent on it)")
 REQUEST_TTFT_SECONDS = Histogram(
     "request_ttft_seconds",
     help="Time To First Token per generation request: submit -> first "
@@ -313,12 +336,43 @@ REQUESTS_FINISHED = Counter(
     "length, error, deadline); the newest trace per combination is "
     "exposed as an # EXEMPLAR comment on /metrics")
 
+# -- multi-tenant isolation + SLO admission control (serving/generation.py).
+# Tenant ids are never labels — only the bounded priority class /
+# preemption reason ------------------------------------------------------
+
+TENANT_TOKENS = Counter(
+    "tenant_tokens_total", labels=("class",),
+    help="Decode tokens charged against per-tenant budgets, by priority "
+    "class (tenant ids live on trace spans, never on labels); a tenant "
+    "over FLAGS_tenant_token_budget is throttled to the held lane, not "
+    "503d")
+PREEMPTIONS_TO_HELD = Counter(
+    "preemptions_to_held_total", labels=("reason",),
+    help="In-flight requests preempted between megasteps and parked on "
+    "the held queue (reason: pages — pool pressure blocked a "
+    "higher-class admission; slo — sustained high-class SLO violation; "
+    "budget — tenant exceeded its token budget). Full KV pages stay in "
+    "the prefix cache, so re-admission prefills only the suffix and the "
+    "greedy continuation is token-identical")
+SLO_VIOLATION_SECONDS = Counter(
+    "slo_violation_seconds_total", labels=("class",),
+    help="Seconds a priority class spent violating its TTFT/TPOT target "
+    "(FLAGS_slo_ttft_ms / FLAGS_slo_tpot_ms); sustained high-class "
+    "violation beyond FLAGS_slo_sustain_s drives low-class preemption, "
+    "the megastep clamp, and the brownout pressure signal")
+
 # Gauges passed LIVE to the renderer by their owner (no profiler storage):
 _LIVE_GAUGES = {
     "generation_active_slots":
         "KV-cache slots currently decoding (live scheduler gauge)",
     "generation_held_requests":
-        "Requests held at the queue head until the page pool covers them",
+        "Requests parked in the held lane (page-pressure holds, tenant "
+        "budget throttles, SLO preemptions), bounded by "
+        "FLAGS_tenant_held_depth",
+    "brownout_level":
+        "Current brownout shed-ladder level (0 = normal, 1 = "
+        "speculative decoding off, 2 = new-token caps shrunk, 3 = "
+        "low-priority requests shed)",
     "kv_pages_in_use":
         "KV pages currently allocated (slots + prefix cache) out of "
         "kv_pages_total — pool occupancy",

@@ -1,8 +1,10 @@
 """Attention ops — ports of ``paddle_tpu/ops/attention_ops.py``.
 
-Serving: ``dot_product_attention`` (causal, bshd/bhsd, GQA) and
-``paged_chunk_attention`` (the paged prefill) stay plain PyTorch, as the
-JAX package computes them outside any Pallas kernel. The reference's
+Serving: ``dot_product_attention`` (causal, bshd/bhsd, GQA),
+``decode_cache_attention`` (the dense engine's decode step, also the
+``decode_cache_attention`` graph op) and ``paged_chunk_attention`` (the
+paged prefill and the speculative verify chunk) stay plain PyTorch, as
+the JAX package computes them outside any Pallas kernel. The reference's
 ``decode_paged_attention`` (the paged decode step) is the K3 wrapper
 itself: ``ops.paged_attention.paged_decode_attention``.
 
@@ -39,13 +41,13 @@ probabilities cast to q's dtype before the product with V.
 import numpy as np
 import torch
 
-from ..framework import in_var, set_out
+from ..framework import in_var, same_shape_rule, set_out
 from ..registry import register_op
 from . import flash_attention, kv_quant
 from .segment_mask import SegmentIds, densify_segment_mask
 
-__all__ = ["dot_product_attention", "dense_mask", "dispatch_path",
-           "paged_chunk_attention", "NEG_INF"]
+__all__ = ["dot_product_attention", "decode_cache_attention", "dense_mask",
+           "dispatch_path", "paged_chunk_attention", "NEG_INF"]
 
 NEG_INF = -1e9
 
@@ -96,6 +98,44 @@ def dot_product_attention(q, k, v, *, causal=False, scale=None, mask=None,
     if layout == "bshd":
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def decode_cache_attention(q, k_cache, v_cache, cache_lengths, *,
+                           scale=None):
+    """One query token per slot against a dense per-slot KV cache, masked
+    by the slot's live length:
+
+      q:               [slots, heads, head_dim]
+      k/v caches:      [slots, max_len, kv_heads, head_dim]
+      cache_lengths:   [slots] (or [slots, 1]); positions < length are
+                       valid, and the current token's K/V is already
+                       written at position length - 1
+
+    The mask comes from the lengths alone: rows past a slot's length may
+    hold a rewound speculative tail or a previous occupant's values and
+    are never read. GQA/MQA: heads % kv_heads == 0."""
+    lengths = cache_lengths.reshape(-1).long()
+    k_cache, v_cache = _expand_kv(k_cache, v_cache, q.shape[1], 2)
+    scale = scale if scale is not None else 1.0 / float(np.sqrt(q.shape[-1]))
+    logits = torch.einsum("shd,sthd->sht", q.float(), k_cache.float()) * \
+        scale
+    valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] < \
+        lengths[:, None]
+    logits = logits.masked_fill(~valid[:, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("sht,sthd->shd", probs, v_cache)
+
+
+@register_op("decode_cache_attention", no_grad=True,
+             infer_shape=same_shape_rule("Q"))
+def _decode_cache_attention(ctx, ins):
+    """Graph-level variant (inference only): Q [slots, heads, dim],
+    KCache/VCache [slots, max_len, kv_heads, dim], CacheLengths
+    [slots]."""
+    out = decode_cache_attention(
+        ins["Q"][0], ins["KCache"][0], ins["VCache"][0],
+        ins["CacheLengths"][0], scale=ctx.attr("scale", None))
+    return {"Out": [out]}
 
 
 def paged_chunk_attention(q, k_pool, v_pool, page_table, base_lengths, *,

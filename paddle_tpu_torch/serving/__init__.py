@@ -1,27 +1,38 @@
-"""Generation serving on the port: paged-KV decode engine (full-precision
-or int8/fp8 pages), continuous-batching scheduler, weight-only quantized
-decoders and the ``/v1/generate`` HTTP server."""
+"""Generation serving on the port: dense and paged-KV decode engines
+(full-precision or int8/fp8 pages), speculative decoding over a dense
+draft engine, the continuous-batching scheduler with tenants, priorities,
+brownout, SLO control and preemption, weight-only quantized decoders and
+the ``/v1/generate`` HTTP server."""
 
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
                       OverloadedError, PendingResult, ServingClosedError,
                       resolve_serving_knobs)
-from .generation import (DeviceStateError, GenerationScheduler,
-                         TransformerDecoderModel, full_recompute_generate,
-                         greedy_generate, load_decoder,
-                         quantize_decoder_dir, resolve_generation_knobs,
+from .generation import (BrownoutController, DecodeEngine, DeviceStateError,
+                         GenerationScheduler, TransformerDecoderModel,
+                         full_recompute_generate, greedy_generate,
+                         load_decoder, quantize_decoder_dir,
+                         resolve_generation_knobs, resolve_tenant_knobs,
                          save_decoder)
 from .metrics import render_prometheus
 from .paged_kv import (PagedDecodeEngine, PagePool, PoolExhaustedError,
-                       PrefixCache)
+                       PrefixCache, can_speculate, speculative_greedy_generate,
+                       speculative_round, validate_draft_geometry)
+from .registry import (parse_deadline_header, parse_tenant_header,
+                       resolve_fleet_knobs)
 from .server import ServingServer, make_server
 
 __all__ = [
     "DeadlineExceededError", "DrainRateEstimator", "OverloadedError",
     "PendingResult", "ServingClosedError", "resolve_serving_knobs",
-    "DeviceStateError", "GenerationScheduler", "TransformerDecoderModel",
+    "BrownoutController", "DecodeEngine", "DeviceStateError",
+    "GenerationScheduler", "TransformerDecoderModel",
     "full_recompute_generate", "greedy_generate", "load_decoder",
-    "quantize_decoder_dir", "resolve_generation_knobs", "save_decoder",
+    "quantize_decoder_dir", "resolve_generation_knobs",
+    "resolve_tenant_knobs", "save_decoder",
     "render_prometheus",
     "PagedDecodeEngine", "PagePool", "PoolExhaustedError", "PrefixCache",
+    "can_speculate", "speculative_greedy_generate", "speculative_round",
+    "validate_draft_geometry",
+    "parse_deadline_header", "parse_tenant_header", "resolve_fleet_knobs",
     "ServingServer", "make_server",
 ]

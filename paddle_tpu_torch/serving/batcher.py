@@ -90,10 +90,13 @@ class PendingResult:
     """One request's future. ``wait()`` blocks for the result or re-raises
     the failure. ``trace`` carries the request's ``TraceContext``;
     ``summary`` is filled at resolution (the ``X-Trace-Summary``
-    header); ``deadline`` is an absolute ``perf_counter`` stamp or None."""
+    header); ``deadline`` is an absolute ``perf_counter`` stamp or None;
+    ``priority`` is the request's class ("high" or "low") and ``tenant``
+    its ``X-Tenant-Id`` (None = anonymous), both set by the generation
+    scheduler's ``submit``."""
 
     __slots__ = ("_event", "_result", "_error", "t_enqueue", "t_done",
-                 "trace", "summary", "deadline")
+                 "trace", "summary", "deadline", "priority", "tenant")
 
     def __init__(self, trace=None):
         self._event = threading.Event()
@@ -104,6 +107,8 @@ class PendingResult:
         self.trace = trace
         self.summary = None
         self.deadline = None
+        self.priority = "high"
+        self.tenant = None
 
     def _resolve(self, result):
         self._result = result

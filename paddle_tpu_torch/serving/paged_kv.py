@@ -41,9 +41,20 @@ reference donated them to XLA.
                  the reference's early-exit count. On the CPU the same
                  trip runs eagerly ``k_eff`` times.
 
-Not ported yet: speculative verify, KV export/adopt and the fleet prefix
-tier, preempt-to-held. (A quantized engine that adopts pages must refuse
-them without their scales, as the reference's ``adopt_prefix`` does.)
+  speculative  — ``verify_step`` scores a [max_slots, T] chunk (each
+                 slot's pending input and the draft's proposals) in one
+                 call through the plain ``paged_chunk_attention``, as the
+                 reference computes it outside any Pallas kernel;
+                 :func:`speculative_round` accepts the longest agreeing
+                 prefix. Every plain decode step, the synced fallback of a
+                 speculative run included, stays on K3 / K3-quant.
+  preemption   — ``preempt_release`` parks a slot's full pages in the
+                 prefix cache and frees the rest; work queued after a
+                 megastep on the caller's stream runs after its trips.
+
+Not ported yet: KV export/adopt and the fleet prefix tier. (A quantized
+engine that adopts pages must refuse them without their scales, as the
+reference's ``adopt_prefix`` does.)
 """
 
 import contextlib
@@ -64,7 +75,9 @@ from .generation import (_EngineBase, draw_tokens, params_to_device,
                          resolve_generation_knobs, sample_tokens)
 
 __all__ = ["PagePool", "PagedDecodeEngine", "PoolExhaustedError",
-           "PrefixCache", "chain_keys"]
+           "PrefixCache", "chain_keys", "validate_draft_geometry",
+           "can_speculate", "speculative_round",
+           "speculative_greedy_generate"]
 
 
 class PoolExhaustedError(OverloadedError):
@@ -221,10 +234,14 @@ class PagedDecodeEngine(_EngineBase):
       up to ``megastep_k`` such steps per dispatch, replayed from a
       captured CUDA graph on the card;
     - ``can_admit`` / ``admission_state`` / ``fits_ever`` — free-page
-      admission accounting for the scheduler.
+      admission accounting for the scheduler;
+    - ``verify_step`` / ``commit_tokens`` with ``speculative_k`` — the
+      speculative-decode verify chunk (:func:`speculative_round`);
+    - ``preempt_release`` — preemption to the scheduler's held lane.
 
-    ``kv_quant_dtype`` (``off|int8|fp8``, default
-    ``FLAGS_kv_quant_dtype``) and ``kv_quant_group`` (tokens per scale
+    ``speculative_k`` (default ``FLAGS_speculative_k``) is the verify
+    chunk of a speculative round. ``kv_quant_dtype`` (``off|int8|fp8``,
+    default ``FLAGS_kv_quant_dtype``) and ``kv_quant_group`` (tokens per scale
     group, 0 = the page) select quantized pages; ``num_pages=0`` then
     sizes the pool to twice the dense-equivalent budget. ``megastep_k``
     (default ``FLAGS_generation_megastep_k``; 0 = auto) bounds the trips
@@ -235,18 +252,19 @@ class PagedDecodeEngine(_EngineBase):
 
     def __init__(self, model, params, *, max_slots=None, max_len=None,
                  prefill_buckets=None, page_size=None, num_pages=None,
-                 kv_quant_dtype=None, kv_quant_group=None, megastep_k=None,
-                 device=None):
+                 speculative_k=None, kv_quant_dtype=None,
+                 kv_quant_group=None, megastep_k=None, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.params = params_to_device(params, self.device)
         (self.max_slots, self.max_len, self.prefill_buckets,
-         self.page_size, self.num_pages, self.kv_quant_dtype,
-         self.kv_quant_group, self.megastep_k) = resolve_generation_knobs(
+         self.page_size, self.num_pages, self.speculative_k,
+         self.kv_quant_dtype, self.kv_quant_group,
+         self.megastep_k) = resolve_generation_knobs(
             max_slots, max_len, prefill_buckets, page_size=page_size,
-            num_pages=num_pages, kv_quant_dtype=kv_quant_dtype,
-            kv_quant_group=kv_quant_group, megastep_k=megastep_k,
-            paged=True)
+            num_pages=num_pages, speculative_k=speculative_k,
+            kv_quant_dtype=kv_quant_dtype, kv_quant_group=kv_quant_group,
+            megastep_k=megastep_k, paged=True)
         self.kv_quant = None if self.kv_quant_dtype == "off" else \
             KVQuantConfig(self.kv_quant_dtype, self.page_size,
                           self.kv_quant_group)
@@ -764,6 +782,97 @@ class PagedDecodeEngine(_EngineBase):
             seed, step0, self.megastep_k if k_eff is None else k_eff,
             temperatures=temperatures, caps=caps, eos_id=eos_id))
 
+    # -- speculative decoding -----------------------------------------
+    def _verify_run(self, chunk, base, wpids, woffs, quant):
+        logits = self.model.paged_verify_logits(
+            self.params, self._tensor(chunk), self._tensor(base),
+            self._tensor(self.active), self._tensor(wpids),
+            self._tensor(woffs), self._tensor(self._page_table), self._kp,
+            self._vp, k_scales=self._ks, v_scales=self._vs,
+            kv_quant=self.kv_quant, **quant)
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def verify_step(self, chunk_tokens):
+        """Score a ``[max_slots, T]`` chunk (each slot's pending input
+        token followed by draft proposals) in one call, writing the
+        chunk's K/V at positions ``lengths .. lengths + T - 1``
+        (scratch-redirected past each slot's reservation) WITHOUT
+        advancing ``lengths``: the caller commits the accepted prefix
+        (:func:`speculative_round`). Returns np.int32 [max_slots, T]
+        greedy next tokens; column j follows chunk token j."""
+        chunk = np.asarray(chunk_tokens, np.int32)
+        if chunk.ndim != 2 or chunk.shape[0] != self.max_slots:
+            raise ValueError("chunk must be [max_slots, T]")
+        if not self.active.any():
+            raise RuntimeError("verify_step with no active slots")
+        self._check_live()
+        T = chunk.shape[1]
+        page = self.page_size
+        pos = self.lengths[:, None] + np.arange(T)[None, :]
+        valid = self.active[:, None] & (pos < self._reserved[:, None])
+        pidx = np.where(valid, pos // page, 0)
+        woffs = np.where(valid, pos % page, 0).astype(np.int64)
+        rows = np.take_along_axis(
+            self._page_table, np.minimum(pidx, self.pages_per_slot - 1),
+            axis=1)
+        wpids = np.where(valid, rows, self.scratch_page).astype(np.int64)
+        base = np.where(self.active, self.lengths, 0).astype(np.int64)
+        quant = {}
+        if self.kv_quant is not None:
+            # the write window: T positions starting mid-page span at most
+            # ceil((T + page - 2) / page) + 1 consecutive pages, plus one
+            # scratch column for the redirected positions
+            wr = (T + page - 2) // page + 1
+            p0 = self.lengths // page                        # [S]
+            span = p0[:, None] + np.arange(wr)[None, :]      # [S, wr]
+            win = np.where(
+                span < self.pages_per_slot,
+                np.take_along_axis(self._page_table,
+                                   np.minimum(span, self.pages_per_slot - 1),
+                                   axis=1),
+                self.scratch_page)
+            win = np.concatenate(
+                [win, np.full((self.max_slots, 1), self.scratch_page)],
+                axis=1).astype(np.int64)
+            w_idx = np.where(valid, pidx - p0[:, None], wr).astype(np.int64)
+            quant = {"win_pids": self._tensor(win),
+                     "w_idx": self._tensor(w_idx)}
+        greedy = self._guarded(self._verify_run, chunk, base, wpids, woffs,
+                               quant)
+        return greedy.astype(np.int32)
+
+    def commit_tokens(self, slot, n_tokens, next_input):
+        """Advance a slot past ``n_tokens`` accepted chunk tokens and stage
+        the next step's input — the accept half of a speculative round
+        (rejected chunk positions keep garbage K/V in the slot's pages:
+        masked now, overwritten when real tokens arrive)."""
+        self.lengths[slot] += int(n_tokens)
+        self._in_tokens[slot] = np.int32(next_input)
+
+    def preempt_release(self, slot, seq):
+        """Preemption to the scheduler's held lane: park the slot's
+        computed K/V in the prefix cache, then release the slot. ``seq``
+        is the token sequence whose K/V the slot holds — exactly
+        ``lengths[slot]`` tokens (the prompt and every generated token but
+        the pending input). Its leading FULL pages register in the cache
+        (idempotent for pages that were prefix hits), so the re-admission
+        prefill maps them and recomputes only the suffix; the partial
+        tail page and the unused reservation return to the free list.
+        Cached pages hold positions below the cached frontier, and every
+        later write of any slot — a megastep still in flight for this one
+        included — lands past it. The freed tail may still be written by a
+        megastep in flight: each dispatch makes the caller's stream wait
+        for its trips (``_ms_run``), so a prefill that reuses the pages
+        runs after them. Returns the number of pages parked in the
+        cache."""
+        n = int(self.lengths[slot])
+        pids = list(self._slot_pages[slot])
+        cached = min(n // self.page_size, len(pids))
+        self.prefix_cache.insert(np.asarray(seq, np.int32), n, pids)
+        self.release(slot)
+        return cached
+
     def release(self, slot):
         """Evict a finished sequence: drop the slot's page references
         (shared prefix pages survive in the cache; private pages return
@@ -775,6 +884,149 @@ class PagedDecodeEngine(_EngineBase):
         self.lengths[slot] = 0
         self._reserved[slot] = 0
         self._in_tokens[slot] = 0
+
+
+def validate_draft_geometry(engine, draft_engine):
+    """The draft must mirror the target's slot and length geometry: slot
+    indices and cache positions are shared between the two engines."""
+    if draft_engine.max_slots != engine.max_slots or \
+            draft_engine.max_len != engine.max_len:
+        raise ValueError(
+            "draft engine geometry (max_slots=%d, max_len=%d) must match "
+            "the target's (%d, %d)"
+            % (draft_engine.max_slots, draft_engine.max_len,
+               engine.max_slots, engine.max_len))
+
+
+def can_speculate(engine, draft_engine, slots):
+    """Whether a speculative round fits every slot in ``slots``: the
+    k-token chunk must land inside both the target's page reservation and
+    the draft's dense cache. The one predicate the scheduler and
+    :func:`speculative_greedy_generate` share, so their streams agree."""
+    k = int(engine.speculative_k)
+    return all(
+        int(engine.lengths[s]) + k <= int(engine._reserved[s]) and
+        int(draft_engine.lengths[s]) + k <= draft_engine.max_len
+        for s in slots)
+
+
+def speculative_round(engine, draft_engine, live, budgets_left,
+                      eos_id=None):
+    """One speculative-decode round over every active slot: the draft
+    proposes ``k = engine.speculative_k`` tokens (k greedy dense decode
+    steps), the target scores the ``[pending input, d_1 .. d_{k-1}]``
+    chunk in ONE verify step, and each slot accepts the longest prefix
+    where the target's greedy choice agrees with the draft — emitting 1
+    to k tokens, each what plain greedy decoding would emit (column j of
+    the verify is the target's greedy choice after chunk token j, and the
+    chunk's prefix is the accepted context by induction).
+
+    ``live``: the slots being decoded; ``budgets_left``: {slot: tokens it
+    may still emit}. Both engines' lengths and pending inputs are
+    committed; the draft is REWOUND to the accepted prefix (its
+    speculative rows stay until overwritten, masked by its lengths).
+    Returns ``({slot: [emitted]}, {slot: accepted drafts})``, emissions
+    truncated at EOS and budget; the accepted counts are exactly what
+    ``speculative_accepted_tokens_total`` records.
+
+    Caller contract: every active slot greedy, and :func:`can_speculate`
+    true; otherwise the caller takes a synced plain step."""
+    k = int(engine.speculative_k)
+    len0 = engine.lengths.copy()
+    in0 = engine._in_tokens.copy()
+    drafted = np.zeros((engine.max_slots, k), np.int32)
+    for j in range(k):
+        drafted[:, j] = draft_engine.decode_step()
+    chunk = np.concatenate([in0[:, None], drafted[:, :k - 1]], axis=1)
+    greedy = engine.verify_step(chunk)
+    catalog.SPECULATIVE_DRAFTED.inc(float(k * len(live)))
+    out, accepted = {}, {}
+    for s in live:
+        g, d = greedy[s], drafted[s]
+        a = 0
+        while a < k and d[a] == g[a]:
+            a += 1
+        emitted = [int(t) for t in g[:min(a + 1, k)]]
+        if eos_id is not None and eos_id in emitted:
+            emitted = emitted[:emitted.index(eos_id) + 1]
+        emitted = emitted[:max(int(budgets_left[s]), 1)]
+        m = len(emitted)
+        # emitted[j] confirms draft d_{j+1} for j < min(a, m): the drafts
+        # that became output (acceptance rate = accepted / drafted)
+        accepted[s] = min(a, m)
+        catalog.SPECULATIVE_ACCEPTED.inc(float(accepted[s]))
+        engine.commit_tokens(s, m, emitted[-1])
+        draft_engine.lengths[s] = len0[s] + m   # rewind past the rejects
+        draft_engine.set_input_token(s, emitted[-1])
+        out[s] = emitted
+    return out, accepted
+
+
+def speculative_greedy_generate(engine, draft_engine, prompts,
+                                max_new_tokens, *, eos_id=None):
+    """Synchronous speculative greedy decode — the no-scheduler reference
+    loop, token-identical to :func:`~.generation.greedy_generate` on
+    the target engine alone. ``engine`` is a :class:`PagedDecodeEngine`
+    with ``speculative_k >= 1``; ``draft_engine`` a dense engine over the
+    draft model with the same slot and length geometry. When a round no
+    longer fits (:func:`can_speculate`) every slot takes a synced plain
+    step: the target decodes (K3) and the draft ingests the same input."""
+    if engine.speculative_k < 1:
+        raise ValueError("engine has speculative_k=0 — FLAGS_speculative_k "
+                         "must be >= 1 for this path")
+    validate_draft_geometry(engine, draft_engine)
+    if engine.active.any() or draft_engine.active.any():
+        raise RuntimeError("engine has active slots")
+    if len(prompts) > engine.max_slots:
+        raise ValueError("%d prompts > max_slots=%d"
+                         % (len(prompts), engine.max_slots))
+    budgets = [int(m) for m in (max_new_tokens if
+                                isinstance(max_new_tokens, (list, tuple))
+                                else [max_new_tokens] * len(prompts))]
+    outs = [[] for _ in prompts]
+    live = {}
+    for i, prompt in enumerate(prompts):
+        logits = engine.prefill(i, prompt, max_new_tokens=budgets[i])
+        draft_engine.prefill(i, prompt)
+        budgets[i] = min(budgets[i], engine.max_len - int(engine.lengths[i]))
+        tok = int(np.argmax(logits))
+        outs[i].append(tok)
+        if (eos_id is not None and tok == eos_id) or \
+                len(outs[i]) >= budgets[i]:
+            engine.release(i)
+            draft_engine.release(i)
+        else:
+            engine.set_input_token(i, tok)
+            draft_engine.set_input_token(i, tok)
+            live[i] = True
+
+    def finish(i):
+        engine.release(i)
+        draft_engine.release(i)
+        del live[i]
+
+    while live:
+        if can_speculate(engine, draft_engine, live):
+            left = {s: budgets[s] - len(outs[s]) for s in live}
+            emitted, _ = speculative_round(engine, draft_engine, live, left,
+                                           eos_id=eos_id)
+            for s in list(live):
+                outs[s].extend(emitted[s])
+                if (eos_id is not None and outs[s][-1] == eos_id) or \
+                        len(outs[s]) >= budgets[s]:
+                    finish(s)
+        else:
+            toks = engine.decode_step()
+            draft_engine.decode_step()
+            for s in list(live):
+                tok = int(toks[s])
+                outs[s].append(tok)
+                draft_engine.set_input_token(s, tok)
+                if (eos_id is not None and tok == eos_id) or \
+                        len(outs[s]) >= budgets[s] or \
+                        engine.lengths[s] >= engine._reserved[s]:
+                    finish(s)
+    return outs
 
 
 _MS_ROWS = ("tokens", "lengths", "live", "emitted", "caps", "reserved")

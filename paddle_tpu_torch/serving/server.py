@@ -2,25 +2,29 @@
 ``/v1/generate`` half of ``paddle_tpu/serving/server.py``:
 
   POST /v1/generate {"prompt": [ids], "max_new_tokens": n,
-                   "temperature": t} →
+                   "temperature": t, "priority": "high"|"low"} →
                    {"tokens": [...], "finish_reason": "eos"|"length",
                    "n_prompt": n, "latency_ms": t, "request_id": id,
                    "slo": {ttft_ms, tpot_ms, decode_steps, ...}}
-                   400 bad body, or a request that can never fit the pool
-                   503 + Retry-After when the admission queue is full
+                   400 bad body (a bad priority included), or a request
+                   that can never fit the pool
+                   503 + Retry-After when the admission queue is full or
+                   brownout sheds a low-priority request
                    504 when the request's X-Deadline-Ms budget expires
-  GET  /healthz    200 {"status": "ok"} while serving, 503 "draining"
-                   after shutdown began; with ``version_info`` set (the
-                   serve CLI sets it) also ``"serving": {...}``: what
-                   this process serves, ``kv_quant`` and ``weight_quant``
-                   included
-  GET  /metrics    Prometheus text (counters, live slot / page gauges,
-                   p50/p95/p99)
+  GET  /healthz    200 {"status": "ok", "brownout_level": n} while
+                   serving, 503 "draining" after shutdown began; with
+                   ``version_info`` set (the serve CLI sets it) also
+                   ``"serving": {...}``: what this process serves,
+                   ``kv_quant`` and ``weight_quant`` included
+  GET  /metrics    Prometheus text (counters, live slot / held-lane /
+                   brownout / page gauges, p50/p95/p99)
 
 Every POST ingests ``X-Trace-Id`` / ``X-Request-Id`` (minting a context
 when absent) and echoes the ids on every response, errors included,
 plus ``X-Trace-Summary`` (the per-request summary) on success.
-``/v1/infer``, ``/v1/prefill`` and ``/trace`` are not ported yet.
+``X-Tenant-Id`` names the request's tenant for the scheduler's budgets (a
+malformed id is served as the anonymous tenant). ``/v1/infer``,
+``/v1/prefill`` and ``/trace`` are not ported yet.
 """
 
 import json
@@ -35,6 +39,7 @@ from ..observability.http import BackgroundHTTPServer, JsonHTTPHandler
 from .batcher import DeadlineExceededError, OverloadedError, \
     ServingClosedError
 from .metrics import render_prometheus
+from .registry import parse_deadline_header, parse_tenant_header
 
 __all__ = ["ServingServer", "make_server", "summary_header",
            "parse_deadline_header"]
@@ -47,21 +52,6 @@ def summary_header(summary):
     return ";".join("%s=%s" % (k, summary[k]) for k in sorted(summary))
 
 
-def parse_deadline_header(raw):
-    """``X-Deadline-Ms`` value → remaining-budget milliseconds (>= 0), or
-    None when absent, malformed or non-finite (a broken client gets
-    service, not a parse error)."""
-    if raw is None:
-        return None
-    try:
-        v = float(raw)
-    except (TypeError, ValueError):
-        return None
-    if not math.isfinite(v):
-        return None
-    return max(0.0, v)
-
-
 class _Handler(JsonHTTPHandler):
 
     def do_GET(self):
@@ -72,15 +62,19 @@ class _Handler(JsonHTTPHandler):
                 st = {"status": "ok", "ready": True}
             if self.server.version_info:
                 st["serving"] = self.server.version_info
+            # the shed-ladder position rides every health answer
+            st["brownout_level"] = self.server.generator.brownout_level()
             self._send_json(503 if self.server.draining else 200, st)
         elif self.path == "/metrics":
             gen = self.server.generator
             gauges = {"generation_active_slots": gen.active_slots(),
-                      "generation_held_requests": gen.held_depth()}
-            st = gen.engine.page_stats()
-            for k in ("kv_pages_in_use", "kv_pages_total",
-                      "kv_pool_effective_capacity"):
-                gauges[k] = st[k]
+                      "generation_held_requests": gen.held_depth(),
+                      "brownout_level": gen.brownout_level()}
+            if hasattr(gen.engine, "page_stats"):   # a paged engine
+                st = gen.engine.page_stats()
+                for k in ("kv_pages_in_use", "kv_pages_total",
+                          "kv_pool_effective_capacity"):
+                    gauges[k] = st[k]
             self._send(200, render_prometheus(gauges=gauges),
                        content_type="text/plain; version=0.0.4")
         else:
@@ -112,6 +106,9 @@ class _Handler(JsonHTTPHandler):
     def _handle_generate(self, ctx, t0):
         deadline_ms = parse_deadline_header(
             self.headers.get("X-Deadline-Ms"))
+        # a malformed tenant id degrades to anonymous: tenancy is an
+        # accounting dimension, not authentication
+        tenant = parse_tenant_header(self.headers.get("X-Tenant-Id"))
         try:
             length = int(self.headers.get("Content-Length", 0))
             payload = json.loads(self.rfile.read(length) or b"{}")
@@ -126,6 +123,9 @@ class _Handler(JsonHTTPHandler):
             if max_new is not None:
                 max_new = int(max_new)
             temperature = float(payload.get("temperature", 0.0))
+            # validated by the scheduler's submit (its ValueError is a
+            # 400 below): one list of classes
+            priority = payload.get("priority", "high")
         except (ValueError, KeyError, TypeError) as e:
             return self._reply(ctx, 400, {"error": "bad request body: %s"
                                           % e})
@@ -135,7 +135,8 @@ class _Handler(JsonHTTPHandler):
         try:
             pending = self.server.generator.submit(
                 np.asarray(prompt, np.int32), max_new_tokens=max_new,
-                temperature=temperature, trace=ctx, deadline_ms=deadline_ms)
+                temperature=temperature, trace=ctx, deadline_ms=deadline_ms,
+                priority=priority, tenant=tenant)
             result = pending.wait(wait_s)
         except OverloadedError as e:
             # RFC 9110 delta-seconds is a non-negative integer: round the

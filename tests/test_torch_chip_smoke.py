@@ -658,6 +658,78 @@ def test_megastep_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
         assert text in out
 
 
+def test_spec_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
+                                         monkeypatch, capsys):
+    """Phase 14 at a tiny size from one K = 1 run (standing in for phases
+    4 and 12): the engine gates' launch arithmetic (K3 = layers x the
+    synced fallback steps), the served speculative runs (the self draft
+    accepting), the dense engine's served run without K3, the tenant
+    run's budget preemption with a prefix hit, and shedding to level
+    3."""
+    from paddle_tpu_torch.serving import (TransformerDecoderModel,
+                                          full_recompute_generate,
+                                          save_decoder)
+    # a 1 s budget window: the tenant's first iteration (4 prefills and a
+    # 4-trip megastep, > 16 tokens) ends before it rolls, even on a
+    # loaded CPU
+    for name, value in (("SPEC_NEW_TOKENS", 12), ("SERVED_SPEC_K", 3),
+                        ("MEGASTEP_K", 4), ("TENANT_WINDOW_S", 1.0),
+                        ("SHED_DWELL_S", 0.01), ("SHED_SPACING_S", 0.02),
+                        ("NEW_TOKENS", (6, 12))):
+        monkeypatch.setattr(cs, name, value)
+    dirs = {}
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        m = TransformerDecoderModel(cs.VOCAB, dim=cs.DIM, n_heads=cs.HEADS,
+                                    n_layers=cs.LAYERS, dtype=dtype)
+        dirs[label] = str(tmp_path / label)
+        save_decoder(dirs[label], m, m.init_params(0, device="cpu"))
+    prompts, budgets = cs._requests()
+    run = cs.serve_run(dirs["fp32"], prompts, budgets)
+    k1 = cs._serving_stats(run)
+    ref = full_recompute_generate(run["model"], run["engine"].params,
+                                  prompts, budgets, max_len=cs.MAX_LEN)
+    res = cs.spec_path({"fp32": k1, "_recompute": ref, "_dirs": dirs},
+                       {"runs": {"fp32": k1}}, str(tmp_path))
+    assert set(res["engine_gates"]) == {"fp32", "bf16", "int8"}
+    for label, gate in res["engine_gates"].items():
+        want = {"self_k1", "self_k4", "2-layer_k1", "2-layer_k4"} \
+            if label != "int8" else {"self_k4", "2-layer_k4"}
+        assert set(gate) == want
+        for rec in gate.values():
+            assert rec["launches"] == rec["fallback_steps"] * cs.LAYERS
+            assert 0 <= rec["accepted"] <= rec["drafted"]
+    for rec in res["engine_gates"]["fp32"].values():   # the gated dtype
+        assert rec["streams_equal_plain"] == cs.SLOTS
+    fp32 = res["engine_gates"]["fp32"]["self_k4"]
+    # 12 tokens at k 4: each of the SLOTS streams ends on a round of 3
+    assert fp32["truncation_loss"] == cs.SLOTS * (4 - 11 % 4)
+    assert fp32["accepted"] == fp32["drafted"] - fp32["truncation_loss"] > 0
+    n = cs.N_CLIENTS * cs.PER_CLIENT
+    for key in ("served", "served_self"):
+        served = res[key]
+        assert served["streams_equal_recompute"] == n
+        assert served["counters"]["drafted"] > 0
+        assert served["k3_launches"] == \
+            served["trip_stats"]["decode_steps"] * cs.LAYERS
+    assert res["served_self"]["counters"]["accepted"] > 0
+    dense = res["served_dense"]
+    assert dense["streams_equal_recompute"] == n
+    assert dense["k3_launches"] == dense["k3_quant_launches"] == 0
+    tenants = res["tenants"]
+    assert tenants["streams_equal_recompute"] == n
+    assert tenants["counters"]["preempted"]["budget"] >= 1
+    assert tenants["capped_prefix_hit_pages_max"] >= 1
+    shed = res["shedding"]
+    assert shed["low_shed"] >= 1 and shed["high_served"] == n // 2
+    assert shed["counters"]["shed_low"] == shed["low_shed"]
+    assert res["launches"]["k3"] > 0 and res["launches"]["k3_quant"] > 0
+    out = capsys.readouterr().out
+    for text in ("speculative engine gate", "speculative serving",
+                 "dense DecodeEngine serving", "tenant serving", "shedding",
+                 "vs K=1 (phase 4)"):
+        assert text in out
+
+
 def test_trip_gate_and_the_launch_arithmetic(monkeypatch):
     """On the card: one capture and one warm-up trip per variant used,
     every dispatched trip a replay; K3 owes a launch a layer for every

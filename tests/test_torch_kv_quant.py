@@ -144,9 +144,9 @@ def test_quant_knobs_resolve_as_the_reference_does():
         got = pgen.resolve_generation_knobs(
             max_slots=4, max_len=64, page_size=16, kv_quant_dtype=mode,
             kv_quant_group=0, paged=True)
-        # (.., page_size, num_pages, kv_quant_dtype, kv_quant_group,
-        # megastep_k)
-        assert got[3:] == ref[3:5] + ref[6:]
+        # (.., page_size, num_pages, speculative_k, kv_quant_dtype,
+        # kv_quant_group, megastep_k)
+        assert got[3:] == ref[3:]
     assert got[4] == 2 * 16          # the auto-sized pool doubles
 
 

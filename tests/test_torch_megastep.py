@@ -451,9 +451,9 @@ def test_chain_gate_requires_every_slot_rode_the_previous_megastep(
         assert not sched._ms_can_chain({0: b}, state, {0: a})
         assert not sched._ms_can_chain({}, state, {})
         assert not sched._ms_can_chain({0: a}, {"saw_stop": True}, {0: a})
-        sched._held = (None, 0.0)
+        sched._held_q.append({"req": None})   # a parked admission
         assert not sched._ms_can_chain({0: a}, state, {0: a})
-        sched._held = None
+        sched._held_q.clear()
     eng1 = port_engine(weights, megastep_k=1)
     with pgen.GenerationScheduler(eng1) as sched:
         assert not sched._ms_can_chain({0: a}, {"saw_stop": False},
@@ -501,8 +501,8 @@ def test_serve_cli_megastep_k_answers_the_k1_tokens(weights, tmp_path):
              "--generation-model", str(tmp_path / "dec"), "--device", "cpu",
              "--port", "0", "--gen-max-slots", "2", "--gen-max-len", "32",
              "--gen-prefill-buckets", "4,8", "--gen-page-size", "4",
-             "--gen-megastep-k", k], cwd=str(tmp_path), env=env,
-            stderr=subprocess.PIPE, text=True)
+             "--gen-paged", "--gen-megastep-k", k], cwd=str(tmp_path),
+            env=env, stderr=subprocess.PIPE, text=True)
         try:
             line = proc.stderr.readline()
             assert line.startswith("serve: http://"), line
