@@ -264,6 +264,25 @@ raises on failure (the script then exits non-zero and prints no result):
    beside their eager p50 with a profiled replay's busy ms and idle
    share. The kernels line counts these launches too.
 
+15. Seq2seq NMT training as ``bench_nmt.py`` runs it (run after phase
+   11; no hand-written kernel is on its path, and none may launch in the
+   phase). (a) Gates: the ``lstm`` op forward and its generic grad at the
+   bench's width (b64 t40 h512; peepholes, reverse, H0/C0), card against
+   CPU in fp32 within 1e-5 rel L2 (``lstm_op_checks``); the bench's
+   program at batch 8, max length 16, two steps each on both devices from
+   the CPU's state (``nmt_gate``); ``run_steps`` bitwise ``run()`` over a
+   switch of padded shapes and back, fp32 and amp, deterministic (2
+   captures, 5 replays; ``nmt_replay_gate``). (b) ``bench_nmt.py``'s
+   configuration through ``paddle_tpu_torch.benchmarks.nmt.main()``
+   (batch 64, max length 40, vocab 30000, 512 wide, bf16, ``Adam(1e-3)``,
+   the padded baseline and the length-pooled schedule, 200-step sweeps,
+   one warm and 3 timed; its JSON line printed), with one capture per
+   distinct padded shape, no compile-cache miss in the timed sweeps and
+   the loss finite and falling; beside it the captured step ms, the eager
+   ``run()`` p50, each schedule's captures and peak memory. (c) One
+   profiled replay of the baseline's step: busy ms, idle share, device
+   ms by class (``nmt_class``: gemm, elementwise, copy, reduction).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -3561,6 +3580,7 @@ def _run_op(op_type, ins, attrs, amp, device, outputs=None):
     """``op_type``'s lowering (a grad op's: registered, or the generic
     vjp of its forward) on ``ins`` moved to ``device``; CPU outputs."""
     import types
+    import torch.utils._pytree as pytree
     from paddle_tpu_torch import registry
     if registry.is_registered(op_type):
         fn = registry.get_op_info(op_type).lowering
@@ -3571,9 +3591,11 @@ def _run_op(op_type, ins, attrs, amp, device, outputs=None):
                                forward_op=None)
     ctx = registry.LoweringContext(op, step_key=(0, 0), device=device,
                                    amp=amp)
-    outs = fn(ctx, {s: [v.to(device) for v in vs] for s, vs in ins.items()})
-    return {s: [v.cpu() for v in vs if v is not None]
-            for s, vs in outs.items()}
+    # a ragged value (LoDArray) moves and comes back field by field
+    outs = fn(ctx, {s: [pytree.tree_map(lambda t: t.to(device), v)
+                        for v in vs] for s, vs in ins.items()})
+    return {s: [pytree.tree_map(lambda t: t.cpu(), v) for v in vs
+                if v is not None] for s, vs in outs.items()}
 
 
 def _op_case(rng, label, op_type, ins, attrs, grads=(), amp=False):
@@ -3688,23 +3710,19 @@ def _copy_scope(fluid, state, device):
     return scope
 
 
-def resnet_gate():
-    """fp32 card-vs-CPU gate, TF32 off: the gate model from one startup
-    state (the CPU's), RGATE_STEPS steps; step k runs on both devices
-    from the CPU run's state before it. Per step the losses within
-    RGATE_LOSS_RTOL and every persistable's update within
-    RGATE_UPDATE_REL_L2 relative L2."""
-    import torch
+def card_vs_cpu_steps(label, prog, startup, loss, feed, steps, loss_rtol,
+                      update_rel_l2):
+    """``prog`` from one startup state (the CPU's), ``steps`` steps; step
+    k runs on the card and the CPU from the CPU run's state before it.
+    Per step the losses within ``loss_rtol`` relative and every
+    persistable's update within ``update_rel_l2`` relative L2; raises
+    past either or on a loss that is not finite."""
     import paddle_tpu_torch as fluid
-    _fp32()
-    prog, startup, loss = build_resnet(fluid, RESNET_DEPTH, RGATE_BATCH,
-                                       RGATE_SIZE, RGATE_CLASSES, amp=False)
-    feed = resnet_feed(RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES)
     state = _startup_state(startup)
     exes = {"card": fluid.Executor(fluid.CUDAPlace(0)),
             "cpu": fluid.Executor(fluid.CPUPlace())}
-    steps, worst = [], {"loss": 0.0, "update": 0.0}
-    for k in range(RGATE_STEPS):
+    rows, worst = [], {"loss": 0.0, "update": 0.0}
+    for k in range(steps):
         after = {}
         for tag, exe in exes.items():
             scope = _copy_scope(fluid, state, exe.device)
@@ -3726,22 +3744,37 @@ def resnet_gate():
                "updates": len(upd), "worst_update": name,
                "worst_update_rel_l2": upd[name],
                "median_update_rel_l2": float(np.median(list(upd.values())))}
-        steps.append(row)
+        rows.append(row)
         worst["loss"] = max(worst["loss"], row["loss_rel_err"])
         worst["update"] = max(worst["update"], upd[name])
         state = {n: v.clone() for n, v in cpu.items()}
-    res = {"steps": steps, "loss_rel_err": worst["loss"],
+    res = {"steps": rows, "loss_rel_err": worst["loss"],
            "update_rel_l2": worst["update"]}
-    log("resnet gate (card vs CPU, fp32): %s" % json.dumps(res))
-    if not (worst["loss"] <= RGATE_LOSS_RTOL and
-            worst["update"] <= RGATE_UPDATE_REL_L2 and
-            all(np.isfinite([r["loss_card"] for r in steps]))):
+    log("%s: %s" % (label, json.dumps(res)))
+    if not (worst["loss"] <= loss_rtol and
+            worst["update"] <= update_rel_l2 and
+            all(np.isfinite([r["loss_card"] for r in rows]))):
         raise AssertionError(
-            "resnet gate: card and CPU disagree: loss rel err %.3g (limit "
-            "%g), update rel L2 %.3g (limit %g)" % (
-                worst["loss"], RGATE_LOSS_RTOL, worst["update"],
-                RGATE_UPDATE_REL_L2))
+            "%s: card and CPU disagree: loss rel err %.3g (limit %g), "
+            "update rel L2 %.3g (limit %g)" % (
+                label, worst["loss"], loss_rtol, worst["update"],
+                update_rel_l2))
     return res
+
+
+def resnet_gate():
+    """fp32 card-vs-CPU gate, TF32 off: the gate model, RGATE_STEPS
+    steps (``card_vs_cpu_steps``): per step the losses within
+    RGATE_LOSS_RTOL and every persistable's update within
+    RGATE_UPDATE_REL_L2 relative L2."""
+    import paddle_tpu_torch as fluid
+    _fp32()
+    prog, startup, loss = build_resnet(fluid, RESNET_DEPTH, RGATE_BATCH,
+                                       RGATE_SIZE, RGATE_CLASSES, amp=False)
+    feed = resnet_feed(RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES)
+    return card_vs_cpu_steps("resnet gate (card vs CPU, fp32)", prog,
+                             startup, loss, feed, RGATE_STEPS,
+                             RGATE_LOSS_RTOL, RGATE_UPDATE_REL_L2)
 
 
 @contextlib.contextmanager
@@ -3874,12 +3907,17 @@ _RESNET_CLASSES = (
 )
 
 
-def resnet_class(key):
+def _kernel_class(key, table):
+    """The first class of ``table`` one of whose tags ``key`` contains."""
     low = key.lower()
-    for name, tags in _RESNET_CLASSES:
+    for name, tags in table:
         if any(t in low for t in tags):
             return name
     return "other"
+
+
+def resnet_class(key):
+    return _kernel_class(key, _RESNET_CLASSES)
 
 
 def _device_events(prof):
@@ -3890,13 +3928,14 @@ def _device_events(prof):
             and e.key not in OP_REGISTRY and e.self_device_time_total > 0]
 
 
-def _kernel_profile(prof, steps):
-    """Device-busy ms per step, by class (``resnet_class``) and the top
-    12 kernels, from a profile over ``steps`` steps."""
+def _kernel_profile(prof, steps, classify=None):
+    """Device-busy ms per step, by class (``classify``, default
+    ``resnet_class``) and the top 12 kernels, from a profile over
+    ``steps`` steps."""
     events = _device_events(prof)
     by_class = {}
     for e in events:
-        c = resnet_class(e.key)
+        c = (classify or resnet_class)(e.key)
         by_class[c] = by_class.get(c, 0.0) + \
             e.self_device_time_total / steps / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -3925,9 +3964,10 @@ def _profile_eager(exe, prog, feed, loss, steps):
     return res
 
 
-def _profile_replay(exe, prog, feed, loss, steps):
+def _profile_replay(exe, prog, feed, loss, steps, classify=None):
     """One ``run_steps(n_steps=steps)`` replay under ``torch.profiler``:
-    device-busy ms per step, wall ms per step, the kernel classes."""
+    device-busy ms per step, wall ms per step, the kernel classes
+    (``classify``: see ``_kernel_profile``)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if DEVICE == "cuda":
@@ -3936,7 +3976,7 @@ def _profile_replay(exe, prog, feed, loss, steps):
         t0 = time.perf_counter()
         exe.run_steps(prog, feed=feed, n_steps=steps, fetch_list=[loss])
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    res = _kernel_profile(prof, steps)
+    res = _kernel_profile(prof, steps, classify)
     res["wall_ms"] = wall
     return res
 
@@ -4560,6 +4600,305 @@ def phase13_launches(report):
     return total
 
 
+# -- phase 15: seq2seq NMT training as bench_nmt.py runs it ----------------
+
+# the lstm op at the bench's width (batch 64, 40 steps, 512 wide; lengths
+# of 1, of the full window and bench_nmt's 20-39), fp32 with TF32 off,
+# card against CPU: the outputs and each grad within LSTM_REL_L2
+LSTM_BATCH, LSTM_STEPS, LSTM_WIDTH = 64, 40, 512
+LSTM_CASES = (("peepholes", {"use_peepholes": True}, ()),
+              ("reverse", {"use_peepholes": True, "is_reverse": True}, ()),
+              ("reverse-h0-c0-no-peepholes",
+               {"use_peepholes": False, "is_reverse": True}, ("H0", "C0")),
+              ("h0", {"use_peepholes": True}, ("H0",)))
+LSTM_REL_L2 = 1e-5
+# the seq2seq gate: the bench's program (512 wide, vocab 30000) at batch
+# 8, max length 16, fp32 with TF32 off; NGATE_STEPS steps, each on both
+# devices from the CPU run's state: the losses within NGATE_LOSS_RTOL,
+# every persistable's update within NGATE_UPDATE_REL_L2
+NGATE_BATCH, NGATE_SEQ, NGATE_STEPS = 8, 16, 2
+NGATE_LOSS_RTOL, NGATE_UPDATE_REL_L2 = 1e-5, 1e-2
+# run_steps against run() across a padded-shape switch: (feed, n_steps)
+# with feed 0 padded to 16 and feed 1 to 24 — 2 captures, 5 replays
+NREPLAY_SCHEDULE = ((0, 2), (1, 3), (0, 2))
+NMT_EAGER_STEPS, NMT_PROFILE_STEPS = 4, 3
+# device kernels by what they compute, for the NMT profile (first match
+# wins): cuBLAS/CUTLASS GEMMs, reductions, copies, the rest elementwise
+_NMT_CLASSES = (
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("reduction", ("reduce",)),
+    ("copy", ("copy", "memcpy", "memset", "fill", "catarray")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
+                     "where", "gather", "scatter")),
+)
+
+
+def nmt_class(key):
+    return _kernel_class(key, _NMT_CLASSES)
+
+
+def _lstm_inputs(rng, attrs, opts):
+    """The lstm op's inputs at the bench's width: a ragged [b, t, 4h]
+    projection, the recurrent weight, the bias ([1, 7h] with peepholes,
+    else [1, 4h]) and ``opts`` of H0 / C0."""
+    import torch
+    from paddle_tpu_torch.core import LoDArray
+    b, t, h = LSTM_BATCH, LSTM_STEPS, LSTM_WIDTH
+    lengths = rng.randint(t // 2, t, size=b)
+    lengths[:2] = (1, t)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32))
+
+    ins = {"Input": [LoDArray(f(b, t, 4 * h, scale=0.5),
+                              torch.from_numpy(lengths.astype(np.int32)))],
+           "Weight": [f(h, 4 * h, scale=1.0 / np.sqrt(h))],
+           "Bias": [f(1, (7 if attrs["use_peepholes"] else 4) * h,
+                      scale=0.1)]}
+    for slot in opts:
+        ins[slot] = [f(b, h, scale=0.5)]
+    return ins
+
+
+def lstm_op_checks():
+    """The lstm op forward (Hidden, Cell) and its generic grad (Input,
+    Weight, Bias, H0, C0 from random Hidden and Cell cotangents) on the
+    card against the CPU, fp32 with TF32 off, for each of LSTM_CASES:
+    the worst relative L2 within LSTM_REL_L2."""
+    import torch
+    _fp32()
+    rng = np.random.RandomState(SEED)
+    card, cpu = torch.device(DEVICE), torch.device("cpu")
+    rows = []
+    for label, attrs, opts in LSTM_CASES:
+        ins = _lstm_inputs(rng, attrs, opts)
+        outs = {"Hidden": ["hidden"], "Cell": ["cell"]}
+        got = _run_op("lstm", ins, attrs, False, card, outs)
+        want = _run_op("lstm", ins, attrs, False, cpu, outs)
+        errs = {s: _rel_l2(got[s][0].data, want[s][0].data)
+                for s in ("Hidden", "Cell")}
+        gins = dict(ins, Hidden=want["Hidden"], Cell=want["Cell"])
+        for s in ("Hidden", "Cell"):
+            gins[s + "@GRAD"] = [torch.from_numpy(rng.randn(
+                *want[s][0].shape).astype(np.float32))]
+        gattrs = dict(attrs, __fwd_input_slots__=list(ins),
+                      __fwd_output_slots__=["Hidden", "Cell"],
+                      __fwd_op_uid__=1)
+        gouts = {s + "@GRAD": [s] for s in ins}
+        ggot = _run_op("lstm_grad", gins, gattrs, False, card, gouts)
+        gwant = _run_op("lstm_grad", gins, gattrs, False, cpu, gouts)
+        for s in gouts:
+            a, b = ggot[s][0], gwant[s][0]
+            errs[s] = _rel_l2(getattr(a, "data", a), getattr(b, "data", b))
+        rows.append({"case": label, "rel_l2": errs,
+                     "worst": max(errs.values())})
+    for r in rows:
+        r["ok"] = r["worst"] <= LSTM_REL_L2
+    log("lstm op checks (card vs CPU, fp32, b%d t%d h%d): %s"
+        % (LSTM_BATCH, LSTM_STEPS, LSTM_WIDTH, json.dumps(rows)))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError("lstm disagrees, card vs CPU: %s" % bad)
+    return rows
+
+
+def build_nmt(batch, seq, amp):
+    """bench_nmt.py's program through ``benchmarks.nmt.build_program``
+    at ``batch`` x ``seq`` (the bench's widths and vocabulary), under one
+    unique-name guard: (prog, startup, loss, feed)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.benchmarks import nmt
+    with unique_name.guard():
+        prog, startup, loss, feed, _, _ = nmt.build_program(
+            batch=batch, seq=seq, amp=amp)
+    return prog, startup, loss, feed
+
+
+def nmt_gate():
+    """fp32 card-vs-CPU gate, TF32 off: the NMT program at NGATE_BATCH x
+    NGATE_SEQ, NGATE_STEPS steps (``card_vs_cpu_steps``): per step the
+    losses within NGATE_LOSS_RTOL and every persistable's update within
+    NGATE_UPDATE_REL_L2 relative L2."""
+    _fp32()
+    prog, startup, loss, feed = build_nmt(NGATE_BATCH, NGATE_SEQ, False)
+    return card_vs_cpu_steps(
+        "nmt gate (card vs CPU, fp32, b%d s%d)" % (NGATE_BATCH, NGATE_SEQ),
+        prog, startup, loss, feed, NGATE_STEPS, NGATE_LOSS_RTOL,
+        NGATE_UPDATE_REL_L2)
+
+
+def nmt_replay_feeds():
+    """Two feeds of the gate's program at two padded shapes: batch
+    NGATE_BATCH padded to a multiple of 8 (16), and to NGATE_SEQ + 8."""
+    from paddle_tpu_torch.benchmarks import nmt
+    pairs = nmt.synthetic_samples(2 * NGATE_BATCH, NGATE_SEQ,
+                                  nmt.TRG_VOCAB, seed=2)
+    return [nmt.make_feed(pairs[:NGATE_BATCH], pad_to_multiple=8),
+            nmt.make_feed(pairs[NGATE_BATCH:], max_len=NGATE_SEQ + 8)]
+
+
+def nmt_replay_gate(amp):
+    """``run_steps`` against ``run`` on the NMT gate program (fp32 or
+    amp), TF32 off, deterministic algorithms, from one state, over
+    NREPLAY_SCHEDULE (a switch of padded shapes and back): every
+    persistable and each dispatch's loss bitwise the ``run()`` calls';
+    on the card 2 captures and 5 replays, no hand-written kernel."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    feeds = nmt_replay_feeds()
+    with _deterministic() as warned:
+        prog, startup, loss, _ = build_nmt(NGATE_BATCH, NGATE_SEQ, amp)
+        state = _startup_state(startup)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        ref = _copy_scope(fluid, state, exe.device)
+        ref_losses = []
+        for i, n in NREPLAY_SCHEDULE:
+            for _ in range(n):
+                ref_losses.append(exe.run(prog, feed=feeds[i],
+                                          fetch_list=[loss], scope=ref)[0])
+        got = _copy_scope(fluid, state, exe.device)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        _zero_counts()
+        losses = [exe.run_steps(prog, feed=feeds[i], n_steps=n,
+                                fetch_list=[loss], scope=got)[0]
+                  for i, n in NREPLAY_SCHEDULE]
+        counts = dict(pexe.graph_launches)
+        launches = _kernel_counts()
+        differ = _bitwise(ref, got, state)
+        exe.close()
+        _sync()
+    last = np.cumsum([n for _, n in NREPLAY_SCHEDULE]) - 1
+    same = [bool(np.array_equal(a, ref_losses[i]))
+            for a, i in zip(losses, last)]
+    on_card = DEVICE == "cuda"
+    misses = len({i for i, _ in NREPLAY_SCHEDULE})
+    want = {"captures": misses,
+            "replays": sum(n for _, n in NREPLAY_SCHEDULE) - misses} \
+        if on_card else {"captures": 0, "replays": 0}
+    res = {"amp": amp, "schedule": NREPLAY_SCHEDULE,
+           "padded_shapes": [f["src_word_id"].shape for f in feeds],
+           "losses": [float(v) for v in losses],
+           "losses_bitwise": same, "persistables": len(state),
+           "persistables_differing": differ, "graph_launches": counts,
+           "nondeterministic_ops": warned}
+    log("nmt run_steps vs run across padded shapes (%s, deterministic): "
+        "%s" % ("amp" if amp else "fp32", json.dumps(res)))
+    if differ or not all(same) or counts != want:
+        raise AssertionError(
+            "nmt run_steps differs from run (%s): %d persistables differ "
+            "(%s), losses bitwise %s, graph launches %s (want %s)"
+            % ("amp" if amp else "fp32", len(differ), differ[:5], same,
+               counts, want))
+    _counts_gate("nmt replay gate", launches, {})
+    return res
+
+
+def nmt_path(card_label=""):
+    """bench_nmt.py's measured path at its full configuration through
+    ``benchmarks.nmt.main()`` (the JSON line printed): the padded
+    baseline and the pooled schedule, each a warm sweep and 3 timed
+    200-step sweeps; the kernel and graph counts set to 0 just before
+    and read just after, and per schedule its captures and peak memory.
+    Gates: one capture per distinct padded shape, no compile-cache miss
+    in the timed sweeps, the loss finite and falling over the sweeps,
+    no hand-written kernel launched. Then the eager ``run()`` p50 and a
+    profiled replay (device ms by class) of the baseline's step."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.benchmarks import nmt
+    schedules = []
+    real_measure = nmt._measure_schedule
+
+    def measure(exe, prog, loss, schedule):
+        before = dict(pexe.graph_launches)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out = real_measure(exe, prog, loss, schedule)
+        schedules.append({
+            "dispatches_a_sweep": len(schedule),
+            "graph_launches": {k: pexe.graph_launches[k] - before[k]
+                               for k in before},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+            if DEVICE == "cuda" else None})
+        return out
+
+    _zero_counts()
+    nmt._measure_schedule = measure
+    try:
+        with unique_name.guard():
+            rec = nmt.main()
+    finally:
+        nmt._measure_schedule = real_measure
+    launches, graphs = _kernel_counts(), dict(pexe.graph_launches)
+    sweep_losses = {k: [float(h.numpy()[0]) for h in hs]
+                    for k, hs in rec.pop("_handles").items()}
+    shapes = {(s, t) for s, t, _ in rec["_shapes"]} | {(nmt.SEQ, nmt.SEQ)}
+    base_ms = float(np.median(rec["_sweep_s"]["baseline"])) * 1e3 / \
+        nmt.ITERS
+    pooled_ms = float(np.median(rec["_sweep_s"]["pooled"])) * 1e3 / \
+        rec["pooled_steps"]
+    # the eager step and a profiled replay of the baseline's step
+    prog, startup, loss, feed = build_nmt(nmt.BATCH, nmt.SEQ, True)
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        _, eager_ms = _train_steps(exe, prog, feed, loss,
+                                   1 + NMT_EAGER_STEPS)
+        exe.run_steps(prog, feed=feed, n_steps=2, fetch_list=[loss])
+        prof = _profile_replay(exe, prog, feed, loss, NMT_PROFILE_STEPS,
+                               nmt_class)
+        exe.close()
+    res = {"bench": {k: v for k, v in rec.items() if not k.startswith("_")},
+           "card": card_label,
+           "cut": "none: bench_nmt.py's configuration (batch 64, max "
+                  "length 40, vocab 30000, 512 wide, %d-step sweeps, %d "
+                  "timed)" % (nmt.ITERS, nmt.ROUNDS),
+           "sweep_s": rec["_sweep_s"], "sweep_losses": sweep_losses,
+           "padded_shapes": sorted(shapes),
+           "pooled_shapes_steps": rec["_shapes"],
+           "schedules": schedules,
+           "step_ms_captured": {"baseline": base_ms, "pooled": pooled_ms},
+           "step_ms_eager": eager_ms,
+           "step_ms_eager_p50": float(np.percentile(eager_ms[1:], 50)),
+           "replay_profile": prof,
+           "replay_device_busy_ms": prof["device_busy_ms"],
+           "replay_wall_ms": prof["wall_ms"],
+           "replay_idle_share": 1.0 - prof["device_busy_ms"]
+           / prof["wall_ms"],
+           "telemetry": rec["_telemetry"],
+           "launches": launches, "graph_launches": graphs,
+           "peak_memory_gb": max((s["peak_memory_gb"] or 0.0)
+                                 for s in schedules)
+           if DEVICE == "cuda" else None}
+    summary = {k: res[k] for k in (
+        "card", "cut", "step_ms_captured", "step_ms_eager_p50",
+        "replay_device_busy_ms", "replay_wall_ms", "replay_idle_share",
+        "peak_memory_gb", "padded_shapes", "graph_launches", "schedules",
+        "sweep_losses")}
+    summary["replay_class_ms"] = prof["class_ms"]
+    summary["replay_top_kernels_ms"] = prof["top_kernels_ms"]
+    log("bench_nmt through the captured steps: %s" % json.dumps(summary))
+    for k, ls in sweep_losses.items():
+        if not (all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            raise AssertionError("nmt %s: sweep losses not finite and "
+                                 "falling: %s" % (k, ls))
+    want = len(shapes) if DEVICE == "cuda" else 0
+    if graphs["captures"] != want:
+        raise AssertionError("nmt: %d captures for %d padded shapes %s"
+                             % (graphs["captures"], len(shapes),
+                                sorted(shapes)))
+    misses = [rec["pooled_compile_cache_misses"],
+              rec["_telemetry"]["baseline"].get("compile_cache_misses", 0)]
+    if any(misses):
+        raise AssertionError("nmt: compile-cache misses in the timed "
+                             "sweeps (pooled, baseline): %s" % misses)
+    _counts_gate("nmt path", launches, {})
+    return res
+
+
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -4738,6 +5077,18 @@ def main(argv=None):
             report["resnet_path"] = resnet_path(
                 report["card"]["nvidia_smi"])
             lap("resnet_path")
+            # phase 15: no hand-written kernel may launch in it
+            _zero_counts()
+            report["lstm_op_checks"] = lstm_op_checks()
+            lap("lstm_op_checks")
+            report["nmt_gate"] = nmt_gate()
+            lap("nmt_gate")
+            report["nmt_replay_gates"] = [nmt_replay_gate(False),
+                                          nmt_replay_gate(True)]
+            lap("nmt_replay_gates")
+            report["nmt_path"] = nmt_path(report["card"]["nvidia_smi"])
+            lap("nmt_path")
+            _counts_gate("phase 15", _kernel_counts(), {})
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

@@ -6,7 +6,7 @@ numpy and the standard library only — never jax and never a module of
 ``paddle_tpu`` — and keeps its own trimmed copies of the backend-neutral
 pieces it needs (flags, profiler counters, metric catalogue, tracing).
 
-Five slices are ported:
+These paths are ported:
 
 - paged-KV generation serving (``serving``): the decoder model, the paged
   decode engine, the continuous-batching scheduler and the HTTP server,
@@ -32,7 +32,13 @@ Five slices are ported:
   fault-tolerant ``robustness.train_loop`` with checkpoints (``io``,
   ``robustness.CheckpointManager``), with step telemetry
   (``observability.steps``) and random ops (``dropout``) that a captured
-  step replays with fresh draws.
+  step replays with fresh draws;
+- seq2seq NMT training as ``bench_nmt.py`` measures it
+  (``benchmarks.nmt``): ragged ``LoDArray`` values (one LoD level)
+  through the IR, the executor and autodiff, ``dynamic_lstm``,
+  ``sequence_pool``, ``models.seq2seq_net`` and length-pooled batches
+  (``data.decorator.pool_batch_by_length``), one captured step per
+  padded shape.
 
 Device rule: every entry point takes a device (``device=``, or a place
 for the ``Executor``). The default is CUDA, which raises when no GPU is
@@ -45,6 +51,7 @@ PyTorch version.
 import torch
 
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "CPUPlace", "CUDAPlace",
+           "LoDArray", "Tensor", "LoDTensor",
            "Program", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program", "layers",
            "optimizer", "models", "data", "Executor", "Scope",
@@ -84,7 +91,7 @@ def enable_mixed_precision(program=None, enable=True):
 
 # the training path (imported after resolve_device, which core needs)
 from . import unique_name                                   # noqa: E402
-from .core import CPUPlace, CUDAPlace                       # noqa: E402
+from .core import CPUPlace, CUDAPlace, LoDArray             # noqa: E402
 from .framework import (Parameter, Program, Variable,       # noqa: E402
                         default_main_program, default_startup_program,
                         program_guard)
@@ -94,3 +101,6 @@ from .backward import append_backward                       # noqa: E402
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa
 from . import io                                            # noqa: E402
 from .param_attr import ParamAttr                           # noqa: E402
+
+Tensor = LoDArray
+LoDTensor = LoDArray

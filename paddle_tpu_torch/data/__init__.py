@@ -1,3 +1,4 @@
-"""Input pipeline of the port: segment packing (``decorator``)."""
+"""Input pipeline of the port: batching, length pooling and segment
+packing (``decorator``)."""
 
 from . import decorator  # noqa: F401

@@ -17,6 +17,12 @@ XLA reuses a dead buffer.
 ``run_steps`` on the card captures one step as a CUDA graph and replays
 it: the port's counterpart of the reference's on-device step loop (see
 :meth:`Executor.run_steps`).
+
+A ragged feed (a ``core.LoDArray``, or a list of per-sequence arrays for
+a ``lod_level=1`` var) becomes a ``LoDArray`` of device tensors; its
+padded shape, not its lengths, keys the caches, so new lengths at one
+padded shape reuse a step plan or a captured step. A ragged fetch comes
+back as a ``LoDArray`` of numpy arrays.
 """
 
 import contextlib
@@ -25,9 +31,10 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from . import flags, profiler
-from .core import Place, torch_dtype
+from .core import LoDArray, Place, torch_dtype
 from .framework import VarType, default_main_program
 from .observability import flight_recorder, steps as step_telemetry
 from .ops import launch_count
@@ -75,18 +82,22 @@ def scope_guard(scope):
 
 
 def trace_ops(block, env, *, step_key=None, is_test=False, device=None,
-              drop=None):
-    """Run every op of ``block`` over ``env`` (name → tensor), mutating and
-    returning env. Each op runs inside a ``torch.profiler`` range named
-    by its type, so a profile attributes host and device time per op
-    type (a no-op unless a profiler is recording). ``drop[i]`` (see
-    :func:`liveness`) lists the names to remove from env after op i."""
+              drop=None, fetch_names=None):
+    """Run every op of ``block`` over ``env`` (name → tensor or
+    ``LoDArray``), mutating and returning env. Each op runs inside a
+    ``torch.profiler`` range named by its type, so a profile attributes
+    host and device time per op type (a no-op unless a profiler is
+    recording). ``drop[i]`` (see :func:`liveness`) lists the names to
+    remove from env after op i. ``fetch_names``: the step's fetch
+    targets, when known — a lowering may skip an output that nothing
+    reads (``registry.output_consumed``)."""
     amp = bool(getattr(block.program, "_amp", False))
     for i, op in enumerate(block.ops):
         info = get_op_info(op.type)
         if info.lowering is not None:
             ctx = LoweringContext(op, step_key=step_key, is_test=is_test,
                                   device=device, amp=amp)
+            ctx.block, ctx.fetch_names = block, fetch_names
             ins = {slot: [env.get(n) if n else None for n in names]
                    for slot, names in op.inputs.items()}
             with torch.profiler.record_function(op.type):
@@ -122,10 +133,37 @@ def liveness(block, keep):
 
 
 def _to_numpy(t):
+    """Host copy of a fetch: a numpy array, or a ``LoDArray`` of them."""
+    if isinstance(t, LoDArray):
+        return LoDArray(_to_numpy(t.data), _to_numpy(t.length))
     t = t.detach()
     if t.dtype == torch.bfloat16:   # numpy has no bfloat16: widen exactly
         t = t.float()
     return t.cpu().numpy()
+
+
+def _host_copy(v):
+    """A fresh copy of one host fetch value."""
+    if isinstance(v, LoDArray):
+        return LoDArray(v.data.copy(), v.length.copy())
+    return v.copy()
+
+
+def normalize_ragged_sequences(col, var_shape, dtype):
+    """One ragged feed column in the runtime layout (the reference's
+    ``data_feeder.normalize_ragged_sequences``): integer ids declared
+    ``[-1, 1]`` are token-scalar ``(L,)`` sequences; other vars keep
+    their per-token feature dims, a scalar float sequence gaining the
+    ``(1,)`` its var declares."""
+    seqs = [np.asarray(s, dtype=dtype) for s in col]
+    scalar_decl = var_shape and len(var_shape) >= 2 and var_shape[-1] == 1
+    if seqs and seqs[0].ndim == 1 and scalar_decl and \
+            not np.issubdtype(np.dtype(dtype), np.integer):
+        seqs = [s[:, None] for s in seqs]
+    if seqs and seqs[0].ndim >= 2 and seqs[0].shape[-1] == 1 and \
+            np.issubdtype(np.dtype(dtype), np.integer) and scalar_decl:
+        seqs = [s[..., 0] for s in seqs]
+    return seqs
 
 
 def _fetch_from_env(env, fetch_names):
@@ -156,7 +194,8 @@ class FetchHandle:
         self._numpy = None
         self._sync_lock = threading.Lock()
         self._event = None
-        devs = {v.device for v in self._values if v.device.type == "cuda"}
+        devs = {v.device for v in pytree.tree_leaves(self._values)
+                if v.device.type == "cuda"}
         if devs:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(devs.pop()))
@@ -197,7 +236,7 @@ class FetchHandle:
                 self._numpy = [_to_numpy(v) for v in self._values]
                 profiler.incr_counter("device_wait_s",
                                       time.perf_counter() - t0)
-        return [v.copy() for v in self._numpy]
+        return [_host_copy(v) for v in self._numpy]
 
     def __repr__(self):
         return "FetchHandle(%s)" % ", ".join(self.names)
@@ -243,8 +282,15 @@ def program_exec_plan(program):
 
 
 def _feed_signature(feed_vals):
-    return tuple((name, tuple(feed_vals[name].shape),
-                  str(feed_vals[name].dtype)) for name in sorted(feed_vals))
+    """The feeds' names, shapes and dtypes; a ragged feed by its padded
+    shape (its lengths are data, not part of the key)."""
+    sig = []
+    for name in sorted(feed_vals):
+        v = feed_vals[name]
+        sig.append((name, "lod", tuple(v.data.shape), str(v.data.dtype))
+                   if isinstance(v, LoDArray) else
+                   (name, tuple(v.shape), str(v.dtype)))
+    return tuple(sig)
 
 
 def _host_ops(program):
@@ -275,6 +321,10 @@ class Executor:
         # every round length)
         self._cache = {}
         self._graphs = {}
+        # per program version: the static state its captured steps share
+        # and their graph memory pool
+        self._static = {}
+        self._pools = {}
         # program _uid -> the config of its last miss, so a miss can name
         # what changed (observability.steps.attribute_cache_miss)
         self._seen = {}
@@ -283,17 +333,42 @@ class Executor:
         self._lock = threading.Lock()
 
     # -- the step's prologue -----------------------------------------
+    def _tensor(self, val, var):
+        t = val if isinstance(val, torch.Tensor) else \
+            torch.as_tensor(np.asarray(val))
+        dtype = torch_dtype(var.dtype) if var is not None and \
+            var.dtype is not None else t.dtype
+        # int ids arrive as int32 or int64 alike: cast to the var's
+        return t.to(device=self.device, dtype=dtype)
+
     def _convert_feed(self, program, feed):
+        """The feeds as tensors (or ``LoDArray``s of tensors) on the
+        executor's device; real and padding tokens of host ragged feeds
+        are counted (``real_tokens``, ``pad_tokens``)."""
         block = program.global_block()
         out = {}
         for name, val in (feed or {}).items():
             var = block.vars.get(name)
-            t = val if isinstance(val, torch.Tensor) else \
-                torch.as_tensor(np.asarray(val))
-            dtype = torch_dtype(var.dtype) if var is not None and \
-                var.dtype is not None else t.dtype
-            # int ids arrive as int32 or int64 alike: cast to the var's
-            out[name] = t.to(device=self.device, dtype=dtype)
+            if isinstance(val, (list, tuple)) and var is not None and \
+                    var.lod_level > 0:
+                dtype = np.dtype(var.dtype) if var.dtype else np.float32
+                val = LoDArray.from_sequences(
+                    normalize_ragged_sequences(val, var.shape, dtype),
+                    dtype=dtype)
+            if isinstance(val, LoDArray):
+                if not isinstance(val.length, torch.Tensor):
+                    # host lengths: counting them costs no device sync
+                    real = float(np.sum(val.length))
+                    profiler.incr_counter("real_tokens", real)
+                    profiler.incr_counter(
+                        "pad_tokens",
+                        float(np.shape(val.length)[0] * val.max_len) - real)
+                out[name] = LoDArray(
+                    self._tensor(val.data, var),
+                    torch.as_tensor(val.length).to(device=self.device,
+                                                   dtype=torch.int32))
+            else:
+                out[name] = self._tensor(val, var)
         return out
 
     def _prepare(self, program, feed, scope):
@@ -347,6 +422,8 @@ class Executor:
         """FLAGS_check_nan_inf: scan the fetches and the updated state;
         forces a host sync."""
         def _scan(name, v):
+            if isinstance(v, LoDArray):
+                v = v.data
             if not isinstance(v, torch.Tensor) or \
                     not torch.is_floating_point(v):
                 return
@@ -396,7 +473,7 @@ class Executor:
             trace_ops(program.global_block(), env,
                       step_key=(program.random_seed or 0, step),
                       is_test=program._is_test, device=self.device,
-                      drop=drop)
+                      drop=drop, fetch_names=fetch_names)
         with self._lock:
             for n in out_param_names:
                 if n in env:
@@ -480,7 +557,9 @@ class Executor:
         and any state a ``run`` call replaced in the scope into the
         static tensors (a hit: ``n_steps`` is not part of the key). A
         failure to capture raises — the step is never run eagerly
-        instead.
+        instead. The captures of one program (a feed of another padded
+        shape is another capture) share their static state and one
+        graph memory pool, so switching between them copies nothing.
 
         On the CPU there is nothing to capture: the step plan runs
         ``n_steps`` times, as ``n_steps`` calls to :meth:`run` would."""
@@ -534,7 +613,8 @@ class Executor:
                         scope.set_var(n, t)
                 # the handle's own tensors: the next round's replays
                 # overwrite the graph's fetch tensors
-                fetched = [t.clone() for t in fetched]
+                fetched = [pytree.tree_map(torch.clone, t)
+                           for t in fetched]
             return self._finish(scope, fetched, fetch_names,
                                 out_param_names, return_numpy, cache, cause,
                                 build_s, t0)
@@ -567,6 +647,8 @@ class Executor:
         with self._lock:
             self._cache.clear()
             self._graphs.clear()
+            self._static.clear()
+            self._pools.clear()
 
 
 class _CapturedStep:
@@ -585,18 +667,28 @@ class _CapturedStep:
         reads = persist & {n for op in block.ops for n in _names(op.inputs)}
         self.written = sorted(persist & {n for op in block.ops
                                          for n in _names(op.outputs)})
+        # the program's static state, shared by its captures (one a padded
+        # shape): a switch of shapes copies nothing
+        self.shared = exe._static.setdefault(
+            (program._uid, program._version), {})
         self.state = {}
         for n in sorted(reads | set(self.written)):
             val = scope.find_var(n)
-            if val is None:
-                if n in reads:
-                    raise KeyError("run_steps: persistable %r is read by "
-                                   "the program but not in the scope" % n)
-                continue
-            val = val if isinstance(val, torch.Tensor) \
-                else torch.as_tensor(np.asarray(val))
-            self.state[n] = val.to(exe.device, copy=True)
-        self.feed = {n: t.clone() for n, t in feed_vals.items()}
+            if val is not None and not isinstance(val, torch.Tensor):
+                val = torch.as_tensor(np.asarray(val))
+            t = self.shared.get(n)
+            if t is not None:
+                if val is not None and val is not t:
+                    t.copy_(val)
+                self.state[n] = t
+            elif val is not None:
+                self.state[n] = self.shared[n] = val.to(exe.device,
+                                                        copy=True)
+            elif n in reads:
+                raise KeyError("run_steps: persistable %r is read by the "
+                               "program but not in the scope" % n)
+        self.feed = {n: pytree.tree_map(torch.clone, t)
+                     for n, t in feed_vals.items()}
         self.step_t = torch.zeros((), dtype=torch.int64, device=exe.device)
         self.drop = liveness(block, set(self.state) | set(self.written) |
                              set(fetch_names))
@@ -613,14 +705,14 @@ class _CapturedStep:
             trace_ops(self.program.global_block(), env,
                       step_key=(self.program.random_seed or 0, self.step_t),
                       is_test=self.program._is_test, device=self.exe.device,
-                      drop=self.drop)
+                      drop=self.drop, fetch_names=self.fetch_names)
             for n in self.written:
                 if n not in env:
                     continue
                 if n in self.state:
                     self.state[n].copy_(env[n])
                 else:           # first written here: its static tensor
-                    self.state[n] = env[n].clone()
+                    self.state[n] = self.shared[n] = env[n].clone()
             self.step_t.add_(1)
         return _fetch_from_env(env, self.fetch_names)
 
@@ -636,10 +728,17 @@ class _CapturedStep:
             warm = self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # one memory pool for the program's captures: they replay one at
+        # a time on one stream, and what outlives a replay (state, feeds,
+        # fetches) is allocated outside it or stays allocated
+        pool = self.exe._pools.setdefault(
+            (self.program._uid, self.program._version),
+            torch.cuda.graph_pool_handle())
         # thread_local: CUDA calls of the process's other threads (a
         # server's) do not invalidate this thread's capture
         with self.recorded, \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                torch.cuda.graph(graph, pool=pool,
+                                 capture_error_mode="thread_local"):
             self.fetches = self._step()
         self.graph = graph
         graph_launches["captures"] += 1
@@ -663,7 +762,10 @@ class _CapturedStep:
             t.copy_(val)
         for n, t in feed_vals.items():
             if t is not self.feed[n]:
-                self.feed[n].copy_(t)
+                # a ragged feed: its data and its lengths
+                for dst, src in zip(pytree.tree_leaves(self.feed[n]),
+                                    pytree.tree_leaves(t)):
+                    dst.copy_(src)
         self.step_t.fill_(start)
         return self.replays(n_steps)
 

@@ -116,6 +116,13 @@ slo_sustain_s = 1.0
 # raises ``FloatingPointError`` naming the variable.
 check_nan_inf = False
 
+# Input pipeline: ``length_pool_factor`` — the default pool size, in
+# batches, of ``data.decorator.pool_batch_by_length``: it buffers
+# ``length_pool_factor x batch_size`` samples, sorts them by length and
+# slices near-uniform-length batches off the sorted pool. A bigger pool
+# cuts pad waste further but delays streaming and costs host memory.
+length_pool_factor = 16
+
 # Observability (observability.flight_recorder):
 # - ``flight_recorder_events`` — ring-buffer capacity of the always-on
 #   trace flight recorder (executor-level spans; a handful per step).

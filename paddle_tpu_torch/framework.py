@@ -1,7 +1,13 @@
 """The IR: Program / Block / Operator / Variable, built by the layers DSL —
-the port of ``paddle_tpu/framework.py``, trimmed to the training slice
-(one global block, dense tensors; no control-flow blocks, LoD,
-serialization or pruning yet).
+the port of ``paddle_tpu/framework.py``, trimmed to the training slices
+(one global block; dense tensors and one level of LoD; no control-flow
+blocks, nested LoD, serialization or pruning yet).
+
+A ragged var (``lod_level=1``) has the IR shape ``[-1, *feat]`` (the
+batch, then each token's features) and is a ``core.LoDArray`` at run time:
+``data`` ``[B, L, *feat]`` and ``length`` ``[B]``. Integer ids declared
+``[-1, 1]`` are stored token-scalar, ``[B, L]``. A dense ``[-1, -1, d]``
+is a padded ``[B, L, d]`` sharing the ragged inputs' sequence dim.
 
 Shape inference: each op of the slice registers an analytic rule
 (``OpInfo.infer_shape``, the reference's ``shape_rules.py`` for these
@@ -42,10 +48,12 @@ class Variable:
         self.name = name or unique_name.generate("_generated_var")
         self.shape = list(shape) if shape is not None else None
         self.dtype = convert_dtype(dtype) if dtype is not None else None
-        if lod_level:
+        if lod_level and lod_level >= 2:
             raise NotImplementedError(
-                "ragged (lod_level > 0) variables are not ported yet")
-        self.lod_level = 0
+                "variable %r: lod_level %d (nested LoD, the reference's "
+                "LoDArray2) is not ported; one ragged level is"
+                % (name, lod_level))
+        self.lod_level = int(lod_level or 0)
         self.persistable = persistable
         self.stop_gradient = stop_gradient
         self.type = type
@@ -206,9 +214,11 @@ def in_var(block, op, slot, i=0):
     return block.var(names[i])
 
 
-def set_out(block, op, slot, shape, dtype=None, i=0):
+def set_out(block, op, slot, shape, dtype=None, i=0, lod_level=None):
     """Shape rules' writer: the ``i``-th output of ``slot`` gets
-    ``shape`` (and ``dtype`` where the layer declared none)."""
+    ``shape`` (and ``dtype`` where the layer declared none); a
+    ``lod_level`` marks it ragged (the lowering's output type decides,
+    whatever the layer declared)."""
     names = op.output(slot)
     if not names or i >= len(names) or not names[i]:
         return
@@ -218,13 +228,17 @@ def set_out(block, op, slot, shape, dtype=None, i=0):
     v.shape = list(shape)
     if v.dtype is None and dtype is not None:
         v.dtype = convert_dtype(dtype)
+    if lod_level:
+        v.lod_level = max(v.lod_level, lod_level)
 
 
 def same_shape_rule(in_slot="X", out_slot="Out"):
+    """The output is shaped (and ragged) like the input."""
     def rule(block, op):
         x = in_var(block, op, in_slot)
         if x is not None and x.shape is not None:
-            set_out(block, op, out_slot, x.shape, dtype=x.dtype)
+            set_out(block, op, out_slot, x.shape, dtype=x.dtype,
+                    lod_level=x.lod_level)
     return rule
 
 

@@ -2,8 +2,11 @@
 ``paddle_tpu/layers/nn.py``'s ``fc``, ``embedding``, ``conv2d``,
 ``pool2d``, ``batch_norm``, ``layer_norm``, ``cross_entropy``,
 ``softmax_with_cross_entropy``, ``reshape``, ``transpose``, ``split``,
-``mean``, ``slice``, ``dropout`` and ``decode_cache_attention``, and of
-``layers/ops.py``'s ``elementwise_add``.
+``mean``, ``slice``, ``dropout``, ``decode_cache_attention``,
+``dynamic_lstm`` and ``sequence_pool`` (with ``sequence_first_step`` /
+``sequence_last_step``), and of ``layers/ops.py``'s ``elementwise_add``.
+``fc``, ``embedding`` and the activations take ragged inputs and give
+ragged outputs.
 Each appends ops to the current Program; the executor runs them.
 """
 
@@ -18,7 +21,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "cross_entropy",
            "softmax_with_cross_entropy",
            "reshape", "transpose", "split", "mean", "slice",
-           "elementwise_add", "decode_cache_attention"]
+           "elementwise_add", "decode_cache_attention", "dynamic_lstm",
+           "sequence_pool", "sequence_first_step", "sequence_last_step"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -321,3 +325,59 @@ def decode_cache_attention(q, k_cache, v_cache, cache_lengths, scale=None,
                      outputs={"Out": [out]},
                      attrs={"scale": scale})
     return out
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """LSTM over a ragged sequence (reference nn.py:288 / lstm_op.cc).
+    ``input`` is the 4h-wide projection (an fc before this layer, as in
+    the reference API). Returns (hidden, cell)."""
+    helper = LayerHelper("lstm", **locals())
+    hidden_size = size // 4
+    weight = helper.create_parameter(helper.param_attr,
+                                     [hidden_size, 4 * hidden_size], dtype)
+    bias_size = [1, 7 * hidden_size if use_peepholes else 4 * hidden_size]
+    bias = helper.create_parameter(helper.bias_attr, bias_size, dtype,
+                                   is_bias=True)
+    hidden = helper.create_tmp_variable(dtype=dtype, lod_level=1)
+    cell = helper.create_tmp_variable(dtype=dtype, lod_level=1)
+    batch_gate = helper.create_tmp_variable(dtype=dtype, lod_level=1)
+    batch_cell_pre_act = helper.create_tmp_variable(dtype=dtype, lod_level=1)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op(type="lstm", inputs=inputs,
+                     outputs={"Hidden": [hidden], "Cell": [cell],
+                              "BatchGate": [batch_gate],
+                              "BatchCellPreAct": [batch_cell_pre_act]},
+                     attrs={"use_peepholes": use_peepholes,
+                            "is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
+def sequence_pool(input, pool_type):
+    """Pool each sequence of a ragged ``input`` to one row: ``sum``,
+    ``average``, ``sqrt``, ``max``, ``first`` or ``last``."""
+    helper = LayerHelper("sequence_pool", **locals())
+    dtype = helper.input_dtype()
+    pool_out = helper.create_tmp_variable(dtype=dtype)
+    max_index = helper.create_tmp_variable(dtype="int32")
+    helper.append_op(type="sequence_pool", inputs={"X": [input]},
+                     outputs={"Out": [pool_out], "MaxIndex": [max_index]},
+                     attrs={"pooltype": pool_type.upper()})
+    return pool_out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")

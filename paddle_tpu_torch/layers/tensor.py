@@ -1,9 +1,9 @@
-"""Tensor-creation layers: ``create_parameter``, ``cast`` and
-``fill_constant`` (copies of ``paddle_tpu/layers/tensor.py``'s)."""
+"""Tensor layers: ``create_parameter``, ``cast``, ``fill_constant`` and
+``concat`` (copies of ``paddle_tpu/layers/tensor.py``'s)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "fill_constant"]
+__all__ = ["create_parameter", "cast", "fill_constant", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -33,4 +33,12 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                      attrs={"shape": list(shape), "dtype": dtype,
                             "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

@@ -6,13 +6,32 @@ leaves them to XLA.
 Mixed precision (``ctx.amp``) follows the reference: matmul operands in
 bf16 with fp32 accumulation, a bf16 x fp32 elementwise pair computes in
 bf16, the embedding emits bf16 rows from its fp32 table.
+
+Ragged inputs (``core.LoDArray``): ``mul`` flattens a ragged X's padded
+tokens into rows (``x_num_col_dims + 1``), ``elementwise_add`` aligns a
+dense Y's IR axis one further (the padded sequence axis),
+``elementwise_add`` and ``sum`` pass X's lengths through, and
+``lookup_table`` reads token-scalar ids ``[B, L]`` and its grad drops
+the padding tokens.
 """
 
 import numpy as np
 import torch
 
+from ..core import LoDArray
 from ..framework import in_var, same_shape_rule, set_out
 from ..registry import register_op
+
+
+def _data(x):
+    """A ragged value's padded data; a dense value itself."""
+    return x.data if isinstance(x, LoDArray) else x
+
+
+def _rewrap(template, val):
+    """``val`` with ``template``'s lengths when ``template`` is ragged."""
+    return LoDArray(val, template.length) \
+        if isinstance(template, LoDArray) else val
 
 
 def _matmul_f32_acc(a, b):
@@ -28,20 +47,25 @@ def _mul_rule(block, op):
     x, y = in_var(block, op, "X"), in_var(block, op, "Y")
     xn, yn = op.attr("x_num_col_dims", 1), op.attr("y_num_col_dims", 1)
     set_out(block, op, "Out", list(x.shape[:xn]) + list(y.shape[yn:]),
-            dtype=x.dtype)
+            dtype=x.dtype, lod_level=x.lod_level)
 
 
 @register_op("mul", infer_shape=_mul_rule)
 def _mul(ctx, ins):
-    x, y = ins["X"][0], ins["Y"][0]
+    x0, y = ins["X"][0], _data(ins["Y"][0])
+    x = _data(x0)
     xn = ctx.attr("x_num_col_dims", 1)
     yn = ctx.attr("y_num_col_dims", 1)
+    if isinstance(x0, LoDArray):
+        # the IR's [-1, feat] is [B, L, *feat]: the rows are the tokens
+        xn += 1
     if ctx.amp:
         x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
     rows = int(np.prod(x.shape[:xn]))
     out = _matmul_f32_acc(x.reshape(rows, -1),
                          y.reshape(int(np.prod(y.shape[:yn])), -1))
-    return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+    out = out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))
+    return {"Out": [_rewrap(x0, out)]}
 
 
 def _bcast_y(x, y, axis):
@@ -57,26 +81,34 @@ def _bcast_y(x, y, axis):
 
 @register_op("elementwise_add", infer_shape=same_shape_rule())
 def _elementwise_add(ctx, ins):
-    x, y = ins["X"][0], ins["Y"][0]
-    y = _bcast_y(x, y, ctx.attr("axis", -1))
+    x0, y0 = ins["X"][0], ins["Y"][0]
+    x, y = _data(x0), _data(y0)
+    axis = ctx.attr("axis", -1)
+    if isinstance(x0, LoDArray) and not isinstance(y0, LoDArray) and \
+            axis is not None and axis >= 1:
+        # a ragged X's IR axes count per-token dims; its data has the
+        # padded sequence axis at 1
+        axis += 1
+    y = _bcast_y(x, y, axis)
     if ctx.amp and x.dtype != y.dtype and \
             {x.dtype, y.dtype} == {torch.bfloat16, torch.float32}:
         x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
-    return {"Out": [x + y]}
+    return {"Out": [_rewrap(x0, x + y)]}
 
 
 def _sum_rule(block, op):
     x = in_var(block, op, "X")
-    set_out(block, op, "Out", x.shape, dtype=x.dtype)
+    set_out(block, op, "Out", x.shape, dtype=x.dtype,
+            lod_level=x.lod_level)
 
 
 @register_op("sum", infer_shape=_sum_rule)
 def _sum(ctx, ins):
     xs = [v for v in ins["X"] if v is not None]
-    out = xs[0]
+    out = _data(xs[0])
     for v in xs[1:]:
-        out = out + v
-    return {"Out": [out]}
+        out = out + _data(v)
+    return {"Out": [_rewrap(xs[0], out)]}
 
 
 @register_op("scale", infer_shape=same_shape_rule())
@@ -97,15 +129,22 @@ def _mean(ctx, ins):
 
 
 def _lookup_ids(ids):
-    """Token ids without a trailing feature axis of 1 ([b, 1] or
-    [b, t, 1]), as longs."""
-    if ids.dim() >= 2 and ids.shape[-1] == 1:
-        ids = ids.squeeze(-1)
-    return ids.long()
+    """Token ids without a trailing feature axis of 1 ([b, 1] dense,
+    [b, t, 1] ragged — ragged ids are token-scalar [b, t] already), as
+    longs."""
+    d = _data(ids)
+    min_dim = 3 if isinstance(ids, LoDArray) else 2
+    if d.dim() >= min_dim and d.shape[-1] == 1:
+        d = d.squeeze(-1)
+    return d.long()
 
 
 def _lookup_table_rule(block, op):
     w, ids = in_var(block, op, "W"), in_var(block, op, "Ids")
+    if ids.lod_level:
+        set_out(block, op, "Out", [-1, w.shape[-1]], dtype=w.dtype,
+                lod_level=ids.lod_level)
+        return
     out = list(ids.shape)
     if out and out[-1] == 1:
         out = out[:-1]
@@ -114,14 +153,15 @@ def _lookup_table_rule(block, op):
 
 @register_op("lookup_table", infer_shape=_lookup_table_rule)
 def _lookup_table(ctx, ins):
-    w, ids = ins["W"][0], _lookup_ids(ins["Ids"][0])
+    w, ids0 = ins["W"][0], ins["Ids"][0]
+    ids = _lookup_ids(ids0)
     out = w[ids.clamp(0, w.shape[0] - 1)]
     if ctx.amp and out.dtype == torch.float32:
         out = out.to(torch.bfloat16)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx)[..., None], 0.0)
-    return {"Out": [out]}
+    return {"Out": [_rewrap(ids0, out)]}
 
 
 @register_op("lookup_table_grad", no_grad=True)
@@ -131,10 +171,16 @@ def _lookup_table_grad(ctx, ins):
     if ctx.attr("is_sparse", False):
         raise NotImplementedError("is_sparse embeddings (SelectedRows "
                                   "grads) are not ported yet")
-    w = ins["W"][0]
-    ids = _lookup_ids(ins["Ids"][0]).reshape(-1)
-    g = ins["Out@GRAD"][0]
+    w, ids0 = ins["W"][0], ins["Ids"][0]
+    ids = _lookup_ids(ids0).reshape(-1)
+    g = _data(ins["Out@GRAD"][0])
     g = g.reshape((ids.shape[0],) + tuple(g.shape[-(w.dim() - 1):]))
+    if isinstance(ids0, LoDArray):
+        # padding tokens add nothing (the reference points them past the
+        # table, then clips them onto its last row with a zero grad)
+        valid = ids0.bool_mask().reshape(-1)
+        g = torch.where(valid[:, None], g, 0.0)
+        ids = torch.where(valid, ids, w.shape[0])
     gw = torch.zeros_like(w).index_add_(0, ids.clamp(0, w.shape[0] - 1),
                                         g.to(w.dtype))
     return {"W@GRAD": [gw]}

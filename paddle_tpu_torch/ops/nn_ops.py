@@ -10,7 +10,9 @@ other convolution ops (3-D, depthwise, transposed) are not ported and
 are not registered. Statistics (layer-norm and batch-norm mean/var, the
 softmaxes) stay fp32 under amp. The fp8 activation and conv-output
 stores of the reference (``PADDLE_TPU_FP8_ACTS``,
-``PADDLE_TPU_FP8_CONV_OUT``) are not ported.
+``PADDLE_TPU_FP8_CONV_OUT``) are not ported. ``softmax_with_cross_entropy``
+and its grad take ragged logits and labels (``core.LoDArray``) and keep
+their lengths, so a ``sequence_pool`` after it leaves the padding out.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from ..framework import in_var, same_shape_rule, set_out
 from ..registry import make_generic_grad_lowering, register_op
+from .math_ops import _data, _rewrap
 
 
 def _layer_norm_rule(block, op):
@@ -58,8 +61,10 @@ def _gelu(ctx, ins):
 
 def _softmax_with_ce_rule(block, op):
     x = in_var(block, op, "Logits")
-    set_out(block, op, "Softmax", x.shape, dtype=x.dtype)
-    set_out(block, op, "Loss", list(x.shape[:-1]) + [1], dtype=x.dtype)
+    set_out(block, op, "Softmax", x.shape, dtype=x.dtype,
+            lod_level=x.lod_level)
+    set_out(block, op, "Loss", list(x.shape[:-1]) + [1], dtype=x.dtype,
+            lod_level=x.lod_level)
 
 
 def _hard_labels(label, logits):
@@ -72,7 +77,8 @@ def _hard_labels(label, logits):
 def _softmax_with_ce(ctx, ins):
     """Loss = lse − logits[label] in fp32 (or Σ label·(lse − logits) for
     soft labels); Softmax = exp(logits − lse)."""
-    logits, label = ins["Logits"][0], ins["Label"][0]
+    x0 = ins["Logits"][0]
+    logits, label = _data(x0), _data(ins["Label"][0])
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1, keepdim=True)
     if ctx.attr("soft_label", False):
@@ -80,7 +86,8 @@ def _softmax_with_ce(ctx, ins):
     else:
         picked = lf.gather(-1, _hard_labels(label, logits)[..., None])
         loss = lse - picked
-    return {"Softmax": [torch.exp(lf - lse)], "Loss": [loss]}
+    return {"Softmax": [_rewrap(x0, torch.exp(lf - lse))],
+            "Loss": [_rewrap(x0, loss)]}
 
 
 @register_op("softmax_with_cross_entropy_grad", no_grad=True)
@@ -93,8 +100,9 @@ def _softmax_with_ce_grad(ctx, ins):
             or ctx.op.outputs.get("Label@GRAD"):
         return make_generic_grad_lowering("softmax_with_cross_entropy")(
             ctx, ins)
-    logits, label = ins["Logits"][0], ins["Label"][0]
-    g = ins["Loss@GRAD"][0].float()
+    x0 = ins["Logits"][0]
+    logits, label = _data(x0), _data(ins["Label"][0])
+    g = _data(ins["Loss@GRAD"][0]).float()
     p = torch.softmax(logits.float(), dim=-1)
     if ctx.attr("soft_label", False):
         p = p - label.float()
@@ -104,7 +112,7 @@ def _softmax_with_ce_grad(ctx, ins):
                                   device=p.device))
     g = g.reshape(g.shape + (1,) * (p.dim() - g.dim())) \
         if g.dim() < p.dim() else g
-    return {"Logits@GRAD": [(p * g).to(logits.dtype)]}
+    return {"Logits@GRAD": [_rewrap(x0, (p * g).to(logits.dtype))]}
 
 
 def _pair(v):
@@ -347,9 +355,10 @@ def _relu_grad(ctx, ins):
 @register_op("softmax", infer_shape=same_shape_rule())
 def _softmax(ctx, ins):
     """Normalized in fp32; the output stays fp32 under amp."""
-    x = ins["X"][0]
+    x0 = ins["X"][0]
+    x = _data(x0)
     out = torch.softmax(x.float(), dim=-1)
-    return {"Out": [out if ctx.amp else out.to(x.dtype)]}
+    return {"Out": [_rewrap(x0, out if ctx.amp else out.to(x.dtype))]}
 
 
 def _cross_entropy_rule(block, op):

@@ -1,7 +1,7 @@
 """Tensor ops of the training slice — ports of
 ``paddle_tpu/ops/tensor_ops.py``: ``reshape``, ``transpose``, ``split``,
 ``cast``, ``fill_constant``, ``uniform_random``, ``gaussian_random``,
-``slice``.
+``slice``, and ``concat`` on dense and ragged inputs.
 
 The random ops draw from the op's counter stream (``ctx.rng()``: a pure
 function of the program seed, the step, the op and the element), or from
@@ -11,8 +11,9 @@ so a captured step replays them with the step it reads on the device.
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core import torch_dtype
+from ..core import LoDArray, torch_dtype
 from ..framework import in_var, set_out
 from ..registry import register_op, seeded_stream
 
@@ -145,3 +146,39 @@ def _slice(ctx, ins):
     x = ins["Input"][0]
     return {"Out": [x[_slice_index(x.dim(), ctx.attr("axes"),
                                    ctx.attr("starts"), ctx.attr("ends"))]]}
+
+
+def _concat_rule(block, op):
+    vs = [block.var(n) for n in op.input("X")]
+    out = list(vs[0].shape)
+    axis = op.attr("axis", 0)
+    axis = axis if axis >= 0 else axis + len(out)
+    dims = [v.shape[axis] for v in vs]
+    out[axis] = -1 if min(dims) < 0 else sum(dims)
+    set_out(block, op, "Out", out, dtype=vs[0].dtype,
+            lod_level=max(v.lod_level for v in vs))
+
+
+@register_op("concat", infer_shape=_concat_rule)
+def _concat(ctx, ins):
+    """Concatenation along ``axis``. Ragged inputs (all of them, or
+    none): the axis counts the batch and each token's dims, so axis >= 1
+    joins features and keeps the first input's lengths; axis 0 joins the
+    batches, padded to a common ``max_len``, and their lengths."""
+    vs = [v for v in ins["X"] if v is not None]
+    axis = ctx.attr("axis", 0)
+    if not any(isinstance(v, LoDArray) for v in vs):
+        return {"Out": [torch.cat(vs, dim=axis)]}
+    if not all(isinstance(v, LoDArray) for v in vs):
+        raise TypeError("concat cannot mix ragged (LoD) and dense inputs")
+    xs = [v.data for v in vs]
+    if axis < 0:
+        axis += xs[0].dim() - 1
+    if axis >= 1:
+        return {"Out": [LoDArray(torch.cat(xs, dim=axis + 1),
+                                 vs[0].length)]}
+    ml = max(x.shape[1] for x in xs)
+    xs = [F.pad(x, (0, 0) * (x.dim() - 2) + (0, ml - x.shape[1]))
+          for x in xs]
+    return {"Out": [LoDArray(torch.cat(xs, dim=0),
+                             torch.cat([v.length for v in vs]))]}

@@ -9,17 +9,25 @@ attention backward, the analytic softmax cross-entropy, the embedding
 scatter) or the **generic** one, ``torch.func.vjp`` of the forward
 lowering — which recomputes that forward inside the grad op (the
 reference leaves the duplicate to XLA's CSE; eager PyTorch pays it).
+Ragged values (``core.LoDArray``) pass through the vjp as their
+``data``: lengths and other integer leaves are constants of the
+differentiated function, and a ragged input's grad is a ``LoDArray``
+of the data's grad with the input's lengths.
 """
 
 import dataclasses
 import typing
 
 import torch
+import torch.utils._pytree as pytree
+
+from .core import LoDArray
 
 __all__ = ["GRAD_SUFFIX", "OpInfo", "OP_REGISTRY", "register_op",
            "get_op_info", "is_registered", "grad_var_name",
            "LoweringContext", "CounterStream", "seeded_stream",
-           "make_generic_grad_lowering", "ensure_grad_op_registered"]
+           "make_generic_grad_lowering", "ensure_grad_op_registered",
+           "output_consumed"]
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -157,6 +165,10 @@ class LoweringContext:
         self.device = torch.device("cpu") if device is None else device
         self.amp = amp          # bf16 compute / fp32 master weights
         self._rng_calls = 0
+        # set by trace_ops: the block run and the step's fetch targets
+        # (None: unknown — ``output_consumed`` then counts every output)
+        self.block = None
+        self.fetch_names = None
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -179,13 +191,24 @@ class LoweringContext:
 
 def _coerce_cotangent(g, y):
     """Match an incoming grad to the primal's shape and dtype: the IR
-    carries scalar losses as [1] while a lowering may produce ()."""
+    carries scalar losses as [1] while a lowering may produce (). A
+    ragged primal's cotangent acts on its data and keeps its lengths."""
+    if isinstance(y, LoDArray):
+        gd = g.data if isinstance(g, LoDArray) else g
+        return LoDArray(_coerce_cotangent(gd, y.data), y.length)
+    if isinstance(g, LoDArray):
+        g = g.data
     if tuple(g.shape) != tuple(y.shape):
         if g.numel() == y.numel():
             g = g.reshape(y.shape)
         else:
             g = g.reshape(-1)[0].expand(y.shape)
     return g.to(y.dtype)
+
+
+def _is_float(v):
+    return isinstance(v, torch.Tensor) and (v.is_floating_point() or
+                                            v.is_complex())
 
 
 def make_generic_grad_lowering(fwd_type):
@@ -195,14 +218,18 @@ def make_generic_grad_lowering(fwd_type):
                for each forward output slot that has a grad;
       outputs: ``<slot>@GRAD`` for each forward input slot needing one;
       attrs:   the forward attrs plus ``__fwd_input_slots__`` /
-               ``__fwd_output_slots__`` / ``__fwd_op_uid__``."""
+               ``__fwd_output_slots__`` / ``__fwd_op_uid__``.
+    The vjp differentiates the float leaves of the wanted inputs (a
+    ``LoDArray``'s data, not its lengths) and of the outputs that have an
+    incoming grad; an output without one adds a zero cotangent, so it is
+    left out."""
     fwd_info = get_op_info(fwd_type)
 
     def _grad_lowering(ctx, ins):
         in_slots = ctx.attr("__fwd_input_slots__")
         out_slots = ctx.attr("__fwd_output_slots__")
         fwd_ins = {s: ins.get(s, []) for s in in_slots}
-        out_grads = {s: ins.get(grad_var_name(s)) for s in out_slots}
+        out_grads = {s: ins.get(grad_var_name(s)) or [] for s in out_slots}
         want = {}
         for s in in_slots:
             gs = ctx.op.outputs.get(grad_var_name(s))
@@ -211,35 +238,54 @@ def make_generic_grad_lowering(fwd_type):
                            if i < len(gs) and gs[i]]
         diff_ins = {s: [fwd_ins[s][i] for i in idxs]
                     for s, idxs in want.items()}
+        leaves, spec = pytree.tree_flatten(diff_ins)
+        diff_at = [j for j, v in enumerate(leaves) if _is_float(v)]
         fwd_ctx = LoweringContext(
             ctx.op.forward_op or _FakeFwdOp(ctx, fwd_type),
             step_key=ctx.step_key, is_test=ctx.is_test, device=ctx.device,
             amp=ctx.amp)
+        fwd_ctx.block, fwd_ctx.fetch_names = ctx.block, ctx.fetch_names
+        graded = [(s, i) for s in out_slots
+                  for i, g in enumerate(out_grads[s]) if g is not None]
+        kept = []       # the graded outputs with a float value
 
-        def fwd_fn(d_ins):
+        def fwd_fn(d_leaves):
+            merged_leaves = list(leaves)
+            for j, v in zip(diff_at, d_leaves):
+                merged_leaves[j] = v
+            d_ins = pytree.tree_unflatten(merged_leaves, spec)
             merged = {s: list(v) for s, v in fwd_ins.items()}
             for s, idxs in want.items():
                 for j, i in enumerate(idxs):
                     merged[s][i] = d_ins[s][j]
             outs = fwd_info.lowering(fwd_ctx, merged)
-            return {s: list(outs.get(s, [])) for s in out_slots}
+            kept.clear()
+            ys = []
+            for s, i in graded:
+                y = outs[s][i]
+                y = y.data if isinstance(y, LoDArray) else y
+                if _is_float(y):
+                    kept.append((s, i))
+                    ys.append(y)
+            return ys
 
-        primal_out, vjp_fn = torch.func.vjp(fwd_fn, diff_ins)
-        cot = {}
-        for s in out_slots:
-            gs = out_grads.get(s)
-            cot[s] = []
-            for i, y in enumerate(primal_out[s]):
-                g = gs[i] if gs and i < len(gs) and gs[i] is not None \
-                    else None
-                cot[s].append(torch.zeros_like(y) if g is None
-                              else _coerce_cotangent(g, y))
-        (gins,) = vjp_fn(cot)
+        primal, vjp_fn = torch.func.vjp(
+            fwd_fn, [leaves[j] for j in diff_at])
+        cot = [_coerce_cotangent(out_grads[s][i], y)
+               for (s, i), y in zip(kept, primal)]
+        (d_leaves,) = vjp_fn(cot) if primal else \
+            ([torch.zeros_like(leaves[j]) for j in diff_at],)
+        g_leaves = [None] * len(leaves)
+        for j, g in zip(diff_at, d_leaves):
+            g_leaves[j] = g
+        g_ins = pytree.tree_unflatten(g_leaves, spec)
         outs = {}
         for s, idxs in want.items():
             gs_list = [None] * len(fwd_ins[s])
             for j, i in enumerate(idxs):
-                gs_list[i] = gins[s][j]
+                x, g = diff_ins[s][j], g_ins[s][j]
+                gs_list[i] = LoDArray(g.data, x.length) \
+                    if isinstance(x, LoDArray) else g
             outs[grad_var_name(s)] = gs_list
         return outs
 
@@ -269,3 +315,47 @@ def ensure_grad_op_registered(fwd_type):
             type=gtype, lowering=make_generic_grad_lowering(fwd_type),
             no_grad=True, generic_grad=True)
     return gtype
+
+
+def _consumer_index(program):
+    """name → [(op, slot), ...] over every op input of the program, built
+    once per program version (cached on the program)."""
+    cached = getattr(program, "_consumer_index", None)
+    if cached is not None and cached[0] == program._version:
+        return cached[1]
+    index = {}
+    for blk in program.blocks:
+        for op in blk.ops:
+            for slot, names in op.inputs.items():
+                for n in names:
+                    if n:
+                        index.setdefault(n, []).append((op, slot))
+    program._consumer_index = (program._version, index)
+    return index
+
+
+def output_consumed(ctx, name):
+    """Is this op output read by another op of the program or fetched?
+    Lowerings use it to skip producing dead outputs, never to change live
+    ones, so every unknown counts as consumed: a stand-in op with no
+    recorded outputs, or a context with no fetch list. A generic grad
+    op's copy of a forward output is calling-convention baggage, never
+    read."""
+    if not getattr(ctx.op, "outputs", None):
+        return True
+    if not name:
+        return False
+    if ctx.fetch_names is None or ctx.block is None:
+        return True
+    if name in ctx.fetch_names:
+        return True
+    fwd_out_slots = set(ctx.op.outputs)
+    for op, slot in _consumer_index(ctx.block.program).get(name, ()):
+        if op is ctx.op:
+            continue
+        info = OP_REGISTRY.get(op.type)
+        if op.type == ctx.op.type + "_grad" and info is not None \
+                and info.generic_grad and slot in fwd_out_slots:
+            continue
+        return True
+    return False

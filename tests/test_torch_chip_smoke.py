@@ -1010,3 +1010,84 @@ def test_resume_child_arguments():
             cs._child_args(["--resume-child", "ck", "o"] + bad)
     with pytest.raises(SystemExit):
         cs._child_args(["--device", "cpu"])        # no --resume-child
+
+
+@pytest.fixture
+def tiny_nmt(monkeypatch):
+    """Phase 15 at a tiny size on the CPU: the lstm checks at b4 t6 h8,
+    the gates at batch 2 of length 8, the bench at batch 4, length 12,
+    16 wide, vocab 50, 4-step sweeps (one warm, 2 timed)."""
+    from paddle_tpu_torch.benchmarks import nmt
+    for name, value in (("DEVICE", "cpu"), ("LSTM_BATCH", 4),
+                        ("LSTM_STEPS", 6), ("LSTM_WIDTH", 8),
+                        ("NGATE_BATCH", 2), ("NGATE_SEQ", 8),
+                        ("NMT_EAGER_STEPS", 1), ("NMT_PROFILE_STEPS", 1)):
+        monkeypatch.setattr(cs, name, value)
+    for name, value in (("BATCH", 4), ("SEQ", 12), ("ITERS", 4),
+                        ("ROUNDS", 2), ("WARMUP", 2), ("SRC_VOCAB", 50),
+                        ("TRG_VOCAB", 50), ("EMB", 16), ("HID", 16),
+                        ("POOL_FACTOR", 2), ("POOL_BUCKET", 4)):
+        monkeypatch.setattr(nmt, name, value)
+    monkeypatch.setenv("BENCH_FORCE_CPU", "1")
+    monkeypatch.setattr(fluid, "CUDAPlace", lambda i=0: fluid.CPUPlace())
+
+
+def test_nmt_phase_rehearses_on_the_cpu(tiny_nmt, capsys):
+    from paddle_tpu_torch import executor as pexe
+    cs._zero_counts()
+    rows = cs.lstm_op_checks()
+    assert len(rows) == len(cs.LSTM_CASES) and all(r["ok"] for r in rows)
+    assert set(rows[2]["rel_l2"]) == {"Hidden", "Cell", "Input@GRAD",
+                                      "Weight@GRAD", "Bias@GRAD",
+                                      "H0@GRAD", "C0@GRAD"}
+    gate = cs.nmt_gate()
+    assert len(gate["steps"]) == cs.NGATE_STEPS
+    assert gate["loss_rel_err"] == 0 and gate["update_rel_l2"] == 0
+    assert all(r["updates"] > 0 for r in gate["steps"])
+    for amp in (False, True):
+        replay = cs.nmt_replay_gate(amp)
+        assert replay["persistables_differing"] == []
+        assert replay["losses_bitwise"] == [True] * 3
+        assert replay["graph_launches"] == {"captures": 0, "replays": 0}
+        shapes = replay["padded_shapes"]
+        assert shapes[0] != shapes[1]
+    res = cs.nmt_path("card, 700 W")
+    bench = res["bench"]
+    assert bench["metric"] == \
+        "seq2seq_nmt_train_target_tokens_per_sec_per_chip"
+    assert bench["value"] > 0 and bench["pooled_compile_cache_misses"] == 0
+    assert res["launches"] == {n: 0 for n in cs._kernel_counts()}
+    assert res["graph_launches"] == pexe.graph_launches
+    assert len(res["schedules"]) == 2
+    assert res["schedules"][0]["dispatches_a_sweep"] == 1
+    assert res["schedules"][1]["dispatches_a_sweep"] == \
+        bench["distinct_padded_shapes"]
+    for losses in res["sweep_losses"].values():
+        assert len(losses) == 3 and losses[-1] < losses[0]
+    assert res["step_ms_eager_p50"] > 0 and res["peak_memory_gb"] is None
+    assert {"device_busy_ms", "class_ms", "wall_ms"} <= \
+        set(res["replay_profile"])
+    json.dumps(res, default=str)
+    out = capsys.readouterr().out
+    assert "lstm op checks" in out and "nmt gate" in out
+    assert "across padded shapes" in out
+    assert "bench_nmt through the captured steps" in out
+    # bench_nmt.py's JSON line, printed by the bench itself
+    line = next(json.loads(ln) for ln in out.splitlines()
+                if ln.startswith('{"metric": "seq2seq_nmt'))
+    assert line["batch"] == 4 and line["iters"] == 4
+
+
+def test_nmt_profile_classes():
+    assert cs.nmt_class("void cutlass::Kernel2<cutlass_80_simt_sgemm_64x64"
+                        "_8x5_nn_align1>") == "gemm"
+    assert cs.nmt_class("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n") == "gemm"
+    assert cs.nmt_class("nvjet_tst_128x64") == "gemm"
+    assert cs.nmt_class("void at::native::reduce_kernel<128, 4>") == \
+        "reduction"
+    assert cs.nmt_class("void at::native::vectorized_elementwise_kernel<4, "
+                        "at::native::CUDAFunctor_add<float>>") == \
+        "elementwise"
+    assert cs.nmt_class("Memcpy DtoD (Device -> Device)") == "copy"
+    assert cs.nmt_class("void at::native::(anonymous namespace)::"
+                        "CatArrayBatchedCopy<float>") == "copy"
