@@ -58,7 +58,7 @@ raises on failure (the script then exits non-zero and prints no result):
    Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
-4. Serving path: the 12-layer, 512-wide decoder (vocab 32000, 8 heads) in
+4. Serving path: the 6-layer, 512-wide decoder (vocab 32000, 8 heads) in
    fp32 and in bf16 with the same random weights, written with
    ``save_decoder`` and served by ``load_decoder`` → ``PagedDecodeEngine``
    → ``GenerationScheduler`` → ``make_server`` on 127.0.0.1. Eight
@@ -246,9 +246,9 @@ raises on failure (the script then exits non-zero and prints no result):
    different masks, each keeping a share within 4 sigma of 0.5. Then
    ``bench_lm.py``'s rounds at full size through
    ``paddle_tpu_torch.benchmarks.lm`` (``main()``, then ``packed_main()``
-   with its padded baseline; 60-step rounds, one warm, 3 timed; the JSON
-   line printed): the loss finite and falling from the first round to
-   the last, ``compile_cache_misses`` = the (program, feed) pairs, the
+   with its padded baseline; 10-step rounds (bench_lm.py: 60), one warm,
+   3 timed; the JSON line printed): the loss finite and falling from the
+   first round to the last, ``compile_cache_misses`` = the (program, feed) pairs, the
    path's flash kernels launched steps x 12, one capture a program;
    printed beside phase 6's and 7's eager p50: the captured step's ms,
    the busy ms and idle share of a profiled replay, ``device_wait_s``,
@@ -258,7 +258,7 @@ raises on failure (the script then exits non-zero and prints no result):
    SIGTERMs itself after round 2 and must exit 42 leaving a valid serial
    of step 2 and step counter 21; its relaunch must resume there and end
    bitwise an uninterrupted child. Phases 8, 9 and 10 each end in their
-   program's 20-step captured rounds (``captured_rounds``: a warm round
+   program's 10-step captured rounds (``captured_rounds``: a warm round
    and 2 timed; K4 steps x 1 and K5 x3 steps x 12, K6 x3, K6-fwd-dense,
    K1-dense steps x 12, counted through the replays; one capture), timed
    beside their eager p50 with a profiled replay's busy ms and idle
@@ -282,6 +282,39 @@ raises on failure (the script then exits non-zero and prints no result):
    ``run()`` p50, each schedule's captures and peak memory. (c) One
    profiled replay of the baseline's step: busy ms, idle share, device
    ms by class (``nmt_class``: gemm, elementwise, copy, reduction).
+
+16. ``bench.py``'s ResNet line as it runs by default: fp8-stored relu
+   outputs (``PADDLE_TPU_FP8_ACTS=1``, e4m3) and conv outputs
+   (``PADDLE_TPU_FP8_CONV_OUT``), through
+   ``paddle_tpu_torch.benchmarks.resnet`` (run after phase 15; no
+   hand-written kernel is on its path, and none may launch in (a)-(c);
+   (d)'s LM bench, a child process, launches K1/K2 in its own process,
+   out of this count's sight). (a) Gates, card against CPU (``fp8_gates``): the store cast
+   ``registry.cast_fp8`` bit for bit on both formats over a sweep with
+   448, 464, 465, 480, 57344, 61440, 1e6 and subnormals (and what the
+   card's plain ``Tensor.to`` gives there, recorded); conv2d under modes
+   ``1``, ``e5m2``, ``scaled`` and ``delayed`` (seeding and seeded) at
+   phase 11's three NHWC geometries — each stored value, dequantized,
+   within one fp8 ulp plus one bf16 ulp of the CPU's, and the next
+   scale within 1e-2; batch norm from e4m3, e5m2 and ``ScaledFp8``
+   input (Y within 1e-2 rel L2); one step of the reference's small conv
+   net under each mode with no ``*_grad`` output of an fp8 dtype. (b)
+   ``run_steps`` bitwise ``run()`` under the recipe (phase 11's gate
+   model, amp, deterministic cuDNN; e5m2 and delayed, the ``Fp8Scale``
+   vars included; one capture each). (c) ``benchmarks.resnet.main()`` at
+   the default recipe and full size (batch 256, 224x224, NHWC, 1000
+   classes, ``BENCH_RESNET_ONLY=1``; phase 11's 10-step rounds x 3
+   after one warm dispatch, ``FP8_STEPS``), its JSON line printed: the loss finite and
+   lower after the rounds than at the first step, one capture, no
+   hand-written kernel, ``precision`` "bf16+fp8-acts+fp8-convout-e5m2";
+   printed beside phase 11's bf16 step: images/s, the captured step's
+   ms, a profiled replay's busy ms and device ms by class, MFU and peak
+   memory. (d) The three-line bench end to end (``python -m
+   paddle_tpu_torch.benchmarks.resnet`` at ``bench.py``'s smoke knobs
+   ``BENCH_ITERS=2 BENCH_ROUNDS=1 BENCH_WARMUP=1`` (forwarded to the LM
+   and NMT benches, its children) and ``BENCH_BATCH=8`` (the ResNet
+   line's alone)): exactly three JSON lines, the ResNet line last, its
+   ``submetrics.lm`` and ``.nmt`` numeric and without ``error``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -318,8 +351,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# the serving slice's model: the flagship LM widths
-VOCAB, DIM, HEADS, LAYERS, FFN_MULT = 32000, 512, 8, 12, 4
+# the serving slice's model: the flagship LM widths at half its depth (6 of
+# bench_lm.py's 12 layers; 12 until phase 16 came), so that every phase fits
+# the script's time limit
+VOCAB, DIM, HEADS, LAYERS, FFN_MULT = 32000, 512, 8, 6, 4
 SLOTS, MAX_LEN, BUCKETS, PAGE = 32, 1024, "64,128,256,512", 16
 N_CLIENTS, PER_CLIENT = 8, 6
 PROMPT_LEN, NEW_TOKENS = (16, 480), (32, 128)   # seeded, inclusive
@@ -1414,7 +1449,7 @@ SLEEP_CYCLES = 20_000_000
 def _timed(fn, args, reps, flush):
     """Mean ms of ``fn(*args)`` over ``reps`` launches, each timed alone
     with CUDA events after the L2 cache was flushed (the serving loop
-    touches 12 layers' pools between two calls of one layer). Each call
+    touches every layer's pools between two calls of one layer). Each call
     is queued behind a device sleep, so the wrapper's host work (argument
     checks, allocations, K4's pointer table) overlaps the sleep and the
     events measure the device's time; a call whose host work outlasts
@@ -3517,12 +3552,13 @@ def layout_timing(bhsd_launches, dense_res):
 
 # bench.py's ResNet step (bench.py:36-121): resnet_imagenet(depth=50) in
 # NHWC, batch 256 of 224x224 images, 1000 classes, bf16 mixed precision,
-# Momentum(0.01, 0.9), timed through run_steps. The one cut: 25 steps a
-# dispatch and one warm-up dispatch, against bench.py's 100 x 3, so that
-# every phase fits the script's time limit.
+# Momentum(0.01, 0.9), timed through run_steps. The one cut: 10 steps a
+# dispatch (25 until phase 16 came) and one warm-up dispatch, against
+# bench.py's 100 x 3, so that every phase fits the script's time limit;
+# phase 16's fp8 rounds take FP8_STEPS.
 RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 50, 256, 224, 1000
 RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
-RESNET_STEPS, RESNET_ROUNDS = 25, 3
+RESNET_STEPS, RESNET_ROUNDS = 10, 3
 RESNET_EAGER_STEPS, RESNET_PROFILE_STEPS = 3, 3
 # the gates' model: the same program at class_dim 10, batch 8 of 64x64
 # images (its last stage normalizes each channel over 8 x 2 x 2 = 32
@@ -4095,10 +4131,13 @@ def resnet_path(card_label=""):
 REPLAY_RUN_CALLS, REPLAY_N_STEPS = 4, 4
 # the random-op gate: a classifier with one dropout layer, Adam
 DROPOUT_P, DROPOUT_ROWS, DROPOUT_WIDTH, DROPOUT_STEPS = 0.5, 64, 512, 8
-# bench_lm.py's methodology: ITERS-step rounds, one warm round, 3 timed
-BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 60, 3, 5
-# phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS
-CAPTURED_STEPS, CAPTURED_ROUNDS = 20, 2
+# bench_lm.py's methodology: ITERS-step rounds, one warm round, 3 timed.
+# The cut: 10-step rounds against bench_lm.py's 60, so that phase 16 fits
+# the script's time limit
+BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 10, 3, 5
+# phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS (10
+# steps a round, 20 until phase 16 came)
+CAPTURED_STEPS, CAPTURED_ROUNDS = 10, 2
 # the preemption gate: the 2-layer LM at full width, one run_steps round
 # of RESUME_ROUND_STEPS per train_loop step, SIGTERM after round
 # RESUME_PREEMPT_AFTER, a checkpoint every round
@@ -4899,6 +4938,480 @@ def nmt_path(card_label=""):
     return res
 
 
+# -- phase 16: bench.py's ResNet line, fp8 stores, the three-line bench --
+
+FP8_MODES = ("1", "e5m2", "scaled", "delayed")
+FP8_SWEEP = (0.0, 1.0, 448.0, 463.0, 464.0, 465.0, 466.0, 472.0, 478.0,
+             480.0, 872.0, 1e4, 57344.0, 61439.0, 61440.0, 61441.0, 1e6,
+             2.0 ** -6, 2.0 ** -9, 2.0 ** -10, 3 * 2.0 ** -11, 2.0 ** -14,
+             2.0 ** -16, 2.0 ** -17)
+FP8_BN_REL_L2 = 1e-2
+FP8_SCALE_RTOL = 1e-2
+# phase 16 (c): the fp8 ResNet line's rounds, FP8_STEPS steps each — phase
+# 11's, so that the two steps are timed alike
+FP8_STEPS = RESNET_STEPS
+# the three-line bench: bench.py's own smoke knobs (BENCH_BATCH stays
+# with the ResNet line; the others reach the children); its wall-clock
+# limit
+THREE_LINE_KNOBS = {"BENCH_ITERS": "2", "BENCH_ROUNDS": "1", "BENCH_WARMUP": "1",
+                "BENCH_BATCH": "8"}
+THREE_LINE_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _fp8_env(acts="1", conv_out="0"):
+    """``PADDLE_TPU_FP8_ACTS`` / ``PADDLE_TPU_FP8_CONV_OUT`` set for the
+    block (build and run), restored after."""
+    names = ("PADDLE_TPU_FP8_ACTS", "PADDLE_TPU_FP8_CONV_OUT")
+    old = {k: os.environ.get(k) for k in names}
+    os.environ.update(dict(zip(names, (acts, conv_out))))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _fp8_ulp(v, dtype):
+    """One ulp of the fp8 ``dtype`` at each |value| (numpy float64)."""
+    import torch
+    mant, emin = (3, -6) if dtype == torch.float8_e4m3fn else (2, -14)
+    e = np.floor(np.log2(np.maximum(np.abs(v), 2.0 ** emin)))
+    return 2.0 ** (e - mant)
+
+
+def _stored_np(v):
+    """(dequantized values, payload values, scale, fp8 dtype) of a stored
+    conv output on the CPU, as float64 numpy."""
+    from paddle_tpu_torch.core import ScaledFp8
+    if isinstance(v, ScaledFp8):
+        q = v.data.double().numpy()
+        s = float(v.scale)
+        return q * s, q, s, v.data.dtype
+    q = v.double().numpy()
+    return q, q, 1.0, v.dtype
+
+
+def _cast_checks():
+    """``cast_fp8`` on the card bit for bit against the CPU over the
+    sweep, its negatives and random values, from bf16 and fp32; and what
+    the card's plain ``Tensor.to`` gives at the sweep's overflow
+    points."""
+    import torch
+    from paddle_tpu_torch.registry import cast_fp8
+    rng = np.random.RandomState(SEED)
+    sweep = np.array(FP8_SWEEP, np.float32)
+    xs = np.concatenate([sweep, -sweep, rng.randn(4096) * 100,
+                         rng.randn(4096) * 3e4, rng.randn(4096) * 1e-3])
+    xs = torch.from_numpy(xs.astype(np.float32))
+    rows = []
+    for dt in (torch.float8_e4m3fn, torch.float8_e5m2):
+        for src in (torch.bfloat16, torch.float32):
+            x = xs.to(src)
+            got = cast_fp8(x.to(DEVICE), dt).cpu().view(torch.uint8)
+            want = cast_fp8(x, dt).view(torch.uint8)
+            plain = x[:len(sweep)].to(DEVICE).to(dt).float().cpu()
+            rows.append({"format": str(dt).split(".")[-1],
+                         "source": str(src).split(".")[-1],
+                         "values": len(xs),
+                         "differ": int((got != want).sum()),
+                         "plain_to_on_card": {
+                             str(float(a)): float(b) for a, b in
+                             zip(sweep, plain) if a >= 448}})
+    return rows
+
+
+def _conv_fp8_checks():
+    """conv2d under each FP8_MODES mode (delayed seeding from 0.0 and
+    from a seeded state) at phase 11's three NHWC geometries, amp, card
+    against CPU: each element's dequantized stored value within one fp8
+    ulp (at the larger payload, times the scale) plus one bf16 ulp of
+    the CPU's, and ``Fp8ScaleOut`` within FP8_SCALE_RTOL."""
+    import torch
+    rng = np.random.RandomState(SEED + 1)
+    b = RGATE_BATCH
+    geoms = {"stem-7x7-s2-p3": ((b, 64, 64, 3), (64, 3, 7, 7), 2, 3),
+             "3x3-s1-p1": ((b, 16, 16, 64), (64, 64, 3, 3), 1, 1),
+             "1x1-s2": ((b, 16, 16, 256), (512, 256, 1, 1), 2, 0)}
+    rows = []
+    for name, (xs, ws, stride, pad) in geoms.items():
+        x = torch.from_numpy(rng.randn(*xs).astype(np.float32))
+        w = torch.from_numpy((rng.randn(*ws) / np.sqrt(np.prod(ws[1:])))
+                             .astype(np.float32))
+        attrs = {"strides": [stride] * 2, "paddings": [pad] * 2,
+                 "dilations": [1, 1], "groups": 1, "data_format": "NHWC"}
+        for mode, state in [(m, None) for m in FP8_MODES[:3]] + \
+                [("delayed", 0.0), ("delayed", 0.02)]:
+            ins = {"Input": [x], "Filter": [w]}
+            if state is not None:
+                ins["Fp8Scale"] = [torch.tensor([state])]
+            with _fp8_env("1", mode):
+                got = _run_op("conv2d", ins, attrs, True,
+                              torch.device(DEVICE))
+                want = _run_op("conv2d", ins, attrs, True,
+                               torch.device("cpu"))
+            gd, gq, gs, dt = _stored_np(got["Output"][0])
+            wd, wq, ws_, _ = _stored_np(want["Output"][0])
+            bound = _fp8_ulp(np.maximum(np.abs(gq), np.abs(wq)), dt) * \
+                max(gs, ws_) + 2.0 ** -8 * np.abs(wd)
+            err = np.abs(gd - wd)
+            ok = bool(np.all((err <= bound) | (np.isnan(gd) & np.isnan(wd))))
+            row = {"case": "%s %s%s" % (name, mode, "" if state is None else
+                                        " state %g" % state),
+                   "dtype": str(dt).split(".")[-1],
+                   "max_err_over_bound": float(np.nanmax(err / bound)),
+                   "same_payload": float(np.mean(gq == wq)),
+                   "rel_l2": _rel_l2(torch.from_numpy(gd),
+                                     torch.from_numpy(wd)), "ok": ok}
+            if "Fp8ScaleOut" in want:
+                a = float(got["Fp8ScaleOut"][0])
+                c = float(want["Fp8ScaleOut"][0])
+                row["next_scale"] = [a, c]
+                row["ok"] = ok and abs(a - c) <= FP8_SCALE_RTOL * abs(c)
+            rows.append(row)
+    return rows
+
+
+def _bn_fp8_checks():
+    """batch_norm in training from e4m3, e5m2 and ``ScaledFp8`` input,
+    amp, card against CPU: Y (bf16) within FP8_BN_REL_L2, the statistics
+    within ROP_REL_L2."""
+    import torch
+    from paddle_tpu_torch.core import ScaledFp8
+    from paddle_tpu_torch.registry import cast_fp8
+    rng = np.random.RandomState(SEED + 2)
+    c = 64
+    x = torch.from_numpy((rng.randn(RGATE_BATCH, 16, 16, c) * 3 + 1)
+                         .astype(np.float32)).to(torch.bfloat16)
+    stored = {"e4m3": cast_fp8(x, torch.float8_e4m3fn),
+              "e5m2": cast_fp8(x, torch.float8_e5m2),
+              "scaled": ScaledFp8.quantize(x)}
+    rows = []
+    for name, v in stored.items():
+        ins = {"X": [v], "Scale": [torch.ones(c)], "Bias": [torch.zeros(c)],
+               "Mean": [torch.full((c,), 0.5)], "Variance": [torch.ones(c)]}
+        attrs = {"epsilon": 1e-5, "momentum": 0.9, "data_layout": "NHWC"}
+        got = _run_op("batch_norm", ins, attrs, True, torch.device(DEVICE))
+        want = _run_op("batch_norm", ins, attrs, True, torch.device("cpu"))
+        y = _rel_l2(got["Y"][0].float(), want["Y"][0].float())
+        stats = max(_rel_l2(got[s][0], want[s][0]) for s in
+                    ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"))
+        rows.append({"case": "batch_norm from " + name,
+                     "y_dtype": str(got["Y"][0].dtype).split(".")[-1],
+                     "y_rel_l2": y, "stats_rel_l2": stats,
+                     "ok": y <= FP8_BN_REL_L2 and stats <= ROP_REL_L2
+                     and got["Y"][0].dtype == torch.bfloat16})
+    return rows
+
+
+def build_fp8_net(fluid):
+    """The reference's small conv net (``tests/ops/
+    test_fp8_activations.py:17-40``): conv -> relu -> conv -> (+residual)
+    -> relu -> avg pool -> fc, SGD(0.1), amp; and its feed."""
+    import torch
+    from paddle_tpu_torch import unique_name
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        prog.random_seed = startup.random_seed = 5
+        with fluid.program_guard(prog, startup):
+            img = fluid.layers.data(name="img", shape=[8, 8, 8, 4],
+                                    dtype="float32", append_batch_size=False)
+            lbl = fluid.layers.data(name="lbl", shape=[8, 1], dtype="int64",
+                                    append_batch_size=False)
+            c1 = fluid.layers.conv2d(input=img, num_filters=8,
+                                     filter_size=3, padding=1,
+                                     data_format="NHWC")
+            r1 = fluid.layers.relu(c1)
+            c2 = fluid.layers.conv2d(input=r1, num_filters=8, filter_size=3,
+                                     padding=1, data_format="NHWC")
+            r2 = fluid.layers.relu(fluid.layers.elementwise_add(x=c2, y=r1))
+            pooled = fluid.layers.pool2d(r2, pool_type="avg",
+                                         global_pooling=True,
+                                         data_format="NHWC")
+            logits = fluid.layers.fc(
+                input=fluid.layers.reshape(pooled, [8, 8]), size=3)
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(logits, lbl))
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        fluid.enable_mixed_precision(prog)
+    rng = np.random.RandomState(0)
+    feed = {"img": torch.from_numpy(rng.rand(8, 8, 8, 4).astype(np.float32)),
+            "lbl": torch.from_numpy(rng.randint(0, 3, (8, 1)))}
+    return prog, startup, loss, feed
+
+
+def _no_fp8_grads():
+    """One step of ``build_fp8_net`` on the card under each conv-out mode
+    (and none), every value kept: the ``*_grad`` outputs of an fp8 dtype
+    (there must be none) and the dtypes the relu and conv outputs took."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch.registry import FP8_DTYPES
+    real = pexe.trace_ops
+    envs = []
+
+    def keep_all(block, env, **kw):
+        kw["drop"] = None
+        out = real(block, env, **kw)
+        envs.append((block, out))
+        return out
+
+    rows = []
+    pexe.trace_ops = keep_all
+    try:
+        for mode in ("0",) + FP8_MODES:
+            with _fp8_env("1", mode):
+                prog, startup, loss, feed = build_fp8_net(fluid)
+                with fluid.scope_guard(fluid.Scope()):
+                    exe = fluid.Executor(fluid.CUDAPlace(0))
+                    exe.run(startup)
+                    envs.clear()
+                    lv = float(exe.run(prog, feed=feed,
+                                       fetch_list=[loss])[0])
+            leaked, stored = [], {}
+            for block, env in envs:
+                for op in block.ops:
+                    for names in op.outputs.values():
+                        for n in names:
+                            v = env.get(n)
+                            dt = getattr(v, "dtype", None)
+                            if op.type.endswith("_grad") and \
+                                    dt in FP8_DTYPES:
+                                leaked.append((op.type, n))
+                            if op.type in ("relu", "conv2d") and \
+                                    n in op.outputs.get("Out", []) + \
+                                    op.outputs.get("Output", []):
+                                stored[op.type] = "%s %s" % (
+                                    type(v).__name__, dt)
+            rows.append({"conv_out": mode, "loss": lv, "fp8_grads": leaked,
+                         "stored": stored,
+                         "ok": not leaked and bool(np.isfinite(lv))})
+    finally:
+        pexe.trace_ops = real
+    return rows
+
+
+def fp8_gates():
+    """Phase 16 (a): the cast, conv2d's stores, batch norm from stored
+    values, card against CPU; no fp8 gradient in a step of the small
+    conv net under any mode. Raises on any failure."""
+    res = {"cast": _cast_checks(), "conv2d": _conv_fp8_checks(),
+           "batch_norm": _bn_fp8_checks(), "no_fp8_grads": _no_fp8_grads()}
+    log("fp8 gates (card vs CPU): %s" % json.dumps(res))
+    bad = [r for r in res["cast"] if r["differ"]] + \
+        [r for k in ("conv2d", "batch_norm", "no_fp8_grads")
+         for r in res[k] if not r["ok"]]
+    if bad:
+        raise AssertionError("fp8 gates failed: %s" % bad)
+    return res
+
+
+def fp8_replay_gate(mode):
+    """``run_steps`` against ``run`` on phase 11's gate model under the
+    fp8 recipe (``PADDLE_TPU_FP8_ACTS=1``, conv outputs ``mode``), amp,
+    deterministic algorithms, from one state: RGATE_RUN_CALLS ``run()``
+    calls then two ``run_steps(n_steps=RGATE_N_STEPS)`` against as many
+    ``run()`` calls — every persistable (the ``Fp8Scale`` vars too) and
+    both losses bitwise, 1 capture and 2 x RGATE_N_STEPS - 1 replays on
+    the card, no hand-written kernel."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import executor as pexe
+    feed = resnet_feed(RGATE_BATCH, RGATE_SIZE, RGATE_CLASSES)
+    total = RGATE_RUN_CALLS + 2 * RGATE_N_STEPS
+    with _fp8_env("1", mode), _deterministic() as warned, \
+            _cudnn(deterministic=True, benchmark=False):
+        prog, startup, loss = build_resnet(fluid, RESNET_DEPTH, RGATE_BATCH,
+                                           RGATE_SIZE, RGATE_CLASSES,
+                                           amp=True)
+        state = _startup_state(startup)
+        scales = sorted({n for op in prog.global_block().ops
+                         if op.type == "conv2d"
+                         for n in op.inputs.get("Fp8Scale", [])})
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        ref = _copy_scope(fluid, state, exe.device)
+        ref_losses = [exe.run(prog, feed=feed, fetch_list=[loss],
+                              scope=ref)[0] for _ in range(total)]
+        got = _copy_scope(fluid, state, exe.device)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        for _ in range(RGATE_RUN_CALLS):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=got)
+        _zero_counts()
+        losses = [exe.run_steps(prog, feed=feed, n_steps=RGATE_N_STEPS,
+                                fetch_list=[loss], scope=got)[0]
+                  for _ in range(2)]
+        counts, launches = dict(pexe.graph_launches), _kernel_counts()
+        differ = _bitwise(ref, got, state)
+        moved = [n for n in scales if not bool(
+            (got.find_var(n).cpu() == state[n]).all())]
+        exe.close()
+        _sync()
+    same = [bool(np.array_equal(a, ref_losses[i])) for a, i in
+            zip(losses, (total - RGATE_N_STEPS - 1, total - 1))]
+    want = {"captures": 1, "replays": 2 * RGATE_N_STEPS - 1} \
+        if DEVICE == "cuda" else {"captures": 0, "replays": 0}
+    res = {"conv_out": mode, "losses": [float(v) for v in losses],
+           "losses_bitwise": same, "persistables": len(state),
+           "fp8_scale_vars": len(scales), "fp8_scale_vars_moved": len(moved),
+           "persistables_differing": differ, "graph_launches": counts,
+           "nondeterministic_ops": warned}
+    log("resnet run_steps vs run under fp8 (%s, amp, deterministic): %s"
+        % (mode, json.dumps(res)))
+    if differ or not all(same) or counts != want or \
+            (mode == "delayed" and (not scales or len(moved) != len(scales))):
+        raise AssertionError(
+            "fp8 (%s) run_steps differs from run: %d persistables differ "
+            "(%s), losses bitwise %s, graph launches %s (want %s), %d of %d "
+            "scale vars moved" % (mode, len(differ), differ[:5], same,
+                                  counts, want, len(moved), len(scales)))
+    _counts_gate("fp8 replay gate", launches, {})
+    return res
+
+
+def fp8_resnet_path(card_label="", phase11=None):
+    """Phase 16 (c): ``benchmarks.resnet.main()`` at bench.py's default
+    recipe and full size, ``BENCH_RESNET_ONLY=1``, FP8_STEPS-step
+    rounds x RESNET_ROUNDS after one warm dispatch (the JSON line
+    printed). Around its rounds: one eager ``run()`` first (the first
+    step's loss), and after them a profiled replay (device ms by class);
+    the kernel and graph counts set to 0 just before and read just
+    after. Gates: the loss finite and lower after the rounds than at the
+    first step, one capture, no hand-written kernel, the precision
+    string. Logged beside phase 11's bf16 step (``phase11``)."""
+    import torch
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.benchmarks import resnet
+    extra = {}
+    real_measure = resnet._measure_rounds
+
+    def measure(exe, prog, loss, feed):
+        extra["first_loss"] = float(exe.run(prog, feed=feed,
+                                            fetch_list=[loss])[0])
+        out = real_measure(exe, prog, loss, feed)
+        extra["replay_profile"] = _profile_replay(
+            exe, prog, feed, loss, RESNET_PROFILE_STEPS)
+        extra["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if DEVICE == "cuda" else None
+        return out
+
+    knobs = {"ITERS": FP8_STEPS, "ROUNDS": RESNET_ROUNDS,
+             "WARMUP": FP8_STEPS, "BATCH": RESNET_BATCH,
+             "DEPTH": RESNET_DEPTH, "IMAGE": RESNET_SIZE,
+             "CLASSES": RESNET_CLASSES}
+    old = {k: getattr(resnet, k) for k in knobs}
+    old_only = os.environ.get("BENCH_RESNET_ONLY")
+    for k, v in knobs.items():
+        setattr(resnet, k, v)
+    os.environ["BENCH_RESNET_ONLY"] = "1"
+    resnet._measure_rounds = measure
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        with _fp8_env("", ""), unique_name.guard():
+            for k in ("BENCH_FP8_ACTS", "BENCH_FP8_CONV_OUT"):
+                os.environ.pop(k, None)
+            rec = resnet.main()
+    finally:
+        resnet._measure_rounds = real_measure
+        for k, v in old.items():
+            setattr(resnet, k, v)
+        if old_only is None:
+            os.environ.pop("BENCH_RESNET_ONLY", None)
+        else:
+            os.environ["BENCH_RESNET_ONLY"] = old_only
+    launches, graphs = _kernel_counts(), dict(pexe.graph_launches)
+    prof = extra["replay_profile"]
+    step_ms = float(np.median(rec["_round_s"])) * 1e3 / FP8_STEPS
+    res = {"bench": {k: v for k, v in rec.items() if not k.startswith("_")},
+           "card": card_label,
+           "cut": "run_steps n_steps %d x %d rounds after one warm-up "
+                  "dispatch (bench.py: 100 x 3)" % (FP8_STEPS,
+                                                     RESNET_ROUNDS),
+           "first_loss": extra["first_loss"], "final_loss": rec["loss"],
+           "round_s": rec["_round_s"], "step_ms_captured": step_ms,
+           "images_per_s": rec["value"], "mfu": rec["mfu"],
+           "replay_profile": prof,
+           "replay_device_busy_ms": prof["device_busy_ms"],
+           "replay_wall_ms": prof["wall_ms"],
+           "replay_idle_share": 1.0 - prof["device_busy_ms"]
+           / prof["wall_ms"],
+           "peak_memory_gb": extra["peak_memory_gb"],
+           "launches": launches, "graph_launches": graphs}
+    if phase11:
+        res["phase11_bf16"] = {k: phase11.get(k) for k in (
+            "images_per_s", "step_ms_captured", "replay_device_busy_ms",
+            "mfu", "peak_memory_gb")}
+        res["phase11_bf16"]["replay_class_ms"] = \
+            phase11["replay_profile"]["class_ms"]
+    summary = {k: res[k] for k in (
+        "card", "cut", "images_per_s", "step_ms_captured", "mfu",
+        "replay_device_busy_ms", "replay_idle_share", "peak_memory_gb",
+        "first_loss", "final_loss", "graph_launches")}
+    summary["replay_class_ms"] = prof["class_ms"]
+    summary["replay_top_kernels_ms"] = prof["top_kernels_ms"]
+    summary["phase11_bf16"] = res.get("phase11_bf16")
+    log("bench.py's ResNet line (fp8 recipe) through benchmarks.resnet: %s"
+        % json.dumps(summary))
+    want_prec = "bf16+fp8-acts+fp8-convout-e5m2"
+    if rec["precision"] != want_prec:
+        raise AssertionError("resnet precision %r, want %r"
+                             % (rec["precision"], want_prec))
+    if not (np.isfinite(rec["loss"]) and np.isfinite(res["first_loss"])
+            and rec["loss"] < res["first_loss"]):
+        raise AssertionError("fp8 resnet loss not finite and falling: first "
+                             "%s, after the rounds %s"
+                             % (res["first_loss"], rec["loss"]))
+    want = 1 if DEVICE == "cuda" else 0
+    if graphs["captures"] != want:
+        raise AssertionError("fp8 resnet: %d graph captures, want %d"
+                             % (graphs["captures"], want))
+    _counts_gate("fp8 resnet path", launches, {})
+    return res
+
+
+def three_line_bench():
+    """Phase 16 (d): ``python -m paddle_tpu_torch.benchmarks.resnet`` at
+    THREE_LINE_KNOBS (all but BENCH_BATCH reach its LM and NMT children) from
+    the repo root: exactly three JSON lines, the ResNet line last, its
+    ``submetrics.lm`` and ``.nmt`` numeric and without ``error``."""
+    from paddle_tpu_torch.benchmarks import resnet
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "PADDLE_TPU_FP8"))}
+    env.update(THREE_LINE_KNOBS)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    if DEVICE != "cuda":
+        env["BENCH_FORCE_CPU"] = "1"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.benchmarks.resnet"], cwd=REPO,
+                       env=env, capture_output=True, text=True,
+                       timeout=THREE_LINE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    for ln in lines:
+        print(json.dumps(ln))
+    res = {"rc": r.returncode, "wall_s": wall, "lines": len(lines),
+           "metrics": [ln.get("metric") for ln in lines]}
+    log("three-line bench (%s): %s" % (" ".join(
+        "%s=%s" % kv for kv in THREE_LINE_KNOBS.items()), json.dumps(res)))
+    subs = lines[-1].get("submetrics", {}) if lines else {}
+    bad = [n for n in ("lm", "nmt") if not isinstance(
+        subs.get(n, {}).get("value"), (int, float)) or "error" in subs[n]]
+    if r.returncode != 0 or len(lines) != 3 or \
+            lines[-1].get("metric") != resnet.METRIC or bad:
+        raise AssertionError(
+            "three-line bench: rc %d, %d JSON lines %s, bad submetrics %s; "
+            "stderr tail: %s" % (r.returncode, len(lines), res["metrics"],
+                                 bad, r.stderr[-2000:]))
+    res["submetrics"] = subs
+    return res
+
+
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -5089,6 +5602,20 @@ def main(argv=None):
             report["nmt_path"] = nmt_path(report["card"]["nvidia_smi"])
             lap("nmt_path")
             _counts_gate("phase 15", _kernel_counts(), {})
+            # phase 16: no hand-written kernel may launch in this process
+            # (the three-line bench's LM child launches K1/K2 in its own)
+            _zero_counts()
+            report["fp8_gates"] = fp8_gates()
+            lap("fp8_gates")
+            report["fp8_replay_gates"] = [fp8_replay_gate("e5m2"),
+                                          fp8_replay_gate("delayed")]
+            lap("fp8_replay_gates")
+            report["fp8_resnet_path"] = fp8_resnet_path(
+                report["card"]["nvidia_smi"], report["resnet_path"])
+            lap("fp8_resnet_path")
+            report["three_line_bench"] = three_line_bench()
+            lap("three_line_bench")
+            _counts_gate("phase 16", _kernel_counts(), {})
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

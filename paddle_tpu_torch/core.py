@@ -8,6 +8,11 @@ raises without a GPU (through :func:`paddle_tpu_torch.resolve_device`),
 Ragged values (``LoDArray``) carry one level of LoD as padded ``data``
 and per-sequence ``length``, the reference's static-shape encoding; the
 nested ``LoDArray2`` is not ported yet.
+
+``ScaledFp8`` is a per-tensor scaled fp8 storage value (the conv output
+of ``PADDLE_TPU_FP8_CONV_OUT=scaled|delayed``). Torch has no
+``__jax_array__``: a consumer dequantizes it explicitly
+(``registry.dense``).
 """
 
 import numpy as np
@@ -17,7 +22,7 @@ import torch.utils._pytree as pytree
 from . import resolve_device
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "SUPPORTED_DTYPES",
-           "convert_dtype", "torch_dtype", "LoDArray"]
+           "convert_dtype", "torch_dtype", "LoDArray", "ScaledFp8"]
 
 # VarDesc dtype names, as numpy-style strings (the reference's list)
 SUPPORTED_DTYPES = (
@@ -148,3 +153,54 @@ pytree.register_pytree_node(
     LoDArray, lambda x: ([x.data, x.length], None),
     lambda children, _: LoDArray(*children),
     serialized_type_name="paddle_tpu_torch.core.LoDArray")
+
+
+class ScaledFp8:
+    """A per-tensor amax-scaled fp8 storage value, dense ≈ data · scale:
+    ``data`` the fp8 payload (e4m3fn by default), ``scale`` a () fp32
+    tensor. A ``torch.utils._pytree`` node, as ``LoDArray`` is, so the
+    generic grad, the step's liveness, a captured step's fetches and
+    ``FetchHandle`` carry it. A host fetch comes back as a ``ScaledFp8``
+    of numpy arrays (the payload widened exactly to fp32), as the
+    reference returns the object itself."""
+
+    __slots__ = ("data", "scale")
+
+    def __init__(self, data, scale):
+        self.data = data
+        self.scale = scale
+
+    def __repr__(self):
+        return "ScaledFp8(data=%r, scale=%r)" % (self.data, self.scale)
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def dequant(self, dtype=torch.bfloat16):
+        """``data`` in fp32 times ``scale``, cast to ``dtype``."""
+        data, scale = torch.as_tensor(self.data), torch.as_tensor(self.scale)
+        return (data.float() * scale).to(dtype)
+
+    @staticmethod
+    def quantize(x, dtype=torch.float8_e4m3fn):
+        """``x`` (bf16 or fp32) as a ``ScaledFp8``: scale = max(amax,
+        1e-12) / the format's largest finite value, payload = x / scale
+        through ``registry.cast_fp8``. Divides by tensors only (CUDA
+        divides by a Python scalar through its reciprocal); the divisor is
+        filled on the device, so a captured step can run it."""
+        from .registry import cast_fp8
+        xf = x.float()
+        amax = torch.clamp_min(xf.abs().amax(), 1e-12)
+        scale = amax / torch.full_like(amax, torch.finfo(dtype).max)
+        return ScaledFp8(cast_fp8(xf / scale, dtype), scale)
+
+
+pytree.register_pytree_node(
+    ScaledFp8, lambda x: ([x.data, x.scale], None),
+    lambda children, _: ScaledFp8(*children),
+    serialized_type_name="paddle_tpu_torch.core.ScaledFp8")

@@ -34,11 +34,12 @@ import torch
 import torch.utils._pytree as pytree
 
 from . import flags, profiler
-from .core import LoDArray, Place, torch_dtype
+from .core import LoDArray, Place, ScaledFp8, torch_dtype
 from .framework import VarType, default_main_program
 from .observability import flight_recorder, steps as step_telemetry
 from .ops import launch_count
-from .registry import LoweringContext, get_op_info
+from .registry import FP8_DTYPES, LoweringContext, get_op_info, \
+    refuse_ragged
 
 __all__ = ["Executor", "FetchHandle", "Scope", "global_scope",
            "scope_guard", "trace_ops", "program_exec_plan",
@@ -90,7 +91,9 @@ def trace_ops(block, env, *, step_key=None, is_test=False, device=None,
     recording). ``drop[i]`` (see :func:`liveness`) lists the names to
     remove from env after op i. ``fetch_names``: the step's fetch
     targets, when known — a lowering may skip an output that nothing
-    reads (``registry.output_consumed``)."""
+    reads (``registry.output_consumed``). An op without a ragged
+    pass-through refuses a ``LoDArray`` input by name
+    (``registry.refuse_ragged``)."""
     amp = bool(getattr(block.program, "_amp", False))
     for i, op in enumerate(block.ops):
         info = get_op_info(op.type)
@@ -100,6 +103,7 @@ def trace_ops(block, env, *, step_key=None, is_test=False, device=None,
             ctx.block, ctx.fetch_names = block, fetch_names
             ins = {slot: [env.get(n) if n else None for n in names]
                    for slot, names in op.inputs.items()}
+            refuse_ragged(info, ins)
             with torch.profiler.record_function(op.type):
                 outs = info.lowering(ctx, ins)
             for slot, names in op.outputs.items():
@@ -133,20 +137,20 @@ def liveness(block, keep):
 
 
 def _to_numpy(t):
-    """Host copy of a fetch: a numpy array, or a ``LoDArray`` of them."""
-    if isinstance(t, LoDArray):
-        return LoDArray(_to_numpy(t.data), _to_numpy(t.length))
+    """Host copy of a fetch: a numpy array, or a ``LoDArray`` or
+    ``ScaledFp8`` of them. numpy has no bfloat16 or fp8: those widen to
+    fp32, exactly."""
+    if isinstance(t, (LoDArray, ScaledFp8)):
+        return pytree.tree_map(_to_numpy, t)
     t = t.detach()
-    if t.dtype == torch.bfloat16:   # numpy has no bfloat16: widen exactly
+    if t.dtype == torch.bfloat16 or t.dtype in FP8_DTYPES:
         t = t.float()
     return t.cpu().numpy()
 
 
 def _host_copy(v):
     """A fresh copy of one host fetch value."""
-    if isinstance(v, LoDArray):
-        return LoDArray(v.data.copy(), v.length.copy())
-    return v.copy()
+    return pytree.tree_map(np.copy, v)
 
 
 def normalize_ragged_sequences(col, var_shape, dtype):
@@ -422,11 +426,13 @@ class Executor:
         """FLAGS_check_nan_inf: scan the fetches and the updated state;
         forces a host sync."""
         def _scan(name, v):
-            if isinstance(v, LoDArray):
+            if isinstance(v, (LoDArray, ScaledFp8)):
                 v = v.data
             if not isinstance(v, torch.Tensor) or \
                     not torch.is_floating_point(v):
                 return
+            if v.dtype in FP8_DTYPES:   # fp8 is scanned widened
+                v = v.float()
             if not bool(torch.isfinite(v).all()):
                 raise FloatingPointError(
                     "NaN/Inf detected in %r (FLAGS_check_nan_inf)" % name)

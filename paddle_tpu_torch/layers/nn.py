@@ -4,7 +4,8 @@
 ``softmax_with_cross_entropy``, ``reshape``, ``transpose``, ``split``,
 ``mean``, ``slice``, ``dropout``, ``decode_cache_attention``,
 ``dynamic_lstm`` and ``sequence_pool`` (with ``sequence_first_step`` /
-``sequence_last_step``), and of ``layers/ops.py``'s ``elementwise_add``.
+``sequence_last_step``), and of ``layers/ops.py``'s ``elementwise_add``,
+``scale`` and the generated ``relu`` and ``gelu``.
 ``fc``, ``embedding`` and the activations take ragged inputs and give
 ragged outputs.
 Each appends ops to the current Program; the executor runs them.
@@ -21,7 +22,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "cross_entropy",
            "softmax_with_cross_entropy",
            "reshape", "transpose", "split", "mean", "slice",
-           "elementwise_add", "decode_cache_attention", "dynamic_lstm",
+           "elementwise_add", "relu", "gelu", "scale",
+           "decode_cache_attention", "dynamic_lstm",
            "sequence_pool", "sequence_first_step", "sequence_last_step"]
 
 
@@ -80,13 +82,12 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            use_mkldnn=False, act=None, name=None, data_format="NCHW"):
     """2-D convolution (reference nn.py:302). ``data_format='NHWC'`` runs
     channels-last; the filter stays OIHW either way, initialized from
-    Normal(0, sqrt(2 / (kh·kw·c_in))). The reference's delayed-scaling
-    fp8 conv output (``PADDLE_TPU_FP8_CONV_OUT=delayed``, a persistable
-    scale per conv) is not ported and raises."""
-    if os.environ.get("PADDLE_TPU_FP8_CONV_OUT") == "delayed":
-        raise NotImplementedError(
-            "PADDLE_TPU_FP8_CONV_OUT=delayed (the fp8 conv-output scale "
-            "state) is not ported")
+    Normal(0, sqrt(2 / (kh·kw·c_in))). Under
+    ``PADDLE_TPU_FP8_CONV_OUT=delayed`` at build time the conv carries its
+    delayed fp8 scale: a persistable ``[1]`` fp32 global var (initialized
+    to 0.0, the "unseeded" value; ``stop_gradient``) threaded in as
+    ``Fp8Scale`` and out as ``Fp8ScaleOut``, as batch norm threads its
+    moving statistics."""
     helper = LayerHelper("conv2d", **locals())
     dtype = helper.input_dtype()
     num_channels = input.shape[-1] if data_format == "NHWC" \
@@ -105,9 +106,18 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         helper.param_attr, filter_shape, dtype,
         default_initializer=NormalInitializer(0.0, std))
     pre_bias = helper.create_tmp_variable(dtype=dtype)
+    conv_inputs = {"Input": [input], "Filter": [filter_param]}
+    conv_outputs = {"Output": [pre_bias]}
+    if os.environ.get("PADDLE_TPU_FP8_CONV_OUT") == "delayed":
+        fp8_scale = helper.create_global_variable(
+            persistable=True, dtype="float32", shape=[1])
+        fp8_scale.stop_gradient = True
+        helper.set_variable_initializer(fp8_scale, ConstantInitializer(0.0))
+        conv_inputs["Fp8Scale"] = [fp8_scale]
+        conv_outputs["Fp8ScaleOut"] = [fp8_scale]
     helper.append_op(type="conv2d",
-                     inputs={"Input": [input], "Filter": [filter_param]},
-                     outputs={"Output": [pre_bias]},
+                     inputs=conv_inputs,
+                     outputs=conv_outputs,
                      attrs={"strides": stride, "paddings": padding,
                             "dilations": dilation, "groups": groups,
                             "data_format": data_format})
@@ -306,6 +316,36 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     out = helper.create_tmp_variable(dtype=x.dtype, lod_level=x.lod_level)
     helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def _unary_layer(op_type):
+    """The reference's generated X -> Out layer (``layers/ops.py``): the
+    output keeps X's lod level; extra keywords are the op's attrs."""
+    def layer(x=None, name=None, **attrs):
+        if x is None:
+            x = attrs.pop("input")
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(dtype=x.dtype, lod_level=x.lod_level)
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+relu = _unary_layer("relu")
+gelu = _unary_layer("gelu")
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    """Out = X·scale + bias (or (X + bias)·scale); X's lod level kept."""
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_tmp_variable(dtype=x.dtype, lod_level=x.lod_level)
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
 
 

@@ -10,9 +10,15 @@ bf16, the embedding emits bf16 rows from its fp32 table.
 Ragged inputs (``core.LoDArray``): ``mul`` flattens a ragged X's padded
 tokens into rows (``x_num_col_dims + 1``), ``elementwise_add`` aligns a
 dense Y's IR axis one further (the padded sequence axis),
-``elementwise_add`` and ``sum`` pass X's lengths through, and
+``elementwise_add``, ``sum`` and ``scale`` pass X's lengths through,
+``mean`` averages the valid tokens only (its count in fp32), and
 ``lookup_table`` reads token-scalar ids ``[B, L]`` and its grad drops
 the padding tokens.
+
+Stored fp8 values (``registry.FP8_DTYPES``, ``core.ScaledFp8``): under amp
+``elementwise_add`` computes in bf16 when either input is fp8, ``mul``
+dequantizes its operands, and both grads dequantize X and Y before the
+generic vjp (``register_fp8_transparent_grad``).
 """
 
 import numpy as np
@@ -20,7 +26,8 @@ import torch
 
 from ..core import LoDArray
 from ..framework import in_var, same_shape_rule, set_out
-from ..registry import register_op
+from ..registry import FP8_DTYPES, dense, register_op, \
+    register_fp8_transparent_grad
 
 
 def _data(x):
@@ -50,10 +57,10 @@ def _mul_rule(block, op):
             dtype=x.dtype, lod_level=x.lod_level)
 
 
-@register_op("mul", infer_shape=_mul_rule)
+@register_op("mul", infer_shape=_mul_rule, ragged=True)
 def _mul(ctx, ins):
-    x0, y = ins["X"][0], _data(ins["Y"][0])
-    x = _data(x0)
+    x0, y = ins["X"][0], dense(_data(ins["Y"][0]))
+    x = dense(_data(x0))
     xn = ctx.attr("x_num_col_dims", 1)
     yn = ctx.attr("y_num_col_dims", 1)
     if isinstance(x0, LoDArray):
@@ -79,10 +86,13 @@ def _bcast_y(x, y, axis):
                      [1] * (x.dim() - axis - y.dim()))
 
 
-@register_op("elementwise_add", infer_shape=same_shape_rule())
+@register_op("elementwise_add", infer_shape=same_shape_rule(), ragged=True)
 def _elementwise_add(ctx, ins):
     x0, y0 = ins["X"][0], ins["Y"][0]
     x, y = _data(x0), _data(y0)
+    if ctx.amp and (x.dtype in FP8_DTYPES or y.dtype in FP8_DTYPES):
+        # stored fp8 computes in bf16 (also when both sides are fp8)
+        x, y = dense(x).to(torch.bfloat16), dense(y).to(torch.bfloat16)
     axis = ctx.attr("axis", -1)
     if isinstance(x0, LoDArray) and not isinstance(y0, LoDArray) and \
             axis is not None and axis >= 1:
@@ -96,13 +106,17 @@ def _elementwise_add(ctx, ins):
     return {"Out": [_rewrap(x0, x + y)]}
 
 
+register_fp8_transparent_grad("elementwise_add", ("X", "Y"))
+register_fp8_transparent_grad("mul", ("X", "Y"))
+
+
 def _sum_rule(block, op):
     x = in_var(block, op, "X")
     set_out(block, op, "Out", x.shape, dtype=x.dtype,
             lod_level=x.lod_level)
 
 
-@register_op("sum", infer_shape=_sum_rule)
+@register_op("sum", infer_shape=_sum_rule, ragged=True)
 def _sum(ctx, ins):
     xs = [v for v in ins["X"] if v is not None]
     out = _data(xs[0])
@@ -111,21 +125,31 @@ def _sum(ctx, ins):
     return {"Out": [_rewrap(xs[0], out)]}
 
 
-@register_op("scale", infer_shape=same_shape_rule())
+@register_op("scale", infer_shape=same_shape_rule(), ragged=True)
 def _scale(ctx, ins):
-    x = ins["X"][0]
+    x0 = ins["X"][0]
+    x = _data(x0)
     s, b = ctx.attr("scale", 1.0), ctx.attr("bias", 0.0)
     out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
-    return {"Out": [out]}
+    return {"Out": [_rewrap(x0, out)]}
 
 
 def _mean_rule(block, op):
     set_out(block, op, "Out", [1], dtype=in_var(block, op, "X").dtype)
 
 
-@register_op("mean", infer_shape=_mean_rule)
+@register_op("mean", infer_shape=_mean_rule, ragged=True)
 def _mean(ctx, ins):
-    return {"Out": [torch.mean(ins["X"][0])]}
+    """The mean of X; of a ragged X over its valid tokens only (the
+    padding does not dilute it), its mask and count summed in fp32
+    whatever the data's dtype (a bf16 count stops at 256 tokens)."""
+    x = ins["X"][0]
+    if not isinstance(x, LoDArray):
+        return {"Out": [torch.mean(x)]}
+    m = x.mask(torch.float32)
+    m = m.reshape(tuple(m.shape) + (1,) * (x.data.dim() - m.dim()))
+    denom = torch.clamp_min(m.sum(), 1.0) * (x.data.numel() / m.numel())
+    return {"Out": [((x.data.float() * m).sum() / denom).to(x.data.dtype)]}
 
 
 def _lookup_ids(ids):
@@ -151,7 +175,7 @@ def _lookup_table_rule(block, op):
     set_out(block, op, "Out", out + [w.shape[-1]], dtype=w.dtype)
 
 
-@register_op("lookup_table", infer_shape=_lookup_table_rule)
+@register_op("lookup_table", infer_shape=_lookup_table_rule, ragged=True)
 def _lookup_table(ctx, ins):
     w, ids0 = ins["W"][0], ins["Ids"][0]
     ids = _lookup_ids(ids0)
@@ -164,7 +188,7 @@ def _lookup_table(ctx, ins):
     return {"Out": [_rewrap(ids0, out)]}
 
 
-@register_op("lookup_table_grad", no_grad=True)
+@register_op("lookup_table_grad", no_grad=True, ragged=True)
 def _lookup_table_grad(ctx, ins):
     """Dense scatter-add of the output grad into the table's rows (the
     reference's custom grad; sparse SelectedRows grads are not ported)."""

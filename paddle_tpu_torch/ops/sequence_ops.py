@@ -70,7 +70,8 @@ def _sequence_pool_rule(block, op):
         set_out(block, op, "MaxIndex", [-1] + feat, dtype="int32")
 
 
-@register_op("sequence_pool", infer_shape=_sequence_pool_rule)
+@register_op("sequence_pool", infer_shape=_sequence_pool_rule,
+             ragged=True)
 def _sequence_pool(ctx, ins):
     """Each sequence pooled to one row: a dense ``[B, *feat]``."""
     ptype = ctx.attr("pooltype", "AVERAGE").upper()
@@ -135,7 +136,7 @@ def _lstm_rule(block, op):
         set_out(block, op, slot, [-1, width], dtype=x.dtype, lod_level=1)
 
 
-@register_op("lstm", infer_shape=_lstm_rule)
+@register_op("lstm", infer_shape=_lstm_rule, ragged=True)
 def _lstm(ctx, ins):
     """The full LSTM recurrence (reference lstm_op.cc). Input ``[b, t,
     4h]`` (projected by the fc before it), Weight ``[h, 4h]``, Bias

@@ -1,7 +1,7 @@
 """Tensor ops of the training slice — ports of
 ``paddle_tpu/ops/tensor_ops.py``: ``reshape``, ``transpose``, ``split``,
 ``cast``, ``fill_constant``, ``uniform_random``, ``gaussian_random``,
-``slice``, and ``concat`` on dense and ragged inputs.
+``slice``, and ``concat``; ``cast`` and ``concat`` take ragged inputs.
 
 The random ops draw from the op's counter stream (``ctx.rng()``: a pure
 function of the program seed, the step, the op and the element), or from
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ..core import LoDArray, torch_dtype
 from ..framework import in_var, set_out
-from ..registry import register_op, seeded_stream
+from ..registry import dense, register_op, seeded_stream
 
 
 def _reshape_target(in_shape, target):
@@ -86,9 +86,15 @@ def _cast_rule(block, op):
     set_out(block, op, "Out", x.shape, dtype=op.attr("out_dtype"))
 
 
-@register_op("cast", infer_shape=_cast_rule)
+@register_op("cast", infer_shape=_cast_rule, ragged=True)
 def _cast(ctx, ins):
-    return {"Out": [ins["X"][0].to(torch_dtype(ctx.attr("out_dtype")))]}
+    """X in ``out_dtype``; a ragged X keeps its lengths, a stored fp8 X
+    is dequantized to it."""
+    x = ins["X"][0]
+    dt = torch_dtype(ctx.attr("out_dtype"))
+    if isinstance(x, LoDArray):
+        return {"Out": [LoDArray(dense(x.data, dt).to(dt), x.length)]}
+    return {"Out": [dense(x, dt).to(dt)]}
 
 
 def _fill_rule(block, op):
@@ -159,7 +165,7 @@ def _concat_rule(block, op):
             lod_level=max(v.lod_level for v in vs))
 
 
-@register_op("concat", infer_shape=_concat_rule)
+@register_op("concat", infer_shape=_concat_rule, ragged=True)
 def _concat(ctx, ins):
     """Concatenation along ``axis``. Ragged inputs (all of them, or
     none): the axis counts the batch and each token's dims, so axis >= 1

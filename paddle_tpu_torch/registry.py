@@ -12,22 +12,35 @@ reference leaves the duplicate to XLA's CSE; eager PyTorch pays it).
 Ragged values (``core.LoDArray``) pass through the vjp as their
 ``data``: lengths and other integer leaves are constants of the
 differentiated function, and a ragged input's grad is a ``LoDArray``
-of the data's grad with the input's lengths.
+of the data's grad with the input's lengths. A lowering that does not
+declare ``ragged=True`` refuses a ragged input by name (the executor's
+``trace_ops`` checks).
+
+fp8 is a storage format (``PADDLE_TPU_FP8_ACTS``,
+``PADDLE_TPU_FP8_CONV_OUT``): ``cast_fp8`` is the one cast every store
+goes through, ``dense`` the one dequant every consumer calls,
+``no_fp8_store`` turns the stores off for a grad op's re-run of its
+forward, and ``register_fp8_transparent_grad`` dequantizes a grad op's
+fp8 inputs before the generic vjp, so no gradient is ever fp8.
 """
 
+import contextlib
 import dataclasses
+import threading
 import typing
 
 import torch
 import torch.utils._pytree as pytree
 
-from .core import LoDArray
+from .core import LoDArray, ScaledFp8
 
 __all__ = ["GRAD_SUFFIX", "OpInfo", "OP_REGISTRY", "register_op",
            "get_op_info", "is_registered", "grad_var_name",
            "LoweringContext", "CounterStream", "seeded_stream",
            "make_generic_grad_lowering", "ensure_grad_op_registered",
-           "output_consumed"]
+           "output_consumed", "FP8_DTYPES", "cast_fp8", "dense",
+           "fp8_store_enabled", "no_fp8_store",
+           "register_fp8_transparent_grad", "refuse_ragged"]
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -45,21 +58,24 @@ class OpInfo:
     generic_grad: bool = False           # grad = torch.func.vjp of the fwd
     host: bool = False                   # host side effects (save/print):
                                          # Executor.run_steps refuses it
+    ragged: bool = False                 # takes core.LoDArray inputs
 
 
 OP_REGISTRY: typing.Dict[str, OpInfo] = {}
 
 
 def register_op(op_type, lowering=None, no_grad=False, infer_shape=None,
-                host=False):
-    """Register an op. Usable directly or as a decorator on the lowering."""
+                host=False, ragged=False):
+    """Register an op. Usable directly or as a decorator on the lowering.
+    ``ragged``: the lowering takes ``LoDArray`` inputs (any other op
+    refuses them, :func:`refuse_ragged`)."""
 
     def _register(fn):
         if op_type in OP_REGISTRY:
             raise ValueError("op %r registered twice" % op_type)
         OP_REGISTRY[op_type] = OpInfo(
             type=op_type, lowering=fn, no_grad=no_grad,
-            infer_shape=infer_shape, host=host)
+            infer_shape=infer_shape, host=host, ragged=ragged)
         return fn
 
     if lowering is not None:
@@ -75,6 +91,19 @@ def get_op_info(op_type) -> OpInfo:
 
 def is_registered(op_type):
     return op_type in OP_REGISTRY
+
+
+def refuse_ragged(info, ins):
+    """Raise ``NotImplementedError`` naming the op when a lowering without
+    a ragged pass-through (``OpInfo.ragged``) is given a ``LoDArray``."""
+    if info.ragged:
+        return
+    for slot, vals in ins.items():
+        if any(isinstance(v, LoDArray) for v in vals):
+            raise NotImplementedError(
+                "op %r has no pass-through for ragged input (a LoDArray in "
+                "slot %r): it is not ported for ragged (LoD) values"
+                % (info.type, slot))
 
 
 _M32 = 0xFFFFFFFF
@@ -211,6 +240,21 @@ def _is_float(v):
                                             v.is_complex())
 
 
+def _refuse_fp8(fwd_type, what, values):
+    """The generic grad never differentiates an fp8 value: an fp8 input
+    would get an fp8 grad, and an fp8 output (a store left on in the
+    re-run) would quantize its cotangent. Raises naming the op and the
+    slot; :func:`register_fp8_transparent_grad` is the fix."""
+    for slot, v in values.items():
+        if any(isinstance(t, torch.Tensor) and t.dtype in FP8_DTYPES
+               for t in pytree.tree_leaves(v)):
+            raise TypeError(
+                "%s_grad: the forward %s %r is fp8; fp8 is a storage "
+                "format and is never differentiated — dequantize it "
+                "(register_fp8_transparent_grad) or turn the store off "
+                "in the re-run (no_fp8_store)" % (fwd_type, what, slot))
+
+
 def make_generic_grad_lowering(fwd_type):
     """Lowering for ``<fwd_type>_grad``: ``torch.func.vjp`` of the forward
     lowering, with the reference's grad-op calling convention —
@@ -239,6 +283,7 @@ def make_generic_grad_lowering(fwd_type):
         diff_ins = {s: [fwd_ins[s][i] for i in idxs]
                     for s, idxs in want.items()}
         leaves, spec = pytree.tree_flatten(diff_ins)
+        _refuse_fp8(fwd_type, "input", diff_ins)
         diff_at = [j for j, v in enumerate(leaves) if _is_float(v)]
         fwd_ctx = LoweringContext(
             ctx.op.forward_op or _FakeFwdOp(ctx, fwd_type),
@@ -271,6 +316,7 @@ def make_generic_grad_lowering(fwd_type):
 
         primal, vjp_fn = torch.func.vjp(
             fwd_fn, [leaves[j] for j in diff_at])
+        _refuse_fp8(fwd_type, "output", dict(zip(kept, primal)))
         cot = [_coerce_cotangent(out_grads[s][i], y)
                for (s, i), y in zip(kept, primal)]
         (d_leaves,) = vjp_fn(cot) if primal else \
@@ -313,8 +359,95 @@ def ensure_grad_op_registered(fwd_type):
     if gtype not in OP_REGISTRY:
         OP_REGISTRY[gtype] = OpInfo(
             type=gtype, lowering=make_generic_grad_lowering(fwd_type),
-            no_grad=True, generic_grad=True)
+            no_grad=True, generic_grad=True,
+            ragged=get_op_info(fwd_type).ragged)
     return gtype
+
+
+# ---------------------------------------------------------------------------
+# fp8 storage
+# ---------------------------------------------------------------------------
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def cast_fp8(x, dtype):
+    """``x`` (bf16 or fp32) stored as the fp8 ``dtype`` with the
+    reference's semantics: round to nearest even inside the range, and
+    past it NaN (e4m3fn) or ±infinity (e5m2). Every fp8 store of the port
+    goes through it. e5m2 is ``x.to(dtype)``, which gives the reference's
+    bits on both backends, overflow included. e4m3fn has no infinity: the
+    reference gives NaN past 464 (the tie at 464 rounds to even, 448),
+    where the CPU's ``x.to(dtype)`` saturates to ±448 from 480; so the
+    cast takes ``x`` clamped to ±448 (in range on every backend, ±448 the
+    byte 0x7E under its sign) and sets the low bit past 464, which makes
+    it the NaN 0x7F under the same sign. A NaN input stays NaN (its sign
+    and payload bits are the backend's)."""
+    if dtype == torch.float8_e5m2:
+        return x.to(dtype)
+    q = x.clamp(-448.0, 448.0).to(dtype).view(torch.uint8)
+    return (q | (x.abs() > 464.0).view(torch.uint8)).view(dtype)
+
+
+def dense(v, dtype=torch.bfloat16):
+    """A stored fp8 value as a dense ``dtype`` (bf16) one — the one
+    dequant of the port: a ``ScaledFp8``'s dequant, a raw fp8 tensor
+    widened, a ``LoDArray`` of fp8 data rebuilt with its lengths;
+    anything else is returned as it is."""
+    if isinstance(v, ScaledFp8):
+        return v.dequant(dtype)
+    if isinstance(v, LoDArray):
+        return LoDArray(dense(v.data, dtype), v.length) \
+            if v.data.dtype in FP8_DTYPES else v
+    if isinstance(v, torch.Tensor) and v.dtype in FP8_DTYPES:
+        return v.to(dtype)
+    return v
+
+
+# the gate of the stores: thread-local, so one thread's grad re-run does
+# not turn the stores off (or back on) under another thread's step
+_fp8_tls = threading.local()
+
+
+def fp8_store_enabled():
+    return getattr(_fp8_tls, "on", True)
+
+
+@contextlib.contextmanager
+def no_fp8_store():
+    """Turn this thread's fp8 stores off for the block (a grad op's
+    re-run of its forward: its primal output stays bf16)."""
+    old = fp8_store_enabled()
+    _fp8_tls.on = False
+    try:
+        yield
+    finally:
+        _fp8_tls.on = old
+
+
+def register_fp8_transparent_grad(fwd_type, slots, around_vjp=None):
+    """Register ``<fwd_type>_grad`` as the generic vjp with the fp8
+    inputs of ``slots`` dequantized to bf16 (``dense``) before it: the
+    backward is the straight-through estimator, and the grads of those
+    inputs are bf16, never a quantized cotangent. ``around_vjp``: a
+    context-manager factory around the vjp (``no_fp8_store`` for an op
+    whose forward stores fp8). The forward must be registered."""
+    gen = make_generic_grad_lowering(fwd_type)
+
+    def lowering(ctx, ins):
+        ins = dict(ins)
+        for s in slots:
+            if ins.get(s):
+                ins[s] = [dense(v) for v in ins[s]]
+        with (around_vjp or contextlib.nullcontext)():
+            return gen(ctx, ins)
+
+    gtype = fwd_type + "_grad"
+    if gtype in OP_REGISTRY:
+        raise ValueError("op %r registered twice" % gtype)
+    OP_REGISTRY[gtype] = OpInfo(type=gtype, lowering=lowering, no_grad=True,
+                                generic_grad=True,
+                                ragged=get_op_info(fwd_type).ragged)
 
 
 def _consumer_index(program):

@@ -15,6 +15,7 @@ cannot show that a kernel compiles or how fast anything runs.
 """
 
 import json
+import os
 import subprocess
 
 import numpy as np
@@ -1091,3 +1092,93 @@ def test_nmt_profile_classes():
     assert cs.nmt_class("Memcpy DtoD (Device -> Device)") == "copy"
     assert cs.nmt_class("void at::native::(anonymous namespace)::"
                         "CatArrayBatchedCopy<float>") == "copy"
+
+
+@pytest.fixture
+def tiny_fp8(tiny_resnet, monkeypatch):
+    """Phase 16 at a tiny size on the CPU: phase 11's sizes at depth 18
+    (the bench at batch 4: at batch 2 the last stage's batch norms see 2
+    values a channel and fp8 conv outputs turn both packages' losses
+    NaN), the three-line bench's child process replaced by its lines."""
+    for name, value in (("RESNET_BATCH", 4), ("FP8_STEPS", 2)):
+        monkeypatch.setattr(cs, name, value)
+    for k in ("PADDLE_TPU_FP8_ACTS", "PADDLE_TPU_FP8_CONV_OUT",
+              "BENCH_RESNET_ONLY"):
+        monkeypatch.setenv(k, "")       # restored after the test
+
+
+def test_fp8_phase_rehearses_on_the_cpu(tiny_fp8, monkeypatch, capsys):
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch.benchmarks import resnet
+    cs._zero_counts()
+    gates = cs.fp8_gates()
+    assert len(gates["cast"]) == 4
+    assert all(r["differ"] == 0 for r in gates["cast"])
+    assert gates["cast"][0]["plain_to_on_card"]["872.0"] == 448.0
+    assert len(gates["conv2d"]) == 3 * 5
+    assert all(r["ok"] and r["same_payload"] == 1.0
+               for r in gates["conv2d"])
+    assert [r["dtype"] for r in gates["conv2d"][:5]] == \
+        ["float8_e4m3fn", "float8_e5m2"] + ["float8_e4m3fn"] * 3
+    assert all("next_scale" in r for r in gates["conv2d"][3:5])
+    assert len(gates["batch_norm"]) == 3 and \
+        all(r["ok"] for r in gates["batch_norm"])
+    grads = {r["conv_out"]: r for r in gates["no_fp8_grads"]}
+    assert set(grads) == {"0", "1", "e5m2", "scaled", "delayed"}
+    assert all(r["ok"] and not r["fp8_grads"] for r in grads.values())
+    assert grads["e5m2"]["stored"] == {
+        "relu": "Tensor torch.float8_e4m3fn",
+        "conv2d": "Tensor torch.float8_e5m2"}
+    assert grads["delayed"]["stored"]["conv2d"].startswith("ScaledFp8")
+    for mode in ("e5m2", "delayed"):
+        rep = cs.fp8_replay_gate(mode)
+        assert rep["losses_bitwise"] == [True, True]
+        assert rep["persistables_differing"] == []
+        assert rep["graph_launches"] == {"captures": 0, "replays": 0}
+        assert rep["fp8_scale_vars"] == (20 if mode == "delayed" else 0)
+        assert rep["fp8_scale_vars_moved"] == rep["fp8_scale_vars"]
+    phase11 = {"images_per_s": 1.0, "step_ms_captured": 2.0,
+               "replay_device_busy_ms": 1.5, "mfu": None,
+               "peak_memory_gb": None,
+               "replay_profile": {"class_ms": {"conv": 1.0}}}
+    res = cs.fp8_resnet_path("card, 700 W", phase11)
+    assert res["bench"]["precision"] == "bf16+fp8-acts+fp8-convout-e5m2"
+    assert res["bench"]["batch"] == 4 and res["bench"]["iters"] == 2
+    assert res["final_loss"] < res["first_loss"]
+    assert res["launches"] == {n: 0 for n in cs._kernel_counts()}
+    assert res["graph_launches"] == pexe.graph_launches
+    assert res["phase11_bf16"]["replay_class_ms"] == {"conv": 1.0}
+    assert {"device_busy_ms", "class_ms", "wall_ms"} <= \
+        set(res["replay_profile"])
+    assert len(res["round_s"]) == cs.RESNET_ROUNDS
+    # main() left neither the fp8 environment nor its knobs behind
+    assert os.environ["PADDLE_TPU_FP8_ACTS"] == ""
+    assert (resnet.BATCH, resnet.ITERS, resnet.DEPTH) == (256, 100, 50)
+    json.dumps(res, default=str)
+
+    lines = [{"metric": "lm", "value": 1.0},
+             {"metric": "nmt", "value": 2.0},
+             {"metric": resnet.METRIC, "value": 3.0,
+              "submetrics": {"lm": {"metric": "lm", "value": 1.0},
+                             "nmt": {"metric": "nmt", "value": 2.0}}}]
+    seen = {}
+
+    def fake_run(cmd, cwd, env, **kw):
+        seen.update(cmd=cmd, env=env)
+        out = "a log line\n" + "\n".join(json.dumps(ln) for ln in lines)
+        return subprocess.CompletedProcess(cmd, 0, out, "")
+
+    monkeypatch.setattr(cs.subprocess, "run", fake_run)
+    drv = cs.three_line_bench()
+    assert drv["lines"] == 3 and drv["submetrics"]["nmt"]["value"] == 2.0
+    assert seen["cmd"][1:] == ["-m", "paddle_tpu_torch.benchmarks.resnet"]
+    assert {k: v for k, v in seen["env"].items()
+            if k.startswith("BENCH_")} == dict(cs.THREE_LINE_KNOBS,
+                                              BENCH_FORCE_CPU="1")
+    lines[2]["submetrics"]["lm"] = {"error": "timeout after 900s"}
+    with pytest.raises(AssertionError, match="bad submetrics"):
+        cs.three_line_bench()
+    out = capsys.readouterr().out
+    assert "fp8 gates" in out and "under fp8 (delayed" in out
+    assert "bench.py's ResNet line (fp8 recipe)" in out
+    assert "three-line bench" in out

@@ -616,7 +616,25 @@ def test_flops_of_resnet50_match_the_reference():
 
 
 def test_delayed_fp8_conv_scale_is_not_ported(monkeypatch):
+    """``PADDLE_TPU_FP8_CONV_OUT=delayed`` used to raise at build time; the
+    delayed scale state is ported now, so the build gives every conv2d
+    the reference's persistable ``[1]`` fp32 scale var, threaded in as
+    ``Fp8Scale`` and out as ``Fp8ScaleOut`` under the same names (its
+    training is tested in ``test_torch_fp8.py``)."""
     monkeypatch.setenv("PADDLE_TPU_FP8_CONV_OUT", "delayed")
-    with pytest.raises(NotImplementedError, match="delayed"):
-        build(pfluid, pmodels, punique, depth=18, fmt="NHWC", batch=2,
-              size=32, amp=True)
+    kw = dict(depth=18, fmt="NHWC", batch=2, size=32, amp=True)
+    pprog, pstart, _ = build(pfluid, pmodels, punique, **kw)
+    jprog, _, _ = build(jfluid, jmodels, junique, **kw)
+    for prog in (pprog, jprog):
+        convs = [op for op in prog.global_block().ops if op.type == "conv2d"]
+        assert len(convs) == 20
+        for op in convs:
+            (name,) = op.inputs["Fp8Scale"]
+            assert op.outputs["Fp8ScaleOut"] == [name]
+            var = prog.global_block().var(name)
+            assert var.persistable and var.stop_gradient
+            assert list(var.shape) == [1] and var.dtype == "float32"
+    assert sorted(v.name for v in pprog.list_vars()) == \
+        sorted(v.name for v in jprog.list_vars())
+    assert [op.type for op in pstart.global_block().ops].count(
+        "fill_constant") >= 20
