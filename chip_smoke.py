@@ -58,7 +58,7 @@ raises on failure (the script then exits non-zero and prints no result):
    Adam)
    on tensors of 1, 1023 and 71,153,920 elements in one call, with and
    without global-norm clipping and a loss scale: within 2 ulp.
-4. Serving path: the 6-layer, 512-wide decoder (vocab 32000, 8 heads) in
+4. Serving path: the 4-layer, 512-wide decoder (vocab 32000, 8 heads) in
    fp32 and in bf16 with the same random weights, written with
    ``save_decoder`` and served by ``load_decoder`` → ``PagedDecodeEngine``
    → ``GenerationScheduler`` → ``make_server`` on 127.0.0.1. Eight
@@ -258,7 +258,7 @@ raises on failure (the script then exits non-zero and prints no result):
    SIGTERMs itself after round 2 and must exit 42 leaving a valid serial
    of step 2 and step counter 21; its relaunch must resume there and end
    bitwise an uninterrupted child. Phases 8, 9 and 10 each end in their
-   program's 10-step captured rounds (``captured_rounds``: a warm round
+   program's 5-step captured rounds (``captured_rounds``: a warm round
    and 2 timed; K4 steps x 1 and K5 x3 steps x 12, K6 x3, K6-fwd-dense,
    K1-dense steps x 12, counted through the replays; one capture), timed
    beside their eager p50 with a profiled replay's busy ms and idle
@@ -275,8 +275,8 @@ raises on failure (the script then exits non-zero and prints no result):
    captures, 5 replays; ``nmt_replay_gate``). (b) ``bench_nmt.py``'s
    configuration through ``paddle_tpu_torch.benchmarks.nmt.main()``
    (batch 64, max length 40, vocab 30000, 512 wide, bf16, ``Adam(1e-3)``,
-   the padded baseline and the length-pooled schedule, 200-step sweeps,
-   one warm and 3 timed; its JSON line printed), with one capture per
+   the padded baseline and the length-pooled schedule, sweeps of
+   ``NMT_ITERS`` steps (bench_nmt.py: 200), one warm and 3 timed; its JSON line printed), with one capture per
    distinct padded shape, no compile-cache miss in the timed sweeps and
    the loss finite and falling; beside it the captured step ms, the eager
    ``run()`` p50, each schedule's captures and peak memory. (c) One
@@ -316,6 +316,38 @@ raises on failure (the script then exits non-zero and prints no result):
    line's alone)): exactly three JSON lines, the ResNet line last, its
    ``submetrics.lm`` and ``.nmt`` numeric and without ``error``.
 
+17. Inference deployment (run after phase 16). (a) fp32, TF32 off, for
+   bench.py's ResNet-50 (NHWC inside, 224x224, 1000 classes) and the
+   stacked-LSTM classifier at ``benchmark/fluid/stacked_dynamic_lstm.py``'s
+   widths (dict 5147, emb 128, hid 512, 3 LSTMs, 2 classes, up to 80 ids;
+   a ragged int feed), random weights from ``SEED`` (``export_gate``):
+   the program pruned, exported with ``io.export_artifact`` at batch 4
+   (``torch.export``, the batch dim symbolic) and loaded back; the
+   artifact against ``Executor.run`` of the pruned program at batches 1,
+   3 and 16 (LSTM lengths 1, 80 and 40-80) within 1e-5 relative L2, and
+   against the CPU's run at batch 2 within 1e-4; ``save_inference_model``
+   → ``load_inference_model`` → ``run`` bit for bit the program's. (b)
+   Each artifact served in-process through ``InferenceSession`` →
+   ``MicroBatcher`` from 16 threads (``serve_gate``): ResNet-50 256
+   requests at ``max_batch_size`` 32, the classifier 1024 requests of
+   40-80 ids (256 distinct sequences) at 64 and ``bucket_multiple`` 16,
+   ``max_wait_ms`` 5: no error, mean occupancy > 1, every output within
+   1e-5 of the artifact's run on its request alone; requests/s, latency
+   p50/p99, occupancy, the shapes run and one full window's wall against
+   device-busy ms printed. (c) ``python -m
+   paddle_tpu_torch.serving.serve --artifact`` (the classifier) as a
+   child process (``http_gate``): 32 requests from 4 ``ServingClient``s,
+   each 200 with its outputs as in (b) and its X-Request-Id echoed;
+   /metrics' occupancy; a bad feed a 400 naming the feed; then 32
+   requests in flight and SIGTERM: /healthz answers 503, every one of
+   them 200, exit code 0. No hand-written kernel launches in (a)-(c).
+   (d) ``transformer_lm`` at bench_lm.py's widths and 2 layers, bf16
+   under amp, exported (``lm_export_gate``): its graph holds K1 as
+   ``paddle_tpu::flash_fwd`` once a layer; each call of the artifact
+   launches K1 once a layer (the kernels line counts them), no other
+   kernel and never the plain version; its logits within ``BF16_TOL`` of
+   ``Executor.run``'s.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -351,13 +383,15 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# the serving slice's model: the flagship LM widths at half its depth (6 of
-# bench_lm.py's 12 layers; 12 until phase 16 came), so that every phase fits
-# the script's time limit
-VOCAB, DIM, HEADS, LAYERS, FFN_MULT = 32000, 512, 8, 6, 4
+# the serving slice's model: the flagship LM widths at a third of its depth
+# (4 of bench_lm.py's 12 layers; 12 until phase 16 came, 6 until phase 17
+# came), so that every phase fits the script's time limit
+VOCAB, DIM, HEADS, LAYERS, FFN_MULT = 32000, 512, 8, 4, 4
 SLOTS, MAX_LEN, BUCKETS, PAGE = 32, 1024, "64,128,256,512", 16
 N_CLIENTS, PER_CLIENT = 8, 6
-PROMPT_LEN, NEW_TOKENS = (16, 480), (32, 128)   # seeded, inclusive
+# seeded, inclusive; the new tokens 32-128 until phase 17 came (cut for the
+# script's time limit)
+PROMPT_LEN, NEW_TOKENS = (16, 480), (16, 64)
 SEED = 0
 DEVICE = "cuda"
 
@@ -1294,7 +1328,7 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
     sched_kw.setdefault("brownout", BrownoutController(dwell_s=math.inf))
     sched = GenerationScheduler(engine, queue_depth=128, seed=SEED,
                                 draft_engine=draft, **sched_kw)
-    server = make_server(sched, host="127.0.0.1", port=0,
+    server = make_server(None, generator=sched, host="127.0.0.1", port=0,
                          request_timeout=300.0).start_background()
     url = server.url + "/v1/generate"
     extra = extra or [({}, {})] * len(prompts)
@@ -4135,9 +4169,9 @@ DROPOUT_P, DROPOUT_ROWS, DROPOUT_WIDTH, DROPOUT_STEPS = 0.5, 64, 512, 8
 # The cut: 10-step rounds against bench_lm.py's 60, so that phase 16 fits
 # the script's time limit
 BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 10, 3, 5
-# phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS (10
-# steps a round, 20 until phase 16 came)
-CAPTURED_STEPS, CAPTURED_ROUNDS = 10, 2
+# phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS (5
+# steps a round; 20 until phase 16 came, 10 until phase 17 came)
+CAPTURED_STEPS, CAPTURED_ROUNDS = 5, 2
 # the preemption gate: the 2-layer LM at full width, one run_steps round
 # of RESUME_ROUND_STEPS per train_loop step, SIGTERM after round
 # RESUME_PREEMPT_AFTER, a checkpoint every round
@@ -4661,6 +4695,9 @@ NGATE_LOSS_RTOL, NGATE_UPDATE_REL_L2 = 1e-5, 1e-2
 # with feed 0 padded to 16 and feed 1 to 24 — 2 captures, 5 replays
 NREPLAY_SCHEDULE = ((0, 2), (1, 3), (0, 2))
 NMT_EAGER_STEPS, NMT_PROFILE_STEPS = 4, 3
+# the bench's sweeps, cut for the script's time limit (bench_nmt.py: 200
+# steps; 200 here until phase 17 came)
+NMT_ITERS = 100
 # device kernels by what they compute, for the NMT profile (first match
 # wins): cuBLAS/CUTLASS GEMMs, reductions, copies, the rest elementwise
 _NMT_CLASSES = (
@@ -4835,9 +4872,9 @@ def nmt_replay_gate(amp):
 
 def nmt_path(card_label=""):
     """bench_nmt.py's measured path at its full configuration through
-    ``benchmarks.nmt.main()`` (the JSON line printed): the padded
-    baseline and the pooled schedule, each a warm sweep and 3 timed
-    200-step sweeps; the kernel and graph counts set to 0 just before
+    ``benchmarks.nmt.main()`` (the JSON line printed), its sweeps cut to
+    NMT_ITERS steps: the padded baseline and the pooled schedule, each a
+    warm sweep and 3 timed sweeps; the kernel and graph counts set to 0 just before
     and read just after, and per schedule its captures and peak memory.
     Gates: one capture per distinct padded shape, no compile-cache miss
     in the timed sweeps, the loss finite and falling over the sweeps,
@@ -4866,17 +4903,20 @@ def nmt_path(card_label=""):
 
     _zero_counts()
     nmt._measure_schedule = measure
+    real_iters = nmt.ITERS
+    nmt.ITERS = min(nmt.ITERS, NMT_ITERS)
     try:
         with unique_name.guard():
             rec = nmt.main()
     finally:
         nmt._measure_schedule = real_measure
+        nmt.ITERS = real_iters
     launches, graphs = _kernel_counts(), dict(pexe.graph_launches)
     sweep_losses = {k: [float(h.numpy()[0]) for h in hs]
                     for k, hs in rec.pop("_handles").items()}
     shapes = {(s, t) for s, t, _ in rec["_shapes"]} | {(nmt.SEQ, nmt.SEQ)}
     base_ms = float(np.median(rec["_sweep_s"]["baseline"])) * 1e3 / \
-        nmt.ITERS
+        rec["iters"]
     pooled_ms = float(np.median(rec["_sweep_s"]["pooled"])) * 1e3 / \
         rec["pooled_steps"]
     # the eager step and a profiled replay of the baseline's step
@@ -4892,9 +4932,10 @@ def nmt_path(card_label=""):
         exe.close()
     res = {"bench": {k: v for k, v in rec.items() if not k.startswith("_")},
            "card": card_label,
-           "cut": "none: bench_nmt.py's configuration (batch 64, max "
-                  "length 40, vocab 30000, 512 wide, %d-step sweeps, %d "
-                  "timed)" % (nmt.ITERS, nmt.ROUNDS),
+           "cut": "the sweeps to %d steps (bench_nmt.py: 200); else "
+                  "bench_nmt.py's configuration (batch 64, max length 40, "
+                  "vocab 30000, 512 wide, %d timed)"
+                  % (rec["iters"], nmt.ROUNDS),
            "sweep_s": rec["_sweep_s"], "sweep_losses": sweep_losses,
            "padded_shapes": sorted(shapes),
            "pooled_shapes_steps": rec["_shapes"],
@@ -5412,6 +5453,527 @@ def three_line_bench():
     return res
 
 
+# -- phase 17: inference deployment -----------------------------------------
+
+# the served models at the repo's widths: bench.py's ResNet-50 (NHWC
+# inside, 224x224, 1000 classes) and the stacked-LSTM classifier at
+# benchmark/fluid/stacked_dynamic_lstm.py's widths (dict 5147, emb 128, hid
+# 512, 3 LSTMs of alternating direction, 2 classes, 80 ids at most)
+INFER_RESNET = {"depth": 50, "size": 224, "classes": 1000}
+INFER_LSTM = {"dict_dim": 5147, "emb": 128, "hid": 512, "stacked": 3,
+              "classes": 2, "max_len": 80}
+INFER_BATCHES = (1, 3, 16)       # export_artifact traces at 4
+INFER_CPU_BATCH = 2
+INFER_REL_L2 = 1e-5              # the artifact against Executor.run
+INFER_CPU_REL_L2 = 1e-4          # the card's artifact against the CPU
+SERVE_REL_L2 = 1e-5              # a served output against its request alone
+SERVE_THREADS = 16
+SERVE_MAX_WAIT_MS = 5.0
+# per model: requests, distinct samples among them (each request is held
+# to its sample's run alone), the batcher's ceiling and bucket grid
+SERVE_RUNS = {"resnet": {"requests": 256, "distinct": 256, "max_batch": 32,
+                         "bucket": None},
+              "lstm": {"requests": 1024, "distinct": 256, "max_batch": 64,
+                       "bucket": 16}}
+HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_DRAIN_REQUESTS = 4, 8, 32
+HTTP_TIMEOUT_S = 120
+INFER_LM_LAYERS, INFER_LM_BATCH, INFER_LM_CALLS = 2, 2, 2
+
+
+def build_infer(fluid, kind):
+    """Phase 17's ``kind`` ("resnet" or "lstm") for inference: (program,
+    startup, prediction, feed names, max_seq_len); the weights the port's
+    initializers draw from ``SEED``."""
+    from paddle_tpu_torch import models, unique_name
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = SEED
+        with fluid.program_guard(prog, startup):
+            if kind == "resnet":
+                c = INFER_RESNET
+                x = fluid.layers.data(name="images",
+                                      shape=[3, c["size"], c["size"]],
+                                      dtype="float32")
+                pred = models.resnet_imagenet(
+                    x, class_dim=c["classes"], depth=c["depth"],
+                    data_format="NHWC")
+                max_len = None
+            else:
+                c = INFER_LSTM
+                x = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                      lod_level=1)
+                pred = models.stacked_lstm_net(
+                    x, c["dict_dim"], class_dim=c["classes"],
+                    emb_dim=c["emb"], hid_dim=c["hid"],
+                    stacked_num=c["stacked"])
+                max_len = c["max_len"]
+    return prog, startup, pred, [x.name], max_len
+
+
+def infer_samples(kind, n, seed, lengths=None):
+    """``n`` single-request samples: images [3, s, s], or id sequences of
+    ``lengths`` (default: half to all of the LSTM's max_len)."""
+    rng = np.random.RandomState(seed)
+    if kind == "resnet":
+        s = INFER_RESNET["size"]
+        return [rng.rand(3, s, s).astype(np.float32) for _ in range(n)]
+    c = INFER_LSTM
+    if lengths is None:
+        lengths = rng.randint(c["max_len"] // 2, c["max_len"] + 1, size=n)
+    return [rng.randint(0, c["dict_dim"], size=int(n_ids)).astype(np.int64)
+            for n_ids in lengths]
+
+
+def gate_lengths(batch):
+    """The LSTM lengths of a parity batch: 1, max_len, then half to all
+    of max_len."""
+    m = INFER_LSTM["max_len"]
+    rest = np.random.RandomState(batch).randint(m // 2, m + 1, size=batch)
+    return ([1, m] + [int(n) for n in rest])[:batch]
+
+
+def infer_feed(kind, samples):
+    if kind == "resnet":
+        return {"images": np.stack(samples)}
+    return {"words": list(samples)}
+
+
+def _rel(got, want):
+    import torch
+    return _rel_l2(torch.from_numpy(np.asarray(got, np.float64)),
+                   torch.from_numpy(np.asarray(want, np.float64)))
+
+
+def export_gate(kind, workdir):
+    """Phase 17 (a), fp32 with TF32 off: the model pruned, exported (the
+    trace at batch 4) and loaded back; the artifact against
+    ``Executor.run`` of the pruned program on the card at INFER_BATCHES
+    (LSTM lengths 1, max_len and 40-80) within INFER_REL_L2, against the
+    CPU's run at INFER_CPU_BATCH within INFER_CPU_REL_L2;
+    ``save_inference_model`` → ``load_inference_model`` → ``run``
+    bitwise the original program. Returns (report, artifact, its
+    directory)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    _fp32()
+    prog, startup, pred, feeds, max_len = build_infer(fluid, kind)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    d = os.path.join(workdir, "artifact_" + kind)
+    t0 = time.perf_counter()
+    io.export_artifact(d, feeds, [pred], exe, main_program=prog, scope=scope,
+                       max_seq_len=max_len)
+    t1 = time.perf_counter()
+    art = io.load_artifact(d)
+    res = {"export_s": t1 - t0, "load_s": time.perf_counter() - t1,
+           "artifact_mb": os.path.getsize(os.path.join(
+               d, "__model__.pt2")) / 1e6,
+           "graph_nodes": len(art.graph.nodes), "rel_l2": {}}
+    infer = prog.prune([pred]).inference_optimize()
+
+    def feed_at(batch, seed):
+        return infer_feed(kind, infer_samples(
+            kind, batch, seed, gate_lengths(batch) if kind == "lstm"
+            else None))
+
+    for batch in INFER_BATCHES:
+        feed = feed_at(batch, batch)
+        got = art.run(feed)[0]
+        want = exe.run(infer, feed=feed, fetch_list=[pred.name],
+                       scope=scope)[0]
+        res["rel_l2"][batch] = _rel(got, want)
+        if got.shape != want.shape or not \
+                res["rel_l2"][batch] <= INFER_REL_L2:
+            raise AssertionError(
+                "%s artifact at batch %d: shape %s vs %s, rel L2 %.3g "
+                "against Executor.run (limit %g)"
+                % (kind, batch, got.shape, want.shape,
+                   res["rel_l2"][batch], INFER_REL_L2))
+    cpu_scope = _copy_scope(fluid, {n: scope.find_var(n)
+                                    for n in scope.local_var_names()}, "cpu")
+    feed = feed_at(INFER_CPU_BATCH, 99)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        infer, feed=feed, fetch_list=[pred.name], scope=cpu_scope)[0]
+    res["rel_l2_vs_cpu"] = _rel(art.run(feed)[0], cpu)
+    if not res["rel_l2_vs_cpu"] <= INFER_CPU_REL_L2:
+        raise AssertionError("%s artifact against the CPU at batch %d: rel "
+                             "L2 %.3g (limit %g)"
+                             % (kind, INFER_CPU_BATCH,
+                                res["rel_l2_vs_cpu"], INFER_CPU_REL_L2))
+    md = os.path.join(workdir, "model_" + kind)
+    with fluid.scope_guard(scope):
+        io.save_inference_model(md, feeds, [pred], exe, main_program=prog)
+    with fluid.scope_guard(fluid.Scope()):
+        lprog, lfeeds, lfetch = io.load_inference_model(md, exe)
+        loaded = exe.run(lprog, feed=feed, fetch_list=lfetch)[0]
+    orig = exe.run(infer, feed=feed, fetch_list=[pred.name], scope=scope)[0]
+    if lfeeds != feeds or not np.array_equal(loaded, orig):
+        raise AssertionError("%s: load_inference_model's run is not the "
+                             "program's bit for bit (feeds %s, max |diff| "
+                             "%.3g)" % (kind, lfeeds, float(np.abs(
+                                 loaded - orig).max())))
+    res["inference_model_bitwise"] = True
+    log("phase 17 (a) %s: %s" % (kind, json.dumps(res)))
+    return res, art, d
+
+
+def _percentile(xs, p):
+    return float(np.percentile(np.asarray(xs), p))
+
+
+def serve_gate(kind, art):
+    """Phase 17 (b): SERVE_RUNS[kind]'s requests through
+    ``InferenceSession.from_artifact`` → ``MicroBatcher``, from
+    SERVE_THREADS threads, each sending its share one at a time. Gates:
+    no error, mean occupancy > 1, every output within SERVE_REL_L2 of
+    ``artifact.run`` on its sample alone. Records requests/s, latency
+    p50/p99, occupancy, the shapes run, and one full window's wall
+    against device-busy ms. Returns (report, (samples, their outputs
+    alone))."""
+    import threading
+    import torch
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving import InferenceSession, MicroBatcher
+    run = SERVE_RUNS[kind]
+    name = art.feed_names[0]
+    samples = infer_samples(kind, run["distinct"], seed=17)
+    t0 = time.perf_counter()
+    alone = [art.run(infer_feed(kind, [s]))[0][0] for s in samples]
+    alone_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    order = rng.permutation(np.resize(np.arange(len(samples)),
+                                      run["requests"]))
+    session = InferenceSession.from_artifact(art,
+                                             bucket_multiple=run["bucket"])
+    batcher = MicroBatcher(session, max_batch_size=run["max_batch"],
+                           max_wait_ms=SERVE_MAX_WAIT_MS,
+                           queue_depth=run["requests"])
+    c0 = profiler.get_counters()
+    outs, lat, errors = [None] * len(order), [None] * len(order), []
+
+    def client(t):
+        for i in range(t, len(order), SERVE_THREADS):
+            try:
+                p = batcher.submit({name: samples[order[i]]})
+                outs[i] = p.wait(HTTP_TIMEOUT_S)[0]
+                lat[i] = (p.t_done - p.t_enqueue) * 1e3
+            except Exception as e:
+                errors.append("request %d: %s: %s" % (i, type(e).__name__,
+                                                      e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    drained = batcher.close(60)
+    c1 = profiler.get_counters()
+
+    def delta(k):
+        return c1.get(k, 0.0) - c0.get(k, 0.0)
+    batches = delta("serving_batches_total")
+    occupancy = delta("serving_batched_requests_total") / max(batches, 1)
+    worst = max((_rel(outs[i], alone[order[i]]) for i in range(len(order))
+                 if outs[i] is not None), default=float("inf"))
+    # one full window, profiled: wall against device-busy
+    window = [{name: s} for s in samples[:run["max_batch"]]]
+    session.run_many(window)
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        session.run_many(window)
+        _sync()
+        window_ms = (time.perf_counter() - t1) * 1e3
+    kp = _kernel_profile(prof, 1)
+    res = {"requests": len(order), "distinct_samples": len(samples),
+           "threads": SERVE_THREADS, "max_batch_size": run["max_batch"],
+           "max_wait_ms": SERVE_MAX_WAIT_MS,
+           "bucket_multiple": run["bucket"],
+           "requests_per_s": len(order) / wall, "wall_s": wall,
+           "latency_ms_p50": _percentile([x for x in lat if x is not None],
+                                         50) if any(lat) else None,
+           "latency_ms_p99": _percentile([x for x in lat if x is not None],
+                                         99) if any(lat) else None,
+           "mean_occupancy": occupancy, "batches": batches,
+           "compiled_shapes": sorted(session.compiled_shapes,
+                                     key=lambda s: (s[0] or 0, s[1])),
+           "worst_rel_l2_vs_alone": worst, "alone_runs_s": alone_s,
+           "window": {"requests": len(window), "wall_ms": window_ms,
+                      "device_busy_ms": kp["device_busy_ms"],
+                      "idle_share": 1.0 - kp["device_busy_ms"] / window_ms,
+                      "class_ms": kp["class_ms"]},
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "drained": drained, "errors": errors[:5]}
+    log("phase 17 (b) %s served: %s" % (kind, json.dumps(res)))
+    if errors or not drained:
+        raise AssertionError("%s served: %d errors %s, drained %s"
+                             % (kind, len(errors), errors[:3], drained))
+    if not worst <= SERVE_REL_L2:
+        raise AssertionError("%s served: an output %.3g rel L2 from its "
+                             "request alone (limit %g)"
+                             % (kind, worst, SERVE_REL_L2))
+    if not occupancy > 1.0:
+        raise AssertionError("%s served: mean occupancy %.2f (no batching)"
+                             % (kind, occupancy))
+    return res, (samples, alone)
+
+
+def start_serve_cli(art_dir):
+    """``python -m paddle_tpu_torch.serving.serve --artifact art_dir`` as
+    a child process on a free port; it boots while the caller goes on."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.serve",
+         "--artifact", art_dir, "--port", "0"], cwd=REPO, env=env,
+        stderr=subprocess.PIPE, text=True)
+
+
+def stop_child(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(30)
+    proc.stderr.close()
+
+
+def _start_line(proc, timeout):
+    """The child's ``serve: http://`` line (the lines before it, warnings,
+    skipped), or the last line read when it exits or ``timeout`` passes
+    first."""
+    import threading
+    box = [""]
+
+    def read():
+        for line in proc.stderr:
+            box[0] = line
+            if line.startswith("serve: http://"):
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(timeout)
+    return box[0]
+
+
+def _infer_post(url, body, request_id=None):
+    """(status, headers, JSON body) of one POST /v1/infer."""
+    headers = {"Content-Type": "application/json"}
+    if request_id:
+        headers["X-Request-Id"] = request_id
+    req = urllib.request.Request(url + "/v1/infer",
+                                 data=json.dumps(body).encode(),
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, r.headers, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, json.loads(e.read())
+
+
+def http_gate(proc, samples, alone):
+    """Phase 17 (c): ``python -m paddle_tpu_torch.serving.serve
+    --artifact`` as a child (``proc``, from ``start_serve_cli``; stopped
+    here); HTTP_CLIENTS ``ServingClient``s send
+    HTTP_PER_CLIENT requests each: every response 200 with its outputs
+    within SERVE_REL_L2 of the sample's run alone and its X-Request-Id
+    echoed; /metrics shows the occupancy; a bad feed is a 400 naming the
+    feed. Then HTTP_DRAIN_REQUESTS requests in flight and SIGTERM:
+    /healthz answers 503, every one of them completes 200, and the child
+    exits 0."""
+    import signal
+    import threading
+    from paddle_tpu_torch.serving import ServingClient
+    t0 = time.perf_counter()
+    try:
+        line = _start_line(proc, HTTP_TIMEOUT_S)
+        if not line.startswith("serve: http://"):
+            raise AssertionError("serve --artifact did not start: %r"
+                                 % line)
+        start_s = time.perf_counter() - t0
+        url = line.split()[1]
+        echoed, errors = [], []
+
+        class EchoClient(ServingClient):
+            def _request(self, path, data=None, request_id=None, **kw):
+                out = ServingClient._request(self, path, data=data,
+                                             request_id=request_id, **kw)
+                if data is not None:
+                    echoed.append((request_id, out[2].get("X-Request-Id"),
+                                   out[0]))
+                return out
+
+        def client(ci):
+            c = EchoClient(url)
+            for j in range(HTTP_PER_CLIENT):
+                k = (ci * HTTP_PER_CLIENT + j) % len(samples)
+                try:
+                    (out,) = c.infer({"words": samples[k]})
+                    rel = _rel(out, alone[k])
+                    if not rel <= SERVE_REL_L2:
+                        errors.append("sample %d: rel L2 %.3g" % (k, rel))
+                except Exception as e:
+                    errors.append("%s: %s" % (type(e).__name__, e))
+
+        threads = [threading.Thread(target=client, args=(ci,))
+                   for ci in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        bad_echo = [e for e in echoed if e[0] != e[1] or e[2] != 200]
+        metrics = ServingClient(url).metrics()
+        occupancy = metrics["paddle_tpu_serving_batched_requests_total"] / \
+            max(metrics["paddle_tpu_serving_batches_total"], 1.0)
+        code, _, body = _infer_post(url, {"feeds": {"ids": [1, 2]}})
+        bad_feed = (code, body.get("error", ""))
+        admitted = metrics["paddle_tpu_serving_requests_total"]
+        # requests in flight, then SIGTERM
+        statuses = [None] * HTTP_DRAIN_REQUESTS
+
+        def drain_client(i):
+            try:
+                statuses[i] = _infer_post(
+                    url, {"feeds": {"words": samples[i % len(samples)]
+                                    .tolist()}})[0]
+            except OSError as e:
+                statuses[i] = "%s: %s" % (type(e).__name__, e)
+
+        drainers = [threading.Thread(target=drain_client, args=(i,))
+                    for i in range(HTTP_DRAIN_REQUESTS)]
+        for t in drainers:
+            t.start()
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline and ServingClient(
+                url).metrics()["paddle_tpu_serving_requests_total"] < \
+                admitted + HTTP_DRAIN_REQUESTS:
+            time.sleep(0.002)
+        pending = sum(s is None for s in statuses)
+        proc.send_signal(signal.SIGTERM)
+        health = []
+        while time.perf_counter() < deadline:
+            try:
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=5) as r:
+                    health.append(r.status)
+            except urllib.error.HTTPError as e:
+                health.append(e.code)
+            except OSError:
+                break                       # the listener has stopped
+            time.sleep(0.002)
+        for t in drainers:
+            t.join()
+        rc = proc.wait(60)
+    finally:
+        stop_child(proc)
+    res = {"start_wait_s": start_s, "requests": len(echoed),
+           "echo_mismatches": len(bad_echo), "errors": errors[:5],
+           "metrics_occupancy": occupancy,
+           "metrics_batches": metrics["paddle_tpu_serving_batches_total"],
+           "bad_feed": bad_feed, "drain_pending_at_sigterm": pending,
+           "drain_statuses": sorted({str(s) for s in statuses}),
+           "healthz_after_sigterm": sorted(set(health)), "exit_code": rc,
+           "wall_s": time.perf_counter() - t0}
+    log("phase 17 (c) serve --artifact over HTTP: %s" % json.dumps(res))
+    if errors or bad_echo or len(echoed) != HTTP_CLIENTS * HTTP_PER_CLIENT:
+        raise AssertionError("serve CLI: %d responses, %d id echoes wrong, "
+                             "errors %s" % (len(echoed), len(bad_echo),
+                                            errors[:3]))
+    if not occupancy >= 1.0:
+        raise AssertionError("serve CLI: /metrics occupancy %r" % occupancy)
+    if bad_feed[0] != 400 or "'words'" not in bad_feed[1]:
+        raise AssertionError("serve CLI: a bad feed answered %r"
+                             % (bad_feed,))
+    if 503 not in health or any(s != 200 for s in statuses) or rc != 0:
+        raise AssertionError(
+            "serve CLI drain: /healthz after SIGTERM %s (want a 503), the "
+            "in-flight requests %s (want 200), exit code %s (want 0)"
+            % (sorted(set(health)), sorted({str(s) for s in statuses}),
+               rc))
+    return res
+
+
+def lm_export_gate(workdir):
+    """Phase 17 (d): ``transformer_lm`` at bench_lm.py's widths and
+    INFER_LM_LAYERS layers, bf16 under amp, exported on the card. Its
+    graph holds K1 as ``paddle_tpu::flash_fwd`` once a layer; each of
+    INFER_LM_CALLS calls of the artifact launches K1 once a layer and no
+    other kernel, and never takes the plain version; the logits within
+    BF16_TOL of ``Executor.run``. Returns the report with the calls'
+    launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io, models, unique_name
+    from paddle_tpu_torch.ops import flash_attention as fa
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = SEED
+        with fluid.program_guard(prog, startup):
+            ids = fluid.layers.data(name="ids", shape=[LM_SEQ],
+                                    dtype="int64")
+            logits = models.transformer_lm(
+                ids, LM_VOCAB, num_layers=INFER_LM_LAYERS, d_model=LM_DIM,
+                num_heads=LM_HEADS, max_len=LM_SEQ)
+        fluid.enable_mixed_precision(prog)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    d = os.path.join(workdir, "artifact_lm")
+    t0 = time.perf_counter()
+    io.export_artifact(d, ["ids"], [logits], exe, main_program=prog,
+                       scope=scope)
+    t1 = time.perf_counter()
+    art = io.load_artifact(d)
+    load_s = time.perf_counter() - t1
+    ops = [str(n.target) for n in art.graph.nodes if n.op == "call_function"]
+    feed = {"ids": np.random.RandomState(SEED).randint(
+        0, LM_VOCAB, (INFER_LM_BATCH, LM_SEQ)).astype(np.int64)}
+    want = exe.run(prog.prune([logits]).inference_optimize(), feed=feed,
+                   fetch_list=[logits.name], scope=scope)[0]
+    plain = [0]
+    real_plain = fa._fwd_plain
+
+    def counted(*a, **k):
+        plain[0] += 1
+        return real_plain(*a, **k)
+
+    _reset_kernel_counts()
+    fa._fwd_plain = counted
+    try:
+        for _ in range(INFER_LM_CALLS):
+            got = art.run(feed)[0]
+    finally:
+        fa._fwd_plain = real_plain
+    launches = {n: c for n, c in _kernel_counts().items() if c}
+    calls = INFER_LM_CALLS * INFER_LM_LAYERS
+    want_launches = {"flash_fwd": calls} if DEVICE == "cuda" else {}
+    err = float(np.abs(got.astype(np.float32) - want).max())
+    res = {"export_s": t1 - t0, "load_s": load_s,
+           "flash_fwd_ops_in_graph": ops.count("paddle_tpu.flash_fwd.default"),
+           "calls": INFER_LM_CALLS, "launches": launches,
+           "plain_calls": plain[0], "max_abs_err_vs_executor": err,
+           "dtype": str(got.dtype)}
+    log("phase 17 (d) transformer_lm artifact: %s" % json.dumps(res))
+    if res["flash_fwd_ops_in_graph"] != INFER_LM_LAYERS:
+        raise AssertionError("LM artifact: %d paddle_tpu::flash_fwd nodes "
+                             "for %d layers" % (res["flash_fwd_ops_in_graph"],
+                                                INFER_LM_LAYERS))
+    _counts_gate("phase 17 (d)", _kernel_counts(), want_launches)
+    if DEVICE == "cuda" and plain[0]:
+        raise AssertionError("LM artifact took the plain version %d times "
+                             "on the card" % plain[0])
+    np.testing.assert_allclose(got.astype(np.float32), want, **BF16_TOL)
+    return res
+
+
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -5616,6 +6178,33 @@ def main(argv=None):
             report["three_line_bench"] = three_line_bench()
             lap("three_line_bench")
             _counts_gate("phase 16", _kernel_counts(), {})
+            # phase 17: inference deployment; (a)-(c) launch no
+            # hand-written kernel, (d) K1 alone
+            _zero_counts()
+            arts, alone = {}, {}
+            report["infer_export_lstm"], arts["lstm"], lstm_dir = \
+                export_gate("lstm", workdir)
+            lap("infer_export_lstm")
+            # the CLI child boots while ResNet-50 exports and serves
+            child = start_serve_cli(lstm_dir)
+            try:
+                report["infer_export_resnet"], arts["resnet"], _ = \
+                    export_gate("resnet", workdir)
+                lap("infer_export_resnet")
+                for kind in ("resnet", "lstm"):
+                    report["infer_serve_" + kind], alone[kind] = \
+                        serve_gate(kind, arts.pop(kind))
+                    lap("infer_serve_" + kind)
+                report["infer_http"] = http_gate(child, *alone["lstm"])
+                lap("infer_http")
+            finally:
+                stop_child(child)
+            _counts_gate("phase 17 (a)-(c)", _kernel_counts(), {})
+            report["infer_lm"] = lm_export_gate(workdir)
+            lap("infer_lm")
+            for row in report["flash_timing"]:
+                row["launches"] += report["infer_lm"]["launches"].get(
+                    row["name"], 0)
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

@@ -33,6 +33,13 @@ These paths are ported:
   ``robustness.CheckpointManager``), with step telemetry
   (``observability.steps``) and random ops (``dropout``) that a captured
   step replays with fresh draws;
+- inference deployment: ``Program`` serialization, ``clone`` /
+  ``prune``, ``io.save_inference_model`` / ``load_inference_model``, an
+  exported ``torch.export`` artifact (``inference_export``; the flash
+  forwards recorded as ``paddle_tpu::`` custom ops) served through
+  ``serving.InferenceSession``, the ``MicroBatcher`` and ``POST
+  /v1/infer`` (``serving.serve --artifact``), and
+  ``models.stacked_lstm_net``;
 - seq2seq NMT training as ``bench_nmt.py`` measures it
   (``benchmarks.nmt``): ragged ``LoDArray`` values (one LoD level)
   through the IR, the executor and autodiff, ``dynamic_lstm``,
@@ -96,7 +103,7 @@ from .framework import (Parameter, Program, Variable,       # noqa: E402
                         default_main_program, default_startup_program,
                         program_guard)
 from . import ops as _ops       # noqa: E402,F401  registers the lowerings
-from . import data, layers, models, optimizer               # noqa: E402
+from . import data, layers, optimizer                       # noqa: E402
 from .backward import append_backward                       # noqa: E402
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa
 from . import io                                            # noqa: E402
@@ -104,3 +111,12 @@ from .param_attr import ParamAttr                           # noqa: E402
 
 Tensor = LoDArray
 LoDTensor = LoDArray
+
+
+def __getattr__(name):
+    # the model zoo loads on first use: a process that only runs an
+    # exported artifact never imports model-building code
+    if name == "models":
+        import importlib
+        return importlib.import_module(".models", __name__)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

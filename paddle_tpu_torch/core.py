@@ -149,10 +149,18 @@ class LoDArray:
         return [data[i, : lens[i]] for i in range(data.shape[0])]
 
 
+def _keyed(*fields):
+    """A ``flatten_with_keys_fn`` over ``fields`` (``torch.export``
+    flattens its inputs with key paths)."""
+    return lambda x: ([(pytree.GetAttrKey(f), getattr(x, f))
+                       for f in fields], None)
+
+
 pytree.register_pytree_node(
     LoDArray, lambda x: ([x.data, x.length], None),
     lambda children, _: LoDArray(*children),
-    serialized_type_name="paddle_tpu_torch.core.LoDArray")
+    serialized_type_name="paddle_tpu_torch.core.LoDArray",
+    flatten_with_keys_fn=_keyed("data", "length"))
 
 
 class ScaledFp8:
@@ -203,4 +211,5 @@ class ScaledFp8:
 pytree.register_pytree_node(
     ScaledFp8, lambda x: ([x.data, x.scale], None),
     lambda children, _: ScaledFp8(*children),
-    serialized_type_name="paddle_tpu_torch.core.ScaledFp8")
+    serialized_type_name="paddle_tpu_torch.core.ScaledFp8",
+    flatten_with_keys_fn=_keyed("data", "scale"))

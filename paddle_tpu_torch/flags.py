@@ -9,12 +9,26 @@ always goes through the hand-written kernel (or raises), so there is no
 switch that routes the card around it.
 """
 
-# Serving admission (serving.batcher.resolve_serving_knobs):
-# ``serving_queue_depth`` bounds the admission queue — a full queue
-# rejects with an explicit overload error (HTTP 503) instead of letting
-# latency climb unbounded. The micro-batcher's batch-size and wait knobs
-# come with the micro-batcher, which is not ported yet.
+# Online serving (serving.batcher.resolve_serving_knobs; the
+# MicroBatcher and the serve CLI read these when no explicit knob is
+# passed):
+# - ``serving_max_batch_size`` — ceiling on a dynamic micro-batch; the
+#   batcher flushes early when the window fills.
+# - ``serving_max_wait_ms`` — how long the first request of a window
+#   waits for co-riders before the partial window flushes.
+# - ``serving_queue_depth`` — admission bound; a full queue rejects with
+#   an explicit overload error (HTTP 503) instead of letting latency
+#   climb unbounded.
+# - ``bucket_multiple`` — ragged feeds of an inference session pad to a
+#   multiple of this (bounding the distinct shapes it runs).
+# - ``online_log_events`` — ``/v1/infer`` appends a ``serving_event``
+#   record to the open run log for each request that carries an
+#   ``outcome`` label (the client-side feedback join).
+serving_max_batch_size = 8
+serving_max_wait_ms = 5.0
 serving_queue_depth = 128
+bucket_multiple = 32
+online_log_events = True
 
 # Generation (serving.generation.resolve_generation_knobs):
 # ``generation_max_slots`` — decode-batch width (KV-cache slots);

@@ -1,7 +1,17 @@
 """The IR: Program / Block / Operator / Variable, built by the layers DSL —
-the port of ``paddle_tpu/framework.py``, trimmed to the training slices
-(one global block; dense tensors and one level of LoD; no control-flow
-blocks, nested LoD, serialization or pruning yet).
+the port of ``paddle_tpu/framework.py``, trimmed to one global block
+(dense tensors and one level of LoD; no control-flow blocks or nested
+LoD yet).
+
+Serialization (``to_dict`` / ``Program.from_dict``, the reference's
+``framework.py:97-529``) writes the reference's dict: either package
+reads the other's. ``op_uid`` rides each op (the counter-hash random
+streams key on it) and ``amp`` the program; ``accumulator_owner`` and
+``sharding_plan`` (the reference's parallelism records) and a
+parameter's ``sharding`` are kept as read and written back, not
+interpreted. ``Program.clone(for_test)``, ``prune(targets)`` and
+``inference_optimize()`` are the reference's Python path (its native C++
+tier is not ported).
 
 A ragged var (``lod_level=1``) has the IR shape ``[-1, *feat]`` (the
 batch, then each token's features) and is a ``core.LoDArray`` at run time:
@@ -16,6 +26,9 @@ ops); an op without one keeps the shapes its layer declared.
 
 import contextlib
 import itertools
+import json
+
+import numpy as np
 
 from . import unique_name
 from .core import convert_dtype
@@ -59,6 +72,14 @@ class Variable:
         self.type = type
         self.is_data = is_data
 
+    def to_dict(self):
+        return {
+            "name": self.name, "shape": self.shape, "dtype": self.dtype,
+            "lod_level": self.lod_level, "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient, "type": self.type,
+            "is_data": self.is_data, "is_parameter": False,
+        }
+
     def __repr__(self):
         return "Variable(%s, shape=%s, dtype=%s)" % (self.name, self.shape,
                                                      self.dtype)
@@ -74,9 +95,17 @@ class Parameter(Variable):
         self.optimize_attr = kwargs.pop("optimize_attr",
                                         {"learning_rate": 1.0})
         self.do_model_average = kwargs.pop("do_model_average", None)
-        kwargs.pop("sharding", None)
+        # the reference's PartitionSpec hint in its JSON form, kept as
+        # read (parallelism is not ported)
+        self.sharding = kwargs.pop("sharding", None)
         kwargs.setdefault("persistable", True)
         super().__init__(block, shape=shape, dtype=dtype, **kwargs)
+
+    def to_dict(self):
+        d = super().to_dict()
+        d.update(is_parameter=True, trainable=self.trainable,
+                 optimize_attr=self.optimize_attr, sharding=self.sharding)
+        return d
 
 
 class Operator:
@@ -108,8 +137,16 @@ class Operator:
     def all_output_vars(self):
         return [n for vs in self.outputs.values() for n in vs]
 
+    def all_input_vars(self):
+        return [n for vs in self.inputs.values() for n in vs]
+
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
+
+    def to_dict(self):
+        return {"type": self.type, "inputs": self.inputs,
+                "outputs": self.outputs, "attrs": _serialize_attrs(self.attrs),
+                "op_uid": self.op_uid}
 
     def __repr__(self):
         return "Op(%s, in=%s, out=%s)" % (self.type, self.inputs,
@@ -126,6 +163,38 @@ def _as_list(x):
     if isinstance(x, (list, tuple)):
         return list(x)
     return [x]
+
+
+def _serialize_attrs(attrs):
+    """Attrs in their JSON form, as the reference writes them: tuples as
+    lists, numpy scalars as Python numbers, arrays tagged
+    ``__ndarray__``."""
+    out = {}
+    for k, v in attrs.items():
+        if isinstance(v, np.ndarray):
+            out[k] = {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
+        elif isinstance(v, np.integer):
+            out[k] = int(v)
+        elif isinstance(v, np.floating):
+            out[k] = float(v)
+        elif isinstance(v, tuple):
+            out[k] = list(v)
+        else:
+            out[k] = v
+    return out
+
+
+def _deserialize_attrs(attrs):
+    out = {}
+    for k, v in attrs.items():
+        if isinstance(v, dict) and "__block__" in v:
+            raise NotImplementedError(
+                "attr %r refers to block %s: control-flow blocks are not "
+                "ported" % (k, v["__block__"]))
+        if isinstance(v, dict) and "__ndarray__" in v:
+            v = np.array(v["__ndarray__"], dtype=v["dtype"])
+        out[k] = v
+    return out
 
 
 class Block:
@@ -164,6 +233,11 @@ class Block:
 
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+    def to_dict(self):
+        return {"idx": self.idx, "parent_idx": -1, "forward_block_idx": -1,
+                "vars": [v.to_dict() for v in self.vars.values()],
+                "ops": [op.to_dict() for op in self.ops]}
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None,
                   infer_shape=True):
@@ -204,6 +278,106 @@ class Program:
     def list_vars(self):
         for blk in self.blocks:
             yield from blk.vars.values()
+
+    # -- cloning / pruning (the reference's Python path) --------------
+    def clone(self, for_test=False):
+        """A deep copy through the dict; ``for_test`` sets every op's
+        ``is_test`` attr (dropout and batch norm then use their inference
+        behaviour) and the program's."""
+        p = Program.from_dict(self.to_dict())
+        p.random_seed = self.random_seed
+        if for_test:
+            p._is_test = True
+            for op in p.global_block().ops:
+                if "is_test" in op.attrs:
+                    op.attrs["is_test"] = True
+        return p
+
+    def prune(self, targets):
+        """The ops ``targets`` (variables or names) depend on, walking
+        back from them, and the variables those ops touch (persistables
+        and data vars kept)."""
+        target_names = {t.name if isinstance(t, Variable) else t
+                        for t in targets}
+        p = Program.from_dict(self.to_dict())
+        p.random_seed = self.random_seed
+        blk = p.global_block()
+        needed = set(target_names)
+        keep = []
+        for op in reversed(blk.ops):
+            if any(o in needed for o in op.all_output_vars()):
+                keep.append(op)
+                needed.update(op.all_input_vars())
+        blk.ops = list(reversed(keep))
+        used = set(target_names)
+        for op in blk.ops:
+            used.update(op.all_input_vars())
+            used.update(op.all_output_vars())
+        blk.vars = {n: v for n, v in blk.vars.items()
+                    if n in used or v.persistable or v.is_data}
+        return p
+
+    def inference_optimize(self):
+        return self.clone(for_test=True)
+
+    # -- serialization -------------------------------------------------
+    def to_dict(self):
+        d = {"version": 1, "random_seed": self.random_seed,
+             "amp": self._amp,
+             "blocks": [b.to_dict() for b in self.blocks]}
+        if getattr(self, "_accumulator_owner", None):
+            d["accumulator_owner"] = dict(self._accumulator_owner)
+        if getattr(self, "_sharding_plan", None):
+            d["sharding_plan"] = self._sharding_plan
+        return d
+
+    def to_string(self, throw_on_error=False):
+        return json.dumps(self.to_dict(), indent=1, default=str)
+
+    __str__ = to_string
+
+    @staticmethod
+    def from_dict(d):
+        """A program from its dict (either package's). A var's ``op``
+        links and shapes are taken as written: no shape inference runs."""
+        if len(d["blocks"]) > 1:
+            raise NotImplementedError(
+                "program has %d blocks: control-flow blocks are not "
+                "ported" % len(d["blocks"]))
+        p = Program()
+        p.random_seed = d.get("random_seed", 0)
+        p._amp = bool(d.get("amp", False))
+        if d.get("accumulator_owner"):
+            p._accumulator_owner = dict(d["accumulator_owner"])
+        if d.get("sharding_plan"):
+            p._sharding_plan = d["sharding_plan"]
+        blk = p.global_block()
+        for bd in d["blocks"]:
+            for vd in bd["vars"]:
+                vd = dict(vd)
+                is_param = vd.pop("is_parameter", False)
+                if is_param:
+                    par = Parameter(blk, vd.pop("shape"), vd.pop("dtype"),
+                                    **vd)
+                    blk.vars[par.name] = par
+                else:
+                    for k in ("trainable", "optimize_attr", "sharding"):
+                        vd.pop(k, None)
+                    blk.create_var(**vd)
+            for od in bd["ops"]:
+                op = Operator(blk, od["type"], od["inputs"], od["outputs"],
+                              _deserialize_attrs(od["attrs"]))
+                if "op_uid" in od:
+                    # the random streams key on it: keep the writer's
+                    op.op_uid = od["op_uid"]
+                    p._op_uid_counter = max(p._op_uid_counter, op.op_uid)
+                blk.ops.append(op)
+        p._version += 1
+        return p
+
+    @staticmethod
+    def parse_from_string(s):
+        return Program.from_dict(json.loads(s))
 
 
 def in_var(block, op, slot, i=0):

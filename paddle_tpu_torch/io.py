@@ -5,17 +5,27 @@ checkpoint serial helpers (exclusive serial claim, md5 ``_MANIFEST``,
 durable commit, verification, trim) and ``save_checkpoint`` /
 ``load_checkpoint``. The serial layout is the reference's, byte for
 byte in its schema: a serial written by either package loads in the
-other. The inference-model export is not ported yet.
+other.
+
+The inference model (``save_inference_model`` / ``load_inference_model``,
+the reference's ``io.py:107-148``) is its directory format: a
+``__model__`` JSON of the pruned program's dict with
+``feed_var_names`` and ``fetch_var_names``, beside the persistables; a
+directory either package writes loads in the other. The exported
+artifact (``export_artifact`` / ``load_artifact``) is
+``inference_export``'s, re-exported here.
 """
 
 import json
 import os
 
-from .framework import Parameter, Program, default_main_program
+from .framework import Parameter, Program, Variable, default_main_program
 
 __all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
-           "load_params", "load_persistables", "save_checkpoint",
-           "load_checkpoint"]
+           "load_params", "load_persistables", "save_inference_model",
+           "load_inference_model", "get_inference_program",
+           "save_checkpoint", "load_checkpoint", "export_artifact",
+           "load_artifact"]
 
 
 def is_persistable(var):
@@ -102,6 +112,51 @@ def load_params(executor, dirname, main_program=None, filename=None):
 def load_persistables(executor, dirname, main_program=None, filename=None):
     load_vars(executor, dirname, main_program, predicate=is_persistable,
               filename=filename)
+
+
+def get_inference_program(target_vars, main_program=None):
+    main_program = main_program or default_main_program()
+    if not isinstance(target_vars, list):
+        target_vars = [target_vars]
+    return main_program.prune(target_vars).inference_optimize()
+
+
+def save_inference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, model_filename=None,
+                         params_filename=None):
+    """Prune ``main_program`` to the ops ``target_vars`` need, flip it to
+    inference, and write its dict (``__model__``) and persistables.
+    Returns the fetch names."""
+    main_program = main_program or default_main_program()
+    if isinstance(feeded_var_names, str):
+        feeded_var_names = [feeded_var_names]
+    if isinstance(target_vars, Variable):
+        target_vars = [target_vars]
+    os.makedirs(dirname, exist_ok=True)
+    pruned = main_program.prune(target_vars).inference_optimize()
+    meta = {"program": pruned.to_dict(),
+            "feed_var_names": list(feeded_var_names),
+            "fetch_var_names": [v.name for v in target_vars]}
+    with open(os.path.join(dirname, model_filename or "__model__"),
+              "w") as f:
+        json.dump(meta, f, default=str)
+    save_persistables(executor, dirname, pruned, params_filename)
+    return [v.name for v in target_vars]
+
+
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None):
+    """``(program, feed_var_names, fetch_vars)`` from a directory that
+    ``save_inference_model`` (of either package) wrote; the persistables
+    go to the global scope on the executor's device."""
+    with open(os.path.join(dirname, model_filename or "__model__")) as f:
+        meta = json.load(f)
+    program = Program.from_dict(meta["program"])
+    program._is_test = True
+    load_persistables(executor, dirname, program, params_filename)
+    fetch_vars = [program.global_block().var(n)
+                  for n in meta["fetch_var_names"]]
+    return program, meta["feed_var_names"], fetch_vars
 
 
 def _fsync_path(path, strict=False):
@@ -277,3 +332,7 @@ def load_checkpoint(executor, checkpoint_dir, serial=None, main_program=None,
         return s
     raise last_err or FileNotFoundError(
         "no loadable checkpoint in %r" % checkpoint_dir)
+
+
+# the exported artifact (the reference re-exports its export_stablehlo here)
+from .inference_export import export_artifact, load_artifact  # noqa: E402

@@ -317,7 +317,9 @@ REQUESTS_SHED = Counter(
 DEADLINE_EXCEEDED = Counter(
     "deadline_exceeded_total", labels=("stage",),
     help="Requests failed by end-to-end deadline expiry (HTTP 504), by "
-    "stage: admission (generation request dead on arrival — rejected "
+    "stage: queue (infer request expired while queued — rejected before "
+    "batch assembly), admission (generation request dead on arrival — "
+    "rejected "
     "BEFORE consuming a prefill), decode (slot evicted between decode "
     "steps), held (request expired while parked in the held lane — "
     "evicted before any prefill is spent on it)")
@@ -332,8 +334,8 @@ REQUEST_TPOT_SECONDS = Histogram(
     "tokens)")
 REQUESTS_FINISHED = Counter(
     "requests_finished_total", labels=("path", "outcome"),
-    help="Requests resolved, by path (generate) and outcome (eos, "
-    "length, error, deadline); the newest trace per combination is "
+    help="Requests resolved, by path (infer, generate) and outcome (ok, "
+    "eos, length, error, deadline); the newest trace per combination is "
     "exposed as an # EXEMPLAR comment on /metrics")
 
 # -- multi-tenant isolation + SLO admission control (serving/generation.py).

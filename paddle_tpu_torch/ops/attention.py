@@ -258,8 +258,8 @@ def _fused_attention_rule(block, op):
     q = in_var(block, op, "Q")
     b, h, s = _bhs(q.shape, op.attr("layout", "bhsd"))
     set_out(block, op, "Out", q.shape, dtype=q.dtype)
-    set_out(block, op, "Lse", [b * h, s, flash_attention.LSE_LANES],
-            dtype="float32")
+    set_out(block, op, "Lse", [b * h if b >= 0 else -1, s,
+                               flash_attention.LSE_LANES], dtype="float32")
 
 
 @register_op("fused_attention", infer_shape=_fused_attention_rule)

@@ -56,19 +56,24 @@ ids every row sees its own key.
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks what the kernel takes and launches on the
-current stream, or raises: there is no fallback. ``launches`` counts
+current stream, or raises: there is no fallback. The forward wrappers
+dispatch through ``paddle_tpu::`` custom ops (``flash_fwd``,
+``flash_fwd_segment``), so ``torch.export`` records them; the backward
+kernels have none and refuse to be exported
+(``launch_count.refuse_export``). ``launches`` counts
 kernel launches per kernel (and nothing else); a call made while the
 current stream is being captured into a CUDA graph is counted at each
 replay of the graph (``launch_count``).
 """
 
 import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import launch_count
-from .segment_mask import is_segment_mask
+from .segment_mask import SegmentIds, is_segment_mask
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "kernel_name", "dims",
@@ -537,19 +542,87 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, scale, causal, k_valid=None,
     return outs[0] if len(outs) == 1 else outs
 
 
+# -- the forward kernels as custom ops ---------------------------------------
+# ``torch.export`` traces with fake tensors, which a ctypes launch cannot
+# take: each forward wrapper calls its kernel through a ``paddle_tpu::``
+# custom op, which an exported artifact records as one node, with a fake
+# implementation for its output shapes. The op's implementation is the
+# wrapper's dispatch: the plain version for CPU tensors, the kernel (and
+# its launch count) for CUDA tensors.
+
+def _other_device(*tensors):
+    """Whether a tensor lies on neither the CPU nor a card (a meta
+    tensor): the op would take its fake implementation there, so the
+    wrapper calls the implementation, which raises."""
+    return any(t is not None and t.device.type not in ("cpu", "cuda")
+               for t in tensors)
+
+
+def _fwd_outputs(q, k, layout):
+    b, s, h, _, _ = dims(q, k, layout)
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((b * h, s, LSE_LANES), dtype=torch.float32,
+                        device=q.device))
+
+
+def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float], causal: bool,
+                    k_valid: Optional[torch.Tensor],
+                    mask: Optional[torch.Tensor],
+                    layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    name = kernel_name("fwd", layout, mask is not None)
+    dev = _same_device(name, {"q": q, "k": k, "v": v}, k_valid, mask)
+    if dev.type == "cpu":
+        return _fwd_plain(q, k, v, scale, causal, k_valid, None, mask,
+                          layout)
+    return _fwd_kernel(name, q, k, v, scale, causal, k_valid=k_valid,
+                       mask=mask)
+
+
+_flash_fwd_op = torch.library.custom_op(
+    "paddle_tpu::flash_fwd", mutates_args=())(_flash_fwd_impl)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, causal, k_valid, mask, layout):
+    return _fwd_outputs(q, k, layout)
+
+
+def _flash_fwd_segment_impl(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_seg: torch.Tensor,
+                            kv_seg: torch.Tensor, scale: Optional[float],
+                            causal: bool) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    seg = SegmentIds(q_seg, kv_seg)
+    dev = _same_device("flash_segment_fwd", {"q": q, "k": k, "v": v},
+                       q_seg, kv_seg)
+    if dev.type == "cpu":
+        return _fwd_plain(q, k, v, scale, causal, None, seg)
+    return _fwd_kernel("flash_segment_fwd", q, k, v, scale, causal, seg=seg)
+
+
+_flash_fwd_segment_op = torch.library.custom_op(
+    "paddle_tpu::flash_fwd_segment", mutates_args=())(_flash_fwd_segment_impl)
+
+
+@_flash_fwd_segment_op.register_fake
+def _(q, k, v, q_seg, kv_seg, scale, causal):
+    return _fwd_outputs(q, k, "bshd")
+
+
 def flash_fwd(q, k, v, scale=None, causal=False, k_valid=None, mask=None,
               layout="bshd"):
     """``(o, lse)`` of causal/unmasked/key-padded attention, or under the
     dense bool ``mask``: K1 (bshd), K6-fwd (bhsd), K1-dense or K6-fwd's
-    dense instantiation (``mask``). CPU tensors take
-    :func:`flash_fwd_plain`; CUDA tensors launch the kernel or raise."""
+    dense instantiation (``mask``), through the ``paddle_tpu::flash_fwd``
+    op. CPU tensors take the plain version (:func:`flash_fwd_plain`);
+    CUDA tensors launch the kernel or raise."""
     _check_shapes(q, k, v, k_valid, mask=mask, layout=layout)
-    name = kernel_name("fwd", layout, mask is not None)
-    dev = _same_device(name, {"q": q, "k": k, "v": v}, k_valid, mask)
-    if dev.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale, causal, k_valid, mask, layout)
-    return _fwd_kernel(name, q, k, v, scale, causal, k_valid=k_valid,
-                       mask=mask)
+    args = (q, k, v, None if scale is None else float(scale), bool(causal),
+            k_valid, mask, layout)
+    if _other_device(q, k, v, k_valid, mask):
+        return _flash_fwd_impl(*args)        # raises, naming the device
+    return torch.ops.paddle_tpu.flash_fwd(*args)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale=None, causal=False,
@@ -558,6 +631,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale=None, causal=False,
     cotangent ``do`` and ``delta`` = rowsum(dO∘O) fp32 in O's layout
     without d. CUDA tensors only (the CPU computes the whole backward in
     :func:`flash_bwd_plain`)."""
+    launch_count.refuse_export("K2-dQ / K6-dQ")
     _check_shapes(q, k, v, k_valid, layout=layout)
     name = kernel_name("bwd_dq", layout)
     _same_device(name, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
@@ -570,6 +644,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None, causal=False,
                   k_valid=None, layout="bshd"):
     """K2-dKV (bshd) or K6-dKV (bhsd): (dk, dv) at the kv heads from the
     same inputs as :func:`flash_bwd_dq`. CUDA tensors only."""
+    launch_count.refuse_export("K2-dKV / K6-dKV")
     _check_shapes(q, k, v, k_valid, layout=layout)
     name = kernel_name("bwd_dkv", layout)
     _same_device(name, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
@@ -583,6 +658,7 @@ def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None,
     """K2 (bshd) or K6 (bhsd): ``(dq, dk, dv)`` from the saved forward
     residuals. CPU tensors take :func:`flash_bwd_plain`; CUDA tensors
     reduce Δ in torch and launch the dQ and dK/dV kernels, or raise."""
+    launch_count.refuse_export("K2 / K6 (the flash backward)")
     _check_shapes(q, k, v, k_valid, layout=layout)
     dev = _same_device("flash_bwd", {"q": q, "k": k, "v": v, "o": o,
                                      "lse": lse, "do": do}, k_valid)
@@ -598,21 +674,23 @@ def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, k_valid=None,
     return dq, dk, dv
 def flash_fwd_segment(q, k, v, seg, scale=None, causal=False):
     """K5-fwd: ``(o, lse)`` on ``[b, s, h, d]`` under the segment mask
-    ``seg`` (int32 [b, s] ids, non-decreasing along each row). CPU
-    tensors take :func:`flash_fwd_segment_plain`; CUDA tensors launch the
+    ``seg`` (int32 [b, s] ids, non-decreasing along each row), through
+    the ``paddle_tpu::flash_fwd_segment`` op. CPU tensors take the plain
+    version (:func:`flash_fwd_segment_plain`); CUDA tensors launch the
     kernel or raise."""
     _check_shapes(q, k, v, seg=seg)
-    dev = _same_device("flash_segment_fwd", {"q": q, "k": k, "v": v},
-                       seg.q, seg.kv)
-    if dev.type == "cpu":
-        return flash_fwd_segment_plain(q, k, v, seg, scale, causal)
-    return _fwd_kernel("flash_segment_fwd", q, k, v, scale, causal, seg=seg)
+    args = (q, k, v, seg.q, seg.kv, None if scale is None else float(scale),
+            bool(causal))
+    if _other_device(q, k, v, seg.q, seg.kv):
+        return _flash_fwd_segment_impl(*args)
+    return torch.ops.paddle_tpu.flash_fwd_segment(*args)
 
 
 def flash_bwd_segment_dq(q, k, v, do, lse, delta, seg, scale=None,
                          causal=False):
     """K5-dQ: dq under ``seg`` from the same inputs as
     :func:`flash_bwd_dq`. CUDA tensors only."""
+    launch_count.refuse_export("K5-dQ")
     _check_shapes(q, k, v, seg=seg)
     _same_device("flash_segment_bwd_dq", {"q": q, "k": k, "v": v, "do": do,
                                           "lse": lse, "delta": delta},
@@ -625,6 +703,7 @@ def flash_bwd_segment_dkv(q, k, v, do, lse, delta, seg, scale=None,
                           causal=False):
     """K5-dKV: (dk, dv) at the kv heads under ``seg``. CUDA tensors
     only."""
+    launch_count.refuse_export("K5-dKV")
     _check_shapes(q, k, v, seg=seg)
     _same_device("flash_segment_bwd_dkv", {"q": q, "k": k, "v": v,
                                            "do": do, "lse": lse,
@@ -637,6 +716,7 @@ def flash_bwd_segment(q, k, v, o, lse, do, seg, scale=None, causal=False):
     """K5's backward: ``(dq, dk, dv)`` under ``seg``. CPU tensors take
     :func:`flash_bwd_segment_plain`; CUDA tensors reduce Δ in torch and
     launch K5-dQ and K5-dKV, or raise."""
+    launch_count.refuse_export("K5 (the segment backward)")
     _check_shapes(q, k, v, seg=seg)
     dev = _same_device("flash_bwd_segment", {"q": q, "k": k, "v": v,
                                              "o": o, "lse": lse, "do": do},

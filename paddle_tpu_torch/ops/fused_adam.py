@@ -89,6 +89,7 @@ def fused_adam_update(params, grads, m1s, m2s, lr_t, gscale, beta1, beta2,
     CPU tensors take :func:`fused_adam_update_plain`; CUDA tensors
     (fp32 params and moments, contiguous; grads cast to fp32) launch the
     kernel or raise. Returns ``(params_out, moment1_out, moment2_out)``."""
+    launch_count.refuse_export("K4 (fused Adam)")
     _check(params, grads, m1s, m2s)
     tensors = list(params) + list(grads) + list(m1s) + list(m2s) + \
         [lr_t, gscale]

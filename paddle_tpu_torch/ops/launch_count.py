@@ -8,12 +8,14 @@ being captured into a CUDA graph launches nothing then: it adds to
 capture recorded at each replay (:class:`Capture`). A host buffer that a
 captured node reads at every replay (K4's pinned pointer table) is
 handed to :func:`keep_alive`, and the capture keeps it, unchanged, as
-long as the graph.
+long as the graph. :func:`refuse_export` is how a kernel without a
+custom op refuses ``torch.export``.
 """
 
 import torch
 
-__all__ = ["launched", "keep_alive", "Capture", "recorded"]
+__all__ = ["launched", "keep_alive", "Capture", "recorded",
+           "refuse_export"]
 
 recorded = {}       # kernel name -> calls captured into CUDA graphs
 _adders = {}        # kernel name -> how its wrapper adds launches
@@ -28,6 +30,19 @@ def launched(name, add):
         _adders[name] = add
     else:
         add(name, 1)
+
+
+def refuse_export(kernel):
+    """Raise ``NotImplementedError`` naming ``kernel`` while
+    ``torch.export`` traces: a kernel that is not a custom op cannot be
+    recorded in an exported artifact (CPU tensors included, so a CPU
+    export fails as a card's would)."""
+    if torch.compiler.is_exporting():
+        raise NotImplementedError(
+            "kernel %s has no custom op: a program that reaches it cannot "
+            "be exported (the exportable kernels are the flash forwards, "
+            "paddle_tpu::flash_fwd and paddle_tpu::flash_fwd_segment)"
+            % kernel)
 
 
 def keep_alive(buf):

@@ -21,6 +21,8 @@ dequantizes its operands, and both grads dequantize X and Y before the
 generic vjp (``register_fp8_transparent_grad``).
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -68,9 +70,10 @@ def _mul(ctx, ins):
         xn += 1
     if ctx.amp:
         x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
-    rows = int(np.prod(x.shape[:xn]))
+    # math.prod keeps a symbolic batch dim symbolic under torch.export
+    rows = math.prod(x.shape[:xn])
     out = _matmul_f32_acc(x.reshape(rows, -1),
-                         y.reshape(int(np.prod(y.shape[:yn])), -1))
+                         y.reshape(math.prod(y.shape[:yn]), -1))
     out = out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))
     return {"Out": [_rewrap(x0, out)]}
 

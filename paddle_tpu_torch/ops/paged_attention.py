@@ -193,6 +193,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
     CPU tensors take :func:`paged_decode_attention_plain`. CUDA tensors
     launch the kernel; anything it does not take (other dtypes, head_dim
     > 256, non-contiguous inputs, mixed devices) raises."""
+    launch_count.refuse_export("K3" if quant is None else "K3-quant")
     _check_shapes(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale,
                   quant)
     tensors = [q, k_pool, v_pool, page_table, lengths]

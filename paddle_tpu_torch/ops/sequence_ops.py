@@ -128,6 +128,21 @@ def _take_time(x, idx):
                                          tuple(x.shape[2:])))
 
 
+def _scan_steps(step, h, c, xs, mask):
+    """The recurrence as one ``scan`` over the time axis: what
+    ``torch.export`` records (one node, where the loop would unroll into
+    t copies of the step). The same step on the same values as the
+    loop; ``(hidden, cell)`` stacked ``[b, t, h]``."""
+    from torch._higher_order_ops.scan import scan
+
+    def body(carry, inp):
+        h, c = step(carry[0], carry[1], inp[0], inp[1])
+        return (h, c), (h.clone(), c.clone())
+    _, (hs, cs) = scan(body, (h, c), (xs.transpose(0, 1),
+                                      mask.transpose(0, 1)))
+    return hs.transpose(0, 1), cs.transpose(0, 1)
+
+
 def _lstm_rule(block, op):
     w, x = in_var(block, op, "Weight"), in_var(block, op, "Input")
     h = w.shape[0]
@@ -165,7 +180,10 @@ def _lstm(ctx, ins):
     if bias is not None:
         main = bias[..., :fourh] if use_peep else bias
         if use_peep:
-            peep = torch.chunk(bias[..., fourh:].reshape(-1), 3)
+            # copies, not views of one tensor: a scan under
+            # torch.export refuses inputs that alias each other
+            peep = tuple(p.clone() for p in
+                         torch.chunk(bias[..., fourh:].reshape(-1), 3))
         # a bf16 input plus the fp32 bias is fp32, as in JAX: under amp
         # the recurrence runs in fp32
         data = data + main.reshape(1, 1, fourh)
@@ -181,18 +199,25 @@ def _lstm(ctx, ins):
     cell_used = output_consumed(
         ctx, ctx.op.outputs.get("Cell", [""])[0]) or output_consumed(
         ctx, ctx.op.outputs.get("BatchCellPreAct", [""])[0])
-    hs, cs = [], []
-    for s in range(t):
-        h_new, c_new = _lstm_step(h, c, xs[:, s], w, use_peep, peep,
-                                  act_gate, act_cell, act_cand)
-        m1 = mask[:, s, None]
-        h = m1 * h_new + (1 - m1) * h
-        c = m1 * c_new + (1 - m1) * c
-        hs.append(h)
-        if cell_used:
-            cs.append(c)
-    hidden = torch.stack(hs, dim=1)
-    cell = torch.stack(cs, dim=1) if cell_used else None
+
+    def step(h, c, x_s, m_s):
+        h_new, c_new = _lstm_step(h, c, x_s, w, use_peep, peep, act_gate,
+                                  act_cell, act_cand)
+        m1 = m_s[:, None]
+        return m1 * h_new + (1 - m1) * h, m1 * c_new + (1 - m1) * c
+
+    if torch.compiler.is_exporting():
+        hidden, cell = _scan_steps(step, h, c, xs, mask)
+        cell = cell if cell_used else None
+    else:
+        hs, cs = [], []
+        for s in range(t):
+            h, c = step(h, c, xs[:, s], mask[:, s])
+            hs.append(h)
+            if cell_used:
+                cs.append(c)
+        hidden = torch.stack(hs, dim=1)
+        cell = torch.stack(cs, dim=1) if cell_used else None
     if is_rev:
         idx = _reverse_index(x.length, t)
         hidden = _take_time(hidden, idx)

@@ -37,8 +37,11 @@ def _reshape_rule(block, op):
 @register_op("reshape", infer_shape=_reshape_rule)
 def _reshape(ctx, ins):
     x = ins["X"][0]
-    return {"Out": [x.reshape(_reshape_target(list(x.shape),
-                                              ctx.attr("shape")))]}
+    # 0 copies the input dim; torch infers the -1 (a symbolic batch dim
+    # under torch.export stays symbolic)
+    shape = [x.shape[i] if d == 0 else int(d)
+             for i, d in enumerate(ctx.attr("shape"))]
+    return {"Out": [x.reshape(shape)]}
 
 
 def _transpose_rule(block, op):

@@ -1,12 +1,15 @@
-"""Generation serving on the port: dense and paged-KV decode engines
-(full-precision or int8/fp8 pages), speculative decoding over a dense
-draft engine, the continuous-batching scheduler with tenants, priorities,
-brownout, SLO control and preemption, weight-only quantized decoders and
-the ``/v1/generate`` HTTP server."""
+"""Serving on the port: ``/v1/infer`` (an exported artifact or a pruned
+program behind ``InferenceSession``, the dynamic ``MicroBatcher``) and
+generation — dense and paged-KV decode engines (full-precision or
+int8/fp8 pages), speculative decoding over a dense draft engine, the
+continuous-batching scheduler with tenants, priorities, brownout, SLO
+control and preemption, weight-only quantized decoders — behind one HTTP
+server, and its ``ServingClient``."""
 
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
-                      OverloadedError, PendingResult, ServingClosedError,
-                      resolve_serving_knobs)
+                      MicroBatcher, OverloadedError, PendingResult,
+                      ServingClosedError, resolve_serving_knobs)
+from .client import ServingClient
 from .generation import (BrownoutController, DecodeEngine, DeviceStateError,
                          GenerationScheduler, TransformerDecoderModel,
                          full_recompute_generate, greedy_generate,
@@ -20,10 +23,12 @@ from .paged_kv import (PagedDecodeEngine, PagePool, PoolExhaustedError,
 from .registry import (parse_deadline_header, parse_tenant_header,
                        resolve_fleet_knobs)
 from .server import ServingServer, make_server
+from .session import InferenceSession
 
 __all__ = [
-    "DeadlineExceededError", "DrainRateEstimator", "OverloadedError",
-    "PendingResult", "ServingClosedError", "resolve_serving_knobs",
+    "DeadlineExceededError", "DrainRateEstimator", "MicroBatcher",
+    "OverloadedError", "PendingResult", "ServingClosedError",
+    "resolve_serving_knobs", "ServingClient", "InferenceSession",
     "BrownoutController", "DecodeEngine", "DeviceStateError",
     "GenerationScheduler", "TransformerDecoderModel",
     "full_recompute_generate", "greedy_generate", "load_decoder",

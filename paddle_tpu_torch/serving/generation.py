@@ -1251,7 +1251,8 @@ class GenerationScheduler:
                  tenant_held_depth=None, slo_ttft_ms=None, slo_tpot_ms=None,
                  slo_sustain_s=None):
         from .registry import resolve_fleet_knobs
-        depth = resolve_serving_knobs(queue_depth=queue_depth)
+        depth = resolve_serving_knobs(queue_depth=queue_depth,
+                                      which=("queue_depth",))[2]
         knobs = resolve_fleet_knobs(which=(
             "deadline_default_ms", "deadline_admit_min_ms",
             "shed_token_cap", "shed_retry_floor_s", "shed_retry_cap_s"))

@@ -1,11 +1,14 @@
-"""Serve a saved decoder over HTTP with the port's engines — the
-generation half of the reference's ``tools/serve.py``:
+"""Serve an exported inference artifact and/or a saved decoder over HTTP
+with the port — its counterpart of the reference's ``tools/serve.py``:
 
-    python -m paddle_tpu_torch.serving.serve --generation-model DIR \
-        [--device cuda] [--host 127.0.0.1] [--port 8500] \
+    python -m paddle_tpu_torch.serving.serve [--artifact DIR] \
+        [--generation-model DIR] [--device cuda] [--host 127.0.0.1] \
+        [--port 8500] [--max-batch-size 8] [--max-wait-ms 5] \
+        [--queue-depth N] [--max-inflight 2] [--bucket-multiple 32] \
+        [--no-pad-batch-pow2] \
         [--gen-max-slots 32] [--gen-max-len 1024] \
         [--gen-prefill-buckets 64,128,256,512] [--gen-eos-id ID] \
-        [--queue-depth N] [--gen-paged] [--gen-page-size 16] \
+        [--gen-paged] [--gen-page-size 16] \
         [--gen-num-pages 0] [--kv-quant-dtype off|int8|fp8] \
         [--kv-quant-group N] [--gen-megastep-k K] \
         [--gen-draft-model DRAFT_DIR] [--gen-speculative-k K] \
@@ -14,10 +17,16 @@ generation half of the reference's ``tools/serve.py``:
         [--slo-ttft-ms high=MS,low=MS] [--slo-tpot-ms high=MS] \
         [--slo-sustain-s S]
 
-``DIR`` is a ``save_decoder`` directory, or a weight-quantized one from
-``quantize_decoder_dir`` (either package writes the same forms). The
-engine is the reference's choice: the paged engine
-(``PagedDecodeEngine``) when ``--gen-paged``, a draft model or KV
+``--artifact`` (an ``export_artifact`` directory) serves POST /v1/infer
+through the dynamic ``MicroBatcher`` (``--max-batch-size``,
+``--max-wait-ms``, ``--queue-depth``, ``--max-inflight``; ragged feeds
+on the ``--bucket-multiple`` grid, the batch padded to a power of two
+unless ``--no-pad-batch-pow2``). The artifact runs on the device it was
+exported on. ``--generation-model`` (a ``save_decoder`` directory, or a
+weight-quantized one from ``quantize_decoder_dir``; either package
+writes the same forms) serves POST /v1/generate. At least one of the two
+is required. The generation engine is the reference's choice: the paged
+engine (``PagedDecodeEngine``) when ``--gen-paged``, a draft model or KV
 quantization asks for it, the dense ``DecodeEngine`` otherwise. With
 ``--kv-quant-dtype int8|fp8`` the KV pages are quantized (decode
 attention through K3-quant) and the auto-sized pool holds twice the
@@ -29,16 +38,18 @@ through speculative rounds over a dense engine on the draft decoder
 tenant with the ``X-Tenant-Id`` header and their class with
 ``"priority"`` in the body; the tenant and SLO flags set the scheduler's
 budgets, held lane and control loop. Knobs left unset come from
-``paddle_tpu_torch.flags``. Endpoints: POST /v1/generate, GET /healthz
-(its ``serving`` stanza names ``paged``, ``kv_quant``,
+``paddle_tpu_torch.flags``. Endpoints: POST /v1/infer, POST
+/v1/generate, GET /healthz (its ``serving`` stanza names the
+``artifact``, the ``generation_model``, ``paged``, ``kv_quant``,
 ``weight_quant``, ``megastep_k`` and ``speculative_k``), GET /metrics.
-SIGINT/SIGTERM drain gracefully: /healthz flips to 503, queued and
-in-flight generations complete, then the listener stops. The device
-defaults to ``cuda`` and the server refuses to start without a GPU
-unless ``--device cpu``.
+SIGINT/SIGTERM drain gracefully: /healthz flips to 503, queued requests
+and in-flight generations complete, then the listener stops and the
+process exits 0. The decoder's device defaults to ``cuda`` and the
+server refuses to start it without a GPU unless ``--device cpu``.
 """
 
 import argparse
+import os
 import signal
 import sys
 import threading
@@ -46,7 +57,9 @@ import threading
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--generation-model", required=True,
+    ap.add_argument("--artifact", default=None,
+                    help="export_artifact directory (/v1/infer)")
+    ap.add_argument("--generation-model", default=None,
                     help="save_decoder directory (/v1/generate)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
@@ -54,6 +67,19 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8500)
     ap.add_argument("--queue-depth", type=int, default=None,
                     help="admission bound; full queue -> HTTP 503")
+    ap.add_argument("--max-batch-size", type=int, default=None,
+                    help="micro-batch ceiling (default FLAGS_serving_max_"
+                         "batch_size)")
+    ap.add_argument("--max-wait-ms", type=float, default=None,
+                    help="batching window deadline (default FLAGS_serving_"
+                         "max_wait_ms)")
+    ap.add_argument("--max-inflight", type=int, default=2,
+                    help="windows on the device at once")
+    ap.add_argument("--bucket-multiple", type=int, default=None,
+                    help="ragged-length padding grid (default FLAGS_"
+                         "bucket_multiple)")
+    ap.add_argument("--no-pad-batch-pow2", action="store_true",
+                    help="run every occupancy instead of the pow2 grid")
     ap.add_argument("--gen-max-slots", type=int, default=None,
                     help="KV-cache slots (default FLAGS_generation_"
                          "max_slots)")
@@ -124,65 +150,89 @@ def main(argv=None):
     ap.add_argument("--verbose", action="store_true",
                     help="log each HTTP request")
     args = ap.parse_args(argv)
+    if not args.artifact and not args.generation_model:
+        ap.error("need --artifact and/or --generation-model")
 
     from .. import flags
-    from .generation import DecodeEngine, GenerationScheduler, load_decoder
-    from .paged_kv import PagedDecodeEngine
+    from .batcher import MicroBatcher
     from .server import make_server
+    from .session import InferenceSession
 
-    model, params = load_decoder(args.generation_model, device=args.device)
-    # the paged engine when paging, a draft or KV quantization asks for
-    # it (quantization is a property of the page pool); the dense engine
-    # otherwise
-    paged = args.gen_paged or bool(args.gen_draft_model) or \
-        (args.kv_quant_dtype or "off") != "off"
-    draft_engine = None
-    if paged:
-        spec_k = args.gen_speculative_k
-        if args.gen_draft_model and spec_k is None and \
-                flags.speculative_k == 0:
-            spec_k = 4   # a draft model implies speculation
-        engine = PagedDecodeEngine(
-            model, params, max_slots=args.gen_max_slots,
-            max_len=args.gen_max_len,
-            prefill_buckets=args.gen_prefill_buckets,
-            page_size=args.gen_page_size, num_pages=args.gen_num_pages,
-            speculative_k=spec_k, kv_quant_dtype=args.kv_quant_dtype,
-            kv_quant_group=args.kv_quant_group,
-            megastep_k=args.gen_megastep_k, device=args.device)
-        if args.gen_draft_model:
-            draft_model, draft_params = load_decoder(args.gen_draft_model,
-                                                     device=args.device)
-            draft_engine = DecodeEngine(
-                draft_model, draft_params, max_slots=engine.max_slots,
-                max_len=engine.max_len,
-                prefill_buckets=engine.prefill_buckets, device=args.device)
-    else:
-        engine = DecodeEngine(model, params, max_slots=args.gen_max_slots,
-                              max_len=args.gen_max_len,
-                              prefill_buckets=args.gen_prefill_buckets,
-                              device=args.device)
-    generator = GenerationScheduler(
-        engine, eos_id=args.gen_eos_id, queue_depth=args.queue_depth,
-        default_max_new_tokens=args.gen_max_new_tokens,
-        draft_engine=draft_engine,
-        tenant_token_budget=args.tenant_token_budget,
-        tenant_token_budget_map=args.tenant_token_budget_map,
-        tenant_budget_window_s=args.tenant_budget_window_s,
-        tenant_held_depth=args.tenant_held_depth,
-        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
-        slo_sustain_s=args.slo_sustain_s)
-    server = make_server(generator, host=args.host, port=args.port,
+    batcher = None
+    if args.artifact:
+        session = InferenceSession.from_artifact(
+            args.artifact, bucket_multiple=args.bucket_multiple,
+            pad_batch_pow2=not args.no_pad_batch_pow2)
+        batcher = MicroBatcher(
+            session, max_batch_size=args.max_batch_size,
+            max_wait_ms=args.max_wait_ms, queue_depth=args.queue_depth,
+            max_inflight=args.max_inflight)
+
+    generator = engine = model = None
+    paged = False
+    if args.generation_model:
+        from .generation import DecodeEngine, GenerationScheduler, \
+            load_decoder
+        from .paged_kv import PagedDecodeEngine
+        model, params = load_decoder(args.generation_model,
+                                     device=args.device)
+        # the paged engine when paging, a draft or KV quantization asks
+        # for it (quantization is a property of the page pool); the dense
+        # engine otherwise
+        paged = args.gen_paged or bool(args.gen_draft_model) or \
+            (args.kv_quant_dtype or "off") != "off"
+        draft_engine = None
+        if paged:
+            spec_k = args.gen_speculative_k
+            if args.gen_draft_model and spec_k is None and \
+                    flags.speculative_k == 0:
+                spec_k = 4   # a draft model implies speculation
+            engine = PagedDecodeEngine(
+                model, params, max_slots=args.gen_max_slots,
+                max_len=args.gen_max_len,
+                prefill_buckets=args.gen_prefill_buckets,
+                page_size=args.gen_page_size, num_pages=args.gen_num_pages,
+                speculative_k=spec_k, kv_quant_dtype=args.kv_quant_dtype,
+                kv_quant_group=args.kv_quant_group,
+                megastep_k=args.gen_megastep_k, device=args.device)
+            if args.gen_draft_model:
+                draft_model, draft_params = load_decoder(
+                    args.gen_draft_model, device=args.device)
+                draft_engine = DecodeEngine(
+                    draft_model, draft_params, max_slots=engine.max_slots,
+                    max_len=engine.max_len,
+                    prefill_buckets=engine.prefill_buckets,
+                    device=args.device)
+        else:
+            engine = DecodeEngine(model, params,
+                                  max_slots=args.gen_max_slots,
+                                  max_len=args.gen_max_len,
+                                  prefill_buckets=args.gen_prefill_buckets,
+                                  device=args.device)
+        generator = GenerationScheduler(
+            engine, eos_id=args.gen_eos_id, queue_depth=args.queue_depth,
+            default_max_new_tokens=args.gen_max_new_tokens,
+            draft_engine=draft_engine,
+            tenant_token_budget=args.tenant_token_budget,
+            tenant_token_budget_map=args.tenant_token_budget_map,
+            tenant_budget_window_s=args.tenant_budget_window_s,
+            tenant_held_depth=args.tenant_held_depth,
+            slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+            slo_sustain_s=args.slo_sustain_s)
+    server = make_server(batcher, generator=generator, host=args.host,
+                         port=args.port,
                          request_timeout=args.request_timeout,
                          verbose=args.verbose)
-    megastep_k = getattr(engine, "megastep_k", 1)
-    spec_k = getattr(engine, "speculative_k", 0)
-    server.version_info = {
-        "generation_model": args.generation_model, "paged": paged,
-        "kv_quant": getattr(engine, "kv_quant_dtype", "off"),
-        "weight_quant": model.weight_quant or "off",
-        "megastep_k": megastep_k, "speculative_k": spec_k,
-        "draft_model": args.gen_draft_model}
+    server.version_info = {"pid": os.getpid(), "artifact": args.artifact,
+                           "generation_model": args.generation_model,
+                           "paged": paged}
+    if engine is not None:
+        server.version_info.update({
+            "kv_quant": getattr(engine, "kv_quant_dtype", "off"),
+            "weight_quant": model.weight_quant or "off",
+            "megastep_k": getattr(engine, "megastep_k", 1),
+            "speculative_k": getattr(engine, "speculative_k", 0),
+            "draft_model": args.gen_draft_model})
 
     def _drain(signum, frame):
         print("serve: draining...", file=sys.stderr)
@@ -199,16 +249,29 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _drain)
     signal.signal(signal.SIGTERM, _drain)
     host, port = server.server_address[:2]
-    pages = "paged(page=%d pages=%d kv_quant=%s)" % (
-        engine.page_size, engine.num_pages, engine.kv_quant_dtype) \
-        if paged else "dense"
-    print("serve: http://%s:%d  generate: %s device=%s slots=%d max_len=%d "
-          "buckets=%s %s weight_quant=%s megastep_k=%d speculative_k=%d "
-          "draft=%s"
-          % (host, port, args.generation_model, engine.device,
-             engine.max_slots, engine.max_len, list(engine.prefill_buckets),
-             pages, model.weight_quant or "off", megastep_k, spec_k,
-             args.gen_draft_model), file=sys.stderr)
+    parts = []
+    if batcher is not None:
+        parts.append("infer: %s feeds=%s fetches=%s max_batch=%d "
+                     "wait=%.1fms depth=%d device=%s"
+                     % (args.artifact,
+                        [s["name"] for s in session.feed_specs],
+                        session.fetch_names, batcher.max_batch_size,
+                        batcher.max_wait_s * 1e3, batcher._q.maxsize,
+                        session._artifact.device))
+    if generator is not None:
+        pages = "paged(page=%d pages=%d kv_quant=%s)" % (
+            engine.page_size, engine.num_pages, engine.kv_quant_dtype) \
+            if paged else "dense"
+        parts.append(
+            "generate: %s device=%s slots=%d max_len=%d buckets=%s %s "
+            "weight_quant=%s megastep_k=%d speculative_k=%d draft=%s"
+            % (args.generation_model, engine.device, engine.max_slots,
+               engine.max_len, list(engine.prefill_buckets), pages,
+               model.weight_quant or "off",
+               server.version_info["megastep_k"],
+               server.version_info["speculative_k"], args.gen_draft_model))
+    print("serve: http://%s:%d  %s" % (host, port, "; ".join(parts)),
+          file=sys.stderr)
     try:
         server.serve_forever()
     finally:

@@ -1182,3 +1182,58 @@ def test_fp8_phase_rehearses_on_the_cpu(tiny_fp8, monkeypatch, capsys):
     assert "fp8 gates" in out and "under fp8 (delayed" in out
     assert "bench.py's ResNet line (fp8 recipe)" in out
     assert "three-line bench" in out
+
+
+@pytest.fixture
+def tiny_infer(tiny, monkeypatch):
+    """Phase 17 at a tiny size on the CPU: ResNet-18 on 64x64 images, the
+    classifier at dict 50, emb 8, hid 16 and 12 ids, the LM of ``tiny``,
+    a few requests through the batcher, the CLI child and the drain."""
+    for name, value in (
+            ("INFER_RESNET", {"depth": 18, "size": 64, "classes": 10}),
+            ("INFER_LSTM", {"dict_dim": 50, "emb": 8, "hid": 16,
+                            "stacked": 3, "classes": 2, "max_len": 12}),
+            ("INFER_BATCHES", (1, 3)),
+            ("SERVE_RUNS", {"resnet": {"requests": 16, "distinct": 8,
+                                       "max_batch": 8, "bucket": None},
+                            "lstm": {"requests": 32, "distinct": 8,
+                                     "max_batch": 16, "bucket": 4}}),
+            ("SERVE_THREADS", 4), ("HTTP_CLIENTS", 2),
+            ("HTTP_PER_CLIENT", 3), ("HTTP_DRAIN_REQUESTS", 8),
+            ("INFER_LM_CALLS", 1)):
+        monkeypatch.setattr(cs, name, value)
+
+
+def test_inference_phase_rehearses_on_the_cpu(tiny_infer, tmp_path, capsys):
+    """The classifier through (a)-(c), the LM through (d); ResNet's
+    build alone (its startup takes most of a minute on the CPU)."""
+    prog, _, pred, feeds, max_len = cs.build_infer(fluid, "resnet")
+    assert feeds == ["images"] and max_len is None
+    assert pred.shape == [-1, 10]
+    assert cs.infer_feed("resnet", cs.infer_samples("resnet", 3, 0))[
+        "images"].shape == (3, 3, 64, 64)
+    cs._zero_counts()
+    res, art, d = cs.export_gate("lstm", str(tmp_path))
+    assert d == str(tmp_path / "artifact_lstm")
+    assert res["inference_model_bitwise"] and set(res["rel_l2"]) == {1, 3}
+    assert res["rel_l2_vs_cpu"] <= cs.INFER_CPU_REL_L2
+    assert cs.gate_lengths(3)[:2] == [1, 12] and cs.gate_lengths(1) == [1]
+    res, alone = cs.serve_gate("lstm", art)
+    assert res["requests"] == 32 and res["distinct_samples"] == 8
+    assert res["mean_occupancy"] > 1.0 and res["drained"]
+    assert res["worst_rel_l2_vs_alone"] <= cs.SERVE_REL_L2
+    assert {"wall_ms", "device_busy_ms", "idle_share"} <= set(res["window"])
+    assert all(s[0] == 12 and s[1] in (1, 2, 4, 8, 16)
+               for s in res["compiled_shapes"])
+    res = cs.http_gate(cs.start_serve_cli(d), *alone)
+    assert res["requests"] == 6 and res["echo_mismatches"] == 0
+    assert res["bad_feed"][0] == 400 and res["exit_code"] == 0
+    assert 503 in res["healthz_after_sigterm"]
+    assert res["drain_statuses"] == ["200"]
+    cs._counts_gate("phase 17 (a)-(c)", cs._kernel_counts(), {})
+    res = cs.lm_export_gate(str(tmp_path))
+    assert res["flash_fwd_ops_in_graph"] == cs.INFER_LM_LAYERS
+    # on the CPU the custom op takes the plain version
+    assert res["launches"] == {} and res["plain_calls"] == cs.INFER_LM_LAYERS
+    out = capsys.readouterr().out
+    assert "phase 17 (a) lstm" in out and "phase 17 (d)" in out

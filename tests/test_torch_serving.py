@@ -179,9 +179,10 @@ def test_submit_validates_and_full_queue_overloads():
 def test_queue_depth_knob_is_validated_naming_its_source(monkeypatch):
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.serving import resolve_serving_knobs
-    assert resolve_serving_knobs(queue_depth=3) == 3
+    assert resolve_serving_knobs(queue_depth=3,
+                                 which=("queue_depth",)) == (None, None, 3)
     monkeypatch.setattr(flags, "serving_queue_depth", 7)
-    assert resolve_serving_knobs() == 7
+    assert resolve_serving_knobs()[2] == 7
     with pytest.raises(ValueError, match="^queue_depth must be >= 1"):
         GenerationScheduler(engine(), queue_depth=0)
     monkeypatch.setattr(flags, "serving_queue_depth", "many")
@@ -194,7 +195,7 @@ def test_server_generate_health_metrics_and_errors():
     eng = gated_engine(slots=2)
     eng.gate.set()
     sched = GenerationScheduler(eng, queue_depth=1)
-    server = make_server(sched, port=0).start_background()
+    server = make_server(None, generator=sched, port=0).start_background()
     url = server.url
     try:
         prompt = [7, 8, 9, 10, 11]

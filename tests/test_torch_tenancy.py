@@ -556,7 +556,7 @@ def test_http_sheds_low_priority_with_retry_after_and_reads_the_tenant(
     sched = pgen.GenerationScheduler(
         paged(weights), queue_depth=8, brownout=pinned(3),
         tenant_token_budget_map={"capped": 1000})
-    server = make_server(sched, port=0).start_background()
+    server = make_server(None, generator=sched, port=0).start_background()
     url = server.url
     try:
         shed = catalog.REQUESTS_SHED.value(**{"class": "low"})
