@@ -96,7 +96,13 @@ raises on failure (the script then exits non-zero and prints no result):
    width (512d, 8 heads, vocab 32000), batch 2, seq 512, from one
    initial state, 3 Adam steps through ``Executor.run`` on the card
    (kernels) and on the CPU (plain versions); losses and the first
-   attention projection's weights must agree.
+   attention projection's weights must agree. Then captures under the
+   cyclic garbage collector (``capture_gc_gate``): CGC_DEAD executors
+   whose captured 1-layer LM steps (K4's pinned table in each) were
+   never closed become cycles as the capture of another step opens, the
+   collector due at every allocation until it ends; the captures must
+   end, no collection may start inside one (``launch_count.Capture``
+   holds it off) and the dead executors must be collected after.
 6. Training path: ``bench_lm.py``'s step at full size — ``transformer_lm``
    12 layers, 512d, 8 heads, vocab 32000, batch 16, seq 1024, bf16 mixed
    precision, ``Adam(1e-4)`` — built with the layers DSL, startup on the
@@ -208,7 +214,7 @@ raises on failure (the script then exits non-zero and prints no result):
 14. Speculative decoding, tenants and shedding, run right after phase 12
    (phase 4's decoder files, requests, K = 1 streams and full recompute;
    phase 12's K = 8 run beside it). (a) ``spec_engine_gate``:
-   ``speculative_greedy_generate`` over 32 prompts x 64 tokens on the fp32
+   ``speculative_greedy_generate`` over 32 prompts x 48 tokens on the fp32
    and bf16 targets (and bf16 with int8 pages at k 4), with the target as
    its own draft and a 2-layer full-width draft from seed 1, at k 1 and
    4, against ``greedy_generate`` on the paged engine alone: K3 (K3-quant)
@@ -247,7 +253,7 @@ raises on failure (the script then exits non-zero and prints no result):
    ``bench_lm.py``'s rounds at full size through
    ``paddle_tpu_torch.benchmarks.lm`` (``main()``, then ``packed_main()``
    with its padded baseline; 10-step rounds (bench_lm.py: 60), one warm,
-   3 timed; the JSON line printed): the loss finite and falling from the
+   2 timed (bench_lm.py: 3); the JSON line printed): the loss finite and falling from the
    first round to the last, ``compile_cache_misses`` = the (program, feed) pairs, the
    path's flash kernels launched steps x 12, one capture a program;
    printed beside phase 6's and 7's eager p50: the captured step's ms,
@@ -303,7 +309,7 @@ raises on failure (the script then exits non-zero and prints no result):
    model, amp, deterministic cuDNN; e5m2 and delayed, the ``Fp8Scale``
    vars included; one capture each). (c) ``benchmarks.resnet.main()`` at
    the default recipe and full size (batch 256, 224x224, NHWC, 1000
-   classes, ``BENCH_RESNET_ONLY=1``; phase 11's 10-step rounds x 3
+   classes, ``BENCH_RESNET_ONLY=1``; phase 11's 10-step rounds x 2
    after one warm dispatch, ``FP8_STEPS``), its JSON line printed: the loss finite and
    lower after the rounds than at the first step, one capture, no
    hand-written kernel, ``precision`` "bf16+fp8-acts+fp8-convout-e5m2";
@@ -348,6 +354,38 @@ raises on failure (the script then exits non-zero and prints no result):
    kernel and never the plain version; its logits within ``BF16_TOL`` of
    ``Executor.run``'s.
 
+18. Disaggregated serving (run after phase 17): the serving decoder at
+   ``bench_lm.py``'s depth (``DIS_LAYERS`` 12), written in fp32 and bf16;
+   requests share one 512-token system prompt (32 full pages), each with a
+   seeded 16-64-token suffix and 16-32 new tokens. The children of (b) and
+   (c) boot while (a) runs. (a) In process (``disagg_engine_gates``): an
+   exporting engine self-prefills and decodes the prompts, then publishes
+   every prompt's full pages through ``PrefixTierClient.publish_now``; a
+   second engine with the tier client first captures a megastep trip
+   (K 8) on a warm-up prompt, then maps the pages and decodes in megasteps:
+   both engines' fp32 streams equal full recompute, no recapture, the pool
+   tensors keep their addresses, every prompt maps the shared prefix, the
+   mapped pages equal the exported ones bitwise and
+   ``kv_transfer_pages_imported_total`` > 0; the same with int8 pages
+   (pages and scales bitwise, the stream match printed) and one prompt's
+   bf16 and fp8 pages through the store, bitwise. K3 and K3-quant launched
+   as the engines' steps and trips count; the plain K3 never. (b) The
+   single-engine self-prefill run (``serve_run``), then ``python -m
+   paddle_tpu_torch.serving.prefix_tier``, one ``serve --role prefill`` and
+   two ``serve --role decode`` on one ``--kv-transfer-dir``: each request
+   goes to ``POST /v1/prefill``, then to ``POST /v1/generate`` on the two
+   decode children in turn; every response 200, the streams equal the
+   self-prefill run's, both decode children import pages, and no decode
+   prefill computes the shared prefix. (c) A prefill child started with
+   ``--chaos-spec handoff:0=hang...`` hangs inside its first export and is
+   SIGKILLed: the request completes through a decode child's self-prefill
+   (no imported page) and the torn entry never becomes visible; then the
+   tier child is SIGKILLed with requests in flight and more sent after:
+   every one is 200 with its stream, and the decode children's direct-disk
+   lookups serve the pages. Prints TTFT p50/p99 with the handoff against
+   self-prefill, export and import ms a page, the entry's MB, decode
+   tokens/s and the phase's seconds, with the card's name and power limit.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -389,9 +427,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 VOCAB, DIM, HEADS, LAYERS, FFN_MULT = 32000, 512, 8, 4, 4
 SLOTS, MAX_LEN, BUCKETS, PAGE = 32, 1024, "64,128,256,512", 16
 N_CLIENTS, PER_CLIENT = 8, 6
-# seeded, inclusive; the new tokens 32-128 until phase 17 came (cut for the
-# script's time limit)
-PROMPT_LEN, NEW_TOKENS = (16, 480), (16, 64)
+# seeded, inclusive; the new tokens 32-128 until phase 17 came, 16-64 until
+# phase 18 came (cut for the script's time limit)
+PROMPT_LEN, NEW_TOKENS = (16, 480), (16, 48)
 SEED = 0
 DEVICE = "cuda"
 
@@ -415,6 +453,8 @@ FLASH_GEOMS = [(3, 256, 4, 4, 64), (3, 256, 4, 2, 128),
 # fp32 training gate, card (kernels, cuBLAS) vs CPU (plain versions):
 # the same arithmetic in fp32 in another summation order
 GATE_LOSS_RTOL = 1e-5
+# capture_gc_gate: dead executors left as cycles, and the LM they ran
+CGC_DEAD, CGC_LAYERS, CGC_BATCH, CGC_SEQ = 3, 1, 2, 128
 GATE_UPDATE_REL_L2 = 1e-3      # of the weight's 3-step update
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
@@ -2235,7 +2275,9 @@ def megastep_path(phase4):
 # -- phase 14: speculative decoding, tenants, shedding ---------------------
 
 SPEC_KS = (1, 4)               # the engine gates' draft lengths
-SPEC_NEW_TOKENS = 64           # a gate stream's tokens (SLOTS prompts)
+# a gate stream's tokens (SLOTS prompts; 64 until phase 18 came, cut for
+# the script's time limit)
+SPEC_NEW_TOKENS = 48
 DRAFT_LAYERS, DRAFT_SEED = 2, 1
 SERVED_SPEC_K = 4              # serve --gen-speculative-k 4
 # (label, target decoder, KV pages, gated) of the engine gates: fp32
@@ -2646,6 +2688,90 @@ def train_gate():
             for tag, place in (("card", fluid.CUDAPlace(0)),
                                ("cpu", fluid.CPUPlace()))}
     return _gate("training gate", runs, state[GATE_WEIGHT])
+
+
+def capture_gc_gate():
+    """Captures under the cyclic collector. CGC_DEAD executors each
+    capture a CGC_LAYERS-layer LM step with ``FusedAdam`` (K4 keeps a
+    pinned table with its graph); each ``_CapturedStep`` and its
+    executor hold each other, so once dropped without ``close()`` only
+    the collector frees them. They are dropped as the capture of an
+    ``Adam`` step opens, and the collector is due at every allocation
+    (threshold 1) until it ends. Gates: every capture ends, no
+    collection starts inside a capture (``launch_count.Capture`` holds
+    the collector off) and the dead executors are gone after one
+    outside."""
+    import gc
+    import weakref
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import launch_count
+    t0 = time.perf_counter()
+    threshold = gc.get_threshold()
+    real_enter, real_exit = (launch_count.Capture.__enter__,
+                             launch_count.Capture.__exit__)
+    held, dead = [], []
+    seen = {"arm": False, "open": False, "inside": 0, "captures": 0}
+
+    def enter(self):
+        out = real_enter(self)
+        seen["open"] = True
+        seen["captures"] += 1
+        if seen["arm"]:
+            seen["arm"] = False
+            held.clear()            # cycles from here on
+            gc.set_threshold(1, 1, 1)
+        return out
+
+    def exit_(self, *exc):
+        seen["open"] = False
+        out = real_exit(self, *exc)
+        gc.set_threshold(*threshold)
+        return out
+
+    def count(phase, info):
+        if phase == "start" and seen["open"]:
+            seen["inside"] += 1
+
+    def step(opt):
+        prog, startup, loss = build_lm(fluid, CGC_LAYERS, CGC_BATCH,
+                                       CGC_SEQ, amp=False, opt=opt)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        (lv,) = exe.run_steps(prog, feed=lm_feed(CGC_BATCH, CGC_SEQ),
+                              n_steps=2, fetch_list=[loss], scope=scope)
+        return exe, float(np.asarray(lv).reshape(-1)[0])
+
+    launch_count.Capture.__enter__ = enter
+    launch_count.Capture.__exit__ = exit_
+    gc.callbacks.append(count)
+    try:
+        for _ in range(CGC_DEAD):
+            exe, _loss = step("FusedAdam")
+            held.append(exe)
+            dead.append(weakref.ref(exe))
+            del exe
+        seen["arm"] = True
+        exe, loss = step("Adam")
+        exe.close()
+    finally:
+        gc.callbacks.remove(count)
+        launch_count.Capture.__enter__ = real_enter
+        launch_count.Capture.__exit__ = real_exit
+        gc.set_threshold(*threshold)
+        held.clear()
+    gc.collect()
+    res = {"dead_executors": CGC_DEAD, "captures": seen["captures"],
+           "collections_inside": seen["inside"],
+           "collected_after": sum(r() is None for r in dead), "loss": loss,
+           "seconds": time.perf_counter() - t0}
+    log("captures under the collector: %s" % json.dumps(res))
+    want = CGC_DEAD + 1 if DEVICE == "cuda" else 0
+    if res["collections_inside"] or res["captures"] != want or \
+            res["collected_after"] != CGC_DEAD or not math.isfinite(loss):
+        raise AssertionError("captures under the collector: %s"
+                             % json.dumps(res))
+    return res
 
 
 # the flash kernels share their bodies (csrc/flash_kernels.cuh, the
@@ -3592,7 +3718,8 @@ def layout_timing(bhsd_launches, dense_res):
 # phase 16's fp8 rounds take FP8_STEPS.
 RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 50, 256, 224, 1000
 RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
-RESNET_STEPS, RESNET_ROUNDS = 10, 3
+# 2 timed rounds (3 until phase 18 came)
+RESNET_STEPS, RESNET_ROUNDS = 10, 2
 RESNET_EAGER_STEPS, RESNET_PROFILE_STEPS = 3, 3
 # the gates' model: the same program at class_dim 10, batch 8 of 64x64
 # images (its last stage normalizes each channel over 8 x 2 x 2 = 32
@@ -4166,9 +4293,9 @@ REPLAY_RUN_CALLS, REPLAY_N_STEPS = 4, 4
 # the random-op gate: a classifier with one dropout layer, Adam
 DROPOUT_P, DROPOUT_ROWS, DROPOUT_WIDTH, DROPOUT_STEPS = 0.5, 64, 512, 8
 # bench_lm.py's methodology: ITERS-step rounds, one warm round, 3 timed.
-# The cut: 10-step rounds against bench_lm.py's 60, so that phase 16 fits
-# the script's time limit
-BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 10, 3, 5
+# The cuts: 10-step rounds against bench_lm.py's 60, so that phase 16 fits
+# the script's time limit, and 2 timed rounds (3 until phase 18 came)
+BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 10, 2, 5
 # phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS (5
 # steps a round; 20 until phase 16 came, 10 until phase 17 came)
 CAPTURED_STEPS, CAPTURED_ROUNDS = 5, 2
@@ -4696,8 +4823,8 @@ NGATE_LOSS_RTOL, NGATE_UPDATE_REL_L2 = 1e-5, 1e-2
 NREPLAY_SCHEDULE = ((0, 2), (1, 3), (0, 2))
 NMT_EAGER_STEPS, NMT_PROFILE_STEPS = 4, 3
 # the bench's sweeps, cut for the script's time limit (bench_nmt.py: 200
-# steps; 200 here until phase 17 came)
-NMT_ITERS = 100
+# steps; 200 here until phase 17 came, 100 until phase 18 came)
+NMT_ITERS = 50
 # device kernels by what they compute, for the NMT profile (first match
 # wins): cuBLAS/CUTLASS GEMMs, reductions, copies, the rest elementwise
 _NMT_CLASSES = (
@@ -5835,7 +5962,10 @@ def http_gate(proc, samples, alone):
             max(metrics["paddle_tpu_serving_batches_total"], 1.0)
         code, _, body = _infer_post(url, {"feeds": {"ids": [1, 2]}})
         bad_feed = (code, body.get("error", ""))
-        admitted = metrics["paddle_tpu_serving_requests_total"]
+        # read after the bad feed: it was admitted (and counted) before
+        # its batch refused it
+        admitted = ServingClient(url).metrics()[
+            "paddle_tpu_serving_requests_total"]
         # requests in flight, then SIGTERM
         statuses = [None] * HTTP_DRAIN_REQUESTS
 
@@ -5974,6 +6104,597 @@ def lm_export_gate(workdir):
     return res
 
 
+# -- phase 18: disaggregated serving -----------------------------------------
+
+# bench_lm.py's widths at its own depth; requests share one system prompt
+# of DIS_PREFIX tokens (32 full pages at PAGE 16), each with a seeded
+# suffix and budget (inclusive ranges). The tier-kill run's suffixes are
+# long enough to reach a page past the shared ones, so each of its decode
+# prefills consults the tier
+DIS_LAYERS, DIS_PREFIX, DIS_SUFFIX, DIS_NEW = 12, 512, (16, 64), (16, 32)
+DIS_KILL_SUFFIX = (24, 64)
+DIS_REQUESTS, DIS_KILL_REQUESTS = 16, 8
+DIS_SLOTS, DIS_BUCKETS, DIS_MEGASTEP_K = 16, "64,128,640", 8
+DIS_CHECK_PAGES = 64            # the bitwise-transit engines' pools
+DIS_BOOT_S, DIS_HANG_S = 300, 600
+
+
+def dis_requests(n, seed, prefix, suffix=None):
+    """``n`` prompts of ``prefix`` plus a seeded suffix (DIS_SUFFIX tokens
+    unless given), and their budgets."""
+    suffix = suffix or DIS_SUFFIX
+    rng = np.random.RandomState(seed)
+    prompts = [np.concatenate([prefix, rng.randint(
+        0, VOCAB, size=int(rng.randint(suffix[0], suffix[1] + 1)))]).astype(
+            np.int32) for _ in range(n)]
+    budgets = [int(b) for b in rng.randint(DIS_NEW[0], DIS_NEW[1] + 1,
+                                           size=n)]
+    return prompts, budgets
+
+
+def dis_decoders(workdir):
+    """The phase's decoder (DIS_LAYERS layers at the serving widths, seed
+    SEED) written with ``save_decoder`` in fp32 and as its bf16 twin."""
+    import torch
+    from paddle_tpu_torch.serving import TransformerDecoderModel, \
+        save_decoder
+    dirs = {}
+    m32 = TransformerDecoderModel(VOCAB, dim=DIM, n_heads=HEADS,
+                                  n_layers=DIS_LAYERS, ffn_mult=FFN_MULT)
+    p32 = m32.init_params(SEED, device="cpu")
+    for label, dtype in (("fp32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        m = TransformerDecoderModel(VOCAB, dim=DIM, n_heads=HEADS,
+                                    n_layers=DIS_LAYERS, ffn_mult=FFN_MULT,
+                                    dtype=dtype)
+        p = {k: ([{n: t.to(dtype) for n, t in b.items()} for b in v]
+                 if k == "blocks" else v.to(dtype)) for k, v in p32.items()}
+        dirs[label] = os.path.join(workdir, "dis_" + label)
+        save_decoder(dirs[label], m, p)
+    return dirs
+
+
+def megastep_generate(engine, prompts, budgets):
+    """Greedy streams through ``prefill`` and megasteps of the engine's
+    ``megastep_k`` trips (each slot capped at its budget less the
+    prefill's token): what the scheduler's megastep loop emits."""
+    n = len(prompts)
+    out, stats = [], []
+    left = np.zeros(engine.max_slots, np.int64)
+    for i, (p, b) in enumerate(zip(prompts, budgets)):
+        logits = engine.prefill(i, p, max_new_tokens=b)
+        stats.append(dict(engine.last_prefill_stats))
+        out.append([int(np.argmax(logits))])
+        left[i] = b - 1
+        if left[i] > 0:
+            engine.set_input_token(i, out[i][0])
+        else:
+            engine.release(i)
+    step = 0
+    while engine.active.any():
+        r = engine.megastep_decode(SEED, step, k_eff=engine.megastep_k,
+                                   caps=left.copy())
+        step += r["trips"]
+        for i in range(n):
+            if engine.active[i]:
+                toks = [int(t) for t in r["out"][:, i] if t >= 0]
+                out[i].extend(toks)
+                left[i] -= len(toks)
+                if left[i] <= 0:
+                    engine.release(i)
+    return out, stats
+
+
+def _spans(name, since):
+    """(ms, pages) of each ``name`` span of the trace ring that began at
+    or after wall time ``since`` (seconds)."""
+    from paddle_tpu_torch.observability import tracing
+    return [(e["dur"] / 1e3, int(e["args"].get("pages", 0)))
+            for e in tracing.trace_events()
+            if e["name"] == name and e["ts"] >= since * 1e6]
+
+
+def _rows_equal(a, pa_ids, b, pb_ids):
+    """Pool rows ``pa_ids`` of engine ``a`` bitwise rows ``pb_ids`` of
+    engine ``b``: K and V of every layer, and the scales of a quantized
+    pool."""
+    import torch
+    ia = torch.tensor(pa_ids, dtype=torch.long, device=a.device)
+    ib = torch.tensor(pb_ids, dtype=torch.long, device=b.device)
+    ta = a._kp + a._vp + (a._ks or []) + (a._vs or [])
+    tb = b._kp + b._vp + (b._ks or []) + (b._vs or [])
+    return 0 < len(pa_ids) == len(pb_ids) and len(ta) == len(tb) and all(
+        torch.equal(x.view(torch.uint8).index_select(0, ia),
+                    y.view(torch.uint8).index_select(0, ib))
+        for x, y in zip(ta, tb))
+
+
+def _publish_cached(engine, client, prompt):
+    """Publish the prompt's full pages from ``engine``'s prefix cache
+    (where its prefill left them); returns (entry path, pages)."""
+    keys, pids = engine.prefix_cache.match(prompt, len(prompt) // PAGE)
+    return client.publish_now(engine, keys, pids), len(pids)
+
+
+def _mapped(engine, prompt):
+    """The pool rows ``engine``'s prefix cache maps for the prompt's
+    pages below its last token — what a prefill maps or imports (a page
+    the prompt fills to its end is computed by the prefill itself)."""
+    return engine.prefix_cache.match(prompt, (len(prompt) - 1) // PAGE)[1]
+
+
+def disagg_engine_gates(dirs, prompts, budgets, extra, workdir):
+    """Phase 18 (a), in-process. An exporting engine self-prefills and
+    greedy-decodes ``prompts`` (plus ``extra``, the later runs'
+    prompts), and publishes every prompt's full pages through
+    ``PrefixTierClient.publish_now``; a second engine with the tier
+    client captures a megastep trip on a warm-up prompt FIRST, then maps
+    the pages and decodes the prompts in megasteps. Gates: both engines'
+    fp32 streams equal full recompute; no recapture (the trip captured
+    before the import reads the imported pages); the pool tensors keep
+    their addresses; every prompt maps the shared prefix; the mapped
+    pages equal the exported ones bitwise; kv_transfer_pages_imported_total
+    > 0. The same with int8 pages (pages and scales bitwise, the stream
+    match printed), and a bitwise transit of bf16 and fp8 pages. K3 and
+    K3-quant launched as the engines' steps and trips count, the plain K3
+    never on the card. Returns the report and the reference streams of
+    ``prompts + extra``."""
+    from paddle_tpu_torch.observability import catalog
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (PagedDecodeEngine,
+                                          PrefixTierClient,
+                                          full_recompute_generate,
+                                          greedy_generate, kv_transfer,
+                                          load_decoder)
+    t0 = time.perf_counter()
+    models = {k: load_decoder(d, device=DEVICE) for k, d in dirs.items()}
+    shared = DIS_PREFIX // PAGE
+
+    def engine(label="fp32", quant="off", tier=None, megastep_k=1,
+               slots=DIS_SLOTS, num_pages=0):
+        model, params = models[label]
+        return PagedDecodeEngine(
+            model, params, max_slots=slots, max_len=MAX_LEN,
+            prefill_buckets=DIS_BUCKETS, page_size=PAGE,
+            num_pages=num_pages, kv_quant_dtype=quant,
+            megastep_k=megastep_k, prefix_tier=tier, device=DEVICE)
+
+    plain = [0]
+    real_plain = pa.paged_decode_attention_plain
+
+    def counted(*a, **k):
+        plain[0] += 1
+        return real_plain(*a, **k)
+
+    pa.paged_decode_attention_plain = counted
+    pa.launches = pa.launches_quant = 0
+    imported0 = catalog.KV_TRANSFER_PAGES_IMPORTED.value()
+    try:
+        model, params = models["fp32"]
+        everything = prompts + extra[0]
+        all_budgets = budgets + extra[1]
+        ref = full_recompute_generate(model, params, everything,
+                                      all_budgets, max_len=MAX_LEN)
+        # the exporter: self-prefill (the shared prefix once, then mapped
+        # from its own cache), then publish every prompt's full pages
+        a = engine()
+        self_streams = []
+        for i in range(0, len(everything), DIS_SLOTS):
+            self_streams += greedy_generate(
+                a, everything[i:i + DIS_SLOTS],
+                all_budgets[i:i + DIS_SLOTS])
+        store = os.path.join(workdir, "dis_store_a")
+        client = PrefixTierClient(store_root=store, tier_url="")
+        _sync()
+        t1 = time.perf_counter()
+        exported = [_publish_cached(a, client, p) for p in prompts]
+        export_s = time.perf_counter() - t1
+        entry_mb = max(kv_transfer.entry_bytes(path)
+                       for path, _ in exported) / 1e6
+        # the importer: a trip captured before any import
+        b = engine(tier=PrefixTierClient(store_root=store, tier_url=""),
+                   megastep_k=DIS_MEGASTEP_K)
+        warm = np.random.RandomState(SEED + 17).randint(
+            0, VOCAB, 3 * PAGE + 5).astype(np.int32)
+        b.prefill(0, warm, max_new_tokens=DIS_MEGASTEP_K + 1)
+        b.set_input_token(0, 1)
+        b.megastep_decode(SEED, 0, k_eff=DIS_MEGASTEP_K)
+        b.release(0)
+        graph = b._ms.graphs.get(False) if b._ms is not None else None
+        captures = dict(b.trip_stats)
+        pools = b._kp + b._vp
+        ptrs = [t.data_ptr() for t in pools]
+        mark = time.time()
+        streams, stats = megastep_generate(b, prompts, budgets)
+        _sync()
+        imports = _spans("kv.transfer_import", mark)
+        same_graph = graph is None or b._ms.graphs.get(False) is graph
+        kept = [t.data_ptr() for t in b._kp + b._vp] == ptrs and all(
+            x is y for x, y in zip(pools, b._kp + b._vp))
+        bitwise = sum(_rows_equal(a, _mapped(a, p), b, _mapped(b, p))
+                      for p in prompts)
+        cold = sum(1 for st in stats if st["prefix_hit_pages"] < shared)
+        n = len(prompts)
+        res = {"prompts": n, "layers": model.n_layers,
+               "streams_equal_recompute": sum(
+                   x == y for x, y in zip(streams, ref[:n])),
+               "self_streams_equal_recompute": sum(
+                   x == y for x, y in zip(self_streams, ref)),
+               "imported_pages": sum(st["imported_pages"] for st in stats),
+               "prefix_hit_pages_min": min(st["prefix_hit_pages"]
+                                           for st in stats),
+               "cold_prefix_computes": cold,
+               "pages_bitwise_prompts": bitwise,
+               "captures_before_import": {k: captures[k] for k in (
+                   "captures_greedy", "warmups")},
+               "trip_stats_after": dict(b.trip_stats),
+               "recaptured": not same_graph, "pool_addresses_kept": kept,
+               "export_ms_per_page": export_s * 1e3 / sum(
+                   k for _, k in exported),
+               # the first import maps a whole chain; each later one
+               # reads (and md5-verifies) a whole entry for the few pages
+               # past the shared prefix
+               "import_ms_per_page": sum(ms for ms, _ in imports) /
+               max(sum(k for _, k in imports), 1),
+               "first_import": {"ms": imports[0][0], "pages": imports[0][1]}
+               if imports else None,
+               "imports": len(imports), "entry_mb": entry_mb}
+        if res["streams_equal_recompute"] != n or \
+                res["self_streams_equal_recompute"] != len(ref) or \
+                res["imported_pages"] <= 0 or cold or bitwise != n or \
+                not same_graph or not kept or \
+                b.trip_stats["captures_greedy"] != \
+                captures["captures_greedy"] or \
+                (DEVICE == "cuda" and (captures["captures_greedy"] != 1 or
+                                       b.trip_stats["replays"] <= 0)):
+            raise AssertionError("phase 18 (a) fp32 import: %s"
+                                 % json.dumps(res))
+        want_k3 = launch_want(a.trip_stats, model.n_layers) + \
+            launch_want(b.trip_stats, model.n_layers)
+        del a, b
+        # int8 pages: the same through K3-quant, pages and scales bitwise
+        store_q = os.path.join(workdir, "dis_store_q")
+        aq = engine(quant="int8")
+        q_self = greedy_generate(aq, prompts, budgets)
+        cq = PrefixTierClient(store_root=store_q, tier_url="")
+        for p in prompts:
+            _publish_cached(aq, cq, p)
+        bq = engine(quant="int8", tier=PrefixTierClient(store_root=store_q,
+                                                         tier_url=""))
+        q_streams = greedy_generate(bq, prompts, budgets)
+        q_imported = bq.last_prefill_stats["imported_pages"]
+        q_bitwise = sum(_rows_equal(aq, _mapped(aq, p), bq, _mapped(bq, p))
+                        for p in prompts)
+        res["int8"] = {"pages_bitwise_prompts": q_bitwise,
+                       "token_match_vs_self_prefill":
+                           match_fraction(q_self, q_streams),
+                       "imported_pages_last": q_imported}
+        want_quant = launch_want(aq.trip_stats, model.n_layers) + \
+            launch_want(bq.trip_stats, model.n_layers)
+        if q_bitwise != n:
+            raise AssertionError("phase 18 (a) int8 pages: %s"
+                                 % json.dumps(res["int8"]))
+        del aq, bq
+        # bf16 and fp8 pages: one prompt's pages through the store
+        transit = {}
+        for label, quant in (("bf16", "off"), ("fp32", "fp8")):
+            name = "bf16" if label == "bf16" else "fp8"
+            root = os.path.join(workdir, "dis_store_" + name)
+            src = engine(label, quant, slots=1, num_pages=DIS_CHECK_PAGES)
+            src.prefill(0, prompts[0], max_new_tokens=1)
+            _publish_cached(src, PrefixTierClient(store_root=root,
+                                                  tier_url=""), prompts[0])
+            dst = engine(label, quant, slots=1, num_pages=DIS_CHECK_PAGES,
+                         tier=PrefixTierClient(store_root=root,
+                                               tier_url=""))
+            dst.prefill(0, prompts[0], max_new_tokens=1)
+            transit[name] = {
+                "imported_pages": dst.last_prefill_stats["imported_pages"],
+                "bitwise": _rows_equal(src, _mapped(src, prompts[0]), dst,
+                                       _mapped(dst, prompts[0])),
+                "dtype": dst.geometry()["dtype"]}
+            del src, dst
+        res["transit"] = transit
+        if not all(t["bitwise"] and t["imported_pages"] > 0
+                   for t in transit.values()):
+            raise AssertionError("phase 18 (a) bf16/fp8 transit: %s"
+                                 % json.dumps(transit))
+        _sync()
+        counts = {"k3": pa.launches, "k3_quant": pa.launches_quant}
+        res["launches"] = counts
+        res["plain_k3_calls"] = plain[0]
+        res["pages_imported_total"] = \
+            catalog.KV_TRANSFER_PAGES_IMPORTED.value() - imported0
+        if counts != {"k3": want_k3, "k3_quant": want_quant} or \
+                min(counts.values()) <= 0 or \
+                res["pages_imported_total"] <= 0 or \
+                (DEVICE == "cuda" and plain[0]):
+            raise AssertionError(
+                "phase 18 (a) launches %s, want K3 %d and K3-quant %d; plain "
+                "K3 calls %d; kv_transfer_pages_imported_total %g"
+                % (counts, want_k3, want_quant, plain[0],
+                   res["pages_imported_total"]))
+    finally:
+        pa.paged_decode_attention_plain = real_plain
+    res["seconds"] = time.perf_counter() - t0
+    return res, ref
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Child:
+    """A phase-18 child process: ``argv`` run from the repo root with its
+    stderr in ``log``; ``url`` once its start line names it."""
+
+    def __init__(self, name, argv, log_path):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        self.name, self.log_path, self.url = name, log_path, None
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen([sys.executable, "-m"] + argv,
+                                     cwd=REPO, env=env,
+                                     stdout=subprocess.DEVNULL,
+                                     stderr=self._log)
+
+    def wait_url(self, deadline):
+        pat = re.compile(r"^(?:serve|prefix tier): (http://[0-9.:]+)")
+        while time.perf_counter() < deadline:
+            with open(self.log_path) as f:
+                for line in f:
+                    m = pat.match(line)
+                    if m:
+                        self.url = m.group(1)
+                        return self.url
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.2)
+        raise AssertionError("phase 18 child %s did not start (rc %s): %s"
+                             % (self.name, self.proc.poll(),
+                                self.tail()))
+
+    def tail(self, n=2000):
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self._log.close()
+
+
+def start_disagg_children(d32, store, workdir):
+    """The prefix tier, one ``serve --role prefill``, two ``serve --role
+    decode`` and a prefill child whose first export hangs
+    (``--chaos-spec handoff:0=hang...``), all on one store; they boot
+    while phase 18 (a) runs."""
+    tier_port = _free_port()
+    tier_url = "http://127.0.0.1:%d" % tier_port
+    serve = ["paddle_tpu_torch.serving.serve", "--generation-model", d32,
+             "--device", DEVICE, "--port", "0", "--gen-max-slots",
+             str(DIS_SLOTS), "--gen-max-len", str(MAX_LEN),
+             "--gen-prefill-buckets", DIS_BUCKETS, "--gen-page-size",
+             str(PAGE), "--kv-transfer-dir", store, "--prefix-tier-url",
+             tier_url, "--request-timeout", "300"]
+    specs = [("tier", ["paddle_tpu_torch.serving.prefix_tier",
+                       "--store-dir", store, "--port", str(tier_port),
+                       "--capacity-mb", "65536", "--sweep-interval-s",
+                       "0.5"]),
+             ("prefill", serve + ["--role", "prefill"]),
+             ("decode0", serve + ["--role", "decode"]),
+             ("decode1", serve + ["--role", "decode"]),
+             ("torn_prefill", serve + ["--role", "prefill", "--chaos-spec",
+                                       "handoff:0=hang%d" % DIS_HANG_S])]
+    return {name: _Child(name, argv, os.path.join(workdir, name + ".log"))
+            for name, argv in specs}
+
+
+def _metric(url, name, **labels):
+    """One sample of a child's /metrics (0 when absent)."""
+    text = urllib.request.urlopen(url + "/metrics", timeout=60).read() \
+        .decode()
+    want = "paddle_tpu_" + name
+    if labels:
+        want += "{%s}" % ",".join('%s="%s"' % kv
+                                  for kv in sorted(labels.items()))
+    for line in text.splitlines():
+        if line.startswith(want + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def _handoff(children, prompt, budget, decode, delay_s=0.0):
+    """The router's two hops from the client: POST /v1/prefill to the
+    prefill child, then /v1/generate to ``decode``. Returns the prefill
+    ack, the generate response and the prefill hop's wall ms."""
+    time.sleep(delay_s)
+    t0 = time.perf_counter()
+    ack = _post(children["prefill"].url + "/v1/prefill",
+                {"prompt": prompt.tolist()})
+    hop_ms = (time.perf_counter() - t0) * 1e3
+    resp = _post(children[decode].url + "/v1/generate",
+                 {"prompt": prompt.tolist(), "max_new_tokens": budget,
+                  "temperature": 0.0})
+    return ack, resp, hop_ms
+
+
+def disagg_path(workdir, card_label=""):
+    """Phase 18: disaggregated serving on the card (``disagg_engine_gates``
+    in-process while the children boot, then over HTTP and through its
+    failures); see the module docstring. Returns the report and the
+    in-process launches of K3 and K3-quant."""
+    from paddle_tpu_torch.serving import kv_transfer
+    t0 = time.perf_counter()
+    dirs = dis_decoders(workdir)
+    prefix = np.random.RandomState(SEED + 18).randint(0, VOCAB, DIS_PREFIX)
+    prompts, budgets = dis_requests(DIS_REQUESTS, SEED + 19, prefix)
+    kill_p, kill_b = dis_requests(DIS_KILL_REQUESTS, SEED + 20, prefix,
+                                  DIS_KILL_SUFFIX)
+    torn_p, torn_b = dis_requests(1, SEED + 21, np.random.RandomState(
+        SEED + 22).randint(0, VOCAB, DIS_PREFIX))
+    store = os.path.join(workdir, "dis_store")
+    children = start_disagg_children(dirs["fp32"], store, workdir)
+    report = {}
+    try:
+        report["engine_gates"], ref = disagg_engine_gates(
+            dirs, prompts, budgets, (kill_p + torn_p, kill_b + torn_b),
+            workdir)
+        launches = dict(report["engine_gates"]["launches"])
+        log("phase 18 (a) engine gates (%d layers, %d prompts on a %d-token "
+            "shared prefix; %s): %s"
+            % (DIS_LAYERS, len(prompts), DIS_PREFIX, card_label,
+               json.dumps(report["engine_gates"])))
+        # (b) the single-engine self-prefill run, then the handoff over HTTP
+        base = serve_run(dirs["fp32"], prompts, budgets, slots=DIS_SLOTS,
+                         buckets=DIS_BUCKETS)
+        launches["k3"] += base["launches"]
+        base_streams = [r["tokens"] for r in base["responses"]]
+        if base_streams != ref[:len(prompts)]:
+            raise AssertionError("phase 18 single-engine streams differ "
+                                 "from full recompute")
+        deadline = time.perf_counter() + DIS_BOOT_S
+        for child in children.values():
+            child.wait_url(deadline)
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+            got = list(ex.map(lambda i: _handoff(
+                children, prompts[i], budgets[i], "decode%d" % (i % 2)),
+                range(len(prompts))))
+        wall = time.perf_counter() - t1
+        streams = [r["tokens"] for _, r, _ in got]
+        per_replica = {name: _metric(children[name].url,
+                                     "kv_transfer_pages_imported_total")
+                       for name in ("decode0", "decode1")}
+        ttft = np.array([hop + r["slo"]["ttft_ms"] for _, r, hop in got])
+        base_ttft = np.array([r["slo"]["ttft_ms"]
+                              for r in base["responses"]])
+        cold = sum(1 for _, r, _ in got
+                   if r["slo"].get("prefix_hit_pages", 0) <
+                   DIS_PREFIX // PAGE)
+        tokens = sum(len(r["tokens"]) for _, r, _ in got)
+        http = {"requests": len(got),
+                "streams_equal_self_prefill": sum(
+                    x == y for x, y in zip(streams, base_streams)),
+                "pages_imported_by_replica": per_replica,
+                "responses_importing": sum(
+                    1 for _, r, _ in got if r["slo"].get("imported_pages")),
+                "cold_prefix_computes": cold,
+                "prefill_acks_pages": sorted({a["n_pages"]
+                                              for a, _, _ in got}),
+                "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                "ttft_ms_p99": float(np.percentile(ttft, 99)),
+                "self_prefill_ttft_ms_p50": float(np.percentile(base_ttft,
+                                                                50)),
+                "self_prefill_ttft_ms_p99": float(np.percentile(base_ttft,
+                                                                99)),
+                "prefill_hop_ms_p50": float(np.median([h for _, _, h
+                                                       in got])),
+                "decode_tokens_per_s": tokens / wall,
+                "self_prefill_decode_tokens_per_s":
+                    _serving_stats(base)["decode_tokens_per_s"],
+                "wall_s": wall}
+        report["http"] = http
+        log("phase 18 (b) handoff over HTTP (prefill child -> decode "
+            "children; %s): %s" % (card_label, json.dumps(http)))
+        if http["streams_equal_self_prefill"] != len(prompts) or cold or \
+                min(per_replica.values()) <= 0:
+            raise AssertionError("phase 18 (b): %s" % json.dumps(http))
+        # (c) a torn handoff: the chaos child hangs inside its first export
+        # (payload fsynced, no manifest); SIGKILL it, then the decode
+        # replica self-prefills the request
+        t2 = time.perf_counter()
+        key = kv_transfer.chain_keys(torn_p[0], PAGE,
+                                     len(torn_p[0]) // PAGE)[-1].hex()
+        parent = os.path.join(store, key[:2])
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(_post, children["torn_prefill"].url +
+                            "/v1/prefill", {"prompt": torn_p[0].tolist()})
+            torn = None
+            while torn is None and time.perf_counter() - t2 < DIS_HANG_S:
+                names = os.listdir(parent) if os.path.isdir(parent) else []
+                for nm in names:
+                    d = os.path.join(parent, nm)
+                    if nm.startswith(key) and os.path.isfile(
+                            os.path.join(d, "pages.npz")):
+                        torn = d
+                if fut.done():
+                    raise AssertionError("phase 18 (c): the chaos prefill "
+                                         "answered: %s" % (fut.result(),))
+                time.sleep(0.1)
+            children["torn_prefill"].kill()
+            try:
+                fut.result()
+                raise AssertionError("phase 18 (c): the killed prefill "
+                                     "answered")
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+        if torn is None:
+            raise AssertionError("phase 18 (c): no torn entry appeared")
+        r = _post(children["decode0"].url + "/v1/generate",
+                  {"prompt": torn_p[0].tolist(), "max_new_tokens": torn_b[0],
+                   "temperature": 0.0})
+        torn_res = {"status": 200, "imported_pages":
+                    r["slo"].get("imported_pages", 0),
+                    "prefix_hit_pages": r["slo"].get("prefix_hit_pages"),
+                    "stream_equal": r["tokens"] == ref[-1],
+                    "torn_manifest": os.path.exists(os.path.join(
+                        torn, "_MANIFEST")),
+                    "visible": kv_transfer.find_committed(store, key) ==
+                    torn, "seconds": time.perf_counter() - t2}
+        # (d) the tier SIGKILLed under load: half the requests in flight,
+        # the other half sent after the kill
+        t3 = time.perf_counter()
+        half = len(kill_p) // 2
+        with concurrent.futures.ThreadPoolExecutor(len(kill_p)) as ex:
+            futs = [ex.submit(_handoff, children, kill_p[i], kill_b[i],
+                              "decode%d" % (i % 2), 0.0 if i < half else 1.0)
+                    for i in range(len(kill_p))]
+            time.sleep(0.2)
+            children["tier"].kill()
+            killed = [f.result() for f in futs]
+        disk = sum(_metric(children[name].url, "prefix_tier_requests_total",
+                           op="lookup", outcome="disk")
+                   for name in ("decode0", "decode1"))
+        kill_res = {"requests": len(killed),
+                    "streams_equal_recompute": sum(
+                        r["tokens"] == w for (_, r, _), w in
+                        zip(killed, ref[len(prompts):-1])),
+                    "cold_prefix_computes": sum(
+                        1 for _, r, _ in killed
+                        if r["slo"].get("prefix_hit_pages", 0) <
+                        DIS_PREFIX // PAGE),
+                    "disk_fallback_lookups": disk,
+                    "seconds": time.perf_counter() - t3}
+        report["degradation"] = {"torn_handoff": torn_res,
+                                 "tier_killed": kill_res}
+        log("phase 18 (c) degradation (%s): %s"
+            % (card_label, json.dumps(report["degradation"])))
+        if torn_res["imported_pages"] or not torn_res["stream_equal"] or \
+                torn_res["torn_manifest"] or torn_res["visible"] or \
+                kill_res["streams_equal_recompute"] != len(kill_p) or \
+                kill_res["cold_prefix_computes"] or disk <= 0:
+            raise AssertionError("phase 18 (c): %s"
+                                 % json.dumps(report["degradation"]))
+    except Exception:
+        for child in children.values():
+            sys.stderr.write("-- phase 18 child %s --\n%s\n"
+                             % (child.name, child.tail()))
+        raise
+    finally:
+        for child in children.values():
+            child.kill()
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    log("phase 18 disaggregated serving in %.1f s (%s)"
+        % (report["seconds"], card_label))
+    return report
+
+
 _AB_RUN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -6102,6 +6823,8 @@ def main(argv=None):
             lap("k3_long")
             report["train_gate"] = train_gate()
             lap("train_gate")
+            report["capture_gc_gate"] = capture_gc_gate()
+            lap("capture_gc_gate")
             report["train_path"] = train_path()
             lap("train_path")
             report["flash_timing"] = flash_timing(
@@ -6205,6 +6928,14 @@ def main(argv=None):
             for row in report["flash_timing"]:
                 row["launches"] += report["infer_lm"]["launches"].get(
                     row["name"], 0)
+            # phase 18: disaggregated serving; K3 and K3-quant in process
+            report["disagg_path"] = disagg_path(
+                workdir, report["card"]["nvidia_smi"])
+            lap("disagg_path")
+            for row, name in ((report["main_path"]["k3"], "k3"),
+                              (report["main_path"]["k3_quant"],
+                               "k3_quant")):
+                row["launches"] += report["disagg_path"]["launches"][name]
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

@@ -68,6 +68,12 @@ generation_megastep_k = 1
 # per page); must divide kv_page_size.
 kv_quant_dtype = "off"
 kv_quant_group = 0
+# ``weight_quant_dtype`` — weight-only quantization of decoder serials at
+# publish time: "off", "fp8" or "int8" (validated by
+# ``serving.kv_transfer.resolve_kv_transfer_knobs``; ``publish_artifact``,
+# its reader, is not ported yet: ``quantize_decoder_dir`` takes the mode
+# as an argument).
+weight_quant_dtype = "off"
 
 # End-to-end deadlines and brownout load shedding (the scheduler's share
 # of ``serving.registry.resolve_fleet_knobs``; errors name the flag):
@@ -124,6 +130,34 @@ tenant_held_depth = 8
 slo_ttft_ms = ""
 slo_tpot_ms = ""
 slo_sustain_s = 1.0
+
+# Disaggregated prefill/decode serving + fleet prefix-cache tier
+# (``serving.kv_transfer.resolve_kv_transfer_knobs`` validates the
+# kv_transfer_* knobs and ``serving.registry.resolve_fleet_knobs`` the
+# fleet_* ones — errors name the offending FLAGS_* name):
+#
+# - ``kv_transfer_dir`` — shared store root for exported KV-page
+#   prefixes (the handoff/cache-tier wire form: per-entry dirs
+#   committed with the checkpoint md5 _MANIFEST scheme, so a torn
+#   transfer is invisible to readers). "" = page handoff and tier
+#   publishing disabled; every replica self-prefills as before.
+# - ``kv_transfer_min_pages`` — publish a prefilled prefix only when
+#   it spans at least this many FULL pages (tiny prompts cost more to
+#   ship than to recompute).
+# - ``fleet_prefix_tier_url`` — base URL of the prefix-tier index
+#   service (``python -m paddle_tpu_torch.serving.prefix_tier``). "" = no
+#   tier: the per-process PrefixCache (plus direct-disk store reads when
+#   kv_transfer_dir is shared) is the only reuse.
+# - ``fleet_prefix_tier_timeout_s`` — per-call tier HTTP timeout; tier
+#   failures NEVER fail a request (the client breaker falls back to
+#   the local cache and retries the tier later).
+# - ``fleet_prefix_tier_capacity_mb`` — tier store size watermark; the
+#   tier evicts LRU unleased entries above it.
+kv_transfer_dir = ""
+kv_transfer_min_pages = 1
+fleet_prefix_tier_url = ""
+fleet_prefix_tier_timeout_s = 2.0
+fleet_prefix_tier_capacity_mb = 512.0
 
 # Debugging: ``check_nan_inf`` — per-step NaN/Inf scan of the fetches and
 # the updated state (``Executor._nan_check``); forces a host sync and

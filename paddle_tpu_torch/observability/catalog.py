@@ -34,6 +34,9 @@ __all__ = [
     "KV_QUANT_PAGES", "WEIGHT_QUANT_ARTIFACTS", "SPECULATIVE_DRAFTED",
     "SPECULATIVE_ACCEPTED", "SPECULATIVE_FALLBACK", "REQUESTS_SHED",
     "TENANT_TOKENS", "PREEMPTIONS_TO_HELD", "SLO_VIOLATION_SECONDS",
+    "KV_TRANSFER_EXPORTS", "KV_TRANSFER_IMPORTS",
+    "KV_TRANSFER_PAGES_IMPORTED", "PREFIX_TIER_REQUESTS",
+    "PREFIX_TIER_EVICTIONS",
 ]
 
 _LABEL_SEP = "|"
@@ -308,6 +311,35 @@ WEIGHT_QUANT_ARTIFACTS = Counter(
     "quantize_decoder_dir (per-output-channel scales + weight_quant "
     "config stanza; load_decoder reconstructs a dequant-on-use model)")
 
+# -- disaggregated serving: KV-page handoff + fleet prefix-cache tier
+# (serving/kv_transfer.py + serving/prefix_tier.py) ------------------------
+
+KV_TRANSFER_EXPORTS = Counter(
+    "kv_transfer_exports_total",
+    help="Prefilled prefix entries committed to the shared KV store "
+    "(md5-manifest wire form; torn exports never commit and are not "
+    "counted)")
+KV_TRANSFER_IMPORTS = Counter(
+    "kv_transfer_imports_total", labels=("outcome",),
+    help="Attempts to map a store entry's pages into a local pool "
+    "(outcome: ok, torn — writer died mid-export, invalid — md5/"
+    "geometry failure, pool_full, error); every non-ok outcome "
+    "degrades to self-prefill, never to request failure")
+KV_TRANSFER_PAGES_IMPORTED = Counter(
+    "kv_transfer_pages_imported_total",
+    help="KV pages mapped in from the fleet store instead of "
+    "re-prefilled — the CROSS-REPLICA prefix-reuse win (the local "
+    "twin is prefix_cache_hits_total)")
+PREFIX_TIER_REQUESTS = Counter(
+    "prefix_tier_requests_total", labels=("op", "outcome"),
+    help="Prefix-tier operations by op (lookup, publish, release) and "
+    "outcome (hit, miss, disk — direct-disk fallback hit while the "
+    "tier index is unreachable, ok, error, dropped)")
+PREFIX_TIER_EVICTIONS = Counter(
+    "prefix_tier_evictions_total",
+    help="Store entries evicted by the tier's LRU capacity watermark "
+    "(unleased entries only)")
+
 # -- deadlines, brownout and token-level SLOs ------------------------------
 
 REQUESTS_SHED = Counter(
@@ -382,6 +414,11 @@ _LIVE_GAUGES = {
     "kv_pool_effective_capacity":
         "Admission token capacity of the page pool (num_pages × "
         "page_size)",
+    "prefix_tier_entries":
+        "Committed prefix entries indexed by the prefix-tier service",
+    "prefix_tier_bytes":
+        "Total payload bytes of indexed prefix entries (eviction "
+        "watermark: FLAGS_fleet_prefix_tier_capacity_mb)",
 }
 
 

@@ -13,8 +13,13 @@
 * **Exemplars** — the newest trace per ``(path, outcome)``, rendered as
   ``# EXEMPLAR`` comments beside ``requests_finished_total``.
 
-Not ported yet: the span spool, fleet trace merge and head sampling
-(every span records).
+The disaggregated path records the reference's spans too:
+``kv.transfer_export``, ``kv.transfer_import`` (its ``outcome``),
+``prefix_tier.lookup`` (hit, miss or disk), ``prefix_tier.unreachable`` and
+``handoff.prefill_work``.
+
+Not ported yet: the span spool, fleet trace merge, head sampling (every
+span records) and the ``/trace`` endpoint.
 """
 
 import collections

@@ -10,7 +10,19 @@ captured node reads at every replay (K4's pinned pointer table) is
 handed to :func:`keep_alive`, and the capture keeps it, unchanged, as
 long as the graph. :func:`refuse_export` is how a kernel without a
 custom op refuses ``torch.export``.
+
+A :class:`Capture` also holds Python's cyclic garbage collector off while
+it is open. ``torch.cuda.graph`` (PyTorch 2.11) does not collect before it
+begins, and a collection inside the capture runs the finalizers of
+whatever dead cycles it finds, on the capturing thread: an executor that
+was never closed frees its graphs, their memory pools, their pinned host
+buffers and CUDA events there, and a CUDA call that such a release makes can
+invalidate the capture (``cudaErrorStreamCaptureInvalidated`` at its
+end). Held off, the cycles are collected after the capture.
 """
+
+import gc
+import threading
 
 import torch
 
@@ -20,6 +32,9 @@ __all__ = ["launched", "keep_alive", "Capture", "recorded",
 recorded = {}       # kernel name -> calls captured into CUDA graphs
 _adders = {}        # kernel name -> how its wrapper adds launches
 _kept = []          # host buffers read by the graphs being captured
+# the collector's state while captures are open (any thread's)
+_gc_hold = {"open": 0, "was_enabled": True}
+_gc_lock = threading.Lock()
 
 
 def launched(name, add):
@@ -56,12 +71,18 @@ class Capture:
     as rec``, keep ``rec`` with the graph, and call
     ``rec.replayed(n)`` after ``n`` replays. ``per_replay``: kernel name
     -> calls a replay launches; ``kept``: the host buffers the graph
-    reads."""
+    reads. The cyclic garbage collector is off while it is open (module
+    docstring)."""
 
     def __init__(self):
         self.per_replay, self.kept = {}, []
 
     def __enter__(self):
+        with _gc_lock:
+            if _gc_hold["open"] == 0:
+                _gc_hold["was_enabled"] = gc.isenabled()
+                gc.disable()
+            _gc_hold["open"] += 1
         self._before = dict(recorded)
         self._kept0 = len(_kept)
         return self
@@ -72,6 +93,10 @@ class Capture:
                            if c != self._before.get(n, 0)}
         self.kept = _kept[self._kept0:]
         del _kept[self._kept0:]
+        with _gc_lock:
+            _gc_hold["open"] -= 1
+            if _gc_hold["open"] == 0 and _gc_hold["was_enabled"]:
+                gc.enable()
         return False
 
     def replayed(self, times=1):

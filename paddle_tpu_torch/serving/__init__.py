@@ -4,7 +4,11 @@ generation — dense and paged-KV decode engines (full-precision or
 int8/fp8 pages), speculative decoding over a dense draft engine, the
 continuous-batching scheduler with tenants, priorities, brownout, SLO
 control and preemption, weight-only quantized decoders — behind one HTTP
-server, and its ``ServingClient``."""
+server, and its ``ServingClient``; and disaggregated serving: the KV-page
+handoff (``kv_transfer``: the md5-manifest wire form, ``PrefillWorker``
+behind ``POST /v1/prefill``) and the fleet prefix-cache tier
+(``prefix_tier``: store, index server and the degrading client that paged
+engines map pages through)."""
 
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
                       MicroBatcher, OverloadedError, PendingResult,
@@ -16,10 +20,14 @@ from .generation import (BrownoutController, DecodeEngine, DeviceStateError,
                          load_decoder, quantize_decoder_dir,
                          resolve_generation_knobs, resolve_tenant_knobs,
                          save_decoder)
+from .kv_transfer import (PrefillWorker, TornTransferError, TransferError,
+                          resolve_kv_transfer_knobs)
 from .metrics import render_prometheus
 from .paged_kv import (PagedDecodeEngine, PagePool, PoolExhaustedError,
                        PrefixCache, can_speculate, speculative_greedy_generate,
                        speculative_round, validate_draft_geometry)
+from .prefix_tier import (PrefixTierClient, PrefixTierServer,
+                          PrefixTierStore, make_tier_server)
 from .registry import (parse_deadline_header, parse_tenant_header,
                        resolve_fleet_knobs)
 from .server import ServingServer, make_server
@@ -39,5 +47,8 @@ __all__ = [
     "can_speculate", "speculative_greedy_generate", "speculative_round",
     "validate_draft_geometry",
     "parse_deadline_header", "parse_tenant_header", "resolve_fleet_knobs",
+    "PrefillWorker", "TransferError", "TornTransferError",
+    "resolve_kv_transfer_knobs", "PrefixTierClient", "PrefixTierServer",
+    "PrefixTierStore", "make_tier_server",
     "ServingServer", "make_server",
 ]

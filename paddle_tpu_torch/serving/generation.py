@@ -36,8 +36,11 @@ and the prefill's dequantizing gather are plain PyTorch in
 decoders (:func:`quantize_decoder_dir` → :func:`load_decoder`: ``{"qw",
 "scale"}`` leaves, dequantized before each matmul).
 
-Not ported yet: KV export/adopt and the prefill/decode roles, and the
-runlog's per-request summary records.
+KV-page handoff: a paged engine with a ``prefix_tier`` maps pages another
+process prefilled (``serving/kv_transfer.py``, ``serving/prefix_tier.py``);
+the SLO summary reports ``imported_pages`` beside ``prefix_hit_pages``.
+
+Not ported yet: the runlog's per-request summary records.
 """
 
 import contextlib
@@ -1487,8 +1490,14 @@ class GenerationScheduler:
             summary["spec_rounds"] = state.spec_rounds
             summary["spec_accepted"] = state.spec_accepted
         if state.prefill_stats:
+            # imported_pages > 0 = the prompt's prefix arrived via the
+            # fleet store (handoff or tier hit); 0 with prefix_hit_pages
+            # 0 = the self-prefill path
             summary["prefix_hit_pages"] = \
                 state.prefill_stats.get("prefix_hit_pages", 0)
+            imported = state.prefill_stats.get("imported_pages", 0)
+            if imported:
+                summary["imported_pages"] = imported
         return summary
 
     def _account_done(self, state, reason, error=None):

@@ -51,14 +51,18 @@ reference donated them to XLA.
   preemption   — ``preempt_release`` parks a slot's full pages in the
                  prefix cache and frees the rest; work queued after a
                  megastep on the caller's stream runs after its trips.
-
-Not ported yet: KV export/adopt and the fleet prefix tier. (A quantized
-engine that adopts pages must refuse them without their scales, as the
-reference's ``adopt_prefix`` does.)
+  handoff      — ``export_pages`` copies named pool rows to the host (one
+                 gather, one copy) and ``adopt_prefix`` writes imported
+                 pages INTO the existing pools (``index_copy_``), so every
+                 captured megastep trip, which holds the pools' addresses,
+                 reads them; quantized pages travel raw with their scales.
+                 With a ``prefix_tier`` (``prefix_tier.PrefixTierClient``)
+                 ``prefill`` extends its local prefix match from the fleet
+                 store before reserving pages and publishes a cold
+                 prefill's full pages (``serving/kv_transfer.py``).
 """
 
 import contextlib
-import hashlib
 import time
 import types
 from collections import OrderedDict
@@ -70,9 +74,11 @@ from .. import resolve_device
 from ..observability import catalog, tracing
 from ..ops import launch_count, paged_attention
 from ..ops.kv_quant import KVQuantConfig
+from . import kv_transfer
 from .batcher import OverloadedError
 from .generation import (_EngineBase, draw_tokens, params_to_device,
                          resolve_generation_knobs, sample_tokens)
+from .kv_transfer import chain_keys
 
 __all__ = ["PagePool", "PagedDecodeEngine", "PoolExhaustedError",
            "PrefixCache", "chain_keys", "validate_draft_geometry",
@@ -83,19 +89,6 @@ __all__ = ["PagePool", "PagedDecodeEngine", "PoolExhaustedError",
 class PoolExhaustedError(OverloadedError):
     """The page pool cannot cover a request's worst-case budget even
     after evicting every sole-owner prefix-cache page (HTTP 503)."""
-
-
-def chain_keys(prompt, page_size, n_blocks):
-    """Content addresses of the prompt's leading token blocks: the
-    running sha1 over ``block_0 .. block_i`` (position-0-anchored, so
-    only identical prefixes share a key) — the reference's scheme."""
-    h = hashlib.sha1()
-    keys = []
-    prompt = np.asarray(prompt, np.int32)
-    for b in range(int(n_blocks)):
-        h.update(prompt[b * page_size:(b + 1) * page_size].tobytes())
-        keys.append(h.digest())
-    return keys
 
 
 class PagePool:
@@ -187,6 +180,28 @@ class PrefixCache:
                 self._pool.decref([old_pid])
                 catalog.PREFIX_CACHE_EVICTIONS.inc()
 
+    def adopt(self, keys, page_ids):
+        """Register pages imported from the fleet tier. Unlike
+        :meth:`insert` (a slot owns the pages; the cache adds a
+        reference), the caller hands these pages over at refcount 1 —
+        the cache BECOMES the owner, so no incref. Keys already present
+        keep their existing page; the duplicate import is released.
+        Returns the number of entries adopted."""
+        adopted = 0
+        for key, pid in zip(keys, page_ids):
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                self._pool.decref([pid])
+                continue
+            self._entries[key] = pid
+            adopted += 1
+            while len(self._entries) > self._capacity:
+                old, old_pid = next(iter(self._entries.items()))
+                del self._entries[old]
+                self._pool.decref([old_pid])
+                catalog.PREFIX_CACHE_EVICTIONS.inc()
+        return adopted
+
     def evictable(self, protect=()):
         """Pages reclaimable now: entries the cache alone owns, minus the
         ``protect``ed keys."""
@@ -237,7 +252,9 @@ class PagedDecodeEngine(_EngineBase):
       admission accounting for the scheduler;
     - ``verify_step`` / ``commit_tokens`` with ``speculative_k`` — the
       speculative-decode verify chunk (:func:`speculative_round`);
-    - ``preempt_release`` — preemption to the scheduler's held lane.
+    - ``preempt_release`` — preemption to the scheduler's held lane;
+    - ``geometry`` / ``export_pages`` / ``adopt_prefix`` — the KV-page
+      handoff surface (``serving/kv_transfer.py``).
 
     ``speculative_k`` (default ``FLAGS_speculative_k``) is the verify
     chunk of a speculative round. ``kv_quant_dtype`` (``off|int8|fp8``,
@@ -245,7 +262,10 @@ class PagedDecodeEngine(_EngineBase):
     group, 0 = the page) select quantized pages; ``num_pages=0`` then
     sizes the pool to twice the dense-equivalent budget. ``megastep_k``
     (default ``FLAGS_generation_megastep_k``; 0 = auto) bounds the trips
-    of one megastep.
+    of one megastep. ``prefix_tier`` (a ``PrefixTierClient``, or None for
+    the per-process cache alone) lets prefills map pages another process
+    prefilled and publish their own; every tier failure degrades to a
+    self-prefill.
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``"cpu"`` to run on the CPU. NOT thread-safe: one thread owns it."""
@@ -253,9 +273,20 @@ class PagedDecodeEngine(_EngineBase):
     def __init__(self, model, params, *, max_slots=None, max_len=None,
                  prefill_buckets=None, page_size=None, num_pages=None,
                  speculative_k=None, kv_quant_dtype=None,
-                 kv_quant_group=None, megastep_k=None, device=None):
+                 kv_quant_group=None, megastep_k=None, prefix_tier=None,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model
+        # fleet prefix-cache tier: lookups that fail are misses, imports
+        # that fail are discarded, publishes are best-effort — a dead
+        # tier can slow prefills, never fail them
+        self.prefix_tier = prefix_tier
+        self._publish_min_pages = kv_transfer.resolve_kv_transfer_knobs(
+            which=("min_pages",))["min_pages"]
+        # cold prefills publish their pages (async) by default; a
+        # PrefillWorker turns this off — it publishes synchronously,
+        # exactly once per /v1/prefill
+        self.auto_publish = True
         self.params = params_to_device(params, self.device)
         (self.max_slots, self.max_len, self.prefill_buckets,
          self.page_size, self.num_pages, self.speculative_k,
@@ -341,6 +372,212 @@ class PagedDecodeEngine(_EngineBase):
         while w < need:
             w *= 2
         return min(w, self.pages_per_slot)
+
+    # -- KV-page handoff surface (serving/kv_transfer.py) --------------
+    def geometry(self):
+        """The wire-form compatibility fingerprint: pages exported under
+        one geometry must never be mapped into an engine with another
+        (kv_transfer.read_prefix checks field by field). ``dtype`` names
+        the POOL STORAGE dtype by the reference's name (int8/float8
+        under quantization), so an entry crosses between the packages;
+        the kv_quant fields pin the scale-group layout."""
+        return {"page_size": self.page_size,
+                "n_layers": self.model.n_layers,
+                "n_heads": self.model.n_heads,
+                "head_dim": self.model.head_dim,
+                "dtype": kv_transfer.dtype_name(self._pool_dtype),
+                "kv_quant_dtype": self.kv_quant_dtype,
+                "kv_quant_group": 0 if self.kv_quant is None
+                else self.kv_quant.group}
+
+    @torch.no_grad()
+    def export_pages(self, page_ids):
+        """Host copies of the named pool rows, per layer — the export
+        half of a handoff: one gather on the device, queued after the
+        prefill that wrote the pages on this stream, and one synchronous
+        copy of just those pages. Returns ``(k_layers, v_layers,
+        k_scales, v_scales)`` as CPU tensors; the scale lists are None
+        for full-precision pools. Quantized pages export RAW (storage
+        dtype + their scales), so a page that transits the tier
+        round-trips bitwise."""
+        idx = self._tensor(np.asarray(page_ids, np.int64))
+        L = self.model.n_layers
+        fp8 = self._pool_dtype == torch.float8_e4m3fn
+        # fp8 rows move as their bytes (no fp8 gather or stack kernels)
+        host = torch.stack([(p.view(torch.uint8) if fp8 else p)
+                            .index_select(0, idx)
+                            for p in self._kp + self._vp]).cpu()
+        host = list((host.view(self._pool_dtype) if fp8 else host)
+                    .unbind(0))
+        if self.kv_quant is None:
+            return host[:L], host[L:], None, None
+        scales = list(torch.stack([s.index_select(0, idx) for s in
+                                   self._ks + self._vs]).cpu().unbind(0))
+        return host[:L], host[L:], scales[:L], scales[L:]
+
+    @torch.no_grad()
+    def adopt_prefix(self, keys, k_layers, v_layers, k_scales=None,
+                     v_scales=None, protect=()):
+        """Map externally-prefilled FULL pages into this pool and hand
+        them to the prefix cache (which becomes their owner). The pages
+        are written IN PLACE (``index_copy_`` into the existing pool
+        tensors, on the current stream), so the pools keep their
+        addresses and a megastep trip captured before the import reads
+        the imported pages. Quantized imports are written RAW — storage
+        dtype plus their exported scales, never dequant→requant — so a
+        page keeps its exact bits across any number of tier transits.
+        All or nothing: every shape and scale is checked before a page is
+        allocated or written. Raises :class:`PoolExhaustedError` when the
+        pool (after evicting sole-owner cached pages, ``protect``ed keys
+        excluded) cannot host the import, and
+        :class:`~.kv_transfer.TransferError` on a shape/scale mismatch.
+        Returns the number of pages adopted."""
+        n = len(keys)
+        if n == 0:
+            return 0
+        L = self.model.n_layers
+        groups = [("page", k_layers, v_layers,
+                   (n, self.page_size, self.model.n_heads,
+                    self.model.head_dim))]
+        if self.kv_quant is not None:
+            if k_scales is None or v_scales is None:
+                raise kv_transfer.TransferError(
+                    "quantized engine (kv_quant_dtype=%s) cannot adopt "
+                    "pages without their scales" % self.kv_quant_dtype)
+            groups.append(("scale", k_scales, v_scales,
+                           self.kv_quant.scale_shape(n,
+                                                     self.model.n_heads)))
+        for what, ks, vs, want in groups:
+            if len(ks) != L or len(vs) != L:
+                raise kv_transfer.TransferError(
+                    "imported %s arrays cover %d/%d layers, engine has %d"
+                    % (what, len(ks), len(vs), L))
+            for arr in list(ks) + list(vs):
+                if tuple(np.shape(arr)) != tuple(want):
+                    raise kv_transfer.TransferError(
+                        "imported %s array has shape %r, engine needs %r"
+                        % (what, tuple(np.shape(arr)), tuple(want)))
+        short = n - self.pool.free_pages()
+        if short > 0:
+            self.prefix_cache.evict_for(short, protect=protect)
+        if n > self.pool.free_pages():
+            raise PoolExhaustedError(
+                "page pool cannot host a %d-page tier import (%d free)"
+                % (n, self.pool.free_pages()))
+        pids = self.pool.alloc(n)
+        idx = self._tensor(np.asarray(pids, np.int64))
+        writes = [(self._kp + self._vp, list(k_layers) + list(v_layers),
+                   self._pool_dtype)]
+        if self.kv_quant is not None:
+            writes.append((self._ks + self._vs,
+                           list(k_scales) + list(v_scales), torch.float32))
+        for pools, arrays, dtype in writes:
+            # one host block, one copy onto the device in stream order
+            # (pinned, so the host does not wait for queued work), then a
+            # row scatter per layer into the live pools
+            host = torch.stack([torch.as_tensor(a).to(dtype)
+                                for a in arrays])
+            if dtype == torch.float8_e4m3fn:
+                # no fp8 copy kernels: fp8 rows move as their bytes, and
+                # land in a byte view of the pool (in place all the same)
+                host = host.view(torch.uint8)
+                pools = [p.view(torch.uint8) for p in pools]
+            if self.device.type == "cuda":
+                host = host.pin_memory().to(self.device, non_blocking=True)
+            for pool, rows in zip(pools, host.unbind(0)):
+                pool.index_copy_(0, idx, rows)
+        if self.kv_quant is not None:
+            catalog.KV_QUANT_PAGES.inc(float(n))
+        self.prefix_cache.adopt(keys, pids)
+        return n
+
+    def _extend_from_tier(self, prompt, n, keys, hit_pids):
+        """Try to extend a local prefix match from the fleet tier.
+        Returns ``(keys, hit_pids, tier_known, imported)`` where
+        ``tier_known`` is the page count the tier claimed (0 = miss,
+        None = not consulted) — the publish gate uses it to avoid
+        re-publishing what the tier already holds. NEVER raises: every
+        failure mode is counted (``kv_transfer_imports_total``) and
+        degrades to the local match."""
+        max_blocks = (n - 1) // self.page_size
+        if len(keys) >= max_blocks:
+            # None = local coverage says the chain is already shared
+            # (skip publishing); max_blocks == 0 means there was nothing
+            # to CONSULT for this prompt, but its single full page (if
+            # any) is still worth publishing for longer prompts that
+            # share block 0 — report 0, not None
+            return keys, hit_pids, (0 if max_blocks == 0 else None), 0
+        all_keys = chain_keys(prompt, self.page_size, max_blocks)
+        found = self.prefix_tier.lookup_chain(
+            [k.hex() for k in all_keys])
+        if not found:
+            return keys, hit_pids, 0, 0
+        m = min(int(found.get("n_pages", 0)), max_blocks)
+        tier_known = m
+        if m <= len(keys):
+            return keys, hit_pids, tier_known, 0
+        t0 = time.perf_counter()
+        j = len(keys)
+        outcome = None
+        try:
+            _meta, ks, vs, kss, vss = kv_transfer.read_prefix(
+                found["path"], expect=self.geometry(), max_pages=m)
+            if any(k.shape[0] < m for k in ks):
+                raise kv_transfer.TransferError(
+                    "entry %s holds fewer pages than its index claims"
+                    % found["path"])
+            imported = self.adopt_prefix(
+                all_keys[j:m], [k[j:m] for k in ks],
+                [v[j:m] for v in vs],
+                k_scales=None if kss is None else [s[j:m] for s in kss],
+                v_scales=None if vss is None else [s[j:m] for s in vss],
+                protect=keys)
+        except kv_transfer.TornTransferError:
+            outcome = "torn"
+        except PoolExhaustedError:
+            outcome = "pool_full"
+        except kv_transfer.TransferError:
+            outcome = "invalid"
+        except OSError:
+            outcome = "error"
+        finally:
+            # the read is over either way: hand the lookup's TTL lease
+            # back so the tier may evict the entry again
+            self.prefix_tier.release(found)
+        if outcome is None:
+            catalog.KV_TRANSFER_IMPORTS.inc(outcome="ok")
+            catalog.KV_TRANSFER_PAGES_IMPORTED.inc(float(imported))
+            tracing.span_from(t0, "kv.transfer_import", outcome="ok",
+                              pages=int(imported),
+                              key=found.get("key", "")[:12])
+            keys, hit_pids = self.prefix_cache.match(prompt, max_blocks)
+            return keys, hit_pids, tier_known, imported
+        # failure: no page was mapped (adopt_prefix is all-or-nothing) —
+        # count, trace, self-prefill
+        catalog.KV_TRANSFER_IMPORTS.inc(outcome=outcome)
+        tracing.span_from(t0, "kv.transfer_import", outcome=outcome,
+                          key=found.get("key", "")[:12])
+        return keys, hit_pids, tier_known, 0
+
+    def _maybe_publish(self, prompt, n, pids, tier_known):
+        """Publish this prompt's full prefilled pages to the tier when
+        the tier does not already cover them (async: the host copy
+        happens now, IO on the client's worker thread)."""
+        if not self.auto_publish:
+            return
+        full = min(n // self.page_size, len(pids))
+        if full < self._publish_min_pages:
+            return
+        if tier_known is None or tier_known >= full:
+            return
+        keys = chain_keys(prompt, self.page_size, full)
+        # the store is the dedup authority: a chain another replica (or
+        # a previous incarnation of this one) already committed is not
+        # re-exported — one directory probe per cold prefill
+        if kv_transfer.find_committed(self.prefix_tier.store_root,
+                                      keys[-1].hex()) is not None:
+            return
+        self.prefix_tier.publish_async(self, keys, pids[:full])
 
     # -- page accounting ----------------------------------------------
     def _budget(self, n, max_new_tokens):
@@ -434,6 +671,10 @@ class PagedDecodeEngine(_EngineBase):
         total = n + budget
         keys, hit_pids = self.prefix_cache.match(prompt,
                                                  (n - 1) // self.page_size)
+        tier_known, imported = None, 0
+        if self.prefix_tier is not None and self.prefix_tier.enabled():
+            keys, hit_pids, tier_known, imported = \
+                self._extend_from_tier(prompt, n, keys, hit_pids)
         needed = self._pages_for(total) - len(hit_pids)
         short = needed - self.pool.free_pages()
         if short > 0:
@@ -482,6 +723,7 @@ class PagedDecodeEngine(_EngineBase):
             with tracing.span("engine.prefill", slot=int(slot),
                               bucket=int(bucket), n_prompt=int(n),
                               prefix_hit_pages=len(hit_pids),
+                              imported_pages=int(imported),
                               pages_reserved=int(needed), start=int(start)):
                 if self.kv_quant is not None:
                     # freshly claimed pages start at scale 0: a previous
@@ -508,8 +750,12 @@ class PagedDecodeEngine(_EngineBase):
         # future requests sharing this prompt's leading FULL pages map
         # them instead of re-prefilling; generated tokens are never cached
         self.prefix_cache.insert(prompt, n, pids)
+        # local hit vs tier import vs self-prefill, for the SLO summary
         self.last_prefill_stats = {"prefix_hit_pages": len(hit_pids),
+                                   "imported_pages": int(imported),
                                    "pages_reserved": int(needed)}
+        if self.prefix_tier is not None and self.prefix_tier.enabled():
+            self._maybe_publish(prompt, n, pids, tier_known)
         return logits
 
     def set_input_token(self, slot, token):

@@ -1,8 +1,8 @@
-"""The request-ingest helpers and the scheduler's fleet knobs of
+"""The request-ingest helpers and the fleet knobs of
 ``paddle_tpu/serving/registry.py``: the ``X-Deadline-Ms`` and
 ``X-Tenant-Id`` header parsers and :func:`resolve_fleet_knobs` over the
-deadline and brownout-shedding flags. The replica registry, leases and the
-fleet prefix tier are not ported."""
+deadline, brownout-shedding and prefix-tier flags. The replica registry
+and its leases are not ported."""
 
 import math
 import re
@@ -44,11 +44,14 @@ def parse_tenant_header(raw):
 def resolve_fleet_knobs(deadline_default_ms=None, deadline_admit_min_ms=None,
                         shed_high_watermark=None, shed_low_watermark=None,
                         shed_token_cap=None, shed_retry_floor_s=None,
-                        shed_retry_cap_s=None, which=None):
-    """Resolve the deadline and brownout knobs from explicit values or
-    their ``FLAGS_deadline_*`` / ``FLAGS_shed_*`` defaults, validating
-    each (errors name the flag when the value came from the flag, the
-    argument otherwise). Returns a dict of the requested knobs:
+                        shed_retry_cap_s=None, prefix_tier_url=None,
+                        prefix_tier_timeout_s=None,
+                        prefix_tier_capacity_mb=None, which=None):
+    """Resolve the deadline, brownout and prefix-tier knobs from explicit
+    values or their ``FLAGS_deadline_*`` / ``FLAGS_shed_*`` /
+    ``FLAGS_fleet_prefix_tier_*`` defaults, validating each (errors name
+    the flag when the value came from the flag, the argument otherwise).
+    Returns a dict of the requested knobs:
 
     ``deadline_default_ms`` (0 = requests carry no implicit deadline),
     ``deadline_admit_min_ms`` (admission requires at least this much
@@ -56,7 +59,10 @@ def resolve_fleet_knobs(deadline_default_ms=None, deadline_admit_min_ms=None,
     brownout hysteresis band over queue/page pressure, low < high),
     ``shed_token_cap`` (level-2 clamp on new admissions'
     max_new_tokens), ``shed_retry_floor_s`` / ``shed_retry_cap_s``
-    (clamp on the drain-rate-derived Retry-After).
+    (clamp on the drain-rate-derived Retry-After),
+    ``prefix_tier_url`` (str, "" = no fleet prefix tier),
+    ``prefix_tier_timeout_s`` / ``prefix_tier_capacity_mb`` (tier call
+    timeout and store eviction watermark).
 
     ``which`` (a tuple of knob names, None = all) scopes both the result
     and the validation."""
@@ -97,12 +103,32 @@ def resolve_fleet_knobs(deadline_default_ms=None, deadline_admit_min_ms=None,
             shed_retry_floor_s, "shed_retry_floor_s", 0.0),
         "shed_retry_cap_s": lambda: _num(
             shed_retry_cap_s, "shed_retry_cap_s", 0.0),
+        "prefix_tier_timeout_s": lambda: _num(
+            prefix_tier_timeout_s, "fleet_prefix_tier_timeout_s", 0.05),
+        "prefix_tier_capacity_mb": lambda: _num(
+            prefix_tier_capacity_mb, "fleet_prefix_tier_capacity_mb",
+            0.001),
     }
-    wanted = tuple(resolvers) if which is None else tuple(which)
-    unknown = [k for k in wanted if k not in resolvers]
+    _strings = ("prefix_tier_url",)
+    wanted = tuple(resolvers) + _strings if which is None \
+        else tuple(which)
+    unknown = [k for k in wanted
+               if k not in resolvers and k not in _strings]
     if unknown:
         raise ValueError("unknown fleet knob(s) %r" % (unknown,))
-    knobs = {name: resolvers[name]() for name in wanted}
+    knobs = {}
+    if "prefix_tier_url" in wanted:
+        if prefix_tier_url is None:
+            prefix_tier_url = flags.fleet_prefix_tier_url
+        if prefix_tier_url is not None and \
+                not isinstance(prefix_tier_url, str):
+            raise ValueError(
+                "FLAGS_fleet_prefix_tier_url must be a URL string "
+                "(got %r)" % (prefix_tier_url,))
+        knobs["prefix_tier_url"] = prefix_tier_url or ""
+    for name in wanted:
+        if name in resolvers:
+            knobs[name] = resolvers[name]()
     if "shed_low_watermark" in knobs and \
             "shed_high_watermark" in knobs and \
             knobs["shed_low_watermark"] >= knobs["shed_high_watermark"]:

@@ -15,7 +15,8 @@ with the port — its counterpart of the reference's ``tools/serve.py``:
         [--tenant-token-budget N] [--tenant-token-budget-map A=N,B=M] \
         [--tenant-budget-window-s S] [--tenant-held-depth N] \
         [--slo-ttft-ms high=MS,low=MS] [--slo-tpot-ms high=MS] \
-        [--slo-sustain-s S]
+        [--slo-sustain-s S] [--role both|decode|prefill] \
+        [--kv-transfer-dir DIR] [--prefix-tier-url URL] [--chaos-spec SPEC]
 
 ``--artifact`` (an ``export_artifact`` directory) serves POST /v1/infer
 through the dynamic ``MicroBatcher`` (``--max-batch-size``,
@@ -37,11 +38,23 @@ through speculative rounds over a dense engine on the draft decoder
 (``--gen-speculative-k``, 4 when the flag is 0). Requests name their
 tenant with the ``X-Tenant-Id`` header and their class with
 ``"priority"`` in the body; the tenant and SLO flags set the scheduler's
-budgets, held lane and control loop. Knobs left unset come from
+budgets, held lane and control loop.
+
+Disaggregated serving: ``--role prefill`` serves only POST /v1/prefill (a
+``PrefillWorker`` over the paged engine, no scheduler): it prefills each
+prompt and commits its full KV pages to ``--kv-transfer-dir`` (required),
+announcing them to ``--prefix-tier-url`` when given. ``--role decode``
+serves /v1/generate and maps those pages instead of recomputing them;
+``both`` (the default) is the classic replica, which also maps and
+publishes when a store or tier is configured. Both disaggregated roles
+imply the paged engine. ``--chaos-spec`` installs a fault-injection spec
+(``robustness.chaos``; ``handoff:0=hang30`` freezes the first export
+between its payload and its manifest). Knobs left unset come from
 ``paddle_tpu_torch.flags``. Endpoints: POST /v1/infer, POST
 /v1/generate, GET /healthz (its ``serving`` stanza names the
-``artifact``, the ``generation_model``, ``paged``, ``kv_quant``,
-``weight_quant``, ``megastep_k`` and ``speculative_k``), GET /metrics.
+``artifact``, the ``generation_model``, ``paged``, the ``role``,
+``kv_quant``, ``weight_quant``, ``megastep_k`` and ``speculative_k``), GET
+/metrics, and POST /v1/prefill on a prefill-role server.
 SIGINT/SIGTERM drain gracefully: /healthz flips to 503, queued requests
 and in-flight generations complete, then the listener stops and the
 process exits 0. The decoder's device defaults to ``cuda`` and the
@@ -146,14 +159,38 @@ def main(argv=None):
                     help="token id that finishes a generation")
     ap.add_argument("--gen-max-new-tokens", type=int, default=64,
                     help="default per-request generation budget")
+    ap.add_argument("--role", choices=("both", "decode", "prefill"),
+                    default="both",
+                    help="disaggregated serving role: 'prefill' serves only "
+                         "the /v1/prefill hop (requires --kv-transfer-dir), "
+                         "'decode' serves /v1/generate mapping handed-off "
+                         "pages, 'both' is the classic replica; both "
+                         "disaggregated roles imply --gen-paged")
+    ap.add_argument("--kv-transfer-dir", default=None,
+                    help="shared KV-page store root for the handoff/tier "
+                         "wire form (default FLAGS_kv_transfer_dir; empty "
+                         "= handoff off)")
+    ap.add_argument("--prefix-tier-url", default=None,
+                    help="prefix-tier index service base URL (python -m "
+                         "paddle_tpu_torch.serving.prefix_tier; default "
+                         "FLAGS_fleet_prefix_tier_url; empty = store-only "
+                         "/ local cache)")
+    ap.add_argument("--chaos-spec", default="",
+                    help="fault-injection spec (robustness.chaos grammar, "
+                         "e.g. 'handoff:0=hang30')")
     ap.add_argument("--request-timeout", type=float, default=60.0)
     ap.add_argument("--verbose", action="store_true",
                     help="log each HTTP request")
     args = ap.parse_args(argv)
     if not args.artifact and not args.generation_model:
         ap.error("need --artifact and/or --generation-model")
+    if args.role == "prefill" and not args.generation_model:
+        ap.error("--role prefill requires --generation-model")
 
     from .. import flags
+    if args.chaos_spec:
+        from ..robustness import chaos
+        chaos.set_injector(chaos.ChaosInjector(args.chaos_spec))
     from .batcher import MicroBatcher
     from .server import make_server
     from .session import InferenceSession
@@ -168,18 +205,35 @@ def main(argv=None):
             max_wait_ms=args.max_wait_ms, queue_depth=args.queue_depth,
             max_inflight=args.max_inflight)
 
-    generator = engine = model = None
+    generator = engine = model = prefill_worker = None
     paged = False
     if args.generation_model:
         from .generation import DecodeEngine, GenerationScheduler, \
             load_decoder
+        from .kv_transfer import PrefillWorker, resolve_kv_transfer_knobs
         from .paged_kv import PagedDecodeEngine
+        from .prefix_tier import PrefixTierClient
+        from .registry import resolve_fleet_knobs
         model, params = load_decoder(args.generation_model,
                                      device=args.device)
-        # the paged engine when paging, a draft or KV quantization asks
-        # for it (quantization is a property of the page pool); the dense
-        # engine otherwise
+        # any paged role can talk to the shared store / tier index; the
+        # client degrades to pure-local when neither is configured
+        store = resolve_kv_transfer_knobs(
+            transfer_dir=args.kv_transfer_dir,
+            which=("transfer_dir",))["transfer_dir"]
+        tier_url = resolve_fleet_knobs(
+            prefix_tier_url=args.prefix_tier_url,
+            which=("prefix_tier_url",))["prefix_tier_url"]
+        prefix_tier = None
+        if store or tier_url:
+            prefix_tier = PrefixTierClient(store_root=store,
+                                           tier_url=tier_url)
+        # the paged engine when paging, a draft, a disaggregated role (pages
+        # are the handoff unit) or KV quantization asks for it
+        # (quantization is a property of the page pool); the dense engine
+        # otherwise
         paged = args.gen_paged or bool(args.gen_draft_model) or \
+            args.role in ("prefill", "decode") or \
             (args.kv_quant_dtype or "off") != "off"
         draft_engine = None
         if paged:
@@ -194,7 +248,8 @@ def main(argv=None):
                 page_size=args.gen_page_size, num_pages=args.gen_num_pages,
                 speculative_k=spec_k, kv_quant_dtype=args.kv_quant_dtype,
                 kv_quant_group=args.kv_quant_group,
-                megastep_k=args.gen_megastep_k, device=args.device)
+                megastep_k=args.gen_megastep_k, prefix_tier=prefix_tier,
+                device=args.device)
             if args.gen_draft_model:
                 draft_model, draft_params = load_decoder(
                     args.gen_draft_model, device=args.device)
@@ -209,23 +264,31 @@ def main(argv=None):
                                   max_len=args.gen_max_len,
                                   prefill_buckets=args.gen_prefill_buckets,
                                   device=args.device)
-        generator = GenerationScheduler(
-            engine, eos_id=args.gen_eos_id, queue_depth=args.queue_depth,
-            default_max_new_tokens=args.gen_max_new_tokens,
-            draft_engine=draft_engine,
-            tenant_token_budget=args.tenant_token_budget,
-            tenant_token_budget_map=args.tenant_token_budget_map,
-            tenant_budget_window_s=args.tenant_budget_window_s,
-            tenant_held_depth=args.tenant_held_depth,
-            slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
-            slo_sustain_s=args.slo_sustain_s)
-    server = make_server(batcher, generator=generator, host=args.host,
+        if args.role == "prefill":
+            # no scheduler: the engine serves only /v1/prefill, exporting
+            # pages for decode replicas to map
+            prefill_worker = PrefillWorker(engine, prefix_tier,
+                                           eos_id=args.gen_eos_id)
+        else:
+            generator = GenerationScheduler(
+                engine, eos_id=args.gen_eos_id,
+                queue_depth=args.queue_depth,
+                default_max_new_tokens=args.gen_max_new_tokens,
+                draft_engine=draft_engine,
+                tenant_token_budget=args.tenant_token_budget,
+                tenant_token_budget_map=args.tenant_token_budget_map,
+                tenant_budget_window_s=args.tenant_budget_window_s,
+                tenant_held_depth=args.tenant_held_depth,
+                slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+                slo_sustain_s=args.slo_sustain_s)
+    server = make_server(batcher, generator=generator,
+                         prefill_worker=prefill_worker, host=args.host,
                          port=args.port,
                          request_timeout=args.request_timeout,
                          verbose=args.verbose)
     server.version_info = {"pid": os.getpid(), "artifact": args.artifact,
                            "generation_model": args.generation_model,
-                           "paged": paged}
+                           "paged": paged, "role": args.role}
     if engine is not None:
         server.version_info.update({
             "kv_quant": getattr(engine, "kv_quant_dtype", "off"),
@@ -258,18 +321,23 @@ def main(argv=None):
                         session.fetch_names, batcher.max_batch_size,
                         batcher.max_wait_s * 1e3, batcher._q.maxsize,
                         session._artifact.device))
-    if generator is not None:
+    if engine is not None:
         pages = "paged(page=%d pages=%d kv_quant=%s)" % (
             engine.page_size, engine.num_pages, engine.kv_quant_dtype) \
             if paged else "dense"
         parts.append(
-            "generate: %s device=%s slots=%d max_len=%d buckets=%s %s "
-            "weight_quant=%s megastep_k=%d speculative_k=%d draft=%s"
-            % (args.generation_model, engine.device, engine.max_slots,
-               engine.max_len, list(engine.prefill_buckets), pages,
+            "%s: %s role=%s device=%s slots=%d max_len=%d buckets=%s %s "
+            "weight_quant=%s megastep_k=%d speculative_k=%d draft=%s "
+            "kv_transfer_dir=%s prefix_tier=%s"
+            % ("generate" if generator is not None else "prefill",
+               args.generation_model, args.role, engine.device,
+               engine.max_slots, engine.max_len,
+               list(engine.prefill_buckets), pages,
                model.weight_quant or "off",
                server.version_info["megastep_k"],
-               server.version_info["speculative_k"], args.gen_draft_model))
+               server.version_info["speculative_k"], args.gen_draft_model,
+               prefix_tier.store_root if prefix_tier else "",
+               prefix_tier.tier_url if prefix_tier else ""))
     print("serve: http://%s:%d  %s" % (host, port, "; ".join(parts)),
           file=sys.stderr)
     try:

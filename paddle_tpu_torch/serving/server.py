@@ -17,6 +17,13 @@
                    503 + Retry-After when the admission queue is full or
                    brownout sheds a low-priority request
                    504 when the request's X-Deadline-Ms budget expires
+  POST /v1/prefill {"prompt": [ids]} → {"key": hex, "n_pages": m,
+                   "n_tokens": n, "first_token": t, "request_id": id,
+                   "latency_ms": t} — the disaggregated prefill hop: the
+                   prompt's full pages are committed to the shared store
+                   for a decode replica to map (a prefill-role server)
+                   400 bad prompt, 404 when there is no prefill worker,
+                   503 + Retry-After when the page pool is exhausted
   GET  /healthz    200 {"status": "ok"} while serving, 503 "draining"
                    after shutdown began; ``brownout_level`` with a
                    generation scheduler; with ``version_info`` set (the
@@ -25,9 +32,10 @@
                    live slot / held-lane / brownout / page gauges,
                    p50/p95/p99)
 
-``make_server(batcher, generator=None, ...)``: the ``MicroBatcher``
-serves ``/v1/infer``, the ``GenerationScheduler`` ``/v1/generate``;
-either may be None (its route then answers 404). Every POST ingests
+``make_server(batcher, generator=None, prefill_worker=None, ...)``: the
+``MicroBatcher`` serves ``/v1/infer``, the ``GenerationScheduler``
+``/v1/generate``, the ``kv_transfer.PrefillWorker`` ``/v1/prefill``; any
+may be None (its route then answers 404). Every POST ingests
 ``X-Trace-Id`` / ``X-Request-Id`` (minting a context when absent) and
 echoes the ids on every response, errors included, plus
 ``X-Trace-Summary`` (the per-request summary) on success.
@@ -36,8 +44,8 @@ served as the anonymous tenant). An infer request carrying an
 ``outcome`` writes a ``serving_event`` run-log record when
 ``FLAGS_online_log_events`` is set. Samples are JSON: dense feeds as
 (nested) lists in the model's feature shape, ragged feeds as flat lists;
-outputs come back as nested lists in fetch order. ``/v1/prefill`` and
-``/trace`` are not ported yet.
+outputs come back as nested lists in fetch order. ``/trace`` is not
+ported yet.
 """
 
 import json
@@ -105,7 +113,9 @@ class _Handler(JsonHTTPHandler):
         routes = {"/v1/infer": (self.server.batcher, self._handle_infer,
                                 "inference"),
                   "/v1/generate": (self.server.generator,
-                                   self._handle_generate, "generation")}
+                                   self._handle_generate, "generation"),
+                  "/v1/prefill": (self.server.prefill_worker,
+                                  self._handle_prefill, "prefill")}
         if self.path not in routes:
             self._reply(ctx, 404, {"error": "unknown path %s" % self.path})
             return
@@ -286,18 +296,51 @@ class _Handler(JsonHTTPHandler):
         return self._reply(ctx, 200, result, extra_headers=extra)
 
 
-class ServingServer(BackgroundHTTPServer):
-    """BackgroundHTTPServer + the serving wiring (the micro-batcher and/or
-    the generation scheduler, the drain flag, the per-request timeout)."""
+    def _handle_prefill(self, ctx, t0):
+        """The disaggregated prefill hop: prefill the prompt on this
+        worker's paged engine, publish its full pages to the shared
+        store/tier, answer with the chain key the decode worker maps."""
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            prompt = payload["prompt"]
+            if not isinstance(prompt, list) or not prompt or \
+                    not all(isinstance(t, int) and not isinstance(t, bool)
+                            for t in prompt):
+                raise ValueError(
+                    "'prompt' must be a non-empty list of token ids")
+        except (ValueError, KeyError, TypeError) as e:
+            return self._reply(ctx, 400, {"error": "bad request body: %s"
+                                          % e})
+        try:
+            result = self.server.prefill_worker.prefill(
+                np.asarray(prompt, np.int32), trace=ctx)
+        except OverloadedError as e:
+            return self._overloaded(ctx, e)
+        except ValueError as e:
+            return self._reply(ctx, 400, {"error": str(e)})
+        except Exception as e:
+            return self._server_error(ctx, e)
+        result = dict(result)
+        result["request_id"] = ctx.request_id
+        result["latency_ms"] = (time.perf_counter() - t0) * 1e3
+        return self._reply(ctx, 200, result)
 
-    def __init__(self, addr, batcher, generator=None, request_timeout=60.0,
-                 verbose=False):
-        if batcher is None and generator is None:
-            raise ValueError("ServingServer needs a batcher and/or a "
-                             "generation scheduler")
+
+class ServingServer(BackgroundHTTPServer):
+    """BackgroundHTTPServer + the serving wiring (the micro-batcher, the
+    generation scheduler and/or the prefill worker, the drain flag, the
+    per-request timeout)."""
+
+    def __init__(self, addr, batcher, generator=None, prefill_worker=None,
+                 request_timeout=60.0, verbose=False):
+        if batcher is None and generator is None and prefill_worker is None:
+            raise ValueError("ServingServer needs a batcher, a generator, "
+                             "and/or a prefill worker")
         BackgroundHTTPServer.__init__(self, addr, _Handler, verbose=verbose)
         self.batcher = batcher
         self.generator = generator
+        self.prefill_worker = prefill_worker    # /v1/prefill
         self.request_timeout = request_timeout
         self.draining = False
         self.version_info = None  # what this process serves (serve CLI)
@@ -330,11 +373,14 @@ class ServingServer(BackgroundHTTPServer):
         return result
 
 
-def make_server(batcher, generator=None, host="127.0.0.1", port=0,
-                request_timeout=60.0, verbose=False):
+def make_server(batcher, generator=None, prefill_worker=None,
+                host="127.0.0.1", port=0, request_timeout=60.0,
+                verbose=False):
     """Bind a :class:`ServingServer`: ``batcher`` (a ``MicroBatcher``)
     serves /v1/infer, ``generator`` (a ``GenerationScheduler``)
-    /v1/generate; either may be None. ``port=0`` picks a free port
-    (``server.server_address`` has the final one)."""
+    /v1/generate, ``prefill_worker`` (a ``kv_transfer.PrefillWorker``) the
+    disaggregated /v1/prefill hop; any may be None. ``port=0`` picks a
+    free port (``server.server_address`` has the final one)."""
     return ServingServer((host, port), batcher, generator=generator,
+                         prefill_worker=prefill_worker,
                          request_timeout=request_timeout, verbose=verbose)

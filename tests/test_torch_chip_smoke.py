@@ -155,6 +155,22 @@ def test_training_phases_rehearse_on_the_cpu(tiny, capsys):
     assert "flash_fwd" in capsys.readouterr().out
 
 
+def test_capture_gc_gate_rehearses_on_the_cpu(tiny, monkeypatch, capsys):
+    """On the CPU nothing is captured: the dead executors are collected
+    after, no collection counts as inside, the gate's patches are undone."""
+    import gc
+    from paddle_tpu_torch.ops import launch_count
+    monkeypatch.setattr(cs, "CGC_SEQ", 32)
+    enter, threshold = launch_count.Capture.__enter__, gc.get_threshold()
+    res = cs.capture_gc_gate()
+    assert res["captures"] == res["collections_inside"] == 0
+    assert res["collected_after"] == res["dead_executors"] == cs.CGC_DEAD
+    assert np.isfinite(res["loss"])
+    assert launch_count.Capture.__enter__ is enter
+    assert gc.get_threshold() == threshold and gc.isenabled()
+    assert "captures under the collector" in capsys.readouterr().out
+
+
 def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
     before, before_adam = dict(fa.launches), dict(pfa.launches)
     data = cs.packed_data(cs.LM_BATCH, cs.LM_SEQ)
@@ -1237,3 +1253,47 @@ def test_inference_phase_rehearses_on_the_cpu(tiny_infer, tmp_path, capsys):
     assert res["launches"] == {} and res["plain_calls"] == cs.INFER_LM_LAYERS
     out = capsys.readouterr().out
     assert "phase 17 (a) lstm" in out and "phase 17 (d)" in out
+
+
+def test_disagg_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
+                                           monkeypatch, capsys):
+    """Phase 18 (a)-(c) at a tiny size: the in-process engine gates (the
+    trip runs eagerly on the CPU, so nothing is captured), then the tier,
+    prefill and decode children with ``--device cpu``: the handoff over
+    HTTP, the torn export of the chaos child and the tier's SIGKILL."""
+    for name, value in (("DIS_LAYERS", 2), ("DIS_PREFIX", 16),
+                        ("DIS_SUFFIX", (5, 12)), ("DIS_KILL_SUFFIX", (5, 12)),
+                        ("DIS_NEW", (3, 6)), ("DIS_REQUESTS", 4),
+                        ("DIS_KILL_REQUESTS", 4), ("DIS_SLOTS", 4),
+                        ("DIS_BUCKETS", "16,32"), ("DIS_MEGASTEP_K", 4),
+                        ("DIS_CHECK_PAGES", 16)):
+        monkeypatch.setattr(cs, name, value)
+    res = cs.disagg_path(str(tmp_path), "cpu")
+    gates = res["engine_gates"]
+    n = gates["prompts"]
+    assert gates["streams_equal_recompute"] == gates[
+        "pages_bitwise_prompts"] == n == 4
+    assert gates["imported_pages"] > 0 and gates["cold_prefix_computes"] == 0
+    assert gates["pool_addresses_kept"] and not gates["recaptured"]
+    assert gates["int8"]["pages_bitwise_prompts"] == n
+    assert {k: (t["bitwise"], t["dtype"]) for k, t in
+            gates["transit"].items()} == {"bf16": (True, "bfloat16"),
+                                          "fp8": (True, "float8_e4m3fn")}
+    assert gates["trip_stats_after"]["eager_trips"] > 0
+    http = res["http"]
+    assert http["streams_equal_self_prefill"] == 4
+    assert http["cold_prefix_computes"] == 0
+    assert min(http["pages_imported_by_replica"].values()) > 0
+    torn = res["degradation"]["torn_handoff"]
+    assert torn["imported_pages"] == 0 and torn["stream_equal"]
+    assert not torn["torn_manifest"] and not torn["visible"]
+    killed = res["degradation"]["tier_killed"]
+    assert killed["streams_equal_recompute"] == 4
+    assert killed["disk_fallback_lookups"] > 0
+    # the in-process launches: the gates' engines and the self-prefill run
+    assert res["launches"]["k3"] > gates["launches"]["k3"] > 0
+    assert res["launches"]["k3_quant"] == gates["launches"]["k3_quant"] > 0
+    out = capsys.readouterr().out
+    for text in ("phase 18 (a)", "phase 18 (b)", "phase 18 (c)",
+                 "disaggregated serving in"):
+        assert text in out

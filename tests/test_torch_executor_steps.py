@@ -398,3 +398,49 @@ def test_replays_add_what_the_capture_recorded(monkeypatch, zero_counts):
     trip.replayed(3)
     assert (pa.launches, pa.launches_quant) == (6, 3)
     assert fa.launches["flash_fwd"] == 84
+
+
+def test_capture_holds_the_collector_off():
+    """No cyclic collection runs while a capture is open (its finalizers
+    could release CUDA objects inside the capture); nested and
+    concurrent captures restore the collector once, as it was, also
+    when the capture raises."""
+    import gc
+    import threading
+    assert gc.isenabled()
+    with launch_count.Capture():
+        assert not gc.isenabled()
+        with launch_count.Capture():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with launch_count.Capture():
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+
+    inside, release = threading.Event(), threading.Event()
+
+    def other():
+        with launch_count.Capture():
+            inside.set()
+            release.wait(10)
+
+    t = threading.Thread(target=other)
+    t.start()
+    inside.wait(10)
+    with launch_count.Capture():
+        pass
+    assert not gc.isenabled()       # the other thread's capture is open
+    release.set()
+    t.join(10)
+    assert gc.isenabled()
+
+    gc.disable()
+    try:
+        with launch_count.Capture():
+            pass
+        assert not gc.isenabled()   # off before: stays off
+    finally:
+        gc.enable()

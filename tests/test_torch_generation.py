@@ -309,9 +309,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port — the bench, the robustness runtime and
-    the step telemetry among them — and chip_smoke.py, imported in a
-    fresh interpreter, leaves no jax and no paddle_tpu module loaded."""
+    """Every module of the port — the bench, the robustness runtime, the
+    step telemetry and the KV handoff among them — and chip_smoke.py,
+    imported in a fresh interpreter, leaves no jax, no ml_dtypes (the
+    card has numpy and torch only) and no paddle_tpu module loaded."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import paddle_tpu_torch, chip_smoke\n"
@@ -319,13 +320,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                               'paddle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'paddle_tpu'))\n"
         "n = sum(m.startswith('paddle_tpu_torch') for m in sys.modules)\n"
         "need = {'paddle_tpu_torch.' + m for m in (\n"
         "    'benchmarks.common', 'benchmarks.lm', 'robustness.chaos',\n"
         "    'robustness.checkpoint', 'robustness.train_loop', 'io',\n"
         "    'ops.io_ops', 'observability.steps', 'observability.runlog',\n"
-        "    'observability.flight_recorder', 'observability.liveness')}\n"
+        "    'observability.flight_recorder', 'observability.liveness',\n"
+        "    'serving.kv_transfer', 'serving.prefix_tier')}\n"
         "missing = sorted(need - set(sys.modules))\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 15 else 0)\n")
