@@ -386,6 +386,40 @@ raises on failure (the script then exits non-zero and prints no result):
    self-prefill, export and import ms a page, the entry's MB, decode
    tokens/s and the phase's seconds, with the card's name and power limit.
 
+19. The serving fleet (run after phase 18), on phase 18's decoder; 16
+   prompts, half of them a shared 256-token system prompt with a seeded
+   16-64-token suffix, half 16-64 tokens alone, 16-32 new tokens each. (a)
+   ``python -m paddle_tpu_torch.serving.fleet --gen-paged --replicas 2
+   --prefill-replicas 1`` with ``--device cuda``, fp32 pages, an explicit
+   page pool a replica, the prefix tier as another child, a shared
+   ``--kv-transfer-dir``, ``--trace-spool-dir`` and ``--prefill-min-prompt
+   128`` (``fleet_cli_gate``); the in-process reference engine runs while
+   it boots. The router's added latency against a request sent straight to
+   a decode replica (16 pairs, idle fleet); then 8 closed-loop
+   ``ServingClient([router])`` threads send every prompt twice and one
+   decode replica is SIGKILLed a third of the way in; once it is
+   readmitted, every prompt once more. Zero failed requests, every stream
+   equal to the in-process ``PagedDecodeEngine``'s, ``fleet_restarts_total``
+   1, prefill hops ok and skipped, affinity picks, and
+   ``/fleet/trace?request_id=`` of a handed-off request laned over the
+   router, the prefill replica and a decode replica. SIGTERM drains the
+   fleet (exit 0): every replica's log names the card, and the two decode
+   replicas that drained report K3 launches (no K3-quant). (b)
+   ``FleetRouter`` + ``ReplicaSupervisor`` over two replicas with int8 pages
+   serving a ``publish_artifact`` serial of the decoder (``roll_fleet``,
+   booting while (a) runs; ``fleet_roll_gate``): under closed-loop load
+   ``hot_swap`` rolls them
+   onto a second serial published with ``weight_quant_dtype="int8"``. Zero
+   failed requests, both old replicas exit 0, every answer equal to an
+   in-process int8-page engine on one of the two serials, every answer
+   after the roll equal to the quantized serial's, both replicas' /healthz
+   naming int8 weights, and the four decode replicas' drain lines report
+   K3-quant launches (no K3). Prints each
+   replica's cold start, the router's added p50, TTFT p50 through the
+   prefill hop, SIGKILL to readmission, the roll's seconds and the phase's
+   seconds, with the card's name and power limit. The kernels line counts
+   the replicas' launches and the reference engines'.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -6428,8 +6462,8 @@ def _free_port():
 
 
 class _Child:
-    """A phase-18 child process: ``argv`` run from the repo root with its
-    stderr in ``log``; ``url`` once its start line names it."""
+    """A phase-18/19 child process: ``argv`` run from the repo root with
+    its stderr in ``log``; ``url`` once its start line names it."""
 
     def __init__(self, name, argv, log_path):
         env = dict(os.environ)
@@ -6442,7 +6476,8 @@ class _Child:
                                      stderr=self._log)
 
     def wait_url(self, deadline):
-        pat = re.compile(r"^(?:serve|prefix tier): (http://[0-9.:]+)")
+        pat = re.compile(r"^(?:serve|prefix tier|fleet): (?:router )?"
+                         r"(http://[0-9.:]+)")
         while time.perf_counter() < deadline:
             with open(self.log_path) as f:
                 for line in f:
@@ -6453,7 +6488,7 @@ class _Child:
             if self.proc.poll() is not None:
                 break
             time.sleep(0.2)
-        raise AssertionError("phase 18 child %s did not start (rc %s): %s"
+        raise AssertionError("child %s did not start (rc %s): %s"
                              % (self.name, self.proc.poll(),
                                 self.tail()))
 
@@ -6466,6 +6501,17 @@ class _Child:
             self.proc.kill()
             self.proc.wait(30)
         self._log.close()
+
+    def stop(self, timeout):
+        """SIGTERM (a graceful drain) and wait; the exit code, or None
+        when it outlived ``timeout``."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            return None
 
 
 def start_disagg_children(d32, store, workdir):
@@ -6692,6 +6738,529 @@ def disagg_path(workdir, card_label=""):
     report["seconds"] = time.perf_counter() - t0
     log("phase 18 disaggregated serving in %.1f s (%s)"
         % (report["seconds"], card_label))
+    return report
+
+
+# -- phase 19: the serving fleet ---------------------------------------------
+
+# The fleet serves phase 18's decoder (DIS_LAYERS layers at the serving
+# widths) with fp32 pages in (a) and int8 pages in (b). Long prompts share
+# one FLEET_PREFIX-token system prompt (a seeded suffix each) and take the
+# prefill hop (>= FLEET_MIN_PROMPT tokens); short ones go straight to a
+# decode replica. FLEET_CLIENTS closed-loop client threads send each wave.
+FLEET_PREFIX, FLEET_SUFFIX, FLEET_SHORT, FLEET_NEW = 256, (16, 64), \
+    (16, 64), (16, 32)
+FLEET_PROMPTS, FLEET_CLIENTS, FLEET_WAVE = 16, 8, 32
+FLEET_MIN_PROMPT = 128
+FLEET_SLOTS, FLEET_BUCKETS, FLEET_PAGES = 16, "64,128,384", 1024
+FLEET_OVERHEAD_PAIRS = 16
+ROLL_REPLICAS, ROLL_WAVE = 2, 16
+FLEET_BOOT_S, FLEET_DRAIN_S = 300, 120
+
+
+def fleet_requests():
+    """FLEET_PROMPTS prompts, the first half long (the shared prefix and a
+    suffix), the rest short, with their budgets (seeded)."""
+    rng = np.random.RandomState(SEED + 30)
+    prefix = rng.randint(0, VOCAB, FLEET_PREFIX)
+    half = FLEET_PROMPTS // 2
+    prompts = []
+    for i in range(FLEET_PROMPTS):
+        lo, hi = FLEET_SUFFIX if i < half else FLEET_SHORT
+        tail = rng.randint(0, VOCAB, int(rng.randint(lo, hi + 1)))
+        prompts.append((np.concatenate([prefix, tail]) if i < half
+                        else tail).astype(np.int32))
+    budgets = [int(b) for b in rng.randint(FLEET_NEW[0], FLEET_NEW[1] + 1,
+                                           size=FLEET_PROMPTS)]
+    return prompts, budgets
+
+
+def fleet_decoder(workdir):
+    """Phase 18's fp32 decoder directory (written again when phase 18 did
+    not run in this workdir)."""
+    d32 = os.path.join(workdir, "dis_fp32")
+    if not os.path.isfile(os.path.join(d32, "config.json")):
+        d32 = dis_decoders(workdir)["fp32"]
+    return d32
+
+
+def fleet_reference(model_dir, prompts, budgets, kv_quant_dtype="off"):
+    """Greedy streams of an in-process ``PagedDecodeEngine`` on the
+    replicas' geometry, and its K3 / K3-quant launches."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import PagedDecodeEngine, \
+        greedy_generate, load_decoder
+    model, params = load_decoder(model_dir, device=DEVICE)
+    engine = PagedDecodeEngine(model, params, max_slots=len(prompts),
+                               max_len=MAX_LEN,
+                               prefill_buckets=FLEET_BUCKETS,
+                               page_size=PAGE,
+                               kv_quant_dtype=kv_quant_dtype, device=DEVICE)
+    k0, q0 = pa.launches, pa.launches_quant
+    streams = greedy_generate(engine, prompts, budgets)
+    _sync()
+    return streams, {"k3": pa.launches - k0,
+                     "k3_quant": pa.launches_quant - q0}
+
+
+def _replica_args(kv_quant_dtype="off"):
+    """The serve flags every phase-19 replica takes: the engine geometry,
+    an explicit pool (several replicas share the card) and the KV
+    pages."""
+    return ["--gen-max-slots", str(FLEET_SLOTS), "--gen-max-len",
+            str(MAX_LEN), "--gen-prefill-buckets", FLEET_BUCKETS,
+            "--gen-page-size", str(PAGE), "--gen-num-pages",
+            str(FLEET_PAGES), "--kv-quant-dtype", kv_quant_dtype,
+            "--request-timeout", "300"]
+
+
+def replica_logs(log_dir):
+    """Each replica log of a fleet: its role (generate or prefill), the
+    device its start line names, and the K3 / K3-quant launches its drain
+    line reports (None when it never drained: SIGKILLed)."""
+    start = re.compile(r"^serve: http://\S+\s+(generate|prefill): .* "
+                       r"device=(\S+) ")
+    drain = re.compile(r"^serve: kernel launches k3=(\d+) k3_quant=(\d+)")
+    out = {}
+    for fn in sorted(os.listdir(log_dir)):
+        if not fn.endswith(".log"):
+            continue
+        rec = {"role": None, "device": None, "k3": None, "k3_quant": None}
+        with open(os.path.join(log_dir, fn)) as f:
+            for line in f:
+                m = start.match(line)
+                if m:
+                    rec["role"], rec["device"] = m.group(1), m.group(2)
+                m = drain.match(line)
+                if m:
+                    rec["k3"], rec["k3_quant"] = int(m.group(1)), \
+                        int(m.group(2))
+        out[fn] = rec
+    return out
+
+
+def _drained_gate(label, logs, kernel, want):
+    """Every replica served on DEVICE; ``want`` decode replicas drained,
+    each having launched ``kernel`` (on the CPU its plain version runs and
+    counts none) and never the other."""
+    other = "k3" if kernel == "k3_quant" else "k3_quant"
+    drained = {fn: r for fn, r in logs.items()
+               if r["role"] == "generate" and r[kernel] is not None}
+    bad = [fn for fn, r in logs.items()
+           if (r["device"] or "").split(":")[0] != DEVICE]
+    bad += [fn for fn, r in drained.items()
+            if (r[kernel] > 0) != (DEVICE == "cuda") or r[other]]
+    if bad or len(drained) != want:
+        raise AssertionError("%s replica logs: %s" % (label,
+                                                      json.dumps(logs)))
+    return {kernel: sum(r[kernel] for r in drained.values()),
+            "drained_decode_replicas": len(drained)}
+
+
+def _closed_loop(url, next_job, on_done=None):
+    """Closed-loop load through ``ServingClient([url])`` from
+    FLEET_CLIENTS threads, each taking ``next_job()`` (``(index, prompt,
+    budget)``, None to stop) when its last request answers. Returns
+    [(index, result or exception, client seconds)] in completion order;
+    ``on_done(n)`` after each answer."""
+    import threading
+    from paddle_tpu_torch.serving import ServingClient
+    lock, done, out = threading.Lock(), [0], []
+
+    def worker():
+        client = ServingClient([url], timeout=300.0)
+        while True:
+            with lock:
+                job = next_job()
+            if job is None:
+                return
+            i, prompt, budget = job
+            t0 = time.perf_counter()
+            try:
+                res = client.generate(prompt, max_new_tokens=budget)
+            except Exception as e:   # counted as a failed request
+                res = e
+            with lock:
+                out.append((i, res, time.perf_counter() - t0))
+                done[0] += 1
+                n = done[0]
+            if on_done is not None:
+                on_done(n)
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _fleet_status(url):
+    with urllib.request.urlopen(url + "/fleet/status", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _replica_pids(status):
+    """{backend name: pid} of the reachable replicas in rotation."""
+    return {e["name"]: (e.get("version") or {}).get("pid")
+            for e in status["replicas"]
+            if e["reachable"] and e["router_view"]["health"] in
+            ("ok", "unknown")}
+
+
+def router_overhead(router_url, status, prompt):
+    """p50 of one short request through the router against the same
+    request sent straight to a decode replica (both replicas in turn),
+    FLEET_OVERHEAD_PAIRS pairs alternated, idle fleet."""
+    direct = [e["url"] for e in status["replicas"]
+              if e["router_view"]["role"] != "prefill"]
+    body = {"prompt": prompt.tolist(), "max_new_tokens": 4}
+    for url in [router_url] + direct:       # one warm request each
+        _post(url + "/v1/generate", body)
+    via, straight = [], []
+    for i in range(FLEET_OVERHEAD_PAIRS):
+        for url, times in ((router_url, via),
+                           (direct[i % len(direct)], straight)):
+            t0 = time.perf_counter()
+            _post(url + "/v1/generate", body)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"router_ms_p50": float(np.median(via)),
+            "direct_ms_p50": float(np.median(straight)),
+            "added_ms_p50": float(np.median(via) - np.median(straight))}
+
+
+def fleet_cli_gate(workdir, d32, prompts, budgets, card_label):
+    """Phase 19 (a): ``python -m paddle_tpu_torch.serving.fleet`` with two
+    decode replicas, one prefill replica and the prefix tier; closed-loop
+    load, one decode replica SIGKILLed mid-load. Returns the report and
+    the in-process reference engine's launches."""
+    import signal
+    import threading
+    from paddle_tpu_torch.serving import ServingClient
+    t0 = time.perf_counter()
+    store = os.path.join(workdir, "fleet_store")
+    log_dir = os.path.join(workdir, "fleet_logs")
+    spool = os.path.join(workdir, "fleet_spool")
+    tier_port = _free_port()
+    tier_url = "http://127.0.0.1:%d" % tier_port
+    children = {
+        "tier": _Child("fleet_tier", [
+            "paddle_tpu_torch.serving.prefix_tier", "--store-dir", store,
+            "--port", str(tier_port), "--capacity-mb", "65536"],
+            os.path.join(workdir, "fleet_tier.log")),
+        "fleet": _Child("fleet", [
+            "paddle_tpu_torch.serving.fleet", "--generation-model", d32,
+            "--device", DEVICE, "--gen-paged", "--replicas", "2",
+            "--prefill-replicas", "1", "--kv-transfer-dir", store,
+            "--prefix-tier-url", tier_url, "--prefill-min-prompt",
+            str(FLEET_MIN_PROMPT), "--port", "0", "--log-dir", log_dir,
+            "--trace-spool-dir", spool, "--check-interval-s", "0.25",
+            "--request-timeout", "300", "--drain-timeout",
+            str(FLEET_DRAIN_S)] +
+            ["--serve-arg=" + a for a in _replica_args()],
+            os.path.join(workdir, "fleet_cli.log"))}
+    res = {}
+    try:
+        # the reference streams while the fleet boots
+        ref, launches = fleet_reference(d32, prompts, budgets)
+        deadline = time.perf_counter() + FLEET_BOOT_S
+        for child in children.values():
+            child.wait_url(deadline)
+        router = children["fleet"].url
+        with open(children["fleet"].log_path) as f:
+            line = next(ln for ln in f if ln.startswith("fleet: router"))
+        res["cold_start_s"] = json.loads(
+            line.split("ready_s=", 1)[1].replace("'", '"'))
+        res["fleet_up_s"] = time.perf_counter() - t0
+        status = _fleet_status(router)
+        res["overhead"] = router_overhead(router, status,
+                                          prompts[FLEET_PROMPTS // 2])
+        # wave 1: every prompt twice; replica0 is SIGKILLed a third in
+        status = _fleet_status(router)
+        pids = _replica_pids(status)
+        killed = {"pid": pids["replica0"]}
+        third = FLEET_WAVE // 3
+
+        def kill_at(n):
+            if n == third and "t" not in killed:
+                killed["t"] = time.perf_counter()
+                os.kill(killed["pid"], signal.SIGKILL)
+
+        jobs = iter([(i % FLEET_PROMPTS, prompts[i % FLEET_PROMPTS],
+                      budgets[i % FLEET_PROMPTS])
+                     for i in range(FLEET_WAVE)])
+        got = _closed_loop(router, lambda: next(jobs, None), kill_at)
+        # readmission: a replica0 with another pid in rotation
+        while True:
+            pids = _replica_pids(_fleet_status(router))
+            if pids.get("replica0") not in (None, killed["pid"]):
+                break
+            if time.perf_counter() - killed["t"] > FLEET_BOOT_S:
+                raise AssertionError("phase 19 (a): replica0 was not "
+                                     "readmitted: %s" % pids)
+            time.sleep(0.1)
+        res["kill_to_readmission_s"] = time.perf_counter() - killed["t"]
+        # wave 2, after the readmission: every prompt once more
+        jobs = iter([(i, prompts[i], budgets[i])
+                     for i in range(FLEET_PROMPTS)])
+        got += _closed_loop(router, lambda: next(jobs, None))
+        failed = [repr(r) for _, r, _ in got if isinstance(r, Exception)]
+        ok = [(i, r, s) for i, r, s in got if not isinstance(r, Exception)]
+        long_ok = [(i, r, s) for i, r, s in ok if i < FLEET_PROMPTS // 2]
+        # TTFT through the hop: client wall less the decode replica's
+        # time after its first token
+        ttft = [s * 1e3 - (r["latency_ms"] - r["slo"]["ttft_ms"])
+                for _, r, s in long_ok]
+        metrics = ServingClient(router).metrics()
+
+        def metric(name, **labels):
+            key = "paddle_tpu_" + name
+            if labels:
+                key += "{%s}" % ",".join('%s="%s"' % kv
+                                         for kv in sorted(labels.items()))
+            return metrics.get(key, 0.0)
+
+        # one handed-off request's merged trace
+        rid = long_ok[-1][1]["request_id"]
+        trace = ServingClient(router).fetch_trace(rid)
+        lanes = {ev["pid"]: ev["args"]["name"]
+                 for ev in trace["traceEvents"] if ev.get("ph") == "M"}
+        final = _replica_pids(_fleet_status(router))
+        prefill_pid = final.get("prefill0")
+        decode_pids = {p for n, p in final.items() if n != "prefill0"} | \
+            {killed["pid"]}
+        res.update({
+            "requests": len(got), "failed": len(failed),
+            "streams_equal_engine": sum(r["tokens"] == ref[i]
+                                        for i, r, _ in ok),
+            "restarts": metric("fleet_restarts_total"),
+            "handoff": {o: metric("handoff_prefills_total", outcome=o)
+                        for o in ("ok", "failed", "unavailable",
+                                  "skipped")},
+            "affinity": {o: metric("fleet_prefix_affinity_total",
+                                   outcome=o)
+                         for o in ("affinity", "load", "none")},
+            "ttft_ms_p50_via_prefill_hop": float(np.percentile(ttft, 50)),
+            "ttft_ms_p50_short": float(np.percentile(
+                [r["slo"]["ttft_ms"] for i, r, _ in ok
+                 if i >= FLEET_PROMPTS // 2], 50)),
+            "trace": {"request_id": rid,
+                      "spans": trace["metadata"]["span_count"],
+                      "lanes": sorted(lanes.values()),
+                      "router": children["fleet"].proc.pid in lanes,
+                      "prefill": prefill_pid in lanes,
+                      "decode": bool(decode_pids & set(lanes))}})
+        if failed:
+            res["first_failure"] = failed[0]
+        # drain: SIGTERM the fleet; each replica logs its launches
+        res["fleet_exit"] = children["fleet"].stop(FLEET_DRAIN_S + 60)
+        res["replica_logs"] = replica_logs(log_dir)
+        # the survivor and the replacement drained; the killed one did not
+        res["drained"] = _drained_gate("phase 19 (a)",
+                                       res["replica_logs"], "k3", 2)
+    except Exception:
+        for child in children.values():
+            sys.stderr.write("-- phase 19 child %s --\n%s\n"
+                             % (child.name, child.tail()))
+        raise
+    finally:
+        for child in children.values():
+            child.kill()
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 19 (a) fleet CLI (2 decode + 1 prefill replicas, prefix "
+        "tier, %d-layer decoder, fp32 pages; %s): %s"
+        % (DIS_LAYERS, card_label, json.dumps(
+            {k: v for k, v in res.items() if k != "replica_logs"})))
+    n = len(prompts)
+    if res["failed"] or res["streams_equal_engine"] != len(got) or \
+            len(got) != FLEET_WAVE + n or res["restarts"] != 1 or \
+            res["handoff"]["ok"] <= 0 or res["handoff"]["skipped"] <= 0 or \
+            res["affinity"]["affinity"] <= 0 or res["fleet_exit"] != 0 or \
+            not all(res["trace"][k] for k in ("router", "prefill",
+                                               "decode")):
+        raise AssertionError("phase 19 (a): %s" % json.dumps(res))
+    return res, launches
+
+
+def roll_fleet(workdir, d32):
+    """Phase 19 (b)'s fleet: a ``FleetRouter`` and a ``ReplicaSupervisor``
+    over ROLL_REPLICAS int8-page replicas of serial 0 of ``d32`` (a
+    ``publish_artifact`` serial), booting on a thread while the caller
+    goes on."""
+    import threading
+    from paddle_tpu_torch.serving.fleet import FleetRouter, \
+        ReplicaSupervisor, publish_artifact
+    root = os.path.join(workdir, "fleet_serials")
+    s0, dir0 = publish_artifact(root, d32)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+
+    def make_argv(port, serial_dir):
+        return [sys.executable, "-m", "paddle_tpu_torch.serving.serve",
+                "--generation-model", serial_dir or dir0, "--device",
+                DEVICE, "--port", str(port)] + _replica_args("int8")
+
+    router = FleetRouter(("127.0.0.1", 0), check_interval_s=0.25,
+                         request_timeout=300.0, route_timeout_s=300.0,
+                         backoff_base_s=0.02, backoff_cap_s=0.2)
+    router.start_background()
+    state = {"root": root, "serials": [s0], "dirs": [dir0],
+             "log_dir": os.path.join(workdir, "roll_logs"),
+             "router": router}
+    state["sup"] = ReplicaSupervisor(
+        make_argv, replicas=ROLL_REPLICAS, router=router, artifact_root=root,
+        check_interval_s=0.25, drain_timeout_s=FLEET_DRAIN_S,
+        hot_swap_poll_s=3600.0, env=env,
+        log_dir=state["log_dir"])
+    state["boot"] = threading.Thread(target=state["sup"].start,
+                                     daemon=True)
+    state["boot"].start()
+    return state
+
+
+def fleet_roll_gate(state, d32, prompts, budgets, card_label):
+    """Phase 19 (b): the fleet of ``roll_fleet`` rolled under load by
+    ``hot_swap`` onto a second serial published with
+    ``weight_quant_dtype="int8"``; the fleet stopped at the end. Returns
+    the report and the in-process reference engines' launches."""
+    import itertools
+    import threading
+    from paddle_tpu_torch.serving import ServingClient
+    from paddle_tpu_torch.serving.fleet import publish_artifact, slot_label
+    t0 = time.perf_counter()
+    sup, router, root = state["sup"], state["router"], state["root"]
+    s0, dir0 = state["serials"][0], state["dirs"][0]
+    log_dir = state["log_dir"]
+    res = {"serials": [s0]}
+    launches = {"k3": 0, "k3_quant": 0}
+    try:
+        ref0, n0 = fleet_reference(dir0, prompts, budgets, "int8")
+        state["boot"].join(FLEET_BOOT_S)
+        if len(sup.replicas()) != ROLL_REPLICAS:
+            raise AssertionError("phase 19 (b): the fleet did not start")
+        res["cold_start_s"] = {slot_label(r.slot): r.ready_s
+                               for r in sup.replicas()}
+        # closed-loop load from before the roll until ROLL_WAVE answers
+        # after it
+        stop, seq, done = threading.Event(), itertools.count(), [0]
+        got = []
+
+        def next_job():
+            if stop.is_set():
+                return None
+            i = next(seq) % len(prompts)
+            return i, prompts[i], budgets[i]
+
+        def count(n):
+            done[0] = n
+        loader = threading.Thread(target=lambda: got.extend(_closed_loop(
+            router.url, next_job, count)), daemon=True)
+        loader.start()
+        while done[0] < ROLL_WAVE // 2 and loader.is_alive():
+            time.sleep(0.05)
+        t1 = time.perf_counter()
+        s1, dir1 = publish_artifact(root, d32, weight_quant_dtype="int8")
+        old = sup.replicas()
+        swapped = sup.hot_swap(s1)
+        roll_s = time.perf_counter() - t1
+        old_exit = [r.proc.returncode for r in old]
+        after_roll = done[0]
+        while done[0] < after_roll + ROLL_WAVE and loader.is_alive():
+            time.sleep(0.05)
+        stop.set()
+        loader.join(300)
+        swap = {"serial": s1, "swapped": swapped, "s": roll_s,
+                "old_exit": old_exit}
+        ref1, n1 = fleet_reference(dir1, prompts, budgets, "int8")
+        for n in (n0, n1):
+            for k in launches:
+                launches[k] += n[k]
+        client = ServingClient(router.url, timeout=300.0)
+        after = [client.generate(p, max_new_tokens=b)["tokens"]
+                 for p, b in zip(prompts, budgets)]
+        # what each replica says it serves, from its /healthz stanza
+        served = [(json.loads(urllib.request.urlopen(
+            r.url + "/healthz", timeout=60).read())["serving"])
+            for r in sup.replicas()]
+        failed = [repr(r) for _, r, _ in got if isinstance(r, Exception)]
+        ok = [(i, r) for i, r, _ in got if not isinstance(r, Exception)]
+        res.update({
+            "serials": [s0, swap["serial"]], "requests": len(got),
+            "failed": len(failed), "swapped": swap["swapped"],
+            "roll_s": swap["s"], "old_exit_codes": swap["old_exit"],
+            "streams_in_either_weight_set": sum(
+                r["tokens"] in (ref0[i], ref1[i]) for i, r in ok),
+            "streams_equal_quantized_after_roll": sum(
+                a == w for a, w in zip(after, ref1)),
+            "quantized_vs_plain_streams_equal": sum(
+                a == b for a, b in zip(ref0, ref1)),
+            "weight_quant_after_roll": sorted(
+                st["weight_quant"] for st in served),
+            "serial_now": sup.current_serial})
+        if failed:
+            res["first_failure"] = failed[0]
+    finally:
+        sup.stop()
+        router.stop(10.0)
+    res["replica_logs"] = replica_logs(log_dir)
+    # the replicas rolled out and those rolled in
+    res["drained"] = _drained_gate("phase 19 (b)", res["replica_logs"],
+                                   "k3_quant", 2 * ROLL_REPLICAS)
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 19 (b) API roll (FleetRouter + ReplicaSupervisor, %d "
+        "replicas, int8 pages, serial %d -> %d with int8 weights; %s): %s"
+        % (ROLL_REPLICAS, res["serials"][0], res["serials"][-1],
+           card_label, json.dumps(
+            {k: v for k, v in res.items() if k != "replica_logs"})))
+    if res["failed"] or res["swapped"] != ROLL_REPLICAS or \
+            res["old_exit_codes"] != [0] * ROLL_REPLICAS or \
+            res["streams_in_either_weight_set"] != res["requests"] or \
+            res["streams_equal_quantized_after_roll"] != len(prompts) or \
+            res["weight_quant_after_roll"] != ["int8"] * ROLL_REPLICAS or \
+            res["serial_now"] != res["serials"][1]:
+        raise AssertionError("phase 19 (b): %s" % json.dumps(res))
+    return res, launches
+
+
+def fleet_path(workdir, card_label=""):
+    """Phase 19: the serving fleet on the card, (a) through the fleet CLI
+    and (b) through the API's rolling hot-swap; see the module docstring.
+    Returns the report with the in-process engines' launches of K3 and
+    K3-quant."""
+    t0 = time.perf_counter()
+    d32 = fleet_decoder(workdir)
+    prompts, budgets = fleet_requests()
+    report = {}
+    # (b)'s replicas boot while (a) boots and runs; they idle until (b)
+    roll = roll_fleet(workdir, d32)
+    try:
+        report["cli"], la = fleet_cli_gate(workdir, d32, prompts, budgets,
+                                           card_label)
+    except Exception:
+        roll["sup"].stop(drain=False)
+        roll["router"].stop(10.0)
+        raise
+    report["roll"], lb = fleet_roll_gate(roll, d32, prompts, budgets,
+                                         card_label)
+    report["launches"] = {k: la[k] + lb[k] for k in la}
+    report["replica_launches"] = {
+        "k3": report["cli"]["drained"]["k3"],
+        "k3_quant": report["roll"]["drained"]["k3_quant"]}
+    report["seconds"] = time.perf_counter() - t0
+    cli, roll = report["cli"], report["roll"]
+    log("phase 19 the serving fleet in %.1f s (%s): cold start s %s / %s, "
+        "router adds %.2f ms p50 (%.2f vs %.2f direct), TTFT p50 %.1f ms "
+        "through the prefill hop, SIGKILL to readmission %.2f s, roll %.2f "
+        "s, replica launches K3 %d K3-quant %d"
+        % (report["seconds"], card_label, json.dumps(cli["cold_start_s"]),
+           json.dumps(roll["cold_start_s"]),
+           cli["overhead"]["added_ms_p50"],
+           cli["overhead"]["router_ms_p50"],
+           cli["overhead"]["direct_ms_p50"],
+           cli["ttft_ms_p50_via_prefill_hop"],
+           cli["kill_to_readmission_s"], roll["roll_s"],
+           report["replica_launches"]["k3"],
+           report["replica_launches"]["k3_quant"]))
     return report
 
 
@@ -6936,6 +7505,17 @@ def main(argv=None):
                               (report["main_path"]["k3_quant"],
                                "k3_quant")):
                 row["launches"] += report["disagg_path"]["launches"][name]
+            # phase 19: the serving fleet; K3 and K3-quant in the replica
+            # processes (read from their drain lines) and in process
+            report["fleet_path"] = fleet_path(
+                workdir, report["card"]["nvidia_smi"])
+            lap("fleet_path")
+            for row, name in ((report["main_path"]["k3"], "k3"),
+                              (report["main_path"]["k3_quant"],
+                               "k3_quant")):
+                row["launches"] += report["fleet_path"]["launches"][name]
+                row["launches"] += \
+                    report["fleet_path"]["replica_launches"][name]
         report["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()

@@ -70,9 +70,8 @@ kv_quant_dtype = "off"
 kv_quant_group = 0
 # ``weight_quant_dtype`` — weight-only quantization of decoder serials at
 # publish time: "off", "fp8" or "int8" (validated by
-# ``serving.kv_transfer.resolve_kv_transfer_knobs``; ``publish_artifact``,
-# its reader, is not ported yet: ``quantize_decoder_dir`` takes the mode
-# as an argument).
+# ``serving.kv_transfer.resolve_kv_transfer_knobs``; read by
+# ``serving.fleet.publish_artifact`` when no mode is passed).
 weight_quant_dtype = "off"
 
 # End-to-end deadlines and brownout load shedding (the scheduler's share
@@ -153,11 +152,17 @@ slo_sustain_s = 1.0
 #   the local cache and retries the tier later).
 # - ``fleet_prefix_tier_capacity_mb`` — tier store size watermark; the
 #   tier evicts LRU unleased entries above it.
+# - ``fleet_prefill_min_prompt`` — the fleet router routes /v1/generate
+#   prompts of at least this many tokens through a dedicated prefill
+#   worker first (when one is live); shorter prompts go straight to a
+#   decode worker (0 = every prompt takes the prefill hop when a prefill
+#   worker exists).
 kv_transfer_dir = ""
 kv_transfer_min_pages = 1
 fleet_prefix_tier_url = ""
 fleet_prefix_tier_timeout_s = 2.0
 fleet_prefix_tier_capacity_mb = 512.0
+fleet_prefill_min_prompt = 0
 
 # Debugging: ``check_nan_inf`` — per-step NaN/Inf scan of the fetches and
 # the updated state (``Executor._nan_check``); forces a host sync and
@@ -178,8 +183,21 @@ length_pool_factor = 16
 #   ``observability.flight_recorder.get_recorder().set_capacity(n)``.
 # - ``trace_dump_dir`` — where crash/SIGUSR1 flight-recorder dumps land
 #   (default: the system temp dir).
+# - ``trace_spool_dir`` — when set, every request-trace span is ALSO
+#   appended to ``<dir>/spans_<pid>.jsonl`` (flushed per record,
+#   size-capped) so a SIGKILLed replica's spans still reach the merged
+#   fleet trace. The env var PADDLE_TPU_TRACE_SPOOL overrides — fleet
+#   replicas are configured through it without argv plumbing. "" = ring
+#   only.
+# - ``trace_sample_rate`` — fraction of requests whose spans are recorded
+#   (1.0 = everything). The decision is a deterministic hash of the trace
+#   id, so every hop of one request samples identically with no extra wire
+#   flag; ids and headers still propagate for unsampled requests, and
+#   error spans always record.
 flight_recorder_events = 4096
 trace_dump_dir = ""
+trace_spool_dir = ""
+trace_sample_rate = 1.0
 
 # Fault-tolerant training runtime (robustness.CheckpointManager /
 # robustness.train_loop read these):

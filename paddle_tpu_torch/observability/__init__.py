@@ -12,8 +12,10 @@
   dumped when a step raises;
 - ``liveness`` — the last step, checkpoint and watchdog deadline that
   /healthz reports;
-- ``tracing`` — request tracing; ``http`` — the stdlib HTTP plumbing.
+- ``tracing`` — request tracing (head sampling, the span spool and the
+  fleet trace merge); ``trace_tool`` — its command line (``python -m
+  paddle_tpu_torch.observability.trace_tool``); ``http`` — the stdlib HTTP
+  plumbing.
 
-The span spool, the fleet trace merge and the training monitor are not
-ported yet.
+The training monitor is not ported yet.
 """

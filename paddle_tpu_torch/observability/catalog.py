@@ -36,7 +36,10 @@ __all__ = [
     "TENANT_TOKENS", "PREEMPTIONS_TO_HELD", "SLO_VIOLATION_SECONDS",
     "KV_TRANSFER_EXPORTS", "KV_TRANSFER_IMPORTS",
     "KV_TRANSFER_PAGES_IMPORTED", "PREFIX_TIER_REQUESTS",
-    "PREFIX_TIER_EVICTIONS",
+    "PREFIX_TIER_EVICTIONS", "HANDOFF_PREFILLS", "FLEET_PREFIX_AFFINITY",
+    "FLEET_REQUESTS", "FLEET_ROUTER_RETRIES", "FLEET_BACKEND_REQUESTS",
+    "FLEET_EJECTIONS", "FLEET_READMISSIONS", "FLEET_RESTARTS",
+    "FLEET_HOT_SWAPS",
 ]
 
 _LABEL_SEP = "|"
@@ -339,6 +342,47 @@ PREFIX_TIER_EVICTIONS = Counter(
     "prefix_tier_evictions_total",
     help="Store entries evicted by the tier's LRU capacity watermark "
     "(unleased entries only)")
+HANDOFF_PREFILLS = Counter(
+    "handoff_prefills_total", labels=("outcome",),
+    help="Router-side prefill handoff hops for /v1/generate (outcome: "
+    "ok — a prefill worker computed and published the prompt's pages, "
+    "failed — the hop failed and the decode worker self-prefilled, "
+    "unavailable — no prefill worker in rotation, skipped — prompt "
+    "below FLAGS_fleet_prefill_min_prompt)")
+FLEET_PREFIX_AFFINITY = Counter(
+    "fleet_prefix_affinity_total", labels=("outcome",),
+    help="Prefix-affinity routing decisions for /v1/generate (outcome: "
+    "affinity — routed to the prompt's rendezvous backend, load — "
+    "affinity target over the load slack, bypassed on queue depth, "
+    "none — no prompt parseable from the body)")
+
+# -- serving fleet (recorded by serving/fleet.py) --------------------------
+
+FLEET_REQUESTS = Counter(
+    "fleet_requests_total",
+    help="Requests entering the fleet router (before backend fan-out)")
+FLEET_ROUTER_RETRIES = Counter(
+    "fleet_router_retries_total", labels=("reason",),
+    help="Requests re-routed to another replica after a backend attempt "
+    "failed (reason: connection, overload, draining)")
+FLEET_BACKEND_REQUESTS = Counter(
+    "fleet_backend_requests_total", labels=("backend", "outcome"),
+    help="Per-backend forwarded requests (outcome: ok, http_error, "
+    "unavailable, connection)")
+FLEET_EJECTIONS = Counter(
+    "fleet_ejections_total", labels=("reason",),
+    help="Replicas taken out of router rotation (reason: dead, "
+    "draining, stalled, breaker)")
+FLEET_READMISSIONS = Counter(
+    "fleet_readmissions_total",
+    help="Replicas readmitted to rotation after a health recovery")
+FLEET_RESTARTS = Counter(
+    "fleet_restarts_total",
+    help="Crashed replica processes respawned by the supervisor")
+FLEET_HOT_SWAPS = Counter(
+    "fleet_hot_swaps_total",
+    help="Replicas rolled onto a newer artifact serial (one per "
+    "replica per rolling upgrade)")
 
 # -- deadlines, brownout and token-level SLOs ------------------------------
 
@@ -414,6 +458,10 @@ _LIVE_GAUGES = {
     "kv_pool_effective_capacity":
         "Admission token capacity of the page pool (num_pages × "
         "page_size)",
+    "fleet_replicas_live":
+        "Replica backends currently in router rotation (ready)",
+    "fleet_replicas_total":
+        "Replica backends registered with the router",
     "prefix_tier_entries":
         "Committed prefix entries indexed by the prefix-tier service",
     "prefix_tier_bytes":

@@ -1,13 +1,28 @@
 """Stdlib HTTP plumbing — a copy of ``paddle_tpu/observability/http.py``
 for the port: ``JsonHTTPHandler`` carries the response helpers,
 ``BackgroundHTTPServer`` is a ``ThreadingHTTPServer`` with a daemon-thread
-serve loop (``start_background`` / ``stop``)."""
+serve loop (``start_background`` / ``stop``); ``free_port`` probes a free
+TCP port for a process that must know its port before it starts."""
 
 import json
+import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-__all__ = ["JsonHTTPHandler", "BackgroundHTTPServer"]
+__all__ = ["JsonHTTPHandler", "BackgroundHTTPServer", "free_port"]
+
+
+def free_port(host="127.0.0.1"):
+    """Pick a currently-free TCP port on ``host`` (bind-to-0 probe) — for
+    processes that must KNOW their port before launch (fleet replica
+    spawns). Prefer binding port 0 directly when the consumer is
+    in-process."""
+    s = socket.socket()
+    try:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+    finally:
+        s.close()
 
 
 class JsonHTTPHandler(BaseHTTPRequestHandler):

@@ -8,7 +8,10 @@ server, and its ``ServingClient``; and disaggregated serving: the KV-page
 handoff (``kv_transfer``: the md5-manifest wire form, ``PrefillWorker``
 behind ``POST /v1/prefill``) and the fleet prefix-cache tier
 (``prefix_tier``: store, index server and the degrading client that paged
-engines map pages through)."""
+engines map pages through); and the serving fleet (``fleet``: the router
+with the prefill hop, the replica supervisor, rolling hot-swap and the
+artifact serials), imported at first use so that ``python -m
+paddle_tpu_torch.serving.fleet`` runs the module once."""
 
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
                       MicroBatcher, OverloadedError, PendingResult,
@@ -33,6 +36,10 @@ from .registry import (parse_deadline_header, parse_tenant_header,
 from .server import ServingServer, make_server
 from .session import InferenceSession
 
+_FLEET = ("CircuitBreaker", "RouterBackend", "FleetRouter",
+          "ReplicaSupervisor", "publish_artifact", "latest_artifact",
+          "merge_scrapes")
+
 __all__ = [
     "DeadlineExceededError", "DrainRateEstimator", "MicroBatcher",
     "OverloadedError", "PendingResult", "ServingClosedError",
@@ -51,4 +58,11 @@ __all__ = [
     "resolve_kv_transfer_knobs", "PrefixTierClient", "PrefixTierServer",
     "PrefixTierStore", "make_tier_server",
     "ServingServer", "make_server",
-]
+] + list(_FLEET)
+
+
+def __getattr__(name):
+    if name in _FLEET:
+        import importlib
+        return getattr(importlib.import_module(".fleet", __name__), name)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -1,14 +1,16 @@
 """Stdlib client of the serving HTTP API — the port of
-``paddle_tpu/serving/client.py`` against one endpoint (urllib only; no
-framework import needed beyond this module). Failover across several
-endpoints comes with the fleet, which is not ported yet."""
+``paddle_tpu/serving/client.py`` (urllib only; no framework import needed
+beyond this module), with failover across a list of endpoints (fleet
+routers or replicas) and the fleet router's merged trace."""
 
 import json
 import random
 import socket
 import sys
+import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 import uuid
 
@@ -35,19 +37,25 @@ class ServingClient:
     retried up to ``overload_retries`` times, sleeping the server's hint
     (capped at ``backoff_cap_s``, equal-jittered) before
     :class:`OverloadedError`; a 503 without it (a draining server) is
-    not. A refused or reset connection is retried up to
-    ``connect_retries`` times with jittered exponential backoff.
+    not. A refused or reset connection (or a read timeout) is retried up
+    to ``connect_retries`` times with jittered exponential backoff.
     ``deadline_ms`` is the end-to-end budget: each attempt sends what
     remains of it as ``X-Deadline-Ms``, and an exhausted budget raises
-    :class:`DeadlineExceededError` without another attempt."""
+    :class:`DeadlineExceededError` without another attempt.
+
+    ``base_url`` may be a LIST of endpoints. A connection-level failure
+    gates the failing endpoint behind a per-endpoint exponential backoff
+    and rotates to the next eligible sibling at once, so a dead endpoint
+    costs one failed attempt, not the request; a recovered endpoint
+    rejoins when its gate expires (a success resets the gate)."""
 
     def __init__(self, base_url, timeout=60.0, overload_retries=3,
                  backoff_base_s=0.05, backoff_cap_s=2.0,
                  connect_retries=None, verbose=False, tenant=None):
-        if not isinstance(base_url, str):
-            raise TypeError("ServingClient takes one endpoint URL (failover "
-                            "across several is not ported)")
-        self.base_url = base_url.rstrip("/")
+        urls = [base_url] if isinstance(base_url, str) else list(base_url)
+        if not urls:
+            raise ValueError("base_url must name at least one endpoint")
+        self.endpoints = [u.rstrip("/") for u in urls]
         self.timeout = timeout
         self.tenant = None if tenant is None else str(tenant)
         self.overload_retries = int(overload_retries)
@@ -57,14 +65,57 @@ class ServingClient:
                                 if connect_retries is None
                                 else int(connect_retries))
         self.verbose = bool(verbose)
+        # pure backoffs get FULL jitter, Retry-After hints EQUAL jitter: N
+        # clients that failed together must not re-arrive together
         self._jitter = random.Random()
+        # per-endpoint failover state: the current endpoint, and per
+        # endpoint a monotonic not-before gate and its next backoff
+        self._ep_lock = threading.Lock()
+        self._ep_idx = 0                              # guarded-by: _ep_lock
+        self._ep_not_before = [0.0] * len(self.endpoints)
+        self._ep_backoff = [self.backoff_base_s] * len(self.endpoints)
+
+    @property
+    def base_url(self):
+        """The endpoint currently in use."""
+        with self._ep_lock:
+            return self.endpoints[self._ep_idx]
+
+    def _current_endpoint(self):
+        with self._ep_lock:
+            return self._ep_idx, self.endpoints[self._ep_idx]
+
+    def _endpoint_failed(self, idx):
+        """Gate a failing endpoint behind its (exponential, capped) backoff
+        and rotate to the next eligible sibling. Returns the seconds to
+        sleep before the next attempt: 0.0 when a sibling is eligible now,
+        otherwise the wait until the soonest gate opens."""
+        now = time.monotonic()
+        with self._ep_lock:
+            self._ep_not_before[idx] = now + self._ep_backoff[idx]
+            self._ep_backoff[idx] = min(self._ep_backoff[idx] * 2,
+                                        self.backoff_cap_s)
+            n = len(self.endpoints)
+            for step in range(1, n + 1):
+                cand = (idx + step) % n
+                if self._ep_not_before[cand] <= now:
+                    self._ep_idx = cand
+                    return 0.0
+            soonest = min(range(n), key=self._ep_not_before.__getitem__)
+            self._ep_idx = soonest
+            return max(0.0, self._ep_not_before[soonest] - now)
+
+    def _endpoint_ok(self, idx):
+        with self._ep_lock:
+            self._ep_not_before[idx] = 0.0
+            self._ep_backoff[idx] = self.backoff_base_s
 
     def _log(self, msg, always=False):
         if always or self.verbose:
             sys.stderr.write("paddle_tpu_torch serving client: %s\n" % msg)
 
     def _request(self, path, data=None, request_id=None, deadline_ms=None,
-                 tenant=None):
+                 url=None, tenant=None):
         headers = {}
         if data is not None:
             headers["Content-Type"] = "application/json"
@@ -81,7 +132,7 @@ class ServingClient:
         if deadline_ms is not None:
             timeout = min(timeout, deadline_ms / 1e3 + 1.0)
         req = urllib.request.Request(
-            self.base_url + path, data=data, headers=headers,
+            (url or self.base_url) + path, data=data, headers=headers,
             method="POST" if data is not None else "GET")
         try:
             with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -91,8 +142,10 @@ class ServingClient:
 
     def _post_with_retry(self, path, payload, request_id=None,
                          deadline_ms=None, tenant=None):
-        """POST with the overload and connection retries; (status, raw
-        body, request id), the status never a retryable 503."""
+        """POST with the overload and connection retries, rotating across
+        ``endpoints`` with per-endpoint backoff gates on connection
+        failures; (status, raw body, request id), the status never a
+        retryable 503."""
         rid = request_id or _new_request_id()
         body = json.dumps(payload).encode("utf-8")
         t0 = time.monotonic()
@@ -112,10 +165,11 @@ class ServingClient:
 
         while True:
             rem = _check_budget()
+            idx, url = self._current_endpoint()
             try:
                 status, raw, headers = self._request(
                     path, data=body, request_id=rid, deadline_ms=rem,
-                    tenant=tenant)
+                    url=url, tenant=tenant)
             except (urllib.error.URLError, ConnectionError, TimeoutError,
                     socket.timeout) as e:
                 if conn_attempts >= self.connect_retries:
@@ -125,15 +179,22 @@ class ServingClient:
                     e.request_id = rid
                     raise
                 conn_attempts += 1
-                wait = self._jitter.uniform(0.0, backoff)
+                # rotate first: with an eligible sibling the retry goes
+                # there now (wait 0); only an all-gated endpoint set costs
+                # a sleep, full-jittered
+                wait = self._endpoint_failed(idx)
+                wait = max(wait, self._jitter.uniform(0.0, backoff)
+                           if wait else 0.0)
                 _check_budget(wait)
                 self._log("POST %s request_id=%s connection retry %d/%d "
-                          "in %.2fs: %s" % (path, rid, conn_attempts,
-                                            self.connect_retries, wait, e),
-                          always=True)
-                time.sleep(wait)
+                          "in %.2fs (endpoint %s): %s"
+                          % (path, rid, conn_attempts, self.connect_retries,
+                             wait, url, e), always=True)
+                if wait:
+                    time.sleep(wait)
                 backoff = min(backoff * 2, self.backoff_cap_s)
                 continue
+            self._endpoint_ok(idx)
             if status != 503:
                 return status, raw, rid
             retry_after = headers.get("Retry-After") if headers else None
@@ -245,14 +306,28 @@ class ServingClient:
         except ValueError:
             return False
 
-    def metrics(self):
-        """/metrics as {metric: value} (quantile lines keyed as
-        ``name{quantile="x"}``)."""
+    def health(self):
+        """The /healthz document with its ``http_status``; raises on an
+        unreachable server."""
+        status, raw, _ = self._request("/healthz")
+        try:
+            doc = json.loads(raw)
+        except ValueError:
+            doc = {"status": raw.decode("utf-8", "replace").strip()}
+        doc["http_status"] = status
+        return doc
+
+    def metrics_text(self):
         status, raw, _ = self._request("/metrics")
         if status != 200:
             raise RuntimeError("/metrics HTTP %d" % status)
+        return raw.decode("utf-8")
+
+    def metrics(self):
+        """/metrics as {metric: value} (quantile lines keyed as
+        ``name{quantile="x"}``)."""
         out = {}
-        for line in raw.decode("utf-8").splitlines():
+        for line in self.metrics_text().splitlines():
             if not line or line.startswith("#"):
                 continue
             name, _, val = line.rpartition(" ")
@@ -261,3 +336,16 @@ class ServingClient:
             except ValueError:
                 pass
         return out
+
+    def fetch_trace(self, request_id):
+        """GET the fleet router's merged trace for ``request_id``
+        (/fleet/trace): from a failed request id to its cross-process
+        chrome-trace in one call. Raises RuntimeError (with the id) on a
+        non-200."""
+        status, raw, _ = self._request(
+            "/fleet/trace?request_id=%s"
+            % urllib.parse.quote(str(request_id), safe=""))
+        if status != 200:
+            raise RuntimeError("/fleet/trace HTTP %d (request_id=%s): %s"
+                               % (status, request_id, self._error_of(raw)))
+        return json.loads(raw)

@@ -1,8 +1,8 @@
 """The request-ingest helpers and the fleet knobs of
 ``paddle_tpu/serving/registry.py``: the ``X-Deadline-Ms`` and
 ``X-Tenant-Id`` header parsers and :func:`resolve_fleet_knobs` over the
-deadline, brownout-shedding and prefix-tier flags. The replica registry
-and its leases are not ported."""
+deadline, brownout-shedding, prefix-tier and prefill-hop flags. The
+replica registry and its leases (fleet HA) are not ported."""
 
 import math
 import re
@@ -46,7 +46,8 @@ def resolve_fleet_knobs(deadline_default_ms=None, deadline_admit_min_ms=None,
                         shed_token_cap=None, shed_retry_floor_s=None,
                         shed_retry_cap_s=None, prefix_tier_url=None,
                         prefix_tier_timeout_s=None,
-                        prefix_tier_capacity_mb=None, which=None):
+                        prefix_tier_capacity_mb=None,
+                        prefill_min_prompt=None, which=None):
     """Resolve the deadline, brownout and prefix-tier knobs from explicit
     values or their ``FLAGS_deadline_*`` / ``FLAGS_shed_*`` /
     ``FLAGS_fleet_prefix_tier_*`` defaults, validating each (errors name
@@ -62,7 +63,8 @@ def resolve_fleet_knobs(deadline_default_ms=None, deadline_admit_min_ms=None,
     (clamp on the drain-rate-derived Retry-After),
     ``prefix_tier_url`` (str, "" = no fleet prefix tier),
     ``prefix_tier_timeout_s`` / ``prefix_tier_capacity_mb`` (tier call
-    timeout and store eviction watermark).
+    timeout and store eviction watermark), ``prefill_min_prompt`` (the
+    router's prefill-hop prompt-length gate).
 
     ``which`` (a tuple of knob names, None = all) scopes both the result
     and the validation."""
@@ -108,6 +110,8 @@ def resolve_fleet_knobs(deadline_default_ms=None, deadline_admit_min_ms=None,
         "prefix_tier_capacity_mb": lambda: _num(
             prefix_tier_capacity_mb, "fleet_prefix_tier_capacity_mb",
             0.001),
+        "prefill_min_prompt": lambda: _num(
+            prefill_min_prompt, "fleet_prefill_min_prompt", 0, int),
     }
     _strings = ("prefix_tier_url",)
     wanted = tuple(resolvers) + _strings if which is None \

@@ -16,7 +16,8 @@ with the port — its counterpart of the reference's ``tools/serve.py``:
         [--tenant-budget-window-s S] [--tenant-held-depth N] \
         [--slo-ttft-ms high=MS,low=MS] [--slo-tpot-ms high=MS] \
         [--slo-sustain-s S] [--role both|decode|prefill] \
-        [--kv-transfer-dir DIR] [--prefix-tier-url URL] [--chaos-spec SPEC]
+        [--kv-transfer-dir DIR] [--prefix-tier-url URL] [--chaos-spec SPEC] \
+        [--trace-sample-rate R] [--trace-spool-dir DIR]
 
 ``--artifact`` (an ``export_artifact`` directory) serves POST /v1/infer
 through the dynamic ``MicroBatcher`` (``--max-batch-size``,
@@ -49,16 +50,22 @@ serves /v1/generate and maps those pages instead of recomputing them;
 publishes when a store or tier is configured. Both disaggregated roles
 imply the paged engine. ``--chaos-spec`` installs a fault-injection spec
 (``robustness.chaos``; ``handoff:0=hang30`` freezes the first export
-between its payload and its manifest). Knobs left unset come from
+between its payload and its manifest). ``--trace-sample-rate`` records
+that share of the request traces (error and 5xx spans always), and
+``--trace-spool-dir`` (or ``PADDLE_TPU_TRACE_SPOOL``) also appends every
+span to ``<dir>/spans_<pid>.jsonl``, so a fleet router can merge this
+replica's spans after it died. Knobs left unset come from
 ``paddle_tpu_torch.flags``. Endpoints: POST /v1/infer, POST
 /v1/generate, GET /healthz (its ``serving`` stanza names the
 ``artifact``, the ``generation_model``, ``paged``, the ``role``,
 ``kv_quant``, ``weight_quant``, ``megastep_k`` and ``speculative_k``), GET
-/metrics, and POST /v1/prefill on a prefill-role server.
+/metrics, GET /trace, and POST /v1/prefill on a prefill-role server.
 SIGINT/SIGTERM drain gracefully: /healthz flips to 503, queued requests
-and in-flight generations complete, then the listener stops and the
-process exits 0. The decoder's device defaults to ``cuda`` and the
-server refuses to start it without a GPU unless ``--device cpu``.
+and in-flight generations complete, then the listener stops, a
+generation server prints its K3 and K3-quant launch counts (``serve:
+kernel launches k3=N k3_quant=M device=D``) and the process exits 0.
+The decoder's device defaults to ``cuda`` and the server refuses to start
+it without a GPU unless ``--device cpu``.
 """
 
 import argparse
@@ -175,6 +182,17 @@ def main(argv=None):
                          "paddle_tpu_torch.serving.prefix_tier; default "
                          "FLAGS_fleet_prefix_tier_url; empty = store-only "
                          "/ local cache)")
+    ap.add_argument("--trace-sample-rate", type=float, default=None,
+                    help="fraction of request traces whose spans are "
+                         "recorded, decided per trace id (default "
+                         "FLAGS_trace_sample_rate; error/5xx spans always "
+                         "record)")
+    ap.add_argument("--trace-spool-dir", default=None,
+                    help="also append every trace span to "
+                         "<dir>/spans_<pid>.jsonl so a fleet's /fleet/trace "
+                         "can recover this replica's spans after a crash "
+                         "(default: $PADDLE_TPU_TRACE_SPOOL / "
+                         "FLAGS_trace_spool_dir)")
     ap.add_argument("--chaos-spec", default="",
                     help="fault-injection spec (robustness.chaos grammar, "
                          "e.g. 'handoff:0=hang30')")
@@ -188,9 +206,14 @@ def main(argv=None):
         ap.error("--role prefill requires --generation-model")
 
     from .. import flags
+    from ..observability import tracing
     if args.chaos_spec:
         from ..robustness import chaos
         chaos.set_injector(chaos.ChaosInjector(args.chaos_spec))
+    if args.trace_spool_dir:
+        tracing.enable_spool(args.trace_spool_dir)
+    if args.trace_sample_rate is not None:
+        flags.trace_sample_rate = args.trace_sample_rate
     from .batcher import MicroBatcher
     from .server import make_server
     from .session import InferenceSession
@@ -343,6 +366,13 @@ def main(argv=None):
     try:
         server.serve_forever()
     finally:
+        if engine is not None:
+            # the drain finished every request: the counts are final (a
+            # fleet reads them from the replica's log)
+            from ..ops import paged_attention as pa
+            print("serve: kernel launches k3=%d k3_quant=%d device=%s"
+                  % (pa.launches, pa.launches_quant, engine.device),
+                  file=sys.stderr)
         print("serve: stopped", file=sys.stderr)
     return 0
 

@@ -31,6 +31,9 @@
   GET  /metrics    Prometheus text (counters, the admission queue depth,
                    live slot / held-lane / brownout / page gauges,
                    p50/p95/p99)
+  GET  /trace      this process's ring of request-trace spans as
+                   chrome://tracing JSON (the fleet router merges them
+                   into ``/fleet/trace``)
 
 ``make_server(batcher, generator=None, prefill_worker=None, ...)``: the
 ``MicroBatcher`` serves ``/v1/infer``, the ``GenerationScheduler``
@@ -44,8 +47,7 @@ served as the anonymous tenant). An infer request carrying an
 ``outcome`` writes a ``serving_event`` run-log record when
 ``FLAGS_online_log_events`` is set. Samples are JSON: dense feeds as
 (nested) lists in the model's feature shape, ragged feeds as flat lists;
-outputs come back as nested lists in fetch order. ``/trace`` is not
-ported yet.
+outputs come back as nested lists in fetch order.
 """
 
 import json
@@ -105,6 +107,8 @@ class _Handler(JsonHTTPHandler):
                         gauges[k] = st[k]
             self._send(200, render_prometheus(gauges=gauges),
                        content_type="text/plain; version=0.0.4")
+        elif self.path == "/trace":
+            self._send_json(200, tracing.trace_dict())
         else:
             self._send_json(404, {"error": "unknown path %s" % self.path})
 

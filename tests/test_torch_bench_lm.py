@@ -16,6 +16,7 @@ CPU at a small size: 2 layers, 64 wide, 2 heads, vocab 97, batch 2, seq
   ``test_torch_train.py``).
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import ast
 import json
 import os

@@ -17,6 +17,7 @@
   ``BENCH_FORCE_CPU`` the module prints the failure line and exits 1.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import ast
 import importlib
 import json

@@ -1,10 +1,10 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s phases at a tiny size: the
-K3-quant and quantized-append checks, the serving phase with its three
-quantized runs, the flash, segment, K6 / K1-dense and fused-Adam kernel
-checks, the fp32 card-vs-CPU gate, the training run, the packed run with
-its padded baseline, the FusedAdam run, the per-head (bhsd) and
-dense-mask runs with their gates, and the kernel timing report, with
-every tensor on the CPU.
+"""``chip_smoke.py`` on the CPU: the fixtures that shrink each phase to a
+tiny size (``tiny`` for training, ``serving_patches`` / ``tiny_serving``,
+``tiny_resnet``, ``tiny_nmt``, ``tiny_fp8``, ``tiny_infer``), which the
+phase rehearsals in ``test_torch_chip_smoke_*.py`` import, and the fast
+tests: the K3 / K3-quant and quantized-append checks, the capture gate,
+the gates and classifiers over profiled kernel names and ptxas output,
+the launch arithmetic, the ``--ab`` script and the argument parsers.
 
 CPU tensors take the kernels' plain versions and count no launch, and
 the backward kernels exist only on CUDA, so the rehearsal swaps in shims
@@ -14,8 +14,8 @@ flow, shapes, launch accounting and report keys hold together; it
 cannot show that a kernel compiles or how fast anything runs.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
-import os
 import subprocess
 
 import numpy as np
@@ -131,30 +131,6 @@ def tiny(monkeypatch):
     pfa.launches.update(saved_adam)
 
 
-def test_training_phases_rehearse_on_the_cpu(tiny, capsys):
-    before = dict(fa.launches)
-    rows = cs.flash_checks()
-    assert len(rows) == 2 * 8 + 1 and all(r["ok"] for r in rows)
-    assert fa.launches == before     # comparison launches are restored
-    gate = cs.train_gate()
-    assert gate["loss_rel_err"] <= cs.GATE_LOSS_RTOL
-    res = cs.train_path()
-    steps_x_layers = cs.LM_STEPS * cs.LM_LAYERS
-    assert res["launches"] == dict({n: 0 for n in cs.FLASH_KERNELS},
-                                   **{n: steps_x_layers for n in cs.K1K2})
-    assert res["losses"][-1] < res["losses"][0]
-    assert {"mul", "mul_grad", "fused_attention",
-            "fused_attention_grad", "adam"} <= set(res["ops"])
-    assert res["ops"]["fused_attention"]["calls"] == cs.LM_LAYERS
-    timing = cs.flash_timing(res["launches"])
-    assert [r["name"] for r in timing] == list(cs.K1K2)
-    for row in timing:
-        assert ROW_KEYS <= set(row) and row["launches"] == steps_x_layers
-        assert row["bound_by"] in ("bytes", "operations")
-    json.dumps(timing)
-    assert "flash_fwd" in capsys.readouterr().out
-
-
 def test_capture_gc_gate_rehearses_on_the_cpu(tiny, monkeypatch, capsys):
     """On the CPU nothing is captured: the dead executors are collected
     after, no collection counts as inside, the gate's patches are undone."""
@@ -169,108 +145,6 @@ def test_capture_gc_gate_rehearses_on_the_cpu(tiny, monkeypatch, capsys):
     assert launch_count.Capture.__enter__ is enter
     assert gc.get_threshold() == threshold and gc.isenabled()
     assert "captures under the collector" in capsys.readouterr().out
-
-
-def test_packed_and_fused_adam_phases_rehearse_on_the_cpu(tiny, capsys):
-    before, before_adam = dict(fa.launches), dict(pfa.launches)
-    data = cs.packed_data(cs.LM_BATCH, cs.LM_SEQ)
-    seg = data["packed"]["seg"]
-    assert (np.diff(seg, axis=1) >= 0).all() and (seg.max(1) >= 1).all()
-    assert 0 < data["real_packed"] <= cs.LM_BATCH * cs.LM_SEQ
-    assert data["baseline"]["ids"].shape[0] == data["docs"] > cs.LM_BATCH
-    rows = cs.segment_checks(seg)
-    assert len(rows) == 2 * 2 * 2 * len(cs.SEG_MAPS) + 1
-    assert all(r["ok"] for r in rows)
-    assert all("k1k2_max_abs_err" in r for r in rows if r["map"] == "one")
-    adam_rows = cs.fused_adam_checks()
-    assert len(adam_rows) == 5 and all(r["max_ulps"] == 0 for r in adam_rows)
-    assert fa.launches == before and pfa.launches == before_adam
-
-    res, scope = cs.packed_path(data)
-    steps_x_layers = cs.LM_STEPS * cs.LM_LAYERS
-    assert res["launches"] == dict({n: 0 for n in cs.FLASH_KERNELS},
-                                   **{n: steps_x_layers for n in cs.K5})
-    assert res["baseline"]["launches"] == dict(
-        {n: 0 for n in cs.FLASH_KERNELS},
-        **{n: cs.BASE_STEPS * cs.LM_LAYERS for n in cs.K1K2})
-    assert res["losses"][-1] < res["losses"][0]
-    assert 0 < res["pack_occupancy"] <= 1 and 0 < res["pad_waste_baseline"]
-    assert res["speedup_vs_padded_ragged"] > 0
-    assert [len(v) for v in res["alternating_step_ms"].values()] == \
-        [cs.ALTERNATE_ROUNDS] * 2
-    assert res["ops"]["fused_attention"]["calls"] == cs.LM_LAYERS
-    timing = cs.flash_timing(res["launches"], seg)
-    assert [r["name"] for r in timing] == list(cs.K5)
-
-    fused = cs.fused_adam_path(data, scope, res)
-    assert fused["one_step_vs_adam"]["max_ulps"] <= cs.ADAM_MAX_ULPS
-    assert fused["launches"] == cs.LM_STEPS
-    assert [len(v) for v in fused["alternating_step_ms"].values()] == \
-        [cs.ALTERNATE_ROUNDS] * 2
-    assert fused["adam_ops_calls"] == len(fused["param_shapes"])
-    row = cs.fused_adam_timing(fused["param_shapes"], fused["launches"])
-    assert row["launches"] == cs.LM_STEPS and row["max_ulps"] == 0
-    for r in timing + [row]:
-        assert ROW_KEYS <= set(r) and r["bound_by"] in ("bytes",
-                                                         "operations")
-    json.dumps(timing + [row])
-    out = capsys.readouterr().out
-    assert "flash_segment_fwd" in out and "fused_adam" in out
-    assert "packed path, profiled flash kernels" in out    # PACKED_BODIES
-
-
-def test_layout_and_dense_mask_phases_rehearse_on_the_cpu(tiny, capsys):
-    before = dict(fa.launches)
-    rows = cs.layout_checks()
-    masks = len(cs.BHSD_MASKS) + len(cs.K1_DENSE_MASKS)
-    assert len(rows) == len(cs.BHSD_GEOMS) * 2 * 2 * masks
-    assert all(r["ok"] for r in rows)
-    assert {r["kernel"] for r in rows} == {"flash_bhsd_fwd",
-                                           "flash_bhsd_fwd_dense",
-                                           "flash_fwd_dense"}
-    assert all("dq" in r["max_abs_err"] for r in rows
-               if r["kernel"] == "flash_bhsd_fwd")
-    assert fa.launches == before     # comparison launches are restored
-
-    zero = {n: 0 for n in cs.FLASH_KERNELS}
-    res = cs.bhsd_path()
-    assert res["launches"] == dict(zero, **{
-        n: cs.LM_STEPS * cs.LM_LAYERS for n in cs.K6})
-    gate = res["layout_gate"]
-    assert gate["loss_rel_err"] <= cs.GATE_LOSS_RTOL
-    assert gate["update_rel_l2"] <= cs.GATE_UPDATE_REL_L2
-    assert res["losses"][-1] < res["losses"][0]
-    assert res["ops"]["fused_attention"]["calls"] == cs.LM_LAYERS
-    # 3 into the op and 1 out of it per layer, forward and backward
-    assert res["ops"]["transpose"]["calls"] == 4 * cs.LM_LAYERS
-    assert res["ops"]["transpose_grad"]["calls"] == 4 * cs.LM_LAYERS
-    assert [len(v) for v in res["alternating_step_ms"].values()] == \
-        [cs.ALTERNATE_ROUNDS] * 2 and res["step_ratio_vs_bshd"] > 0
-
-    dense = cs.dense_path()
-    for layout, kernel in (("bhsd", "flash_bhsd_fwd_dense"),
-                           ("bshd", "flash_fwd_dense")):
-        run = dense[layout]
-        assert run["launches"] == dict(zero, **{
-            kernel: cs.DENSE_STEPS * cs.LM_LAYERS})
-        assert run["losses"][-1] < run["losses"][0]
-        assert dense["gate"][layout]["loss_rel_err"] <= cs.GATE_LOSS_RTOL
-    assert dense["gate"]["first_loss_bhsd_vs_bshd_rel_err"] <= \
-        cs.GATE_LOSS_RTOL
-    assert 0.5 < dense["visible_share"] < 1
-
-    before = dict(fa.launches)
-    timing = cs.layout_timing(res["launches"], dense)
-    assert fa.launches == before     # comparison launches are restored
-    assert [r["name"] for r in timing] == list(cs.K6) + list(cs.DENSE)
-    assert [r["launches"] for r in timing] == \
-        [cs.LM_STEPS * cs.LM_LAYERS] * 3 + [cs.DENSE_STEPS * cs.LM_LAYERS] * 2
-    for r in timing:
-        assert ROW_KEYS <= set(r) and r["bound_by"] in ("bytes",
-                                                         "operations")
-    json.dumps(timing)
-    out = capsys.readouterr().out
-    assert "layout-parity gate" in out and "dense-mask bhsd gate" in out
 
 
 def test_prefix_mask_and_kernel_classes():
@@ -496,10 +370,10 @@ def test_mma_spills_reads_ptxas_output():
     assert cs.mma_spills("") == {}
 
 
-@pytest.fixture
-def tiny_serving(monkeypatch):
-    """The serving phase's constants shrunk, and a shim that counts a
-    launch of K3 or K3-quant where the kernel would launch."""
+def serving_patches(mp):
+    """The serving phase's constants shrunk on ``mp`` (a ``MonkeyPatch``),
+    and a shim that counts a launch of K3 or K3-quant where the kernel
+    would launch."""
     # head_dim 32 at page 4: an int8 page with its scale takes 0.516 of a
     # bf16 page, so equal bytes admit 31 sequences of 8 pages against 16;
     # budgets of 20+ tokens keep the first admitted decoding until every
@@ -513,9 +387,9 @@ def tiny_serving(monkeypatch):
                         ("CAP_TOKENS", 32), ("CAP_BUCKETS", "16,32"),
                         ("CAP_CLIENTS", 8), ("CAP_PER_CLIENT", 6),
                         ("CAP_NEW_TOKENS", (20, 28))):
-        monkeypatch.setattr(cs, name, value)
-    monkeypatch.setattr(cs, "_timed", lambda fn, args, reps, flush:
-                        (fn(*args), 0.5)[1])
+        mp.setattr(cs, name, value)
+    mp.setattr(cs, "_timed", lambda fn, args, reps, flush:
+               (fn(*args), 0.5)[1])
     real = pa.paged_decode_attention
 
     def k3(*args, **kw):
@@ -525,7 +399,14 @@ def tiny_serving(monkeypatch):
         else:
             pa.launches_quant += 1
         return out
-    monkeypatch.setattr(pa, "paged_decode_attention", k3)
+    mp.setattr(pa, "paged_decode_attention", k3)
+
+
+@pytest.fixture
+def tiny_serving(monkeypatch):
+    """``serving_patches`` for one test; the launch counts restored
+    after it."""
+    serving_patches(monkeypatch)
     saved = (pa.launches, pa.launches_quant)
     yield
     pa.launches, pa.launches_quant = saved
@@ -586,165 +467,6 @@ def test_k3_checks_cover_the_split_edges_and_a_wide_table(tiny_serving,
     # 7 geometries x 2 length lists x 2 q dtypes
     assert len(rows) == 28 and all(r["ok"] for r in rows)
     _assert_split_edges(rows, 2)
-
-
-def test_serving_phase_with_quantized_runs_rehearses_on_the_cpu(
-        tiny_serving, tmp_path, capsys):
-    res = cs.main_path(str(tmp_path))
-    steps = {k: res[k]["decode_steps"] for k in ("fp32", "bf16")}
-    assert set(res["quant"]) == {"int8", "fp8", "weights_int8_kv_int8"}
-    total = 0
-    for label, st in res["quant"].items():
-        assert st["k3_quant_launches"] == st["decode_steps"] * cs.LAYERS > 0
-        assert st["k3_launches"] == 0
-        assert st["kv_pages_total"] == 2 * cs.SLOTS * cs.MAX_LEN // cs.PAGE
-        assert st["kv_pool_effective_capacity"] == \
-            st["kv_pages_total"] * cs.PAGE
-        assert st["prefill_logit_rel_l2"] <= cs.QUANT_LOGIT_REL_L2
-        assert 0 <= st["token_match_vs_bf16"] <= 1
-        total += st["k3_quant_launches"]
-    assert res["quant"]["fp8"]["kv_quant_dtype"] == "fp8"
-    assert res["quant"]["weights_int8_kv_int8"]["weight_quant"] == "int8"
-    assert res["quant"]["int8"]["weight_quant"] == "off"
-    row = res["k3_quant"]
-    assert row["name"] == cs.K3Q["name"]
-    assert ROW_KEYS <= set(row) and row["bound_by"] in ("bytes",
-                                                        "operations")
-    assert res["k3_quant_step"]["bytes"] < res["k3_step"]["bytes"]
-    cap = res["capacity"]
-    assert cap["runs"]["int8"]["pool_bytes"] <= \
-        cap["runs"]["bf16"]["pool_bytes"]
-    assert (cap["runs"]["bf16"]["peak_slots"],
-            cap["runs"]["int8"]["peak_slots"]) == (16, 31)
-    assert cap["admission_ratio"] >= cs.ADMISSION_RATIO
-    assert cap["runs"]["bf16"]["k3_launches"] > 0 and \
-        cap["runs"]["int8"]["k3_launches"] == 0
-    assert res["k3"]["launches"] == (sum(steps.values()) + cap["runs"][
-        "bf16"]["decode_steps"]) * cs.LAYERS
-    assert row["launches"] == total + cap["runs"]["int8"]["k3_quant_launches"]
-    assert res["fp8_step_max_abs_err"] <= 1e-5
-    json.dumps([res["k3"], row])
-    out = capsys.readouterr().out
-    assert "K3-quant at a decode step" in out and "token match" in out
-    assert "admission at equal pool bytes" in out
-    assert "fp8 engine's decode step" in out
-
-
-def test_megastep_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
-                                            monkeypatch, capsys):
-    """Phase 12 at a tiny size after phase 4: every megastep trip runs
-    eagerly on the CPU, with the card's gates and launch arithmetic
-    (layers x (eager steps + trips + warm-up trips))."""
-    monkeypatch.setattr(cs, "MEGASTEP_K", 4)
-    monkeypatch.setattr(cs, "MS_GATE_KS", (4, 4, 3))
-    monkeypatch.setattr(cs, "MS_PROFILE_MEGASTEPS", 1)
-    phase4 = cs.main_path(str(tmp_path))
-    res = cs.megastep_path(phase4)
-    labels = {"fp32", "bf16", "int8", "fp8"}
-    assert set(res["runs"]) == set(res["gates"]) == set(res["profiles"]) \
-        == labels
-    n = cs.N_CLIENTS * cs.PER_CLIENT
-    launches = {"k3": 0, "k3_quant": 0}
-    for label, st in res["runs"].items():
-        trip = st["trip_stats"]
-        assert trip["replays"] == trip["warmups"] == 0
-        assert trip["eager_trips"] == trip["trips_dispatched"] > 0
-        assert st["megasteps"] == sum(st["trips_histogram"].values()) > 0
-        assert all(1 <= int(t) <= 4 for t in st["trips_histogram"])
-        path, other = ("k3_launches", "k3_quant_launches")[::(
-            1 if label in ("fp32", "bf16") else -1)]
-        assert st[path] == cs.launch_want(trip, cs.LAYERS) > 0
-        assert st[other] == 0
-        launches[path[:-len("_launches")]] += st[path]
-        assert st["streams_equal_k1"] == n
-        assert st["host_gap_ms_per_token"] >= 0 and st["tpot_ms_p50"] > 0
-        gate = res["gates"][label]
-        for cohort in ("greedy", "sampling"):
-            c = gate["cohorts"][cohort]
-            assert c["identical"] == c["of"] == cs.SLOTS
-            assert c["trips"] == [4, 4, 3] and c["host_state_equal"]
-        assert gate["trip_stats"]["eager_trips"] == 22
-        prof = res["profiles"][label]
-        assert prof["trip_wall_ms"] > 0 and prof["megastep_k"] == 4
-    assert res["runs"]["fp32"]["streams_equal_recompute"] == n
-    assert res["launches"] == launches
-    assert "k1_step_wall_ms" in res["profiles"]["int8"]
-    out = capsys.readouterr().out
-    for text in ("megastep engine gate", "vs K=1 (phase 4)", "megastep at",
-                 "fp8 megastep serving"):
-        assert text in out
-
-
-def test_spec_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
-                                         monkeypatch, capsys):
-    """Phase 14 at a tiny size from one K = 1 run (standing in for phases
-    4 and 12): the engine gates' launch arithmetic (K3 = layers x the
-    synced fallback steps), the served speculative runs (the self draft
-    accepting), the dense engine's served run without K3, the tenant
-    run's budget preemption with a prefix hit, and shedding to level
-    3."""
-    from paddle_tpu_torch.serving import (TransformerDecoderModel,
-                                          full_recompute_generate,
-                                          save_decoder)
-    # a 1 s budget window: the tenant's first iteration (4 prefills and a
-    # 4-trip megastep, > 16 tokens) ends before it rolls, even on a
-    # loaded CPU
-    for name, value in (("SPEC_NEW_TOKENS", 12), ("SERVED_SPEC_K", 3),
-                        ("MEGASTEP_K", 4), ("TENANT_WINDOW_S", 1.0),
-                        ("SHED_DWELL_S", 0.01), ("SHED_SPACING_S", 0.02),
-                        ("NEW_TOKENS", (6, 12))):
-        monkeypatch.setattr(cs, name, value)
-    dirs = {}
-    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        m = TransformerDecoderModel(cs.VOCAB, dim=cs.DIM, n_heads=cs.HEADS,
-                                    n_layers=cs.LAYERS, dtype=dtype)
-        dirs[label] = str(tmp_path / label)
-        save_decoder(dirs[label], m, m.init_params(0, device="cpu"))
-    prompts, budgets = cs._requests()
-    run = cs.serve_run(dirs["fp32"], prompts, budgets)
-    k1 = cs._serving_stats(run)
-    ref = full_recompute_generate(run["model"], run["engine"].params,
-                                  prompts, budgets, max_len=cs.MAX_LEN)
-    res = cs.spec_path({"fp32": k1, "_recompute": ref, "_dirs": dirs},
-                       {"runs": {"fp32": k1}}, str(tmp_path))
-    assert set(res["engine_gates"]) == {"fp32", "bf16", "int8"}
-    for label, gate in res["engine_gates"].items():
-        want = {"self_k1", "self_k4", "2-layer_k1", "2-layer_k4"} \
-            if label != "int8" else {"self_k4", "2-layer_k4"}
-        assert set(gate) == want
-        for rec in gate.values():
-            assert rec["launches"] == rec["fallback_steps"] * cs.LAYERS
-            assert 0 <= rec["accepted"] <= rec["drafted"]
-    for rec in res["engine_gates"]["fp32"].values():   # the gated dtype
-        assert rec["streams_equal_plain"] == cs.SLOTS
-    fp32 = res["engine_gates"]["fp32"]["self_k4"]
-    # 12 tokens at k 4: each of the SLOTS streams ends on a round of 3
-    assert fp32["truncation_loss"] == cs.SLOTS * (4 - 11 % 4)
-    assert fp32["accepted"] == fp32["drafted"] - fp32["truncation_loss"] > 0
-    n = cs.N_CLIENTS * cs.PER_CLIENT
-    for key in ("served", "served_self"):
-        served = res[key]
-        assert served["streams_equal_recompute"] == n
-        assert served["counters"]["drafted"] > 0
-        assert served["k3_launches"] == \
-            served["trip_stats"]["decode_steps"] * cs.LAYERS
-    assert res["served_self"]["counters"]["accepted"] > 0
-    dense = res["served_dense"]
-    assert dense["streams_equal_recompute"] == n
-    assert dense["k3_launches"] == dense["k3_quant_launches"] == 0
-    tenants = res["tenants"]
-    assert tenants["streams_equal_recompute"] == n
-    assert tenants["counters"]["preempted"]["budget"] >= 1
-    assert tenants["capped_prefix_hit_pages_max"] >= 1
-    shed = res["shedding"]
-    assert shed["low_shed"] >= 1 and shed["high_served"] == n // 2
-    assert shed["counters"]["shed_low"] == shed["low_shed"]
-    assert res["launches"]["k3"] > 0 and res["launches"]["k3_quant"] > 0
-    out = capsys.readouterr().out
-    for text in ("speculative engine gate", "speculative serving",
-                 "dense DecodeEngine serving", "tenant serving", "shedding",
-                 "vs K=1 (phase 4)"):
-        assert text in out
 
 
 def test_trip_gate_and_the_launch_arithmetic(monkeypatch):
@@ -847,11 +569,12 @@ def test_ab_timing_runs_in_turns_and_reads_each_run(monkeypatch, tmp_path):
 @pytest.fixture
 def tiny_resnet(monkeypatch):
     """Phase 11 at a tiny size on the CPU: depth 18, batch 2 of 32x32
-    images (the gates: batch 4 of 32x32), 2-step dispatches."""
+    images (the gates: batch 4 of 32x32), 2-step dispatches, one timed
+    round."""
     for name, value in (("DEVICE", "cpu"), ("RESNET_DEPTH", 18),
                         ("RESNET_BATCH", 2), ("RESNET_SIZE", 32),
                         ("RESNET_CLASSES", 10), ("RESNET_STEPS", 2),
-                        ("RESNET_ROUNDS", 2), ("RESNET_EAGER_STEPS", 1),
+                        ("RESNET_ROUNDS", 1), ("RESNET_EAGER_STEPS", 1),
                         ("RESNET_PROFILE_STEPS", 1), ("RGATE_BATCH", 4),
                         ("RGATE_SIZE", 32), ("RGATE_STEPS", 2),
                         ("RGATE_RUN_CALLS", 1), ("RGATE_N_STEPS", 2)):
@@ -902,44 +625,6 @@ def test_resnet_build_is_bench_pys_program():
     assert estimate_program_flops(prog, 256) == jflops(jprog, 256)
 
 
-def test_resnet_phase_rehearses_on_the_cpu(tiny_resnet, capsys):
-    from paddle_tpu_torch import executor as pexe
-    rows = cs.resnet_op_checks()
-    assert len(rows) == 15 and all(r["ok"] for r in rows)
-    gate = cs.resnet_gate()
-    assert len(gate["steps"]) == cs.RGATE_STEPS
-    assert gate["loss_rel_err"] == 0 and gate["update_rel_l2"] == 0
-    assert all(r["updates"] > 0 for r in gate["steps"])
-    replay = cs.resnet_replay_gate()
-    assert replay["persistables_differing"] == []
-    assert replay["persistables_differing_after_reload"] == []
-    assert replay["losses_bitwise"] == [True, True, True]
-    assert replay["graph_launches"] == {"captures": 0, "replays": 0}
-    # the second feed is another batch: the reload compared real work
-    assert replay["losses"][-1] != replay["losses"][-2]
-
-    kernels_before = cs._kernel_counts()
-    res = cs.resnet_path("card, 700 W")
-    assert cs._kernel_counts() == kernels_before
-    assert res["launches"] == {n: 0 for n in kernels_before}
-    assert len(res["launches"]) == 14
-    assert res["graph_launches"] == pexe.graph_launches
-    assert res["final_loss"] < res["first_loss"]
-    assert len(res["round_s"]) == cs.RESNET_ROUNDS
-    assert res["images_per_s"] > 0 and res["mfu"] is None
-    assert res["step_ms_captured"] > 0 and res["step_ms_eager_p50"] > 0
-    assert res["flops_per_step"] > 0 and res["peak_memory_gb"] is None
-    assert "cut" in res and res["card"] == "card, 700 W"
-    for prof in (res["eager_profile"], res["replay_profile"]):
-        assert {"device_busy_ms", "class_ms", "top_kernels_ms"} <= set(prof)
-    assert res["eager_profile"]["ops"]["conv2d_grad"]["calls"] == 20
-    assert res["eager_profile"]["ops"]["batch_norm_grad"]["calls"] == 20
-    json.dumps(res, default=str)
-    out = capsys.readouterr().out
-    assert "resnet op checks" in out and "resnet gate" in out
-    assert "run_steps vs run" in out and "resnet-18 NHWC b2" in out
-
-
 def test_resnet_profile_classes():
     assert cs.resnet_class(
         "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc") == \
@@ -953,46 +638,6 @@ def test_resnet_profile_classes():
     assert cs.resnet_class("Memcpy DtoD (Device -> Device)") == "copy"
     assert cs.resnet_class("max_pool_forward_nhwc") == "pool"
     assert cs.resnet_class("nvjet_tst_128x64") == "gemm"
-
-
-def test_phase13_gates_and_bench_rounds_rehearse_on_the_cpu(tiny, capsys):
-    """The run_steps ≡ run() gates (dense and packed, with the launch
-    arithmetic counted through the steps), the dropout gate and the
-    bench's rounds through ``benchmarks.lm`` at the tiny size."""
-    total = cs.REPLAY_RUN_CALLS + 2 * cs.REPLAY_N_STEPS
-    for mask, kernels in ((None, cs.K1K2), ("packed", cs.K5)):
-        gate = cs.lm_replay_gate(mask)
-        assert all(gate["losses_bitwise"])
-        assert gate["persistables_differing"] == []
-        assert gate["graph_launches"] == {"captures": 0, "replays": 0}
-        assert gate["launches"] == {n: total * cs.GATE_LAYERS
-                                    for n in kernels}
-    drop = cs.dropout_gate()
-    assert drop["loss_bitwise"] and drop["masks_differ"]
-    assert all(abs(k - 0.5) <= 4 * drop["sigma"] for k in drop["kept_share"])
-    bench = cs.bench_lm_rounds({"dense": 10.0, "packed": 12.0})
-    steps = (1 + cs.BENCH_ROUNDS) * cs.BENCH_ITERS
-    dense, packed = bench["dense"], bench["packed"]
-    assert {"metric", "value", "unit", "config", "mfu", "loss", "steps",
-            "compile_cache_misses", "device_wait_s"} <= set(dense)
-    assert dense["steps"] == 1 + steps
-    assert dense["compile_cache_misses_by_cause"] == {"first_compile": 2.0}
-    assert packed["compile_cache_misses_by_cause"] == {"first_compile": 4.0}
-    assert dense["launches"] == dict(
-        {n: 0 for n in dense["launches"]},
-        **{n: steps * cs.LM_LAYERS for n in cs.K1K2})
-    assert packed["launches"] == dict(
-        {n: 0 for n in packed["launches"]},
-        **{n: steps * cs.LM_LAYERS for n in cs.K1K2 + cs.K5})
-    for rec in (dense, packed):
-        assert len(rec["round_losses"]) == 1 + cs.BENCH_ROUNDS
-        assert rec["replay_device_busy_ms"] >= 0
-        assert rec["replay_wall_ms"] > 0
-    assert dense["eager_step_ms_p50"] == 10.0
-    assert set(packed["step_ms_captured"]) == {"baseline", "packed"}
-    out = capsys.readouterr().out
-    assert '"metric": "transformer_lm_train_tokens_per_sec_per_chip"' in out
-    assert "bench_lm packed through the captured step" in out
 
 
 def test_phase13_launches_sum_the_main_path_runs():
@@ -1049,52 +694,6 @@ def tiny_nmt(monkeypatch):
     monkeypatch.setattr(fluid, "CUDAPlace", lambda i=0: fluid.CPUPlace())
 
 
-def test_nmt_phase_rehearses_on_the_cpu(tiny_nmt, capsys):
-    from paddle_tpu_torch import executor as pexe
-    cs._zero_counts()
-    rows = cs.lstm_op_checks()
-    assert len(rows) == len(cs.LSTM_CASES) and all(r["ok"] for r in rows)
-    assert set(rows[2]["rel_l2"]) == {"Hidden", "Cell", "Input@GRAD",
-                                      "Weight@GRAD", "Bias@GRAD",
-                                      "H0@GRAD", "C0@GRAD"}
-    gate = cs.nmt_gate()
-    assert len(gate["steps"]) == cs.NGATE_STEPS
-    assert gate["loss_rel_err"] == 0 and gate["update_rel_l2"] == 0
-    assert all(r["updates"] > 0 for r in gate["steps"])
-    for amp in (False, True):
-        replay = cs.nmt_replay_gate(amp)
-        assert replay["persistables_differing"] == []
-        assert replay["losses_bitwise"] == [True] * 3
-        assert replay["graph_launches"] == {"captures": 0, "replays": 0}
-        shapes = replay["padded_shapes"]
-        assert shapes[0] != shapes[1]
-    res = cs.nmt_path("card, 700 W")
-    bench = res["bench"]
-    assert bench["metric"] == \
-        "seq2seq_nmt_train_target_tokens_per_sec_per_chip"
-    assert bench["value"] > 0 and bench["pooled_compile_cache_misses"] == 0
-    assert res["launches"] == {n: 0 for n in cs._kernel_counts()}
-    assert res["graph_launches"] == pexe.graph_launches
-    assert len(res["schedules"]) == 2
-    assert res["schedules"][0]["dispatches_a_sweep"] == 1
-    assert res["schedules"][1]["dispatches_a_sweep"] == \
-        bench["distinct_padded_shapes"]
-    for losses in res["sweep_losses"].values():
-        assert len(losses) == 3 and losses[-1] < losses[0]
-    assert res["step_ms_eager_p50"] > 0 and res["peak_memory_gb"] is None
-    assert {"device_busy_ms", "class_ms", "wall_ms"} <= \
-        set(res["replay_profile"])
-    json.dumps(res, default=str)
-    out = capsys.readouterr().out
-    assert "lstm op checks" in out and "nmt gate" in out
-    assert "across padded shapes" in out
-    assert "bench_nmt through the captured steps" in out
-    # bench_nmt.py's JSON line, printed by the bench itself
-    line = next(json.loads(ln) for ln in out.splitlines()
-                if ln.startswith('{"metric": "seq2seq_nmt'))
-    assert line["batch"] == 4 and line["iters"] == 4
-
-
 def test_nmt_profile_classes():
     assert cs.nmt_class("void cutlass::Kernel2<cutlass_80_simt_sgemm_64x64"
                         "_8x5_nn_align1>") == "gemm"
@@ -1123,83 +722,6 @@ def tiny_fp8(tiny_resnet, monkeypatch):
         monkeypatch.setenv(k, "")       # restored after the test
 
 
-def test_fp8_phase_rehearses_on_the_cpu(tiny_fp8, monkeypatch, capsys):
-    from paddle_tpu_torch import executor as pexe
-    from paddle_tpu_torch.benchmarks import resnet
-    cs._zero_counts()
-    gates = cs.fp8_gates()
-    assert len(gates["cast"]) == 4
-    assert all(r["differ"] == 0 for r in gates["cast"])
-    assert gates["cast"][0]["plain_to_on_card"]["872.0"] == 448.0
-    assert len(gates["conv2d"]) == 3 * 5
-    assert all(r["ok"] and r["same_payload"] == 1.0
-               for r in gates["conv2d"])
-    assert [r["dtype"] for r in gates["conv2d"][:5]] == \
-        ["float8_e4m3fn", "float8_e5m2"] + ["float8_e4m3fn"] * 3
-    assert all("next_scale" in r for r in gates["conv2d"][3:5])
-    assert len(gates["batch_norm"]) == 3 and \
-        all(r["ok"] for r in gates["batch_norm"])
-    grads = {r["conv_out"]: r for r in gates["no_fp8_grads"]}
-    assert set(grads) == {"0", "1", "e5m2", "scaled", "delayed"}
-    assert all(r["ok"] and not r["fp8_grads"] for r in grads.values())
-    assert grads["e5m2"]["stored"] == {
-        "relu": "Tensor torch.float8_e4m3fn",
-        "conv2d": "Tensor torch.float8_e5m2"}
-    assert grads["delayed"]["stored"]["conv2d"].startswith("ScaledFp8")
-    for mode in ("e5m2", "delayed"):
-        rep = cs.fp8_replay_gate(mode)
-        assert rep["losses_bitwise"] == [True, True]
-        assert rep["persistables_differing"] == []
-        assert rep["graph_launches"] == {"captures": 0, "replays": 0}
-        assert rep["fp8_scale_vars"] == (20 if mode == "delayed" else 0)
-        assert rep["fp8_scale_vars_moved"] == rep["fp8_scale_vars"]
-    phase11 = {"images_per_s": 1.0, "step_ms_captured": 2.0,
-               "replay_device_busy_ms": 1.5, "mfu": None,
-               "peak_memory_gb": None,
-               "replay_profile": {"class_ms": {"conv": 1.0}}}
-    res = cs.fp8_resnet_path("card, 700 W", phase11)
-    assert res["bench"]["precision"] == "bf16+fp8-acts+fp8-convout-e5m2"
-    assert res["bench"]["batch"] == 4 and res["bench"]["iters"] == 2
-    assert res["final_loss"] < res["first_loss"]
-    assert res["launches"] == {n: 0 for n in cs._kernel_counts()}
-    assert res["graph_launches"] == pexe.graph_launches
-    assert res["phase11_bf16"]["replay_class_ms"] == {"conv": 1.0}
-    assert {"device_busy_ms", "class_ms", "wall_ms"} <= \
-        set(res["replay_profile"])
-    assert len(res["round_s"]) == cs.RESNET_ROUNDS
-    # main() left neither the fp8 environment nor its knobs behind
-    assert os.environ["PADDLE_TPU_FP8_ACTS"] == ""
-    assert (resnet.BATCH, resnet.ITERS, resnet.DEPTH) == (256, 100, 50)
-    json.dumps(res, default=str)
-
-    lines = [{"metric": "lm", "value": 1.0},
-             {"metric": "nmt", "value": 2.0},
-             {"metric": resnet.METRIC, "value": 3.0,
-              "submetrics": {"lm": {"metric": "lm", "value": 1.0},
-                             "nmt": {"metric": "nmt", "value": 2.0}}}]
-    seen = {}
-
-    def fake_run(cmd, cwd, env, **kw):
-        seen.update(cmd=cmd, env=env)
-        out = "a log line\n" + "\n".join(json.dumps(ln) for ln in lines)
-        return subprocess.CompletedProcess(cmd, 0, out, "")
-
-    monkeypatch.setattr(cs.subprocess, "run", fake_run)
-    drv = cs.three_line_bench()
-    assert drv["lines"] == 3 and drv["submetrics"]["nmt"]["value"] == 2.0
-    assert seen["cmd"][1:] == ["-m", "paddle_tpu_torch.benchmarks.resnet"]
-    assert {k: v for k, v in seen["env"].items()
-            if k.startswith("BENCH_")} == dict(cs.THREE_LINE_KNOBS,
-                                              BENCH_FORCE_CPU="1")
-    lines[2]["submetrics"]["lm"] = {"error": "timeout after 900s"}
-    with pytest.raises(AssertionError, match="bad submetrics"):
-        cs.three_line_bench()
-    out = capsys.readouterr().out
-    assert "fp8 gates" in out and "under fp8 (delayed" in out
-    assert "bench.py's ResNet line (fp8 recipe)" in out
-    assert "three-line bench" in out
-
-
 @pytest.fixture
 def tiny_infer(tiny, monkeypatch):
     """Phase 17 at a tiny size on the CPU: ResNet-18 on 64x64 images, the
@@ -1218,82 +740,3 @@ def tiny_infer(tiny, monkeypatch):
             ("HTTP_PER_CLIENT", 3), ("HTTP_DRAIN_REQUESTS", 8),
             ("INFER_LM_CALLS", 1)):
         monkeypatch.setattr(cs, name, value)
-
-
-def test_inference_phase_rehearses_on_the_cpu(tiny_infer, tmp_path, capsys):
-    """The classifier through (a)-(c), the LM through (d); ResNet's
-    build alone (its startup takes most of a minute on the CPU)."""
-    prog, _, pred, feeds, max_len = cs.build_infer(fluid, "resnet")
-    assert feeds == ["images"] and max_len is None
-    assert pred.shape == [-1, 10]
-    assert cs.infer_feed("resnet", cs.infer_samples("resnet", 3, 0))[
-        "images"].shape == (3, 3, 64, 64)
-    cs._zero_counts()
-    res, art, d = cs.export_gate("lstm", str(tmp_path))
-    assert d == str(tmp_path / "artifact_lstm")
-    assert res["inference_model_bitwise"] and set(res["rel_l2"]) == {1, 3}
-    assert res["rel_l2_vs_cpu"] <= cs.INFER_CPU_REL_L2
-    assert cs.gate_lengths(3)[:2] == [1, 12] and cs.gate_lengths(1) == [1]
-    res, alone = cs.serve_gate("lstm", art)
-    assert res["requests"] == 32 and res["distinct_samples"] == 8
-    assert res["mean_occupancy"] > 1.0 and res["drained"]
-    assert res["worst_rel_l2_vs_alone"] <= cs.SERVE_REL_L2
-    assert {"wall_ms", "device_busy_ms", "idle_share"} <= set(res["window"])
-    assert all(s[0] == 12 and s[1] in (1, 2, 4, 8, 16)
-               for s in res["compiled_shapes"])
-    res = cs.http_gate(cs.start_serve_cli(d), *alone)
-    assert res["requests"] == 6 and res["echo_mismatches"] == 0
-    assert res["bad_feed"][0] == 400 and res["exit_code"] == 0
-    assert 503 in res["healthz_after_sigterm"]
-    assert res["drain_statuses"] == ["200"]
-    cs._counts_gate("phase 17 (a)-(c)", cs._kernel_counts(), {})
-    res = cs.lm_export_gate(str(tmp_path))
-    assert res["flash_fwd_ops_in_graph"] == cs.INFER_LM_LAYERS
-    # on the CPU the custom op takes the plain version
-    assert res["launches"] == {} and res["plain_calls"] == cs.INFER_LM_LAYERS
-    out = capsys.readouterr().out
-    assert "phase 17 (a) lstm" in out and "phase 17 (d)" in out
-
-
-def test_disagg_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
-                                           monkeypatch, capsys):
-    """Phase 18 (a)-(c) at a tiny size: the in-process engine gates (the
-    trip runs eagerly on the CPU, so nothing is captured), then the tier,
-    prefill and decode children with ``--device cpu``: the handoff over
-    HTTP, the torn export of the chaos child and the tier's SIGKILL."""
-    for name, value in (("DIS_LAYERS", 2), ("DIS_PREFIX", 16),
-                        ("DIS_SUFFIX", (5, 12)), ("DIS_KILL_SUFFIX", (5, 12)),
-                        ("DIS_NEW", (3, 6)), ("DIS_REQUESTS", 4),
-                        ("DIS_KILL_REQUESTS", 4), ("DIS_SLOTS", 4),
-                        ("DIS_BUCKETS", "16,32"), ("DIS_MEGASTEP_K", 4),
-                        ("DIS_CHECK_PAGES", 16)):
-        monkeypatch.setattr(cs, name, value)
-    res = cs.disagg_path(str(tmp_path), "cpu")
-    gates = res["engine_gates"]
-    n = gates["prompts"]
-    assert gates["streams_equal_recompute"] == gates[
-        "pages_bitwise_prompts"] == n == 4
-    assert gates["imported_pages"] > 0 and gates["cold_prefix_computes"] == 0
-    assert gates["pool_addresses_kept"] and not gates["recaptured"]
-    assert gates["int8"]["pages_bitwise_prompts"] == n
-    assert {k: (t["bitwise"], t["dtype"]) for k, t in
-            gates["transit"].items()} == {"bf16": (True, "bfloat16"),
-                                          "fp8": (True, "float8_e4m3fn")}
-    assert gates["trip_stats_after"]["eager_trips"] > 0
-    http = res["http"]
-    assert http["streams_equal_self_prefill"] == 4
-    assert http["cold_prefix_computes"] == 0
-    assert min(http["pages_imported_by_replica"].values()) > 0
-    torn = res["degradation"]["torn_handoff"]
-    assert torn["imported_pages"] == 0 and torn["stream_equal"]
-    assert not torn["torn_manifest"] and not torn["visible"]
-    killed = res["degradation"]["tier_killed"]
-    assert killed["streams_equal_recompute"] == 4
-    assert killed["disk_fallback_lookups"] > 0
-    # the in-process launches: the gates' engines and the self-prefill run
-    assert res["launches"]["k3"] > gates["launches"]["k3"] > 0
-    assert res["launches"]["k3_quant"] == gates["launches"]["k3_quant"] > 0
-    out = capsys.readouterr().out
-    for text in ("phase 18 (a)", "phase 18 (b)", "phase 18 (c)",
-                 "disaggregated serving in"):
-        assert text in out

@@ -24,6 +24,7 @@ K3 and K3-quant read imported pages like any other; chip_smoke.py phase 18
 holds that on the card.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
 import os
 import time

@@ -12,6 +12,7 @@ summation order only); the cache-miss causes, counts and messages
 exactly.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import contextlib
 
 import numpy as np

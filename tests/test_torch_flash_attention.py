@@ -24,6 +24,7 @@ device with a dtype or shape the kernels do not take raise before any
 launch.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import functools
 
 import jax.numpy as jnp

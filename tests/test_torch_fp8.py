@@ -32,6 +32,7 @@ the stored values dequantized and no gradient is ever fp8.
   fetches widened to fp32 and ``check_nan_inf`` over fp8.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import contextlib
 
 import numpy as np

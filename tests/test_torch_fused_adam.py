@@ -8,6 +8,7 @@ clipping and a loss scale; and the optimizer's program against the
 reference's.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import jax.numpy as jnp
 import numpy as np
 import pytest

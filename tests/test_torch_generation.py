@@ -7,6 +7,7 @@ logits (fp32, atol 1e-4) and identical greedy token streams, including a
 prefix-cache hit. Also: page accounting, failure plumbing, the default
 device rule and import hygiene."""
 
+from tests import torch_threads  # noqa: F401  (first)
 import os
 import subprocess
 import sys
@@ -310,7 +311,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port — the bench, the robustness runtime, the
-    step telemetry and the KV handoff among them — and chip_smoke.py,
+    step telemetry, the KV handoff, the fleet and the trace CLI among
+    them — and chip_smoke.py,
     imported in a fresh interpreter, leaves no jax, no ml_dtypes (the
     card has numpy and torch only) and no paddle_tpu module loaded."""
     code = (
@@ -327,7 +329,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    'robustness.checkpoint', 'robustness.train_loop', 'io',\n"
         "    'ops.io_ops', 'observability.steps', 'observability.runlog',\n"
         "    'observability.flight_recorder', 'observability.liveness',\n"
-        "    'serving.kv_transfer', 'serving.prefix_tier')}\n"
+        "    'serving.kv_transfer', 'serving.prefix_tier', 'serving.fleet',\n"
+        "    'observability.trace_tool')}\n"
         "missing = sorted(need - set(sys.modules))\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 15 else 0)\n")

@@ -11,6 +11,7 @@ fp32 ulp on XLA's CPU, and cuDNN/cuBLAS pick their algorithms by batch
 size.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
 import os
 import signal

@@ -24,6 +24,7 @@ JAX startup's, carried over by name.
   custom op (the flash backward) refuses to export, naming the kernel.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
 import os
 import shutil

@@ -21,6 +21,7 @@ The CUDA kernel is held against the same plain version on the card by
 chip_smoke.py.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import functools
 import json
 import os

@@ -15,6 +15,7 @@ ragged op of the NMT path forward and through ``append_backward`` —
 exactly.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import numpy as np
 import pytest
 

@@ -13,6 +13,7 @@ the fc's fp32 sums to bf16, but not always at the same ulp, and the
 recurrence carries that difference through every step.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@ as the eager step does; the scheduler at K=8 emits the K=1 streams; the
 serve CLI takes --gen-megastep-k. On the CPU every trip runs eagerly; the
 captured graph runs on the card only (chip_smoke.py phase 12)."""
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
 import os
 import signal

@@ -24,6 +24,7 @@ JAX package on the CPU.
   printing ``bench_nmt.py``'s keys.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import ast
 import json
 import random

@@ -6,6 +6,7 @@ attention ops against theirs; and the K3 wrapper's CPU/non-CUDA rules.
 The CUDA kernel itself is held against the same plain version on the
 card by chip_smoke.py."""
 
+from tests import torch_threads  # noqa: F401  (first)
 import functools
 
 import numpy as np

@@ -19,6 +19,7 @@ libraries). Then a program on a ``lod_level=1`` var fed two sequences
 step; and an op without a pass-through refuses a ragged input by name.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import numpy as np
 import pytest
 import torch

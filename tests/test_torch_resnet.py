@@ -46,6 +46,7 @@ Tolerances:
   reference leaves unchanged must be unchanged in the port.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ watchdog's pause) and liveness. Two proofs beyond the mirror:
   an uninterrupted child (``chip_smoke.resume_gate`` on the CPU).
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import os
 import time
 

@@ -14,6 +14,7 @@ the same fp32 values once, so they differ only where the fp32 sums
 straddle a rounding boundary (the worst case read 1.1e-3).
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import functools
 
 import jax.numpy as jnp

@@ -5,6 +5,7 @@ of failing it; deadlines 504; the server answers /v1/generate,
 /healthz and /metrics, and maps client errors to 400, a full queue to
 503 + Retry-After and an expired deadline to 504."""
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
 import os
 import signal

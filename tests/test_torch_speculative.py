@@ -18,6 +18,7 @@ Tolerances: attention outputs and logits in fp32 within 1e-5 absolute +
 units in the last place of bf16's 8-bit mantissa); token streams exact.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import time
 import types
 

@@ -19,6 +19,7 @@ lane in the port's scheduler, held against the JAX reference on the CPU
 Token streams are compared exactly; no numeric tolerance applies.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import json
 import os
 import subprocess

@@ -28,6 +28,7 @@ Adam moves it by pure rounding noise (up to lr per step) in both.
 Also the device rule of ``Executor`` and the places.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import numpy as np
 import pytest
 import torch

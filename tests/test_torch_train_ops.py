@@ -14,6 +14,7 @@ interpret mode, with its seq threshold lowered to 256 so the reference
 takes its saved-lse path too and both Lse outputs are real.
 """
 
+from tests import torch_threads  # noqa: F401  (first)
 import functools
 import types
 
