@@ -185,8 +185,8 @@ raises on failure (the script then exits non-zero and prints no result):
    window, then one warm-up dispatch and ``RESNET_ROUNDS`` timed rounds of
    ``run_steps(n_steps=RESNET_STEPS)`` (bench.py: 100 x 3) and a profiled
    replay. Gates: the loss finite and lower after the rounds than at the
-   first step; no launch of any of the 14 kernel entry points; one
-   capture. Prints images/s (median round), the captured step's ms, MFU
+   first step; no launch of any of the 14 kernel entry points or the
+   megastep loop; one capture. Prints images/s (median round), the captured step's ms, MFU
    (``flops.estimate_program_flops`` over ``flops.device_peak_flops``),
    device-busy ms and idle share of an eager and of a captured step, the
    eager step's p50, peak memory and the top device operations.
@@ -197,20 +197,36 @@ raises on failure (the script then exits non-zero and prints no result):
    busy slots, a greedy and a mixed temperature cohort, megasteps of 8,
    8 chained and 3 trips against 19 eager ``decode_step`` calls on a
    twin engine: every stream token-identical, one capture and one
-   warm-up trip per variant, every megastep trip a replay, K3 (K3-quant)
-   launched layers x (steps + trips + warm-up trips)); then phase 4's 48
-   requests served through phase 4's entry points with ``megastep_k`` 8
-   (the engine ``serve --gen-megastep-k 8`` builds): fp32 streams
+   warm-up trip per variant, one launch of the loop graph (the captured
+   trip in a conditional WHILE node, ``csrc/megastep_loop.cu``) per
+   megastep and its body iterations equal to the trips, K3 (K3-quant)
+   launched layers x (steps + trips run + warm-up trips)); then phase 4's
+   48 requests served through phase 4's entry points with ``megastep_k``
+   8 (the engine ``serve --gen-megastep-k 8`` builds): fp32 streams
    token-identical to full recompute and to phase 4's K = 1 run (48 of
-   48; the other dtypes' matches printed), one greedy capture, replays =
-   trips dispatched, the path's kernel launched layers x (trips +
-   warm-up trips + eager steps). Prints TTFT p50/p99, TPOT, decode
+   48; the other dtypes' matches printed), one greedy capture, one loop
+   launch a megastep, iterations = the trips of the synced megasteps, the
+   path's kernel launched layers x (trips run + warm-up trips + eager
+   steps). Prints TTFT p50/p99, TPOT, decode
    tokens/s, megasteps, the trips histogram, host gap a token and the
    capture and replay counts beside phase 4's K = 1 run; then
    ``megastep_profile`` on the served engine at 32 busy slots: wall ms a
-   trip (megasteps synced one by one, and chained), device-busy ms a
-   trip, idle share and the K3 instance the profile names (it must be
-   the pool's), beside phase 4's decode-step profile.
+   trip (megasteps synced one by one, and chained), the loop's device ms
+   a trip (CUDA events), the device-busy ms a trip and K3's ms a trip
+   from the captured trip replayed alone under ``torch.profiler``, the
+   idle share, and the pool's K3 instance launched layers x trips times
+   (the kernel's own count on the card), beside phase 4's decode-step
+   profile. (d) The early exit (``megastep_exit_gate``), bf16 and int8
+   pages: a K = 8 megastep whose 32 slots all freeze after 2 trips, by
+   caps 2 and, separately, by an EOS (every slot on one prompt whose
+   stream's second token is the EOS): the loop's iteration count equals
+   ``trips`` (2), the kernel's own count shows exactly layers x 2 K3
+   (K3-quant) launches, the streams equal the K = 1 decode steps';
+   prints the loop's device ms against a full 8-trip megastep's. Then the loop's row of the kernels line
+   (``megastep_loop_row``): one launch of the loop graph against its plain
+   version (the eager trip, the condition read on the host) on the same
+   inputs, the whole state vector equal, beside the bytes a megastep must
+   move once.
 14. Speculative decoding, tenants and shedding, run right after phase 12
    (phase 4's decoder files, requests, K = 1 streams and full recompute;
    phase 12's K = 8 run beside it). (a) ``spec_engine_gate``:
@@ -252,7 +268,7 @@ raises on failure (the script then exits non-zero and prints no result):
    different masks, each keeping a share within 4 sigma of 0.5. Then
    ``bench_lm.py``'s rounds at full size through
    ``paddle_tpu_torch.benchmarks.lm`` (``main()``, then ``packed_main()``
-   with its padded baseline; 10-step rounds (bench_lm.py: 60), one warm,
+   with its padded baseline; 5-step rounds (bench_lm.py: 60), one warm,
    2 timed (bench_lm.py: 3); the JSON line printed): the loss finite and falling from the
    first round to the last, ``compile_cache_misses`` = the (program, feed) pairs, the
    path's flash kernels launched steps x 12, one capture a program;
@@ -261,9 +277,9 @@ raises on failure (the script then exits non-zero and prints no result):
    MFU and peak memory. Then preemption and resume (``resume_gate``):
    child processes (``--resume-child``) train the 2-layer LM under
    ``robustness.train_loop`` with a checkpoint every 10-step round; one
-   SIGTERMs itself after round 2 and must exit 42 leaving a valid serial
-   of step 2 and step counter 21; its relaunch must resume there and end
-   bitwise an uninterrupted child. Phases 8, 9 and 10 each end in their
+   SIGTERMs itself after round 2 of 3 and must exit 42 leaving a valid
+   serial of step 2 and step counter 21; its relaunch must resume there
+   and end bitwise an uninterrupted child. Phases 8, 9 and 10 each end in their
    program's 5-step captured rounds (``captured_rounds``: a warm round
    and 2 timed; K4 steps x 1 and K5 x3 steps x 12, K6 x3, K6-fwd-dense,
    K1-dense steps x 12, counted through the replays; one capture), timed
@@ -309,7 +325,7 @@ raises on failure (the script then exits non-zero and prints no result):
    model, amp, deterministic cuDNN; e5m2 and delayed, the ``Fp8Scale``
    vars included; one capture each). (c) ``benchmarks.resnet.main()`` at
    the default recipe and full size (batch 256, 224x224, NHWC, 1000
-   classes, ``BENCH_RESNET_ONLY=1``; phase 11's 10-step rounds x 2
+   classes, ``BENCH_RESNET_ONLY=1``; phase 11's 5-step rounds x 2
    after one warm dispatch, ``FP8_STEPS``), its JSON line printed: the loss finite and
    lower after the rounds than at the first step, one capture, no
    hand-written kernel, ``precision`` "bf16+fp8-acts+fp8-convout-e5m2";
@@ -402,9 +418,21 @@ raises on failure (the script then exits non-zero and prints no result):
    equal to the in-process ``PagedDecodeEngine``'s, ``fleet_restarts_total``
    1, prefill hops ok and skipped, affinity picks, and
    ``/fleet/trace?request_id=`` of a handed-off request laned over the
-   router, the prefill replica and a decode replica. SIGTERM drains the
-   fleet (exit 0): every replica's log names the card, and the two decode
-   replicas that drained report K3 launches (no K3-quant). (b)
+   router, the prefill replica and a decode replica. The fleet CLI, the
+   tier (its ``role=cache`` record) and a second fleet CLI started with
+   ``--standby`` share ``--registry-dir`` (a 5 s ``--lease-secs``), and the
+   clients know both routers. (c) ``fleet_failover_gate``: every prompt
+   once more under closed-loop load, the active CLI's pid SIGKILLed a
+   third of the way in (this script is the replicas' subreaper and reaps
+   them at the end): zero failed requests, every stream equal to the
+   engine's, the standby takes the lease (``lease_takeovers_total`` 1) and
+   adopts the two decode replicas and the prefill replica by the same
+   pids (``replicas_adopted_total`` 3, no restart), its ``/fleet/status``
+   names it the holder and the tier from the tier's record; prints the
+   seconds from the SIGKILL to the lease taken and to adoption done. The
+   standby's SIGTERM drains the fleet (exit 0): every replica's log names
+   the card, and the two decode replicas that drained report K3 launches
+   (no K3-quant). (b)
    ``FleetRouter`` + ``ReplicaSupervisor`` over two replicas with int8 pages
    serving a ``publish_artifact`` serial of the decoder (``roll_fleet``,
    booting while (a) runs; ``fleet_roll_gate``): under closed-loop load
@@ -416,8 +444,9 @@ raises on failure (the script then exits non-zero and prints no result):
    naming int8 weights, and the four decode replicas' drain lines report
    K3-quant launches (no K3). Prints each
    replica's cold start, the router's added p50, TTFT p50 through the
-   prefill hop, SIGKILL to readmission, the roll's seconds and the phase's
-   seconds, with the card's name and power limit. The kernels line counts
+   prefill hop, SIGKILL to readmission, the failover's seconds, the roll's
+   seconds and the phase's seconds, with the card's name and power
+   limit. The kernels line counts
    the replicas' launches and the reference engines'.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -433,6 +462,12 @@ it runs that tree's ``flash_timing`` (the LM step's shape, then the
 packed step's), ``layout_timing`` and, with this tree's helpers over
 that tree's kernels, ``k3_ab_rows`` (K3 and K3-quant at a decode step's
 lengths, K3 at long contexts), and prints one line per run.
+
+``--ab-serving PARENT`` runs, in the same turns, each tree's phase 4 fp32
+cell at K = 1 and phase 12's four served cells at K = 8, each served three
+times (``_AB_SERVE``): decode tokens/s, TPOT, TTFT, host gap; after each K
+= 8 cell that tree's ``megastep_profile`` and a fresh engine's first three
+megasteps' host ms (the first captures the trip); one line per run.
 """
 
 import argparse
@@ -1459,17 +1494,17 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
         ("k3_quant", "k3")
     launches = counts[path]
     trip = dict(engine.trip_stats) if paged else \
-        {"decode_steps": 0, "trips_dispatched": 0, "warmups": 0}
+        {"decode_steps": 0, "iterations": 0, "warmups": 0}
     want = launch_want(trip, model.n_layers)
     if launches != want or counts[other] or (paged and draft is None and (
             launches <= 0 or
             (megastep_k == 1 and launches != steps * model.n_layers))):
         raise AssertionError(
             "%s launches %d != %d layers x (decode steps %d + megastep "
-            "trips %d + warm-up trips %d) = %d (served decode steps %d), "
-            "or %s launched (%d)"
+            "trips run %d + warm-up trips %d) = %d (served decode steps "
+            "%d), or %s launched (%d)"
             % (path, launches, model.n_layers, trip["decode_steps"],
-               trip["trips_dispatched"], trip["warmups"], want, steps,
+               trip["iterations"], trip["warmups"], want, steps,
                other, counts[other]))
     if (kv_quant_dtype != "off") != (quant_pages > 0):
         raise AssertionError("kv_quant_pages_total %g on a %s pool"
@@ -1502,10 +1537,11 @@ def serve_run(model_dir, prompts, budgets, kv_quant_dtype="off",
 
 def launch_want(trip, layers):
     """K3 (or K3-quant) launches a run owes, from the engine's
-    ``trip_stats``: every eager decode step, megastep trip (a replay of
-    the captured trip on the card, an eager trip on the CPU) and warm-up
-    trip runs the kernel once a layer; a capture launches nothing."""
-    return layers * (trip["decode_steps"] + trip["trips_dispatched"] +
+    ``trip_stats``: every eager decode step, megastep trip run (an
+    iteration of the loop graph's body on the card, counted when the
+    megastep is synced; an eager trip on the CPU) and warm-up trip runs
+    the kernel once a layer; a capture launches nothing."""
+    return layers * (trip["decode_steps"] + trip["iterations"] +
                      trip["warmups"])
 
 
@@ -2027,7 +2063,8 @@ MEGASTEP_K = 8                 # the reference's auto value at MAX_LEN 1024
 MS_RUNS = (("fp32", "fp32", "off"), ("bf16", "bf16", "off"),
            ("int8", "bf16", "int8"), ("fp8", "bf16", "fp8"))
 MS_GATE_KS = (8, 8, 3)         # the engine gate: fresh, chained, fresh
-MS_PROFILE_MEGASTEPS = 4       # megasteps of MEGASTEP_K trips timed
+MS_PROFILE_MEGASTEPS = 2       # megasteps of MEGASTEP_K trips timed (4
+                               # until (d) came)
 
 
 def ms_temperatures(n):
@@ -2036,25 +2073,33 @@ def ms_temperatures(n):
                     np.float32)
 
 
-def trip_gate(label, trip, variants):
-    """The captured trip's accounting: on the card one capture and one
-    warm-up trip per variant used (``variants`` of greedy, sampling) and
-    every dispatched trip a replay; on the CPU every trip eager and
-    nothing captured. Raises otherwise."""
+def trip_gate(label, trip, variants, trips=None):
+    """The megastep loop's accounting: on the card one capture and one
+    warm-up trip per variant used (``variants`` of greedy, sampling), one
+    launch of the loop graph per megastep and no eager trip; on the CPU
+    every trip run eager and nothing captured or launched. Either way the
+    trips run (the loop's body iterations) are at least one and at most
+    the trips dispatched, and equal ``trips`` (the sum of the synced
+    megasteps' trips) where the caller knows it. Raises otherwise."""
     cuda = DEVICE == "cuda"
     got = {"greedy": trip["captures_greedy"],
            "sampling": trip["captures_sampling"]}
     want = {v: int(cuda and v in variants) for v in got}
-    runs = (trip["replays"], trip["eager_trips"])
-    want_runs = (trip["trips_dispatched"], 0) if cuda else \
-        (0, trip["trips_dispatched"])
+    runs = (trip["loop_launches"], trip["eager_trips"])
+    want_runs = (trip["megasteps"], 0) if cuda else \
+        (0, trip["iterations"])
     if got != want or trip["warmups"] != sum(want.values()) or \
-            runs != want_runs or trip["trips_dispatched"] <= 0:
+            runs != want_runs or trip["megasteps"] <= 0 or \
+            not 0 < trip["iterations"] <= trip["trips_dispatched"] or \
+            (trips is not None and trip["iterations"] != trips):
         raise AssertionError(
-            "%s: captures %s (want %s), warm-up trips %d, (replays, eager "
-            "trips) %s for %d dispatched trips (want %s)"
-            % (label, got, want, trip["warmups"], runs,
-               trip["trips_dispatched"], want_runs))
+            "%s: captures %s (want %s), warm-up trips %d, (loop launches, "
+            "eager trips) %s for %d megasteps (want %s), %d trips run of "
+            "%d dispatched (want %s)"
+            % (label, got, want, trip["warmups"], runs, trip["megasteps"],
+               want_runs, trip["iterations"], trip["trips_dispatched"],
+               "1.." + str(trip["trips_dispatched"]) if trips is None
+               else trips))
 
 
 def k3_instance(key):
@@ -2137,7 +2182,8 @@ def megastep_engine_gate(label, model_dir, kv_quant_dtype, prompts):
     want = launch_want(ref_eng.trip_stats, model.n_layers) + \
         launch_want(ms_eng.trip_stats, model.n_layers)
     trip_gate(label + " engine gate", ms_eng.trip_stats,
-              {"greedy", "sampling"})
+              {"greedy", "sampling"},
+              trips=sum(sum(c["trips"]) for c in out.values()))
     if counts[path] != want or counts[other]:
         raise AssertionError("%s engine gate: %s launches %d != %d, %s %d"
                              % (label, path, counts[path], want, other,
@@ -2155,29 +2201,78 @@ def megastep_engine_gate(label, model_dir, kv_quant_dtype, prompts):
     return res
 
 
+def k3_counts():
+    """``(K3, K3-quant)`` launches so far: on the card as the kernel
+    counts itself (``paged_attention.device_launches``, which sees every
+    iteration of a megastep loop's body; it waits for the card), on the
+    CPU the wrapper's counts."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    if DEVICE == "cuda":
+        return pa.device_launches()
+    return pa.launches, pa.launches_quant
+
+
+def _k3_delta(before):
+    after = k3_counts()
+    return {"k3": after[0] - before[0], "k3_quant": after[1] - before[1]}
+
+
+def _ms_timed(engine, dispatch):
+    """``dispatch()`` (one ``megastep_dispatch``), synced: its result and
+    its device ms on the megastep's stream by CUDA events, the state's
+    copies in (None on the CPU). The start event waits behind a device
+    sleep (SLEEP_CYCLES), so the host's dispatch work falls inside the
+    sleep and the events time the device alone."""
+    import torch
+    if DEVICE != "cuda":
+        return engine.megastep_sync(dispatch()), None
+    stream = engine._ms.stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    ev[0].record(stream)
+    h = dispatch()
+    ev[1].record(stream)
+    r = engine.megastep_sync(h)
+    ev[1].synchronize()
+    return r, ev[0].elapsed_time(ev[1])
+
+
 def megastep_profile(engine, prompts, k1_profile=None):
-    """Where a megastep's time goes at SLOTS busy slots: wall ms a trip
-    over MS_PROFILE_MEGASTEPS megasteps of MEGASTEP_K trips, dispatched
-    and synced one by one and chained (each dispatched before the one
-    before it is synced), against the device-busy ms a trip
-    (``torch.profiler`` over the synced loop) and the idle share; the
-    paged-decode kernels the profile names, which must be the pool's
-    K3 instance on the card. ``k1_profile`` is phase 4's decode step at
-    the same pool dtype, for the log."""
+    """Where a megastep's time goes at SLOTS busy slots: host wall ms a
+    trip over MS_PROFILE_MEGASTEPS megasteps of MEGASTEP_K trips,
+    dispatched and synced one by one and chained (each dispatched before
+    the one before it is synced); the loop's device ms a trip over as
+    many megasteps again (``_ms_timed``: CUDA events on the megastep's
+    stream, its state copies in) against MEGASTEP_K replays of the
+    captured trip graph on its own, as the loop's predecessor ran it
+    (CUDA events); the device-busy ms a trip, K3's ms a trip and the top
+    kernels from ``torch.profiler`` over MEGASTEP_K more such replays
+    (eager trips on the CPU), and the idle share 1 - busy / wall. The loop itself is not
+    profiled: CUPTI misses executions of a conditional body's nodes.
+    Gate (raises): the pool's K3 instance, as the kernel counts itself
+    (``k3_counts``), launched layers x trips times in the synced
+    megasteps and in the replays, the other never. ``k1_profile`` is
+    phase 4's decode step at the same pool dtype, for the log."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     n = min(len(prompts), engine.max_slots)
     K, M = MEGASTEP_K, MS_PROFILE_MEGASTEPS
+    cuda = DEVICE == "cuda"
+    layers = engine.model.n_layers
+    path, other = ("k3", "k3_quant") if engine.kv_quant is None else \
+        ("k3_quant", "k3")
+    # a budget for 3M + 1 megasteps and 2K + 1 replayed trips
     for i, p in enumerate(prompts[:n]):
-        engine.prefill(i, p, max_new_tokens=K * (3 * M + 1) + 4)
+        engine.prefill(i, p, max_new_tokens=K * (3 * M + 3) + 4)
         engine.set_input_token(i, 1)
     step0 = [0]
 
-    def synced(count):
-        for _ in range(count):
-            step0[0] += engine.megastep_decode(SEED, step0[0], K)["trips"]
+    def dispatch():
+        return engine.megastep_dispatch(SEED, step0[0], K)
 
     def chained(count):
-        h = engine.megastep_dispatch(SEED, step0[0], K)
+        h = dispatch()
         for _ in range(count - 1):
             h2 = engine.megastep_dispatch(
                 SEED, h["step0"] + h["trips"], K,
@@ -2187,57 +2282,108 @@ def megastep_profile(engine, prompts, k1_profile=None):
             h = h2
         step0[0] += engine.megastep_sync(h)["trips"]
 
-    synced(1)
-    _sync()
+    step0[0] += engine.megastep_sync(dispatch())["trips"]
+    m = engine._ms
+    before = k3_counts()
+    s0 = step0[0]
     t0 = time.perf_counter()
-    synced(M)
+    for _ in range(M):
+        step0[0] += engine.megastep_sync(dispatch())["trips"]
     _sync()
-    wall = (time.perf_counter() - t0) / (M * K) * 1e3
+    trips = step0[0] - s0
+    wall = (time.perf_counter() - t0) / trips * 1e3
+    launched = _k3_delta(before)
+    loop_ms, loop_trips = 0.0, 0
+    for _ in range(M):
+        r, ms = _ms_timed(engine, dispatch)
+        step0[0] += r["trips"]
+        loop_trips += r["trips"]
+        loop_ms += ms or 0.0
     t0 = time.perf_counter()
+    s0 = step0[0]
     chained(M)
     _sync()
-    chained_wall = (time.perf_counter() - t0) / (M * K) * 1e3
-    acts = [ProfilerActivity.CPU]
-    if DEVICE == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        synced(M)
+    chained_wall = (time.perf_counter() - t0) / (step0[0] - s0) * 1e3
+
+    # the trip alone: t back to 0, so the replays write rows 0..K-1 of
+    # the token buffer; every slot stays live (its budget holds them)
+    def restart():
+        with torch.cuda.stream(m.stream) if cuda else \
+                contextlib.nullcontext():
+            m.v.t.zero_()
+
+    def trip():
+        if cuda:
+            with torch.cuda.stream(m.stream):
+                m.graphs[False][3].replay()
+        else:
+            with torch.no_grad():
+                engine._ms_trip(False)
+    trip_ms = None
+    if cuda:
+        restart()
+        trip()                       # instantiates the trip's own graph
+        restart()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.cuda.stream(m.stream):
+            torch.cuda._sleep(SLEEP_CYCLES)
+        ev[0].record(m.stream)
+        for _ in range(K):
+            trip()
+        ev[1].record(m.stream)
         _sync()
+        trip_ms = ev[0].elapsed_time(ev[1]) / K
+    restart()
+    _sync()
+    acts = [ProfilerActivity.CPU]
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    before = k3_counts()
+    with profile(activities=acts) as prof:
+        for _ in range(K):
+            trip()
+        _sync()
+    replayed = _k3_delta(before)
     for i in range(engine.max_slots):
         if engine.active[i]:
             engine.release(i)
-    trips = M * K
     events = [e for e in prof.key_averages()
               if str(e.device_type) == "DeviceType.CUDA"
               and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / trips / 1e3
+    busy = sum(e.self_device_time_total for e in events) / K / 1e3
     k3 = [e for e in events if "paged_decode_kernel" in e.key]
-    named = sorted({k3_instance(e.key) for e in k3})
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
-    out = {"slots": n, "megastep_k": K, "trip_wall_ms": wall,
-           "chained_trip_wall_ms": chained_wall, "device_busy_ms": busy,
+    out = {"slots": n, "megastep_k": K, "trips": trips,
+           "trip_wall_ms": wall, "chained_trip_wall_ms": chained_wall,
+           "loop_ms": loop_ms / loop_trips if cuda else None,
+           "trip_replay_ms": trip_ms, "device_busy_ms": busy,
            "device_idle_share": 1.0 - busy / wall,
            "chained_idle_share": 1.0 - busy / chained_wall,
-           "k3_ms": sum(e.self_device_time_total for e in k3) / trips / 1e3,
-           "k3_launches_profiled": sum(e.count for e in k3),
-           "k3_named": named,
+           "k3_ms": sum(e.self_device_time_total for e in k3) / K / 1e3,
+           "k3_launched": launched, "k3_replayed": replayed,
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total
-                              / trips / 1e3 for e in top}}
+                              / K / 1e3 for e in top}}
     if k1_profile:
         out["k1_step_wall_ms"] = k1_profile["step_wall_ms"]
         out["k1_step_busy_ms"] = k1_profile["device_busy_ms"]
-    want = "k3" if engine.kv_quant is None else "k3_quant"
-    if DEVICE == "cuda" and named != [want]:
-        raise AssertionError("the megastep profile names paged-decode "
-                             "kernels %s, want %s: %s"
-                             % (named, want, [e.key for e in k3]))
+    for what, got, want in (("synced megasteps", launched, layers * trips),
+                            ("replayed trips", replayed, layers * K)):
+        if got != {path: want, other: 0}:
+            raise AssertionError("megastep profile, %s: K3 / K3-quant "
+                                 "launched %s, want %s %d and %s 0"
+                                 % (what, got, path, want, other))
     log("megastep at %d busy slots, K=%d: %.3f ms wall a trip (chained "
-        "%.3f), %.3f ms device-busy (idle %.0f%%, chained %.0f%%), K3 %.3f "
-        "ms a trip (%d launches profiled: %s); the K=1 step: %s; top: %s"
-        % (n, K, wall, chained_wall, busy, 100 * out["device_idle_share"],
-           100 * out["chained_idle_share"], out["k3_ms"],
-           out["k3_launches_profiled"], named,
+        "%.3f), the loop %s ms a trip on the device against %s for the "
+        "trip graph replayed alone (CUDA events); the trip %.3f ms "
+        "device-busy (idle %.0f%%, chained %.0f%%), K3 %.3f ms a trip; %s "
+        "launched %d in %d trips (the kernel's count); the K=1 step: %s; "
+        "top: %s"
+        % (n, K, wall, chained_wall,
+           "%.3f" % out["loop_ms"] if cuda else "not measured",
+           "%.3f" % trip_ms if cuda else "not measured", busy,
+           100 * out["device_idle_share"], 100 * out["chained_idle_share"],
+           out["k3_ms"], path, launched[path], trips,
            "%.3f ms wall, %.3f busy" % (k1_profile["step_wall_ms"],
                                          k1_profile["device_busy_ms"])
            if k1_profile else "not profiled",
@@ -2245,7 +2391,235 @@ def megastep_profile(engine, prompts, k1_profile=None):
     return out
 
 
-def megastep_path(phase4):
+# phase 12 (d): the early exit, on bf16 and int8 pages
+MS_EXIT_RUNS = (("bf16", "bf16", "off"), ("int8", "bf16", "int8"))
+MS_EXIT_TRIPS = 2              # every slot freezes after this many trips
+MS_LOOP = {"name": "megastep_loop", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/megastep_loop.cu",
+           "replaces": "paddle_tpu/serving/paged_kv.py:524"}
+
+
+def _exit_engine(model, params, mode):
+    from paddle_tpu_torch.serving import PagedDecodeEngine
+    return PagedDecodeEngine(model, params, max_slots=SLOTS, max_len=MAX_LEN,
+                             prefill_buckets=BUCKETS, page_size=PAGE,
+                             kv_quant_dtype=mode, megastep_k=MEGASTEP_K,
+                             device=DEVICE)
+
+
+def _exit_fill(engine, prompts, first):
+    for i, p in enumerate(prompts):
+        engine.prefill(i, p, max_new_tokens=2 * MEGASTEP_K + 4)
+        engine.set_input_token(i, first[i])
+
+
+def _exit_megastep(engine, caps, eos_id, profiled=False):
+    """One K = MEGASTEP_K megastep: its result, the loop's ms on the
+    device (``_ms_timed``; host wall ms on the CPU) and the K3 / K3-quant
+    launches the kernel itself counted on the card (``k3_counts``). With
+    ``profiled``, under ``torch.profiler``, and also the device-busy ms
+    and the paged-decode and condition kernels' records it names (the
+    profiler may miss executions of the loop body's nodes)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    before = k3_counts()
+    with profile(activities=acts) if profiled else \
+            contextlib.nullcontext() as prof:
+        t0 = time.perf_counter()
+        r, ms = _ms_timed(engine, lambda: engine.megastep_dispatch(
+            SEED, 0, MEGASTEP_K, caps=caps, eos_id=eos_id))
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    out = {"loop_ms": wall if ms is None else ms,
+           "k3_launched": _k3_delta(before)}
+    if profiled:
+        # spin_kernel: _ms_timed's device sleep
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type) == "DeviceType.CUDA"
+                  and e.self_device_time_total > 0
+                  and "spin_kernel" not in e.key]
+        k3 = {}
+        for e in events:
+            if "paged_decode_kernel" in e.key:
+                name = k3_instance(e.key)
+                k3[name] = k3.get(name, 0) + e.count
+        out.update(busy_ms=sum(e.self_device_time_total
+                               for e in events) / 1e3, k3_profiled=k3,
+                   cond_profiled=sum(e.count for e in events
+                                     if "megastep_cond_kernel" in e.key))
+    return r, out
+
+
+def megastep_exit_gate(label, model_dir, mode, prompts, card_label=""):
+    """Phase 12 (d): a K = MEGASTEP_K megastep whose SLOTS slots all
+    freeze after MS_EXIT_TRIPS trips, by caps and, separately, by an EOS
+    (every slot decoding one prompt whose stream's second token is the
+    EOS), on ``mode`` pages. Gates (each raises): the loop's iteration
+    count equals ``trips`` = MS_EXIT_TRIPS; the pool's K3 instance, as
+    the kernel counts itself on the card, launched exactly layers x trips
+    times in that megastep and the other never; the streams equal the K =
+    1 decode steps'. Records the loop's ms (CUDA events) against a full
+    MEGASTEP_K-trip megastep's, and, from one more caps megastep under
+    ``torch.profiler``, what the profiler recorded, not gated: on the
+    H100 (torch 2.11.0+cu128, NVIDIA 580.159.03) it records some but not
+    all executions of the loop body's kernels, at times under another
+    kernel's name, so its count and busy ms miss trips."""
+    from paddle_tpu_torch.serving import load_decoder
+    model, params = load_decoder(model_dir, device=DEVICE)
+    prompts = prompts[:SLOTS]
+    want_k3 = "k3" if mode == "off" else "k3_quant"
+    ref_eng = _exit_engine(model, params, mode)
+    first = [int(np.argmax(ref_eng.prefill(i, p, max_new_tokens=8)))
+             for i, p in enumerate(prompts)]
+    for i in range(len(prompts)):
+        ref_eng.set_input_token(i, first[i])
+    ref = np.stack([ref_eng.decode_step(seed=SEED, step=t)
+                    for t in range(MS_EXIT_TRIPS)])
+    # the EOS cohort: one prompt whose first two steps differ, in every slot
+    k = next(i for i in range(len(prompts)) if ref[0, i] != ref[1, i])
+    eos = int(ref[1, k])
+    del ref_eng
+    eng = _exit_engine(model, params, mode)
+    _exit_fill(eng, prompts, first)
+    eng.megastep_decode(SEED, 0, MEGASTEP_K)      # warm-up and capture
+    res = {"pages": mode, "slots": len(prompts)}
+    for case in ("caps", "eos", "full", "profiled"):
+        for i in range(len(prompts)):
+            eng.release(i)
+        if case == "eos":
+            _exit_fill(eng, [prompts[k]] * len(prompts),
+                       [first[k]] * len(prompts))
+        else:
+            _exit_fill(eng, prompts, first)
+        caps = None if case == "full" else np.full(SLOTS, MS_EXIT_TRIPS)
+        r, prof = _exit_megastep(eng, caps, eos if case == "eos" else None,
+                                 profiled=case == "profiled")
+        want_trips = MEGASTEP_K if case == "full" else MS_EXIT_TRIPS
+        want = ref[:, [k] * len(prompts)] if case == "eos" else ref
+        streams_ok = bool((r["out"][:MS_EXIT_TRIPS] ==
+                           want[:, :len(prompts)]).all())
+        res[case] = dict(prof, trips=r["trips"],
+                         iterations=r["iterations"],
+                         streams_equal_k1=streams_ok)
+        want_launched = {"k3": 0, "k3_quant": 0}
+        want_launched[want_k3] = model.n_layers * want_trips
+        if r["trips"] != want_trips or r["iterations"] != r["trips"] or \
+                prof["k3_launched"] != want_launched or not streams_ok:
+            raise AssertionError("phase 12 (d) %s %s: %s (want %d trips, "
+                                 "%s launched, %s profiled)"
+                                 % (label, case, json.dumps(res[case]),
+                                    want_trips, want_launched, want_k3))
+    res["exit_over_full"] = res["caps"]["loop_ms"] / res["full"]["loop_ms"]
+    res["bound"] = _loop_row_inputs(eng, model)
+    log("phase 12 (d) %s pages (%s): a K=%d megastep whose %d slots freeze "
+        "after %d trips ran %d iterations (caps) and %d (EOS), %s launched "
+        "%s on the card; the loop %.3f ms against %.3f ms for all %d trips "
+        "(%.0f%%, CUDA events); under torch.profiler (not gated) the caps "
+        "megastep's records name %s paged-decode launches and %d condition "
+        "kernels, busy %.3f ms"
+        % (label, card_label, MEGASTEP_K, len(prompts), MS_EXIT_TRIPS,
+           res["caps"]["iterations"], res["eos"]["iterations"], want_k3,
+           res["caps"]["k3_launched"][want_k3], res["caps"]["loop_ms"],
+           res["full"]["loop_ms"], MEGASTEP_K, 100 * res["exit_over_full"],
+           res["profiled"]["k3_profiled"], res["profiled"]["cond_profiled"],
+           res["profiled"]["busy_ms"]))
+    return res, eng, prompts, first
+
+
+def _loop_row_inputs(engine, model):
+    """The bytes one megastep must move once: the weights, the live
+    slots' KV pages (and scales) at their lengths, the page table and the
+    state vector."""
+    import torch
+    params = sum(t.numel() * t.element_size()
+                 for t in _leaves(engine.params))
+    page_bytes = engine._kp[0][0].numel() * engine._kp[0].element_size()
+    if engine._ks is not None:
+        page_bytes += engine._ks[0][0].numel() * 4
+    pages = int(sum(-(-int(n) // PAGE) for n in engine.lengths
+                    if n > 0))
+    kv = 2 * model.n_layers * pages * page_bytes
+    m = engine._ms
+    small = (m.state.numel() * 8 + m.table.numel() * 4 +
+             m.temps.numel() * 4)
+    return {"param_bytes": params, "kv_bytes": kv, "state_bytes": small,
+            "bytes": params + kv + small}
+
+
+def _leaves(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def megastep_loop_row(engine, prompts, first, launches, card_label=""):
+    """The megastep loop's kernel row: the loop graph (one launch) against
+    its plain version (``megastep_loop.run_plain``: the eager trip and a
+    host read of the condition a trip) on one engine's inputs, fresh
+    prefills each; MS_EXIT_TRIPS trips by caps. ``max_abs_err`` over the
+    whole state vector after the loop (tokens, lengths, flags, counts);
+    bound: the bytes a megastep must move once (``_loop_row_inputs``)."""
+    import torch
+    from paddle_tpu_torch.ops import megastep_loop as ml
+    from paddle_tpu_torch.ops import paged_attention as pa
+    caps = np.full(SLOTS, MS_EXIT_TRIPS)
+    counts = (pa.launches, pa.launches_quant, ml.launches["megastep_loop"])
+
+    def fresh():
+        for i in range(len(prompts)):
+            engine.release(i)
+        _exit_fill(engine, prompts, first)
+        _sync()
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(engine._ms.stream):
+            start.record()
+            fn()
+            end.record()
+        _sync()
+        return start.elapsed_time(end)
+
+    fresh()
+    args = {"tokens": engine._in_tokens, "lengths": engine.lengths,
+            "live": engine.active.copy(), "caps": caps, "step0": 0,
+            "seed": SEED, "eos": -1, "k_eff": MEGASTEP_K}
+    temps = np.zeros(SLOTS, np.float32)
+    m = engine._ms
+    loop = m.graphs[False][0]
+    engine._ms_load(m, args, temps)
+    _sync()
+    ms = timed(lambda: loop.launch(m.stream))
+    got = m.state.clone()
+    fresh()
+    engine._ms_load(m, args, temps)
+    _sync()
+    plain_ms = timed(lambda: ml.run_plain(
+        lambda: engine._ms_trip(False), m.state, m.off))
+    err = float((got - m.state).abs().max())
+    nbytes = _loop_row_inputs(engine, engine.model)["bytes"]
+    fresh()
+    pa.launches, pa.launches_quant, ml.launches["megastep_loop"] = counts
+    for i in range(len(prompts)):
+        engine.release(i)
+    row = _timing_row(MS_LOOP, launches, err, ms, plain_ms, None, 0.0,
+                      nbytes, BF16_FLOPS, "%d slots, %d of %d trips, %s"
+                      % (len(prompts), MS_EXIT_TRIPS, MEGASTEP_K,
+                         card_label))
+    if err != 0 or launches <= 0:
+        raise AssertionError("megastep loop row: %s" % json.dumps(row))
+    return row
+
+
+def megastep_path(phase4, card_label=""):
     """Phase 12: phase 4's serving path with ``megastep_k`` MEGASTEP_K,
     on fp32, bf16, int8 and fp8 pages. For each: the engine gate
     (``megastep_engine_gate``); the 48 requests served (``serve_run``,
@@ -2261,6 +2635,9 @@ def megastep_path(phase4):
     k1_profiles = {"bf16": phase4["bf16_step_profile"],
                    "int8": phase4["int8_step_profile"],
                    "fp8": phase4["fp8_step_profile"]}
+    from paddle_tpu_torch.ops import megastep_loop as ml
+    from paddle_tpu_torch.ops import paged_attention as pa
+    loops0 = ml.launches["megastep_loop"]
     res = {"megastep_k": MEGASTEP_K, "gates": {}, "runs": {},
            "profiles": {}, "launches": {"k3": 0, "k3_quant": 0}}
     for label, dec, mode in MS_RUNS:
@@ -2269,7 +2646,8 @@ def megastep_path(phase4):
                                                    prompts)
         run = serve_run(mdir, prompts, budgets, kv_quant_dtype=mode,
                         megastep_k=MEGASTEP_K)
-        trip_gate(label + " served", run["trip_stats"], {"greedy"})
+        trip_gate(label + " served", run["trip_stats"], {"greedy"},
+                  trips=sum(run["trips"]))
         st = _serving_stats(run)
         toks = [r["tokens"] for r in run["responses"]]
         st["streams_equal_k1"] = sum(
@@ -2303,6 +2681,25 @@ def megastep_path(phase4):
         res["profiles"][label] = megastep_profile(
             run["engine"], prompts, k1_profiles.get(label))
         del run
+    # (d) the early exit; its engines' K3 launches count as phase 12's
+    res["exit"] = {}
+    for label, dec, mode in MS_EXIT_RUNS:
+        k0 = {"k3": pa.launches, "k3_quant": pa.launches_quant}
+        res["exit"][label], eng, eprompts, first = megastep_exit_gate(
+            label, phase4["_dirs"][dec], mode, prompts, card_label)
+        res["exit"][label]["launches"] = {
+            "k3": pa.launches - k0["k3"],
+            "k3_quant": pa.launches_quant - k0["k3_quant"]}
+        for name, n in res["exit"][label]["launches"].items():
+            res["launches"][name] += n
+        if label == "bf16":
+            kept = (eng, eprompts, first)
+        else:
+            del eng
+    res["loop_launches"] = ml.launches["megastep_loop"] - loops0
+    if DEVICE == "cuda":
+        res["loop_row"] = megastep_loop_row(
+            *kept, res["loop_launches"], card_label)
     return res
 
 
@@ -3746,14 +4143,16 @@ def layout_timing(bhsd_launches, dense_res):
 
 # bench.py's ResNet step (bench.py:36-121): resnet_imagenet(depth=50) in
 # NHWC, batch 256 of 224x224 images, 1000 classes, bf16 mixed precision,
-# Momentum(0.01, 0.9), timed through run_steps. The one cut: 10 steps a
-# dispatch (25 until phase 16 came) and one warm-up dispatch, against
-# bench.py's 100 x 3, so that every phase fits the script's time limit;
+# Momentum(0.01, 0.9), timed through run_steps. The one cut: 5 steps a
+# dispatch (25 until phase 16 came, 10 until phases 12 (d) and 19 (c)
+# came) and one warm-up dispatch, against bench.py's 100 x 3, so that
+# every phase fits the script's time limit;
 # phase 16's fp8 rounds take FP8_STEPS.
 RESNET_DEPTH, RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 50, 256, 224, 1000
 RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
-# 2 timed rounds (3 until phase 18 came)
-RESNET_STEPS, RESNET_ROUNDS = 10, 2
+# 2 timed rounds (3 until phase 18 came) of 5 steps (10 until phases 12
+# (d) and 19 (c) came)
+RESNET_STEPS, RESNET_ROUNDS = 5, 2
 RESNET_EAGER_STEPS, RESNET_PROFILE_STEPS = 3, 3
 # the gates' model: the same program at class_dim 10, batch 8 of 64x64
 # images (its last stage normalizes each channel over 8 x 2 x 2 = 32
@@ -4103,25 +4502,30 @@ def resnet_replay_gate():
 
 
 def _kernel_counts():
-    """name -> launches of the 14 kernel entry points."""
+    """name -> launches of the 14 kernel entry points and the megastep
+    loop."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_adam as pfa
+    from paddle_tpu_torch.ops import megastep_loop as ml
     from paddle_tpu_torch.ops import paged_attention as pa
     counts = dict(fa.launches)
     counts["paged_decode_attention"] = pa.launches
     counts["paged_decode_attention_quant"] = pa.launches_quant
     counts["fused_adam"] = pfa.launches["fused_adam"]
+    counts["megastep_loop"] = ml.launches["megastep_loop"]
     return counts
 
 
 def _reset_kernel_counts():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_adam as pfa
+    from paddle_tpu_torch.ops import megastep_loop as ml
     from paddle_tpu_torch.ops import paged_attention as pa
     for name in fa.launches:
         fa.launches[name] = 0
     pa.launches = pa.launches_quant = 0
     pfa.launches["fused_adam"] = 0
+    ml.launches["megastep_loop"] = 0
 
 
 # device kernels by what they compute, for the ResNet profile (first
@@ -4327,16 +4731,18 @@ REPLAY_RUN_CALLS, REPLAY_N_STEPS = 4, 4
 # the random-op gate: a classifier with one dropout layer, Adam
 DROPOUT_P, DROPOUT_ROWS, DROPOUT_WIDTH, DROPOUT_STEPS = 0.5, 64, 512, 8
 # bench_lm.py's methodology: ITERS-step rounds, one warm round, 3 timed.
-# The cuts: 10-step rounds against bench_lm.py's 60, so that phase 16 fits
-# the script's time limit, and 2 timed rounds (3 until phase 18 came)
-BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 10, 2, 5
+# The cuts: 5-step rounds against bench_lm.py's 60 (10 until phases 12 (d)
+# and 19 (c) came), so that every phase fits the script's time
+# limit, and 2 timed rounds (3 until phase 18 came)
+BENCH_ITERS, BENCH_ROUNDS, BENCH_PROFILE_STEPS = 5, 2, 5
 # phases 8-10 in captured rounds: a warm round, then CAPTURED_ROUNDS (5
 # steps a round; 20 until phase 16 came, 10 until phase 17 came)
 CAPTURED_STEPS, CAPTURED_ROUNDS = 5, 2
 # the preemption gate: the 2-layer LM at full width, one run_steps round
 # of RESUME_ROUND_STEPS per train_loop step, SIGTERM after round
-# RESUME_PREEMPT_AFTER, a checkpoint every round
-RESUME_ROUNDS, RESUME_ROUND_STEPS, RESUME_PREEMPT_AFTER = 4, 10, 2
+# RESUME_PREEMPT_AFTER, a checkpoint every round; 3 rounds (4 until phases
+# 12 (d) and 19 (c) came): the relaunch resumes one
+RESUME_ROUNDS, RESUME_ROUND_STEPS, RESUME_PREEMPT_AFTER = 3, 10, 2
 RESUME_TIMEOUT_S = 300
 
 
@@ -4857,8 +5263,9 @@ NGATE_LOSS_RTOL, NGATE_UPDATE_REL_L2 = 1e-5, 1e-2
 NREPLAY_SCHEDULE = ((0, 2), (1, 3), (0, 2))
 NMT_EAGER_STEPS, NMT_PROFILE_STEPS = 4, 3
 # the bench's sweeps, cut for the script's time limit (bench_nmt.py: 200
-# steps; 200 here until phase 17 came, 100 until phase 18 came)
-NMT_ITERS = 50
+# steps; 200 here until phase 17 came, 100 until phase 18 came, 50 until
+# phases 12 (d) and 19 (c) came)
+NMT_ITERS = 25
 # device kernels by what they compute, for the NMT profile (first match
 # wins): cuBLAS/CUTLASS GEMMs, reductions, copies, the rest elementwise
 _NMT_CLASSES = (
@@ -6380,7 +6787,7 @@ def disagg_engine_gates(dirs, prompts, budgets, extra, workdir):
                 b.trip_stats["captures_greedy"] != \
                 captures["captures_greedy"] or \
                 (DEVICE == "cuda" and (captures["captures_greedy"] != 1 or
-                                       b.trip_stats["replays"] <= 0)):
+                                       b.trip_stats["loop_launches"] <= 0)):
             raise AssertionError("phase 18 (a) fp32 import: %s"
                                  % json.dumps(res))
         want_k3 = launch_want(a.trip_stats, model.n_layers) + \
@@ -6756,6 +7163,7 @@ FLEET_SLOTS, FLEET_BUCKETS, FLEET_PAGES = 16, "64,128,384", 1024
 FLEET_OVERHEAD_PAIRS = 16
 ROLL_REPLICAS, ROLL_WAVE = 2, 16
 FLEET_BOOT_S, FLEET_DRAIN_S = 300, 120
+FLEET_LEASE_S = 5              # the supervisor lease (FLAGS default)
 
 
 def fleet_requests():
@@ -6858,17 +7266,19 @@ def _drained_gate(label, logs, kernel, want):
 
 
 def _closed_loop(url, next_job, on_done=None):
-    """Closed-loop load through ``ServingClient([url])`` from
-    FLEET_CLIENTS threads, each taking ``next_job()`` (``(index, prompt,
-    budget)``, None to stop) when its last request answers. Returns
-    [(index, result or exception, client seconds)] in completion order;
-    ``on_done(n)`` after each answer."""
+    """Closed-loop load through ``ServingClient(url)`` (one router URL or
+    a list of them, failed over in turn) from FLEET_CLIENTS threads, each
+    taking ``next_job()`` (``(index, prompt, budget)``, None to stop) when
+    its last request answers. Returns [(index, result or exception,
+    client seconds)] in completion order; ``on_done(n)`` after each
+    answer."""
     import threading
     from paddle_tpu_torch.serving import ServingClient
     lock, done, out = threading.Lock(), [0], []
 
     def worker():
-        client = ServingClient([url], timeout=300.0)
+        client = ServingClient(url if isinstance(url, list) else [url],
+                               timeout=300.0)
         while True:
             with lock:
                 job = next_job()
@@ -6929,48 +7339,249 @@ def router_overhead(router_url, status, prompt):
             "added_ms_p50": float(np.median(via) - np.median(straight))}
 
 
+def _become_subreaper():
+    """Make this process a child subreaper (``prctl(PR_SET_CHILD_SUBREAPER)``
+    on itself): the replicas of a SIGKILLed fleet CLI become its children,
+    so it can reap them when the standby that adopted them drains them."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:      # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _registered_pids(reg_dir):
+    """The pids of the replica records in a fleet registry."""
+    from paddle_tpu_torch.serving.registry import ReplicaRegistry
+    if not os.path.isdir(reg_dir):
+        return []
+    return sorted(r["pid"] for r in ReplicaRegistry(reg_dir).records()
+                  if r.get("role") != "cache" and r.get("pid"))
+
+
+def _inherited_replicas(store):
+    """The pids of replica processes (``serving.serve``) of the fleet over
+    the KV store ``store`` whose parent is this process: a SIGKILLed
+    fleet CLI's replicas, a booting one included (a replica enters the
+    registry only once it is ready); phase 19 (b)'s replicas, this
+    process's own children, use no store and are left alone."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % name) as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open("/proc/%s/cmdline" % name, "rb") as f:
+                argv = f.read().split(b"\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == os.getpid() and \
+                b"paddle_tpu_torch.serving.serve" in argv and \
+                os.fsencode(store) in argv:
+            pids.append(int(name))
+    return pids
+
+
+def _reap(pids, kill=False, timeout=30.0):
+    """Wait for (SIGKILL first with ``kill``) processes this one inherited
+    as their subreaper; returns the pids it reaped. A pid that is not this
+    process's child is skipped."""
+    import signal
+    reaped = []
+    for pid in pids:
+        if kill:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                done, _ = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                break
+            if done:
+                reaped.append(pid)
+                break
+            if time.perf_counter() > deadline:
+                break
+            time.sleep(0.05)
+    return reaped
+
+
+def fleet_failover_gate(children, routers, reg_dir, prompts, budgets, ref,
+                        tier_url, card_label):
+    """Phase 19 (c), on (a)'s fleet: every prompt once more under
+    closed-loop load through both routers, the ACTIVE fleet CLI's pid
+    SIGKILLed (not its process group) a third in. Gates (each raises): no
+    failed request; every stream equal to the engine's; the standby takes
+    the lease (``lease_takeovers_total`` 1) and adopts the three replicas
+    by the same pids (``replicas_adopted_total`` 3) with no restart; its
+    ``/fleet/status`` names it the holder and the tier URL of the tier's
+    ``role=cache`` record. Records the seconds from the SIGKILL to the
+    lease taken and to adoption done."""
+    import signal
+    import threading
+    from paddle_tpu_torch.serving import ServingClient
+    from paddle_tpu_torch.serving.registry import Lease, ReplicaRegistry
+    t0 = time.perf_counter()
+    active, standby = children["fleet"], children["standby"]
+    registry = ReplicaRegistry(reg_dir)
+    lease = Lease.reader(registry.lease_path())
+    holder_b = ":%d" % standby.proc.pid
+    before = {r["slot"]: r["pid"] for r in registry.records()
+              if r.get("role") != "cache"}
+    killed, seen = {}, {}
+
+    def watch():
+        # the lease file and the records, read as the routers read them
+        while "adopted" not in seen and \
+                time.perf_counter() - killed["t"] < FLEET_BOOT_S:
+            rec = lease.read() or {}
+            now = time.perf_counter()
+            if "lease" not in seen and \
+                    rec.get("holder", "").endswith(holder_b):
+                seen["lease"] = now - killed["t"]
+            recs = [r for r in registry.records()
+                    if r.get("role") != "cache"]
+            if "lease" in seen and len(recs) == len(before) and all(
+                    r["holder"].endswith(holder_b) for r in recs):
+                seen["adopted"] = now - killed["t"]
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+
+    def kill_at(n):
+        if n == len(prompts) // 3 and "t" not in killed:
+            killed["t"] = time.perf_counter()
+            os.kill(active.proc.pid, signal.SIGKILL)
+            watcher.start()
+
+    jobs = iter([(i, prompts[i], budgets[i]) for i in range(len(prompts))])
+    got = _closed_loop(routers, lambda: next(jobs, None), kill_at)
+    watcher.join(FLEET_BOOT_S)
+    active_exit = active.proc.wait(30)
+    status = _fleet_status(standby.url)
+    metrics = ServingClient(standby.url).metrics()
+    after = {r["slot"]: r["pid"] for r in status["registry"]["records"]
+             if r.get("role") != "cache"}
+    failed = [repr(r) for _, r, _ in got if isinstance(r, Exception)]
+    res = {"requests": len(got), "failed": len(failed),
+           "streams_equal_engine": sum(
+               not isinstance(r, Exception) and r["tokens"] == ref[i]
+               for i, r, _ in got),
+           "active_exit": active_exit,
+           "kill_to_lease_s": seen.get("lease"),
+           "kill_to_adopted_s": seen.get("adopted"),
+           "lease_takeovers": metrics.get(
+               "paddle_tpu_lease_takeovers_total", 0.0),
+           "replicas_adopted": metrics.get(
+               "paddle_tpu_replicas_adopted_total", 0.0),
+           "standby_restarts": metrics.get(
+               "paddle_tpu_fleet_restarts_total", 0.0),
+           "holder": status["lease"]["holder"],
+           "tier_url": (status["roles"].get("cache_tier") or {}).get("url"),
+           "pids_before": sorted(before.values()),
+           "pids_after": sorted(after.values()),
+           "same_pids_by_slot": after == before,
+           "replicas_reachable": sum(e["reachable"]
+                                     for e in status["replicas"]),
+           "seconds": time.perf_counter() - t0}
+    if failed:
+        res["first_failure"] = failed[0]
+    log("phase 19 (c) control-plane failover (%s): SIGKILL of the active "
+        "fleet CLI to the standby's lease %s s, to adoption done %s s; %s"
+        % (card_label, res["kill_to_lease_s"], res["kill_to_adopted_s"],
+           json.dumps(res)))
+    if res["failed"] or res["streams_equal_engine"] != len(prompts) or \
+            res["requests"] != len(prompts) or \
+            res["lease_takeovers"] != 1 or res["replicas_adopted"] != 3 or \
+            res["standby_restarts"] != 0 or not res["same_pids_by_slot"] \
+            or len(after) != 3 or not res["holder"].endswith(holder_b) or \
+            res["tier_url"] != tier_url or res["kill_to_adopted_s"] is None \
+            or res["replicas_reachable"] != 3 or \
+            res["active_exit"] != -signal.SIGKILL:
+        raise AssertionError("phase 19 (c): %s" % json.dumps(res))
+    return res
+
+
+def _wait_lease_held(reg_dir, child, deadline):
+    """Wait until the supervisor lease under ``reg_dir`` has a live
+    holder (``child``, the fleet CLI that contends for it at start)."""
+    from paddle_tpu_torch.serving.registry import Lease, ReplicaRegistry
+    lease = Lease.reader(ReplicaRegistry(reg_dir).lease_path())
+    while time.perf_counter() < deadline:
+        if not lease.expired():
+            return
+        if child.proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    raise AssertionError("no holder of the fleet lease under %s (child "
+                         "%s rc %s): %s" % (reg_dir, child.name,
+                                            child.proc.poll(), child.tail()))
+
+
 def fleet_cli_gate(workdir, d32, prompts, budgets, card_label):
     """Phase 19 (a): ``python -m paddle_tpu_torch.serving.fleet`` with two
     decode replicas, one prefill replica and the prefix tier; closed-loop
-    load, one decode replica SIGKILLed mid-load. Returns the report and
-    the in-process reference engine's launches."""
+    load, one decode replica SIGKILLed mid-load. The fleet, the tier and a
+    second, standby fleet CLI share a registry, and clients know both
+    routers; then (c), ``fleet_failover_gate``: the active CLI SIGKILLed
+    under load, the standby taking over. The standby's SIGTERM drains the
+    fleet. Returns the report and the in-process reference engine's
+    launches."""
     import signal
     import threading
     from paddle_tpu_torch.serving import ServingClient
     t0 = time.perf_counter()
+    _become_subreaper()
     store = os.path.join(workdir, "fleet_store")
     log_dir = os.path.join(workdir, "fleet_logs")
     spool = os.path.join(workdir, "fleet_spool")
+    reg_dir = os.path.join(workdir, "fleet_registry")
     tier_port = _free_port()
     tier_url = "http://127.0.0.1:%d" % tier_port
-    children = {
-        "tier": _Child("fleet_tier", [
-            "paddle_tpu_torch.serving.prefix_tier", "--store-dir", store,
-            "--port", str(tier_port), "--capacity-mb", "65536"],
-            os.path.join(workdir, "fleet_tier.log")),
-        "fleet": _Child("fleet", [
+
+    def fleet_cli(tag, extra):
+        return _Child(tag, [
             "paddle_tpu_torch.serving.fleet", "--generation-model", d32,
             "--device", DEVICE, "--gen-paged", "--replicas", "2",
             "--prefill-replicas", "1", "--kv-transfer-dir", store,
-            "--prefix-tier-url", tier_url, "--prefill-min-prompt",
-            str(FLEET_MIN_PROMPT), "--port", "0", "--log-dir", log_dir,
+            "--prefill-min-prompt", str(FLEET_MIN_PROMPT), "--port", "0",
             "--trace-spool-dir", spool, "--check-interval-s", "0.25",
             "--request-timeout", "300", "--drain-timeout",
-            str(FLEET_DRAIN_S)] +
+            str(FLEET_DRAIN_S), "--registry-dir", reg_dir, "--lease-secs",
+            str(FLEET_LEASE_S)] + extra +
             ["--serve-arg=" + a for a in _replica_args()],
-            os.path.join(workdir, "fleet_cli.log"))}
+            os.path.join(workdir, tag + ".log"))
+
+    children = {
+        "tier": _Child("fleet_tier", [
+            "paddle_tpu_torch.serving.prefix_tier", "--store-dir", store,
+            "--port", str(tier_port), "--capacity-mb", "65536",
+            "--registry-dir", reg_dir],
+            os.path.join(workdir, "fleet_tier.log")),
+        "fleet": fleet_cli("fleet_cli", [
+            "--prefix-tier-url", tier_url, "--log-dir", log_dir])}
     res = {}
     try:
+        deadline = time.perf_counter() + FLEET_BOOT_S
+        # a standby takes a lease nobody holds: it starts once the fleet
+        # CLI holds it. Its router knows the tier only by its registry
+        # record (its replicas would get the URL as a serve flag)
+        _wait_lease_held(reg_dir, children["fleet"], deadline)
+        children["standby"] = fleet_cli("fleet_standby", [
+            "--standby", "--log-dir", log_dir + "_standby",
+            "--serve-arg=--prefix-tier-url=" + tier_url])
         # the reference streams while the fleet boots
         ref, launches = fleet_reference(d32, prompts, budgets)
-        deadline = time.perf_counter() + FLEET_BOOT_S
         for child in children.values():
             child.wait_url(deadline)
         router = children["fleet"].url
         with open(children["fleet"].log_path) as f:
             line = next(ln for ln in f if ln.startswith("fleet: router"))
-        res["cold_start_s"] = json.loads(
-            line.split("ready_s=", 1)[1].replace("'", '"'))
+        res["cold_start_s"] = json.loads(line.split("ready_s=", 1)[1].split(
+            "  role=")[0].replace("'", '"'))
         res["fleet_up_s"] = time.perf_counter() - t0
         status = _fleet_status(router)
         res["overhead"] = router_overhead(router, status,
@@ -6989,7 +7600,8 @@ def fleet_cli_gate(workdir, d32, prompts, budgets, card_label):
         jobs = iter([(i % FLEET_PROMPTS, prompts[i % FLEET_PROMPTS],
                       budgets[i % FLEET_PROMPTS])
                      for i in range(FLEET_WAVE)])
-        got = _closed_loop(router, lambda: next(jobs, None), kill_at)
+        routers = [router, children["standby"].url]
+        got = _closed_loop(routers, lambda: next(jobs, None), kill_at)
         # readmission: a replica0 with another pid in rotation
         while True:
             pids = _replica_pids(_fleet_status(router))
@@ -7003,7 +7615,7 @@ def fleet_cli_gate(workdir, d32, prompts, budgets, card_label):
         # wave 2, after the readmission: every prompt once more
         jobs = iter([(i, prompts[i], budgets[i])
                      for i in range(FLEET_PROMPTS)])
-        got += _closed_loop(router, lambda: next(jobs, None))
+        got += _closed_loop(routers, lambda: next(jobs, None))
         failed = [repr(r) for _, r, _ in got if isinstance(r, Exception)]
         ok = [(i, r, s) for i, r, s in got if not isinstance(r, Exception)]
         long_ok = [(i, r, s) for i, r, s in ok if i < FLEET_PROMPTS // 2]
@@ -7052,8 +7664,14 @@ def fleet_cli_gate(workdir, d32, prompts, budgets, card_label):
                       "decode": bool(decode_pids & set(lanes))}})
         if failed:
             res["first_failure"] = failed[0]
-        # drain: SIGTERM the fleet; each replica logs its launches
-        res["fleet_exit"] = children["fleet"].stop(FLEET_DRAIN_S + 60)
+        # (c) the active CLI SIGKILLed under load, the standby takes over
+        res["failover"] = fleet_failover_gate(
+            children, routers, reg_dir, prompts, budgets, ref, tier_url,
+            card_label)
+        # drain: SIGTERM the surviving CLI; it drains the replicas it
+        # adopted, and each replica logs its launches
+        res["fleet_exit"] = children["standby"].stop(FLEET_DRAIN_S + 60)
+        res["adopted_reaped"] = _reap(res["failover"]["pids_after"])
         res["replica_logs"] = replica_logs(log_dir)
         # the survivor and the replacement drained; the killed one did not
         res["drained"] = _drained_gate("phase 19 (a)",
@@ -7066,6 +7684,9 @@ def fleet_cli_gate(workdir, d32, prompts, budgets, card_label):
     finally:
         for child in children.values():
             child.kill()
+        # replicas a SIGKILLed CLI left, if a gate failed before the drain
+        _reap(set(_registered_pids(reg_dir)) |
+              set(_inherited_replicas(store)), kill=True)
     res["seconds"] = time.perf_counter() - t0
     log("phase 19 (a) fleet CLI (2 decode + 1 prefill replicas, prefix "
         "tier, %d-layer decoder, fp32 pages; %s): %s"
@@ -7250,15 +7871,18 @@ def fleet_path(workdir, card_label=""):
     cli, roll = report["cli"], report["roll"]
     log("phase 19 the serving fleet in %.1f s (%s): cold start s %s / %s, "
         "router adds %.2f ms p50 (%.2f vs %.2f direct), TTFT p50 %.1f ms "
-        "through the prefill hop, SIGKILL to readmission %.2f s, roll %.2f "
-        "s, replica launches K3 %d K3-quant %d"
+        "through the prefill hop, SIGKILL to readmission %.2f s, the active "
+        "CLI's SIGKILL to the standby's lease %.2f s and to adoption %.2f "
+        "s, roll %.2f s, replica launches K3 %d K3-quant %d"
         % (report["seconds"], card_label, json.dumps(cli["cold_start_s"]),
            json.dumps(roll["cold_start_s"]),
            cli["overhead"]["added_ms_p50"],
            cli["overhead"]["router_ms_p50"],
            cli["overhead"]["direct_ms_p50"],
            cli["ttft_ms_p50_via_prefill_hop"],
-           cli["kill_to_readmission_s"], roll["roll_s"],
+           cli["kill_to_readmission_s"],
+           cli["failover"]["kill_to_lease_s"],
+           cli["failover"]["kill_to_adopted_s"], roll["roll_s"],
            report["replica_launches"]["k3"],
            report["replica_launches"]["k3_quant"]))
     return report
@@ -7296,26 +7920,111 @@ def _ab_script():
             "K3_AB", repr(src))
 
 
-def ab_timing(parent):
-    """The flash kernels and K3 (``k3_ab_rows``) timed in turns — the
-    checkout at ``parent``, this tree, this tree, ``parent`` — each run in
-    its own process from its tree's root, with that tree's timing
-    functions. [{"tree", "rows"}]."""
+# the serving cells of ``--ab-serving``, run from each tree's root with
+# that tree's helpers: phase 4's decoders and 48 requests, fp32 at K = 1
+# and phase 12's MS_RUNS at K = MEGASTEP_K, each served REPEATS times; after
+# a K > 1 cell that tree's ``megastep_profile`` on its engine, and on a
+# fresh engine at SLOTS busy slots the first megastep's host ms (the
+# capture in) against the next two
+_AB_SERVE = r"""
+import json, os, sys, tempfile, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch import _build
+from paddle_tpu_torch.serving import (PagedDecodeEngine,
+                                      TransformerDecoderModel, load_decoder,
+                                      save_decoder)
+REPEATS = 3
+_build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work = tempfile.mkdtemp(prefix="ab_serving_")
+m32 = TransformerDecoderModel(cs.VOCAB, dim=cs.DIM, n_heads=cs.HEADS,
+                              n_layers=cs.LAYERS, ffn_mult=cs.FFN_MULT)
+m16 = TransformerDecoderModel(cs.VOCAB, dim=cs.DIM, n_heads=cs.HEADS,
+                              n_layers=cs.LAYERS, ffn_mult=cs.FFN_MULT,
+                              dtype=torch.bfloat16)
+p32 = m32.init_params(cs.SEED, device="cpu")
+p16 = {k: ([{n: t.to(torch.bfloat16) for n, t in b.items()} for b in v]
+           if k == "blocks" else v.to(torch.bfloat16))
+       for k, v in p32.items()}
+dirs = {"fp32": os.path.join(work, "fp32"), "bf16": os.path.join(work, "bf16")}
+save_decoder(dirs["fp32"], m32, p32)
+save_decoder(dirs["bf16"], m16, p16)
+prompts, budgets = cs._requests()
+cells = [("fp32 K=1", "fp32", "off", 1)] + [
+    ("%s K=%d" % (label, cs.MEGASTEP_K), dec, mode, cs.MEGASTEP_K)
+    for label, dec, mode in cs.MS_RUNS]
+keys = ("decode_tokens_per_s", "tpot_ms_p50", "ttft_ms_p50",
+        "host_gap_ms_per_token", "wall_s")
+rows = {}
+for name, dec, mode, k in cells:
+    row = {key: [] for key in keys}
+    for rep in range(REPEATS):
+        run = cs.serve_run(dirs[dec], prompts, budgets, kv_quant_dtype=mode,
+                           megastep_k=k)
+        st = cs._serving_stats(run)
+        for key in keys:
+            row[key].append(st[key])
+        if rep < REPEATS - 1:
+            del run
+    if k > 1:
+        prof = cs.megastep_profile(run["engine"], prompts)
+        row.update({key: prof.get(key) for key in (
+            "trip_wall_ms", "chained_trip_wall_ms", "loop_ms",
+            "trip_replay_ms", "device_busy_ms", "k3_ms")})
+        del run
+        model, params = load_decoder(dirs[dec], device="cuda")
+        eng = PagedDecodeEngine(model, params, max_slots=cs.SLOTS,
+                                max_len=cs.MAX_LEN,
+                                prefill_buckets=cs.BUCKETS,
+                                page_size=cs.PAGE, kv_quant_dtype=mode,
+                                megastep_k=k, device="cuda")
+        for i, p in enumerate(prompts[:cs.SLOTS]):
+            eng.prefill(i, p, max_new_tokens=4 * k + 4)
+            eng.set_input_token(i, 1)
+        ms, step0 = [], 0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step0 += eng.megastep_decode(cs.SEED, step0, k)["trips"]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        row["megastep_host_ms"] = ms
+        del eng
+    else:
+        del run
+    rows[name] = row
+print("AB_SERVE " + json.dumps(rows))
+"""
+
+
+def ab_timing(parent, script=None, tag="AB_ROWS"):
+    """``script`` (default: the flash kernels and K3, ``_ab_script``) run
+    in turns — the checkout at ``parent``, this tree, this tree,
+    ``parent`` — each in its own process from its tree's root, so it runs
+    that tree's code; its line ``TAG <json>`` is kept. [{"tree",
+    "rows"}]."""
+    script = script or _ab_script()
     runs = []
     for label, root in (("parent", parent), ("this", REPO), ("this", REPO),
                         ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", _ab_script()],
+        proc = subprocess.run([sys.executable, "-c", script],
                               cwd=os.path.abspath(root), capture_output=True,
                               text=True, timeout=900)
-        rows = [json.loads(ln[len("AB_ROWS "):])
+        rows = [json.loads(ln[len(tag) + 1:])
                 for ln in proc.stdout.splitlines()
-                if ln.startswith("AB_ROWS ")]
+                if ln.startswith(tag + " ")]
         if proc.returncode or not rows:
             raise RuntimeError("A/B run in %s failed (exit %d): %s"
                                % (root, proc.returncode, proc.stderr[-3000:]))
         runs.append({"tree": label, "rows": rows[0]})
-        log("%s: %s" % (label, " ".join("%s=%.4f" % (r["name"], r["ms"])
-                                        for r in rows[0])))
+        if tag == "AB_ROWS":
+            log("%s: %s" % (label, " ".join(
+                "%s=%.4f" % (r["name"], r["ms"]) for r in rows[0])))
+        else:
+            log("%s: %s" % (label, json.dumps(rows[0])))
     return runs
 
 
@@ -7333,6 +8042,9 @@ def main(argv=None):
     ap.add_argument("--ab", metavar="PARENT", default=None,
                     help="only time the flash kernels in turns against "
                          "the checkout at PARENT")
+    ap.add_argument("--ab-serving", metavar="PARENT", default=None,
+                    help="only run phase 4's fp32 and phase 12's served "
+                         "cells in turns against the checkout at PARENT")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7355,6 +8067,10 @@ def main(argv=None):
         if args.ab:
             report["ab"] = ab_timing(args.ab)
             return 0
+        if args.ab_serving:
+            report["ab_serving"] = ab_timing(args.ab_serving, _AB_SERVE,
+                                             "AB_SERVE")
+            return 0
         report["build_s"] = build()
         lap("build_s")
         data = packed_data(LM_BATCH, LM_SEQ)
@@ -7375,7 +8091,8 @@ def main(argv=None):
         if not args.kernels_only:
             report["main_path"] = main_path(workdir)
             lap("main_path")
-            report["megastep_path"] = megastep_path(report["main_path"])
+            report["megastep_path"] = megastep_path(
+                report["main_path"], report["card"]["nvidia_smi"])
             lap("megastep_path")
             report["spec_path"] = spec_path(report["main_path"],
                                             report["megastep_path"], workdir)
@@ -7529,7 +8246,8 @@ def main(argv=None):
                 json.dump(report, f, indent=1, default=str)
     if not args.kernels_only:
         print(json.dumps({"kernels": [report["main_path"]["k3"],
-                                      report["main_path"]["k3_quant"]] +
+                                      report["main_path"]["k3_quant"],
+                                      report["megastep_path"]["loop_row"]] +
                           report["flash_timing"] +
                           report["segment_timing"] +
                           [report["fused_adam_timing"]] +

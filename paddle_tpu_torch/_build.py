@@ -30,7 +30,8 @@ SOURCES = {"paged_decode": "paged_decode.cu",
            "flash_attention": "flash_attention.cu",
            "flash_segment": "flash_segment.cu",
            "flash_bhsd": "flash_bhsd.cu",
-           "fused_adam": "fused_adam.cu"}
+           "fused_adam": "fused_adam.cu",
+           "megastep_loop": "megastep_loop.cu"}
 
 # sm_90a, not sm_90: wgmma/setmaxnreg exist only for the "a" target
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -78,6 +78,13 @@
 // softmax sum l takes the unscaled exp). This reorders products only
 // (s * sum(q k) for sum(q (k s))); a virgin group (scale 0) gives exact
 // zeros, as the TPU kernel's dequant does.
+//
+// Launch count on the device: the first thread of block (0, 0, 0) adds one
+// to a module counter per launch (K3 and K3-quant apart), which
+// paddle_paged_decode_device_launches reads. A launch inside a CUDA graph
+// counts each time the graph runs it, a conditional node's body included,
+// where a profiler may record one execution of each body node per graph
+// launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -98,6 +105,9 @@ constexpr int kTileBytes = 4096;     // K bytes of one warp tile (V as many)
 constexpr int kRowPad = 16;          // bytes after each staged row
 constexpr int kMaxSplitPages = 32;   // page ids a warp holds in its lanes
 constexpr float kNegInf = -1e30f;
+
+// launches that ran on the device: [0] K3, [1] K3-quant
+__device__ unsigned long long g_launches[2];
 
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -296,6 +306,8 @@ paged_decode_kernel(Params p) {
     q_s[i] = i < gn * D ? to_float(q[qo_base + i]) : 0.f;
   // positions < max(len, 1) are live (the reference clamps len >= 1);
   // positions past the table's reach do not exist
+  if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(&g_launches[kQuant ? 1 : 0], 1ULL);
   const int len = min(max(p.lengths[s], 1), p.max_pages * p.page);
   if (c0 >= len) return;
   const int n = min(C, len - c0);          // live tokens of the split
@@ -709,6 +721,13 @@ extern "C" void paddle_paged_decode_workspace(int slots, int heads,
   const size_t rows = (size_t)slots * block_rows(heads, kv_heads);
   *part = splits > 1 ? rows * splits * kg * (2 + head_dim) : 0;
   *tickets = splits > 1 ? rows : 0;
+}
+
+// the device's launch counts [K3, K3-quant] into out (host memory); call
+// after the launches to count have finished (it copies on the legacy
+// default stream)
+extern "C" int paddle_paged_decode_device_launches(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

@@ -74,6 +74,28 @@ kv_quant_group = 0
 # ``serving.fleet.publish_artifact`` when no mode is passed).
 weight_quant_dtype = "off"
 
+# Fleet control-plane HA (``serving.registry.resolve_fleet_knobs``
+# validates every knob here and raises ValueError naming the offending
+# FLAGS_* name):
+#
+# - ``fleet_registry_dir`` — shared on-disk replica registry root
+#   ("" = single-process fleet, no registry). N routers read membership
+#   from it concurrently; the ACTIVE supervisor writes/heartbeats the
+#   records and holds the ``supervisor.lease`` file under the same
+#   root; a standby acquires the lease on expiry and ADOPTS the
+#   registered replicas.
+# - ``fleet_lease_secs`` — supervisor lease duration. The active
+#   supervisor renews every supervision sweep AND every lease_secs/3
+#   while blocked waiting for a replica boot (respawn/hot-swap/
+#   adoption — those waits exceed any sane lease), so a dead
+#   supervisor is taken over within this many seconds without routine
+#   repairs triggering spurious takeovers. Must be comfortably larger
+#   than the supervision sweep interval; a renewal arriving after
+#   expiry re-contends with the full acquire protocol rather than
+#   silently extending.
+fleet_registry_dir = ""
+fleet_lease_secs = 5.0
+
 # End-to-end deadlines and brownout load shedding (the scheduler's share
 # of ``serving.registry.resolve_fleet_knobs``; errors name the flag):
 # ``deadline_default_ms`` — implicit per-request deadline (0 = none);

@@ -39,7 +39,7 @@ __all__ = [
     "PREFIX_TIER_EVICTIONS", "HANDOFF_PREFILLS", "FLEET_PREFIX_AFFINITY",
     "FLEET_REQUESTS", "FLEET_ROUTER_RETRIES", "FLEET_BACKEND_REQUESTS",
     "FLEET_EJECTIONS", "FLEET_READMISSIONS", "FLEET_RESTARTS",
-    "FLEET_HOT_SWAPS",
+    "FLEET_HOT_SWAPS", "LEASE_TAKEOVERS", "REPLICAS_ADOPTED",
 ]
 
 _LABEL_SEP = "|"
@@ -383,6 +383,19 @@ FLEET_HOT_SWAPS = Counter(
     "fleet_hot_swaps_total",
     help="Replicas rolled onto a newer artifact serial (one per "
     "replica per rolling upgrade)")
+
+# -- fleet control-plane HA (serving/registry.py + serving/fleet.py) -------
+
+LEASE_TAKEOVERS = Counter(
+    "lease_takeovers_total",
+    help="Supervisor lease acquisitions over an EXPIRED previous "
+    "holder (a standby became active and adopted the fleet); clean "
+    "first-time acquisitions do not count")
+REPLICAS_ADOPTED = Counter(
+    "replicas_adopted_total",
+    help="Still-healthy registered replicas adopted by a supervisor "
+    "that took over the lease (adoption preserves crash counters and "
+    "respawn backoff gates — it is NOT a restart)")
 
 # -- deadlines, brownout and token-level SLOs ------------------------------
 

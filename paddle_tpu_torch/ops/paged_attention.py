@@ -28,6 +28,8 @@ and launches it on the current stream, or raises: there is no fallback.
 nothing else), so a run can show that its decode steps went through the
 kernel. A call made while its stream is being captured into a CUDA graph
 is counted at each replay of the graph (``launch_count``).
+:func:`device_launches` reads the kernel's own count on the card, which
+also sees every iteration of a megastep loop's body.
 """
 
 import ctypes
@@ -38,8 +40,8 @@ import torch
 from . import kv_quant, launch_count
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "split_plan", "launches", "launches_quant", "MAX_HEAD_DIM",
-           "NEG_INF", "SPLIT_TOKENS"]
+           "split_plan", "launches", "launches_quant", "device_launches",
+           "MAX_HEAD_DIM", "NEG_INF", "SPLIT_TOKENS"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -172,8 +174,29 @@ def _bind():
         lib.paddle_paged_decode_workspace.restype = None
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+        lib.paddle_paged_decode_device_launches.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.paddle_paged_decode_device_launches.restype = ctypes.c_int
         lib._bound = True
     return lib
+
+
+def device_launches():
+    """``(K3, K3-quant)`` launches that ran on the card since the library
+    loaded, as the kernel itself counts them (its first thread adds one a
+    launch): launches inside a CUDA graph count each time the graph runs
+    them, every iteration of a conditional node's body included. Waits for
+    the card first."""
+    lib = _bind()
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * 2)()
+    err = lib.paddle_paged_decode_device_launches(out)
+    if err != 0:
+        raise RuntimeError("reading the paged decode launch counts failed: "
+                           "CUDA error %d (%s)" % (err,
+                                                   lib.paddle_cuda_error_string(
+                                                       err).decode()))
+    return int(out[0]), int(out[1])
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,

@@ -10,7 +10,9 @@ behind ``POST /v1/prefill``) and the fleet prefix-cache tier
 (``prefix_tier``: store, index server and the degrading client that paged
 engines map pages through); and the serving fleet (``fleet``: the router
 with the prefill hop, the replica supervisor, rolling hot-swap and the
-artifact serials), imported at first use so that ``python -m
+artifact serials, and its HA over the shared ``registry``: replica
+records, the supervisor lease, standby takeover and adoption), imported at
+first use so that ``python -m
 paddle_tpu_torch.serving.fleet`` runs the module once."""
 
 from .batcher import (DeadlineExceededError, DrainRateEstimator,
@@ -31,7 +33,8 @@ from .paged_kv import (PagedDecodeEngine, PagePool, PoolExhaustedError,
                        speculative_round, validate_draft_geometry)
 from .prefix_tier import (PrefixTierClient, PrefixTierServer,
                           PrefixTierStore, make_tier_server)
-from .registry import (parse_deadline_header, parse_tenant_header,
+from .registry import (Lease, ReplicaRegistry, StaleIncarnationError,
+                       parse_deadline_header, parse_tenant_header,
                        resolve_fleet_knobs)
 from .server import ServingServer, make_server
 from .session import InferenceSession
@@ -54,6 +57,7 @@ __all__ = [
     "can_speculate", "speculative_greedy_generate", "speculative_round",
     "validate_draft_geometry",
     "parse_deadline_header", "parse_tenant_header", "resolve_fleet_knobs",
+    "ReplicaRegistry", "Lease", "StaleIncarnationError",
     "PrefillWorker", "TransferError", "TornTransferError",
     "resolve_kv_transfer_knobs", "PrefixTierClient", "PrefixTierServer",
     "PrefixTierStore", "make_tier_server",

@@ -1,6 +1,6 @@
 """The serving fleet — a health-checked router, a replica supervisor and
 zero-downtime hot-swap (the port of ``paddle_tpu/serving/fleet.py`` and of
-``tools/fleet.py``, without the control plane's HA).
+``tools/fleet.py``, with the control plane's HA).
 
 One ``serve`` process is one process: its death drops every in-flight
 request. The fleet runs N of them behind one router:
@@ -30,16 +30,23 @@ the device its argv names (``--device cuda`` by default from the CLI); a
 replica that finds no card there exits non-zero and the supervisor reports
 a failed start.
 
-Fleet HA — the shared replica registry, the supervisor lease, standby
-supervisors and adoption — is not ported: ``registry=``, ``standby=True``,
-``lease_secs=`` and the CLI's ``--registry-dir``, ``--standby`` and
-``--lease-secs`` raise ``NotImplementedError``.
+Fleet HA: with a shared replica registry (``registry=``, the CLI's
+``--registry-dir``; ``serving/registry.py``) several fleet processes run
+over one fleet. Every router syncs its membership from the registry's
+records (and the prefix tier's URL from its ``role=cache`` record); exactly
+one supervisor, the holder of the registry's lease, shapes the fleet and
+heartbeats the records. The others stand by (``standby=True``,
+``--standby``) and poll the lease; when the holder dies and its lease
+(``lease_secs``, ``--lease-secs``) expires, a standby takes it over and
+ADOPTS the registered replicas in place (same pids, crash counters and
+backoff gates kept; no restart), so a supervisor's death costs no request.
 
 CLI::
 
     python -m paddle_tpu_torch.serving.fleet --generation-model DIR \\
         --gen-paged --replicas 2 [--prefill-replicas 1 --kv-transfer-dir \\
         STORE] [--device cuda] [--port 8600] [--trace-spool-dir DIR] \\
+        [--registry-dir REG [--lease-secs 5] [--standby]] \\
         [--serve-arg=--gen-max-slots=16 ...]
 
 SIGTERM/SIGINT drains the whole fleet (each replica finishes its in-flight
@@ -64,8 +71,8 @@ import urllib.request
 from ..observability import catalog, tracing
 from ..observability.http import BackgroundHTTPServer, JsonHTTPHandler, \
     free_port
-from .registry import parse_deadline_header, parse_tenant_header, \
-    resolve_fleet_knobs
+from .registry import Lease, StaleIncarnationError, \
+    parse_deadline_header, parse_tenant_header, resolve_fleet_knobs
 
 __all__ = ["CircuitBreaker", "RouterBackend", "FleetRouter",
            "ReplicaSupervisor", "publish_artifact", "latest_artifact",
@@ -77,12 +84,6 @@ PREFILL_SLOT_BASE = 1000
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def _refuse_ha(what):
-    raise NotImplementedError(
-        "%s needs fleet HA (the replica registry, the supervisor lease and "
-        "standby supervisors), which the port does not have yet" % what)
 
 
 def slot_label(slot):
@@ -361,6 +362,10 @@ class FleetRouter(BackgroundHTTPServer):
     Health path: a background thread polls each backend's ``/healthz``
     and scrapes its ``/metrics`` gauges every ``check_interval_s``;
     transitions eject and readmit, probe successes close the breaker.
+    With a ``registry`` (:class:`~.registry.ReplicaRegistry`) each sweep
+    first syncs the backend set from the registry's records
+    (:meth:`sync_registry`), so N routers over one registry serve one
+    membership, each with its own health state and breakers.
     """
 
     def __init__(self, addr=("127.0.0.1", 0), backends=(),
@@ -370,8 +375,6 @@ class FleetRouter(BackgroundHTTPServer):
                  trace_spool_dir=None, registry=None,
                  prefix_tier_url=None, prefill_min_prompt=None,
                  affinity_block=16, affinity_slack=4.0, verbose=False):
-        if registry is not None:
-            _refuse_ha("FleetRouter(registry=...)")
         knobs = resolve_fleet_knobs(
             prefix_tier_url=prefix_tier_url,
             prefill_min_prompt=prefill_min_prompt,
@@ -379,9 +382,11 @@ class FleetRouter(BackgroundHTTPServer):
         BackgroundHTTPServer.__init__(self, addr, _RouterHandler,
                                       verbose=verbose)
         # the prefix tier's URL (for /fleet/status and the tier's lane in
-        # /fleet/metrics), the prefill-hop prompt gate and the affinity
-        # scheme: hash the prompt's leading affinity_block tokens
+        # /fleet/metrics; a registry cache-role record overrides it), the
+        # prefill-hop prompt gate and the affinity scheme: hash the
+        # prompt's leading affinity_block tokens
         self.prefix_tier_url = knobs["prefix_tier_url"] or None
+        self._registry_tier_url = None   # guarded-by: _lock
         self.prefill_min_prompt = knobs["prefill_min_prompt"]
         self.affinity_block = int(affinity_block)
         self.affinity_slack = float(affinity_slack)
@@ -389,6 +394,12 @@ class FleetRouter(BackgroundHTTPServer):
         # the span spool shared with the replicas: /fleet/trace reads it so
         # a SIGKILLed replica's spans still reach the merged trace
         self.trace_spool_dir = trace_spool_dir
+        # the shared replica registry: the health loop syncs membership
+        # from it; the lease is only displayed (a reader never contends)
+        self.registry = registry
+        self._registry_urls = set()   # guarded-by: _lock
+        self._lease_view = None if registry is None else \
+            Lease.reader(registry.lease_path())
         self.check_interval_s = float(check_interval_s)
         self.request_timeout = float(request_timeout)
         # the route budget covers one wedged attempt AND a retry on a
@@ -493,9 +504,9 @@ class FleetRouter(BackgroundHTTPServer):
         ``replica="prefix-tier"``. Unreachable replicas are skipped."""
         pages = [("router", self.router_metrics_text())]
         targets = [(b.name, b.url + "/metrics") for b in self.backends()]
-        if self.prefix_tier_url:
-            targets.append(("prefix-tier",
-                            self.prefix_tier_url.rstrip("/") + "/metrics"))
+        tier = self.tier_url()
+        if tier is not None:
+            targets.append(("prefix-tier", tier + "/metrics"))
         fetched = self._gather_get(targets)
         for name, _url in targets:
             text = fetched.get(name)
@@ -542,8 +553,8 @@ class FleetRouter(BackgroundHTTPServer):
         doc["handoff"] = {
             outcome: catalog.HANDOFF_PREFILLS.value(outcome=outcome)
             for outcome in ("ok", "failed", "unavailable", "skipped")}
-        if self.prefix_tier_url:
-            tier = self.prefix_tier_url.rstrip("/")
+        tier = self.tier_url()
+        if tier is not None:
             entry = {"url": tier}
             raw = self._http_get(tier + "/v1/prefix/stats")
             entry["reachable"] = raw is not None
@@ -553,7 +564,23 @@ class FleetRouter(BackgroundHTTPServer):
                 except ValueError:
                     pass
             doc["roles"]["cache_tier"] = entry
+        if self.registry is not None:
+            # the control plane at a glance: who holds the supervisor lease
+            # (and for how much longer), how fresh the registry heartbeats
+            # are, and any pending respawns' not_before gates
+            doc["lease"] = self._lease_view.describe()
+            doc["registry"] = self.registry.describe()
         return doc
+
+    def tier_url(self):
+        """The prefix tier's base URL: a live registry ``cache``-role
+        record wins (it follows the live process), else the configured
+        ``prefix_tier_url``; None when the fleet has no tier."""
+        with self._lock:
+            if self._registry_tier_url:
+                return self._registry_tier_url
+        return self.prefix_tier_url.rstrip("/") if self.prefix_tier_url \
+            else None
 
     def fleet_trace(self, request_id=None, trace_id=None):
         """ONE chrome-trace for one request across the fleet: the router's
@@ -643,8 +670,60 @@ class FleetRouter(BackgroundHTTPServer):
             self._transition(backend, "stalled")
         return status
 
+    def sync_registry(self):
+        """Converge the backend set on the shared registry's membership:
+        records in state ``ready`` become backends (named by logical slot,
+        so metrics and breakers follow the slot across respawns); backends
+        a sync added are dropped once their record is withdrawn. Manually
+        added backends are never touched. Stale-heartbeat records are kept
+        (the data plane outlives a dead supervisor; the health loop, not
+        the registry, governs rotation) until the next lease holder
+        reconciles the registry."""
+        if self.registry is None:
+            return
+        all_recs = self.registry.records()
+        # cache-role records name the prefix tier, not traffic backends:
+        # the newest LIVE ready one wins. The tier has no health-loop
+        # corrector, so a dead tier's stale record ages out here (by
+        # heartbeat TTL) instead of overriding the configured URL
+        now = time.time()
+        tiers = [r for r in all_recs
+                 if r.get("role") == "cache" and r.get("state") == "ready"
+                 and r.get("url")
+                 and now - r.get("heartbeat_unix", 0.0)
+                 <= self.registry.ttl_s]
+        with self._lock:
+            self._registry_tier_url = \
+                tiers[-1]["url"].rstrip("/") if tiers else None
+        recs = {r["url"].rstrip("/"): r
+                for r in all_recs
+                if r.get("state") == "ready" and r.get("url")
+                and r.get("role") != "cache"}
+        with self._lock:
+            known = set(self._backends)
+            from_registry = set(self._registry_urls)
+        for url, rec in recs.items():
+            if url not in known:
+                self.add_backend(url, name=slot_label(rec["slot"]),
+                                 role=rec.get("role", "both"))
+                with self._lock:
+                    self._registry_urls.add(url)
+            elif url not in from_registry:
+                # a backend the co-located supervisor added that the
+                # registry also names is registry-owned from now on: when
+                # a later lease holder replaces the replica and withdraws
+                # its record, this router drops the stale URL
+                with self._lock:
+                    self._registry_urls.add(url)
+        for url in from_registry - set(recs):
+            self.remove_backend(url)
+            with self._lock:
+                self._registry_urls.discard(url)
+
     def check_once(self):
-        """One full health sweep (the health thread's body)."""
+        """One full health sweep (the health thread's body): the registry
+        sync, then every backend's probe."""
+        self.sync_registry()
         for b in self.backends():
             if self.check_backend(b) == "ok":
                 self._scrape_gauges(b)
@@ -1066,6 +1145,68 @@ def latest_artifact(root):
 # Replica supervisor
 # ---------------------------------------------------------------------------
 
+class _AdoptedProc:
+    """Popen-compatible handle over a replica process this supervisor did
+    NOT spawn — the adoption primitive. A standby that takes over the
+    lease inherits replicas whose real parent (the dead supervisor) is
+    gone, so there is no Popen to hold: liveness is probed with
+    ``kill(pid, 0)`` and signals go through ``os.kill``. The exit status of
+    a non-child is unknowable: poll() reports ``-1`` once the pid
+    vanishes, which the repair loop treats like any crash."""
+
+    def __init__(self, pid):
+        self.pid = pid
+        self._rc = None
+
+    def poll(self):
+        if self._rc is not None:
+            return self._rc
+        if not self.pid:
+            self._rc = -1
+            return self._rc
+        try:
+            os.kill(self.pid, 0)
+        except ProcessLookupError:
+            self._rc = -1     # gone; real status died with the parent
+            return self._rc
+        except PermissionError:
+            return None       # alive under another uid
+        # kill(pid, 0) succeeds on a ZOMBIE: a killed adoptee whose real
+        # parent has not reaped it. Only that parent can; to us it is
+        # dead, and treating it as alive would wedge stop()/wait()
+        try:
+            with open("/proc/%d/stat" % self.pid) as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            if state == "Z":
+                self._rc = -1
+                return self._rc
+        except (OSError, IndexError):
+            pass              # no procfs: the kill probe decides
+        return None
+
+    def send_signal(self, sig):
+        if self.poll() is None:
+            try:
+                os.kill(self.pid, sig)
+            except OSError:
+                pass
+
+    def terminate(self):
+        self.send_signal(signal.SIGTERM)
+
+    def kill(self):
+        self.send_signal(signal.SIGKILL)
+
+    def wait(self, timeout=None):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self.poll() is None:
+            if deadline is not None and time.monotonic() >= deadline:
+                raise subprocess.TimeoutExpired(
+                    "<adopted pid %s>" % self.pid, timeout)
+            time.sleep(0.02)
+        return self._rc
+
+
 class _Replica:
     """One supervised replica process."""
 
@@ -1082,6 +1223,7 @@ class _Replica:
         self.not_before = 0.0         # monotonic respawn gate (backoff)
         self.started_mono = time.monotonic()
         self.ready_s = None           # spawn to ready, seconds
+        self.incarnation = None       # registry record nonce (ours)
 
     @property
     def role(self):
@@ -1120,6 +1262,25 @@ class ReplicaSupervisor:
       rolls the fleet onto it (:meth:`hot_swap`): replacement first, then
       drain, so capacity never dips;
     * scales with :meth:`scale_to` / :meth:`autoscale_step`.
+
+    Control-plane HA: with a shared ``registry``
+    (:class:`~.registry.ReplicaRegistry`) the supervisor runs the
+    fault-tolerant-master protocol over the registry's
+    ``supervisor.lease`` file:
+
+    * the ACTIVE supervisor publishes one registry record per replica
+      (heartbeated every sweep; routers sync membership from them) and
+      renews the lease (every sweep, and every ``lease_secs / 3`` while
+      it waits for a replica to boot); losing a renewal demotes it on the
+      spot: it abandons, never kills, its replicas and stands by;
+    * a STANDBY (``standby=True``, or an active that lost the lease)
+      supervises nothing and polls the lease; acquiring it over a dead
+      holder (``lease_takeovers_total``) ADOPTS the fleet: every
+      still-healthy registered replica is re-published under the new
+      incarnation and managed in place (``replicas_adopted_total``) —
+      same pid, same crash counter, no respawn — while ``backoff``
+      records keep their respawn gate and dead or unready records are
+      signalled and withdrawn so deficit repair replaces them.
     """
 
     def __init__(self, make_argv, *, replicas=2, prefill_replicas=0,
@@ -1130,13 +1291,11 @@ class ReplicaSupervisor:
                  stable_after_s=30.0, hot_swap_poll_s=2.0, min_replicas=1,
                  max_replicas=8, scale_up_depth=8.0,
                  scale_down_idle_sweeps=10, registry=None, lease_secs=None,
-                 standby=False, env=None, log_dir=None, verbose=False):
-        if registry is not None:
-            _refuse_ha("ReplicaSupervisor(registry=...)")
-        if standby:
-            _refuse_ha("ReplicaSupervisor(standby=True)")
-        if lease_secs is not None:
-            _refuse_ha("ReplicaSupervisor(lease_secs=...)")
+                 standby=False, adopt_ready_timeout_s=5.0, env=None,
+                 log_dir=None, verbose=False):
+        if standby and registry is None:
+            raise ValueError("standby=True needs a registry (a standby "
+                             "takes over through the registry's lease)")
         self.make_argv = make_argv
         self.n_replicas = int(replicas)
         self.n_prefill = int(prefill_replicas)
@@ -1144,6 +1303,12 @@ class ReplicaSupervisor:
         self.router = router
         self.host = host
         self.artifact_root = artifact_root
+        self.registry = registry
+        self.lease = None if registry is None else \
+            Lease(registry.lease_path(), lease_secs=lease_secs,
+                  holder=registry.holder)
+        self.adopt_ready_timeout_s = float(adopt_ready_timeout_s)
+        self._standby = bool(standby)   # guarded-by: _lock
         self.check_interval_s = float(check_interval_s)
         self.ready_timeout_s = float(ready_timeout_s)
         self.drain_timeout_s = float(drain_timeout_s)
@@ -1230,10 +1395,22 @@ class ReplicaSupervisor:
 
     def _wait_ready(self, replica, timeout=None):
         """Poll the replica's /healthz until it answers ready; False when
-        the process dies or the deadline passes first."""
+        the process dies or the deadline passes first. An ACTIVE
+        supervisor renews its lease every ``lease_secs / 3`` while it
+        waits: a replica's cold start on the card (9.6-14.8 s, H100 at
+        700 W, ``chip_smoke.py`` phase 19) outlasts the default 5 s lease,
+        and a lease left to expire mid-boot would hand the fleet to a
+        standby over a routine repair."""
         deadline = time.monotonic() + (self.ready_timeout_s
                                        if timeout is None else timeout)
+        last_renew = time.monotonic()
+        renew_every = None if self.lease is None else \
+            max(0.1, self.lease.lease_secs / 3.0)
         while time.monotonic() < deadline and not self._stop.is_set():
+            if renew_every is not None and not self.is_standby() and \
+                    time.monotonic() - last_renew >= renew_every:
+                last_renew = time.monotonic()
+                self.lease.renew()  # best-effort; the sweep demotes
             if replica.proc.poll() is not None:
                 return False
             try:
@@ -1257,6 +1434,15 @@ class ReplicaSupervisor:
         if self.router is not None:
             self.router.add_backend(replica.url, name=slot_label(replica.slot),
                                     role=replica.role)
+        if self.registry is not None and replica.incarnation is None:
+            # adoption arrives here with a nonce already re-published under
+            # OUR identity; a freshly spawned replica claims its slot's
+            # record now (routers sync membership from it)
+            replica.incarnation = self.registry.publish(
+                replica.slot, replica.url,
+                pid=replica.proc.pid if replica.proc else None,
+                serial=replica.serial, state="ready",
+                failures=replica.failures, role=replica.role)
 
     def _kill(self, replica):
         if replica.proc.poll() is None:
@@ -1268,13 +1454,43 @@ class ReplicaSupervisor:
         """Resolve the initial artifact serial, spawn the fleet (the
         processes boot concurrently), wait until every replica is ready
         and routed, start the watch thread. Raises RuntimeError with the
-        failed replicas' log tails when the fleet cannot come up."""
+        failed replicas' log tails when the fleet cannot come up.
+
+        With a ``registry``: first contend for the supervisor lease.
+        Losing it (an unexpired holder stands), or ``standby=True``,
+        starts this supervisor as a STANDBY: nothing is spawned, and the
+        watch thread polls the lease and takes over (adopting the
+        registered fleet) when the holder dies. Winning it adopts any
+        still-healthy registered replicas first and spawns only the
+        difference."""
         if self.artifact_root is not None:
             found = latest_artifact(self.artifact_root)
             if found is not None:
                 self.current_serial = found[0]
-        slots = list(range(self.n_replicas)) + \
-            [PREFILL_SLOT_BASE + i for i in range(self.n_prefill)]
+        if self.lease is not None and (
+                self.is_standby()  # standby=True: never contend at start
+                or not self._try_become_active()):
+            self._log("standby: lease held by %r — watching for expiry"
+                      % ((self.lease.read() or {}).get("holder"),))
+            self._start_watch()
+            return self
+        with self._lock:
+            # adopted backoff records count too: their pending respawn owns
+            # the slot behind its preserved gate
+            adopted = {r.slot for r in self._replicas} | \
+                      {p.slot for p in self._pending}
+        slots = []
+        for base, want in ((0, self.n_replicas),
+                           (PREFILL_SLOT_BASE, self.n_prefill)):
+            prefill_ns = base == PREFILL_SLOT_BASE
+            have = sum(1 for s in adopted
+                       if (s >= PREFILL_SLOT_BASE) == prefill_ns)
+            need, slot = max(0, want - have), base
+            while need > 0:
+                if slot not in adopted:
+                    slots.append(slot)
+                    need -= 1
+                slot += 1
         spawned = [self._spawn(self.current_serial, slot) for slot in slots]
         # one waiter a replica, so each one's ready_s is its own cold start
         ready = {}
@@ -1302,12 +1518,15 @@ class ReplicaSupervisor:
             raise RuntimeError("fleet: %d/%d replicas failed to become "
                                "ready\n%s" % (len(failed), len(spawned),
                                               tails))
+        self._start_watch()
+        return self
+
+    def _start_watch(self):
         self._stop.clear()
         self._last_swap_poll = time.monotonic()
         self._watch_thread = threading.Thread(
             target=self._watch_loop, name="fleet-supervisor", daemon=True)
         self._watch_thread.start()
-        return self
 
     def stop(self, drain=True):
         """Stop supervising and stop every replica (SIGTERM drain by
@@ -1332,6 +1551,10 @@ class ReplicaSupervisor:
                 time.sleep(0.05)
             self._kill(rep)
             self._remove(rep)
+        if self.lease is not None:
+            # clean shutdown: drop the lease now, so a standby takes over
+            # at once instead of waiting out the expiry
+            self.lease.release()
 
     def _remove(self, replica):
         with self._lock:
@@ -1339,6 +1562,13 @@ class ReplicaSupervisor:
                 self._replicas.remove(replica)
         if self.router is not None:
             self.router.remove_backend(replica.url)
+        if self.registry is not None and replica.incarnation is not None:
+            try:
+                self.registry.withdraw(replica.slot, replica.incarnation)
+            except StaleIncarnationError:
+                pass  # re-published by a newer owner: theirs now
+            # a crash-respawn of this replica claims a FRESH record
+            replica.incarnation = None
 
     def replicas(self):
         with self._lock:
@@ -1347,8 +1577,18 @@ class ReplicaSupervisor:
     def describe(self):
         with self._lock:
             pending = [p.describe() for p in self._pending]
-        return {"replicas": [r.describe() for r in self.replicas()],
-                "pending_respawn": pending, "serial": self.current_serial}
+        doc = {"replicas": [r.describe() for r in self.replicas()],
+               "pending_respawn": pending, "serial": self.current_serial}
+        if self.lease is not None:
+            doc["standby"] = self.is_standby()
+            doc["lease"] = self.lease.describe()
+        return doc
+
+    def is_standby(self):
+        """Is this supervisor standing by (not holding the lease,
+        supervising nothing)?"""
+        with self._lock:
+            return self._standby
 
     # -- crash-restart loop -------------------------------------------
     def _backoff_for(self, failures):
@@ -1363,9 +1603,12 @@ class ReplicaSupervisor:
                 sys.stderr.write("fleet supervisor: sweep failed: %s\n" % e)
 
     def _watch_once(self):
-        """One supervision sweep: reap crashes, respawn after backoff,
-        reset crash counters on stability, poll the artifact root for a
-        newer serial, autoscale if enabled."""
+        """One supervision sweep: contend for or renew the lease (with a
+        registry), reap crashes, respawn after backoff, reset crash
+        counters on stability, poll the artifact root for a newer serial,
+        autoscale if enabled, heartbeat the registry."""
+        if self.lease is not None and not self._lease_sweep():
+            return  # standing by: supervise nothing this sweep
         now = time.monotonic()
         if self._shape_lock.acquire(blocking=False):
             try:
@@ -1381,6 +1624,162 @@ class ReplicaSupervisor:
                 self.hot_swap(found[0])
         if self.autoscale:
             self.autoscale_step()
+        if self.registry is not None:
+            self._publish_registry()
+
+    # -- control-plane HA ---------------------------------------------
+    def _lease_sweep(self):
+        """The lease half of one sweep. Returns True when this supervisor
+        is (still or newly) ACTIVE."""
+        if self.is_standby():
+            if not self._try_become_active():
+                return False
+            self._log("standby promoted: lease acquired, fleet adopted")
+            return True
+        if not self.lease.renew():
+            self._demote()
+            return False
+        return True
+
+    def _try_become_active(self):
+        """Contend for the lease. On success, count a takeover when a
+        PRIOR holder's record stood (a first acquisition over an empty
+        path is not a takeover), adopt the registered fleet, and return
+        True."""
+        prior = self.lease.read()
+        if not self.lease.try_acquire():
+            with self._lock:
+                self._standby = True
+            return False
+        if prior is not None and \
+                prior.get("holder") != self.lease.holder:
+            catalog.LEASE_TAKEOVERS.inc()
+            self._log("lease takeover from %r (seq %s)"
+                      % (prior.get("holder"), prior.get("seq")))
+        with self._lock:
+            self._standby = False
+        with self._shape_lock:
+            self._adopt_registered()
+        return True
+
+    def _demote(self):
+        """The lease was lost (expired and taken by a sibling while this
+        supervisor was not renewing): stop shaping the fleet NOW. The
+        replicas are ABANDONED, never killed: the new holder has adopted
+        (or is adopting) them, and killing one here would be the
+        split-brain double action the incarnation guard prevents."""
+        with self._lock:
+            orphans = len(self._replicas)
+            self._replicas = []
+            self._pending = []
+            self._standby = True
+        self._log("lease lost — demoted to standby, abandoned %d "
+                  "replica(s) to the new holder" % orphans)
+
+    def _adopt_registered(self):
+        """Reconcile the fleet from the shared registry after winning the
+        lease: still-healthy ``ready`` replicas are adopted IN PLACE (same
+        pid, same crash counter; re-published under our incarnation, so
+        the previous owner's late heartbeats are rejected), ``backoff``
+        records keep their respawn gate, and dead, unready or retiring
+        records are signalled and withdrawn so deficit repair replaces
+        them. Returns the number adopted."""
+        adopted = 0
+        now_wall, now_mono = time.time(), time.monotonic()
+        for rec in self.registry.records():
+            slot, url = rec.get("slot"), rec.get("url")
+            if slot is None or not url:
+                continue
+            if rec.get("role") == "cache":
+                continue  # the prefix tier's record: not ours to own
+            with self._lock:
+                taken = {r.slot for r in self._replicas} | \
+                        {p.slot for p in self._pending}
+                if slot in taken:
+                    continue
+                self._seq += 1
+                name = "r%d" % self._seq
+            port = urllib.parse.urlsplit(url).port or 0
+            rep = _Replica(name, port, url, rec.get("serial"),
+                           _AdoptedProc(rec.get("pid")), os.devnull, slot)
+            rep.failures = int(rec.get("failures", 0))
+            if rec.get("state") == "ready" and self._wait_ready(
+                    rep, timeout=self.adopt_ready_timeout_s):
+                rep.incarnation = self.registry.publish(
+                    slot, url, pid=rec.get("pid"), serial=rec.get("serial"),
+                    state="ready", failures=rep.failures, role=rep.role)
+                self._register(rep)
+                catalog.REPLICAS_ADOPTED.inc()
+                adopted += 1
+                self._log("adopted replica slot=%d pid=%s url=%s "
+                          "(failures=%d preserved)"
+                          % (slot, rec.get("pid"), url, rep.failures))
+            elif rec.get("state") == "backoff":
+                # keep the crash count AND the wall-clock respawn gate: a
+                # takeover must not turn one crash loop into a storm
+                rep.state = "backoff"
+                rep.not_before = now_mono + max(
+                    0.0, rec.get("not_before_unix", 0.0) - now_wall)
+                rep.incarnation = self.registry.publish(
+                    slot, url, pid=rec.get("pid"), serial=rec.get("serial"),
+                    state="backoff", failures=rep.failures, role=rep.role,
+                    not_before_unix=rec.get("not_before_unix", 0.0))
+                with self._lock:
+                    self._pending.append(rep)
+            else:
+                # ready-but-dead, unready, or mid-retire: signal the
+                # process (it may be live but slow; left alone it would
+                # hold its card memory and port unsupervised) and withdraw
+                # the record so deficit repair replaces it
+                if rec.get("pid"):
+                    try:
+                        os.kill(int(rec["pid"]), signal.SIGTERM)
+                    except (OSError, ValueError):
+                        pass
+                self.registry.withdraw(slot)
+        return adopted
+
+    def _publish_registry(self):
+        """Heartbeat every owned record (routers judge freshness by it; a
+        standby reads failures and backoff state at adoption). A
+        :class:`StaleIncarnationError` means a newer holder re-published
+        the record: that replica is no longer ours and is dropped WITHOUT
+        being touched."""
+        now_wall, now_mono = time.time(), time.monotonic()
+        for rep in self.replicas():
+            if rep.incarnation is None:
+                continue
+            try:
+                self.registry.heartbeat(rep.slot, rep.incarnation,
+                                        state=rep.state,
+                                        failures=rep.failures,
+                                        serial=rep.serial)
+            except StaleIncarnationError:
+                self._log("slot %d taken over — dropping %s unharmed"
+                          % (rep.slot, rep.name))
+                with self._lock:
+                    if rep in self._replicas:
+                        self._replicas.remove(rep)
+        with self._lock:
+            pending = list(self._pending)
+        for rep in pending:
+            nb_wall = now_wall + max(0.0, rep.not_before - now_mono)
+            try:
+                if rep.incarnation is None:
+                    rep.incarnation = self.registry.publish(
+                        rep.slot, rep.url,
+                        pid=rep.proc.pid if rep.proc else None,
+                        serial=rep.serial, state="backoff",
+                        failures=rep.failures, role=rep.role,
+                        not_before_unix=nb_wall)
+                else:
+                    self.registry.heartbeat(
+                        rep.slot, rep.incarnation, state="backoff",
+                        failures=rep.failures, not_before_unix=nb_wall)
+            except StaleIncarnationError:
+                with self._lock:
+                    if rep in self._pending:
+                        self._pending.remove(rep)
 
     def _repair_once(self, now):
         for rep in self.replicas():
@@ -1422,6 +1821,15 @@ class ReplicaSupervisor:
                 dropped = have >= (self.n_prefill if prefill_ns
                                    else self.n_replicas)
             if dropped:
+                # withdraw the slot's backoff record too, or a later lease
+                # takeover re-adopts the phantom and respawns a replica
+                # the fleet shed on purpose
+                if self.registry is not None and \
+                        prev.incarnation is not None:
+                    try:
+                        self.registry.withdraw(prev.slot, prev.incarnation)
+                    except StaleIncarnationError:
+                        pass  # re-published by a newer owner: theirs
                 continue
             fresh = self._spawn(self.current_serial, prev.slot)
             fresh.failures = prev.failures
@@ -1701,11 +2109,20 @@ def _parser():
                     help="span spool shared by the router and the replicas "
                          "(default <log-dir>/trace; 'off' disables)")
     ap.add_argument("--registry-dir", default=None,
-                    help="fleet HA: not ported (raises)")
+                    help="shared fleet registry root: run several fleet "
+                         "processes over the SAME dir and every router "
+                         "serves the same membership while exactly one "
+                         "supervisor (the lease holder) shapes the fleet; "
+                         "the rest stand by and adopt its replicas if it "
+                         "dies (default FLAGS_fleet_registry_dir)")
     ap.add_argument("--lease-secs", type=float, default=None,
-                    help="fleet HA: not ported (raises)")
+                    help="supervisor lease duration (default "
+                         "FLAGS_fleet_lease_secs); a dead supervisor is "
+                         "taken over within this many seconds")
     ap.add_argument("--standby", action="store_true",
-                    help="fleet HA: not ported (raises)")
+                    help="start the supervisor as a standby even if the "
+                         "lease is free (requires --registry-dir); the "
+                         "router still serves the registry's membership")
     ap.add_argument("--verbose", action="store_true")
     return ap
 
@@ -1713,11 +2130,8 @@ def _parser():
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, given in (("--registry-dir", args.registry_dir is not None),
-                        ("--lease-secs", args.lease_secs is not None),
-                        ("--standby", args.standby)):
-        if given:
-            _refuse_ha(flag)
+    if args.standby and not args.registry_dir:
+        ap.error("--standby requires --registry-dir")
     if args.prefill_replicas and not args.generation_model:
         ap.error("--prefill-replicas requires --generation-model")
     if args.prefill_replicas and not args.kv_transfer_dir:
@@ -1783,10 +2197,25 @@ def main(argv=None):
     def make_prefill_argv(port, serial_dir):
         return make_argv(port, serial_dir) + ["--role", "prefill"]
 
+    # control-plane HA: a shared registry dir makes this process one of N
+    # interchangeable control planes. Its router serves the registry's
+    # membership; its supervisor contends for the lease (the active one
+    # shapes the fleet; standbys adopt on takeover)
+    from .registry import ReplicaRegistry
+    registry = None
+    knobs = resolve_fleet_knobs(registry_dir=args.registry_dir,
+                                lease_secs=args.lease_secs,
+                                which=("registry_dir", "lease_secs"))
+    if knobs["registry_dir"]:
+        # records heartbeat once a supervision sweep; slow sweeps get
+        # slack before routers treat the membership as stale
+        registry = ReplicaRegistry(
+            knobs["registry_dir"], ttl_s=max(3.0 * args.check_interval_s,
+                                             knobs["lease_secs"]))
     router = FleetRouter(
         (args.host, args.port), check_interval_s=args.check_interval_s,
         request_timeout=args.request_timeout, trace_spool_dir=spool_dir,
-        prefix_tier_url=args.prefix_tier_url,
+        registry=registry, prefix_tier_url=args.prefix_tier_url,
         prefill_min_prompt=args.prefill_min_prompt, verbose=args.verbose)
     supervisor = ReplicaSupervisor(
         make_argv, replicas=args.replicas,
@@ -1797,7 +2226,9 @@ def main(argv=None):
         drain_timeout_s=args.drain_timeout,
         hot_swap_poll_s=args.hot_swap_poll_s,
         min_replicas=args.min_replicas, max_replicas=args.max_replicas,
-        env=replica_env, log_dir=log_dir, verbose=args.verbose)
+        registry=registry, lease_secs=args.lease_secs,
+        standby=args.standby, env=replica_env, log_dir=log_dir,
+        verbose=args.verbose)
     supervisor.autoscale = args.autoscale
 
     router.start_background()
@@ -1817,11 +2248,16 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _drain)
     signal.signal(signal.SIGTERM, _drain)
     host, port = router.server_address[:2]
-    print("fleet: router http://%s:%d  replicas=%s serial=%s ready_s=%s"
+    role = ""
+    if registry is not None:
+        role = "  role=%s" % ("standby" if supervisor.is_standby()
+                              else "active")
+    print("fleet: router http://%s:%d  replicas=%s serial=%s ready_s=%s%s"
           % (host, port, [r.url for r in supervisor.replicas()],
              supervisor.current_serial,
              {slot_label(r.slot): round(r.ready_s, 3)
-              for r in supervisor.replicas()}),
+              for r in supervisor.replicas() if r.ready_s is not None},
+             role),
           file=sys.stderr, flush=True)
     done.wait()
     supervisor.stop()

@@ -34,12 +34,14 @@ reference donated them to XLA.
                  static tensors (token feedback, write coordinates,
                  sampling, EOS/budget freezing, all on the device) is
                  captured once per variant (greedy, or with temperature
-                 draws) and replayed ``k_eff`` times. A graph cannot stop
-                 on device data: the replays after every slot froze do
-                 masked work that writes only the scratch page, and
-                 ``trips`` counts the trips that began with a slot live,
-                 the reference's early-exit count. On the CPU the same
-                 trip runs eagerly ``k_eff`` times.
+                 draws) and becomes the body of a conditional WHILE node
+                 (``ops.megastep_loop``, ``csrc/megastep_loop.cu``): one
+                 megastep is one launch of that graph, whose trips run
+                 while ``t < k_eff`` and a slot is live and stop on the
+                 device as soon as every slot froze. ``trips`` counts them,
+                 and the state's iteration counter, which the loop's
+                 condition kernel bumps, equals it. On the CPU the same
+                 trip runs in the plain loop with the same condition.
 
   speculative  — ``verify_step`` scores a [max_slots, T] chunk (each
                  slot's pending input and the draft's proposals) in one
@@ -72,7 +74,7 @@ import torch
 
 from .. import resolve_device
 from ..observability import catalog, tracing
-from ..ops import launch_count, paged_attention
+from ..ops import launch_count, megastep_loop, paged_attention
 from ..ops.kv_quant import KVQuantConfig
 from . import kv_transfer
 from .batcher import OverloadedError
@@ -318,12 +320,14 @@ class PagedDecodeEngine(_EngineBase):
         self.pool = PagePool(self.num_pages)
         self.prefix_cache = PrefixCache(self.pool, self.page_size)
         self.last_prefill_stats = {}
-        # what the decode path ran: eager decode steps, megasteps, their
-        # trips (replays of a captured trip on the card, eager trips on
-        # the CPU), warm-up trips, captures by variant
+        # what the decode path ran: eager decode steps, megasteps, the
+        # trips they were given (k_eff), the loop graph's launches on the
+        # card, the trips run (body iterations, counted when a megastep
+        # is synced; eager trips on the CPU), warm-up trips, captures by
+        # variant
         self.trip_stats = {"decode_steps": 0, "megasteps": 0,
-                           "trips_dispatched": 0, "replays": 0,
-                           "eager_trips": 0, "warmups": 0,
+                           "trips_dispatched": 0, "loop_launches": 0,
+                           "iterations": 0, "eager_trips": 0, "warmups": 0,
                            "captures_greedy": 0, "captures_sampling": 0}
         self._ms = None
         self.reset()
@@ -851,14 +855,16 @@ class PagedDecodeEngine(_EngineBase):
         v.t += 1
 
     def _ms_graph(self, sample):
-        """The captured trip of one variant (greedy, or with temperature
-        draws), made on first use on the megastep's side stream: a
-        warm-up trip with every slot frozen (it writes only the scratch
-        page and builds K3's plan and workspace and cuBLAS's state for
-        this stream), then the capture of one trip on the same stream.
-        Returns ``(graph, its capture's K3 calls (a
-        ``launch_count.Capture``), K3's workspace)``; the workspace is
-        kept alive with the graph, which holds its address."""
+        """The loop of one variant (greedy, or with temperature draws),
+        made on first use on the megastep's side stream: a warm-up trip
+        with every slot frozen (it writes only the scratch page and
+        builds K3's plan and workspace and cuBLAS's state for this
+        stream), the capture of one trip on the same stream, and the
+        loop graph around it (``ops.megastep_loop.WhileLoop``). Returns
+        ``(loop, the capture's K3 calls a trip (a
+        ``launch_count.Capture``), K3's workspace, the trip's graph)``;
+        the workspace and the torch graph (with its memory pool) are
+        kept alive with the loop, which holds their addresses."""
         m = self._ms
         if sample in m.graphs:
             return m.graphs[sample]
@@ -866,7 +872,9 @@ class PagedDecodeEngine(_EngineBase):
         m.v.t.zero_()
         self._ms_trip(sample)
         self.trip_stats["warmups"] += 1
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the raw graph outlives the capture, to be copied
+        # into the loop's body (the engine never replays it on its own)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # thread_local: the CUDA calls of the server's other threads do
         # not invalidate this thread's capture
         with launch_count.Capture() as per, \
@@ -875,7 +883,8 @@ class PagedDecodeEngine(_EngineBase):
             self._ms_trip(sample)
         ws = paged_attention._workspaces.get((self.device.index,
                                               m.stream.cuda_stream))
-        m.graphs[sample] = (graph, per, ws)
+        loop = megastep_loop.WhileLoop(graph, m.state, m.off)
+        m.graphs[sample] = (loop, per, ws, graph)
         self.trip_stats["captures_sampling" if sample
                         else "captures_greedy"] += 1
         return m.graphs[sample]
@@ -912,12 +921,12 @@ class PagedDecodeEngine(_EngineBase):
         with torch.cuda.stream(m.stream) if cuda else \
                 contextlib.nullcontext():
             graph = self._ms_graph(sample) if cuda else None
-            self._ms_load(m, args, temps)
-            for _ in range(k_eff):
-                if cuda:
-                    graph[0].replay()
-                else:
-                    self._ms_trip(sample)
+            self._ms_load(m, dict(args, k_eff=k_eff), temps)
+            if cuda:
+                graph[0].launch(m.stream)
+            else:
+                ran = megastep_loop.run_plain(
+                    lambda: self._ms_trip(sample), m.state, m.off)
             snap = m.state.clone()
             done = None
             if cuda:
@@ -936,15 +945,17 @@ class PagedDecodeEngine(_EngineBase):
             # step) runs after this megastep, as in the reference's one
             # device queue
             torch.cuda.current_stream(self.device).wait_stream(m.stream)
-            graph[1].replayed(k_eff)
-            st["replays"] += k_eff
+            st["loop_launches"] += 1
         else:
-            st["eager_trips"] += k_eff
+            st["eager_trips"] += ran
         v = _ms_views(snap, self.megastep_k, self.max_slots)
+        # the trip's K3 calls are added once the iteration count is read
+        # back (megastep_sync)
         return {"out": v.out, "n_emitted": v.emitted, "lengths": v.lengths,
                 "live": v.live, "tokens": v.tokens, "trips": v.trips,
-                "caps": v.caps, "step0": v.step0, "k_eff": k_eff,
-                "_host": host, "_done": done}
+                "iterations": v.iters, "caps": v.caps, "step0": v.step0,
+                "k_eff": k_eff, "_host": host, "_done": done,
+                "_per": graph[1] if cuda else None, "_counted": False}
 
     def megastep_dispatch(self, seed, step0, k_eff, temperatures=None,
                           caps=None, eos_id=None, live=None, tokens=None,
@@ -1000,8 +1011,11 @@ class PagedDecodeEngine(_EngineBase):
         tokens are applied: the caller passes the slots it still tracks,
         so a slot released (and perhaps re-admitted) while the megastep
         flew keeps its new state. Returns ``{"out": [trips, S] np.int32
-        (-1 = frozen), "n_emitted": [S], "live": [S] bool, "trips":
-        int}``."""
+        (-1 = frozen), "n_emitted": [S], "live": [S] bool, "trips": int,
+        "iterations": int}``: ``iterations`` is the loop's own count of
+        the trips it ran (the condition kernel's on the card), which
+        equals ``trips``. The first sync of a handle adds the trips' K3
+        launches to the kernel's count."""
         def read(h):
             if h["_done"] is not None:
                 h["_done"].synchronize()
@@ -1009,6 +1023,12 @@ class PagedDecodeEngine(_EngineBase):
         v = _ms_views(self._guarded(read, handle), self.megastep_k,
                       self.max_slots)
         trips = int(v.trips[0])
+        if not handle["_counted"]:
+            handle["_counted"] = True
+            iters = int(v.iters[0])
+            self.trip_stats["iterations"] += iters
+            if handle["_per"] is not None:
+                handle["_per"].replayed(iters)
         moved = v.emitted > 0
         if only is not None:
             mask = np.zeros(self.max_slots, bool)
@@ -1018,7 +1038,8 @@ class PagedDecodeEngine(_EngineBase):
         self._in_tokens[moved] = v.tokens[moved]
         return {"out": v.out[:trips].astype(np.int32),
                 "n_emitted": v.emitted.astype(np.int32),
-                "live": v.live.astype(bool), "trips": trips}
+                "live": v.live.astype(bool), "trips": trips,
+                "iterations": int(v.iters[0])}
 
     def megastep_decode(self, seed, step0, k_eff=None, temperatures=None,
                         caps=None, eos_id=None):
@@ -1276,7 +1297,7 @@ def speculative_greedy_generate(engine, draft_engine, prompts,
 
 
 _MS_ROWS = ("tokens", "lengths", "live", "emitted", "caps", "reserved")
-_MS_SCALARS = ("t", "trips", "step0", "eos", "seed")
+_MS_SCALARS = ("t", "trips", "step0", "eos", "seed", "k_eff", "iters")
 
 
 def _ms_views(buf, K, S):
@@ -1308,13 +1329,20 @@ class _MegastepState:
     """What a captured decode trip reads and writes: one int64 state
     vector (the [megastep_k, S] token buffer, each slot's pending token,
     length, live flag, emitted count, cap and reservation, and the trip
-    index, trip count, step0, EOS id and seed), the temperatures and the
-    page table; the side stream the trips run on, and the captured
-    graphs by variant."""
+    index, trip count, step0, EOS id, seed, k_eff and the loop's
+    iteration count), the temperatures and the page table; the side
+    stream the trips run on, and the loops by variant. ``off`` says
+    where the loop's condition reads (``ops.megastep_loop.Offsets``)."""
 
     def __init__(self, engine):
         K, S, dev = engine.megastep_k, engine.max_slots, engine.device
-        n = K * S + len(_MS_ROWS) * S + len(_MS_SCALARS)
+        rows = K * S + len(_MS_ROWS) * S
+        n = rows + len(_MS_SCALARS)
+        self.off = megastep_loop.Offsets(
+            S=S, live=K * S + _MS_ROWS.index("live") * S,
+            t=rows + _MS_SCALARS.index("t"),
+            k_eff=rows + _MS_SCALARS.index("k_eff"),
+            iters=rows + _MS_SCALARS.index("iters"))
         self.state = torch.zeros(n, dtype=torch.int64, device=dev)
         self.v = _ms_views(self.state, K, S)
         self.temps = torch.zeros(S, dtype=torch.float32, device=dev)

@@ -30,15 +30,17 @@ server's periodic store sweep, and a reader's lease is a TTL record in
 the server that simply expires if the reader dies.
 
 The tier reads and writes files and answers HTTP; it holds no tensor and
-uses no device. The fleet registry's cache-role record
-(``--registry-dir``) is not ported yet.
+uses no device. With ``--registry-dir`` the tier publishes a ``role=cache``
+record into the fleet registry (at :data:`CACHE_SLOT`) and heartbeats it,
+so routers discover the tier's URL the way they discover replicas.
 
     python -m paddle_tpu_torch.serving.prefix_tier --store-dir DIR \
         [--host 127.0.0.1] [--port 8700] [--capacity-mb 512] \
-        [--lease-ttl-s 30] [--sweep-interval-s 2]
+        [--lease-ttl-s 30] [--sweep-interval-s 2] [--registry-dir REG]
 """
 
 import argparse
+import http.client
 import json
 import os
 import queue
@@ -54,9 +56,19 @@ import uuid
 from ..observability import catalog, tracing
 from ..observability.http import BackgroundHTTPServer, JsonHTTPHandler
 from . import kv_transfer
+from . import registry as registry_mod
 
 __all__ = ["PrefixTierClient", "PrefixTierServer", "PrefixTierStore",
-           "make_tier_server", "main"]
+           "make_tier_server", "main", "CACHE_SLOT"]
+
+# the tier's registry record lives above both replica slot namespaces
+CACHE_SLOT = 2000
+
+
+# what a tier call raises when the tier is unreachable or dies mid-answer
+# (a truncated body is an IncompleteRead, an HTTPException, not an OSError)
+_TIER_ERRORS = (urllib.error.URLError, ConnectionError, OSError, ValueError,
+                http.client.HTTPException)
 
 
 def _tier_knobs(timeout_s=None, capacity_mb=None, which=None):
@@ -485,8 +497,7 @@ class PrefixTierClient:
             try:
                 status, doc = self._post("/v1/prefix/lookup",
                                          {"keys": list(keys_hex)})
-            except (urllib.error.URLError, ConnectionError, OSError,
-                    ValueError) as e:
+            except _TIER_ERRORS as e:
                 self._server_failed()
                 catalog.PREFIX_TIER_REQUESTS.inc(op="lookup",
                                                  outcome="error")
@@ -533,8 +544,7 @@ class PrefixTierClient:
             self._post("/v1/prefix/release",
                        {"path": found.get("path", ""),
                         "lease": found["lease"]})
-        except (urllib.error.URLError, ConnectionError, OSError,
-                ValueError):
+        except _TIER_ERRORS:
             return
         catalog.PREFIX_TIER_REQUESTS.inc(op="release", outcome="ok")
 
@@ -563,8 +573,7 @@ class PrefixTierClient:
                 self._server_ok()
                 catalog.PREFIX_TIER_REQUESTS.inc(op="publish",
                                                  outcome="ok")
-            except (urllib.error.URLError, ConnectionError, OSError,
-                    ValueError):
+            except _TIER_ERRORS:
                 # the commit IS the durability point; the sweep adopts
                 self._server_failed()
                 catalog.PREFIX_TIER_REQUESTS.inc(op="publish",
@@ -651,13 +660,11 @@ def main(argv=None):
                     help="store re-scan / lease-expiry / eviction "
                          "cadence")
     ap.add_argument("--registry-dir", default=None,
-                    help="fleet registry root (not ported yet)")
+                    help="fleet registry root: publish + heartbeat a "
+                         "role=cache record so routers discover this "
+                         "tier (default FLAGS_fleet_registry_dir)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.registry_dir:
-        raise NotImplementedError(
-            "--registry-dir: the fleet registry's cache-role record is "
-            "not ported yet (it comes with the fleet)")
     store_dir = kv_transfer.resolve_kv_transfer_knobs(
         transfer_dir=args.store_dir, which=("transfer_dir",))[
         "transfer_dir"]
@@ -668,6 +675,14 @@ def main(argv=None):
         capacity_mb=args.capacity_mb, lease_ttl_s=args.lease_ttl_s,
         sweep_interval_s=args.sweep_interval_s, verbose=args.verbose)
     server.start_background()
+    registry = incarnation = None
+    reg_dir = registry_mod.resolve_fleet_knobs(
+        registry_dir=args.registry_dir, which=("registry_dir",))[
+        "registry_dir"]
+    if reg_dir:
+        registry = registry_mod.ReplicaRegistry(reg_dir)
+        incarnation = registry.publish(CACHE_SLOT, server.url,
+                                       pid=os.getpid(), role="cache")
     done = threading.Event()
 
     def _stop(signum, frame):
@@ -680,8 +695,19 @@ def main(argv=None):
     print("prefix tier: %s store=%s entries=%d bytes=%d"
           % (server.url, store_dir, st["entries"], st["bytes"]),
           file=sys.stderr, flush=True)
-    while not done.wait(1.0):
-        pass
+    while not done.wait(max(1.0, args.sweep_interval_s)):
+        if registry is not None:
+            try:
+                registry.heartbeat(CACHE_SLOT, incarnation)
+            except registry_mod.StaleIncarnationError:
+                # another tier took the slot over: serve on, but stop
+                # advertising (routers follow the registry's choice)
+                registry = None
+    if registry is not None:
+        try:
+            registry.withdraw(CACHE_SLOT, incarnation)
+        except registry_mod.StaleIncarnationError:
+            pass
     server.stop(5.0)
     print("prefix tier: stopped", file=sys.stderr)
     return 0

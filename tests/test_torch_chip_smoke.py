@@ -470,26 +470,32 @@ def test_k3_checks_cover_the_split_edges_and_a_wide_table(tiny_serving,
 
 
 def test_trip_gate_and_the_launch_arithmetic(monkeypatch):
-    """On the card: one capture and one warm-up trip per variant used,
-    every dispatched trip a replay; K3 owes a launch a layer for every
-    eager step, trip and warm-up trip; the profile's K3 instances."""
+    """On the card: one capture and one warm-up trip per variant used, one
+    loop launch per megastep and the trips run (body iterations) within
+    the trips dispatched and equal to the synced trips; K3 owes a launch
+    a layer for every eager step, trip run and warm-up trip; the
+    profile's K3 instances."""
     trip = {"decode_steps": 3, "megasteps": 4, "trips_dispatched": 20,
-            "replays": 20, "eager_trips": 0, "warmups": 1,
-            "captures_greedy": 1, "captures_sampling": 0}
+            "loop_launches": 4, "iterations": 17, "eager_trips": 0,
+            "warmups": 1, "captures_greedy": 1, "captures_sampling": 0}
     monkeypatch.setattr(cs, "DEVICE", "cuda")
     cs.trip_gate("served", trip, {"greedy"})
+    cs.trip_gate("served", trip, {"greedy"}, trips=17)
     cs.trip_gate("gate", dict(trip, captures_sampling=1, warmups=2),
                  {"greedy", "sampling"})
-    assert cs.launch_want(trip, 12) == 12 * (3 + 20 + 1)
-    for bad in ({"captures_greedy": 2, "warmups": 2}, {"replays": 19},
-                {"eager_trips": 20, "replays": 0}, {"warmups": 0},
+    assert cs.launch_want(trip, 12) == 12 * (3 + 17 + 1)
+    for bad in ({"captures_greedy": 2, "warmups": 2}, {"loop_launches": 3},
+                {"eager_trips": 17, "loop_launches": 0}, {"warmups": 0},
                 {"captures_sampling": 1, "warmups": 2},
-                {"trips_dispatched": 0, "replays": 0}):
+                {"megasteps": 0, "loop_launches": 0}, {"iterations": 0},
+                {"iterations": 21}):
         with pytest.raises(AssertionError):
             cs.trip_gate("served", dict(trip, **bad), {"greedy"})
+    with pytest.raises(AssertionError):
+        cs.trip_gate("served", trip, {"greedy"}, trips=16)
     monkeypatch.setattr(cs, "DEVICE", "cpu")
-    cs.trip_gate("served", dict(trip, replays=0, eager_trips=20, warmups=0,
-                                captures_greedy=0), {"greedy"})
+    cs.trip_gate("served", dict(trip, loop_launches=0, eager_trips=17,
+                                warmups=0, captures_greedy=0), {"greedy"})
     with pytest.raises(AssertionError):
         cs.trip_gate("served", trip, {"greedy"})
     for key, want in (

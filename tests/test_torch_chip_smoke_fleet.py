@@ -56,9 +56,11 @@ def test_fleet_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
                                           monkeypatch, capsys):
     """Phase 19 at a tiny size: the fleet CLI (two decode replicas, a
     prefill replica, the tier; ``--device cpu``) with one decode replica
-    SIGKILLed under load, then one replica of the API fleet rolled by
-    ``hot_swap`` onto an int8-weight serial. On the CPU the replicas take
-    K3's plain version, so their drain lines count no launch."""
+    SIGKILLed under load; (c) the active CLI SIGKILLed under load and the
+    standby CLI adopting the three replicas; then one replica of the API
+    fleet rolled by ``hot_swap`` onto an int8-weight serial. On the CPU
+    the replicas take K3's plain version, so their drain lines count no
+    launch."""
     for name, value in (("DIS_LAYERS", 2), ("FLEET_PREFIX", 16),
                         ("FLEET_SUFFIX", (4, 8)), ("FLEET_SHORT", (3, 8)),
                         ("FLEET_NEW", (3, 6)), ("FLEET_PROMPTS", 6),
@@ -67,7 +69,7 @@ def test_fleet_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
                         ("FLEET_BUCKETS", "16,32"), ("FLEET_PAGES", 64),
                         ("FLEET_OVERHEAD_PAIRS", 2), ("ROLL_REPLICAS", 1),
                         ("ROLL_WAVE", 6), ("FLEET_BOOT_S", 120),
-                        ("FLEET_DRAIN_S", 30)):
+                        ("FLEET_DRAIN_S", 30), ("FLEET_LEASE_S", 2)):
         monkeypatch.setattr(cs, name, value)
     res = cs.fleet_path(str(tmp_path), "cpu")
     cli, roll = res["cli"], res["roll"]
@@ -79,6 +81,16 @@ def test_fleet_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
     assert set(cli["cold_start_s"]) == {"replica0", "replica1", "prefill0"}
     assert cli["kill_to_readmission_s"] > 0
     assert cli["drained"] == {"k3": 0, "drained_decode_replicas": 2}
+    # (c): the standby took the lease and adopted the fleet; its drain
+    # reached every adopted replica, which this process reaped
+    fo = cli["failover"]
+    assert fo["failed"] == 0 and fo["requests"] == 6
+    assert fo["streams_equal_engine"] == 6
+    assert fo["lease_takeovers"] == 1 and fo["replicas_adopted"] == 3
+    assert fo["standby_restarts"] == 0 and fo["same_pids_by_slot"]
+    assert fo["active_exit"] == -9 and fo["tier_url"]
+    assert 0 < fo["kill_to_lease_s"] <= fo["kill_to_adopted_s"]
+    assert sorted(cli["adopted_reaped"]) == fo["pids_after"]
     assert roll["failed"] == 0 and roll["swapped"] == 1
     assert roll["old_exit_codes"] == [0] and roll["serials"] == [0, 1]
     assert roll["streams_in_either_weight_set"] == roll["requests"] > 0
@@ -89,5 +101,6 @@ def test_fleet_phase_rehearses_on_the_cpu(tiny_serving, tmp_path,
     assert res["launches"]["k3"] > 0 and res["launches"]["k3_quant"] > 0
     assert res["replica_launches"] == {"k3": 0, "k3_quant": 0}
     out = capsys.readouterr().out
-    for text in ("phase 19 (a)", "phase 19 (b)", "the serving fleet in"):
+    for text in ("phase 19 (a)", "phase 19 (b)", "phase 19 (c)",
+                 "the serving fleet in"):
         assert text in out

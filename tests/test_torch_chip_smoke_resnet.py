@@ -36,7 +36,7 @@ def test_resnet_phase_rehearses_on_the_cpu(tiny_resnet, capsys):
     res = cs.resnet_path("card, 700 W")
     assert cs._kernel_counts() == kernels_before
     assert res["launches"] == {n: 0 for n in kernels_before}
-    assert len(res["launches"]) == 14
+    assert len(res["launches"]) == 15   # 14 entry points and the loop
     assert res["graph_launches"] == pexe.graph_launches
     assert res["final_loss"] < res["first_loss"]
     assert len(res["round_s"]) == cs.RESNET_ROUNDS

@@ -92,8 +92,11 @@ def test_megastep_phase_rehearses_on_the_cpu(tiny_serving, phase4_run,
     launches = {"k3": 0, "k3_quant": 0}
     for label, st in res["runs"].items():
         trip = st["trip_stats"]
-        assert trip["replays"] == trip["warmups"] == 0
-        assert trip["eager_trips"] == trip["trips_dispatched"] > 0
+        assert trip["loop_launches"] == trip["warmups"] == 0
+        assert 0 < trip["eager_trips"] == trip["iterations"] <= \
+            trip["trips_dispatched"]
+        assert trip["iterations"] == sum(int(t) * n for t, n in
+                                         st["trips_histogram"].items())
         assert st["megasteps"] == sum(st["trips_histogram"].values()) > 0
         assert all(1 <= int(t) <= 4 for t in st["trips_histogram"])
         path, other = ("k3_launches", "k3_quant_launches")[::(
@@ -111,12 +114,35 @@ def test_megastep_phase_rehearses_on_the_cpu(tiny_serving, phase4_run,
         assert gate["trip_stats"]["eager_trips"] == 22
         prof = res["profiles"][label]
         assert prof["trip_wall_ms"] > 0 and prof["megastep_k"] == 4
+        assert prof["k3_launched"] == {path[:-len("_launches")]:
+                                       prof["trips"] * cs.LAYERS,
+                                       other[:-len("_launches")]: 0}
+        assert prof["k3_replayed"][path[:-len("_launches")]] == \
+            4 * cs.LAYERS
     assert res["runs"]["fp32"]["streams_equal_recompute"] == n
+    # (d): every slot frozen after 2 trips, by caps and by EOS
+    assert set(res["exit"]) == {"bf16", "int8"}
+    for label, ex in res["exit"].items():
+        path, other = ("k3", "k3_quant")[::1 if label == "bf16" else -1]
+        for case in ("caps", "eos"):
+            assert ex[case]["trips"] == ex[case]["iterations"] == 2
+            assert ex[case]["streams_equal_k1"]
+        assert ex["full"]["trips"] == ex["full"]["iterations"] == 4
+        # on the CPU the ms are host wall times, which a loaded machine
+        # may order either way: the early exit's smaller work is held by
+        # the counts
+        assert ex["exit_over_full"] > 0
+        assert ex["caps"]["k3_launched"][path] == 2 * cs.LAYERS
+        assert ex["full"]["k3_launched"][path] == 4 * cs.LAYERS
+        assert ex["launches"][path] > 0 and ex["launches"][other] == 0
+        launches[path] += ex["launches"][path]
+        assert ex["bound"]["bytes"] > ex["bound"]["param_bytes"] > 0
+    assert res["loop_launches"] == 0 and "loop_row" not in res
     assert res["launches"] == launches
     assert "k1_step_wall_ms" in res["profiles"]["int8"]
     out = capsys.readouterr().out
     for text in ("megastep engine gate", "vs K=1 (phase 4)", "megastep at",
-                 "fp8 megastep serving"):
+                 "fp8 megastep serving", "phase 12 (d) int8 pages"):
         assert text in out
 
 

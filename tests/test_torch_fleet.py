@@ -17,10 +17,13 @@ the JAX reference's (``paddle_tpu/serving/fleet.py``) on the CPU:
 * the supervisor over the reference's stdlib stub replica
   (``tests/serving/_stub_replica.py``): crash restart, a rolling hot-swap
   under load, scaling and the prefill namespace;
-* fleet HA refused by name; and one end-to-end run of two real port
+* and one end-to-end run of two real port
   replicas (``--device cpu``, a tiny decoder) under the router with one
   SIGKILLed mid-load: zero failed requests, streams equal to an in-process
   engine, and ``/fleet/trace`` merging the request.
+
+Fleet HA (the registry, the lease, standby takeover) is held in
+``tests/test_torch_fleet_ha.py``.
 """
 
 from tests import torch_threads  # noqa: F401  (first)
@@ -494,19 +497,6 @@ def test_router_endpoints_and_the_fleet_trace(tmp_path):
     finally:
         live.stop()
         r.stop(5)
-
-
-def test_fleet_ha_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="fleet HA"):
-        fleet.FleetRouter(("127.0.0.1", 0), registry=object())
-    for kw in ({"registry": object()}, {"standby": True},
-               {"lease_secs": 2.0}):
-        with pytest.raises(NotImplementedError, match="fleet HA"):
-            fleet.ReplicaSupervisor(lambda p, s: [], **kw)
-    for extra in (["--registry-dir", str(tmp_path)], ["--standby"],
-                  ["--lease-secs", "2"]):
-        with pytest.raises(NotImplementedError, match="fleet HA"):
-            fleet.main(["--generation-model", str(tmp_path)] + extra)
 
 
 def _exited_pid():

@@ -250,6 +250,106 @@ def test_chained_dispatch_equals_unchained(weights):
     np.testing.assert_array_equal(eng._in_tokens, step._in_tokens)
 
 
+# -- the early exit against the reference's while_loop --------------------
+
+def _handles_equal(ph, pr, jh, jr):
+    """A port handle and sync result against the reference's: trips, the
+    loop's iteration count, out, n_emitted, lengths, live and tokens."""
+    assert pr["trips"] == jr["trips"] == pr["iterations"]
+    assert int(ph["iterations"][0]) == pr["trips"]
+    np.testing.assert_array_equal(pr["out"], np.asarray(jr["out"]))
+    for key in ("n_emitted", "lengths", "live", "tokens"):
+        np.testing.assert_array_equal(ph[key].numpy(),
+                                      np.asarray(jh[key]), err_msg=key)
+
+
+# (name, k_eff, caps, EOS as (slot, trip) of the step stream or None): every
+# slot frozen by its cap after trip 1, caps in the middle, EOS at trip 1 of
+# slot 0 and in the middle of slot 1 with the others capped, and no slot
+# frozen at k_eff 1 and at megastep_k
+EARLY_EXIT = [("caps_trip1", 8, [1, 1, 1, 1], None),
+              ("caps_middle", 8, [2, 3, 1, 3], None),
+              ("eos_trip1", 8, [8, 2, 3, 2], (0, 0)),
+              ("eos_middle", 8, [3, 8, 2, 1], (1, 3)),
+              ("never_k1", 1, None, None),
+              ("never_k8", 8, None, None)]
+
+
+@pytest.mark.parametrize("name,k_eff,caps,eos_at", EARLY_EXIT,
+                         ids=[c[0] for c in EARLY_EXIT])
+def test_early_exit_matches_the_reference_while_loop(weights, name, k_eff,
+                                                     caps, eos_at):
+    """One megastep of k_eff trips whose slots freeze by caps or EOS: the
+    loop stops when no slot is live, as the reference's ``lax.while_loop``
+    does, and runs exactly ``trips`` iterations (no masked trips)."""
+    prompts = random_prompts(SLOTS, seed=3, lo=2, hi=7)
+    steps = port_steps(weights, prompts, 8, np.zeros(SLOTS), seed=0)
+    eos = None if eos_at is None else steps[eos_at[0]][eos_at[1]]
+    caps = None if caps is None else np.array(caps, np.int32)
+    je = prefilled(jax_engine(weights), prompts)
+    pe = prefilled(port_engine(weights), prompts)
+    jh = je.megastep_dispatch(jax.random.PRNGKey(0), 0, k_eff, caps=caps,
+                              eos_id=eos)
+    ph = pe.megastep_dispatch(0, 0, k_eff, caps=caps, eos_id=eos)
+    jr, pr = je.megastep_sync(jh), pe.megastep_sync(ph)
+    _handles_equal(ph, pr, jh, jr)
+    want = {"caps_trip1": 1, "caps_middle": 3, "never_k1": 1,
+            "never_k8": 8}.get(name)
+    if want is not None:
+        assert pr["trips"] == want
+    assert pr["trips"] < k_eff or name.startswith("never")
+    st = pe.trip_stats
+    assert st["iterations"] == st["eager_trips"] == pr["trips"]
+    assert st["trips_dispatched"] == k_eff and st["loop_launches"] == 0
+    np.testing.assert_array_equal(pe.lengths, je.lengths)
+    np.testing.assert_array_equal(pe._in_tokens, je._in_tokens)
+
+
+def test_chained_early_exit_matches_the_reference(weights):
+    """A megastep chained on one whose slots all froze runs no trip (the
+    reference's cond fails before the first); one chained on live slots
+    stops where their caps end. Both equal the reference's handles."""
+    prompts = random_prompts(SLOTS, seed=9, lo=2, hi=7)
+    caps = np.array([2, 5, 3, 4], np.int32)
+    je = prefilled(jax_engine(weights), prompts)
+    pe = prefilled(port_engine(weights), prompts)
+    chains = []
+    for eng, rng in ((je, jax.random.PRNGKey(1)), (pe, 1)):
+        h1 = eng.megastep_dispatch(rng, 0, 2, caps=caps)
+        h2 = eng.megastep_dispatch(rng, h1["step0"] + h1["trips"], 8,
+                                   caps=h1["caps"] - h1["n_emitted"],
+                                   live=h1["live"], tokens=h1["tokens"],
+                                   lengths=h1["lengths"])
+        h3 = eng.megastep_dispatch(rng, h2["step0"] + h2["trips"], 8,
+                                   caps=h2["caps"] - h2["n_emitted"],
+                                   live=h2["live"], tokens=h2["tokens"],
+                                   lengths=h2["lengths"])
+        chains.append([(h, eng.megastep_sync(h)) for h in (h1, h2, h3)])
+    for (jh, jr), (ph, pr) in zip(*chains):
+        _handles_equal(ph, pr, jh, jr)
+    assert [pr["trips"] for _, pr in chains[1]] == [2, 3, 0]
+    assert pe.trip_stats["iterations"] == 5
+
+
+def test_loop_plain_version_and_its_refusal():
+    """``run_plain`` runs a trip while ``t < k_eff`` and a slot is live and
+    counts the iterations; the card's loop refuses a state vector that is
+    not a contiguous int64 CUDA tensor (before it builds anything)."""
+    from paddle_tpu_torch.ops import megastep_loop as ml
+    off = ml.Offsets(S=3, live=0, t=3, k_eff=4, iters=5)
+    for live, k_eff, want in (([1, 0, 1], 5, 5), ([0, 0, 0], 5, 0),
+                              ([0, 1, 0], 2, 2)):
+        state = torch.tensor(live + [0, k_eff, 0], dtype=torch.int64)
+
+        def trip():
+            state[off.t] += 1
+        assert ml.run_plain(trip, state, off) == want
+        assert int(state[off.iters]) == int(state[off.t]) == want
+        assert not ml.condition_plain(state, off)
+    with pytest.raises(ValueError, match="int64 CUDA"):
+        ml.WhileLoop(None, torch.zeros(6, dtype=torch.int64), off)
+
+
 def test_sync_applies_only_the_tracked_slots(weights):
     prompts = random_prompts(2, seed=6, lo=2, hi=5)
     eng = prefilled(port_engine(weights), prompts, budget=10)
